@@ -3,21 +3,34 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path at the flagship's full width (ResNet-50 +
+Drives the port's two paths at the flagship's full width (ResNet-50 +
 one-hot metadata MLP + RG-ATT, 224×224, common_dim 512, bf16) with random
-weights from a seed, through the entry points a user calls: the inference
-engine and the HTTP service. Phases, each printing its lines:
+weights from a seed, through the entry points a user calls: serving (the
+inference engine and the HTTP service) and training (the train step and
+``run_kfold``). Phases, each printing its lines:
 
   1. card     nvidia-smi name and power limit, CUDA version
-  2. build    nvcc build of skinjax_torch/csrc/fusion_kernels.cu, seconds
+  2. build    nvcc builds of skinjax_torch/csrc/fusion_kernels.cu and
+              augment_kernel.cu, started together; seconds, ptxas registers
   3. kernels  K1-K3 against their plain PyTorch twins at the flagship shapes,
-              B in {1, 3, 8, 32}, fp32 (TF32 off) and bf16 activations
+              B in {1, 3, 8, 32}, fp32 (TF32 off) and bf16 activations; K5
+              against its twin at B in {1, 7, 128} (224×224) and a 300×400
+              batch, bf16 and fp32, with drawn parameters and with every gate on
   4. slice    fused against plain engine; launches per fused forward; the
               fp32 engine on the card against the same model on the CPU
   5. server   the engine run_service builds, served on a localhost port:
-              /health and four POST /predict/ (one needs a resize); the
-              kernels' launches are counted over them
-  6. times    engine p50/p95 fused and plain; each kernel against its twin
+              /health and four POST /predict/ (one needs a resize); K1-K3's
+              launches are counted over them
+  6. train    the flagship train step at B=128 (augment on, bf16 autocast):
+              finite loss, the loss falls over 10 steps on one batch, frozen
+              mode keeps the image encoder bit-identical while its BatchNorm
+              statistics move, K5 launches once per step; one fp32 step of a
+              small model on the card against the same step on the CPU
+  7. fold     run_kfold, k=2, 2 epochs, B=32, on synthetic 224×224 data;
+              K5's launches are counted over it; its artifacts are checked
+  8. times    engine p50/p95 fused and plain; each kernel against its twin;
+              train images/s unfrozen and frozen; the augment stage with and
+              without K5; a profiled train step
 
 Any failure exits non-zero. The second-to-last line is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Exits non-zero, with
@@ -27,6 +40,7 @@ no result, when CUDA is not available or the package is not beside it.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -34,14 +48,31 @@ import threading
 import time
 import urllib.request
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 
 KERNELS = {  # name -> the Pallas TPU kernel it replaces (file:line)
     "seq1_attention": "skinjax/ops/pallas/fusion_kernels.py:66",
     "gated_residual_seq1": "skinjax/ops/pallas/fusion_kernels.py:105",
     "mlp_head": "skinjax/ops/pallas/fusion_kernels.py:178",
 }
+K5 = "fused_color_stage"
+K5_REPLACES = "skinjax/ops/pallas/augment_kernel.py:119"
 SOURCE = "skinjax_torch/csrc/fusion_kernels.cu"
-KERNEL_SYMBOLS = ("seq1_attention_kernel", "gated_residual_kernel", "mlp_head_kernel")
+K5_SOURCE = "skinjax_torch/csrc/augment_kernel.cu"
+KERNEL_SYMBOLS = ("seq1_attention_kernel", "gated_residual_kernel", "mlp_head_kernel",
+                  "color_stage_kernel")
+# the card's published peaks (H100 SXM data sheet): device memory and
+# float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# K5's float32 operations per pixel, counted from csrc/augment_kernel.cu:
+# dropout 5 holes × 4 + 3, RGB→HSV 15, mod 3, shift 10, HSV→RGB 10,
+# brightness/contrast 4 + normalize 3 × 6
+K5_OPS_PER_PIXEL = 83
+K5_SHAPES = ((1, 224, 224), (7, 224, 224), (128, 224, 224), (2, 300, 400))
+TRAIN_B = 128
+TRAIN_HW = 224
+TRAIN_LR = 1e-3  # the loss-falls check: 10 Adam steps on one batch
 PER_FORWARD = {"seq1_attention": 4, "gated_residual_seq1": 2, "mlp_head": 1}  # RG-ATT
 BATCHES = (1, 3, 8, 32)
 TIMED_BATCHES = (1, 8, 32)
@@ -162,8 +193,9 @@ def phase_kernel_times(fk, device, card):
 def device_us(fn, n: int = 50):
     """Device time per call (µs) from a torch.profiler trace of n calls: the
     kernels' (and device copies') own time over n, in all and by name. Only
-    device-side events count: a CPU op's self device time repeats its
-    kernels' time."""
+    device-side events count, and no user annotation (such as the
+    optimizer's ``Optimizer.step#Adam.step`` range): a CPU op's self device
+    time and an annotation's span repeat their kernels' time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -175,7 +207,8 @@ def device_us(fn, n: int = 50):
             fn()
         torch.cuda.synchronize()
     by_name = {e.key: e.self_device_time_total / n for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not e.is_user_annotation}
     return sum(by_name.values()), by_name
 
 
@@ -365,6 +398,321 @@ def phase_server(fk, card):
     return launches
 
 
+def bf16_ulp(x):
+    """One bfloat16 ulp at the magnitude of each element of x (8 significant
+    bits: 2**(e - 7) for |x| in [2**e, 2**(e + 1)))."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def k5_inputs(ak, B, H, W, gates_on, dtype, device, seed):
+    import torch
+
+    from skinjax_torch.data.augment import DEFAULT_CFG
+
+    cfg = dict(DEFAULT_CFG, p_dropout=1.0, p_hsv=1.0, p_bc=1.0) if gates_on else DEFAULT_CFG
+    gen = torch.Generator(device=device).manual_seed(seed)
+    fparams, iparams = ak.draw_color_params(gen, B, H, W, cfg)
+    img = torch.rand((B, H, W, 3), generator=gen, device=device).to(dtype)
+    return img, fparams, iparams
+
+
+def phase_k5(ak, device):
+    """K5 against its twin: bf16 in and out within one bf16 ulp of the
+    twin's output, fp32 within 1e-5 (both compute in fp32 from the same
+    input with the same operations, and round once at the end)."""
+    import torch
+
+    worst = 0.0
+    for B, H, W in K5_SHAPES:
+        for gates_on in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                img, fp, ip = k5_inputs(ak, B, H, W, gates_on, dtype, device, seed=B + gates_on)
+                out = ak.fused_color_stage(img, fp, ip, out_dtype=dtype)
+                ref = ak.fused_color_stage_plain(img, fp, ip, out_dtype=dtype)
+                torch.cuda.synchronize()
+                check(out.dtype == ref.dtype and out.shape == ref.shape,
+                      f"K5: {out.dtype}{tuple(out.shape)} vs twin {ref.dtype}{tuple(ref.shape)}")
+                check(bool(torch.isfinite(out.float()).all()), "K5: non-finite output")
+                diff = (out.float() - ref.float()).abs()
+                tol = bf16_ulp(ref) if dtype == torch.bfloat16 else torch.full_like(diff, 1e-5)
+                err, ok = float(diff.max()), bool((diff <= tol).all())
+                worst = max(worst, err)
+                log(f"kernel {K5} {str(dtype):15s} B={B:3d} {H}x{W} "
+                    f"{'every gate on' if gates_on else 'drawn params'}: max_abs_err={err:.3e} "
+                    f"({int((diff > 0).sum())} elements differ; tol "
+                    f"{'1 bf16 ulp of |twin|' if dtype == torch.bfloat16 else '1e-5'}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"K5 disagrees with its twin at B={B} {H}x{W} {dtype}")
+    return worst
+
+
+def train_batch(device, B=None, hw=None, seed=0):
+    """One batch of the synthetic dataset (class-dependent brightness and
+    metadata) on ``device``, and its class weights."""
+    import numpy as np
+    import torch
+
+    from skinjax_torch.data.pipeline import synthetic_source
+    from skinjax_torch.data.sampling import compute_class_weights
+
+    B, hw = B or TRAIN_B, hw or TRAIN_HW
+    src = synthetic_source(n=B, image_size=(hw, hw), feature_dim=91, num_classes=6, seed=seed)
+    b = src.batch(np.arange(B))
+    cw = torch.as_tensor(compute_class_weights(src.labels, 6)).to(device)
+    return ({k: torch.as_tensor(v).to(device) for k, v in b.items()}, cw)
+
+
+def flagship_state(device, unfreeze="unfrozen_weights", lr=5e-5):
+    import torch
+
+    from skinjax_torch.train.loop import TrainConfig, build_state
+
+    cfg = TrainConfig(device=str(device), unfreeze_weights=unfreeze, learning_rate=lr)
+    return build_state(flagship_model(torch.bfloat16), cfg)
+
+
+def phase_train(ak, device, card):
+    """The flagship train step at full width, B=128, augment on, bf16."""
+    import torch
+
+    from skinjax_torch.train.steps import make_train_step_weighted
+
+    batch, cw = train_batch(device)
+    step = make_train_step_weighted(augment=True, image_dtype=torch.bfloat16)
+
+    def run(state, n):
+        ak.reset_launches()
+        losses = [step(state, batch["image"], batch["metadata"], batch["label"], 0, cw)
+                  for _ in range(n)]
+        torch.cuda.synchronize()
+        return [float(x) for x in losses], ak.LAUNCHES[K5]
+
+    state = flagship_state(device, lr=TRAIN_LR)
+    losses, launches = run(state, 10)
+    log(f"train unfrozen B={TRAIN_B} (lr {TRAIN_LR:g}, one batch, augment on): losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f"; K5 launches {launches} over 10 steps")
+    check(all(math.isfinite(x) for x in losses), "non-finite train loss")
+    check(sum(losses[-3:]) / 3 < sum(losses[:3]) / 3 and losses[-1] < losses[0],
+          "the loss did not fall over 10 steps on one batch")
+    check(launches == 10, f"K5 launched {launches} times over 10 train steps")
+
+    state = flagship_state(device, unfreeze="frozen_weights")
+    enc = state.model.image_encoder
+    params0 = {k: v.detach().clone() for k, v in enc.named_parameters()}
+    stats0 = {k: v.clone() for k, v in enc.named_buffers() if k.endswith("running_var")}
+    head0 = state.model.fc_fusion[0].weight.detach().clone()
+    losses, launches = run(state, 2)
+    same = all(torch.equal(v, params0[k]) for k, v in enc.named_parameters())
+    moved = sum(not torch.equal(v, stats0[k]) for k, v in enc.named_buffers() if k in stats0)
+    log(f"train frozen B={TRAIN_B}: losses {losses}; image_encoder parameters bit-identical: "
+        f"{same}; running_var buffers changed {moved}/{len(stats0)}; fusion head moved: "
+        f"{not torch.equal(head0, state.model.fc_fusion[0].weight)}; K5 launches {launches}")
+    check(same, "frozen mode changed an image_encoder parameter")
+    check(moved == len(stats0), "frozen mode left BatchNorm statistics unchanged")
+    check(not torch.equal(head0, state.model.fc_fusion[0].weight), "frozen mode froze the head")
+    check(launches == 2, f"K5 launched {launches} times over 2 frozen train steps")
+    return batch, cw, step
+
+
+def phase_card_vs_cpu(device):
+    """One fp32 step (TF32 off, augment off, dropout 0) of a small model on
+    the card and on the CPU from the same weights and batch."""
+    import copy
+
+    import torch
+
+    from skinjax_torch.models import MultimodalModel
+    from skinjax_torch.models.weights import init_weights
+    from skinjax_torch.train.loop import TrainConfig, build_state
+    from skinjax_torch.train.steps import make_train_step_weighted
+
+    lr = 1e-3
+    model = init_weights(MultimodalModel(num_classes=6, num_heads=8, cnn_model_name="resnet-18",
+                                         common_dim=64, vocab_size=91,
+                                         attention_mechanism="att-intramodal+residual+"
+                                                             "cross-attention-metadados"), seed=5)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    step = make_train_step_weighted(augment=False, image_dtype=torch.float32)
+    batch, cw = train_batch("cpu", B=8, hw=64, seed=3)
+    out = []
+    for dev in (device, torch.device("cpu")):
+        state = build_state(copy.deepcopy(model),
+                            TrainConfig(device=str(dev), learning_rate=lr, image_dtype="float32"))
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss = float(step(state, b["image"], b["metadata"], b["label"], 0, cw.to(dev)))
+        # the step leaves each parameter's gradient in .grad
+        grads = {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()
+                 if p.grad is not None}
+        out.append((loss, grads,
+                    {k: v.detach().cpu() for k, v in state.model.state_dict().items()}))
+    (lc, gc, sc), (lh, gh, sh) = out
+    check(set(gc) == set(gh) == set(dict(model.named_parameters())),
+          "a parameter got no gradient")
+    # the backward: per tensor, |g_card - g_cpu| within 1e-3·|g_cpu| + 1e-6·|all of g_cpu|
+    # (2-norms; the second term covers a gradient that is 0 up to rounding)
+    g_all = math.sqrt(sum(float(g.double().square().sum()) for g in gh.values()))
+    gexcess = {k: float((gc[k] - gh[k]).double().norm()) / (1e-3 * float(gh[k].double().norm())
+                                                             + 1e-6 * g_all) for k in gh}
+    worst_g = max(gexcess, key=gexcess.get)
+    # the update: Adam's first step moves each element by about ±lr, so every
+    # element lies within 2·lr, and only where a gradient near 0 takes the other
+    # sign in the other summation order does it go beyond 0.01·lr
+    pd = {k: (sc[k].float() - sh[k].float()).abs() for k in gh}
+    pdiff = max(float(d.max()) for d in pd.values())
+    far = sum(int((d > 0.01 * lr).sum()) for d in pd.values())
+    total = sum(d.numel() for d in pd.values())
+    bn = [k for k in sc if k.endswith(("running_mean", "running_var"))]
+    bdiff = max(float(((sc[k] - sh[k]).abs() / (sh[k].abs() + 1e-3)).max()) for k in bn)
+    log(f"train fp32 card vs CPU (resnet-18, common_dim 64, 64x64, B=8, one Adam step, lr "
+        f"{lr:g}): loss {lc:.6f} vs {lh:.6f} (tol rtol 1e-4); gradients of {len(gh)} tensors: "
+        f"worst |diff|/(1e-3·|g_cpu| + 1e-6·|g_all|) = {gexcess[worst_g]:.3e} at {worst_g} "
+        f"(tol 1); parameters max |diff| {pdiff:.3e} (tol 2·lr), {far} of {total} elements "
+        f"beyond 0.01·lr (tol a share of 1e-4); BN running stats max rel diff {bdiff:.3e} "
+        f"(tol 1e-3)")
+    check(abs(lc - lh) <= 1e-4 * abs(lh), "the card and the CPU disagree on the fp32 loss")
+    check(gexcess[worst_g] <= 1.0, f"the card and the CPU disagree on the gradient of {worst_g}")
+    check(pdiff <= 2 * lr and far <= 1e-4 * total,
+          "the card and the CPU disagree on the parameters after one step")
+    check(bdiff <= 1e-3, "the card and the CPU disagree on the BatchNorm statistics")
+
+
+def phase_fold(ak, device, card):
+    """run_kfold through the public API: flagship, k=2, 2 epochs, B=32, on
+    synthetic_source(n=128, 224×224); K5's launches are counted over it."""
+    import csv
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from skinjax_torch.data.pipeline import synthetic_source
+    from skinjax_torch.train.kfold import run_kfold
+    from skinjax_torch.train.loop import TrainConfig
+
+    src = synthetic_source(n=128, image_size=(TRAIN_HW, TRAIN_HW), feature_dim=91, num_classes=6,
+                           seed=1)
+    cfg = TrainConfig(num_epochs=2, batch_size=32, device=str(device))
+    names = ["ACK", "BCC", "MEL", "NEV", "SCC", "SEK"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ak.reset_launches()
+        results = run_kfold(lambda: flagship_model(torch.bfloat16), src, src.labels, None, 6,
+                            names, cfg, k_folds=2, results_dir=tmp, model_name="flagship")
+        torch.cuda.synchronize()
+        launches = ak.LAUNCHES[K5]
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(tmp, "model_metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        files = {d: sorted(os.listdir(os.path.join(tmp, d)))
+                 for d in os.listdir(tmp) if os.path.isdir(os.path.join(tmp, d))}
+        probs = [np.load(os.path.join(tmp, d, "probabilities.npy")) for d in sorted(files)]
+    # 2 epochs × the full batches of each fold's train split (the rest is dropped)
+    steps = sum(2 * ((128 - len(p)) // 32) for p in probs)
+    log(f"[{card}] fold run_kfold k=2, 2 epochs, B=32, n=128 {TRAIN_HW}x{TRAIN_HW}: "
+        f"{seconds:.1f} s; "
+        f"per fold balanced accuracy/auc " + "; ".join(
+            f"{r['balanced_accuracy'][:6]}/{r['auc'][:6]}" for r in rows)
+        + f"; K5 launches {launches} (expected {steps}); files {files}")
+    check(len(results) == 2 and len(rows) == 2, "run_kfold did not return/write two folds")
+    check(all(np.isfinite(p).all() and p.shape[1] == 6 for p in probs)
+          and sum(len(p) for p in probs) == 128, "bad probabilities.npy")
+    check(all(any(f.startswith("predictions_eval_fold") for f in fs) for fs in files.values()),
+          "a prediction CSV is missing")
+    check(launches == steps, f"K5 launched {launches} times over {steps} train steps")
+    return launches
+
+
+def phase_train_times(ak, device, card, batch, cw, step):
+    """Train img/s at B=128 unfrozen and frozen; the augment stage with and
+    without K5; K5 against its twin; a profiled train step."""
+    import torch
+
+    from skinjax_torch.data.augment import augment_batch
+
+    times = {}
+    for mode in ("unfrozen_weights", "frozen_weights"):
+        state = flagship_state(device, unfreeze=mode)
+        for _ in range(3):  # warm-up
+            step(state, batch["image"], batch["metadata"], batch["label"], 0, cw)
+        ms = time_ms(lambda: step(state, batch["image"], batch["metadata"], batch["label"], 0,
+                                  cw), iters=12, warmup=0)
+        times[mode] = ms
+        log(f"[{card}] train {mode} B={TRAIN_B}: {ms:.2f} ms per step, "
+            f"{TRAIN_B / ms * 1e3:.1f} img/s (12 steps after 3 warm-up, CUDA events, "
+            f"the batch already on the card)")
+    del state
+
+    gen = torch.Generator(device=device)
+    img = batch["image"]
+    aug = {}
+    for fused in (True, False, False, True):  # in turns
+        ms = time_ms(lambda: augment_batch(img, gen, True, torch.bfloat16, fused_color=fused),
+                     iters=20, warmup=3)
+        aug.setdefault(fused, []).append(ms)
+    log(f"[{card}] augment stage B={TRAIN_B} 224x224 bf16, in turns K5-chain-chain-K5: "
+        f"K5 path {aug[True][0]:.3f} / {aug[True][1]:.3f} ms, per-sample chain "
+        f"{aug[False][0]:.3f} / {aug[False][1]:.3f} ms (CUDA events, 20 calls)")
+
+    k5 = {}
+    for B in (1, TRAIN_B):
+        x, fp, ip = k5_inputs(ak, B, 224, 224, False, torch.bfloat16, device, seed=11)
+        kern = lambda: ak.fused_color_stage(x, fp, ip)  # noqa: E731
+        twin = lambda: ak.fused_color_stage_plain(x, fp, ip)  # noqa: E731
+        t = [time_ms(twin, 50, 5), time_ms(kern, 50, 5), time_ms(kern, 50, 5),
+             time_ms(twin, 50, 5)]
+        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        dev_k, _ = device_us(kern, n=20)
+        dev_t, _ = device_us(twin, n=20)
+        nbytes = 2 * x.numel() * x.element_size() + fp.numel() * 4 + ip.numel() * 4
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, B * 224 * 224 * K5_OPS_PER_PIXEL
+                       / FP32_OPS_PER_S) * 1e3
+        k5[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        log(f"[{card}] time {K5} bf16 B={B:3d} 224x224 per call: kernel {ms * 1e3:9.2f} us  "
+            f"twin {plain_ms * 1e3:9.2f} us (CUDA events, in turns twin-kernel-kernel-twin); "
+            f"device time: kernel {dev_k:9.2f} us  twin {dev_t:9.2f} us (torch.profiler); "
+            f"bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s)")
+
+    state = flagship_state(device)
+    call = lambda: step(state, batch["image"], batch["metadata"], batch["label"], 0, cw)  # noqa: E731
+    mean_ms = time_ms(call, iters=5, warmup=2)
+    total, by_name = device_us(call, n=3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    k5_us = sum(v for k, v in by_name.items() if "color_stage_kernel" in k)
+    log(f"[{card}] profile train step unfrozen B={TRAIN_B}: device time {total / 1e3:.2f} ms per "
+        f"step = {100 * total / (mean_ms * 1e3):.1f}% of the untraced {mean_ms:.2f} ms step; "
+        f"K5 {k5_us:.1f} us ({100 * k5_us / total:.2f}%); {len(by_name)} kernel names")
+    log("  top kernels (us per step): " + "; ".join(f"{k[:70]} {v:.1f}" for k, v in top))
+    return times, k5
+
+
+def matmul_bound_ms(args, out, products, B):
+    """The least time for K1-K3 at their inputs: every input read once and
+    the output written once over the HBM rate, against the products' 2·K·N
+    operations per row over the fp32 rate (the kernels use fp32 FMAs)."""
+    nbytes = sum(t.numel() * t.element_size() for t in args) + out.numel() * out.element_size()
+    ops = 2 * B * sum(k * n for k, n in products)
+    return max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+
+
+def fusion_bounds(fk, device):
+    import torch
+
+    gen = torch.Generator().manual_seed(1)
+    D = 512
+    products = {"seq1_attention": [(D, D)] * 2, "gated_residual_seq1": [(D, D)] * 3,
+                "mlp_head": [(2 * D, D), (D, D // 2), (D // 2, 6)]}
+    bounds = {}
+    for name in KERNELS:
+        args = kernel_args(name, 1, torch.bfloat16, device, gen)
+        out = getattr(fk, name + "_plain")(*args)
+        bounds[name] = matmul_bound_ms(args, out, products[name], 1)
+    return bounds
+
+
 def main() -> int:
     import torch
 
@@ -372,6 +720,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from skinjax_torch.ops import augment_kernel as ak
     from skinjax_torch.ops import build
     from skinjax_torch.ops import fusion_kernels as fk
 
@@ -385,20 +734,31 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}; TF32 off")
 
     t0 = time.perf_counter()
+    # one nvcc per source, started together (each thread waits in subprocess.run)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(build.build, ["fusion_kernels", "augment_kernel"]))
     fk.library()
-    info = build.build_info["fusion_kernels"]
-    built = f"built in {info['seconds']:.1f} s" if info["seconds"] else "already built"
-    log(f"phase build: nvcc {build.find_nvcc()}: {SOURCE} {built} "
-        f"(build and load {time.perf_counter() - t0:.1f} s)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    ak.library()
+    log(f"phase build: nvcc {build.find_nvcc()}, both sources at once, "
+        f"{time.perf_counter() - t0:.1f} s to build and load")
+    for name, src in (("fusion_kernels", SOURCE), ("augment_kernel", K5_SOURCE)):
+        info = build.build_info[name]
+        built = f"built in {info['seconds']:.1f} s" if info["seconds"] else "already built"
+        log(f"  {src} {built}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
 
     errors = phase_kernels(fk, device)
+    errors[K5] = phase_k5(ak, device)
     torch.cuda.synchronize()
     fused, plain = phase_slice(fk, device, card)
     torch.cuda.synchronize()
     launches = phase_server(fk, card)
+    torch.cuda.synchronize()
+    batch, cw, step = phase_train(ak, device, card)
+    phase_card_vs_cpu(device)
+    launches[K5] = phase_fold(ak, device, card)
     torch.cuda.synchronize()
 
     for B in (1, 8):
@@ -412,14 +772,23 @@ def main() -> int:
                 f"clock to synchronize, inputs on the card)")
         for label, eng in (("fused", fused), ("plain", plain)):
             phase_profile(eng, label, B, sum(means[label]) / 2, card)
+    del fused, plain
     times = phase_kernel_times(fk, device, card)
+    bounds = fusion_bounds(fk, device)
+    _, k5_times = phase_train_times(ak, device, card, batch, cw, step)
     torch.cuda.synchronize()
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
          "launches": launches[name], "max_abs_err": errors[name],
-         "ms": times[(name, 1)][0], "plain_ms": times[(name, 1)][1]}
+         "ms": times[(name, 1)][0], "plain_ms": times[(name, 1)][1],
+         "bound_ms": bounds[name], "bound_by": "bytes", "library_ms": None}
         for name in KERNELS
+    ] + [
+        {"name": K5, "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
+         "launches": launches[K5], "max_abs_err": errors[K5],
+         "ms": k5_times[TRAIN_B]["ms"], "plain_ms": k5_times[TRAIN_B]["plain_ms"],
+         "bound_ms": k5_times[TRAIN_B]["bound_ms"], "bound_by": "bytes", "library_ms": None}
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,1 +1,1 @@
-"""Host-side data handling (numpy only)."""
+"""Host-side data handling and on-device augmentation."""

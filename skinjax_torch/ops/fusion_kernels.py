@@ -35,6 +35,8 @@ from typing import Dict
 
 import torch
 
+from skinjax_torch.ops import check_tensor
+
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 
 LAUNCHES: Dict[str, int] = {"seq1_attention": 0, "gated_residual_seq1": 0, "mlp_head": 0}
@@ -108,17 +110,6 @@ def _on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
-def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_act(name: str, x: torch.Tensor) -> None:
     if x.dtype not in _ACT_DTYPES:
         raise TypeError(f"{name} has dtype {x.dtype}; the kernels take {_ACT_DTYPES}")
@@ -150,10 +141,10 @@ def seq1_attention(kv, wv, bv, wo, bo):
     _check_act("kv", kv)
     B, D = kv.shape
     f32, dev = torch.float32, kv.device
-    _check("kv", kv, (B, D), kv.dtype, dev)
+    check_tensor("kv", kv, (B, D), kv.dtype, dev)
     for nm, t, shape in (("wv", wv, (D, D)), ("bv", bv, (D,)),
                          ("wo", wo, (D, D)), ("bo", bo, (D,))):
-        _check(nm, t, shape, f32, dev)
+        check_tensor(nm, t, shape, f32, dev)
     _smem_check("seq1_attention", 2 * D)
     out = torch.empty_like(kv)
     if B == 0:
@@ -174,12 +165,12 @@ def gated_residual_seq1(q, kv, wv, bv, wo, bo, wg, bg, gamma, beta):
     _check_act("q", q)
     B, D = q.shape
     f32, dev = torch.float32, q.device
-    _check("q", q, (B, D), q.dtype, dev)
-    _check("kv", kv, (B, D), q.dtype, dev)
+    check_tensor("q", q, (B, D), q.dtype, dev)
+    check_tensor("kv", kv, (B, D), q.dtype, dev)
     for nm, t in (("wv", wv), ("wo", wo), ("wg", wg)):
-        _check(nm, t, (D, D), f32, dev)
+        check_tensor(nm, t, (D, D), f32, dev)
     for nm, t in (("bv", bv), ("bo", bo), ("bg", bg), ("gamma", gamma), ("beta", beta)):
-        _check(nm, t, (D,), f32, dev)
+        check_tensor(nm, t, (D,), f32, dev)
     _smem_check("gated_residual_seq1", 4 * D)
     out = torch.empty_like(q)
     if B == 0:
@@ -201,13 +192,13 @@ def mlp_head(x, w1, b1, g1, h1, w2, b2, g2, h2, w3, b3):
     B, K1 = x.shape
     N1, N2, N3 = w1.shape[-1], w2.shape[-1], w3.shape[-1]
     f32, dev = torch.float32, x.device
-    _check("x", x, (B, K1), x.dtype, dev)
+    check_tensor("x", x, (B, K1), x.dtype, dev)
     for nm, t, shape in (
         ("w1", w1, (K1, N1)), ("b1", b1, (N1,)), ("g1", g1, (N1,)), ("h1", h1, (N1,)),
         ("w2", w2, (N1, N2)), ("b2", b2, (N2,)), ("g2", g2, (N2,)), ("h2", h2, (N2,)),
         ("w3", w3, (N2, N3)), ("b3", b3, (N3,)),
     ):
-        _check(nm, t, shape, f32, dev)
+        check_tensor(nm, t, shape, f32, dev)
     _smem_check("mlp_head", K1 + N1 + N2 + N3)
     out = torch.empty((B, N3), dtype=x.dtype, device=dev)
     if B == 0:

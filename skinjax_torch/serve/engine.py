@@ -31,12 +31,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from skinjax_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
 from skinjax_torch.data.featurizer import MetadataFeaturizer
 from skinjax_torch.models.fusion.multimodal import FusionOps, MultimodalModel
 from skinjax_torch.ops import fusion_kernels as fk
 
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
 IMAGE_SIZE = (224, 224)
 
 

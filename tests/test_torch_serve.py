@@ -264,12 +264,22 @@ def test_service_builds_from_its_environment(monkeypatch, tmp_path):
 
 
 def test_port_never_imports_jax():
+    """Nor OpenCV or matplotlib at import time: the card's machine has
+    neither, and the plots import matplotlib only when they draw."""
     code = (
         "import sys\n"
         "import skinjax_torch, skinjax_torch.serve.engine, skinjax_torch.serve.api\n"
         "import skinjax_torch.serve.run_service, skinjax_torch.models.weights\n"
+        "import skinjax_torch.data.augment, skinjax_torch.data.pipeline\n"
+        "import skinjax_torch.data.sampling, skinjax_torch.data.splits\n"
+        "import skinjax_torch.ops.augment_kernel, skinjax_torch.eval.artifacts\n"
+        "import skinjax_torch.train.losses, skinjax_torch.train.optimizer\n"
+        "import skinjax_torch.train.steps, skinjax_torch.train.early_stopping\n"
+        "import skinjax_torch.train.checkpoint, skinjax_torch.train.metrics\n"
+        "import skinjax_torch.train.loop, skinjax_torch.train.kfold\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'skinjax')]\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'skinjax', 'cv2', 'matplotlib')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
