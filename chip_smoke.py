@@ -3,19 +3,24 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the flagship's full width (ResNet-50 +
-one-hot metadata MLP + RG-ATT, 224×224, common_dim 512, bf16) with random
-weights from a seed, through the entry points a user calls: serving (the
-inference engine and the HTTP service) and training (the train step and
-``run_kfold``). Phases, each printing its lines:
+Drives the port's paths at full width with random weights from a seed,
+through the entry points a user calls: the flagship (ResNet-50 + one-hot
+metadata MLP + RG-ATT, 224×224, common_dim 512, bf16), served (the inference
+engine and the HTTP service) and trained (the train step and ``run_kfold``),
+and the same model with a DaViT-tiny tower (``skinjax_torch.DAVIT``), served
+and trained at B=64. Phases, each printing its lines:
 
   1. card     nvidia-smi name and power limit, CUDA version
-  2. build    nvcc builds of skinjax_torch/csrc/fusion_kernels.cu and
-              augment_kernel.cu, started together; seconds, ptxas registers
+  2. build    nvcc builds of skinjax_torch/csrc/fusion_kernels.cu,
+              augment_kernel.cu and window_attention.cu, started together;
+              seconds, ptxas registers
   3. kernels  K1-K3 against their plain PyTorch twins at the flagship shapes,
               B in {1, 3, 8, 32}, fp32 (TF32 off) and bf16 activations; K5
               against its twin at B in {1, 7, 128} (224×224) and a 300×400
-              batch, bf16 and fp32, with drawn parameters and with every gate on
+              batch, bf16 and fp32, with drawn parameters and with every gate
+              on; K7 forward and backward against their twins at DaViT-tiny's
+              four stage shapes, B in {1, 64}, bf16 and fp32, and with a
+              relative-position bias and 64 per-window masks (dbias checked)
   4. slice    fused against plain engine; launches per fused forward; the
               fp32 engine on the card against the same model on the CPU
   5. server   the engine run_service builds, served on a localhost port:
@@ -28,9 +33,19 @@ inference engine and the HTTP service) and training (the train step and
               small model on the card against the same step on the CPU
   7. fold     run_kfold, k=2, 2 epochs, B=32, on synthetic 224×224 data;
               K5's launches are counted over it; its artifacts are checked
-  8. times    engine p50/p95 fused and plain; each kernel against its twin;
-              train images/s unfrozen and frozen; the augment stage with and
-              without K5; a profiled train step
+  8. times    engine p50/p95 fused and plain; K1-K3 and K5 against their
+              twins and bounds; train images/s unfrozen and frozen; the augment
+              stage with and without K5; a profiled train step
+  9. davit    the DaViT model: fused against plain engine (K7 launched 6
+              times per forward), the fp32 engine on the card against the CPU;
+              run_service with CNN_MODEL_NAME=davit_tiny; the train step at
+              B=64 (augment on, bf16): the loss falls over 10 steps on one
+              batch, K7 6 + 6 launches per unfrozen step and 6 + 0 per frozen
+              one; one fp32 step of a small DaViT on the card against the CPU
+ 10. times    the DaViT engine's p50/p95; DaViT train images/s unfrozen and
+              frozen; a profiled DaViT train step. (K7's times, against its
+              twins and bounds at each stage, with F.scaled_dot_product_attention
+              on the same q, k, v as a yardstick, run right after phase 3.)
 
 Any failure exits non-zero. The second-to-last line is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Exits non-zero, with
@@ -39,6 +54,7 @@ no result, when CUDA is not available or the package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -57,14 +73,33 @@ KERNELS = {  # name -> the Pallas TPU kernel it replaces (file:line)
 }
 K5 = "fused_color_stage"
 K5_REPLACES = "skinjax/ops/pallas/augment_kernel.py:119"
+K7 = {  # name -> the Pallas TPU function it replaces (file:line)
+    "window_attention_fwd": "skinjax/ops/pallas/window_attention.py:645",
+    "window_attention_bwd": "skinjax/ops/pallas/window_attention.py:828",
+}
 SOURCE = "skinjax_torch/csrc/fusion_kernels.cu"
 K5_SOURCE = "skinjax_torch/csrc/augment_kernel.cu"
-KERNEL_SYMBOLS = ("seq1_attention_kernel", "gated_residual_kernel", "mlp_head_kernel",
-                  "color_stage_kernel")
-# the card's published peaks (H100 SXM data sheet): device memory and
-# float32 outside the tensor cores
+K7_SOURCE = "skinjax_torch/csrc/window_attention.cu"
+BUILDS = {"fusion_kernels": SOURCE, "augment_kernel": K5_SOURCE, "window_attention": K7_SOURCE}
+KERNEL_NAMES = {"seq1_attention": "seq1_attention_kernel",
+                "gated_residual_seq1": "gated_residual_kernel", "mlp_head": "mlp_head_kernel"}
+# each K7 call's kernels (a call with a bias adds dbias_reduce_kernel)
+K7_KERNELS = {"window_attention_fwd": ["wa_fwd_kernel", "proj_kernel"],
+              "window_attention_bwd": ["wa_bwd_kernel"]}
+KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", "wa_fwd_kernel",
+                  "wa_bwd_kernel", "proj_kernel", "dbias_reduce_kernel")
+# the card's published peaks (H100 SXM data sheet): device memory, float32
+# outside the tensor cores, dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+# DaViT-tiny's window attention at 224×224: (map side, channels, heads) per
+# stage; window 7, 32 channels a head
+K7_STAGES = ((56, 96, 3), (28, 192, 6), (14, 384, 12), (7, 768, 24))
+K7_BATCHES = (1, 64)
+WINDOW = 7
+K7_PER_FORWARD = 6  # one per spatial block: depths (1, 1, 3, 1)
+SMALL_DAVIT = "davit-smoke-small"  # dims (64, 128), depths (1, 1), heads (2, 4)
 # K5's float32 operations per pixel, counted from csrc/augment_kernel.cu:
 # dropout 5 holes × 4 + 3, RGB→HSV 15, mod 3, shift 10, HSV→RGB 10,
 # brightness/contrast 4 + normalize 3 × 6
@@ -142,6 +177,18 @@ def kernel_args(name, B, dtype, device, gen):
             v(D // 2, 1.0), v(D // 2), w(D // 2, 6), v(6)]
 
 
+def compare(out, ref, tol):
+    """(max abs error, within atol + rtol·|ref|) of a kernel output against its twin's."""
+    import torch
+
+    atol, rtol = tol
+    check(out.dtype == ref.dtype and out.shape == ref.shape,
+          f"{out.dtype}{tuple(out.shape)} vs twin {ref.dtype}{tuple(ref.shape)}")
+    check(bool(torch.isfinite(out.float()).all()), "non-finite kernel output")
+    diff = (out.float() - ref.float()).abs()
+    return float(diff.max()), float((diff - atol - rtol * ref.float().abs()).max()) <= 0
+
+
 def phase_kernels(fk, device):
     import torch
 
@@ -149,21 +196,16 @@ def phase_kernels(fk, device):
     errors = {name: 0.0 for name in KERNELS}
     for name in KERNELS:
         kernel, twin = getattr(fk, name), getattr(fk, name + "_plain")
-        for dtype, (atol, rtol) in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             for B in BATCHES:
                 args = kernel_args(name, B, dtype, device, gen)
                 out, ref = kernel(*args), twin(*args)
                 torch.cuda.synchronize()
-                check(out.dtype == ref.dtype and out.shape == ref.shape,
-                      f"{name}: {out.dtype}{tuple(out.shape)} vs twin {ref.dtype}{tuple(ref.shape)}")
-                check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite output")
-                diff = (out.float() - ref.float()).abs()
-                err = float(diff.max())
-                excess = float((diff - atol - rtol * ref.float().abs()).max())
+                err, ok = compare(out, ref, tol)
                 errors[name] = max(errors[name], err)
                 log(f"kernel {name:20s} {str(dtype):15s} B={B:2d} max_abs_err={err:.3e} "
-                    f"tol=atol {atol:g} + rtol {rtol:g}·|twin| {'ok' if excess <= 0 else 'FAIL'}")
-                check(excess <= 0, f"{name} disagrees with its twin at B={B} {dtype}")
+                    f"tol=atol {tol[0]:g} + rtol {tol[1]:g}·|twin| {'ok' if ok else 'FAIL'}")
+                check(ok, f"{name} disagrees with its twin at B={B} {dtype}")
     return errors
 
 
@@ -181,21 +223,18 @@ def phase_kernel_times(fk, device, card):
                  time_ms(lambda: kernel(*args)), time_ms(lambda: twin(*args))]
             ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
             times[(name, B)] = (ms, plain_ms)
-            dev_k, _ = device_us(lambda: kernel(*args))
+            dev_k = kernel_device_us(lambda: kernel(*args), [KERNEL_NAMES[name]])
             dev_t, _ = device_us(lambda: twin(*args))
             log(f"[{card}] time {name:20s} bf16 B={B:2d} per call: kernel {ms * 1e3:8.2f} us  "
                 f"twin {plain_ms * 1e3:8.2f} us (CUDA events over 200 back-to-back calls, "
-                f"L2-warm weights); device time: kernel {dev_k:8.2f} us  twin {dev_t:8.2f} us "
+                f"L2-warm weights); device time: kernel {us(dev_k)}  twin {dev_t:8.2f} us "
                 f"(torch.profiler)")
     return times
 
 
-def device_us(fn, n: int = 50):
-    """Device time per call (µs) from a torch.profiler trace of n calls: the
-    kernels' (and device copies') own time over n, in all and by name. Only
-    device-side events count, and no user annotation (such as the
-    optimizer's ``Optimizer.step#Adam.step`` range): a CPU op's self device
-    time and an annotation's span repeat their kernels' time."""
+def device_events(fn, n: int):
+    """The device-side entries of ``key_averages()`` of a torch.profiler
+    trace of n calls of fn (after one untraced call), each with some time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -206,18 +245,44 @@ def device_us(fn, n: int = 50):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    by_name = {e.key: e.self_device_time_total / n for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-               and not e.is_user_annotation}
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def device_us(fn, n: int = 50):
+    """Device time per call (µs) from a torch.profiler trace of n calls: the
+    kernels' (and device copies') own time over n, in all and by name. Only
+    device-side events count, and no user annotation (such as the
+    optimizer's ``Optimizer.step#Adam.step`` range): a CPU op's self device
+    time and an annotation's span repeat their kernels' time."""
+    by_name = {e.key: e.self_device_time_total / n for e in device_events(fn, n)
+               if not e.is_user_annotation}
     return sum(by_name.values()), by_name
 
 
-def flagship_model(dtype):
-    from skinjax_torch import FLAGSHIP
+def kernel_device_us(fn, names, n: int = 10):
+    """Device time (µs) of one call of ``fn``, whose kernels are ``names``,
+    each launched once a call: the mean duration of each kernel's launches in
+    a torch.profiler trace of n calls, summed. Means over the launches the
+    trace recorded, so a launch missing from the trace (seen for K5 and K7 in
+    a process that had traced much before) does not pull the time down;
+    None (not measured) where a kernel left no record at all."""
+    means = {name: e.self_device_time_total / e.count
+             for e in device_events(fn, n) for name in names if name in e.key}
+    return sum(means.values()) if len(means) == len(names) else None
+
+
+def us(t) -> str:
+    return "not measured" if t is None else f"{t:9.2f} us"
+
+
+def smoke_model(config, dtype):
+    """A configuration (``skinjax_torch.FLAGSHIP`` or ``DAVIT``) at full
+    width, random weights from seed 0."""
     from skinjax_torch.models import MultimodalModel
     from skinjax_torch.models.weights import init_weights
 
-    return init_weights(MultimodalModel(**FLAGSHIP, dtype=dtype), seed=0)
+    return init_weights(MultimodalModel(**config, dtype=dtype), seed=0)
 
 
 def smoke_featurizer(vocab: int):
@@ -237,50 +302,60 @@ def smoke_featurizer(vocab: int):
     return fz
 
 
-def phase_slice(fk, device, card):
+def phase_slice(fk, device, card, label="flagship", config=None, wa=None):
+    """A configuration served (the flagship unless ``config``): the fused
+    engine against the plain one in bf16, with the launches per fused forward
+    (K7's too with ``wa``), and in fp32 on the card against the same model on
+    the CPU."""
     import numpy as np
     import torch
 
+    from skinjax_torch import FLAGSHIP
     from skinjax_torch.serve.engine import InferenceEngine
 
+    config = config or FLAGSHIP
+    counters = [fk] + ([wa] if wa else [])
+    expect = dict(PER_FORWARD, **({"window_attention_fwd": K7_PER_FORWARD,
+                                   "window_attention_bwd": 0} if wa else {}))
     rng = np.random.default_rng(2)
     # bf16, as served: fused (the kernels) against plain (autocast linears)
-    model = flagship_model(torch.bfloat16)
+    model = smoke_model(config, torch.bfloat16)
     fused = InferenceEngine(model, use_fused=True, device=device)
     plain = InferenceEngine(model, use_fused=False, device=device)
-    check(fused.fused, "the flagship engine did not select the fused path")
+    check(fused.fused, f"the {label} engine did not select the fused path")
     for B in (1, 8):
         img = rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8)
         meta = rng.normal(size=(B, model.vocab_size)).astype(np.float32)
-        fk.reset_launches()
+        for c in counters:
+            c.reset_launches()
         pf = fused.predict_probs(img, meta)
         torch.cuda.synchronize()
-        launches = dict(fk.LAUNCHES)
+        launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
         pp = plain.predict_probs(img, meta)
         err = float(np.abs(pf - pp).max())
-        log(f"slice bf16 B={B}: probs {pf.shape} fused vs plain max_abs_err={err:.3e} (tol 3e-2: "
-            f"the plain path runs its attention linears with bf16 weights, the kernels with fp32); "
-            f"launches per fused forward {launches}")
+        log(f"slice {label} bf16 B={B}: probs {pf.shape} fused vs plain max_abs_err={err:.3e} "
+            f"(tol 3e-2: the plain path runs its attention linears with bf16 weights, the "
+            f"kernels with fp32); launches per fused forward {launches}")
         check(pf.shape == (B, 6) and bool(np.isfinite(pf).all()), "non-finite or misshapen probs")
         check(np.allclose(pf.sum(-1), 1.0, atol=1e-4), "probabilities do not sum to 1")
-        check(err <= 3e-2, f"bf16 fused and plain engines disagree at B={B}")
-        check(launches == PER_FORWARD, f"launches per fused forward {launches} != {PER_FORWARD}")
+        check(err <= 3e-2, f"bf16 fused and plain {label} engines disagree at B={B}")
+        check(launches == expect, f"launches per fused forward {launches} != {expect}")
 
     # fp32 with TF32 off: fused against plain on the card, and the card
     # against the same model on the CPU (the reference on a small batch)
-    model32 = flagship_model(None)
-    cpu_ref = InferenceEngine(flagship_model(None), use_fused=False, device="cpu")
+    model32 = smoke_model(config, None)
+    cpu_ref = InferenceEngine(smoke_model(config, None), use_fused=False, device="cpu")
     fused32 = InferenceEngine(model32, use_fused=True, device=device)
     plain32 = InferenceEngine(model32, use_fused=False, device=device)
     img = rng.integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)
     meta = rng.normal(size=(2, model32.vocab_size)).astype(np.float32)
     pf, pp, pc = (e.predict_probs(img, meta) for e in (fused32, plain32, cpu_ref))
     e_fp, e_fc = float(np.abs(pf - pp).max()), float(np.abs(pf - pc).max())
-    log(f"slice fp32 B=2: fused vs plain max_abs_err={e_fp:.3e} (tol 1e-4); "
-        f"card fused vs CPU plain max_abs_err={e_fc:.3e} (tol 1e-3: cuDNN and the CPU sum "
-        f"50 conv layers in other orders)")
-    check(e_fp <= 1e-4, "fp32 fused and plain engines disagree")
-    check(e_fc <= 1e-3, "the card and the CPU disagree on the fp32 model")
+    log(f"slice {label} fp32 B=2: fused vs plain max_abs_err={e_fp:.3e} (tol 1e-4); "
+        f"card fused vs CPU plain max_abs_err={e_fc:.3e} (tol 1e-3: cuDNN, cuBLAS and K7 sum "
+        f"the tower's layers in other orders than the CPU)")
+    check(e_fp <= 1e-4, f"fp32 fused and plain {label} engines disagree")
+    check(e_fc <= 1e-3, f"the card and the CPU disagree on the fp32 {label} model")
     return fused, plain
 
 
@@ -305,7 +380,7 @@ def phase_profile(engine, label, B, mean_ms, card):
     log(f"  top kernels (us per forward): "
         + "; ".join(f"{k[:70]} {v:.1f}" for k, v in top))
     if ours:
-        log(f"  fusion kernels (us per forward, {sum(ours.values()):.1f} in all): "
+        log(f"  the port's kernels (us per forward, {sum(ours.values()):.1f} in all): "
             + "; ".join(f"{k[:70]} {v:.1f}" for k, v in sorted(ours.items())))
 
 
@@ -319,10 +394,11 @@ def _multipart(image_bytes: bytes, metadata: str):
     return body, f"multipart/form-data; boundary={boundary}"
 
 
-def phase_server(fk, card):
+def phase_server(fk, card, cnn="resnet-50", wa=None):
     """The service as ``python -m skinjax_torch.serve.run_service`` builds it
-    (its environment: the default flagship, random weights from seed 0, a
-    featurizer JSON), served as ``api.serve`` serves it, on a localhost port."""
+    (its environment: ``CNN_MODEL_NAME=cnn``, the flagship otherwise, random
+    weights from seed 0, a featurizer JSON), served as ``api.serve`` serves
+    it, on a localhost port. With ``wa``, K7's launches are counted too."""
     import tempfile
     from http.server import ThreadingHTTPServer
 
@@ -334,8 +410,8 @@ def phase_server(fk, card):
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "featurizer.json")
         smoke_featurizer(91).save(path)
-        saved = {k: os.environ.get(k) for k in ("FEATURIZER_JSON", "DEVICE")}
-        os.environ.update(FEATURIZER_JSON=path, DEVICE="cuda")
+        saved = {k: os.environ.get(k) for k in ("FEATURIZER_JSON", "DEVICE", "CNN_MODEL_NAME")}
+        os.environ.update(FEATURIZER_JSON=path, DEVICE="cuda", CNN_MODEL_NAME=cnn)
         try:
             engine = run_service.build_engine()
         finally:
@@ -345,6 +421,8 @@ def phase_server(fk, card):
                 else:
                     os.environ[k] = v
     check(engine.fused and engine.model.dtype is not None, "run_service built no fused bf16 engine")
+    check(engine.model.cnn_dim_output == {"resnet-50": 2048, "davit_tiny": 768}[cnn],
+          f"run_service did not build a {cnn} tower")
     n_cat = len(engine.featurizer.categorical_cols)
     rng = np.random.default_rng(3)
     requests = []
@@ -360,8 +438,10 @@ def phase_server(fk, card):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     answers = []
+    counters = [fk] + ([wa] if wa else [])
     try:
-        fk.reset_launches()
+        for c in counters:
+            c.reset_launches()
         with urllib.request.urlopen(f"{url}/health", timeout=60) as r:
             check(r.status == 200 and json.loads(r.read()) == {"status": "ok"}, "/health failed")
         for data, meta in requests:
@@ -372,7 +452,7 @@ def phase_server(fk, card):
             with urllib.request.urlopen(req, timeout=120) as r:
                 status, out = r.status, json.loads(r.read())
             answers.append((status, out, (time.perf_counter() - t0) * 1e3))
-        launches = dict(fk.LAUNCHES)
+        launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
     finally:
         server.shutdown()
         server.server_close()
@@ -393,7 +473,9 @@ def phase_server(fk, card):
         check(abs(probs.sum() - 1.0) < 1e-4, "probabilities do not sum to 1")
         check(err <= 1e-5, "the server and engine.predict disagree")
     expect = {k: v * len(requests) for k, v in PER_FORWARD.items()}
-    log(f"server launches over {len(requests)} requests: {launches} (expected {expect})")
+    if wa:
+        expect.update(window_attention_fwd=K7_PER_FORWARD * len(requests), window_attention_bwd=0)
+    log(f"server {cnn} launches over {len(requests)} requests: {launches} (expected {expect})")
     check(launches == expect, "the served forwards did not run every kernel as expected")
     return launches
 
@@ -448,6 +530,63 @@ def phase_k5(ak, device):
     return worst
 
 
+def k7_inputs(B, side, C, heads, dtype, device, seed, bias=False, mask=False):
+    """x, the weights and dy at one window-attention shape, drawn on the card;
+    a relative-position bias (heads, 49, 49) and Swin-like per-window masks
+    (-100 on a fifth of the pairs, never on the diagonal) where asked."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    N = WINDOW * WINDOW
+    args = [r(B, side, side, C), r(C, 3 * C, scale=C ** -0.5), r(3 * C, scale=0.1),
+            r(C, C, scale=C ** -0.5), r(C, scale=0.1)]
+    args = [a.to(dtype) for a in args]
+    dy = r(B, side, side, C).to(dtype)
+    b = r(heads, N, N, scale=0.1) if bias else None
+    m = None
+    if mask:
+        n_win = (side // WINDOW) ** 2
+        m = torch.where(torch.rand((n_win, N, N), generator=gen, device=device) > 0.8, -100.0, 0.0)
+        m[:, torch.arange(N), torch.arange(N)] = 0.0
+    return args, dy, b, m
+
+
+def phase_k7(wa, device):
+    """K7 forward and backward against their twins at DaViT-tiny's stage
+    shapes, B in {1, 64}, bf16 (BF16_TOL) and fp32 (F32_TOL, TF32 off), and
+    one bias + mask case; the backward's dqkv, of and dbias."""
+    import torch
+
+    errors = {name: 0.0 for name in K7}
+    cases = [(B, *stage, False) for stage in K7_STAGES for B in K7_BATCHES] + [(4, 56, 96, 3, True)]
+    for B, side, C, h, extra in cases:
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            args, dy, b, m = k7_inputs(B, side, C, h, dtype, device, seed=B + side, bias=extra,
+                                       mask=extra)
+            x, wqkv, bqkv, wproj, _ = args
+            results = [("window_attention_fwd", "y",
+                        wa.window_attention_fwd(*args, b, m, h, WINDOW),
+                        wa.window_attention_nhwc_plain(*args, b, m, h, WINDOW))]
+            got = wa.window_attention_bwd(x, dy, wqkv, bqkv, wproj, b, m, h, WINDOW)
+            want = wa.window_attention_nhwc_bwd_plain(x, dy, wqkv, bqkv, wproj, b, m, h, WINDOW)
+            torch.cuda.synchronize()
+            check((got[2] is None) == (want[2] is None), "dbias present on one side only")
+            results += [("window_attention_bwd", part, o, r)
+                        for part, o, r in zip(("dqkv", "of", "dbias"), got, want) if r is not None]
+            for name, part, out, ref in results:
+                err, ok = compare(out, ref, tol)
+                errors[name] = max(errors[name], err)
+                log(f"kernel {name} {part:5s} {str(dtype):14s} B={B:2d} {side}x{side} C={C} h={h}"
+                    f"{' bias+mask' if extra else ''}: max_abs_err={err:.3e} tol=atol {tol[0]:g} "
+                    f"+ rtol {tol[1]:g}·|twin| {'ok' if ok else 'FAIL'}")
+                check(ok, f"{name} {part} disagrees with its twin at B={B} {side}x{side} {dtype}")
+    return errors
+
+
 def train_batch(device, B=None, hw=None, seed=0):
     """One batch of the synthetic dataset (class-dependent brightness and
     metadata) on ``device``, and its class weights."""
@@ -464,59 +603,74 @@ def train_batch(device, B=None, hw=None, seed=0):
     return ({k: torch.as_tensor(v).to(device) for k, v in b.items()}, cw)
 
 
-def flagship_state(device, unfreeze="unfrozen_weights", lr=5e-5):
+def train_state(config, device, unfreeze="unfrozen_weights", lr=5e-5):
     import torch
 
     from skinjax_torch.train.loop import TrainConfig, build_state
 
     cfg = TrainConfig(device=str(device), unfreeze_weights=unfreeze, learning_rate=lr)
-    return build_state(flagship_model(torch.bfloat16), cfg)
+    return build_state(smoke_model(config, torch.bfloat16), cfg)
 
 
-def phase_train(ak, device, card):
-    """The flagship train step at full width, B=128, augment on, bf16."""
+def phase_train(counters, device, card, label="flagship", config=None, B=None,
+                per_step=None, frozen_per_step=None):
+    """A configuration's train step at full width (the flagship at B=128
+    unless ``config`` and ``B``), augment on, bf16: finite loss, the loss
+    falls over 10 steps on one batch, frozen mode keeps the image encoder
+    bit-identical (and moves its BatchNorm statistics, where it has any);
+    the launches of the ``counters``' kernels per step are as expected (K5
+    once a step unless ``per_step`` and ``frozen_per_step`` say more).
+    Returns the batch, class weights, step and the 10 unfrozen steps'
+    launches."""
     import torch
 
+    from skinjax_torch import FLAGSHIP
     from skinjax_torch.train.steps import make_train_step_weighted
 
-    batch, cw = train_batch(device)
+    config, B = config or FLAGSHIP, B or TRAIN_B
+    per_step = per_step or {K5: 1}
+    frozen_per_step = frozen_per_step or per_step
+    batch, cw = train_batch(device, B=B)
     step = make_train_step_weighted(augment=True, image_dtype=torch.bfloat16)
 
     def run(state, n):
-        ak.reset_launches()
+        for c in counters:
+            c.reset_launches()
         losses = [step(state, batch["image"], batch["metadata"], batch["label"], 0, cw)
                   for _ in range(n)]
         torch.cuda.synchronize()
-        return [float(x) for x in losses], ak.LAUNCHES[K5]
+        launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+        return [float(x) for x in losses], launches
 
-    state = flagship_state(device, lr=TRAIN_LR)
-    losses, launches = run(state, 10)
-    log(f"train unfrozen B={TRAIN_B} (lr {TRAIN_LR:g}, one batch, augment on): losses "
-        + " ".join(f"{x:.4f}" for x in losses) + f"; K5 launches {launches} over 10 steps")
+    losses, launches = run(train_state(config, device, lr=TRAIN_LR), 10)
+    log(f"train {label} unfrozen B={B} (lr {TRAIN_LR:g}, one batch, augment on): losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f"; launches {launches} over 10 steps")
     check(all(math.isfinite(x) for x in losses), "non-finite train loss")
     check(sum(losses[-3:]) / 3 < sum(losses[:3]) / 3 and losses[-1] < losses[0],
-          "the loss did not fall over 10 steps on one batch")
-    check(launches == 10, f"K5 launched {launches} times over 10 train steps")
+          f"the {label} loss did not fall over 10 steps on one batch")
+    expect = {k: 10 * v for k, v in per_step.items()}
+    check(launches == expect, f"launches {launches} over 10 unfrozen steps != {expect}")
 
-    state = flagship_state(device, unfreeze="frozen_weights")
+    state = train_state(config, device, unfreeze="frozen_weights")
     enc = state.model.image_encoder
     params0 = {k: v.detach().clone() for k, v in enc.named_parameters()}
     stats0 = {k: v.clone() for k, v in enc.named_buffers() if k.endswith("running_var")}
     head0 = state.model.fc_fusion[0].weight.detach().clone()
-    losses, launches = run(state, 2)
+    frozen_losses, frozen = run(state, 2)
     same = all(torch.equal(v, params0[k]) for k, v in enc.named_parameters())
     moved = sum(not torch.equal(v, stats0[k]) for k, v in enc.named_buffers() if k in stats0)
-    log(f"train frozen B={TRAIN_B}: losses {losses}; image_encoder parameters bit-identical: "
-        f"{same}; running_var buffers changed {moved}/{len(stats0)}; fusion head moved: "
-        f"{not torch.equal(head0, state.model.fc_fusion[0].weight)}; K5 launches {launches}")
+    log(f"train {label} frozen B={B}: losses {frozen_losses}; image_encoder parameters "
+        f"bit-identical: {same}; running_var buffers changed {moved}/{len(stats0)}; fusion head "
+        f"moved: {not torch.equal(head0, state.model.fc_fusion[0].weight)}; launches {frozen}")
     check(same, "frozen mode changed an image_encoder parameter")
     check(moved == len(stats0), "frozen mode left BatchNorm statistics unchanged")
     check(not torch.equal(head0, state.model.fc_fusion[0].weight), "frozen mode froze the head")
-    check(launches == 2, f"K5 launched {launches} times over 2 frozen train steps")
-    return batch, cw, step
+    expect = {k: 2 * v for k, v in frozen_per_step.items()}
+    check(frozen == expect, f"launches {frozen} over 2 frozen steps != {expect}")
+    return batch, cw, step, launches
 
 
-def phase_card_vs_cpu(device):
+def phase_card_vs_cpu(device, cnn="resnet-18", hw=64):
     """One fp32 step (TF32 off, augment off, dropout 0) of a small model on
     the card and on the CPU from the same weights and batch."""
     import copy
@@ -529,7 +683,7 @@ def phase_card_vs_cpu(device):
     from skinjax_torch.train.steps import make_train_step_weighted
 
     lr = 1e-3
-    model = init_weights(MultimodalModel(num_classes=6, num_heads=8, cnn_model_name="resnet-18",
+    model = init_weights(MultimodalModel(num_classes=6, num_heads=8, cnn_model_name=cnn,
                                          common_dim=64, vocab_size=91,
                                          attention_mechanism="att-intramodal+residual+"
                                                              "cross-attention-metadados"), seed=5)
@@ -537,7 +691,7 @@ def phase_card_vs_cpu(device):
         if isinstance(m, torch.nn.Dropout):
             m.p = 0.0
     step = make_train_step_weighted(augment=False, image_dtype=torch.float32)
-    batch, cw = train_batch("cpu", B=8, hw=64, seed=3)
+    batch, cw = train_batch("cpu", B=8, hw=hw, seed=3)
     out = []
     for dev in (device, torch.device("cpu")):
         state = build_state(copy.deepcopy(model),
@@ -560,24 +714,49 @@ def phase_card_vs_cpu(device):
     worst_g = max(gexcess, key=gexcess.get)
     # the update: Adam's first step moves each element by about ±lr, so every
     # element lies within 2·lr, and only where a gradient near 0 takes the other
-    # sign in the other summation order does it go beyond 0.01·lr
+    # sign in the other summation order does it go beyond 0.01·lr. The key
+    # bias of a window attention is left out of that count: its gradient is 0
+    # by the math (a constant added to every score of a row leaves the softmax
+    # as it is), so its Adam step is lr·noise/(|noise| + eps) on either side.
     pd = {k: (sc[k].float() - sh[k].float()).abs() for k in gh}
     pdiff = max(float(d.max()) for d in pd.values())
+    key_bias = 0
+    for k in pd:
+        if k.startswith("image_encoder.stages.") and k.endswith(".0.attn.qkv.bias"):
+            C = pd[k].numel() // 3
+            pd[k] = torch.cat([pd[k][:C], pd[k][2 * C:]])
+            key_bias += C
     far = sum(int((d > 0.01 * lr).sum()) for d in pd.values())
     total = sum(d.numel() for d in pd.values())
     bn = [k for k in sc if k.endswith(("running_mean", "running_var"))]
-    bdiff = max(float(((sc[k] - sh[k]).abs() / (sh[k].abs() + 1e-3)).max()) for k in bn)
-    log(f"train fp32 card vs CPU (resnet-18, common_dim 64, 64x64, B=8, one Adam step, lr "
+    bdiff = max((float(((sc[k] - sh[k]).abs() / (sh[k].abs() + 1e-3)).max()) for k in bn),
+                default=0.0)
+    log(f"train fp32 card vs CPU ({cnn}, common_dim 64, {hw}x{hw}, B=8, one Adam step, lr "
         f"{lr:g}): loss {lc:.6f} vs {lh:.6f} (tol rtol 1e-4); gradients of {len(gh)} tensors: "
         f"worst |diff|/(1e-3·|g_cpu| + 1e-6·|g_all|) = {gexcess[worst_g]:.3e} at {worst_g} "
         f"(tol 1); parameters max |diff| {pdiff:.3e} (tol 2·lr), {far} of {total} elements "
-        f"beyond 0.01·lr (tol a share of 1e-4); BN running stats max rel diff {bdiff:.3e} "
-        f"(tol 1e-3)")
+        f"beyond 0.01·lr (tol a share of 1e-4; {key_bias} key-bias elements left out); BN "
+        f"running stats ({len(bn)} tensors) max rel diff {bdiff:.3e} (tol 1e-3)")
     check(abs(lc - lh) <= 1e-4 * abs(lh), "the card and the CPU disagree on the fp32 loss")
     check(gexcess[worst_g] <= 1.0, f"the card and the CPU disagree on the gradient of {worst_g}")
     check(pdiff <= 2 * lr and far <= 1e-4 * total,
           "the card and the CPU disagree on the parameters after one step")
     check(bdiff <= 1e-3, "the card and the CPU disagree on the BatchNorm statistics")
+
+
+@contextlib.contextmanager
+def small_davit_registered():
+    """A small DaViT (dims (64, 128), depths (1, 1), heads (2, 4): 32
+    channels a head, as davit_tiny) as backbone ``SMALL_DAVIT`` meanwhile."""
+    from skinjax_torch.models.backbones import _REGISTRY
+    from skinjax_torch.models.backbones.davit import DaViT
+
+    _REGISTRY[SMALL_DAVIT] = (
+        lambda device=None: DaViT((64, 128), (1, 1), (2, 4), device=device), 128)
+    try:
+        yield
+    finally:
+        del _REGISTRY[SMALL_DAVIT]
 
 
 def phase_fold(ak, device, card):
@@ -589,6 +768,7 @@ def phase_fold(ak, device, card):
     import numpy as np
     import torch
 
+    from skinjax_torch import FLAGSHIP
     from skinjax_torch.data.pipeline import synthetic_source
     from skinjax_torch.train.kfold import run_kfold
     from skinjax_torch.train.loop import TrainConfig
@@ -600,7 +780,7 @@ def phase_fold(ak, device, card):
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         ak.reset_launches()
-        results = run_kfold(lambda: flagship_model(torch.bfloat16), src, src.labels, None, 6,
+        results = run_kfold(lambda: smoke_model(FLAGSHIP, torch.bfloat16), src, src.labels, None, 6,
                             names, cfg, k_folds=2, results_dir=tmp, model_name="flagship")
         torch.cuda.synchronize()
         launches = ak.LAUNCHES[K5]
@@ -626,25 +806,44 @@ def phase_fold(ak, device, card):
     return launches
 
 
-def phase_train_times(ak, device, card, batch, cw, step):
-    """Train img/s at B=128 unfrozen and frozen; the augment stage with and
-    without K5; K5 against its twin; a profiled train step."""
+def phase_train_times(device, card, batch, cw, step, label="flagship", config=None,
+                      kernel_names=("color_stage_kernel",)):
+    """Train img/s at the batch's size, unfrozen and frozen; a profiled
+    unfrozen step, with the share of the kernels named."""
+    from skinjax_torch import FLAGSHIP
+
+    config = config or FLAGSHIP
+    B = batch["image"].shape[0]
+    times = {}
+    for mode in ("unfrozen_weights", "frozen_weights"):
+        state = train_state(config, device, unfreeze=mode)
+        call = lambda: step(state, batch["image"], batch["metadata"], batch["label"], 0, cw)  # noqa: E731,B023
+        for _ in range(3):  # warm-up
+            call()
+        ms = time_ms(call, iters=12, warmup=0)
+        times[mode] = ms
+        log(f"[{card}] train {label} {mode} B={B}: {ms:.2f} ms per step, {B / ms * 1e3:.1f} img/s "
+            f"(12 steps after 3 warm-up, CUDA events, the batch already on the card)")
+
+    state = train_state(config, device)
+    call = lambda: step(state, batch["image"], batch["metadata"], batch["label"], 0, cw)  # noqa: E731
+    mean_ms = time_ms(call, iters=5, warmup=2)
+    total, by_name = device_us(call, n=3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ours = sum(v for k, v in by_name.items() if any(n in k for n in kernel_names))
+    log(f"[{card}] profile train {label} step unfrozen B={B}: device time {total / 1e3:.2f} ms "
+        f"per step = {100 * total / (mean_ms * 1e3):.1f}% of the untraced {mean_ms:.2f} ms "
+        f"step; {'/'.join(kernel_names)} {ours:.1f} us ({100 * ours / total:.2f}%); "
+        f"{len(by_name)} kernel names")
+    log("  top kernels (us per step): " + "; ".join(f"{k[:70]} {v:.1f}" for k, v in top))
+    return times
+
+
+def phase_k5_times(ak, device, card, batch):
+    """The augment stage with and without K5; K5 against its twin."""
     import torch
 
     from skinjax_torch.data.augment import augment_batch
-
-    times = {}
-    for mode in ("unfrozen_weights", "frozen_weights"):
-        state = flagship_state(device, unfreeze=mode)
-        for _ in range(3):  # warm-up
-            step(state, batch["image"], batch["metadata"], batch["label"], 0, cw)
-        ms = time_ms(lambda: step(state, batch["image"], batch["metadata"], batch["label"], 0,
-                                  cw), iters=12, warmup=0)
-        times[mode] = ms
-        log(f"[{card}] train {mode} B={TRAIN_B}: {ms:.2f} ms per step, "
-            f"{TRAIN_B / ms * 1e3:.1f} img/s (12 steps after 3 warm-up, CUDA events, "
-            f"the batch already on the card)")
-    del state
 
     gen = torch.Generator(device=device)
     img = batch["image"]
@@ -665,7 +864,7 @@ def phase_train_times(ak, device, card, batch, cw, step):
         t = [time_ms(twin, 50, 5), time_ms(kern, 50, 5), time_ms(kern, 50, 5),
              time_ms(twin, 50, 5)]
         ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-        dev_k, _ = device_us(kern, n=20)
+        dev_k = kernel_device_us(kern, ["color_stage_kernel"], n=20)
         dev_t, _ = device_us(twin, n=20)
         nbytes = 2 * x.numel() * x.element_size() + fp.numel() * 4 + ip.numel() * 4
         bound_ms = max(nbytes / HBM_BYTES_PER_S, B * 224 * 224 * K5_OPS_PER_PIXEL
@@ -673,20 +872,92 @@ def phase_train_times(ak, device, card, batch, cw, step):
         k5[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
         log(f"[{card}] time {K5} bf16 B={B:3d} 224x224 per call: kernel {ms * 1e3:9.2f} us  "
             f"twin {plain_ms * 1e3:9.2f} us (CUDA events, in turns twin-kernel-kernel-twin); "
-            f"device time: kernel {dev_k:9.2f} us  twin {dev_t:9.2f} us (torch.profiler); "
+            f"device time: kernel {us(dev_k)}  twin {dev_t:9.2f} us (torch.profiler); "
             f"bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s)")
+    return k5
 
-    state = flagship_state(device)
-    call = lambda: step(state, batch["image"], batch["metadata"], batch["label"], 0, cw)  # noqa: E731
-    mean_ms = time_ms(call, iters=5, warmup=2)
-    total, by_name = device_us(call, n=3)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    k5_us = sum(v for k, v in by_name.items() if "color_stage_kernel" in k)
-    log(f"[{card}] profile train step unfrozen B={TRAIN_B}: device time {total / 1e3:.2f} ms per "
-        f"step = {100 * total / (mean_ms * 1e3):.1f}% of the untraced {mean_ms:.2f} ms step; "
-        f"K5 {k5_us:.1f} us ({100 * k5_us / total:.2f}%); {len(by_name)} kernel names")
-    log("  top kernels (us per step): " + "; ".join(f"{k[:70]} {v:.1f}" for k, v in top))
-    return times, k5
+
+def k7_bound(B, side, C, itemsize, backward):
+    """The least time (ms) for one K7 call: every input read once and every
+    output written once over the HBM rate, against its products over the
+    bf16 tensor-core rate. Forward: x, the weights → y; 2·C·4C operations a
+    token for the projections, 4·N·C for scores and p·v. Backward: x, dy,
+    the weights → dqkv, of; the projections recomputed, 12·N·C for the
+    six attention products."""
+    T, N = B * side * side, WINDOW * WINDOW
+    weights = (4 * C * C + 4 * C) * itemsize
+    if backward:
+        nbytes = (2 * T * C + 4 * T * C) * itemsize + weights - C * itemsize
+        ops = 2 * T * C * 4 * C + 12 * T * N * C
+    else:
+        nbytes = 2 * T * C * itemsize + weights
+        ops = 2 * T * C * 4 * C + 4 * T * N * C
+    return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3, nbytes, ops
+
+
+def phase_k7_times(wa, device, card):
+    """K7 forward and backward against their twins at B=64, bf16, per stage;
+    F.scaled_dot_product_attention on the same per-window q, k, v as a
+    yardstick for the attention core (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from skinjax_torch import DAVIT_BATCH
+
+    B = DAVIT_BATCH
+    out = {}
+    for side, C, h in K7_STAGES:
+        args, dy, _, _ = k7_inputs(B, side, C, h, torch.bfloat16, device, seed=21)
+        x, wqkv, bqkv, wproj, _ = args
+        q, k, v = wa._windows_qkv(x, wqkv, bqkv, h, WINDOW)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        calls = {
+            "window_attention_fwd": (
+                lambda: wa.window_attention_fwd(*args, None, None, h, WINDOW),
+                lambda: wa.window_attention_nhwc_plain(*args, None, None, h, WINDOW)),
+            "window_attention_bwd": (
+                lambda: wa.window_attention_bwd(x, dy, wqkv, bqkv, wproj, None, None, h, WINDOW),
+                lambda: wa.window_attention_nhwc_bwd_plain(x, dy, wqkv, bqkv, wproj, None, None,
+                                                           h, WINDOW)),
+        }
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        lib_ms = (time_ms(sdpa, 20, 3) + time_ms(sdpa, 20, 3)) / 2
+        for name, (kern, twin) in calls.items():
+            t = [time_ms(twin, 10, 2), time_ms(kern, 10, 2), time_ms(kern, 10, 2),
+                 time_ms(twin, 10, 2)]
+            ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            dev_k = kernel_device_us(kern, K7_KERNELS[name], n=5)
+            dev_t, _ = device_us(twin, n=5)
+            bound_ms, nbytes, ops = k7_bound(B, side, C, 2, name.endswith("bwd"))
+            bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S \
+                else "operations"
+            out[(name, side)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by,
+                                     library_ms=lib_ms if name.endswith("fwd") else None)
+            log(f"[{card}] time {name} bf16 B={B} {side}x{side} C={C} h={h} per call: kernel "
+                f"{ms * 1e3:9.2f} us  twin {plain_ms * 1e3:9.2f} us (CUDA events, in turns "
+                f"twin-kernel-kernel-twin); device time: kernel {us(dev_k)}  twin "
+                f"{dev_t:9.2f} us (torch.profiler); bound {bound_ms * 1e3:.2f} us "
+                f"({nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e9:.2f} GFLOP at 989 TFLOP/s)")
+        log(f"[{card}] time F.scaled_dot_product_attention bf16 on the same (nB, h, 49, 32) "
+            f"q, k, v at {side}x{side}: {lib_ms * 1e3:.2f} us per call (the attention core only)")
+    return out
+
+
+def engine_latency(fused, plain, label, card):
+    """p50/p95 of the fused and plain engines at B=1 and 8, in turns; then a
+    profile of each."""
+    for B in (1, 8):
+        means = {}
+        for kind, eng in (("fused", fused), ("plain", plain), ("plain", plain),
+                          ("fused", fused)):  # in turns
+            lat = eng.measure_latency(n=50, batch=B)
+            means.setdefault(kind, []).append(lat["mean_ms"])
+            log(f"[{card}] engine {label} bf16 {kind} B={B}: p50 {lat['p50_ms']:.3f} ms "
+                f"p95 {lat['p95_ms']:.3f} ms mean {lat['mean_ms']:.3f} ms (50 forwards, host "
+                f"clock to synchronize, inputs on the card)")
+        for kind, eng in (("fused", fused), ("plain", plain)):
+            phase_profile(eng, f"{label} {kind}", B, sum(means[kind]) / 2, card)
 
 
 def matmul_bound_ms(args, out, products, B):
@@ -713,6 +984,18 @@ def fusion_bounds(fk, device):
     return bounds
 
 
+def build_kernels(build, modules):
+    """One nvcc per source, started together (each thread waits in
+    subprocess.run); then each module loads its library."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(BUILDS)) as pool:
+        list(pool.map(build.build, BUILDS))
+    for m in modules:
+        m.library()
+    log(f"phase build: nvcc {build.find_nvcc()}, {len(BUILDS)} sources at once, "
+        f"{time.perf_counter() - t0:.1f} s to build and load")
+
+
 def main() -> int:
     import torch
 
@@ -720,9 +1003,11 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from skinjax_torch import DAVIT, DAVIT_BATCH
     from skinjax_torch.ops import augment_kernel as ak
     from skinjax_torch.ops import build
     from skinjax_torch.ops import fusion_kernels as fk
+    from skinjax_torch.ops import window_attention as wa
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -733,15 +1018,8 @@ def main() -> int:
     log(f"phase card: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}; TF32 off")
 
-    t0 = time.perf_counter()
-    # one nvcc per source, started together (each thread waits in subprocess.run)
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        list(pool.map(build.build, ["fusion_kernels", "augment_kernel"]))
-    fk.library()
-    ak.library()
-    log(f"phase build: nvcc {build.find_nvcc()}, both sources at once, "
-        f"{time.perf_counter() - t0:.1f} s to build and load")
-    for name, src in (("fusion_kernels", SOURCE), ("augment_kernel", K5_SOURCE)):
+    build_kernels(build, (fk, ak, wa))
+    for name, src in BUILDS.items():
         info = build.build_info[name]
         built = f"built in {info['seconds']:.1f} s" if info["seconds"] else "already built"
         log(f"  {src} {built}")
@@ -751,31 +1029,45 @@ def main() -> int:
 
     errors = phase_kernels(fk, device)
     errors[K5] = phase_k5(ak, device)
+    errors.update(phase_k7(wa, device))
+    # K7's times first: in a process that has traced much, torch.profiler
+    # dropped K7's launches from its traces
+    k7_times = phase_k7_times(wa, device, card)
     torch.cuda.synchronize()
+    # the flagship: served, trained, run_kfold
     fused, plain = phase_slice(fk, device, card)
     torch.cuda.synchronize()
     launches = phase_server(fk, card)
     torch.cuda.synchronize()
-    batch, cw, step = phase_train(ak, device, card)
+    batch, cw, step, _ = phase_train([ak], device, card)
     phase_card_vs_cpu(device)
     launches[K5] = phase_fold(ak, device, card)
     torch.cuda.synchronize()
-
-    for B in (1, 8):
-        means = {}
-        for label, eng in (("fused", fused), ("plain", plain), ("plain", plain),
-                           ("fused", fused)):  # in turns
-            lat = eng.measure_latency(n=50, batch=B)
-            means.setdefault(label, []).append(lat["mean_ms"])
-            log(f"[{card}] engine bf16 {label} B={B}: p50 {lat['p50_ms']:.3f} ms "
-                f"p95 {lat['p95_ms']:.3f} ms mean {lat['mean_ms']:.3f} ms (50 forwards, host "
-                f"clock to synchronize, inputs on the card)")
-        for label, eng in (("fused", fused), ("plain", plain)):
-            phase_profile(eng, label, B, sum(means[label]) / 2, card)
+    engine_latency(fused, plain, "flagship", card)
     del fused, plain
     times = phase_kernel_times(fk, device, card)
     bounds = fusion_bounds(fk, device)
-    _, k5_times = phase_train_times(ak, device, card, batch, cw, step)
+    phase_train_times(device, card, batch, cw, step)
+    k5_times = phase_k5_times(ak, device, card, batch)
+    del batch, cw, step
+    torch.cuda.synchronize()
+
+    # DaViT: served, trained; K7's launches on the main path are the 10
+    # unfrozen train steps'
+    d_fused, d_plain = phase_slice(fk, device, card, "davit", DAVIT, wa)
+    phase_server(fk, card, cnn="davit_tiny", wa=wa)
+    k7_step = {"window_attention_fwd": K7_PER_FORWARD, "window_attention_bwd": K7_PER_FORWARD}
+    batch, cw, step, d_launches = phase_train(
+        [ak, wa], device, card, "davit", DAVIT, DAVIT_BATCH, per_step={K5: 1, **k7_step},
+        frozen_per_step={K5: 1, **k7_step, "window_attention_bwd": 0})
+    launches.update({name: d_launches[name] for name in K7})
+    with small_davit_registered():
+        phase_card_vs_cpu(device, cnn=SMALL_DAVIT, hw=56)
+    torch.cuda.synchronize()
+    engine_latency(d_fused, d_plain, "davit", card)
+    del d_fused, d_plain
+    phase_train_times(device, card, batch, cw, step, "davit", DAVIT,
+                      kernel_names=[n for names in K7_KERNELS.values() for n in names])
     torch.cuda.synchronize()
 
     record = {"kernels": [
@@ -789,6 +1081,12 @@ def main() -> int:
          "launches": launches[K5], "max_abs_err": errors[K5],
          "ms": k5_times[TRAIN_B]["ms"], "plain_ms": k5_times[TRAIN_B]["plain_ms"],
          "bound_ms": k5_times[TRAIN_B]["bound_ms"], "bound_by": "bytes", "library_ms": None}
+    ] + [
+        # DaViT-tiny's stage 1 at B=64 (the other stages are printed above)
+        {"name": name, "route": "cuda", "source": K7_SOURCE, "replaces": K7[name],
+         "launches": launches[name], "max_abs_err": errors[name],
+         **k7_times[(name, K7_STAGES[0][0])]}
+        for name in K7
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,536 @@
+// Window multi-head attention straight on an NHWC map, forward and backward,
+// for Hopper (sm_90a).
+//
+// It replaces the Pallas TPU kernel K7 of skinjax/ops/pallas/window_attention.py:
+// the strip-blocked NHWC entry window_attention_nhwc, forward _strip_fwd
+// (_strip_fwd_kernel, and its 4-D twin _strip_fwd4) and backward _strip_bwd
+// (_strip_bwd_kernel, _strip_bwd4). Per window of w x w tokens (N = w*w) and
+// per head (hd = C / heads channels):
+//
+//   forward   qkv = round(x.Wqkv + bqkv)
+//             s = (q.k^T) * scale (+ bias[head]) (+ mask[window])   fp32
+//             p = softmax(s) fp32;  of = round(round(p).v)
+//             y = round(of.Wproj + bproj)
+//   backward  qkv as above, do = round(dy.Wproj^T)
+//             p recomputed fp32;  of = round(round(p).v);  dv = round(round(p)^T.do)
+//             dp = do.v^T;  ds = p * (dp - rowsum(dp * p))          fp32
+//             dbias[head] += ds (summed over every window)
+//             dq = round(round(ds*scale).k);  dk = round(round(ds*scale)^T.q)
+//
+// "round" is the cast to the input type (bf16 or fp32) at the points where the
+// Pallas kernel casts; every sum is fp32. The backward emits dqkv (B,H,W,3C),
+// of (B,H,W,C) and dbias (heads,N,N); dx and the weight gradients are flat
+// matrix products outside the kernel (ops/window_attention.py), as in skinjax.
+//
+// Launches. Forward: one core launch (grid: window blocks x heads) writes
+// of = p.v per head to an NHWC scratch, then one projection launch computes
+// y = of.Wproj + bproj as a tiled product. Backward: one core launch; with a
+// bias, per-block partial dbias sums and one second pass that adds them in a
+// fixed order (no atomics, so the result does not depend on block order).
+//
+// Layout. There is no TPU layout here: no 56-token interleaved window, no
+// -1e9 key pad, no 6-D view. A block reads the N real tokens of window
+// (i, j) of image b from the NHWC map through their offsets, and masks its
+// own ragged edges. Window index win = (b*nH + i)*nW + j, as window_partition
+// orders them; the mask has one (N, N) plane per window of an image and window
+// win uses plane win % (nH*nW).
+//
+// What bounds it: at DaViT's stage 1 (B=64, 56x56, C=96, 3 heads) a forward is
+// ~18.6 GFLOP against ~77 MB, ~240 operations per byte: on the bf16 tensor
+// cores the card's ridge (~295), so either bound is ~20 us. This first version
+// is simple and runs on the CUDA cores in fp32 (no mma, no TMA): the
+// projections are register-tiled from shared memory (8 rows x 3 or 4 columns
+// a thread), one block per (window, head), so a block re-reads the window's
+// x from L2 once per head. It is far from its bound; PERF.md records by how
+// much. Limits: N <= 64 (window <= 8) and hd <= 32 (DaViT and Swin: 32).
+//
+// C interface: each entry point launches on the given stream and returns
+// cudaGetLastError() as an int (0 = success); skinjax_window_attention_error_string
+// maps the code to its message.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxN = 64;   // tokens per window
+constexpr int kMaxHd = 32;  // channels per head
+constexpr int kKc = 32;     // input channels per projection chunk
+constexpr int kRows = 8;    // rows per thread in the projection
+constexpr int kXs = kKc + 1;      // row stride of the x / dy chunk
+constexpr int kQs = kMaxHd + 1;   // row stride of q, k, v, do
+constexpr int kSs = kMaxN + 1;    // row stride of the (N, N) planes
+constexpr int kTile = 64;   // output projection: 64 x 64 tiles
+constexpr int kTileK = 16;
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and back: the cast points of the Pallas kernel
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32<T>(from_f32<T>(x));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+struct Geometry {
+  int H, W, C, heads, hd, w, N, nWw, n_win, nB;  // n_win: windows per image
+};
+
+// shared-memory floats of each core kernel (the token offsets come first)
+constexpr int kTokBytes = kMaxN * 8;
+constexpr int kChunkFloats = kMaxN * kXs;
+constexpr int kQkvFloats = kMaxN * kQs;
+constexpr int kPlaneFloats = kMaxN * kSs;
+constexpr int fwd_smem_bytes() {
+  return kTokBytes + 4 * (kChunkFloats + kKc * (3 * kMaxHd + 1) + 3 * kQkvFloats + kPlaneFloats);
+}
+constexpr int bwd_smem_bytes() {
+  return kTokBytes +
+         4 * (2 * kChunkFloats + kKc * (4 * kMaxHd + 1) + 4 * kQkvFloats + 2 * kPlaneFloats);
+}
+
+// Token offsets (in tokens of the NHWC map) of the N rows of window win.
+__device__ __forceinline__ void window_tokens(const Geometry& g, int win, long long* tok) {
+  const int b = win / g.n_win;
+  const int rem = win - b * g.n_win;
+  const int wi = rem / g.nWw;
+  const int wj = rem - wi * g.nWw;
+  for (int r = threadIdx.x; r < g.N; r += kThreads) {
+    const int ry = r / g.w;
+    const int rx = r - ry * g.w;
+    tok[r] = ((long long)b * g.H + wi * g.w + ry) * g.W + wj * g.w + rx;
+  }
+}
+
+// The head's projections of one window, into out[part][row][d] (stride kQs,
+// kMaxN rows a part), rounded to T:
+//   parts 0..2: x_w . Wqkv[:, part*C + hi*hd + d] + bqkv[...]   (q, k, v)
+//   part 3 (kParts == 4): dy_w . Wproj[hi*hd + d, :]            (do = dy.Wproj^T)
+// Thread (rb, d) accumulates rows rb*8 .. rb*8+7 of column d of every part.
+template <typename T, int kParts>
+__device__ void project(const T* __restrict__ x, const T* __restrict__ dy,
+                        const T* __restrict__ wqkv, const T* __restrict__ bqkv,
+                        const T* __restrict__ wproj, const Geometry& g, int hi,
+                        const long long* tok, float* xs, float* dys, float* ws, float* out) {
+  constexpr int ws_stride = kParts * kMaxHd + 1;
+  const int C = g.C, hd = g.hd, N = g.N;
+  const int row_blocks = (N + kRows - 1) / kRows;
+  const int d = threadIdx.x % hd;
+  const int rb = threadIdx.x / hd;
+  const bool active = rb < row_blocks;
+  float acc[kRows][kParts];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) acc[i][p] = 0.f;
+
+  for (int k0 = 0; k0 < C; k0 += kKc) {
+    const int kc = min(kKc, C - k0);
+    for (int idx = threadIdx.x; idx < row_blocks * kRows * kKc; idx += kThreads) {
+      const int r = idx / kKc, kk = idx - r * kKc;
+      const bool in = r < N && kk < kc;
+      xs[r * kXs + kk] = in ? to_f32<T>(x[tok[r] * C + k0 + kk]) : 0.f;
+      if (kParts == 4) dys[r * kXs + kk] = in ? to_f32<T>(dy[tok[r] * C + k0 + kk]) : 0.f;
+    }
+    for (int idx = threadIdx.x; idx < kKc * 3 * hd; idx += kThreads) {
+      const int kk = idx / (3 * hd), c = idx - kk * 3 * hd;
+      const int p = c / hd, dd = c - p * hd;
+      ws[kk * ws_stride + c] =
+          kk < kc ? to_f32<T>(wqkv[(size_t)(k0 + kk) * 3 * C + p * C + hi * hd + dd]) : 0.f;
+    }
+    if (kParts == 4) {
+      for (int idx = threadIdx.x; idx < hd * kKc; idx += kThreads) {
+        const int dd = idx / kKc, kk = idx - dd * kKc;
+        ws[kk * ws_stride + 3 * hd + dd] =
+            kk < kc ? to_f32<T>(wproj[(size_t)(hi * hd + dd) * C + k0 + kk]) : 0.f;
+      }
+    }
+    __syncthreads();
+    if (active) {
+#pragma unroll 4
+      for (int kk = 0; kk < kKc; ++kk) {
+        float wv[kParts];
+#pragma unroll
+        for (int p = 0; p < kParts; ++p) wv[p] = ws[kk * ws_stride + p * hd + d];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float xv = xs[(rb * kRows + i) * kXs + kk];
+#pragma unroll
+          for (int p = 0; p < 3; ++p) acc[i][p] += xv * wv[p];
+          if (kParts == 4) acc[i][kParts - 1] += dys[(rb * kRows + i) * kXs + kk] * wv[kParts - 1];
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = rb * kRows + i;
+      if (r >= N) break;
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        out[(p * kMaxN + r) * kQs + d] =
+            round_to<T>(acc[i][p] + to_f32<T>(bqkv[p * C + hi * hd + d]));
+      if (kParts == 4) out[(3 * kMaxN + r) * kQs + d] = round_to<T>(acc[i][kParts - 1]);
+    }
+  }
+  __syncthreads();
+}
+
+// s = (q.k^T)*scale + bias + mask for every (n, m) of the window, then the
+// fp32 softmax of each row in place; rows beyond N are left alone.
+__device__ void scores_softmax(const float* q, const float* k, const float* __restrict__ bias,
+                               const float* __restrict__ mask, const Geometry& g, int hi, int win,
+                               float scale, float* s) {
+  const int N = g.N, hd = g.hd;
+  for (int idx = threadIdx.x; idx < N * N; idx += kThreads) {
+    const int n = idx / N, m = idx - n * N;
+    float a = 0.f;
+    for (int d = 0; d < hd; ++d) a += q[n * kQs + d] * k[m * kQs + d];
+    a = __fmul_rn(a, scale);
+    if (bias) a = __fadd_rn(a, bias[((size_t)hi * N + n) * N + m]);
+    if (mask) a = __fadd_rn(a, mask[((size_t)(win % g.n_win) * N + n) * N + m]);
+    s[n * kSs + m] = a;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int n = threadIdx.x / 32; n < N; n += kWarps) {
+    const float v0 = lane < N ? s[n * kSs + lane] : -CUDART_INF_F;
+    const float v1 = lane + 32 < N ? s[n * kSs + lane + 32] : -CUDART_INF_F;
+    const float mx = warp_max(fmaxf(v0, v1));
+    const float e0 = lane < N ? expf(v0 - mx) : 0.f;
+    const float e1 = lane + 32 < N ? expf(v1 - mx) : 0.f;
+    const float sum = warp_sum(e0 + e1);
+    if (lane < N) s[n * kSs + lane] = e0 / sum;
+    if (lane + 32 < N) s[n * kSs + lane + 32] = e1 / sum;
+  }
+  __syncthreads();
+}
+
+// Forward core: of[token, hi*hd + d] = round(round(p).v) per window and head.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    wa_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv, const T* __restrict__ bqkv,
+                  const float* __restrict__ bias, const float* __restrict__ mask,
+                  T* __restrict__ of, Geometry g, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  long long* tok = reinterpret_cast<long long*>(smem_raw);
+  float* xs = reinterpret_cast<float*>(smem_raw + kTokBytes);
+  float* ws = xs + kChunkFloats;
+  float* qkv = ws + kKc * (3 * kMaxHd + 1);
+  float* s = qkv + 3 * kQkvFloats;
+  const float* q = qkv;
+  const float* k = qkv + kQkvFloats;
+  const float* v = qkv + 2 * kQkvFloats;
+  const int hi = blockIdx.y;
+  const int N = g.N, hd = g.hd, C = g.C;
+
+  for (int win = blockIdx.x; win < g.nB; win += gridDim.x) {
+    window_tokens(g, win, tok);
+    __syncthreads();
+    project<T, 3>(x, nullptr, wqkv, bqkv, nullptr, g, hi, tok, xs, nullptr, ws, qkv);
+    scores_softmax(q, k, bias, mask, g, hi, win, scale, s);
+    for (int idx = threadIdx.x; idx < N * hd; idx += kThreads) {
+      const int n = idx / hd, d = idx - n * hd;
+      float a = 0.f;
+      for (int m = 0; m < N; ++m) a += round_to<T>(s[n * kSs + m]) * v[m * kQs + d];
+      of[tok[n] * C + hi * hd + d] = from_f32<T>(a);
+    }
+    __syncthreads();
+  }
+}
+
+// Output projection: out (M, N) = round(a (M, K) . wt (K, N) + bias), 64 x 64
+// tiles, 16 deep, each thread 4 x 4 outputs at a stride of 16.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    proj_kernel(const T* __restrict__ a, const T* __restrict__ wt, const T* __restrict__ bias,
+                T* __restrict__ out, int M, int N, int K) {
+  __shared__ float as[kTileK][kTile + 4];
+  __shared__ float bs[kTileK][kTile + 4];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long m0 = (long long)blockIdx.y * kTile;
+  const int n0 = blockIdx.x * kTile;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += kTileK) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int idx = threadIdx.x + kThreads * t;
+      const int r = idx / kTileK, kk = idx - r * kTileK;
+      as[kk][r] = (m0 + r < M && k0 + kk < K) ? to_f32<T>(a[(m0 + r) * K + k0 + kk]) : 0.f;
+      const int kb = idx / kTile, c = idx - kb * kTile;
+      bs[kb][c] = (k0 + kb < K && n0 + c < N) ? to_f32<T>(wt[(size_t)(k0 + kb) * N + n0 + c])
+                                               : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kTileK; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = as[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long r = m0 + ty + 16 * i;
+    if (r >= M) break;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + tx + 16 * j;
+      if (c < N) out[r * N + c] = from_f32<T>(acc[i][j] + to_f32<T>(bias[c]));
+    }
+  }
+}
+
+// Backward core: dqkv and of per window and head; with a bias, this block's
+// dbias sum over its windows goes to dbias_partial[blockIdx.x][hi].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    wa_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const T* __restrict__ wqkv,
+                  const T* __restrict__ bqkv, const T* __restrict__ wproj,
+                  const float* __restrict__ bias, const float* __restrict__ mask,
+                  T* __restrict__ dqkv, T* __restrict__ of, float* __restrict__ dbias_partial,
+                  Geometry g, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  long long* tok = reinterpret_cast<long long*>(smem_raw);
+  float* xs = reinterpret_cast<float*>(smem_raw + kTokBytes);
+  float* dys = xs + kChunkFloats;
+  float* ws = dys + kChunkFloats;
+  float* qkvd = ws + kKc * (4 * kMaxHd + 1);
+  float* s = qkvd + 4 * kQkvFloats;
+  float* db = s + kPlaneFloats;
+  float* dp = xs;  // the chunk buffers are free once the projections are done
+  const float* q = qkvd;
+  const float* k = qkvd + kQkvFloats;
+  const float* v = qkvd + 2 * kQkvFloats;
+  const float* dout = qkvd + 3 * kQkvFloats;
+  const int hi = blockIdx.y;
+  const int N = g.N, hd = g.hd, C = g.C;
+  const int lane = threadIdx.x & 31;
+
+  if (bias)
+    for (int idx = threadIdx.x; idx < kPlaneFloats; idx += kThreads) db[idx] = 0.f;
+
+  for (int win = blockIdx.x; win < g.nB; win += gridDim.x) {
+    window_tokens(g, win, tok);
+    __syncthreads();
+    project<T, 4>(x, dy, wqkv, bqkv, wproj, g, hi, tok, xs, dys, ws, qkvd);
+    scores_softmax(q, k, bias, mask, g, hi, win, scale, s);  // s holds p, fp32
+
+    // of = round(p).v, dv = round(p)^T.do, dp = do.v^T
+    for (int idx = threadIdx.x; idx < N * hd; idx += kThreads) {
+      const int n = idx / hd, d = idx - n * hd;
+      float o = 0.f, dv = 0.f;
+      for (int m = 0; m < N; ++m) {
+        o += round_to<T>(s[n * kSs + m]) * v[m * kQs + d];
+        dv += round_to<T>(s[m * kSs + n]) * dout[m * kQs + d];
+      }
+      of[tok[n] * C + hi * hd + d] = from_f32<T>(o);
+      dqkv[tok[n] * 3 * C + 2 * C + hi * hd + d] = from_f32<T>(dv);
+    }
+    for (int idx = threadIdx.x; idx < N * N; idx += kThreads) {
+      const int n = idx / N, m = idx - n * N;
+      float a = 0.f;
+      for (int d = 0; d < hd; ++d) a += dout[n * kQs + d] * v[m * kQs + d];
+      dp[n * kSs + m] = a;
+    }
+    __syncthreads();
+
+    // ds = p * (dp - rowsum(dp * p)); dbias += ds; dp <- round(ds * scale)
+    for (int n = threadIdx.x / 32; n < N; n += kWarps) {
+      const float p0 = lane < N ? s[n * kSs + lane] : 0.f;
+      const float p1 = lane + 32 < N ? s[n * kSs + lane + 32] : 0.f;
+      const float g0 = lane < N ? dp[n * kSs + lane] : 0.f;
+      const float g1 = lane + 32 < N ? dp[n * kSs + lane + 32] : 0.f;
+      const float rs = warp_sum(__fmul_rn(g0, p0) + __fmul_rn(g1, p1));
+      const float ds0 = p0 * (g0 - rs), ds1 = p1 * (g1 - rs);
+      if (lane < N) {
+        if (bias) db[n * kSs + lane] += ds0;
+        dp[n * kSs + lane] = round_to<T>(__fmul_rn(ds0, scale));
+      }
+      if (lane + 32 < N) {
+        if (bias) db[n * kSs + lane + 32] += ds1;
+        dp[n * kSs + lane + 32] = round_to<T>(__fmul_rn(ds1, scale));
+      }
+    }
+    __syncthreads();
+
+    // dq = ds.k, dk = ds^T.q
+    for (int idx = threadIdx.x; idx < N * hd; idx += kThreads) {
+      const int n = idx / hd, d = idx - n * hd;
+      float dq = 0.f, dk = 0.f;
+      for (int m = 0; m < N; ++m) {
+        dq += dp[n * kSs + m] * k[m * kQs + d];
+        dk += dp[m * kSs + n] * q[m * kQs + d];
+      }
+      dqkv[tok[n] * 3 * C + hi * hd + d] = from_f32<T>(dq);
+      dqkv[tok[n] * 3 * C + C + hi * hd + d] = from_f32<T>(dk);
+    }
+    __syncthreads();
+  }
+
+  if (bias) {
+    float* part = dbias_partial + ((size_t)blockIdx.x * g.heads + hi) * N * N;
+    for (int idx = threadIdx.x; idx < N * N; idx += kThreads) {
+      const int n = idx / N, m = idx - n * N;
+      part[idx] = db[n * kSs + m];
+    }
+  }
+}
+
+// dbias[i] = sum over the blocks' partials, in block order.
+__global__ void dbias_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
+                                    int blocks, int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float a = 0.f;
+  for (int b = 0; b < blocks; ++b) a += partial[(size_t)b * count + i];
+  out[i] = a;
+}
+
+Geometry geometry(int B, int H, int W, int C, int heads, int window) {
+  Geometry g;
+  g.H = H;
+  g.W = W;
+  g.C = C;
+  g.heads = heads;
+  g.hd = C / heads;
+  g.w = window;
+  g.N = window * window;
+  g.nWw = W / window;
+  g.n_win = (H / window) * (W / window);
+  g.nB = B * g.n_win;
+  return g;
+}
+
+template <typename T>
+cudaError_t launch_fwd(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
+                       const void* bproj, const float* bias, const float* mask, void* of, void* y,
+                       const Geometry& g, int M, float scale, cudaStream_t stream) {
+  const int smem = fwd_smem_bytes();
+  cudaError_t err =
+      cudaFuncSetAttribute(wa_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  wa_fwd_kernel<T><<<dim3(g.nB, g.heads), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const T*>(bqkv), bias,
+      mask, static_cast<T*>(of), g, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.C + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  proj_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(of),
+                                                  static_cast<const T*>(wproj),
+                                                  static_cast<const T*>(bproj),
+                                                  static_cast<T*>(y), M, g.C, g.C);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* dy, const void* wqkv, const void* bqkv,
+                       const void* wproj, const float* bias, const float* mask, void* dqkv,
+                       void* of, float* dbias_partial, float* dbias, int blocks,
+                       const Geometry& g, float scale, cudaStream_t stream) {
+  const int smem = bwd_smem_bytes();
+  cudaError_t err =
+      cudaFuncSetAttribute(wa_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  wa_bwd_kernel<T><<<dim3(blocks, g.heads), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(wqkv),
+      static_cast<const T*>(bqkv), static_cast<const T*>(wproj), bias, mask,
+      static_cast<T*>(dqkv), static_cast<T*>(of), dbias_partial, g, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !bias) return err;
+  const int count = g.heads * g.N * g.N;
+  dbias_reduce_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      dbias_partial, dbias, blocks, count);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* skinjax_window_attention_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// bf16: 0 for float, 1 for bfloat16 (x, the weights, of and y share it).
+// x (B, H, W, C) contiguous NHWC; wqkv (C, 3C), bqkv (3C), wproj (C, C),
+// bproj (C); bias (heads, N, N) fp32 or null; mask (n_win, N, N) fp32 or null,
+// n_win = (H / window) * (W / window). of and y (B, H, W, C) are written.
+int skinjax_window_attention_fwd(int bf16, const void* x, const void* wqkv, const void* bqkv,
+                                 const void* wproj, const void* bproj, const float* bias,
+                                 const float* mask, void* of, void* y, int B, int H, int W, int C,
+                                 int heads, int window, float scale, void* stream) {
+  const Geometry g = geometry(B, H, W, C, heads, window);
+  const int M = B * H * W;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_fwd<__nv_bfloat16>(x, wqkv, bqkv, wproj, bproj, bias, mask, of, y, g, M, scale,
+                                     s);
+  return launch_fwd<float>(x, wqkv, bqkv, wproj, bproj, bias, mask, of, y, g, M, scale, s);
+}
+
+// dy like x. Writes dqkv (B, H, W, 3C) and of (B, H, W, C); with a bias,
+// dbias_partial (blocks, heads, N, N) and dbias (heads, N, N). blocks: the
+// number of window blocks, each summing over windows blk, blk + blocks, ...
+int skinjax_window_attention_bwd(int bf16, const void* x, const void* dy, const void* wqkv,
+                                 const void* bqkv, const void* wproj, const float* bias,
+                                 const float* mask, void* dqkv, void* of, float* dbias_partial,
+                                 float* dbias, int blocks, int B, int H, int W, int C, int heads,
+                                 int window, float scale, void* stream) {
+  const Geometry g = geometry(B, H, W, C, heads, window);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_bwd<__nv_bfloat16>(x, dy, wqkv, bqkv, wproj, bias, mask, dqkv, of,
+                                     dbias_partial, dbias, blocks, g, scale, s);
+  return launch_bwd<float>(x, dy, wqkv, bqkv, wproj, bias, mask, dqkv, of, dbias_partial, dbias,
+                           blocks, g, scale, s);
+}
+
+}  // extern "C"

@@ -1,8 +1,8 @@
 """Backbone registry (counterpart of ``skinjax/models/backbones/__init__.py``).
 
-``create_backbone(name)`` returns ``(module, feature_dim)``. Only the ResNets
-are ported so far; ROADMAP.md lists the other backbones in the order they
-come.
+``create_backbone(name)`` returns ``(module, feature_dim)``. The ResNets and
+DaViT-tiny are ported so far; ROADMAP.md lists the other backbones in the
+order they come.
 """
 
 from __future__ import annotations
@@ -11,11 +11,12 @@ from typing import Callable, Dict, Tuple
 
 from torch import nn
 
-from skinjax_torch.models.backbones import resnet
+from skinjax_torch.models.backbones import davit, resnet
 
 _REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "resnet-18": (resnet.resnet18, resnet.FEATURE_DIMS["resnet-18"]),
     "resnet-50": (resnet.resnet50, resnet.FEATURE_DIMS["resnet-50"]),
+    "davit_tiny": (davit.davit_tiny, davit.FEATURE_DIM),
 }
 
 

@@ -137,7 +137,11 @@ class MultimodalModel(nn.Module):
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both towers and projectors: (proj_img, proj_txt), each (B, common_dim)."""
         with self.autocast(image.device):
-            img_feat = self.image_encoder(image).mean(dim=(1, 2))  # GAP over NHWC
+            img_feat = self.image_encoder(image)
+            if img_feat.dim() == 4:  # NHWC map → GAP
+                img_feat = img_feat.mean(dim=(1, 2))
+            elif img_feat.dim() == 3:  # token sequence → CLS
+                img_feat = img_feat[:, 0]
             proj_img = self.image_projector(img_feat)
             proj_txt = self.text_projector(self.text_fc(metadata))
         return proj_img, proj_txt

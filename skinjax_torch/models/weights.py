@@ -8,13 +8,16 @@ and random initialisation from a seed.
 ``skinjax_torch.models.MultimodalModel`` and which the JAX importer reads
 back to the same trees. It uses numpy only.
 
-  conv kernels    HWIO → OIHW
+  conv kernels    HWIO → OIHW (a depthwise (3, 3, 1, C) kernel → (C, 1, 3, 3))
   dense kernels   (in, out) → (out, in)
   attention       q/k/v_proj + out_proj → packed in_proj_weight/in_proj_bias + out_proj
   BatchNorm       scale/bias + batch_stats mean/var → weight/bias/running_mean/running_var
 
 Flax creates parameters lazily, only for the submodules a mechanism calls
 (RG-ATT has no ``img_gate``), so only the subtrees present are converted.
+The image encoder converts by its tree: a DaViT tree (``stem_conv``) to
+timm's keys, which ``skinjax.models.torch_import.import_davit`` reads back,
+a ResNet tree (``stem``) to torchvision's.
 """
 
 from __future__ import annotations
@@ -50,8 +53,14 @@ def _mha(sd: Dict, prefix: str, p: Mapping) -> None:
     _linear(sd, f"{prefix}.out_proj", p["out_proj"])
 
 
+def _conv(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(_np(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _np(p["bias"])
+
+
 def _convbn(sd: Dict, conv_key: str, bn_key: str, p: Mapping, s: Mapping) -> None:
-    sd[f"{conv_key}.weight"] = np.ascontiguousarray(_np(p["conv"]["kernel"]).transpose(3, 2, 0, 1))
+    _conv(sd, conv_key, p["conv"])
     sd[f"{bn_key}.weight"] = _np(p["bn"]["scale"])
     sd[f"{bn_key}.bias"] = _np(p["bn"]["bias"])
     sd[f"{bn_key}.running_mean"] = _np(s["bn"]["mean"])
@@ -59,12 +68,31 @@ def _convbn(sd: Dict, conv_key: str, bn_key: str, p: Mapping, s: Mapping) -> Non
     sd[f"{bn_key}.num_batches_tracked"] = np.array(0, dtype=np.int64)
 
 
+def _davit(sd: Dict, prefix: str, p: Mapping) -> None:
+    """skinjax ``DaViT`` params → timm keys (the inverse of ``import_davit``)."""
+    _conv(sd, f"{prefix}stem.conv", p["stem_conv"])
+    _ln(sd, f"{prefix}stem.norm", p["stem_norm"])
+    for name, sub in p.items():
+        if name.startswith("down"):
+            base = f"{prefix}stages.{name[len('down'):]}.downsample"
+            _ln(sd, f"{base}.norm", sub["norm"])
+            _conv(sd, f"{base}.conv", sub["conv"])
+        elif name.startswith("stage"):  # stage{i}_block{j}_{spatial,channel}
+            stage, block, kind = name[len("stage"):].split("_")
+            base = f"{prefix}stages.{stage}.blocks.{block[len('block'):]}." \
+                   f"{0 if kind == 'spatial' else 1}"
+            for cpe in ("cpe1", "cpe2"):
+                _conv(sd, f"{base}.{cpe}.proj", sub[cpe]["proj"])
+            for norm in ("norm1", "norm2"):
+                _ln(sd, f"{base}.{norm}", sub[norm])
+            for lin in ("qkv", "proj"):
+                _linear(sd, f"{base}.attn.{lin}", sub["attn"][lin])
+            for lin in ("fc1", "fc2"):
+                _linear(sd, f"{base}.mlp.{lin}", sub["mlp"][lin])
+    _ln(sd, f"{prefix}head.norm", p["head_norm"])
+
+
 def _resnet(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
-    if "stem" not in p:
-        raise NotImplementedError(
-            "state_dict_from_flax converts ResNet image encoders only; "
-            f"got an encoder with {sorted(p)[:4]}..."
-        )
     _convbn(sd, f"{prefix}conv1", f"{prefix}bn1", p["stem"], s["stem"])
     for blk in (k for k in p if k.startswith("layer")):
         stage, idx = blk[len("layer"):].split("_")
@@ -87,7 +115,16 @@ def _mlp_head(sd: Dict, prefix: str, p: Mapping) -> None:
 def state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, np.ndarray]:
     """JAX ``MultimodalModel`` (params, batch_stats) → reference ``state_dict``."""
     sd: Dict[str, np.ndarray] = {}
-    _resnet(sd, "image_encoder.", params["image_encoder"], batch_stats["image_encoder"])
+    enc = params["image_encoder"]
+    if "stem_conv" in enc:
+        _davit(sd, "image_encoder.", enc)
+    elif "stem" in enc:
+        _resnet(sd, "image_encoder.", enc, batch_stats["image_encoder"])
+    else:
+        raise NotImplementedError(
+            "state_dict_from_flax converts ResNet and DaViT image encoders only; "
+            f"got an encoder with {sorted(enc)[:4]}..."
+        )
     for name in ("image_projector", "text_projector", "img_gate", "txt_gate",
                  "fc_visual_only", "fc_fusion_proj_feat2output"):
         if name in params:
@@ -128,7 +165,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """Random weights from ``seed``, drawn on the CPU with one
     ``torch.Generator`` so a seed gives the same weights on any device.
 
-    Convs: He normal over fan-out (torchvision's ResNet init). Linears,
+    Convs: He normal over fan-out (torchvision's ResNet init; a depthwise
+    conv's fan-out is its channels × kernel area), zero bias. Linears,
     the attention's ``out_proj`` included: LeCun normal (flax's Dense
     default) and zero bias. The packed ``in_proj_weight``: Xavier uniform
     over each D×D block, as the JAX attention draws q/k/v, and zero bias.
@@ -143,6 +181,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         if isinstance(m, nn.Conv2d):
             fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
             put(m.weight, torch.randn(m.weight.shape, generator=g) * (2.0 / fan_out) ** 0.5)
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.Linear):
             put(m.weight, torch.randn(m.weight.shape, generator=g) * m.in_features ** -0.5)
             m.bias.zero_()

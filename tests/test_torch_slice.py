@@ -93,7 +93,7 @@ def test_unported_parts_raise():
     with pytest.raises(ValueError, match="not implemented"):
         MultimodalModel(num_classes=4, attention_mechanism="no-such-mechanism")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MultimodalModel(num_classes=4, cnn_model_name="davit_tiny")
+        MultimodalModel(num_classes=4, cnn_model_name="mvitv2_small")
     mha = MultiheadAttention(16, 4)
     x = torch.zeros(2, 3, 16)
     with pytest.raises(NotImplementedError, match="K12"):

@@ -1,0 +1,214 @@
+"""The port's window attention (K7's plain twins, the CPU path of
+``skinjax_torch.ops.window_attention``) against skinjax's
+``window_attention_nhwc``, run as its own tests run it on the CPU (the Pallas
+kernels in interpret mode): the same numpy inputs on both sides, forward and
+every gradient, with and without bias and mask, both kernel interfaces;
+fp32 and bf16."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from skinjax.ops.pallas import window_attention as jwa
+from skinjax_torch.ops import window_attention as twa
+
+WINDOW = 7
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs test files in parallel processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(B=2, H=14, W=14, C=96, h=3, bias=False, mask=False, seed=3):
+    rng = np.random.default_rng(seed)
+    N = WINDOW * WINDOW
+    f = np.float32
+    arrays = [rng.normal(size=(B, H, W, C)).astype(f) * 0.5,
+              (rng.normal(size=(C, 3 * C)) * 0.05).astype(f),
+              (rng.normal(size=(3 * C,)) * 0.02).astype(f),
+              (rng.normal(size=(C, C)) * 0.05).astype(f),
+              (rng.normal(size=(C,)) * 0.02).astype(f)]
+    b = (rng.normal(size=(h, N, N)) * 0.1).astype(f) if bias else None
+    n_win = (H // WINDOW) * (W // WINDOW)
+    m = None
+    if mask:  # Swin-style: -100 on a fifth of the pairs, never on the diagonal
+        m = np.where(rng.uniform(size=(n_win, N, N)) > 0.8, -100.0, 0.0).astype(f)
+        m[:, np.arange(N), np.arange(N)] = 0.0
+    return arrays, b, m
+
+
+def _jax(a, dtype):
+    return None if a is None else jnp.asarray(a, dtype)
+
+
+def _torch(a, dtype, grad=False):
+    if a is None:
+        return None
+    return torch.tensor(a, dtype=dtype, requires_grad=grad)
+
+
+def _f32(t):
+    return np.asarray(t, np.float32) if not isinstance(t, torch.Tensor) else \
+        t.detach().float().numpy()
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at the magnitude of max |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.abs(x).max())) - 7)
+
+
+CASES = {  # name: (B, H, W, C, heads, bias, mask)
+    "2x2 windows": (2, 14, 14, 96, 3, False, False),
+    "one window": (2, 7, 7, 96, 3, False, False),
+    "4x4 windows, 2 heads": (1, 28, 28, 64, 2, False, False),
+    "bias": (2, 14, 14, 96, 3, True, False),
+    "bias and mask": (2, 14, 14, 96, 3, True, True),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_matches_skinjax_fp32(case):
+    B, H, W, C, h, bias, mask = CASES[case]
+    arrays, b, m = _inputs(B, H, W, C, h, bias, mask)
+    ref = jwa.window_attention_nhwc(*(_jax(a, jnp.float32) for a in arrays), _jax(b, jnp.float32),
+                                    _jax(m, jnp.float32), h, WINDOW)
+    twa.reset_launches()
+    out = twa.window_attention_nhwc(*(_torch(a, torch.float32) for a in arrays),
+                                    _torch(b, torch.float32), _torch(m, torch.float32), h, WINDOW)
+    assert sum(twa.LAUNCHES.values()) == 0  # CPU tensors take the twins
+    assert out.shape == (B, H, W, C) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def _grads_jax(arrays, b, m, h, iface):
+    def loss(x, wqkv, bqkv, wproj, bproj, bias):
+        y = jwa.window_attention_nhwc(x, wqkv, bqkv, wproj, bproj, bias, _jax(m, jnp.float32), h,
+                                      WINDOW, iface)
+        return jnp.sum(jnp.sin(y.astype(jnp.float32)))
+
+    args = [_jax(a, jnp.float32) for a in arrays] + [_jax(b, jnp.float32)]
+    argnums = tuple(range(6 if b is not None else 5))
+    return jax.grad(loss, argnums=argnums)(*args)
+
+
+def _grads_torch(arrays, b, m, h):
+    args = [_torch(a, torch.float32, grad=True) for a in arrays]
+    bias = _torch(b, torch.float32, grad=True)
+    y = twa.window_attention_nhwc(*args, bias, _torch(m, torch.float32), h, WINDOW)
+    torch.sin(y.float()).sum().backward()
+    return [a.grad for a in args] + ([bias.grad] if bias is not None else [])
+
+
+@pytest.mark.parametrize("iface", ["6d", "4d"])
+@pytest.mark.parametrize("case", ["2x2 windows", "bias and mask"])
+def test_gradients_match_skinjax_fp32(case, iface):
+    """dx, dwqkv, dbqkv, dwproj, dbproj (and dbias) against jax.grad through
+    skinjax's custom VJP, on both of its kernel interfaces."""
+    B, H, W, C, h, bias, mask = CASES[case]
+    arrays, b, m = _inputs(B, H, W, C, h, bias, mask, seed=4)
+    ref = _grads_jax(arrays, b, m, h, iface)
+    out = _grads_torch(arrays, b, m, h)
+    names = ["dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias"]
+    assert len(out) == len(ref)
+    for name, o, r in zip(names, out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+def test_forward_4d_interface_matches_the_twin():
+    """skinjax's 4-D NHWC-strip interface (``iface="4d"``) computes the same
+    function as the 6-D one; one CUDA kernel pair serves both."""
+    arrays, b, m = _inputs(2, 14, 14, 96, 3, True, True, seed=5)
+    ref = jwa.window_attention_nhwc(*(_jax(a, jnp.float32) for a in arrays), _jax(b, jnp.float32),
+                                    _jax(m, jnp.float32), 3, WINDOW, "4d")
+    out = twa.window_attention_nhwc_plain(*(_torch(a, torch.float32) for a in arrays),
+                                          _torch(b, torch.float32), _torch(m, torch.float32), 3,
+                                          WINDOW)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["2x2 windows", "bias and mask"])
+def test_backward_twin_matches_strip_bwd(case, dtype):
+    """The backward twin returns what skinjax's ``_strip_bwd`` returns:
+    (dqkv, of, dbias) in NHWC. fp32 within 1e-5; bf16 within 2 bf16 ulps
+    of each output's scale (the two round at the same points, and a sum that
+    lands near a rounding point may round the other way)."""
+    B, H, W, C, h, bias, mask = CASES[case]
+    arrays, b, m = _inputs(B, H, W, C, h, bias, mask, seed=6)
+    dy = np.random.default_rng(7).normal(size=(B, H, W, C)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                        torch.bfloat16)
+    x, wqkv, bqkv, wproj, _ = arrays
+    ref = jwa._strip_bwd(_jax(x, jdt), _jax(dy, jdt), _jax(wqkv, jdt), _jax(bqkv, jdt),
+                         _jax(wproj, jdt), _jax(b, jnp.float32), _jax(m, jnp.float32),
+                         num_heads=h, window=WINDOW)
+    out = twa.window_attention_nhwc_bwd_plain(
+        _torch(x, tdt), _torch(dy, tdt), _torch(wqkv, tdt), _torch(bqkv, tdt), _torch(wproj, tdt),
+        _torch(b, torch.float32), _torch(m, torch.float32), h, WINDOW)
+    assert (out[2] is None) == (b is None)
+    for name, o, r in zip(("dqkv", "of", "dbias"), out, ref):
+        if r is None:
+            continue
+        r = _f32(r)
+        assert o.shape == r.shape, name
+        if dtype == "float32":
+            np.testing.assert_allclose(_f32(o), r, atol=1e-5, rtol=1e-5, err_msg=name)
+        else:
+            np.testing.assert_allclose(_f32(o), r, atol=2 * _bf16_ulp(r), rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["2x2 windows", "bias and mask"])
+def test_forward_matches_skinjax_bf16(case):
+    B, H, W, C, h, bias, mask = CASES[case]
+    arrays, b, m = _inputs(B, H, W, C, h, bias, mask, seed=8)
+    ref = _f32(jwa.window_attention_nhwc(*(_jax(a, jnp.bfloat16) for a in arrays),
+                                         _jax(b, jnp.float32), _jax(m, jnp.float32), h, WINDOW))
+    out = twa.window_attention_nhwc(*(_torch(a, torch.bfloat16) for a in arrays),
+                                    _torch(b, torch.float32), _torch(m, torch.float32), h, WINDOW)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(out), ref, atol=2 * _bf16_ulp(ref), rtol=0)
+
+
+@pytest.mark.parametrize("case", ["2x2 windows", "bias and mask"])
+def test_twin_matches_the_reference_fp32(case):
+    """The twin against skinjax's einsum reference on partitioned windows,
+    and the port's copies of the reference and of window_partition/reverse
+    against skinjax's."""
+    from skinjax.models.backbones.transformer_zoo import window_partition, window_reverse
+
+    B, H, W, C, h, bias, mask = CASES[case]
+    arrays, b, m = _inputs(B, H, W, C, h, bias, mask, seed=9)
+    x, wqkv, bqkv, wproj, bproj = arrays
+    jx = window_partition(jnp.asarray(x), WINDOW)
+    np.testing.assert_array_equal(twa.window_partition(torch.tensor(x), WINDOW).numpy(),
+                                  np.asarray(jx))
+    ref_w = jwa.window_attention_reference(jx, wqkv, bqkv, wproj, bproj, h, _jax(b, jnp.float32),
+                                           _jax(m, jnp.float32))
+    ref = np.asarray(window_reverse(ref_w, WINDOW, H, W))
+    out_w = twa.window_attention_reference(twa.window_partition(torch.tensor(x), WINDOW),
+                                           *(torch.tensor(a) for a in arrays[1:]), h,
+                                           _torch(b, torch.float32), _torch(m, torch.float32))
+    np.testing.assert_allclose(out_w.numpy(), np.asarray(ref_w), atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(twa.window_reverse(torch.tensor(np.asarray(ref_w)), WINDOW, H,
+                                                     W).numpy(), ref)
+    out = twa.window_attention_nhwc_plain(*(torch.tensor(a) for a in arrays),
+                                          _torch(b, torch.float32), _torch(m, torch.float32), h,
+                                          WINDOW)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_bad_shapes_raise():
+    arrays, _, _ = _inputs(1, 14, 12, 96, 3)
+    with pytest.raises(ValueError, match="multiples of the window"):
+        twa.window_attention_nhwc(*(torch.tensor(a) for a in arrays), None, None, 3, WINDOW)
+    x = torch.zeros(1, 7, 7, 96)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        twa.window_attention_fwd(x.to("meta"), *(torch.zeros(s, device="meta") for s in
+                                     ((96, 288), (288,), (96, 96), (96,))), None, None, 3, WINDOW)
