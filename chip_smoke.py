@@ -6,21 +6,24 @@
 Drives the port's paths at full width with random weights from a seed,
 through the entry points a user calls: the flagship (ResNet-50 + one-hot
 metadata MLP + RG-ATT, 224×224, common_dim 512, bf16), served (the inference
-engine and the HTTP service) and trained (the train step and ``run_kfold``),
-and the same model with a DaViT-tiny tower (``skinjax_torch.DAVIT``), served
-and trained at B=64. Phases, each printing its lines:
+engine and the HTTP service) and trained (the train step and ``run_kfold``);
+the same model with a DaViT-tiny tower (``skinjax_torch.DAVIT``), served
+and trained at B=64; all 18 fusion mechanisms; and the train CLI from a
+dataset on disk, whose checkpoint the service then serves. Phases, each
+printing its lines:
 
   1. card     nvidia-smi name and power limit, CUDA version
   2. build    nvcc builds of skinjax_torch/csrc/fusion_kernels.cu,
               augment_kernel.cu and window_attention.cu, started together;
               seconds, ptxas registers
-  3. kernels  K1-K3 against their plain PyTorch twins at the flagship shapes,
-              B in {1, 3, 8, 32}, fp32 (TF32 off) and bf16 activations; K5
-              against its twin at B in {1, 7, 128} (224×224) and a 300×400
-              batch, bf16 and fp32, with drawn parameters and with every gate
-              on; K7 forward and backward against their twins at DaViT-tiny's
-              four stage shapes, B in {1, 64}, bf16 and fp32, and with a
-              relative-position bias and 64 per-window masks (dbias checked)
+  3. kernels  K1-K4 against their plain PyTorch twins at the flagship shapes
+              (K4 at Vd in {2048, 768, 512}), B in {1, 3, 8, 32}, fp32 (TF32
+              off) and bf16 activations; K5 against its twin at B in
+              {1, 7, 128} (224×224) and a 300×400 batch, bf16 and fp32, with
+              drawn parameters and with every gate on; K7 forward and
+              backward against their twins at DaViT-tiny's four stage shapes,
+              B in {1, 64}, bf16 and fp32, and with a relative-position bias
+              and 64 per-window masks (dbias checked)
   4. slice    fused against plain engine; launches per fused forward; the
               fp32 engine on the card against the same model on the CPU
   5. server   the engine run_service builds, served on a localhost port:
@@ -45,7 +48,19 @@ and trained at B=64. Phases, each printing its lines:
  10. times    the DaViT engine's p50/p95; DaViT train images/s unfrozen and
               frozen; a profiled DaViT train step. (K7's times, against its
               twins and bounds at each stage, with F.scaled_dot_product_attention
-              on the same q, k, v as a yardstick, run right after phase 3.)
+              on the same q, k, v as a yardstick, and K4's at each Vd, run right
+              after phase 3.)
+ 11. mechanisms  all 18 at full width around one ResNet-50 tower: the 10 the
+              engine fuses, fused against plain with their launches per fused
+              forward (metablock: K4 1 + K3 1; …+metablock: K1 4 + K2 2 + K4 1);
+              the other 8, the plain forward
+ 12. cli      a PAD-UFES-20-shaped dataset written to a temporary directory
+              (96 rows, 300×400 PNGs); python -m skinjax_torch.tools.train_cli
+              as a subprocess (metablock and …+metablock × ResNet-50 × 2 folds,
+              1 epoch, B=32): its fold results and artifacts; run_service with
+              one of its …+metablock checkpoints answers four POST /predict/
+              with raw CSV lines, K4's launches counted over them; the CLI's
+              wall time and the PNG decode rate; the metablock engine's p50/p95
 
 Any failure exits non-zero. The second-to-last line is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Exits non-zero, with
@@ -65,12 +80,19 @@ import time
 import urllib.request
 import uuid
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 KERNELS = {  # name -> the Pallas TPU kernel it replaces (file:line)
     "seq1_attention": "skinjax/ops/pallas/fusion_kernels.py:66",
     "gated_residual_seq1": "skinjax/ops/pallas/fusion_kernels.py:105",
+    "metablock_film": "skinjax/ops/pallas/fusion_kernels.py:142",
     "mlp_head": "skinjax/ops/pallas/fusion_kernels.py:178",
 }
+K4 = "metablock_film"
+# K4's (Du, Vd) on the main paths: metablock on ResNet-50's and on DaViT's raw
+# features, and …+metablock on the cross-attended pair
+K4_WIDTHS = (2048, 768, 512)
+K4_DU = 512
 K5 = "fused_color_stage"
 K5_REPLACES = "skinjax/ops/pallas/augment_kernel.py:119"
 K7 = {  # name -> the Pallas TPU function it replaces (file:line)
@@ -82,7 +104,8 @@ K5_SOURCE = "skinjax_torch/csrc/augment_kernel.cu"
 K7_SOURCE = "skinjax_torch/csrc/window_attention.cu"
 BUILDS = {"fusion_kernels": SOURCE, "augment_kernel": K5_SOURCE, "window_attention": K7_SOURCE}
 KERNEL_NAMES = {"seq1_attention": "seq1_attention_kernel",
-                "gated_residual_seq1": "gated_residual_kernel", "mlp_head": "mlp_head_kernel"}
+                "gated_residual_seq1": "gated_residual_kernel",
+                "metablock_film": "metablock_film_kernel", "mlp_head": "mlp_head_kernel"}
 # each K7 call's kernels (a call with a bias adds dbias_reduce_kernel)
 K7_KERNELS = {"window_attention_fwd": ["wa_fwd_kernel", "proj_kernel"],
               "window_attention_bwd": ["wa_bwd_kernel"]}
@@ -108,7 +131,28 @@ K5_SHAPES = ((1, 224, 224), (7, 224, 224), (128, 224, 224), (2, 300, 400))
 TRAIN_B = 128
 TRAIN_HW = 224
 TRAIN_LR = 1e-3  # the loss-falls check: 10 Adam steps on one batch
-PER_FORWARD = {"seq1_attention": 4, "gated_residual_seq1": 2, "mlp_head": 1}  # RG-ATT
+RGATT = "att-intramodal+residual+cross-attention-metadados"
+# fusion-kernel launches per fused forward, by mechanism
+PER_FORWARD = {"seq1_attention": 4, "gated_residual_seq1": 2, "metablock_film": 0,
+               "mlp_head": 1}  # RG-ATT
+
+
+def _per_forward(seq1=0, grb=0, film=0, head=1):
+    return {"seq1_attention": seq1, "gated_residual_seq1": grb, "metablock_film": film,
+            "mlp_head": head}
+
+
+FUSED_PER_FORWARD = {
+    "concatenation": _per_forward(), "crossattention": _per_forward(4),
+    "weighted": _per_forward(), "gfcam": _per_forward(4),
+    "cross-weights-after-crossattention": _per_forward(4), "metablock": _per_forward(film=1),
+    "rg-att": _per_forward(grb=2), "cross-attention-only": _per_forward(2),
+    RGATT: _per_forward(4, 2), RGATT + "+metablock": _per_forward(4, 2, 1, 0),
+}
+CLI_MECHANISMS = ("metablock", RGATT + "+metablock")
+CLI_IMAGES = 96  # PAD-UFES-20-shaped rows, one PNG each
+CLI_IMAGE_HW = (300, 400)
+CLI_BACKBONE = "resnet-50"
 BATCHES = (1, 3, 8, 32)
 TIMED_BATCHES = (1, 8, 32)
 # fp32: the kernel and the twin sum in another order (TF32 off on both sides)
@@ -154,8 +198,9 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_args(name, B, dtype, device, gen):
-    """Inputs at the flagship shapes: D = 512, head 1024 → 512 → 256 → 6."""
+def kernel_args(name, B, dtype, device, gen, vd=K4_WIDTHS[0]):
+    """Inputs at the flagship shapes: D = 512, head 1024 → 512 → 256 → 6;
+    K4 at Du = 512 and the given Vd."""
     import torch
 
     D = 512
@@ -173,6 +218,9 @@ def kernel_args(name, B, dtype, device, gen):
         return [act(D), w(D, D), v(D), w(D, D), v(D)]
     if name == "gated_residual_seq1":
         return [act(D), act(D), w(D, D), v(D), w(D, D), v(D), w(D, D), v(D), v(D, 1.0), v(D)]
+    if name == K4:
+        return [act(vd), act(K4_DU), w(K4_DU, vd), v(vd), v(vd, 1.0), v(vd),
+                w(K4_DU, vd), v(vd), v(vd, 1.0), v(vd)]
     return [act(2 * D), w(2 * D, D), v(D), v(D, 1.0), v(D), w(D, D // 2), v(D // 2),
             v(D // 2, 1.0), v(D // 2), w(D // 2, 6), v(6)]
 
@@ -196,16 +244,18 @@ def phase_kernels(fk, device):
     errors = {name: 0.0 for name in KERNELS}
     for name in KERNELS:
         kernel, twin = getattr(fk, name), getattr(fk, name + "_plain")
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-            for B in BATCHES:
-                args = kernel_args(name, B, dtype, device, gen)
-                out, ref = kernel(*args), twin(*args)
-                torch.cuda.synchronize()
-                err, ok = compare(out, ref, tol)
-                errors[name] = max(errors[name], err)
-                log(f"kernel {name:20s} {str(dtype):15s} B={B:2d} max_abs_err={err:.3e} "
-                    f"tol=atol {tol[0]:g} + rtol {tol[1]:g}·|twin| {'ok' if ok else 'FAIL'}")
-                check(ok, f"{name} disagrees with its twin at B={B} {dtype}")
+        for vd in (K4_WIDTHS if name == K4 else K4_WIDTHS[:1]):
+            width = f" Vd={vd:4d}" if name == K4 else ""
+            for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+                for B in BATCHES:
+                    args = kernel_args(name, B, dtype, device, gen, vd)
+                    out, ref = kernel(*args), twin(*args)
+                    torch.cuda.synchronize()
+                    err, ok = compare(out, ref, tol)
+                    errors[name] = max(errors[name], err)
+                    log(f"kernel {name:20s}{width} {str(dtype):15s} B={B:2d} max_abs_err={err:.3e}"
+                        f" tol=atol {tol[0]:g} + rtol {tol[1]:g}·|twin| {'ok' if ok else 'FAIL'}")
+                    check(ok, f"{name} disagrees with its twin at B={B}{width} {dtype}")
     return errors
 
 
@@ -214,7 +264,7 @@ def phase_kernel_times(fk, device, card):
 
     gen = torch.Generator().manual_seed(1)
     times = {}
-    for name in KERNELS:
+    for name in (n for n in KERNELS if n != K4):
         kernel, twin = getattr(fk, name), getattr(fk, name + "_plain")
         for B in TIMED_BATCHES:
             args = kernel_args(name, B, torch.bfloat16, device, gen)
@@ -394,11 +444,16 @@ def _multipart(image_bytes: bytes, metadata: str):
     return body, f"multipart/form-data; boundary={boundary}"
 
 
-def phase_server(fk, card, cnn="resnet-50", wa=None):
+def phase_server(fk, card, cnn="resnet-50", wa=None, env=None, requests=None,
+                 per_forward=None):
     """The service as ``python -m skinjax_torch.serve.run_service`` builds it
     (its environment: ``CNN_MODEL_NAME=cnn``, the flagship otherwise, random
-    weights from seed 0, a featurizer JSON), served as ``api.serve`` serves
-    it, on a localhost port. With ``wa``, K7's launches are counted too."""
+    weights from seed 0, a featurizer JSON; or ``env``), served as
+    ``api.serve`` serves it, on a localhost port, answering four requests (or
+    ``requests``: (PNG bytes, CSV line) pairs). The fusion kernels' launches
+    over them must be ``per_forward`` (RG-ATT's by default) per request; with
+    ``wa``, K7's launches are counted too. Returns the launches and the
+    engine."""
     import tempfile
     from http.server import ThreadingHTTPServer
 
@@ -408,10 +463,13 @@ def phase_server(fk, card, cnn="resnet-50", wa=None):
     from skinjax_torch.serve.api import make_handler
 
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "featurizer.json")
-        smoke_featurizer(91).save(path)
-        saved = {k: os.environ.get(k) for k in ("FEATURIZER_JSON", "DEVICE", "CNN_MODEL_NAME")}
-        os.environ.update(FEATURIZER_JSON=path, DEVICE="cuda", CNN_MODEL_NAME=cnn)
+        if env is None:
+            path = os.path.join(tmp, "featurizer.json")
+            smoke_featurizer(91).save(path)
+            env = {"FEATURIZER_JSON": path, "CNN_MODEL_NAME": cnn}
+        env = dict(env, DEVICE="cuda")
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
         try:
             engine = run_service.build_engine()
         finally:
@@ -421,16 +479,18 @@ def phase_server(fk, card, cnn="resnet-50", wa=None):
                 else:
                     os.environ[k] = v
     check(engine.fused and engine.model.dtype is not None, "run_service built no fused bf16 engine")
-    check(engine.model.cnn_dim_output == {"resnet-50": 2048, "davit_tiny": 768}[cnn],
+    check(engine.model.cnn_dim_output == {"resnet-18": 512, "resnet-50": 2048,
+                                          "davit_tiny": 768}[cnn],
           f"run_service did not build a {cnn} tower")
-    n_cat = len(engine.featurizer.categorical_cols)
-    rng = np.random.default_rng(3)
-    requests = []
-    for shape in ((224, 224), (224, 224), (224, 224), (300, 400)):
-        img = rng.integers(0, 256, (*shape, 3), dtype=np.uint8)
-        meta = ", ".join([f"v{rng.integers(10)}" for _ in range(n_cat)]
-                         + [str(int(rng.integers(20, 90)))])
-        requests.append((png.encode_png(img), meta))
+    if requests is None:
+        n_cat = len(engine.featurizer.categorical_cols)
+        rng = np.random.default_rng(3)
+        requests = []
+        for shape in ((224, 224), (224, 224), (224, 224), (300, 400)):
+            img = rng.integers(0, 256, (*shape, 3), dtype=np.uint8)
+            meta = ", ".join([f"v{rng.integers(10)}" for _ in range(n_cat)]
+                             + [str(int(rng.integers(20, 90)))])
+            requests.append((png.encode_png(img), meta))
 
     handler = make_handler(engine)
     server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
@@ -472,12 +532,13 @@ def phase_server(fk, card, cnn="resnet-50", wa=None):
                                              "probabilities"}, "bad /predict/ answer")
         check(abs(probs.sum() - 1.0) < 1e-4, "probabilities do not sum to 1")
         check(err <= 1e-5, "the server and engine.predict disagree")
-    expect = {k: v * len(requests) for k, v in PER_FORWARD.items()}
+    expect = {k: v * len(requests) for k, v in (per_forward or PER_FORWARD).items()}
     if wa:
         expect.update(window_attention_fwd=K7_PER_FORWARD * len(requests), window_attention_bwd=0)
-    log(f"server {cnn} launches over {len(requests)} requests: {launches} (expected {expect})")
+    log(f"server {cnn} {engine.model.attention_mechanism} launches over {len(requests)} "
+        f"requests: {launches} (expected {expect})")
     check(launches == expect, "the served forwards did not run every kernel as expected")
-    return launches
+    return launches, engine
 
 
 def bf16_ulp(x):
@@ -977,11 +1038,210 @@ def fusion_bounds(fk, device):
     products = {"seq1_attention": [(D, D)] * 2, "gated_residual_seq1": [(D, D)] * 3,
                 "mlp_head": [(2 * D, D), (D, D // 2), (D // 2, 6)]}
     bounds = {}
-    for name in KERNELS:
+    for name in products:
         args = kernel_args(name, 1, torch.bfloat16, device, gen)
         out = getattr(fk, name + "_plain")(*args)
         bounds[name] = matmul_bound_ms(args, out, products[name], 1)
     return bounds
+
+
+def phase_k4_times(fk, device, card):
+    """K4 against its twin at B=1, bf16, at each Vd of the main paths: per
+    call (CUDA events, in turns), device time, and the bound."""
+    import torch
+
+    gen = torch.Generator().manual_seed(7)
+    out = {}
+    for vd in K4_WIDTHS:
+        args = kernel_args(K4, 1, torch.bfloat16, device, gen, vd)
+        kern = lambda: fk.metablock_film(*args)  # noqa: E731,B023
+        twin = lambda: fk.metablock_film_plain(*args)  # noqa: E731,B023
+        t = [time_ms(twin), time_ms(kern), time_ms(kern), time_ms(twin)]
+        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        dev_k = kernel_device_us(kern, [KERNEL_NAMES[K4]])
+        dev_t, _ = device_us(twin)
+        bound_ms = matmul_bound_ms(args, twin(), [(K4_DU, vd)] * 2, 1)
+        out[vd] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, device_us=dev_k)
+        log(f"[{card}] time {K4} bf16 B=1 Du={K4_DU} Vd={vd:4d} per call: kernel "
+            f"{ms * 1e3:8.2f} us  twin {plain_ms * 1e3:8.2f} us (CUDA events over 200 calls, "
+            f"in turns twin-kernel-kernel-twin); device time: kernel {us(dev_k)}  twin "
+            f"{dev_t:8.2f} us (torch.profiler); bound {bound_ms * 1e3:.2f} us (bytes: both "
+            f"weights read once at 3.35 TB/s)")
+    return out
+
+
+def mechanism_model(mech, tower, device, seed):
+    """The flagship's configuration with mechanism ``mech`` at full width, in
+    bf16, on the card, around the shared image ``tower``; the rest random
+    from ``seed``."""
+    import torch
+
+    from skinjax_torch import FLAGSHIP
+    from skinjax_torch.models import MultimodalModel
+    from skinjax_torch.models.weights import init_weights
+
+    model = MultimodalModel(**dict(FLAGSHIP, attention_mechanism=mech), dtype=torch.bfloat16,
+                            device=device)
+    model.image_encoder = tower
+    for name, child in model.named_children():
+        if name != "image_encoder":
+            init_weights(child, seed)
+    return model
+
+
+def phase_mechanisms(fk, device, card):
+    """All 18 mechanisms at full width (ResNet-50, 224×224, common_dim 512,
+    bf16) around one ResNet-50 tower: the 10 the engine fuses, fused against
+    plain engine with the launches per fused forward; the other 8, the plain
+    forward, finite and summing to 1."""
+    import numpy as np
+    import torch
+
+    from skinjax_torch import FLAGSHIP
+    from skinjax_torch.models.fusion.multimodal import MECHANISMS
+    from skinjax_torch.serve.engine import FUSED_MECHANISMS, InferenceEngine
+
+    tower = smoke_model(FLAGSHIP, torch.bfloat16).image_encoder.to(device)
+    rng = np.random.default_rng(6)
+    img = rng.integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)
+    meta = rng.normal(size=(2, 91)).astype(np.float32)
+    check(set(FUSED_PER_FORWARD) == set(FUSED_MECHANISMS), "the fused set changed")
+    for i, mech in enumerate(MECHANISMS):
+        model = mechanism_model(mech, tower, device, seed=i + 1)
+        pp = InferenceEngine(model, use_fused=False, device=device).predict_probs(img, meta)
+        check(pp.shape == (2, 6) and bool(np.isfinite(pp).all()), f"{mech}: bad plain probs")
+        check(np.allclose(pp.sum(-1), 1.0, atol=1e-4), f"{mech}: probabilities do not sum to 1")
+        line = f"mechanism {mech}: plain probs finite, sum 1"
+        if mech in FUSED_MECHANISMS:
+            fused = InferenceEngine(model, use_fused=True, device=device)
+            check(fused.fused, f"{mech}: the engine did not select the fused path")
+            fk.reset_launches()
+            pf = fused.predict_probs(img, meta)
+            torch.cuda.synchronize()
+            launches = dict(fk.LAUNCHES)
+            err = float(np.abs(pf - pp).max())
+            line += (f"; fused vs plain max_abs_err={err:.3e} (tol 3e-2, bf16); launches per "
+                     f"fused forward {launches}")
+            check(err <= 3e-2, f"{mech}: the fused and plain engines disagree")
+            check(launches == FUSED_PER_FORWARD[mech],
+                  f"{mech}: launches {launches} != {FUSED_PER_FORWARD[mech]}")
+        log(line)
+
+
+def phase_cli(fk, card):
+    """The train CLI as a user runs it, then the service on what it wrote: a
+    PAD-UFES-20-shaped dataset in a temporary directory (CLI_IMAGES rows,
+    300×400 Paeth-filtered PNGs, so every image is decoded by the stdlib
+    reader and resized); ``python -m skinjax_torch.tools.train_cli`` as a
+    subprocess on the card (CLI_MECHANISMS × ResNet-50 × 2 folds, 1 epoch,
+    B=32); its artifacts; then run_service with MODEL_CHECKPOINT one of its
+    …+metablock checkpoints answers POST /predict/ with raw CSV lines through
+    K1, K2 and K4. Returns the fusion kernels' launches over those requests."""
+    import csv
+    import re
+    import tempfile
+
+    import torch
+
+    from skinjax_torch.data.featurizer import MetadataFeaturizer
+    from skinjax_torch.data.fixtures import pad_ufes20_table, write_pad_ufes20_like
+    from skinjax_torch.serve import png
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path, images = write_pad_ufes20_like(os.path.join(tmp, "data"), n=CLI_IMAGES,
+                                                 image_hw=CLI_IMAGE_HW, seed=0)
+        table = pad_ufes20_table(CLI_IMAGES, seed=0)
+        blobs = [Path(images, n).read_bytes() for n in table["img_id"][:8]]
+        t0 = time.perf_counter()
+        for b in blobs:
+            png.decode_png(b)
+        dec = time.perf_counter() - t0
+        h, w = CLI_IMAGE_HW
+        log(f"[{card}] cli PNG decode (stdlib reader, {w}x{h} RGB, Paeth rows, host): "
+            f"{len(blobs) / dec:.2f} images/s, {len(blobs) * h * w * 3 / dec / 1e6:.3f} MB/s "
+            f"of pixels ({len(blobs)} images in {dec:.2f} s)")
+
+        results = os.path.join(tmp, "results")
+        cmd = [sys.executable, "-m", "skinjax_torch.tools.train_cli", "--dataset", "pad-ufes-20",
+               "--metadata-csv", csv_path, "--images-dir", images, "--results-dir", results,
+               "--mechanisms", *CLI_MECHANISMS, "--backbones", CLI_BACKBONE, "--k-folds", "2",
+               "--epochs", "1", "--batch-size", "32"]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (root, os.environ.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0 or "failed:" in proc.stdout:
+            log(proc.stdout[-3000:] + proc.stderr[-6000:])
+        check(proc.returncode == 0, f"train_cli exited {proc.returncode}")
+        check("failed:" not in proc.stdout, "a cell of the train CLI's sweep failed")
+        found = re.search(r'"n_runs": (\d+)', proc.stdout)
+        n_runs = int(found.group(1)) if found else -1
+        expected = len(CLI_MECHANISMS) * 1 * 1 * 2  # mechanisms × backbones × heads × folds
+        cells = {m: os.path.join(results, f"multimodal_{CLI_BACKBONE}_{m}_h8")
+                 for m in CLI_MECHANISMS}
+        rows = {}
+        for m, d in cells.items():
+            with open(os.path.join(d, "model_metrics.csv")) as f:
+                rows[m] = list(csv.DictReader(f))
+        fz_path = os.path.join(results, "preprocess_data", "featurizer_pad-ufes-20.json")
+        ckpts = {m: [os.path.join(d, f"multimodal_{CLI_BACKBONE}_{m}_h8_fold_{k}", "best")
+                     for k in (1, 2)] for m, d in cells.items()}
+        log(f"[{card}] cli python -m skinjax_torch.tools.train_cli: {wall:.1f} s wall (process "
+            f"start, {CLI_IMAGES} PNG decodes, {expected} folds of {CLI_BACKBONE} at B=32, 1 "
+            f"epoch); "
+            f"n_runs {n_runs} (expected {expected}); per fold balanced accuracy/auc "
+            + "; ".join(f"{m}: " + ", ".join(f"{r['balanced_accuracy'][:6]}/{r['auc'][:6]}"
+                                              for r in rs) for m, rs in rows.items()))
+        check(n_runs == expected, f"train_cli returned {n_runs} fold results, not {expected}")
+        check(all(len(rs) == 2 and all(math.isfinite(float(r["balanced_accuracy"]))
+                                       and math.isfinite(float(r["auc"])) for r in rs)
+                  for rs in rows.values()), "model_metrics.csv lacks two finite folds a cell")
+        check(os.path.isfile(fz_path), "the featurizer JSON is missing")
+        check(all(os.path.isfile(os.path.join(c, "state.pt")) for cs in ckpts.values()
+                  for c in cs), "a fold checkpoint is missing")
+
+        # four rows of the dataset: their PNG files and raw CSV lines
+        mech = RGATT + "+metablock"
+        ckpt = ckpts[mech][0]
+        fz = MetadataFeaturizer.load(fz_path)
+        cols = fz.categorical_cols + fz.numerical_cols
+        requests = [(Path(images, table["img_id"][i]).read_bytes(),
+                     ", ".join(table[c][i] for c in cols)) for i in range(4)]
+        launches, engine = phase_server(
+            fk, card, cnn=CLI_BACKBONE,
+            env={"MODEL_CHECKPOINT": ckpt, "FEATURIZER_JSON": fz_path,
+                 "ATTENTION_MECHANISM": mech, "CNN_MODEL_NAME": CLI_BACKBONE},
+            requests=requests, per_forward=FUSED_PER_FORWARD[mech])
+        saved = torch.load(os.path.join(ckpt, "state.pt"), map_location="cpu",
+                           weights_only=True)["model"]
+        live = engine.model.state_dict()
+        check(set(live) == set(saved) and all(torch.equal(live[k].cpu(), saved[k].cpu())
+                                              for k in saved),
+              "the service did not load the trained checkpoint")
+        log(f"cli served {mech} from {os.path.relpath(ckpt, results)}: weights equal the "
+            f"checkpoint's {len(saved)} tensors (BatchNorm buffers included)")
+    return launches
+
+
+def metablock_latency(device, card):
+    """p50/p95 of the metablock engine (ResNet-50, bf16) at B=1, fused (K4 +
+    K3) and plain, in turns."""
+    import torch
+
+    from skinjax_torch import FLAGSHIP
+    from skinjax_torch.serve.engine import InferenceEngine
+
+    model = smoke_model(dict(FLAGSHIP, attention_mechanism="metablock"), torch.bfloat16)
+    engines = {"fused": InferenceEngine(model, use_fused=True, device=device),
+               "plain": InferenceEngine(model, use_fused=False, device=device)}
+    for kind in ("fused", "plain", "plain", "fused"):
+        lat = engines[kind].measure_latency(n=50, batch=1)
+        log(f"[{card}] engine metablock bf16 {kind} B=1: p50 {lat['p50_ms']:.3f} ms "
+            f"p95 {lat['p95_ms']:.3f} ms mean {lat['mean_ms']:.3f} ms (50 forwards, host clock "
+            f"to synchronize, inputs on the card)")
 
 
 def build_kernels(build, modules):
@@ -1033,11 +1293,12 @@ def main() -> int:
     # K7's times first: in a process that has traced much, torch.profiler
     # dropped K7's launches from its traces
     k7_times = phase_k7_times(wa, device, card)
+    k4_times = phase_k4_times(fk, device, card)
     torch.cuda.synchronize()
     # the flagship: served, trained, run_kfold
     fused, plain = phase_slice(fk, device, card)
     torch.cuda.synchronize()
-    launches = phase_server(fk, card)
+    launches, _ = phase_server(fk, card)
     torch.cuda.synchronize()
     batch, cw, step, _ = phase_train([ak], device, card)
     phase_card_vs_cpu(device)
@@ -1068,6 +1329,19 @@ def main() -> int:
     del d_fused, d_plain
     phase_train_times(device, card, batch, cw, step, "davit", DAVIT,
                       kernel_names=[n for names in K7_KERNELS.values() for n in names])
+    del batch, cw, step
+    torch.cuda.synchronize()
+
+    # the train CLI slice: all 18 mechanisms; the CLI from disk, then the
+    # service on its …+metablock checkpoint (K4's launches on the main path
+    # are the served requests')
+    t0 = time.perf_counter()
+    phase_mechanisms(fk, device, card)
+    torch.cuda.synchronize()
+    log(f"phase mechanisms: {time.perf_counter() - t0:.1f} s (host clock)")
+    launches[K4] = phase_cli(fk, card)[K4]
+    torch.cuda.synchronize()
+    metablock_latency(device, card)
     torch.cuda.synchronize()
 
     record = {"kernels": [
@@ -1075,7 +1349,14 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": errors[name],
          "ms": times[(name, 1)][0], "plain_ms": times[(name, 1)][1],
          "bound_ms": bounds[name], "bound_by": "bytes", "library_ms": None}
-        for name in KERNELS
+        for name in KERNELS if name != K4
+    ] + [
+        # K4 at the served …+metablock path's shape (Vd = 512, B = 1); the
+        # other widths are printed above
+        {"name": K4, "route": "cuda", "source": SOURCE, "replaces": KERNELS[K4],
+         "launches": launches[K4], "max_abs_err": errors[K4],
+         "ms": k4_times[512]["ms"], "plain_ms": k4_times[512]["plain_ms"],
+         "bound_ms": k4_times[512]["bound_ms"], "bound_by": "bytes", "library_ms": None}
     ] + [
         {"name": K5, "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
          "launches": launches[K5], "max_abs_err": errors[K5],

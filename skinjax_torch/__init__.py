@@ -1,10 +1,13 @@
 """skinjax_torch — the PyTorch/CUDA port of skinjax for NVIDIA Hopper.
 
 A second package beside ``skinjax``, which stays the reference it is held
-against. It imports ``torch`` and never JAX. So far it serves and trains the
-flagship (ResNet-50 image tower, one-hot metadata MLP, RG-ATT fusion) and the
-same model with a DaViT-tiny tower, with the fusion stage, the augmentation's
-color stage and DaViT's window attention in hand-written CUDA kernels
+against. It imports ``torch`` and never JAX. It serves and trains the
+multimodal model with all 18 fusion mechanisms, a one-hot metadata tower and
+a ResNet-18/50 or DaViT-tiny image tower (the flagship: ResNet-50 + RG-ATT),
+and runs the train CLI (``python -m skinjax_torch.tools.train_cli``) from a
+PAD-UFES-20 CSV and PNG images on disk to checkpoints the service serves.
+The fusion stage (K1-K4), the augmentation's color stage (K5) and DaViT's
+window attention (K7) run in hand-written CUDA kernels
 (``skinjax_torch/ops/``, ``skinjax_torch/csrc/``).
 """
 

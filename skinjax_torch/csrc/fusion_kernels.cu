@@ -1,10 +1,11 @@
 // Fusion-stage kernels of the serving path, for Hopper (sm_90a).
 //
-// They replace the three Pallas TPU kernels of
+// They replace the four Pallas TPU kernels of
 // skinjax/ops/pallas/fusion_kernels.py that the fused serving engine runs:
 //
 //   K1  skinjax_seq1_attention       <- seq1_attention        (out_proj(v_proj(kv)))
 //   K2  skinjax_gated_residual_seq1  <- gated_residual_seq1   (LN(g*attn + (1-g)*q))
+//   K4  skinjax_metablock_film       <- metablock_film        (sigmoid(tanh(v*LN(u@Wf)) + LN(u@Wg)))
 //   K3  skinjax_mlp_head             <- mlp_head              (Dense-LN-ReLU x2, Dense)
 //
 // All attention in the fusion stage runs at sequence length 1, where softmax
@@ -14,7 +15,8 @@
 // What bounds them: at B <= 32 and D = 512 each D x D fp32 weight is 1 MB and
 // is used for at most 32 rows, i.e. at most 16 FLOP per byte read, far below
 // the card's ~295 FLOP/byte balance point. Reading the weights bounds them,
-// not arithmetic.
+// not arithmetic. K4's two (Du, Vd) matrices are the largest: 8.4 MB at
+// Du = 512, Vd = 2048 (MetaBlock on ResNet-50's raw 2048-wide feature).
 //
 // Design (first, simple version): one thread block per tile of ROWS batch
 // rows. The block keeps the whole chain in shared memory and registers, as
@@ -26,6 +28,11 @@
 // template parameter; values are rounded to T at exactly the points where the
 // Pallas kernels cast to the activation dtype, and the output is T.
 // wgmma, TMA and splitting a product across blocks are left for later work.
+// For K4 the split needs a LayerNorm over all Vd columns of a row, which one
+// block no longer holds: a second launch (products into a (B, Vd) fp32
+// scratch over many blocks, then LN and the FiLM per row) or a thread-block
+// cluster reducing in distributed shared memory. This first version keeps
+// the one-block design of K1-K3, so at B = 1 one SM streams all 8.4 MB.
 //
 // C interface: every entry point launches on the given stream and returns
 // cudaGetLastError() as an int (0 = success); skinjax_error_string maps the
@@ -231,6 +238,38 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<ROWS>(att, row0, nrows, D, out);
 }
 
+// K4: t1 = LN(u @ Wf + bf) * gf + hf;  t2 = LN(u @ Wg + bg) * gg + hg  (both fp32,
+//     never rounded, as in the Pallas kernel);
+//     out = round_T(sigmoid(tanh(v * t1) + t2)).  Shared: ROWS * (Du + 2 * Vd) floats.
+template <typename T, int ROWS>
+__global__ void __launch_bounds__(kThreads)
+    metablock_film_kernel(const T* __restrict__ v, const T* __restrict__ u,
+                          const float* __restrict__ wf, const float* __restrict__ bf,
+                          const float* __restrict__ gf, const float* __restrict__ hf,
+                          const float* __restrict__ wg, const float* __restrict__ bg,
+                          const float* __restrict__ gg, const float* __restrict__ hg,
+                          T* __restrict__ out, int B, int Du, int Vd) {
+  extern __shared__ float smem[];
+  float* us = smem;            // u (fp32 upcast)
+  float* t1 = us + ROWS * Du;  // u @ Wf + bf, then its LN
+  float* t2 = t1 + ROWS * Vd;  // u @ Wg + bg, then its LN
+  const int row0 = blockIdx.x * ROWS;
+  const int nrows = min(ROWS, B - row0);
+  load_rows<ROWS>(u, row0, nrows, Du, us);
+  __syncthreads();
+  dense<ROWS>(us, Du, wf, bf, Vd, t1);
+  dense<ROWS>(us, Du, wg, bg, Vd, t2);
+  __syncthreads();
+  // rounding to float is the identity: the modulators stay fp32
+  layer_norm_rows<ROWS, float>(t1, Vd, gf, hf, false);
+  layer_norm_rows<ROWS, float>(t2, Vd, gg, hg, false);
+  __syncthreads();
+  const T* vr = v + (size_t)row0 * Vd;
+  T* o = out + (size_t)row0 * Vd;
+  for (int i = threadIdx.x; i < nrows * Vd; i += blockDim.x)
+    o[i] = from_f32<T>(sigmoid(tanhf(to_f32<T>(vr[i]) * t1[i]) + t2[i]));
+}
+
 // K3: h1 = round_T(relu(LN(x @ W1 + b1)));  h2 = round_T(relu(LN(h1 @ W2 + b2)));
 //     out = h2 @ W3 + b3.  Shared: ROWS * (K1 + N1 + N2 + N3) floats.
 template <typename T, int ROWS>
@@ -303,6 +342,21 @@ cudaError_t gated_residual_launch(const void* q, const void* kv, const float* wv
 }
 
 template <typename T, int ROWS>
+cudaError_t metablock_film_launch(const void* v, const void* u, const float* wf,
+                                  const float* bf, const float* gf, const float* hf,
+                                  const float* wg, const float* bg, const float* gg,
+                                  const float* hg, void* out, int B, int Du, int Vd,
+                                  cudaStream_t stream) {
+  const size_t smem = (size_t)ROWS * (Du + 2 * Vd) * sizeof(float);
+  cudaError_t err = allow_smem(metablock_film_kernel<T, ROWS>, smem);
+  if (err != cudaSuccess) return err;
+  metablock_film_kernel<T, ROWS><<<(B + ROWS - 1) / ROWS, kThreads, smem, stream>>>(
+      static_cast<const T*>(v), static_cast<const T*>(u), wf, bf, gf, hf, wg, bg, gg, hg,
+      static_cast<T*>(out), B, Du, Vd);
+  return cudaGetLastError();
+}
+
+template <typename T, int ROWS>
 cudaError_t mlp_head_launch(const void* x, const float* w1, const float* b1, const float* g1,
                             const float* h1, const float* w2, const float* b2, const float* g2,
                             const float* h2, const float* w3, const float* b3, void* out, int B,
@@ -352,6 +406,23 @@ int skinjax_gated_residual_seq1(int act_bf16, const void* q, const void* kv, con
                                                B, D, s)
              : gated_residual_launch<float, 4>(q, kv, wv, bv, wo, bo, wg, bg, gamma, beta, out,
                                                B, D, s);
+}
+
+int skinjax_metablock_film(int act_bf16, const void* v, const void* u, const float* wf,
+                           const float* bf, const float* gf, const float* hf, const float* wg,
+                           const float* bg, const float* gg, const float* hg, void* out, int B,
+                           int Du, int Vd, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool one = rows_for(B) == 1;
+  if (act_bf16)
+    return one ? metablock_film_launch<__nv_bfloat16, 1>(v, u, wf, bf, gf, hf, wg, bg, gg, hg,
+                                                         out, B, Du, Vd, s)
+               : metablock_film_launch<__nv_bfloat16, 4>(v, u, wf, bf, gf, hf, wg, bg, gg, hg,
+                                                         out, B, Du, Vd, s);
+  return one ? metablock_film_launch<float, 1>(v, u, wf, bf, gf, hf, wg, bg, gg, hg, out, B, Du,
+                                               Vd, s)
+             : metablock_film_launch<float, 4>(v, u, wf, bf, gf, hf, wg, bg, gg, hg, out, B, Du,
+                                               Vd, s);
 }
 
 int skinjax_mlp_head(int act_bf16, const void* x, const float* w1, const float* b1,

@@ -1,21 +1,76 @@
-"""Host-side input pipeline (numpy only; counterpart of
-``skinjax/data/pipeline.py``): in-memory sources, the synthetic dataset and a
-background prefetch thread. Augmentation runs on the device
-(``skinjax_torch.data.augment``); the host only assembles uint8 batches.
+"""Host-side input pipeline (counterpart of ``skinjax/data/pipeline.py``):
+the disk-backed image store, in-memory and disk-backed sources, the
+synthetic dataset and a background prefetch thread. Augmentation runs on the
+device (``skinjax_torch.data.augment``); the host only assembles uint8
+batches.
+
+``ImageStore`` decodes each image once and keeps it resized to the model's
+input size. skinjax decodes with OpenCV, which the card's machine lacks; the
+port decodes PNG with the stdlib reader of ``skinjax_torch.serve.png`` and
+resizes on the host with OpenCV's ``INTER_LINEAR`` rule (half-pixel
+centres, no antialias, ``serve.engine.resize_u8``), within one level of
+OpenCV. A JPEG or a PNG kind that reader does not decode raises
+``UnsupportedImage``. That reader unfilters the Average and Paeth rows in a
+Python loop, so decoding a photograph is slow (PERF.md).
 
 ``synthetic_source`` gives the same arrays as skinjax's for the same
-arguments. The disk-backed ``ImageStore``/``FileSource`` (which decode with
-OpenCV in skinjax) and the sentence datasets' ``TokenSource`` are not ported
-yet; ROADMAP.md lists them with the train CLI.
+arguments. The sentence datasets' ``TokenSource`` is not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
+import torch
+
+from skinjax_torch.serve import png
+from skinjax_torch.serve.engine import resize_u8
+
+
+class UnsupportedImage(ValueError):
+    """An image file the port cannot decode (only PNG is read)."""
+
+
+class ImageStore:
+    """Decode-once uint8 image cache keyed by file name."""
+
+    def __init__(self, img_dir: str, size=(224, 224), cache: bool = True):
+        self.img_dir = img_dir
+        self.size = tuple(size)
+        self._cache: Optional[Dict[str, np.ndarray]] = {} if cache else None
+
+    def _load(self, name: str) -> np.ndarray:
+        path = os.path.join(self.img_dir, name)
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"Imagem inválida: {path}")
+        with open(path, "rb") as f:
+            data = f.read()
+        if not data.startswith(png.PNG_SIGNATURE):
+            raise UnsupportedImage(
+                f"{path}: not a PNG; the port decodes PNG only (JPEG datasets wait for a "
+                "decoder on the card's machine, ROADMAP.md)")
+        try:
+            img = png.decode_png(data)
+        except png.UnsupportedPNG as e:
+            raise UnsupportedImage(f"{path}: {e}") from e
+        if img.shape[:2] != self.size:
+            img = resize_u8(torch.from_numpy(img), self.size).numpy()
+        return np.ascontiguousarray(img, dtype=np.uint8)
+
+    def get(self, name: str) -> np.ndarray:
+        if self._cache is None:
+            return self._load(name)
+        hit = self._cache.get(name)
+        if hit is None:
+            hit = self._cache[name] = self._load(name)
+        return hit
+
+    def gather(self, names: Sequence[str]) -> np.ndarray:
+        return np.stack([self.get(n) for n in names])
 
 
 class ArraySource:
@@ -36,6 +91,27 @@ class ArraySource:
     def batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
         return {
             "image": self.images[idx],
+            "metadata": self.features[idx],
+            "label": self.labels[idx],
+        }
+
+
+class FileSource:
+    """Disk-backed source: ImageStore + featurized metadata arrays."""
+
+    def __init__(self, store: ImageStore, image_files: Sequence[str], features: np.ndarray,
+                 labels: np.ndarray):
+        self.store = store
+        self.image_files = list(image_files)
+        self.features = features.astype(np.float32)
+        self.labels = labels.astype(np.int32)
+
+    def __len__(self):
+        return len(self.image_files)
+
+    def batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        return {
+            "image": self.store.gather([self.image_files[i] for i in idx]),
             "metadata": self.features[idx],
             "label": self.labels[idx],
         }

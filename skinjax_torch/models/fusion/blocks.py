@@ -1,9 +1,12 @@
 """Fusion building blocks (counterpart of ``skinjax/models/fusion/blocks.py``).
 
-Only the blocks that the serving path's mechanisms use are ported so far.
-Parameter names follow the reference checkpoints
-(``{image,text}_residual.attn|gate_linear|norm``, ``fc_fusion.0|1|4|5|8``),
-which ``skinjax.models.torch_import.import_multimodal_checkpoint`` reads.
+The blocks that the multimodal model's eighteen mechanisms use are ported;
+the others (Stacked/Residual/AlteredResidual/TransformerAttention/
+SimpleAttention blocks, MetaNet, FeatureModulation) come with the baselines
+and sequence fusion. Parameter names follow the reference checkpoints
+(``{image,text}_residual.attn|gate_linear|norm``, ``meta_block.fb|gb.0|1``,
+``fc_fusion.0|1|4|5|8``), which
+``skinjax.models.torch_import.import_multimodal_checkpoint`` reads.
 LayerNorm uses torch's eps of 1e-5; dropout is inert in eval mode.
 """
 
@@ -32,6 +35,25 @@ class GatedAlteredResidualBlock(nn.Module):
         attn = self.dropout(self.attn(q, k, v))
         gate = torch.sigmoid(self.gate_linear(q))
         return self.norm(gate * attn + (1.0 - gate) * q)
+
+
+class MetaBlock(nn.Module):
+    """MetaBlock FiLM modulation: ``sigmoid(tanh(v * fb(u)) + gb(u))`` with
+    ``fb`` and ``gb`` each Linear(u_dim, v_dim) → LayerNorm. For a map
+    ``v`` (B, H, W, v_dim) the modulators broadcast over H and W."""
+
+    def __init__(self, u_dim: int, v_dim: int, *, device=None):
+        super().__init__()
+        self.fb = nn.Sequential(nn.Linear(u_dim, v_dim, device=device),
+                                nn.LayerNorm(v_dim, eps=LN_EPS, device=device))
+        self.gb = nn.Sequential(nn.Linear(u_dim, v_dim, device=device),
+                                nn.LayerNorm(v_dim, eps=LN_EPS, device=device))
+
+    def forward(self, v, u):
+        t1, t2 = self.fb(u), self.gb(u)
+        if v.dim() == 4:
+            t1, t2 = t1[:, None, None], t2[:, None, None]
+        return torch.sigmoid(torch.tanh(v * t1) + t2)
 
 
 class MLPHead(nn.Sequential):

@@ -2,14 +2,15 @@
 (counterpart of ``skinjax/models/fusion/multimodal.py``).
 
 Same configuration strings and the same math per mechanism as the JAX
-model. Eight of its eighteen mechanisms are ported: the ones the fused
-serving engine runs with the three fusion kernels alone. The others raise
-``NotImplementedError``.
+model, for all eighteen mechanisms.
 
 Like flax, which creates parameters only for the submodules a mechanism
 calls, the model holds only the submodules its mechanism uses, so its
 ``state_dict()`` and the JAX parameter tree convert one to one
-(``skinjax_torch.models.weights``).
+(``skinjax_torch.models.weights``). One quirk of that tree is kept:
+``metablock`` fuses the raw tower features, but the JAX model computes (and
+discards) the image projection first, so its tree, and this model, hold an
+``image_projector`` that nothing reads.
 
 Input is NHWC ``(B, H, W, 3)`` and featurized metadata ``(B, vocab_size)``.
 ``dtype=torch.bfloat16`` runs the model under autocast, the counterpart of
@@ -25,7 +26,7 @@ import torch
 from torch import nn
 
 from skinjax_torch.models.backbones import create_backbone
-from skinjax_torch.models.fusion.blocks import GatedAlteredResidualBlock, MLPHead
+from skinjax_torch.models.fusion.blocks import GatedAlteredResidualBlock, MetaBlock, MLPHead
 from skinjax_torch.models.text import OneHotMLP
 from skinjax_torch.ops.attention import MultiheadAttention
 
@@ -51,21 +52,39 @@ MECHANISMS = (
 )
 
 _RGATT = "att-intramodal+residual+cross-attention-metadados"
-
+# RG-ATT and its three extensions: self-attention → gated residual → cross-attention
+_RGATT_FAMILY = tuple(m for m in MECHANISMS if m.startswith(_RGATT))
 _CROSS_FAMILY = ("crossattention", "gfcam", "cross-weights-after-crossattention")
-PORTED_MECHANISMS = (
-    "concatenation", "weighted", "cross-attention-only", "rg-att", *_CROSS_FAMILY, _RGATT,
-)
+_NO_TEXT = ("no-metadata", "no-metadata-without-mlp")
+_RAW_FEATURES = ("metablock", "no-metadata-without-mlp")  # fused without projections
+_SELF_ATTENTION = ("att-intramodal", "att-intramodal+residual", *_CROSS_FAMILY, *_RGATT_FAMILY)
+_CROSS_ATTENTION = (*_CROSS_FAMILY, "cross-attention-only", "residual+cross-attention-metadados",
+                    *_RGATT_FAMILY)
+_TEXT_RESIDUAL = ("rg-att", "att-intramodal+residual", "residual+cross-attention-metadados",
+                  *_RGATT_FAMILY)
+_GATES = ("weighted", "gfcam", "cross-weights-after-crossattention")
+_FEAT2OUTPUT = ("rg-att2fusefeatures", _RGATT + "+rg-att2fusefeatures", _RGATT + "+metablock")
 
 
 class FusionOps(NamedTuple):
-    """The three primitives the fusion stage is built from, each addressed by
-    the name of the submodule that holds its weights. The model's own are its
+    """The primitives the fusion stage is built from, each addressed by the
+    name of the submodule that holds its weights. The model's own are its
     modules; the fused serving engine passes the CUDA kernels instead."""
 
     attend: Callable  # (name, q, kv) -> seq-1 attention, (B, D)
     residual: Callable  # (name, q, kv) -> gated residual block, (B, D)
     gate: Callable  # (name, x) -> sigmoid(linear(x)), (B, D)
+    film: Callable  # (name, v, u) -> MetaBlock, (B, v_dim)
+
+
+def _head_name(mech: str) -> str:
+    if mech == "no-metadata-without-mlp":
+        return "fc_visual_only"
+    if mech == "metablock":
+        return "fc_mlp_module_after_metablock_fusion_module"
+    if mech in _FEAT2OUTPUT:
+        return "fc_fusion_proj_feat2output"
+    return "fc_fusion"
 
 
 class MultimodalModel(nn.Module):
@@ -88,11 +107,6 @@ class MultimodalModel(nn.Module):
         mech = attention_mechanism
         if mech not in MECHANISMS:
             raise ValueError(f"Attention mechanism '{mech}' not implemented. Known: {MECHANISMS}")
-        if mech not in PORTED_MECHANISMS:
-            raise NotImplementedError(
-                f"mechanism '{mech}' is not ported to PyTorch yet (ported: "
-                f"{PORTED_MECHANISMS}); ROADMAP.md lists when it comes"
-            )
         if text_model_name != "one-hot-encoder":
             raise NotImplementedError(
                 f"text tower '{text_model_name}' is not ported to PyTorch yet; "
@@ -102,30 +116,49 @@ class MultimodalModel(nn.Module):
         self.common_dim = common_dim
         self.vocab_size = vocab_size
         self.attention_mechanism = mech
+        self.head_name = _head_name(mech)
         self.dtype = dtype
 
         self.image_encoder, self.cnn_dim_output = create_backbone(cnn_model_name, device=device)
-        self.image_projector = nn.Linear(self.cnn_dim_output, common_dim, device=device)
-        self.text_fc = OneHotMLP(vocab_size, text_encoder_dim_output, device=device)
-        self.text_projector = nn.Linear(text_encoder_dim_output, common_dim, device=device)
+        if mech != "no-metadata-without-mlp":
+            self.image_projector = nn.Linear(self.cnn_dim_output, common_dim, device=device)
+        if mech not in _NO_TEXT:
+            self.text_fc = OneHotMLP(vocab_size, text_encoder_dim_output, device=device)
+        if mech not in (*_NO_TEXT, "metablock"):
+            self.text_projector = nn.Linear(text_encoder_dim_output, common_dim, device=device)
 
         mha = lambda: MultiheadAttention(common_dim, num_heads, device=device)  # noqa: E731
-        if mech in (*_CROSS_FAMILY, _RGATT):
+        if mech in _SELF_ATTENTION:
             self.image_self_attention = mha()
             self.text_self_attention = mha()
-        if mech in (*_CROSS_FAMILY, "cross-attention-only", _RGATT):
+        if mech in _CROSS_ATTENTION:
             self.image_cross_attention = mha()
             self.text_cross_attention = mha()
-        if mech in ("weighted", "gfcam", "cross-weights-after-crossattention"):
+        if mech in _GATES:
             self.img_gate = nn.Linear(common_dim, common_dim, device=device)
             self.txt_gate = nn.Linear(common_dim, common_dim, device=device)
-        if mech in ("rg-att", _RGATT):
-            # 8 heads whatever num_heads is, as in the JAX model; at seq-1
-            # the head count changes nothing
+        # 8 heads whatever num_heads is, as in the JAX model; at seq-1 the head
+        # count changes nothing
+        if mech in (*_TEXT_RESIDUAL, "rg-att2fusefeatures"):
             self.image_residual = GatedAlteredResidualBlock(common_dim, device=device)
+        if mech in _TEXT_RESIDUAL:
             self.text_residual = GatedAlteredResidualBlock(common_dim, device=device)
-        self.fc_fusion = MLPHead(2 * common_dim, common_dim, num_classes, dropout_rate,
-                                 device=device)
+        if mech == "metablock":  # raw features: V the image tower's, U the metadata tower's
+            self.meta_block = MetaBlock(text_encoder_dim_output, self.cnn_dim_output,
+                                        device=device)
+        elif mech == _RGATT + "+metablock":  # on the cross-attended pair
+            self.meta_block = MetaBlock(common_dim, common_dim, device=device)
+
+        if self.head_name == "fc_fusion":
+            width = common_dim if mech == "no-metadata" else 2 * common_dim
+            self.fc_fusion = MLPHead(width, common_dim, num_classes, dropout_rate, device=device)
+        elif self.head_name == "fc_visual_only":
+            self.fc_visual_only = nn.Linear(self.cnn_dim_output, num_classes, device=device)
+        elif self.head_name == "fc_fusion_proj_feat2output":
+            self.fc_fusion_proj_feat2output = nn.Linear(common_dim, num_classes, device=device)
+        else:
+            self.fc_mlp_module_after_metablock_fusion_module = MLPHead(
+                self.cnn_dim_output, common_dim, num_classes, 0.3, device=device)
 
     def autocast(self, device: torch.device):
         """Autocast to the model's compute dtype, or nothing for fp32."""
@@ -134,17 +167,25 @@ class MultimodalModel(nn.Module):
         return torch.autocast(device.type, dtype=self.dtype)
 
     def features(self, image: torch.Tensor, metadata: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Both towers and projectors: (proj_img, proj_txt), each (B, common_dim)."""
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The fusion stage's inputs (img, txt): both towers' outputs,
+        projected to common_dim unless the mechanism fuses the raw features
+        (``metablock``: (B, cnn_dim) and (B, text_encoder_dim_output);
+        ``no-metadata-without-mlp``: the image feature alone). ``txt`` is
+        None for the two mechanisms without metadata."""
+        mech = self.attention_mechanism
         with self.autocast(image.device):
-            img_feat = self.image_encoder(image)
-            if img_feat.dim() == 4:  # NHWC map → GAP
-                img_feat = img_feat.mean(dim=(1, 2))
-            elif img_feat.dim() == 3:  # token sequence → CLS
-                img_feat = img_feat[:, 0]
-            proj_img = self.image_projector(img_feat)
-            proj_txt = self.text_projector(self.text_fc(metadata))
-        return proj_img, proj_txt
+            img = self.image_encoder(image)
+            if img.dim() == 4:  # NHWC map → GAP
+                img = img.mean(dim=(1, 2))
+            elif img.dim() == 3:  # token sequence → CLS
+                img = img[:, 0]
+            txt = None if mech in _NO_TEXT else self.text_fc(metadata)
+            if mech not in _RAW_FEATURES:
+                img = self.image_projector(img)
+                if txt is not None:
+                    txt = self.text_projector(txt)
+        return img, txt
 
     def module_ops(self) -> FusionOps:
         """The primitives as this model's submodules."""
@@ -153,39 +194,64 @@ class MultimodalModel(nn.Module):
             kv = kv[:, None]
             return getattr(self, name)(q[:, None], kv, kv)[:, 0]
 
-        return FusionOps(seq1, seq1, lambda name, x: torch.sigmoid(getattr(self, name)(x)))
+        return FusionOps(seq1, seq1, lambda name, x: torch.sigmoid(getattr(self, name)(x)),
+                         lambda name, v, u: getattr(self, name)(v, u))
 
-    def fuse(self, img: torch.Tensor, txt: torch.Tensor,
+    def fuse(self, img: torch.Tensor, txt: Optional[torch.Tensor],
              ops: Optional[FusionOps] = None) -> torch.Tensor:
-        """The fusion stage on projected features → (B, 2 * common_dim)."""
-        attend, residual, gate = ops or self.module_ops()
+        """The fusion stage on what ``features`` gives → the head's input."""
+        attend, residual, gate, film = ops or self.module_ops()
         mech = self.attention_mechanism
+        cat = lambda a, b: torch.cat([a, b], dim=-1)  # noqa: E731
+        if mech in _NO_TEXT:
+            return img
+        if mech == "metablock":
+            return film("meta_block", img, txt)
         if mech == "concatenation":
-            return torch.cat([img, txt], dim=-1)
+            return cat(img, txt)
         if mech == "weighted":
-            return torch.cat([gate("img_gate", img) * img, gate("txt_gate", txt) * txt], dim=-1)
+            return cat(gate("img_gate", img) * img, gate("txt_gate", txt) * txt)
         if mech == "cross-attention-only":
-            return torch.cat([attend("image_cross_attention", img, txt),
-                              attend("text_cross_attention", txt, img)], dim=-1)
+            return cat(attend("image_cross_attention", img, txt),
+                       attend("text_cross_attention", txt, img))
+        if mech == "rg-att2fusefeatures":  # the metadata queries the image
+            return residual("image_residual", txt, img)
         if mech == "rg-att":
-            return torch.cat([residual("image_residual", img, txt),
-                              residual("text_residual", txt, img)], dim=-1)
+            return cat(residual("image_residual", img, txt), residual("text_residual", txt, img))
+        if mech == "residual+cross-attention-metadados":  # residual blocks with kv = q
+            img_r, txt_r = residual("image_residual", img, img), residual("text_residual", txt, txt)
+            return cat(attend("image_cross_attention", img_r, txt_r),
+                       attend("text_cross_attention", txt_r, img_r))
         img_att = attend("image_self_attention", img, img)
         txt_att = attend("text_self_attention", txt, txt)
-        if mech == _RGATT:
+        if mech == "att-intramodal":
+            return cat(img_att, txt_att)
+        if mech == "att-intramodal+residual" or mech in _RGATT_FAMILY:
             img_att = residual("image_residual", img, img_att)
             txt_att = residual("text_residual", txt, txt_att)
+            if mech == "att-intramodal+residual":
+                return cat(img_att, txt_att)
         img_x = attend("image_cross_attention", img_att, txt_att)
         txt_x = attend("text_cross_attention", txt_att, img_att)
         if mech in ("crossattention", _RGATT):
-            return torch.cat([img_x, txt_x], dim=-1)
+            return cat(img_x, txt_x)
+        if mech == _RGATT + "+rg-att2fusefeatures":
+            return residual("image_residual", txt_x, img_x)
+        if mech == _RGATT + "+metablock":
+            return film("meta_block", img_x, txt_x)
+        if mech == _RGATT + "+att-intramodal+residual":
+            # the same self-attention and residual modules a second time
+            img_a2 = attend("image_self_attention", img_x, img_x)
+            txt_a2 = attend("text_self_attention", txt_x, txt_x)
+            return cat(residual("image_residual", img_x, img_a2),
+                       residual("text_residual", txt_x, txt_a2))
         a_img, a_txt = gate("img_gate", img_x), gate("txt_gate", txt_x)
         if mech == "gfcam":
-            return torch.cat([a_img * img_x, a_txt * txt_x], dim=-1)
-        return torch.cat([a_txt * img_x, a_img * txt_x], dim=-1)  # swapped gates
+            return cat(a_img * img_x, a_txt * txt_x)
+        return cat(a_txt * img_x, a_img * txt_x)  # swapped gates
 
     def forward(self, image: torch.Tensor, metadata: torch.Tensor) -> torch.Tensor:
         """image (B, H, W, 3) NHWC, metadata (B, vocab_size) → logits (B, num_classes)."""
-        proj_img, proj_txt = self.features(image, metadata)
+        img, txt = self.features(image, metadata)
         with self.autocast(image.device):
-            return self.fc_fusion(self.fuse(proj_img, proj_txt))
+            return getattr(self, self.head_name)(self.fuse(img, txt))

@@ -1,4 +1,4 @@
-"""The fusion stage of the serving path as three hand-written CUDA kernels.
+"""The fusion stage of the serving path as four hand-written CUDA kernels.
 
 Counterpart of ``skinjax/ops/pallas/fusion_kernels.py``. Every attention in
 the fusion zoo runs at sequence length 1 and collapses to dense chains on
@@ -9,6 +9,7 @@ memory between its matrix products.
   kernel                CUDA entry point (csrc/fusion_kernels.cu)  replaces (Pallas TPU kernel)
   seq1_attention        skinjax_seq1_attention                     fusion_kernels.py seq1_attention
   gated_residual_seq1   skinjax_gated_residual_seq1                fusion_kernels.py gated_residual_seq1
+  metablock_film        skinjax_metablock_film                     fusion_kernels.py metablock_film
   mlp_head              skinjax_mlp_head                           fusion_kernels.py mlp_head
 
 Each has a plain PyTorch twin (``*_plain``) with the same signature. A
@@ -39,7 +40,8 @@ from skinjax_torch.ops import check_tensor
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 
-LAUNCHES: Dict[str, int] = {"seq1_attention": 0, "gated_residual_seq1": 0, "mlp_head": 0}
+LAUNCHES: Dict[str, int] = {"seq1_attention": 0, "gated_residual_seq1": 0, "metablock_film": 0,
+                            "mlp_head": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +49,7 @@ _SIGNATURES = {
     "skinjax_error_string": ([_I], ctypes.c_char_p),
     "skinjax_seq1_attention": ([_I] + [_P] * 6 + [_I, _I, _P], _I),
     "skinjax_gated_residual_seq1": ([_I] + [_P] * 11 + [_I, _I, _P], _I),
+    "skinjax_metablock_film": ([_I] + [_P] * 11 + [_I] * 3 + [_P], _I),
     "skinjax_mlp_head": ([_I] + [_P] * 12 + [_I] * 5 + [_P], _I),
 }
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
@@ -89,6 +92,13 @@ def gated_residual_seq1_plain(q, kv, wv, bv, wo, bo, wg, bg, gamma, beta):
     attn = v.to(kv.dtype).float() @ wo + bo
     gate = torch.sigmoid(qf @ wg + bg)
     return _ln(gate * attn + (1.0 - gate) * qf, gamma, beta).to(q.dtype)
+
+
+def metablock_film_plain(v, u, wf, bf, gf, hf, wg, bg, gg, hg):
+    uf = u.float()
+    t1 = _ln(uf @ wf + bf, gf, hf)
+    t2 = _ln(uf @ wg + bg, gg, hg)
+    return torch.sigmoid(torch.tanh(v.float() * t1) + t2).to(v.dtype)
 
 
 def mlp_head_plain(x, w1, b1, g1, h1, w2, b2, g2, h2, w3, b3):
@@ -180,6 +190,35 @@ def gated_residual_seq1(q, kv, wv, bv, wo, bo, wg, bg, gamma, beta):
         int(q.dtype == torch.bfloat16), q.data_ptr(), kv.data_ptr(), wv.data_ptr(),
         bv.data_ptr(), wo.data_ptr(), bo.data_ptr(), wg.data_ptr(), bg.data_ptr(),
         gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), B, D, _stream(dev),
+    )
+    return out
+
+
+def metablock_film(v, u, wf, bf, gf, hf, wg, bg, gg, hg):
+    """MetaBlock FiLM (inference): ``σ(tanh(v·LN(u@Wf+bf)) + LN(u@Wg+bg))``,
+    v (B, Vd) and u (B, Du) of one activation dtype, weights (Du, Vd)."""
+    if _on_cpu(v):
+        return metablock_film_plain(v, u, wf, bf, gf, hf, wg, bg, gg, hg)
+    _check_act("v", v)
+    _check_act("u", u)
+    B, Vd = v.shape
+    Du = u.shape[1]
+    f32, dev = torch.float32, v.device
+    check_tensor("v", v, (B, Vd), v.dtype, dev)
+    check_tensor("u", u, (B, Du), v.dtype, dev)
+    for nm, t in (("wf", wf), ("wg", wg)):
+        check_tensor(nm, t, (Du, Vd), f32, dev)
+    for nm, t in (("bf", bf), ("gf", gf), ("hf", hf), ("bg", bg), ("gg", gg), ("hg", hg)):
+        check_tensor(nm, t, (Vd,), f32, dev)
+    _smem_check("metablock_film", Du + 2 * Vd)
+    out = torch.empty_like(v)
+    if B == 0:
+        return out
+    _launch(
+        "metablock_film", library().skinjax_metablock_film,
+        int(v.dtype == torch.bfloat16), v.data_ptr(), u.data_ptr(), wf.data_ptr(), bf.data_ptr(),
+        gf.data_ptr(), hf.data_ptr(), wg.data_ptr(), bg.data_ptr(), gg.data_ptr(), hg.data_ptr(),
+        out.data_ptr(), B, Du, Vd, _stream(dev),
     )
     return out
 

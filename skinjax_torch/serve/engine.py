@@ -5,11 +5,15 @@ Loads a ``MultimodalModel`` and a persisted featurizer, turns an image and a
 raw metadata CSV line into the model's inputs, runs one forward and returns
 the class and the probabilities.
 
-``use_fused=True`` runs the fusion stage of the eight ported mechanisms with
-the kernels of ``skinjax_torch.ops.fusion_kernels`` (on a CUDA device; on
-the CPU the same calls take their plain twins). The fused weights are
-packed once, at construction, into contiguous fp32 ``(in, out)`` tensors on
-the device: load new weights into the model before building the engine.
+``use_fused=True`` runs the fusion stage of the ten mechanisms in
+``FUSED_MECHANISMS`` (the JAX engine's set) with the kernels of
+``skinjax_torch.ops.fusion_kernels`` (on a CUDA device; on the CPU the same
+calls take their plain twins); the other eight take the plain forward, as in
+JAX. ``metablock`` runs K4 on the raw tower features and K3 on its head;
+``…+metablock`` runs the RG-ATT chain on K1/K2, then K4, then its one linear
+layer as a matrix product. The fused weights are packed once, at
+construction, into contiguous fp32 ``(in, out)`` tensors on the device: load
+new weights into the model before building the engine.
 
 Precision: the towers and projectors run under autocast to the model's
 ``dtype`` (bfloat16 in the service). The fusion stage runs outside autocast:
@@ -33,10 +37,15 @@ import torch.nn.functional as F
 
 from skinjax_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
 from skinjax_torch.data.featurizer import MetadataFeaturizer
-from skinjax_torch.models.fusion.multimodal import FusionOps, MultimodalModel
+from skinjax_torch.models.fusion.multimodal import _RGATT, FusionOps, MultimodalModel
 from skinjax_torch.ops import fusion_kernels as fk
 
 IMAGE_SIZE = (224, 224)
+FUSED_MECHANISMS = (
+    "concatenation", "crossattention", "weighted", "gfcam",
+    "cross-weights-after-crossattention", "metablock", "rg-att",
+    "cross-attention-only", _RGATT, _RGATT + "+metablock",
+)
 
 
 def resize_u8(image_u8: torch.Tensor, size: Tuple[int, int] = IMAGE_SIZE) -> torch.Tensor:
@@ -56,6 +65,11 @@ def _mha(mha) -> List[torch.Tensor]:
 def _grb(block) -> List[torch.Tensor]:
     return _mha(block.attn) + [block.gate_linear.weight.t(), block.gate_linear.bias,
                                block.norm.weight, block.norm.bias]
+
+
+def _film(block) -> List[torch.Tensor]:
+    return [block.fb[0].weight.t(), block.fb[0].bias, block.fb[1].weight, block.fb[1].bias,
+            block.gb[0].weight.t(), block.gb[0].bias, block.gb[1].weight, block.gb[1].bias]
 
 
 def _head(seq) -> List[torch.Tensor]:
@@ -87,8 +101,7 @@ class InferenceEngine:
         self.class_names = list(
             class_names or (featurizer.label_encoder.classes if featurizer else [])
         )
-        # every mechanism the port model accepts has a fused path
-        self.fused = use_fused
+        self.fused = use_fused and model.attention_mechanism in FUSED_MECHANISMS
         self.dtype = model.dtype or torch.float32
         self._mean = torch.tensor(IMAGENET_MEAN, device=self.device)
         self._std = torch.tensor(IMAGENET_STD, device=self.device)
@@ -102,7 +115,7 @@ class InferenceEngine:
         names = {
             "image_self_attention": _mha, "text_self_attention": _mha,
             "image_cross_attention": _mha, "text_cross_attention": _mha,
-            "image_residual": _grb, "text_residual": _grb,
+            "image_residual": _grb, "text_residual": _grb, "meta_block": _film,
         }
         with torch.no_grad():
             for name, adapter in names.items():
@@ -112,13 +125,19 @@ class InferenceEngine:
                 if hasattr(m, name):
                     lin = getattr(m, name)
                     self._w[name] = _pack([lin.weight.t(), lin.bias])
-            self._w["fc_fusion"] = _pack(_head(m.fc_fusion))
-        w = self._w
-        # the fusion stage's primitives as kernels on the packed weights
+            head = getattr(m, m.head_name)
+            self._w["head"] = _pack([head.weight.t(), head.bias] if isinstance(head, torch.nn.Linear)
+                                    else _head(head))
+        w, dt = self._w, self.dtype
+        # the fusion stage's primitives as kernels on the packed weights; K4
+        # takes both inputs in the model dtype (a DaViT tower's LayerNorm
+        # returns fp32 under autocast)
         self._ops = FusionOps(
             attend=lambda name, q, kv: fk.seq1_attention(kv, *w[name]),
             residual=lambda name, q, kv: fk.gated_residual_seq1(q, kv, *w[name]),
             gate=lambda name, x: torch.sigmoid(x.float() @ w[name][0] + w[name][1]),
+            film=lambda name, v, u: fk.metablock_film(v.to(dt).contiguous(),
+                                                      u.to(dt).contiguous(), *w[name]),
         )
 
     # -- forwards -----------------------------------------------------------
@@ -129,7 +148,11 @@ class InferenceEngine:
     def _fused_forward(self, image, metadata):
         img, txt = self.model.features(image, metadata)
         fused = self.model.fuse(img, txt, self._ops)
-        logits = fk.mlp_head(fused.contiguous(), *self._w["fc_fusion"])
+        head = self._w["head"]
+        if len(head) == 2:  # fc_fusion_proj_feat2output, a matrix product as in JAX
+            logits = fused.float() @ head[0] + head[1]
+        else:
+            logits = fk.mlp_head(fused.contiguous(), *head)
         return torch.softmax(logits.float(), dim=-1)
 
     def _normalize_u8(self, image_u8: torch.Tensor) -> torch.Tensor:

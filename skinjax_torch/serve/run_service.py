@@ -3,7 +3,12 @@ HTTP (counterpart of ``skinjax/serve/run_service.py``, same variables).
 
   python -m skinjax_torch.serve.run_service
 
-  MODEL_CHECKPOINT     torch.save'd state_dict (optional; random weights from seed 0 without it)
+  MODEL_CHECKPOINT     the weights (optional; random weights from seed 0 without it): a
+                       checkpoint of the port's trainer (the directory that
+                       train.checkpoint.save_checkpoint writes, such as the train
+                       CLI's <cell>_fold_<k>/best, or its state.pt), whose "model"
+                       entry (parameters and BatchNorm buffers) is loaded, or a
+                       torch.save'd state_dict
   FEATURIZER_JSON      persisted featurizer (required for raw-CSV inputs)
   CNN_MODEL_NAME, ATTENTION_MECHANISM, NUM_LABELS, NUM_HEADS, COMMON_DIM, VOCAB_SIZE
   HOST, PORT
@@ -23,6 +28,19 @@ from __future__ import annotations
 import os
 
 import torch
+
+
+def load_weights(path: str):
+    """The model's state_dict from a trainer checkpoint (its directory or
+    ``state.pt``) or from a bare state_dict file."""
+    from skinjax_torch.train.checkpoint import FILE
+
+    if os.path.isdir(path):
+        path = os.path.join(path, FILE)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if {"model", "optimizer", "step"} <= set(sd):
+        sd = sd["model"]
+    return {k.removeprefix("module."): v for k, v in sd.items()}
 
 
 def build_engine():
@@ -65,8 +83,7 @@ def build_engine():
     )
     ckpt = os.environ.get("MODEL_CHECKPOINT")
     if ckpt and os.path.exists(ckpt):
-        sd = torch.load(ckpt, map_location="cpu", weights_only=True)
-        model.load_state_dict({k.removeprefix("module."): v for k, v in sd.items()})
+        model.load_state_dict(load_weights(ckpt))
     else:
         init_weights(model, seed=0)
     return InferenceEngine(model, fz, device=device)

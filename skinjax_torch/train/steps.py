@@ -72,6 +72,12 @@ def _train_step(state: TrainState, image_u8, metadata, seed: int, loss_of: Calla
         loss = loss_of(state.model(image, metadata).float())
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+    # jax.grad gives every parameter a gradient, zero where the loss does not
+    # reach it (metablock's image_projector), and L2 decay still moves it
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
     state.optimizer.step()
     state.step += 1
     return loss.detach()

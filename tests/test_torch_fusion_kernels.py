@@ -99,7 +99,8 @@ def test_cpu_tensors_take_the_twin_and_count_no_launch():
     args = [torch.from_numpy(a) for a in acts + weights]
     torch.testing.assert_close(tfk.seq1_attention(*args), tfk.seq1_attention_plain(*args),
                                rtol=0, atol=0)
-    assert tfk.LAUNCHES == {"seq1_attention": 0, "gated_residual_seq1": 0, "mlp_head": 0}
+    assert tfk.LAUNCHES == {"seq1_attention": 0, "gated_residual_seq1": 0, "metablock_film": 0,
+                            "mlp_head": 0}
 
 
 def test_other_devices_raise():

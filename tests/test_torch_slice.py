@@ -11,11 +11,11 @@ import torch
 from skinjax.models import MultimodalModel as JaxModel
 from skinjax.serve.engine import InferenceEngine as JaxEngine
 from skinjax_torch.models import MultimodalModel
-from skinjax_torch.models.fusion.multimodal import _RGATT, PORTED_MECHANISMS
+from skinjax_torch.models.fusion.multimodal import _RGATT
 from skinjax_torch.models.weights import init_weights, load_numpy_state_dict, state_dict_from_flax
 from skinjax_torch.ops import fusion_kernels as fk
 from skinjax_torch.ops.attention import MultiheadAttention
-from skinjax_torch.serve.engine import InferenceEngine
+from skinjax_torch.serve.engine import FUSED_MECHANISMS, InferenceEngine
 from tests.test_torch_weights import jax_variables
 
 CFG = dict(num_classes=4, num_heads=8, cnn_model_name="resnet-50", common_dim=32,
@@ -67,7 +67,7 @@ def test_fused_engine_matches_jax_fused_engine(slice_models, kind):
     np.testing.assert_allclose(out.sum(-1), 1.0, atol=1e-5)
 
 
-@pytest.mark.parametrize("mech", [m for m in PORTED_MECHANISMS if m != _RGATT])
+@pytest.mark.parametrize("mech", [m for m in FUSED_MECHANISMS if m != _RGATT])
 def test_fused_engine_matches_plain_engine(mech):
     model = MultimodalModel(num_classes=4, num_heads=4, cnn_model_name="resnet-18",
                             common_dim=32, vocab_size=7, attention_mechanism=mech)
@@ -89,7 +89,7 @@ def test_fused_engine_matches_plain_engine(mech):
 
 def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MultimodalModel(num_classes=4, attention_mechanism="metablock")
+        MultimodalModel(num_classes=4, text_model_name="static-embedding")
     with pytest.raises(ValueError, match="not implemented"):
         MultimodalModel(num_classes=4, attention_mechanism="no-such-mechanism")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

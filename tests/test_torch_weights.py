@@ -12,7 +12,6 @@ import torch
 from skinjax.models import MultimodalModel as JaxModel
 from skinjax.models.torch_import import filter_to_template, import_multimodal_checkpoint
 from skinjax_torch.models import MultimodalModel
-from skinjax_torch.models.fusion.multimodal import PORTED_MECHANISMS
 from skinjax_torch.models.weights import init_weights, load_numpy_state_dict, state_dict_from_flax
 
 RGATT = "att-intramodal+residual+cross-attention-metadados"
@@ -49,9 +48,9 @@ CASES = {
     "rgatt-resnet50": dict(num_classes=4, cnn_model_name="resnet-50", common_dim=32,
                            vocab_size=7, attention_mechanism=RGATT),
     "weighted-resnet18": _resnet18("weighted"),
-    # the mechanisms the port does not run yet still convert: the subtrees
-    # only they create (meta_block, fc_after_metablock, fc_visual_only,
-    # fc_fusion_proj_feat2output) go through the same round trip
+    # the subtrees only some mechanisms create (meta_block,
+    # fc_after_metablock, fc_visual_only, fc_fusion_proj_feat2output) go
+    # through the same round trip
     "metablock-resnet18": _resnet18("metablock"),
     "visual-only-resnet18": _resnet18("no-metadata-without-mlp"),
     "rg-att2fusefeatures-resnet18": _resnet18("rg-att2fusefeatures"),
@@ -80,9 +79,8 @@ def test_state_dict_round_trip_through_jax_importer_is_exact(case):
                     jax.tree_util.tree_leaves(params) + jax.tree_util.tree_leaves(stats)):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a, b)
-    if mech in PORTED_MECHANISMS:
-        # the converted keys are exactly the port model's own (strict load)
-        load_numpy_state_dict(MultimodalModel(**cfg), sd)
+    # the converted keys are exactly the port model's own (strict load)
+    load_numpy_state_dict(MultimodalModel(**cfg), sd)
     # flax creates no gate for RG-ATT and no attention for weighted
     assert ("img_gate.weight" in sd) == (mech == "weighted")
     assert ("image_residual.attn.in_proj_weight" in sd) == (mech in (RGATT, "rg-att2fusefeatures"))
