@@ -8,14 +8,15 @@ through the entry points a user calls: the flagship (ResNet-50 + one-hot
 metadata MLP + RG-ATT, 224×224, common_dim 512, bf16), served (the inference
 engine and the HTTP service) and trained (the train step and ``run_kfold``);
 the same model with a DaViT-tiny tower (``skinjax_torch.DAVIT``), served
-and trained at B=64; all 18 fusion mechanisms; and the train CLI from a
-dataset on disk, whose checkpoint the service then serves. Phases, each
-printing its lines:
+and trained at B=64; with a BEiT-v2-large tower (``skinjax_torch.BEIT``),
+served and trained at B=32, and with a ViT-large tower, served; all 18 fusion
+mechanisms; and the train CLI from a dataset on disk, whose checkpoint the
+service then serves. Phases, each printing its lines:
 
   1. card     nvidia-smi name and power limit, CUDA version
   2. build    nvcc builds of skinjax_torch/csrc/fusion_kernels.cu,
-              augment_kernel.cu and window_attention.cu, started together;
-              seconds, ptxas registers
+              augment_kernel.cu, window_attention.cu and global_attention.cu,
+              started together; seconds, ptxas registers
   3. kernels  K1-K4 against their plain PyTorch twins at the flagship shapes
               (K4 at Vd in {2048, 768, 512}), B in {1, 3, 8, 32}, fp32 (TF32
               off) and bf16 activations; K5 against its twin at B in
@@ -23,7 +24,11 @@ printing its lines:
               drawn parameters and with every gate on; K7 forward and
               backward against their twins at DaViT-tiny's four stage shapes,
               B in {1, 64}, bf16 and fp32, and with a relative-position bias
-              and 64 per-window masks (dbias checked)
+              and 64 per-window masks (dbias checked); K12 forward (o and P)
+              and backward (dq, dk, dv, dbias) against their twins at
+              BEiT-large's shape with a bias, ViT-large's, BERT-base's with a
+              padding mask and dropout multiplier, and N=50 with all three,
+              bf16 and fp32
   4. slice    fused against plain engine; launches per fused forward; the
               fp32 engine on the card against the same model on the CPU
   5. server   the engine run_service builds, served on a localhost port:
@@ -46,15 +51,25 @@ printing its lines:
               batch, K7 6 + 6 launches per unfrozen step and 6 + 0 per frozen
               one; one fp32 step of a small DaViT on the card against the CPU
  10. times    the DaViT engine's p50/p95; DaViT train images/s unfrozen and
-              frozen; a profiled DaViT train step. (K7's times, against its
-              twins and bounds at each stage, with F.scaled_dot_product_attention
-              on the same q, k, v as a yardstick, and K4's at each Vd, run right
-              after phase 3.)
- 11. mechanisms  all 18 at full width around one ResNet-50 tower: the 10 the
+              frozen; a profiled DaViT train step. (K12's times at BEiT-large's
+              shape and K7's at each stage, against their twins and bounds,
+              with F.scaled_dot_product_attention on the same q, k, v as a
+              yardstick, and K4's at each Vd, run right after phase 3.)
+ 11. beit     the BEiT-v2-large model (307 M parameters drawn once on the
+              CPU): fused against plain engine (K12 launched 24 times per
+              forward); run_service with CNN_MODEL_NAME=beitv2_large_patch16_224;
+              the train step at B=32 (augment on, bf16): the loss falls over
+              10 steps on one batch, K12 24 + 24 launches per unfrozen step and
+              24 + 0 per frozen one; one fp32 step of a small BEiT on the card
+              against the CPU; the engine's p50/p95; train images/s unfrozen
+              and frozen; a profiled train step
+ 12. vit      the ViT-large model served: fused against plain engine, K12
+              (no bias) launched 24 times per forward at B=1 and 8
+ 13. mechanisms  all 18 at full width around one ResNet-50 tower: the 10 the
               engine fuses, fused against plain with their launches per fused
               forward (metablock: K4 1 + K3 1; …+metablock: K1 4 + K2 2 + K4 1);
               the other 8, the plain forward
- 12. cli      a PAD-UFES-20-shaped dataset written to a temporary directory
+ 14. cli      a PAD-UFES-20-shaped dataset written to a temporary directory
               (96 rows, 300×400 PNGs); python -m skinjax_torch.tools.train_cli
               as a subprocess (metablock and …+metablock × ResNet-50 × 2 folds,
               1 epoch, B=32): its fold results and artifacts; run_service with
@@ -99,18 +114,30 @@ K7 = {  # name -> the Pallas TPU function it replaces (file:line)
     "window_attention_fwd": "skinjax/ops/pallas/window_attention.py:645",
     "window_attention_bwd": "skinjax/ops/pallas/window_attention.py:828",
 }
+K12 = {  # name -> the Pallas TPU function it replaces (file:line)
+    "global_attention_fwd": "skinjax/ops/pallas/global_attention.py:224",
+    "global_attention_bwd": "skinjax/ops/pallas/global_attention.py:367",
+}
 SOURCE = "skinjax_torch/csrc/fusion_kernels.cu"
 K5_SOURCE = "skinjax_torch/csrc/augment_kernel.cu"
 K7_SOURCE = "skinjax_torch/csrc/window_attention.cu"
-BUILDS = {"fusion_kernels": SOURCE, "augment_kernel": K5_SOURCE, "window_attention": K7_SOURCE}
+K12_SOURCE = "skinjax_torch/csrc/global_attention.cu"
+BUILDS = {"fusion_kernels": SOURCE, "augment_kernel": K5_SOURCE, "window_attention": K7_SOURCE,
+          "global_attention": K12_SOURCE}
 KERNEL_NAMES = {"seq1_attention": "seq1_attention_kernel",
                 "gated_residual_seq1": "gated_residual_kernel",
                 "metablock_film": "metablock_film_kernel", "mlp_head": "mlp_head_kernel"}
 # each K7 call's kernels (a call with a bias adds dbias_reduce_kernel)
 K7_KERNELS = {"window_attention_fwd": ["wa_fwd_kernel", "proj_kernel"],
               "window_attention_bwd": ["wa_bwd_kernel"]}
+# each K12 call's kernels at BEiT's shape (the backward's last one sums the
+# bias gradient)
+K12_KERNELS = {"global_attention_fwd": ["ga_fwd_kernel"],
+               "global_attention_bwd": ["ga_bwd_dq_kernel", "ga_bwd_dkv_kernel",
+                                        "ga_dbias_reduce_kernel"]}
 KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", "wa_fwd_kernel",
-                  "wa_bwd_kernel", "proj_kernel", "dbias_reduce_kernel")
+                  "wa_bwd_kernel", "proj_kernel", "dbias_reduce_kernel", "ga_fwd_kernel",
+                  "ga_bwd_dq_kernel", "ga_bwd_dkv_kernel")
 # the card's published peaks (H100 SXM data sheet): device memory, float32
 # outside the tensor cores, dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -122,7 +149,19 @@ K7_STAGES = ((56, 96, 3), (28, 192, 6), (14, 384, 12), (7, 768, 24))
 K7_BATCHES = (1, 64)
 WINDOW = 7
 K7_PER_FORWARD = 6  # one per spatial block: depths (1, 1, 3, 1)
+K7_SERVED = {"window_attention_fwd": K7_PER_FORWARD, "window_attention_bwd": 0}
 SMALL_DAVIT = "davit-smoke-small"  # dims (64, 128), depths (1, 1), heads (2, 4)
+# K12's shapes: (B, N, C, heads, bias, kmask, pmult). BEiT-large and ViT-large
+# at 224×224 and their train batch; BERT-base at 128 tokens with a padding mask
+# and broadcast dropout; a sequence that is not a multiple of 16
+K12_SHAPES = {"beitv2-large": (32, 197, 1024, 16, True, False, False),
+              "vit-large": (32, 197, 1024, 16, False, False, False),
+              "bert-base": (8, 128, 768, 12, False, True, True),
+              "n50": (4, 50, 256, 4, True, True, True)}
+K12_PER_FORWARD = 24  # one per block of BEiT-large and ViT-large
+K12_SERVED = {"global_attention_fwd": K12_PER_FORWARD, "global_attention_bwd": 0}
+VIT_LARGE = "vit_large_patch16_224"
+SMALL_BEIT = "beit-smoke-small"  # width 256, depth 2, 4 heads (64 channels a head), 224×224
 # K5's float32 operations per pixel, counted from csrc/augment_kernel.cu:
 # dropout 5 holes × 4 + 3, RGB→HSV 15, mod 3, shift 10, HSV→RGB 10,
 # brightness/contrast 4 + normalize 3 × 6
@@ -131,6 +170,9 @@ K5_SHAPES = ((1, 224, 224), (7, 224, 224), (128, 224, 224), (2, 300, 400))
 TRAIN_B = 128
 TRAIN_HW = 224
 TRAIN_LR = 1e-3  # the loss-falls check: 10 Adam steps on one batch
+# BEiT-large's: at 1e-3 its loss rose again after the first step (a step moves
+# every weight of 24 layer-scaled blocks by ~lr)
+BEIT_TRAIN_LR = 1e-4
 RGATT = "att-intramodal+residual+cross-attention-metadados"
 # fusion-kernel launches per fused forward, by mechanism
 PER_FORWARD = {"seq1_attention": 4, "gated_residual_seq1": 2, "metablock_film": 0,
@@ -326,13 +368,25 @@ def us(t) -> str:
     return "not measured" if t is None else f"{t:9.2f} us"
 
 
+_SMOKE_MODELS = {}
+
+
 def smoke_model(config, dtype):
-    """A configuration (``skinjax_torch.FLAGSHIP`` or ``DAVIT``) at full
-    width, random weights from seed 0."""
+    """A configuration (``skinjax_torch.FLAGSHIP``, ``DAVIT`` or ``BEIT``) at
+    full width, random weights from seed 0: drawn on the CPU once per
+    configuration (BEiT-large's 307 M parameters among them); each new
+    instance is a copy of that model, with the compute dtype asked for."""
+    import copy
+
     from skinjax_torch.models import MultimodalModel
     from skinjax_torch.models.weights import init_weights
 
-    return init_weights(MultimodalModel(**config, dtype=dtype), seed=0)
+    key = tuple(sorted(config.items()))
+    if key not in _SMOKE_MODELS:
+        _SMOKE_MODELS[key] = init_weights(MultimodalModel(**config), seed=0)
+    model = copy.deepcopy(_SMOKE_MODELS[key])
+    model.dtype = dtype
+    return model
 
 
 def smoke_featurizer(vocab: int):
@@ -352,11 +406,12 @@ def smoke_featurizer(vocab: int):
     return fz
 
 
-def phase_slice(fk, device, card, label="flagship", config=None, wa=None):
+def phase_slice(fk, device, card, label="flagship", config=None, attn=None, fp32=True):
     """A configuration served (the flagship unless ``config``): the fused
     engine against the plain one in bf16, with the launches per fused forward
-    (K7's too with ``wa``), and in fp32 on the card against the same model on
-    the CPU."""
+    (with ``attn`` = (module, {kernel: launches per forward}), the tower's
+    attention kernels' too), and, with ``fp32``, in fp32 on the card against
+    the same model on the CPU."""
     import numpy as np
     import torch
 
@@ -364,9 +419,8 @@ def phase_slice(fk, device, card, label="flagship", config=None, wa=None):
     from skinjax_torch.serve.engine import InferenceEngine
 
     config = config or FLAGSHIP
-    counters = [fk] + ([wa] if wa else [])
-    expect = dict(PER_FORWARD, **({"window_attention_fwd": K7_PER_FORWARD,
-                                   "window_attention_bwd": 0} if wa else {}))
+    counters = [fk] + ([attn[0]] if attn else [])
+    expect = dict(PER_FORWARD, **(attn[1] if attn else {}))
     rng = np.random.default_rng(2)
     # bf16, as served: fused (the kernels) against plain (autocast linears)
     model = smoke_model(config, torch.bfloat16)
@@ -390,6 +444,8 @@ def phase_slice(fk, device, card, label="flagship", config=None, wa=None):
         check(np.allclose(pf.sum(-1), 1.0, atol=1e-4), "probabilities do not sum to 1")
         check(err <= 3e-2, f"bf16 fused and plain {label} engines disagree at B={B}")
         check(launches == expect, f"launches per fused forward {launches} != {expect}")
+    if not fp32:
+        return fused, plain
 
     # fp32 with TF32 off: fused against plain on the card, and the card
     # against the same model on the CPU (the reference on a small batch)
@@ -444,7 +500,7 @@ def _multipart(image_bytes: bytes, metadata: str):
     return body, f"multipart/form-data; boundary={boundary}"
 
 
-def phase_server(fk, card, cnn="resnet-50", wa=None, env=None, requests=None,
+def phase_server(fk, card, cnn="resnet-50", attn=None, env=None, requests=None,
                  per_forward=None):
     """The service as ``python -m skinjax_torch.serve.run_service`` builds it
     (its environment: ``CNN_MODEL_NAME=cnn``, the flagship otherwise, random
@@ -452,8 +508,8 @@ def phase_server(fk, card, cnn="resnet-50", wa=None, env=None, requests=None,
     ``api.serve`` serves it, on a localhost port, answering four requests (or
     ``requests``: (PNG bytes, CSV line) pairs). The fusion kernels' launches
     over them must be ``per_forward`` (RG-ATT's by default) per request; with
-    ``wa``, K7's launches are counted too. Returns the launches and the
-    engine."""
+    ``attn`` = (module, {kernel: launches per forward}), the tower's attention
+    kernels' launches are counted too. Returns the launches and the engine."""
     import tempfile
     from http.server import ThreadingHTTPServer
 
@@ -479,8 +535,8 @@ def phase_server(fk, card, cnn="resnet-50", wa=None, env=None, requests=None,
                 else:
                     os.environ[k] = v
     check(engine.fused and engine.model.dtype is not None, "run_service built no fused bf16 engine")
-    check(engine.model.cnn_dim_output == {"resnet-18": 512, "resnet-50": 2048,
-                                          "davit_tiny": 768}[cnn],
+    check(engine.model.cnn_dim_output == {"resnet-18": 512, "resnet-50": 2048, "davit_tiny": 768,
+                                          "beitv2_large_patch16_224": 1024}[cnn],
           f"run_service did not build a {cnn} tower")
     if requests is None:
         n_cat = len(engine.featurizer.categorical_cols)
@@ -498,7 +554,7 @@ def phase_server(fk, card, cnn="resnet-50", wa=None, env=None, requests=None,
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     answers = []
-    counters = [fk] + ([wa] if wa else [])
+    counters = [fk] + ([attn[0]] if attn else [])
     try:
         for c in counters:
             c.reset_launches()
@@ -533,8 +589,8 @@ def phase_server(fk, card, cnn="resnet-50", wa=None, env=None, requests=None,
         check(abs(probs.sum() - 1.0) < 1e-4, "probabilities do not sum to 1")
         check(err <= 1e-5, "the server and engine.predict disagree")
     expect = {k: v * len(requests) for k, v in (per_forward or PER_FORWARD).items()}
-    if wa:
-        expect.update(window_attention_fwd=K7_PER_FORWARD * len(requests), window_attention_bwd=0)
+    if attn:
+        expect.update({k: v * len(requests) for k, v in attn[1].items()})
     log(f"server {cnn} {engine.model.attention_mechanism} launches over {len(requests)} "
         f"requests: {launches} (expected {expect})")
     check(launches == expect, "the served forwards did not run every kernel as expected")
@@ -648,6 +704,126 @@ def phase_k7(wa, device):
     return errors
 
 
+def k12_inputs(B, N, C, heads, bias, kmask, pmult, dtype, device, seed):
+    """q, k, v, do (B, N, C) and the extras asked for, drawn on the card: a
+    relative-position-like bias (heads, N, N), a BERT padding mask (the last
+    fifth of the keys of every other sample at -1e9) and a broadcast dropout
+    multiplier at keep 0.9."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    q, k, v, do = (r(B, N, C).to(dtype) for _ in range(4))
+    b = r(heads, N, N, scale=0.5) if bias else None
+    km = None
+    if kmask:
+        km = torch.zeros((B, N), device=device)
+        km[::2, N - N // 5:] = -1e9
+    pm = None
+    if pmult:
+        keep = torch.rand((N, N), generator=gen, device=device) < 0.9
+        pm = keep.float() / 0.9
+    return (q, k, v), do, b, km, pm
+
+
+def phase_k12(ga, device):
+    """K12 forward (o and P) and backward (dq, dk, dv, dbias) against their
+    twins at K12_SHAPES, bf16 (BF16_TOL; P and dbias F32_TOL) and fp32
+    (F32_TOL, TF32 off). Both backward sides take the twin's P."""
+    import torch
+
+    errors = {name: 0.0 for name in K12}
+    for label, (B, N, C, h, bias, kmask, pmult) in K12_SHAPES.items():
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            (q, k, v), do, b, km, pm = k12_inputs(B, N, C, h, bias, kmask, pmult, dtype, device,
+                                                  seed=N + C)
+            o, p = ga.global_attention_fwd(q, k, v, b, km, pm, h, emit_p=True)
+            ro, rp = ga.attention_core_plain(q, k, v, b, km, pm, h)
+            got = ga.global_attention_bwd(q, k, v, do, rp, pm, h, bias)
+            want = ga.attention_core_bwd_plain(q, k, v, do, rp, pm, h, bias)
+            torch.cuda.synchronize()
+            check((got[3] is None) == (want[3] is None), "dbias present on one side only")
+            results = [("global_attention_fwd", "o", o, ro, tol),
+                       ("global_attention_fwd", "P", p, rp, F32_TOL)]
+            results += [("global_attention_bwd", part, g, w, tol if part != "dbias" else F32_TOL)
+                        for part, g, w in zip(("dq", "dk", "dv", "dbias"), got, want)
+                        if w is not None]
+            extras = "+".join(n for n, on in (("bias", bias), ("kmask", kmask), ("pmult", pmult))
+                              if on) or "no extras"
+            for name, part, out, ref, t in results:
+                err, ok = compare(out, ref, t)
+                errors[name] = max(errors[name], err)
+                log(f"kernel {name} {part:5s} {str(dtype):14s} {label} B={B} N={N} C={C} h={h} "
+                    f"{extras}: max_abs_err={err:.3e} tol=atol {t[0]:g} + rtol {t[1]:g}·|twin| "
+                    f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"{name} {part} disagrees with its twin at {label} {dtype}")
+    return errors
+
+
+def k12_bound(B, N, C, heads, itemsize, backward):
+    """The least time (ms) for one K12 call at BEiT-large's shape (with a
+    bias): every input read once and every output written once over the HBM
+    rate, against its products over the bf16 tensor-core rate. Forward: q,
+    k, v, bias → o, P; two products of 2·B·N²·C operations. Backward: q, k,
+    v, do, P → dq, dk, dv, dbias; four such products."""
+    act = B * N * C * itemsize
+    plane = heads * N * N * 4
+    if backward:
+        nbytes, ops = 7 * act + B * plane + plane, 8 * B * N * N * C
+    else:
+        nbytes, ops = 4 * act + plane + B * plane, 4 * B * N * N * C
+    return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3, nbytes, ops
+
+
+def phase_k12_times(ga, device, card):
+    """K12 forward (emitting P, as a train step does) and backward against
+    their twins at BEiT-large's shape, bf16, with a bias; the forward's
+    yardstick F.scaled_dot_product_attention on the same q, k, v as
+    (B, h, N, hd) with the bias as its additive mask (the port never calls
+    it)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, N, C, h, _, _, _ = K12_SHAPES["beitv2-large"]
+    (q, k, v), do, b, _, _ = k12_inputs(B, N, C, h, True, False, False, torch.bfloat16, device,
+                                         seed=31)
+    _, p = ga.global_attention_fwd(q, k, v, b, None, None, h, emit_p=True)
+    calls = {
+        "global_attention_fwd": (
+            lambda: ga.global_attention_fwd(q, k, v, b, None, None, h, emit_p=True),
+            lambda: ga.attention_core_plain(q, k, v, b, None, None, h)),
+        "global_attention_bwd": (
+            lambda: ga.global_attention_bwd(q, k, v, do, p, None, h, True),
+            lambda: ga.attention_core_bwd_plain(q, k, v, do, p, None, h, True)),
+    }
+    qh, kh, vh = (t.reshape(B, N, h, C // h).transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = b.to(torch.bfloat16)[None]
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)  # noqa: E731
+    lib_ms = (time_ms(sdpa, 20, 3) + time_ms(sdpa, 20, 3)) / 2
+    out = {}
+    for name, (kern, twin) in calls.items():
+        t = [time_ms(twin, 10, 2), time_ms(kern, 10, 2), time_ms(kern, 10, 2),
+             time_ms(twin, 10, 2)]
+        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        dev_k = kernel_device_us(kern, K12_KERNELS[name], n=5)
+        dev_t, _ = device_us(twin, n=5)
+        bound_ms, nbytes, ops = k12_bound(B, N, C, h, 2, name.endswith("bwd"))
+        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S else "operations"
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=lib_ms if name.endswith("fwd") else None)
+        log(f"[{card}] time {name} bf16 beitv2-large B={B} N={N} C={C} h={h} bias per call: "
+            f"kernel {ms * 1e3:9.2f} us  twin {plain_ms * 1e3:9.2f} us (CUDA events, in turns "
+            f"twin-kernel-kernel-twin); device time: kernel {us(dev_k)}  twin {dev_t:9.2f} us "
+            f"(torch.profiler); bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s, "
+            f"{ops / 1e9:.2f} GFLOP at 989 TFLOP/s)")
+    log(f"[{card}] time F.scaled_dot_product_attention bf16 on the same (B, h, N, hd) q, k, v "
+        f"with the bias as attn_mask: {lib_ms * 1e3:.2f} us per call (forward only)")
+    return out
+
+
 def train_batch(device, B=None, hw=None, seed=0):
     """One batch of the synthetic dataset (class-dependent brightness and
     metadata) on ``device``, and its class weights."""
@@ -674,7 +850,7 @@ def train_state(config, device, unfreeze="unfrozen_weights", lr=5e-5):
 
 
 def phase_train(counters, device, card, label="flagship", config=None, B=None,
-                per_step=None, frozen_per_step=None):
+                per_step=None, frozen_per_step=None, lr=TRAIN_LR):
     """A configuration's train step at full width (the flagship at B=128
     unless ``config`` and ``B``), augment on, bf16: finite loss, the loss
     falls over 10 steps on one batch, frozen mode keeps the image encoder
@@ -703,8 +879,8 @@ def phase_train(counters, device, card, label="flagship", config=None, B=None,
         launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
         return [float(x) for x in losses], launches
 
-    losses, launches = run(train_state(config, device, lr=TRAIN_LR), 10)
-    log(f"train {label} unfrozen B={B} (lr {TRAIN_LR:g}, one batch, augment on): losses "
+    losses, launches = run(train_state(config, device, lr=lr), 10)
+    log(f"train {label} unfrozen B={B} (lr {lr:g}, one batch, augment on): losses "
         + " ".join(f"{x:.4f}" for x in losses) + f"; launches {launches} over 10 steps")
     check(all(math.isfinite(x) for x in losses), "non-finite train loss")
     check(sum(losses[-3:]) / 3 < sum(losses[:3]) / 3 and losses[-1] < losses[0],
@@ -818,6 +994,20 @@ def small_davit_registered():
         yield
     finally:
         del _REGISTRY[SMALL_DAVIT]
+
+
+@contextlib.contextmanager
+def small_beit_registered():
+    """A small BEiT (width 256, depth 2, 4 heads: 64 channels a head, as
+    BEiT-v2-large; 224×224, 197 tokens) as backbone ``SMALL_BEIT`` meanwhile."""
+    from skinjax_torch.models.backbones import _REGISTRY
+    from skinjax_torch.models.backbones.beit import Beit
+
+    _REGISTRY[SMALL_BEIT] = (lambda device=None: Beit(256, 2, 4, device=device), 256)
+    try:
+        yield
+    finally:
+        del _REGISTRY[SMALL_BEIT]
 
 
 def phase_fold(ak, device, card):
@@ -1263,22 +1453,28 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from skinjax_torch import DAVIT, DAVIT_BATCH
+    from skinjax_torch import BEIT, BEIT_BATCH, DAVIT, DAVIT_BATCH, FLAGSHIP
     from skinjax_torch.ops import augment_kernel as ak
     from skinjax_torch.ops import build
     from skinjax_torch.ops import fusion_kernels as fk
+    from skinjax_torch.ops import global_attention as ga
     from skinjax_torch.ops import window_attention as wa
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
 
+    start = time.perf_counter()
+
+    def elapsed(label):
+        log(f"elapsed after {label}: {time.perf_counter() - start:.1f} s (host clock)")
+
     card = card_line()
     log(card)
     log(f"phase card: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}; TF32 off")
 
-    build_kernels(build, (fk, ak, wa))
+    build_kernels(build, (fk, ak, wa, ga))
     for name, src in BUILDS.items():
         info = build.build_info[name]
         built = f"built in {info['seconds']:.1f} s" if info["seconds"] else "already built"
@@ -1290,11 +1486,14 @@ def main() -> int:
     errors = phase_kernels(fk, device)
     errors[K5] = phase_k5(ak, device)
     errors.update(phase_k7(wa, device))
-    # K7's times first: in a process that has traced much, torch.profiler
-    # dropped K7's launches from its traces
+    errors.update(phase_k12(ga, device))
+    # K12's and K7's times first: in a process that has traced much,
+    # torch.profiler dropped K7's launches from its traces
+    k12_times = phase_k12_times(ga, device, card)
     k7_times = phase_k7_times(wa, device, card)
     k4_times = phase_k4_times(fk, device, card)
     torch.cuda.synchronize()
+    elapsed("the build and the kernel checks and times")
     # the flagship: served, trained, run_kfold
     fused, plain = phase_slice(fk, device, card)
     torch.cuda.synchronize()
@@ -1312,11 +1511,12 @@ def main() -> int:
     k5_times = phase_k5_times(ak, device, card, batch)
     del batch, cw, step
     torch.cuda.synchronize()
+    elapsed("the flagship")
 
     # DaViT: served, trained; K7's launches on the main path are the 10
     # unfrozen train steps'
-    d_fused, d_plain = phase_slice(fk, device, card, "davit", DAVIT, wa)
-    phase_server(fk, card, cnn="davit_tiny", wa=wa)
+    d_fused, d_plain = phase_slice(fk, device, card, "davit", DAVIT, (wa, K7_SERVED))
+    phase_server(fk, card, cnn="davit_tiny", attn=(wa, K7_SERVED))
     k7_step = {"window_attention_fwd": K7_PER_FORWARD, "window_attention_bwd": K7_PER_FORWARD}
     batch, cw, step, d_launches = phase_train(
         [ak, wa], device, card, "davit", DAVIT, DAVIT_BATCH, per_step={K5: 1, **k7_step},
@@ -1331,6 +1531,33 @@ def main() -> int:
                       kernel_names=[n for names in K7_KERNELS.values() for n in names])
     del batch, cw, step
     torch.cuda.synchronize()
+    elapsed("DaViT")
+
+    # BEiT-v2-large: served, trained; K12's launches on the main path are the
+    # 10 unfrozen train steps'. Then ViT-large served: K12 without a bias
+    b_fused, b_plain = phase_slice(fk, device, card, "beitv2-large", BEIT, (ga, K12_SERVED),
+                                   fp32=False)
+    phase_server(fk, card, cnn=BEIT["cnn_model_name"], attn=(ga, K12_SERVED))
+    k12_step = {name: K12_PER_FORWARD for name in K12}
+    batch, cw, step, b_launches = phase_train(
+        [ak, ga], device, card, "beitv2-large", BEIT, BEIT_BATCH, per_step={K5: 1, **k12_step},
+        frozen_per_step={K5: 1, **k12_step, "global_attention_bwd": 0}, lr=BEIT_TRAIN_LR)
+    launches.update({name: b_launches[name] for name in K12})
+    with small_beit_registered():
+        phase_card_vs_cpu(device, cnn=SMALL_BEIT, hw=224)
+    torch.cuda.synchronize()
+    engine_latency(b_fused, b_plain, "beitv2-large", card)
+    del b_fused, b_plain
+    phase_train_times(device, card, batch, cw, step, "beitv2-large", BEIT,
+                      kernel_names=[n for names in K12_KERNELS.values() for n in names])
+    del batch, cw, step
+    v_fused, v_plain = phase_slice(fk, device, card, "vit-large",
+                                   dict(FLAGSHIP, cnn_model_name=VIT_LARGE), (ga, K12_SERVED),
+                                   fp32=False)
+    del v_fused, v_plain
+    _SMOKE_MODELS.clear()
+    torch.cuda.synchronize()
+    elapsed("BEiT-v2-large and ViT-large")
 
     # the train CLI slice: all 18 mechanisms; the CLI from disk, then the
     # service on its …+metablock checkpoint (K4's launches on the main path
@@ -1343,6 +1570,7 @@ def main() -> int:
     torch.cuda.synchronize()
     metablock_latency(device, card)
     torch.cuda.synchronize()
+    elapsed("the train CLI slice")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
@@ -1368,6 +1596,12 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": errors[name],
          **k7_times[(name, K7_STAGES[0][0])]}
         for name in K7
+    ] + [
+        # BEiT-v2-large's shape at its train batch: B=32, N=197, C=1024, 16
+        # heads, bf16, with the relative position bias (the others are above)
+        {"name": name, "route": "cuda", "source": K12_SOURCE, "replaces": K12[name],
+         "launches": launches[name], "max_abs_err": errors[name], **k12_times[name]}
+        for name in K12
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,11 +3,12 @@
 A second package beside ``skinjax``, which stays the reference it is held
 against. It imports ``torch`` and never JAX. It serves and trains the
 multimodal model with all 18 fusion mechanisms, a one-hot metadata tower and
-a ResNet-18/50 or DaViT-tiny image tower (the flagship: ResNet-50 + RG-ATT),
-and runs the train CLI (``python -m skinjax_torch.tools.train_cli``) from a
-PAD-UFES-20 CSV and PNG images on disk to checkpoints the service serves.
-The fusion stage (K1-K4), the augmentation's color stage (K5) and DaViT's
-window attention (K7) run in hand-written CUDA kernels
+a ResNet-18/50, DaViT-tiny, ViT (tiny to large) or BEiT-v2-large image tower
+(the flagship: ResNet-50 + RG-ATT), and runs the train CLI
+(``python -m skinjax_torch.tools.train_cli``) from a PAD-UFES-20 CSV and PNG
+images on disk to checkpoints the service serves. The fusion stage (K1-K4),
+the augmentation's color stage (K5), DaViT's window attention (K7) and the
+ViT/BEiT global attention core (K12) run in hand-written CUDA kernels
 (``skinjax_torch/ops/``, ``skinjax_torch/csrc/``).
 """
 
@@ -27,3 +28,9 @@ FLAGSHIP = dict(
 # RG-ATT, bf16), at that bench's batch of 64.
 DAVIT = dict(FLAGSHIP, cnn_model_name="davit_tiny")
 DAVIT_BATCH = 64
+
+# BEiT-v2-large in place of ResNet-50, the largest published backbone, whose
+# train rate bench.py reports as beitv2_large_images_per_sec (bf16, RG-ATT),
+# at that bench's batch of 32.
+BEIT = dict(FLAGSHIP, cnn_model_name="beitv2_large_patch16_224")
+BEIT_BATCH = 32

@@ -1,0 +1,508 @@
+// Global (full-sequence) multi-head attention core, forward and stored-
+// probabilities backward, for Hopper (sm_90a).
+//
+// It replaces the Pallas TPU kernel K12 of skinjax/ops/pallas/global_attention.py:
+// the forward _fwd_core (kernel _fwd_kernel, with emit_p) and the stored-P
+// backward _bwd_p_core (kernel _bwd_p_kernel). q, k and v are (B, N, C) in the
+// head-major channel layout (channel c belongs to head c / hd), each row at a
+// stride of ld elements (C when contiguous, 3C for slices of a packed qkv
+// projection). Per batch b and head h (hd = C / heads channels):
+//
+//   forward   s = (q.k^T) * scale (+ bias[h]) (+ kmask[b] over the keys)   fp32
+//             P = softmax(s) fp32, written to p (B, heads, N, N) when asked
+//             o = round(round(P * pmult) . v)
+//   backward  pb = round(P * pmult);  dv = round(pb^T . do)
+//             dp = (do . v^T) * pmult;  ds = P * (dp - rowsum(dp * P))       fp32
+//             dq = round((round(ds) . k) * scale);  dk = round((round(ds)^T . q) * scale)
+//             dbias[h] = sum over b of ds (when a bias gradient is asked for)
+//
+// "round" is the cast to the input type (bf16 or fp32) where the Pallas kernel
+// casts; every sum is fp32. The scale multiplies the fp32 product, in the
+// forward before the bias and in the backward after the products, as the
+// Pallas kernel does (its reference instead scales q in the input type).
+//
+// Layout. No TPU padding: a block masks its own ragged edge (N = 197 for
+// ViT/BEiT at 224x224), and P is kept as (B, heads, N, N), not Mosaic's
+// (groups, B, heads/group, Np, Np).
+//
+// Launches. Forward: one launch, a block per (32 query rows, head, batch),
+// which holds its 32 score rows in shared memory (so N <= 1024), streams K and
+// then V through shared memory 128 keys at a time, and does the softmax a warp
+// a row. Backward: the Pallas kernel sums dk, dv over every query and dbias
+// over the batch across its sequential grid; blocks here run in no order, so
+// the backward is three launches with no atomics: (1) a block per (32 query
+// rows, head, batch) computes dp, ds (written to an fp32 scratch the size of
+// P) and dq; (2) a block per (32 keys, head, batch) sums dv and dk over all
+// queries from P and ds; (3) with a bias gradient, dbias = the sum of ds over
+// the batch in batch order.
+//
+// What bounds it: at BEiT-large (B=32, N=197, C=1024, 16 heads) the forward
+// moves ~134 MB (P's 79.5 MB of them) against 5.1 GFLOP, the backward ~172 MB
+// against 10.2 GFLOP: on the bf16 tensor cores both are bound by bytes (~40 and
+// ~51 us). This first version is simple: fp32 FMAs on the CUDA cores from
+// shared-memory tiles (4x4 and 4x2 outputs a thread), no mma, no TMA, and the
+// backward's ds scratch adds ~240 MB of traffic. PERF.md records how far it is
+// from its bound. Limits: N <= 1024, hd <= 64.
+//
+// C interface: each entry point launches on the given stream and returns
+// cudaGetLastError() as an int (0 = success);
+// skinjax_global_attention_error_string maps the code to its message.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxN = 1024;
+constexpr int kMaxHd = 64;
+constexpr int kHs = kMaxHd + 1;  // row stride of a (rows, head dim) tile in shared memory
+constexpr int kTq = 32;          // query rows a block: the forward and the dq kernel
+constexpr int kKc = 128;         // keys a chunk of K or V in shared memory
+constexpr int kTk = 32;          // keys a block of the dk/dv kernel
+constexpr int kQc = 64;          // query rows a chunk of the dk/dv kernel
+constexpr int kTs = kTk + 1;     // row stride of its (kQc, kTk) planes
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and back: the cast points of the Pallas kernel
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32<T>(from_f32<T>(x));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+struct Dims {
+  int B, N, C, heads, hd;
+  long long ld;  // row stride of q, k and v in elements
+};
+
+__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// shared memory of the forward and the dq kernel: kTq score rows, a (kTq, hd)
+// tile and a (kKc, hd) chunk
+int rows_smem_bytes(int N) { return 4 * (kTq * (round_up(N, kKc) + 1) + kTq * kHs + kKc * kHs); }
+constexpr int dkv_smem_bytes() { return 4 * (2 * kQc * kTs + 2 * kQc * kHs); }
+
+// Rows n0 .. n0 + count - 1 of head hi of batch b of x (rows at a stride of ld)
+// as fp32 into dst (count x kHs); zeros past N and past hd.
+template <typename T>
+__device__ void load_rows(const T* __restrict__ x, long long ld, const Dims& g, int b, int hi,
+                          int n0, int count, float* dst) {
+  for (int idx = threadIdx.x; idx < count * kMaxHd; idx += kThreads) {
+    const int r = idx / kMaxHd, d = idx - r * kMaxHd;
+    const int n = n0 + r;
+    dst[r * kHs + d] =
+        (n < g.N && d < g.hd) ? to_f32<T>(x[((long long)b * g.N + n) * ld + hi * g.hd + d]) : 0.f;
+  }
+}
+
+// acc[i][j] = sum over d < hd of a[warp + 8i][d] * bm[lane + 32j][d]: the
+// (kTq x kKc) tile of a . bm^T
+__device__ __forceinline__ void tile_abt(const float* a, const float* bm, int hd,
+                                         float acc[4][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < hd; ++d) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = a[(warp + 8 * i) * kHs + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = bm[(lane + 32 * j) * kHs + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// acc[i][j] += sum over m < mc of s[(warp + 8i) * ss + m0 + m] * x[m][lane + 32j]:
+// kTq score rows times a (kKc, hd) chunk of V or K
+__device__ __forceinline__ void rows_times_chunk(const float* s, int ss, int m0, int mc,
+                                                 const float* x, float acc[4][2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll 4
+  for (int m = 0; m < mc; ++m) {
+    float av[4], xv[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = s[(warp + 8 * i) * ss + m0 + m];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) xv[j] = x[m * kHs + lane + 32 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) acc[i][j] = fmaf(av[i], xv[j], acc[i][j]);
+  }
+}
+
+// s[r][m] = rows . (chunk of x)^T for every real row and key, the product
+// passed through f(r, m, value) first; x streamed kKc keys at a time
+template <typename T, typename F>
+__device__ void score_rows(const float* rows, const T* __restrict__ x, long long ld,
+                           const Dims& g, int b, int hi, int n_rows, float* s, int ss,
+                           float* chunk, F f) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int m0 = 0; m0 < g.N; m0 += kKc) {
+    __syncthreads();  // rows loaded; the previous chunk consumed
+    load_rows<T>(x, ld, g, b, hi, m0, kKc, chunk);
+    __syncthreads();
+    float acc[4][4];
+    tile_abt(rows, chunk, g.hd, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp + 8 * i;
+      if (r >= n_rows) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = m0 + lane + 32 * j;
+        if (m < g.N) s[r * ss + m] = f(r, m, acc[i][j]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// out rows n0 + warp + 8i, channels lane + 32j of head hi: acc = s . x, x
+// streamed kKc keys at a time, written as round(acc * mul)
+template <typename T>
+__device__ void rows_product_out(const float* s, int ss, const T* __restrict__ x, long long ld,
+                                 const Dims& g, int b, int hi, int n0, int n_rows, float* chunk,
+                                 float mul, T* __restrict__ out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
+  for (int m0 = 0; m0 < g.N; m0 += kKc) {
+    __syncthreads();  // s complete; the previous chunk consumed
+    load_rows<T>(x, ld, g, b, hi, m0, kKc, chunk);
+    __syncthreads();
+    rows_times_chunk(s, ss, m0, min(kKc, g.N - m0), chunk, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = warp + 8 * i;
+    if (r >= n_rows) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int d = lane + 32 * j;
+      if (d < g.hd)
+        out[((long long)b * g.N + n0 + r) * g.C + hi * g.hd + d] = from_f32<T>(acc[i][j] * mul);
+    }
+  }
+}
+
+// Forward: o for 32 query rows of one head of one batch; P when p is not null.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ga_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const float* __restrict__ bias, const float* __restrict__ kmask,
+                  const float* __restrict__ pmult, T* __restrict__ o, float* __restrict__ p,
+                  Dims g, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int N = g.N;
+  const int ss = round_up(N, kKc) + 1;
+  float* s = smem;
+  float* qs = s + kTq * ss;
+  float* chunk = qs + kTq * kHs;
+  const int n0 = blockIdx.x * kTq, hi = blockIdx.y, b = blockIdx.z;
+  const int n_rows = min(kTq, N - n0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  load_rows<T>(q, g.ld, g, b, hi, n0, kTq, qs);
+  score_rows<T>(qs, k, g.ld, g, b, hi, n_rows, s, ss, chunk, [&](int r, int m, float a) {
+    a = __fmul_rn(a, scale);
+    if (bias) a = __fadd_rn(a, bias[((long long)hi * N + n0 + r) * N + m]);
+    if (kmask) a = __fadd_rn(a, kmask[(long long)b * N + m]);
+    return a;
+  });
+
+  // softmax, a warp a row; P written before pmult, then round(P * pmult) kept
+  for (int r = warp; r < n_rows; r += kWarps) {
+    float* row = s + r * ss;
+    const long long n = n0 + r;
+    float mx = -CUDART_INF_F;
+    for (int m = lane; m < N; m += 32) mx = fmaxf(mx, row[m]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int m = lane; m < N; m += 32) {
+      const float e = expf(row[m] - mx);
+      row[m] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    float* prow = p ? p + (((long long)b * g.heads + hi) * N + n) * N : nullptr;
+    const float* mrow = pmult ? pmult + n * N : nullptr;
+    for (int m = lane; m < N; m += 32) {
+      float pv = row[m] / sum;
+      if (prow) prow[m] = pv;
+      if (mrow) pv = __fmul_rn(pv, mrow[m]);
+      row[m] = round_to<T>(pv);
+    }
+  }
+  rows_product_out<T>(s, ss, v, g.ld, g, b, hi, n0, n_rows, chunk, 1.f, o);
+}
+
+// Backward (1): dp, ds (to the scratch) and dq for 32 query rows of one head
+// of one batch.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ga_bwd_dq_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ p, const float* __restrict__ pmult,
+                     T* __restrict__ dq, float* __restrict__ ds, Dims g, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int N = g.N;
+  const int ss = round_up(N, kKc) + 1;
+  float* s = smem;
+  float* dos = s + kTq * ss;
+  float* chunk = dos + kTq * kHs;
+  const int n0 = blockIdx.x * kTq, hi = blockIdx.y, b = blockIdx.z;
+  const int n_rows = min(kTq, N - n0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  load_rows<T>(dout, g.C, g, b, hi, n0, kTq, dos);
+  score_rows<T>(dos, v, g.ld, g, b, hi, n_rows, s, ss, chunk, [&](int r, int m, float a) {
+    return pmult ? __fmul_rn(a, pmult[(long long)(n0 + r) * N + m]) : a;
+  });
+
+  // ds = P * (dp - rowsum(dp * P)), a warp a row; round(ds) kept for dq
+  for (int r = warp; r < n_rows; r += kWarps) {
+    float* row = s + r * ss;
+    const long long at = (((long long)b * g.heads + hi) * N + n0 + r) * N;
+    const float* prow = p + at;
+    float rs = 0.f;
+    for (int m = lane; m < N; m += 32) rs += __fmul_rn(row[m], prow[m]);
+    rs = warp_sum(rs);
+    for (int m = lane; m < N; m += 32) {
+      const float d = __fmul_rn(prow[m], row[m] - rs);
+      ds[at + m] = d;
+      row[m] = round_to<T>(d);
+    }
+  }
+  rows_product_out<T>(s, ss, k, g.ld, g, b, hi, n0, n_rows, chunk, scale, dq);
+}
+
+// Backward (2): dv = round(P * pmult)^T . do and dk = round(ds)^T . q * scale
+// for 32 keys of one head of one batch, summed over every query.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ga_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ dout,
+                      const float* __restrict__ p, const float* __restrict__ pmult,
+                      const float* __restrict__ ds, T* __restrict__ dk, T* __restrict__ dv,
+                      Dims g, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* pb = smem;               // kQc x kTs
+  float* dsb = pb + kQc * kTs;    // kQc x kTs
+  float* dos = dsb + kQc * kTs;   // kQc x kHs
+  float* qs = dos + kQc * kHs;    // kQc x kHs
+  const int N = g.N;
+  const int m0 = blockIdx.x * kTk, hi = blockIdx.y, b = blockIdx.z;
+  const long long plane = ((long long)b * g.heads + hi) * N;  // first row of (b, hi) in p and ds
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float adv[4][2], adk[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) adv[i][0] = adv[i][1] = adk[i][0] = adk[i][1] = 0.f;
+
+  for (int n0 = 0; n0 < N; n0 += kQc) {
+    __syncthreads();  // the previous chunk consumed
+    for (int idx = threadIdx.x; idx < kQc * kTk; idx += kThreads) {
+      const int r = idx / kTk, c = idx - r * kTk;
+      const int n = n0 + r, m = m0 + c;
+      float a = 0.f, d = 0.f;
+      if (n < N && m < N) {
+        const long long at = (plane + n) * N + m;
+        a = p[at];
+        if (pmult) a = __fmul_rn(a, pmult[(long long)n * N + m]);
+        a = round_to<T>(a);
+        d = round_to<T>(ds[at]);
+      }
+      pb[r * kTs + c] = a;
+      dsb[r * kTs + c] = d;
+    }
+    load_rows<T>(dout, g.C, g, b, hi, n0, kQc, dos);
+    load_rows<T>(q, g.ld, g, b, hi, n0, kQc, qs);
+    __syncthreads();
+    const int nc = min(kQc, N - n0);
+#pragma unroll 4
+    for (int r = 0; r < nc; ++r) {
+      float pv[4], sv[4], dv_[2], qv[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = pb[r * kTs + warp + 8 * i];
+        sv[i] = dsb[r * kTs + warp + 8 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        dv_[j] = dos[r * kHs + lane + 32 * j];
+        qv[j] = qs[r * kHs + lane + 32 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          adv[i][j] = fmaf(pv[i], dv_[j], adv[i][j]);
+          adk[i][j] = fmaf(sv[i], qv[j], adk[i][j]);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + warp + 8 * i;
+    if (m >= N) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int d = lane + 32 * j;
+      if (d >= g.hd) continue;
+      const long long at = ((long long)b * N + m) * g.C + hi * g.hd + d;
+      dv[at] = from_f32<T>(adv[i][j]);
+      dk[at] = from_f32<T>(adk[i][j] * scale);
+    }
+  }
+}
+
+// Backward (3): dbias[i] = sum over the batch of ds[b][i], in batch order.
+__global__ void ga_dbias_reduce_kernel(const float* __restrict__ ds, float* __restrict__ out,
+                                    int batch, long long count) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float a = 0.f;
+  for (int b = 0; b < batch; ++b) a += ds[(long long)b * count + i];
+  out[i] = a;
+}
+
+Dims dims(int B, int N, int C, int heads, long long ld) {
+  Dims g;
+  g.B = B;
+  g.N = N;
+  g.C = C;
+  g.heads = heads;
+  g.hd = C / heads;
+  g.ld = ld;
+  return g;
+}
+
+bool bad_dims(const Dims& g) {
+  return g.N < 1 || g.N > kMaxN || g.heads < 1 || g.C % g.heads != 0 || g.hd > kMaxHd ||
+         g.ld < g.C || g.B < 1 || g.B > 65535 || g.heads > 65535;
+}
+
+template <typename T>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float* bias,
+                       const float* kmask, const float* pmult, void* o, float* p, const Dims& g,
+                       float scale, cudaStream_t stream) {
+  const int smem = rows_smem_bytes(g.N);
+  cudaError_t err =
+      cudaFuncSetAttribute(ga_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.N + kTq - 1) / kTq, g.heads, g.B);
+  ga_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias, kmask,
+      pmult, static_cast<T*>(o), p, g, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+                       const float* p, const float* pmult, void* dq, void* dk, void* dv, float* ds,
+                       float* dbias, const Dims& g, float scale, cudaStream_t stream) {
+  const int smem = rows_smem_bytes(g.N);
+  cudaError_t err = cudaFuncSetAttribute(ga_bwd_dq_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((g.N + kTq - 1) / kTq, g.heads, g.B);
+  ga_bwd_dq_kernel<T><<<grid_q, kThreads, smem, stream>>>(
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), p, pmult,
+      static_cast<T*>(dq), ds, g, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ga_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dkv_smem_bytes());
+  if (err != cudaSuccess) return err;
+  const dim3 grid_k((g.N + kTk - 1) / kTk, g.heads, g.B);
+  ga_bwd_dkv_kernel<T><<<grid_k, kThreads, dkv_smem_bytes(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(dout), p, pmult, ds, static_cast<T*>(dk),
+      static_cast<T*>(dv), g, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !dbias) return err;
+  const long long count = (long long)g.heads * g.N * g.N;
+  ga_dbias_reduce_kernel<<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      ds, dbias, g.B, count);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* skinjax_global_attention_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// bf16: 0 for float, 1 for bfloat16 (q, k, v and o share it). q, k, v (B, N, C)
+// with rows at a stride of ld elements and unit channel stride; bias (heads,
+// N, N), kmask (B, N), pmult (N, N), each fp32 or null. Writes o (B, N, C)
+// contiguous and, when p is not null, P (B, heads, N, N) fp32.
+int skinjax_global_attention_fwd(int bf16, const void* q, const void* k, const void* v,
+                                 long long ld, const float* bias, const float* kmask,
+                                 const float* pmult, void* o, float* p, int B, int N, int C,
+                                 int heads, float scale, void* stream) {
+  const Dims g = dims(B, N, C, heads, ld);
+  if (bad_dims(g)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) return launch_fwd<__nv_bfloat16>(q, k, v, bias, kmask, pmult, o, p, g, scale, s);
+  return launch_fwd<float>(q, k, v, bias, kmask, pmult, o, p, g, scale, s);
+}
+
+// dout (B, N, C) contiguous like o; p the forward's P. Writes dq, dk, dv (B,
+// N, C) contiguous, the scratch ds (B, heads, N, N) fp32 and, when dbias is
+// not null, dbias (heads, N, N) fp32.
+int skinjax_global_attention_bwd(int bf16, const void* q, const void* k, const void* v,
+                                 long long ld, const void* dout, const float* p,
+                                 const float* pmult, void* dq, void* dk, void* dv, float* ds,
+                                 float* dbias, int B, int N, int C, int heads, float scale,
+                                 void* stream) {
+  const Dims g = dims(B, N, C, heads, ld);
+  if (bad_dims(g)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_bwd<__nv_bfloat16>(q, k, v, dout, p, pmult, dq, dk, dv, ds, dbias, g, scale, s);
+  return launch_bwd<float>(q, k, v, dout, p, pmult, dq, dk, dv, ds, dbias, g, scale, s);
+}
+
+}  // extern "C"

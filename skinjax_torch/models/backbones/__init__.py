@@ -1,8 +1,8 @@
 """Backbone registry (counterpart of ``skinjax/models/backbones/__init__.py``).
 
-``create_backbone(name)`` returns ``(module, feature_dim)``. The ResNets and
-DaViT-tiny are ported so far; ROADMAP.md lists the other backbones in the
-order they come.
+``create_backbone(name)`` returns ``(module, feature_dim)``. The ResNets,
+DaViT-tiny, the four ViTs and BEiT-v2-large are ported so far; ROADMAP.md
+lists the other backbones in the order they come.
 """
 
 from __future__ import annotations
@@ -11,12 +11,17 @@ from typing import Callable, Dict, Tuple
 
 from torch import nn
 
-from skinjax_torch.models.backbones import davit, resnet
+from skinjax_torch.models.backbones import beit, davit, resnet, vit
 
 _REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "resnet-18": (resnet.resnet18, resnet.FEATURE_DIMS["resnet-18"]),
     "resnet-50": (resnet.resnet50, resnet.FEATURE_DIMS["resnet-50"]),
     "davit_tiny": (davit.davit_tiny, davit.FEATURE_DIM),
+    "vit_tiny_patch16_224": (vit.vit_tiny, 192),
+    "vit_small_patch16_224": (vit.vit_small, 384),
+    "vit_base_patch16_224": (vit.vit_base, 768),
+    "vit_large_patch16_224": (vit.vit_large, 1024),
+    "beitv2_large_patch16_224": (beit.beitv2_large, 1024),
 }
 
 

@@ -15,9 +15,11 @@ back to the same trees. It uses numpy only.
 
 Flax creates parameters lazily, only for the submodules a mechanism calls
 (RG-ATT has no ``img_gate``), so only the subtrees present are converted.
-The image encoder converts by its tree: a DaViT tree (``stem_conv``) to
-timm's keys, which ``skinjax.models.torch_import.import_davit`` reads back,
-a ResNet tree (``stem``) to torchvision's.
+The image encoder converts by its tree: a DaViT tree (``stem_conv``), a ViT
+tree (``pos_embed``, per-block ``attn/{q,k,v}_proj``) and a BEiT tree
+(``fc_norm``, per-block ``attn/qkv_kernel``) to timm's keys, which
+``skinjax.models.torch_import.import_davit``/``import_vit``/``import_beit``
+read back; a ResNet tree (``stem``) to torchvision's.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from skinjax_torch.models.backbones import beit, vit
 from skinjax_torch.ops.attention import MultiheadAttention
 
 
@@ -46,10 +49,15 @@ def _ln(sd: Dict, prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.bias"] = _np(p["bias"])
 
 
-def _mha(sd: Dict, prefix: str, p: Mapping) -> None:
+def _packed_qkv(p: Mapping):
+    """skinjax's q/k/v_proj Denses → one packed (3D, D) weight and (3D,) bias."""
     names = ("q_proj", "k_proj", "v_proj")
-    sd[f"{prefix}.in_proj_weight"] = np.concatenate([_np(p[n]["kernel"]).T for n in names])
-    sd[f"{prefix}.in_proj_bias"] = np.concatenate([_np(p[n]["bias"]) for n in names])
+    return (np.concatenate([_np(p[n]["kernel"]).T for n in names]),
+            np.concatenate([_np(p[n]["bias"]) for n in names]))
+
+
+def _mha(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.in_proj_weight"], sd[f"{prefix}.in_proj_bias"] = _packed_qkv(p)
     _linear(sd, f"{prefix}.out_proj", p["out_proj"])
 
 
@@ -92,6 +100,48 @@ def _davit(sd: Dict, prefix: str, p: Mapping) -> None:
     _ln(sd, f"{prefix}head.norm", p["head_norm"])
 
 
+def _blocks(p: Mapping):
+    """The ``block{i}`` subtrees of a ViT or BEiT tree, in block order."""
+    return [p[f"block{i}"] for i in range(sum(k.startswith("block") for k in p))]
+
+
+def _vit(sd: Dict, prefix: str, p: Mapping) -> None:
+    """skinjax ``ViT`` params → timm keys (the inverse of ``import_vit``)."""
+    _conv(sd, f"{prefix}patch_embed.proj", p["patch_embed"])
+    sd[f"{prefix}cls_token"] = _np(p["cls_token"])
+    sd[f"{prefix}pos_embed"] = _np(p["pos_embed"])
+    for i, b in enumerate(_blocks(p)):
+        base = f"{prefix}blocks.{i}"
+        _ln(sd, f"{base}.norm1", b["norm1"])
+        sd[f"{base}.attn.qkv.weight"], sd[f"{base}.attn.qkv.bias"] = _packed_qkv(b["attn"])
+        _linear(sd, f"{base}.attn.proj", b["attn"]["out_proj"])
+        _ln(sd, f"{base}.norm2", b["norm2"])
+        _linear(sd, f"{base}.mlp.fc1", b["mlp_in"])
+        _linear(sd, f"{base}.mlp.fc2", b["mlp_out"])
+    _ln(sd, f"{prefix}norm", p["norm"])
+
+
+def _beit(sd: Dict, prefix: str, p: Mapping) -> None:
+    """skinjax ``Beit`` params → timm keys (the inverse of ``import_beit``)."""
+    _conv(sd, f"{prefix}patch_embed.proj", p["patch_embed"])
+    sd[f"{prefix}cls_token"] = _np(p["cls_token"])
+    for i, b in enumerate(_blocks(p)):
+        base = f"{prefix}blocks.{i}"
+        sd[f"{base}.gamma_1"] = _np(b["gamma_1"])
+        sd[f"{base}.gamma_2"] = _np(b["gamma_2"])
+        _ln(sd, f"{base}.norm1", b["norm1"])
+        a = b["attn"]
+        sd[f"{base}.attn.qkv.weight"] = np.ascontiguousarray(_np(a["qkv_kernel"]).T)
+        sd[f"{base}.attn.q_bias"] = _np(a["q_bias"])
+        sd[f"{base}.attn.v_bias"] = _np(a["v_bias"])
+        sd[f"{base}.attn.relative_position_bias_table"] = _np(a["rel_bias_table"])
+        _linear(sd, f"{base}.attn.proj", a["proj"])
+        _ln(sd, f"{base}.norm2", b["norm2"])
+        _linear(sd, f"{base}.mlp.fc1", b["mlp_fc1"])
+        _linear(sd, f"{base}.mlp.fc2", b["mlp_fc2"])
+    _ln(sd, f"{prefix}fc_norm", p["fc_norm"])
+
+
 def _resnet(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
     _convbn(sd, f"{prefix}conv1", f"{prefix}bn1", p["stem"], s["stem"])
     for blk in (k for k in p if k.startswith("layer")):
@@ -120,9 +170,13 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, np.
         _davit(sd, "image_encoder.", enc)
     elif "stem" in enc:
         _resnet(sd, "image_encoder.", enc, batch_stats["image_encoder"])
+    elif "pos_embed" in enc:
+        _vit(sd, "image_encoder.", enc)
+    elif "fc_norm" in enc:
+        _beit(sd, "image_encoder.", enc)
     else:
         raise NotImplementedError(
-            "state_dict_from_flax converts ResNet and DaViT image encoders only; "
+            "state_dict_from_flax converts ResNet, DaViT, ViT and BEiT image encoders only; "
             f"got an encoder with {sorted(enc)[:4]}..."
         )
     for name in ("image_projector", "text_projector", "img_gate", "txt_gate",
@@ -171,11 +225,23 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     default) and zero bias. The packed ``in_proj_weight``: Xavier uniform
     over each D×D block, as the JAX attention draws q/k/v, and zero bias.
     Norms: unit scale, zero shift, running stats (0, 1).
+
+    Then the ViT and BEiT towers' own parameters, with skinjax's
+    initialisers: the patch embedding LeCun normal (flax's Conv default);
+    ``cls_token`` and ``pos_embed`` normal(0.02); ViT's q, k, v and output
+    projections Xavier uniform each (skinjax's attention draws them so), its
+    qkv bias zero; BEiT's packed qkv Xavier uniform over (C, 3C), its q/v
+    biases and relative position bias table zero, ``gamma_1``/``gamma_2``
+    1e-5.
     """
     g = torch.Generator(device="cpu").manual_seed(seed)
 
     def put(t: torch.Tensor, value: torch.Tensor) -> None:
         t.copy_(value.to(t.dtype))
+
+    def xavier(t: torch.Tensor, fan_in: int, fan_out: int) -> None:
+        bound = (6.0 / (fan_in + fan_out)) ** 0.5
+        put(t, (torch.rand(t.shape, generator=g) * 2 - 1) * bound)
 
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
@@ -185,7 +251,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
                 m.bias.zero_()
         elif isinstance(m, nn.Linear):
             put(m.weight, torch.randn(m.weight.shape, generator=g) * m.in_features ** -0.5)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, MultiheadAttention):
             d = m.embed_dim
             bound = (6.0 / (2 * d)) ** 0.5
@@ -196,4 +263,25 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             m.bias.zero_()
             if isinstance(m, nn.BatchNorm2d):
                 m.reset_running_stats()
+    for m in model.modules():
+        if isinstance(m, vit.PatchEmbed):
+            fan_in = m.proj.in_channels * m.proj.kernel_size[0] * m.proj.kernel_size[1]
+            put(m.proj.weight, torch.randn(m.proj.weight.shape, generator=g) * fan_in ** -0.5)
+        elif isinstance(m, (vit.VisionTransformer, beit.Beit)):
+            put(m.cls_token, torch.randn(m.cls_token.shape, generator=g) * 0.02)
+            if isinstance(m, vit.VisionTransformer):
+                put(m.pos_embed, torch.randn(m.pos_embed.shape, generator=g) * 0.02)
+        elif isinstance(m, vit.Attention):
+            d = m.proj.in_features
+            for i in range(3):
+                xavier(m.qkv.weight[i * d:(i + 1) * d], d, d)
+            xavier(m.proj.weight, d, d)
+        elif isinstance(m, beit.BeitAttention):
+            d = m.proj.in_features
+            xavier(m.qkv.weight, d, 3 * d)
+            for t in (m.q_bias, m.v_bias, m.relative_position_bias_table):
+                t.zero_()
+        elif isinstance(m, beit.BeitBlock):
+            m.gamma_1.fill_(1e-5)
+            m.gamma_2.fill_(1e-5)
     return model

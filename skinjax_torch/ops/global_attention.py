@@ -1,0 +1,320 @@
+"""Global (full-sequence) multi-head attention core as a hand-written CUDA
+kernel pair: the forward, which also emits the fp32 softmax probabilities P,
+and the stored-probabilities backward.
+
+Counterpart of ``skinjax/ops/pallas/global_attention.py`` (K12):
+
+  kernel                 CUDA entry point (csrc/global_attention.cu)   replaces (Pallas TPU kernel)
+  global_attention_fwd   skinjax_global_attention_fwd                  global_attention.py _fwd_core
+  global_attention_bwd   skinjax_global_attention_bwd                  global_attention.py _bwd_p_core
+
+``attention_core(q, k, v, bias, kmask, pmult, num_heads)`` is a
+``torch.autograd.Function`` with skinjax's signature and layouts: q, k, v
+``(B, N, C)`` in the head-major channel layout (channel c belongs to head
+``c // (C // num_heads)``; slices of a packed qkv projection are taken as
+they are), bias ``(h, N, N)`` additive or None (differentiable), kmask
+``(B, N)`` additive over the keys or None, pmult ``(N, N)`` multiplicative
+after the softmax or None (neither has a gradient). It returns ``(B, N, C)``
+in q's dtype (float32 or bfloat16 on the card). It rounds at the Pallas
+kernel's points: the scale multiplies the fp32 scores, P is fp32, ``P·pmult``
+is cast to q's dtype before ``·v``; the backward casts ``P·pmult`` before
+``dv``, keeps ``dp`` and ``ds`` in fp32, casts ``ds`` before ``dq`` and ``dk``
+and scales those after the product.
+
+When a gradient will be asked for, the forward keeps P (``B·h·N²·4`` bytes)
+for the backward. Above skinjax's limit for that residual (256 MB a call,
+``_store_p_ok``) skinjax switches to its recompute backward; that backward is
+not ported yet (ROADMAP.md, the BERT and GPT-2 text towers), so the port
+raises ``NotImplementedError`` there.
+
+``attention_core_plain`` and ``attention_core_bwd_plain`` are the plain
+PyTorch twins, rounding at the same points; ``attention_core_reference`` is a
+copy of skinjax's einsum reference. The wrappers dispatch on the device of q:
+a CPU tensor goes to the twin, a CUDA tensor launches the kernel or raises.
+There is no fallback from a failed build or launch. ``LAUNCHES`` counts calls
+that launched a kernel (one per forward, one per backward; a twin call is not
+counted).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from skinjax_torch.ops import check_tensor
+
+LAUNCHES: Dict[str, int] = {"global_attention_fwd": 0, "global_attention_bwd": 0}
+
+MAX_TOKENS = 1024
+MAX_HEAD_DIM = 64
+# skinjax's ceiling for the stored-P residual (_STORE_P_DEFAULT_MAX_MB)
+STORE_P_MAX_BYTES = 256 * 1024 * 1024
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    "skinjax_global_attention_error_string": ([_I], ctypes.c_char_p),
+    "skinjax_global_attention_fwd": ([_I, _P, _P, _P, _L] + [_P] * 5 + [_I] * 4 + [_F, _P], _I),
+    "skinjax_global_attention_bwd": ([_I, _P, _P, _P, _L] + [_P] * 8 + [_I] * 4 + [_F, _P], _I),
+}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def library():
+    """The kernels' shared library, built with nvcc on first use (raises if
+    the build fails)."""
+    from skinjax_torch.ops import build
+
+    return build.load("global_attention", _SIGNATURES)
+
+
+def attention_core_reference(q, k, v, num_heads, bias=None, kmask=None, pmult=None):
+    """skinjax's einsum reference: it scales q in the input dtype before the
+    fp32 scores. Returns (B, N, C) in q's dtype."""
+    B, N, C = q.shape
+    h = num_heads
+    hd = C // h
+    acc = _acc(q.dtype)
+    with torch.autocast(q.device.type, enabled=False):
+        qh, kh, vh = (t.reshape(B, N, h, hd) for t in (q, k, v))
+        s = torch.einsum("bnhd,bmhd->bhnm", (qh * hd ** -0.5).to(acc), kh.to(acc))
+        if bias is not None:
+            s = s + bias[None].to(acc)
+        if kmask is not None:
+            s = s + kmask[:, None, None, :].to(acc)
+        p = torch.softmax(s, dim=-1)
+        if pmult is not None:
+            p = p * pmult[None, None].to(acc)
+        p = p.to(q.dtype)
+        return torch.einsum("bhnm,bmhd->bnhd", p, vh).reshape(B, N, C)
+
+
+# ---------------------------------------------------------------------------
+# plain twins (the reference for the kernels, and the CPU path)
+# ---------------------------------------------------------------------------
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The sums' dtype: fp32, or fp64 for fp64 inputs (the gradient checks)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, N, C) head-major → (B, h, N, hd)."""
+    B, N, C = t.shape
+    return t.reshape(B, N, h, C // h).transpose(1, 2)
+
+
+def _merge(t: torch.Tensor) -> torch.Tensor:
+    """(B, h, N, hd) → (B, N, h·hd)."""
+    B, h, N, hd = t.shape
+    return t.transpose(1, 2).reshape(B, N, h * hd)
+
+
+def attention_core_plain(q, k, v, bias, kmask, pmult, num_heads
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's arithmetic in PyTorch ops → (o (B, N, C) in q's
+    dtype, P (B, h, N, N) fp32, before pmult)."""
+    dt, acc = q.dtype, _acc(q.dtype)
+    scale = (q.shape[-1] // num_heads) ** -0.5
+    with torch.autocast(q.device.type, enabled=False):
+        qh, kh, vh = (_heads(t, num_heads).to(acc) for t in (q, k, v))
+        s = (qh @ kh.transpose(-1, -2)) * scale
+        if bias is not None:
+            s = s + bias.to(acc)[None]
+        if kmask is not None:
+            s = s + kmask.to(acc)[:, None, None, :]
+        p = torch.softmax(s, dim=-1)
+        pm = p * pmult.to(acc) if pmult is not None else p
+        o = (pm.to(dt).to(acc) @ vh).to(dt)
+        return _merge(o), p
+
+
+def attention_core_bwd_plain(q, k, v, do, p, pmult, num_heads, has_bias
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                        Optional[torch.Tensor]]:
+    """The backward kernel's arithmetic → (dq, dk, dv (B, N, C) in q's dtype,
+    dbias (h, N, N) fp32 or None), what skinjax's ``_bwd_p_core`` returns."""
+    dt, acc = q.dtype, _acc(q.dtype)
+    scale = (q.shape[-1] // num_heads) ** -0.5
+    with torch.autocast(q.device.type, enabled=False):
+        qh, kh, vh, doh = (_heads(t, num_heads).to(acc) for t in (q, k, v, do))
+        p = p.to(acc)
+        mlt = pmult.to(acc) if pmult is not None else None
+        pb = (p * mlt if mlt is not None else p).to(dt).to(acc)
+        dv = (pb.transpose(-1, -2) @ doh).to(dt)
+        dp = doh @ vh.transpose(-1, -2)
+        if mlt is not None:
+            dp = dp * mlt
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        dbias = ds.sum(0) if has_bias else None
+        dsb = ds.to(dt).to(acc)
+        dq = ((dsb @ kh) * scale).to(dt)
+        dk = ((dsb.transpose(-1, -2) @ qh) * scale).to(dt)
+        return _merge(dq), _merge(dk), _merge(dv), dbias
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def check_residual(q: torch.Tensor, num_heads: int) -> None:
+    """Raise where the stored-P residual of one call is above skinjax's
+    limit: skinjax's recompute backward for that case is not ported yet."""
+    B, N, _ = q.shape
+    nbytes = B * num_heads * N * N * 4
+    if nbytes > STORE_P_MAX_BYTES:
+        raise NotImplementedError(
+            f"the stored-probabilities residual of this attention call is {nbytes / 2**20:.0f} MB "
+            f"(B={B}, {num_heads} heads, N={N}), above skinjax's {STORE_P_MAX_BYTES >> 20} MB "
+            "limit, where skinjax takes its recompute backward; that backward is not ported yet "
+            "(ROADMAP.md: with the BERT and GPT-2 text towers)")
+
+
+def _row_stride(t: torch.Tensor) -> Optional[int]:
+    """The row stride of a (B, N, C) tensor whose rows are evenly spaced with
+    unit channel stride (contiguous, or a slice of a packed projection)."""
+    B, N, _ = t.shape
+    ld = t.stride(1)
+    if t.stride(2) != 1 or (B > 1 and t.stride(0) != N * ld):
+        return None
+    return ld
+
+
+def _check(q, k, v, bias, kmask, pmult, num_heads):
+    """Shapes the kernels take. Returns (q, k, v, ld) with q, k, v sharing a
+    row stride ld (made contiguous where they do not), and (bias, kmask,
+    pmult) as contiguous fp32 or None."""
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"global attention takes {_DTYPES}; got {q.dtype}")
+    if q.dim() != 3:
+        raise ValueError(f"q must be (B, N, C), got {tuple(q.shape)}")
+    B, N, C = q.shape
+    if C % num_heads or C // num_heads > MAX_HEAD_DIM or N > MAX_TOKENS:
+        raise ValueError(f"the kernel takes C divisible by the heads, at most {MAX_HEAD_DIM} "
+                         f"channels a head and {MAX_TOKENS} tokens; got C={C}, {num_heads} heads, "
+                         f"N={N}")
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} is {t.dtype}{tuple(t.shape)} on {t.device}; q is "
+                             f"{q.dtype}{tuple(q.shape)} on {q.device}")
+    ld = _row_stride(q)
+    if ld is None or ld < C or any(_row_stride(t) != ld for t in (k, v)):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        ld = C
+    extras = []
+    for name, t, shape in (("bias", bias, (num_heads, N, N)), ("kmask", kmask, (B, N)),
+                           ("pmult", pmult, (N, N))):
+        if t is not None:
+            t = t.float().contiguous()
+            check_tensor(name, t, shape, torch.float32, q.device)
+        extras.append(t)
+    return (q, k, v, ld, *extras)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.skinjax_global_attention_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def global_attention_fwd(q, k, v, bias, kmask, pmult, num_heads: int, emit_p: bool
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(o (B, N, C), P (B, h, N, N) fp32 when ``emit_p``, else None) from the
+    forward kernel (CUDA) or its twin (CPU). With ``emit_p`` it raises above
+    the stored-P limit (``check_residual``)."""
+    if emit_p:
+        check_residual(q, num_heads)
+    if q.device.type == "cpu":
+        o, p = attention_core_plain(q, k, v, bias, kmask, pmult, num_heads)
+        return o, (p if emit_p else None)
+    if q.device.type != "cuda":
+        raise ValueError(f"global attention takes CPU or CUDA tensors, got {q.device}")
+    q, k, v, ld, bias, kmask, pmult = _check(q, k, v, bias, kmask, pmult, num_heads)
+    B, N, C = q.shape
+    o = torch.empty((B, N, C), dtype=q.dtype, device=q.device)
+    p = (torch.empty((B, num_heads, N, N), dtype=torch.float32, device=q.device) if emit_p
+         else None)
+    if q.numel() == 0:
+        return o, p
+    lib = library()
+    err = lib.skinjax_global_attention_fwd(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, _ptr(bias),
+        _ptr(kmask), _ptr(pmult), o.data_ptr(), _ptr(p), B, N, C, num_heads,
+        (C // num_heads) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise(lib, err, "global_attention_fwd")
+    LAUNCHES["global_attention_fwd"] += 1
+    return o, p
+
+
+def global_attention_bwd(q, k, v, do, p, pmult, num_heads: int, has_bias: bool):
+    """(dq, dk, dv, dbias fp32 or None) from the backward kernel (CUDA) or
+    its twin (CPU); ``p`` is the forward's P."""
+    if q.device.type == "cpu":
+        return attention_core_bwd_plain(q, k, v, do, p, pmult, num_heads, has_bias)
+    if q.device.type != "cuda":
+        raise ValueError(f"global attention takes CPU or CUDA tensors, got {q.device}")
+    q, k, v, ld, _, _, pmult = _check(q, k, v, None, None, pmult, num_heads)
+    B, N, C = q.shape
+    check_tensor("do", do, (B, N, C), q.dtype, q.device)
+    check_tensor("p", p, (B, num_heads, N, N), torch.float32, q.device)
+    dq, dk, dv = (torch.empty((B, N, C), dtype=q.dtype, device=q.device) for _ in range(3))
+    ds = torch.empty((B, num_heads, N, N), dtype=torch.float32, device=q.device)
+    dbias = (torch.empty((num_heads, N, N), dtype=torch.float32, device=q.device) if has_bias
+             else None)
+    if q.numel() == 0:
+        return dq, dk, dv, None if dbias is None else dbias.zero_()
+    lib = library()
+    err = lib.skinjax_global_attention_bwd(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
+        do.data_ptr(), p.data_ptr(), _ptr(pmult), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        ds.data_ptr(), _ptr(dbias), B, N, C, num_heads, (C // num_heads) ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise(lib, err, "global_attention_bwd")
+    LAUNCHES["global_attention_bwd"] += 1
+    return dq, dk, dv, dbias
+
+
+class _AttentionCore(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, kmask, pmult, num_heads, emit_p):
+        o, p = global_attention_fwd(q, k, v, bias, kmask, pmult, num_heads, emit_p)
+        if emit_p:
+            ctx.save_for_backward(q, k, v, p, pmult)
+        ctx.num_heads = num_heads
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, p, pmult = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.autocast(q.device.type, enabled=False):
+            do = do.to(q.dtype).contiguous()
+            dq, dk, dv, dbias = global_attention_bwd(q, k, v, do, p, pmult, ctx.num_heads,
+                                                     ctx.bias_dtype is not None and need[3])
+        return (dq if need[0] else None, dk if need[1] else None, dv if need[2] else None,
+                None if dbias is None else dbias.to(ctx.bias_dtype), None, None, None, None)
+
+
+def attention_core(q, k, v, bias, kmask, pmult, num_heads: int) -> torch.Tensor:
+    """Global MHA core on head-major (B, N, C) q, k, v; differentiable in q,
+    k, v and the bias. P is kept for the backward only where grad mode is on
+    and an input needs a gradient."""
+    emit_p = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, bias))
+    return _AttentionCore.apply(q, k, v, bias, kmask, pmult, num_heads, emit_p)

@@ -22,15 +22,17 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-# last-stage name markers per backbone family, used by "partial" mode
+# last-stage name markers per backbone family, used by "partial" mode:
+# skinjax's markers, with its ViT/BEiT block names "block11"/"block23" as the
+# port's timm names "blocks.11."/"blocks.23."
 LAST_STAGE_MARKERS = (
     "layer4",      # resnet
     "block{last}", # resolved dynamically
     "trans2",      # densenet tail
     "norm_final",
     "head",        # mobilenet/efficientnet head conv
-    "block11",     # vit_base last block
-    "block23",     # vit_large last block
+    "blocks.11.",  # vit_base last block
+    "blocks.23.",  # vit_large last block
 )
 
 FREEZE_MODES = ("unfrozen_weights", "frozen_weights", "last_layer_unfrozen_weights", "partial")

@@ -1,0 +1,252 @@
+"""The port's global attention core (K12's plain twins, the CPU path of
+``skinjax_torch.ops.global_attention``) against skinjax's
+``ops/pallas/global_attention.py``, run as its own tests run it on the CPU
+(the Pallas kernels in interpret mode): the same numpy inputs on both sides;
+the output and the stored probabilities P of ``_fwd_core``, the stored-P
+backward ``_bwd_p_core`` and ``jax.vjp`` of ``attention_core``; with no
+extras, a bias, a key mask, a probability multiplier and all three; fp32 and
+bf16. Then the autograd.Function against autograd of the reference in
+float64, the residual limit, and ``MultiheadAttention``'s three routes
+against skinjax's ``MultiHeadAttention``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from skinjax.ops import attention as jattn
+from skinjax.ops.pallas import global_attention as jga
+from skinjax_torch.ops import global_attention as tga
+from skinjax_torch.ops.attention import MultiheadAttention
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs test files in parallel processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# name: (B, N, C, heads, bias, kmask, pmult)
+CASES = {
+    "plain": (2, 17, 128, 2, False, False, False),
+    "bias": (2, 17, 128, 2, True, False, False),
+    "kmask": (2, 50, 128, 4, False, True, False),
+    "pmult": (1, 50, 128, 4, False, False, True),
+    "all": (2, 50, 128, 4, True, True, True),
+}
+
+
+def _inputs(case, seed):
+    B, N, C, h, bias, kmask, pmult = CASES[case]
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    q, k, v, do = (rng.normal(size=(B, N, C)).astype(f) for _ in range(4))
+    b = (rng.normal(size=(h, N, N)) * 0.5).astype(f) if bias else None
+    km = None
+    if kmask:  # BERT padding: the last keys of the first sample dropped
+        km = np.zeros((B, N), f)
+        km[0, N - 5:] = -1e9
+    pm = None
+    if pmult:  # broadcast dropout at keep 0.8: keep / 0.8 or 0
+        pm = (np.where(rng.uniform(size=(N, N)) < 0.8, 1.0, 0.0) / 0.8).astype(f)
+    return (q, k, v), do, b, km, pm, h
+
+
+def _jax(a, dtype=jnp.float32):
+    return None if a is None else jnp.asarray(a, dtype)
+
+
+def _torch(a, dtype=torch.float32, grad=False):
+    if a is None:
+        return None
+    return torch.tensor(a, dtype=dtype, requires_grad=grad)
+
+
+def _f32(t):
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy()
+    return np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at the magnitude of max |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.abs(x).max())) - 7)
+
+
+def _skinjax_p(p, B, h, N):
+    """skinjax's stored P (n_groups, B, heads/group, Np, Np) as (B, h, N, N)."""
+    p = np.asarray(p)
+    return p.transpose(1, 0, 2, 3, 4).reshape(B, h, *p.shape[-2:])[:, :, :N, :N]
+
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _close(out, ref, dtype, name):
+    if dtype == "float32":
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=1e-5, rtol=1e-5, err_msg=name)
+    else:
+        r = _f32(ref)
+        np.testing.assert_allclose(_f32(out), r, atol=2 * _bf16_ulp(r), rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_and_p_match_skinjax(case, dtype):
+    """o and P against skinjax's ``_fwd_core(emit_p=True)`` (the Pallas
+    kernel ``attention_core`` runs), and o against its einsum reference."""
+    (q, k, v), _, b, km, pm, h = _inputs(case, seed=1)
+    B, N, _ = q.shape
+    jdt, tdt = DTYPES[dtype]
+    ref_o, ref_p = jga._fwd_core(*(_jax(a, jdt) for a in (q, k, v)), _jax(b), _jax(km), _jax(pm),
+                                 num_heads=h, emit_p=True)
+    tga.reset_launches()
+    out, p = tga.global_attention_fwd(*(_torch(a, tdt) for a in (q, k, v)), _torch(b), _torch(km),
+                                      _torch(pm), h, emit_p=True)
+    assert sum(tga.LAUNCHES.values()) == 0  # CPU tensors take the twins
+    assert out.dtype == tdt and out.shape == q.shape and p.dtype == torch.float32
+    _close(out, ref_o, dtype, "o")
+    np.testing.assert_allclose(p.numpy(), _skinjax_p(ref_p, B, h, N), atol=1e-5, rtol=1e-5)
+    ref = jga.attention_core_reference(*(_jax(a, jdt) for a in (q, k, v)), h, _jax(b), _jax(km),
+                                       _jax(pm))
+    mine = tga.attention_core_reference(*(_torch(a, tdt) for a in (q, k, v)), h, _torch(b),
+                                        _torch(km), _torch(pm))
+    _close(mine, ref, dtype, "reference")
+    if dtype == "float32":  # the reference scales q first: equal in fp32 up to rounding
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(CASES))
+def test_backward_twin_matches_bwd_p_core(case, dtype):
+    """dq, dk, dv and dbias from the backward twin against skinjax's
+    ``_bwd_p_core`` on the same P; fp32 within 1e-5, bf16 within 2 ulps."""
+    (q, k, v), do, b, km, pm, h = _inputs(case, seed=2)
+    B, N, _ = q.shape
+    jdt, tdt = DTYPES[dtype]
+    _, jp = jga._fwd_core(*(_jax(a, jdt) for a in (q, k, v)), _jax(b), _jax(km), _jax(pm),
+                          num_heads=h, emit_p=True)
+    ref = jga._bwd_p_core(*(_jax(a, jdt) for a in (q, k, v, do)), jp, _jax(pm), num_heads=h,
+                          has_bias=b is not None)
+    p = torch.tensor(_skinjax_p(jp, B, h, N))
+    out = tga.global_attention_bwd(*(_torch(a, tdt) for a in (q, k, v, do)), p, _torch(pm), h,
+                                   b is not None)
+    assert (out[3] is None) == (b is None)
+    for name, o, r in zip(("dq", "dk", "dv", "dbias"), out, ref):
+        if r is None:
+            continue
+        assert o.shape == r.shape, name
+        _close(o, r, "float32" if name == "dbias" else dtype, name)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_gradients_match_jax_vjp(case):
+    """Through the autograd.Function: dq, dk, dv, dbias against ``jax.vjp``
+    of skinjax's ``attention_core`` (its stored-P backward), fp32."""
+    (q, k, v), do, b, km, pm, h = _inputs(case, seed=3)
+    args = [_jax(a) for a in (q, k, v)] + [_jax(b)]
+    y, vjp = jax.vjp(lambda q, k, v, b: jga.attention_core(q, k, v, b, _jax(km), _jax(pm), h),
+                     *args)
+    ref = vjp(jnp.asarray(do))
+    targs = [_torch(a, grad=True) for a in (q, k, v)]
+    bias = _torch(b, grad=True)
+    out = tga.attention_core(*targs, bias, _torch(km), _torch(pm), h)
+    out.backward(torch.tensor(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(y), atol=1e-5, rtol=1e-5)
+    grads = [t.grad for t in targs] + ([bias.grad] if bias is not None else [])
+    for name, o, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_autograd_function_matches_reference_float64(case):
+    """The Function's forward and backward against autograd through the
+    plain reference, in float64 (the twins sum in float64 there)."""
+    (q, k, v), do, b, km, pm, h = _inputs(case, seed=4)
+    f64 = torch.float64
+    a1 = [_torch(a, f64, grad=True) for a in (q, k, v)] + [_torch(b, f64, grad=True)]
+    a2 = [_torch(a, f64, grad=True) for a in (q, k, v)] + [_torch(b, f64, grad=True)]
+    km, pm = _torch(km, f64), _torch(pm, f64)
+    y1 = tga.attention_core(*a1[:4], km, pm, h)
+    y2 = tga.attention_core_reference(*a2[:3], h, a2[3], km, pm)
+    assert y1.dtype == f64
+    np.testing.assert_allclose(y1.detach().numpy(), y2.detach().numpy(), atol=1e-12, rtol=1e-10)
+    g = torch.tensor(do, dtype=f64)
+    y1.backward(g)
+    y2.backward(g)
+    for t1, t2 in zip(a1, a2):
+        if t1 is not None:
+            np.testing.assert_allclose(t1.grad.numpy(), t2.grad.numpy(), atol=1e-12, rtol=1e-9)
+
+
+def test_residual_limit_raises():
+    """P for B=1, 16 heads, N=4096 is 1 GiB, above skinjax's 256 MB: skinjax
+    takes its recompute backward there, which is not ported; the port raises
+    before it computes anything. Without a gradient no P is kept."""
+    q = torch.zeros(1, 4096, 1024, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="recompute backward"):
+        tga.attention_core(q, q, q, None, None, None, 16)
+    small = torch.zeros(1, 8, 64)
+    with torch.no_grad():
+        assert tga.attention_core(small, small, small, None, None, None, 1).shape == (1, 8, 64)
+    tga.check_residual(torch.zeros(32, 197, 1024), 16)  # BEiT-large at B=32: 79.5 MB
+
+
+def test_packed_slices_and_bad_devices():
+    """Slices of a packed qkv projection keep their row stride (3C); a
+    tensor whose rows are not evenly spaced has none; the kernels take CPU
+    (their twins) or CUDA tensors only."""
+    qkv = torch.zeros(2, 5, 3 * 8)
+    assert tga._row_stride(qkv[..., :8]) == 24
+    assert tga._row_stride(qkv[..., 8:16]) == 24
+    assert tga._row_stride(torch.zeros(2, 8, 5).transpose(1, 2)) is None
+    x = torch.zeros(1, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tga.global_attention_fwd(x, x, x, None, None, None, 1, emit_p=False)
+
+
+def _mha_pair(D, h, seed):
+    """skinjax's MultiHeadAttention with random parameters, and the port's
+    module holding the same ones in the packed layout."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    params = {n: {"kernel": (rng.normal(size=(D, D)) / np.sqrt(D)).astype(f),
+                  "bias": (0.1 * rng.normal(size=(D,))).astype(f)}
+              for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+    port = MultiheadAttention(D, h)
+    with torch.no_grad():
+        port.in_proj_weight.copy_(torch.tensor(np.concatenate(
+            [params[n]["kernel"].T for n in ("q_proj", "k_proj", "v_proj")])))
+        port.in_proj_bias.copy_(torch.tensor(np.concatenate(
+            [params[n]["bias"] for n in ("q_proj", "k_proj", "v_proj")])))
+        port.out_proj.weight.copy_(torch.tensor(params["out_proj"]["kernel"].T))
+        port.out_proj.bias.copy_(torch.tensor(params["out_proj"]["bias"]))
+    return jattn.MultiHeadAttention(D, h), {"params": params}, port
+
+
+@pytest.mark.parametrize("route", ["self (K12)", "cross", "mask"])
+def test_multihead_attention_matches_skinjax(route):
+    """Sq == Skv without a mask goes through K12 (its twin here); Sq != Skv,
+    and a boolean mask, through plain PyTorch; each against skinjax."""
+    D, h, B, S = 64, 4, 2, 9
+    jmod, variables, port = _mha_pair(D, h, seed=5)
+    rng = np.random.default_rng(6)
+    skv = 5 if route == "cross" else S
+    q = rng.normal(size=(B, S, D)).astype(np.float32)
+    kv = rng.normal(size=(B, skv, D)).astype(np.float32)
+    mask = None
+    if route == "mask":
+        mask = rng.uniform(size=(B, 1, S, S)) > 0.3
+        mask[..., 0] = True  # every query attends to something
+    ref = jmod.apply(variables, jnp.asarray(q), jnp.asarray(kv), jnp.asarray(kv),
+                     mask=None if mask is None else jnp.asarray(mask))
+    tga.reset_launches()
+    with torch.no_grad():
+        out = port(torch.tensor(q), torch.tensor(kv), torch.tensor(kv),
+                   None if mask is None else torch.tensor(mask))
+    assert sum(tga.LAUNCHES.values()) == 0
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)

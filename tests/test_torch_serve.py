@@ -277,6 +277,8 @@ def test_port_never_imports_jax():
         "import skinjax_torch.train.steps, skinjax_torch.train.early_stopping\n"
         "import skinjax_torch.train.checkpoint, skinjax_torch.train.metrics\n"
         "import skinjax_torch.train.loop, skinjax_torch.train.kfold\n"
+        "import skinjax_torch.ops.global_attention, skinjax_torch.ops.attention\n"
+        "import skinjax_torch.models.backbones.vit, skinjax_torch.models.backbones.beit\n"
         "import chip_smoke\n"
         "banned = ('jax', 'jaxlib', 'flax', 'skinjax', 'cv2', 'matplotlib')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
