@@ -9,9 +9,11 @@ metadata MLP + RG-ATT, 224×224, common_dim 512, bf16), served (the inference
 engine and the HTTP service) and trained (the train step and ``run_kfold``);
 the same model with a DaViT-tiny tower (``skinjax_torch.DAVIT``), served
 and trained at B=64; with a BEiT-v2-large tower (``skinjax_torch.BEIT``),
-served and trained at B=32, and with a ViT-large tower, served; all 18 fusion
-mechanisms; and the train CLI from a dataset on disk, whose checkpoint the
-service then serves. Phases, each printing its lines:
+served and trained at B=32, and with a ViT-large tower, served; the sentence
+datasets' tokens model (DaViT-tiny + BERT-base, and + GPT-2 small) trained at
+B=32 over 512 and 256 tokens; all 18 fusion mechanisms; and the train CLI
+from a dataset on disk, whose checkpoint the service then serves, and on a
+sentence dataset. Phases, each printing its lines:
 
   1. card     nvidia-smi name and power limit, CUDA version
   2. build    nvcc builds of skinjax_torch/csrc/fusion_kernels.cu,
@@ -24,11 +26,14 @@ service then serves. Phases, each printing its lines:
               drawn parameters and with every gate on; K7 forward and
               backward against their twins at DaViT-tiny's four stage shapes,
               B in {1, 64}, bf16 and fp32, and with a relative-position bias
-              and 64 per-window masks (dbias checked); K12 forward (o and P)
-              and backward (dq, dk, dv, dbias) against their twins at
-              BEiT-large's shape with a bias, ViT-large's, BERT-base's with a
-              padding mask and dropout multiplier, and N=50 with all three,
-              bf16 and fp32
+              and 64 per-window masks (dbias checked); K12 forward (o and P),
+              stored-P backward and recompute backward (dq, dk, dv, dbias)
+              against their twins at BEiT-large's shape with a bias,
+              ViT-large's, BERT-base's at 128 and 512 tokens with a padding
+              mask and dropout multiplier, GPT-2's at 1024 tokens with the
+              causal bias and a padding mask, and N=50 with all three, bf16
+              and fp32; the recompute backward against the stored-P one where
+              P is within the 256 MB limit
   4. slice    fused against plain engine; launches per fused forward; the
               fp32 engine on the card against the same model on the CPU
   5. server   the engine run_service builds, served on a localhost port:
@@ -52,9 +57,11 @@ service then serves. Phases, each printing its lines:
               one; one fp32 step of a small DaViT on the card against the CPU
  10. times    the DaViT engine's p50/p95; DaViT train images/s unfrozen and
               frozen; a profiled DaViT train step. (K12's times at BEiT-large's
-              shape and K7's at each stage, against their twins and bounds,
-              with F.scaled_dot_product_attention on the same q, k, v as a
-              yardstick, and K4's at each Vd, run right after phase 3.)
+              shape, its recompute backward's at BERT-base's T=512 one, and
+              K7's at each stage, against their twins and bounds, with
+              F.scaled_dot_product_attention on the same q, k, v, forward and
+              backward, as a yardstick, and K4's at each Vd, run right after
+              phase 3.)
  11. beit     the BEiT-v2-large model (307 M parameters drawn once on the
               CPU): fused against plain engine (K12 launched 24 times per
               forward); run_service with CNN_MODEL_NAME=beitv2_large_patch16_224;
@@ -76,6 +83,21 @@ service then serves. Phases, each printing its lines:
               one of its …+metablock checkpoints answers four POST /predict/
               with raw CSV lines, K4's launches counted over them; the CLI's
               wall time and the PNG decode rate; the metablock engine's p50/p95
+
+ 15. sentence the tokens model (DaViT-tiny + BERT-base, RG-ATT, 768 text
+              features, bf16, B=32, the sentence augment recipe, drawn once on
+              the CPU): 10 train steps on one batch at T=512, unfrozen (K12 12
+              forwards + 12 recompute backwards, K7 6 + 6, K5 0 a step; the
+              loss falls), at T=256 with the text tower frozen (K12 12 + 0;
+              the tower bit-identical; sentence_frozen_images_per_sec), both
+              timed and profiled; GPT-2 small at T=512 unfrozen (12 + 12
+              recompute); one fp32 step of a small BERT tokens model on the
+              card against the CPU, on the recompute route
+ 16. sentence cli  python -m skinjax_torch.tools.train_cli as a subprocess on
+              a sentence dataset it writes (96 rows with a sentence column, a
+              WordPiece vocab.txt, TEXT_MODEL_NAME=bert-base-uncased,
+              MAX_SEQ_LENGTH=512; DaViT-tiny + BERT-base, 2 folds × 1 epoch,
+              B=32, unfrozen); its first checkpoint reloaded and evaluated
 
 Any failure exits non-zero. The second-to-last line is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Exits non-zero, with
@@ -117,7 +139,9 @@ K7 = {  # name -> the Pallas TPU function it replaces (file:line)
 K12 = {  # name -> the Pallas TPU function it replaces (file:line)
     "global_attention_fwd": "skinjax/ops/pallas/global_attention.py:224",
     "global_attention_bwd": "skinjax/ops/pallas/global_attention.py:367",
+    "global_attention_bwd_recompute": "skinjax/ops/pallas/window_attention.py:351",
 }
+K12_RECOMPUTE = "global_attention_bwd_recompute"
 SOURCE = "skinjax_torch/csrc/fusion_kernels.cu"
 K5_SOURCE = "skinjax_torch/csrc/augment_kernel.cu"
 K7_SOURCE = "skinjax_torch/csrc/window_attention.cu"
@@ -134,10 +158,12 @@ K7_KERNELS = {"window_attention_fwd": ["wa_fwd_kernel", "proj_kernel"],
 # bias gradient)
 K12_KERNELS = {"global_attention_fwd": ["ga_fwd_kernel"],
                "global_attention_bwd": ["ga_bwd_dq_kernel", "ga_bwd_dkv_kernel",
-                                        "ga_dbias_reduce_kernel"]}
+                                        "ga_dbias_reduce_kernel"],
+               K12_RECOMPUTE: ["ga_bwd_rows_kernel", "ga_bwd_cols_kernel"]}
 KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", "wa_fwd_kernel",
                   "wa_bwd_kernel", "proj_kernel", "dbias_reduce_kernel", "ga_fwd_kernel",
-                  "ga_bwd_dq_kernel", "ga_bwd_dkv_kernel")
+                  "ga_bwd_dq_kernel", "ga_bwd_dkv_kernel", "ga_bwd_rows_kernel",
+                  "ga_bwd_cols_kernel")
 # the card's published peaks (H100 SXM data sheet): device memory, float32
 # outside the tensor cores, dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -151,15 +177,23 @@ WINDOW = 7
 K7_PER_FORWARD = 6  # one per spatial block: depths (1, 1, 3, 1)
 K7_SERVED = {"window_attention_fwd": K7_PER_FORWARD, "window_attention_bwd": 0}
 SMALL_DAVIT = "davit-smoke-small"  # dims (64, 128), depths (1, 1), heads (2, 4)
-# K12's shapes: (B, N, C, heads, bias, kmask, pmult). BEiT-large and ViT-large
-# at 224×224 and their train batch; BERT-base at 128 tokens with a padding mask
-# and broadcast dropout; a sequence that is not a multiple of 16
+# K12's shapes: (B, N, C, heads, bias, kmask, pmult); bias True is a bias with a
+# gradient, CAUSAL GPT-2's causal mask as a bias without one. BEiT-large and
+# ViT-large at 224×224 and their train batch; BERT-base at 128 tokens and at
+# the reference's max_length 512 at its train batch, with a padding mask and
+# broadcast dropout; GPT-2 at its train shape (T=512, B=32: causal bias, key
+# mask and dropout) and at its 1024 positions; a sequence that is not a
+# multiple of 16
+CAUSAL = "causal"
 K12_SHAPES = {"beitv2-large": (32, 197, 1024, 16, True, False, False),
               "vit-large": (32, 197, 1024, 16, False, False, False),
               "bert-base": (8, 128, 768, 12, False, True, True),
+              "bert-base-T512": (32, 512, 768, 12, False, True, True),
+              "gpt2-T512": (32, 512, 768, 12, CAUSAL, True, True),
+              "gpt2-T1024": (8, 1024, 768, 12, CAUSAL, True, False),
               "n50": (4, 50, 256, 4, True, True, True)}
 K12_PER_FORWARD = 24  # one per block of BEiT-large and ViT-large
-K12_SERVED = {"global_attention_fwd": K12_PER_FORWARD, "global_attention_bwd": 0}
+K12_SERVED = {"global_attention_fwd": K12_PER_FORWARD, "global_attention_bwd": 0, K12_RECOMPUTE: 0}
 VIT_LARGE = "vit_large_patch16_224"
 SMALL_BEIT = "beit-smoke-small"  # width 256, depth 2, 4 heads (64 channels a head), 224×224
 # K5's float32 operations per pixel, counted from csrc/augment_kernel.cu:
@@ -174,6 +208,18 @@ TRAIN_LR = 1e-3  # the loss-falls check: 10 Adam steps on one batch
 # every weight of 24 layer-scaled blocks by ~lr)
 BEIT_TRAIN_LR = 1e-4
 RGATT = "att-intramodal+residual+cross-attention-metadados"
+# the sentence path: BERT-base and GPT-2 small have 12 layers, a K12 call
+# each; the loss-falls check steps at BEiT's lr (random post-LN BERT weights)
+K12_TEXT_LAYERS = 12
+SENTENCE_LR = 1e-4
+TOKEN_VOCAB = 30000  # token ids drawn below both towers' vocabularies
+# the small BERT of the card-vs-CPU step: 64 channels a head, as BERT-base
+SMALL_BERT = dict(vocab_size=1000, hidden_size=128, num_layers=2, num_heads=2,
+                  intermediate_size=256, max_position_embeddings=64, hidden_dropout=0.0,
+                  attention_dropout=0.0)
+SENTENCE_CLI_IMAGES = 96
+SENTENCE_CLI_BACKBONE = "davit_tiny"
+SENTENCE_CLI_TOKENS = 512  # the reference's max_length
 # fusion-kernel launches per fused forward, by mechanism
 PER_FORWARD = {"seq1_attention": 4, "gated_residual_seq1": 2, "metablock_film": 0,
                "mlp_head": 1}  # RG-ATT
@@ -372,18 +418,18 @@ _SMOKE_MODELS = {}
 
 
 def smoke_model(config, dtype):
-    """A configuration (``skinjax_torch.FLAGSHIP``, ``DAVIT`` or ``BEIT``) at
-    full width, random weights from seed 0: drawn on the CPU once per
-    configuration (BEiT-large's 307 M parameters among them); each new
-    instance is a copy of that model, with the compute dtype asked for."""
+    """A configuration (``skinjax_torch.FLAGSHIP``, ``DAVIT``, ``BEIT``,
+    ``SENTENCE`` or ``GPT2``) at full width, built by ``create_model`` with
+    random weights from seed 0: drawn on the CPU once per configuration
+    (BEiT-large's 307 M parameters among them); each new instance is a copy
+    of that model, with the compute dtype asked for."""
     import copy
 
-    from skinjax_torch.models import MultimodalModel
-    from skinjax_torch.models.weights import init_weights
+    from skinjax_torch.models.factory import create_model
 
     key = tuple(sorted(config.items()))
     if key not in _SMOKE_MODELS:
-        _SMOKE_MODELS[key] = init_weights(MultimodalModel(**config), seed=0)
+        _SMOKE_MODELS[key] = create_model(**config, seed=0)
     model = copy.deepcopy(_SMOKE_MODELS[key])
     model.dtype = dtype
     return model
@@ -706,9 +752,9 @@ def phase_k7(wa, device):
 
 def k12_inputs(B, N, C, heads, bias, kmask, pmult, dtype, device, seed):
     """q, k, v, do (B, N, C) and the extras asked for, drawn on the card: a
-    relative-position-like bias (heads, N, N), a BERT padding mask (the last
-    fifth of the keys of every other sample at -1e9) and a broadcast dropout
-    multiplier at keep 0.9."""
+    relative-position-like bias (heads, N, N) or GPT-2's causal mask as one
+    (``CAUSAL``), a BERT padding mask (the last fifth of the keys of every
+    other sample at -1e9) and a broadcast dropout multiplier at keep 0.9."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -717,7 +763,12 @@ def k12_inputs(B, N, C, heads, bias, kmask, pmult, dtype, device, seed):
         return torch.randn(shape, generator=gen, device=device) * scale
 
     q, k, v, do = (r(B, N, C).to(dtype) for _ in range(4))
-    b = r(heads, N, N, scale=0.5) if bias else None
+    b = None
+    if bias == CAUSAL:
+        ids = torch.arange(N, device=device)
+        b = torch.where(ids[None] <= ids[:, None], 0.0, -1e9).expand(heads, N, N).contiguous()
+    elif bias:
+        b = r(heads, N, N, scale=0.5)
     km = None
     if kmask:
         km = torch.zeros((B, N), device=device)
@@ -730,28 +781,39 @@ def k12_inputs(B, N, C, heads, bias, kmask, pmult, dtype, device, seed):
 
 
 def phase_k12(ga, device):
-    """K12 forward (o and P) and backward (dq, dk, dv, dbias) against their
-    twins at K12_SHAPES, bf16 (BF16_TOL; P and dbias F32_TOL) and fp32
-    (F32_TOL, TF32 off). Both backward sides take the twin's P."""
+    """K12 forward (o and P), stored-P backward and recompute backward (dq,
+    dk, dv, dbias where the bias has a gradient) against their twins at
+    K12_SHAPES, bf16 (BF16_TOL; P and dbias F32_TOL) and fp32 (F32_TOL, TF32
+    off); the stored-P sides take the twin's P. Then, at each shape whose P
+    is within the stored-P limit, the recompute backward against the
+    stored-P backward on the kernel's own P: the same products in the same
+    order, so the two agree exactly (checked at the twins' tolerances,
+    printed as is)."""
     import torch
 
     errors = {name: 0.0 for name in K12}
     for label, (B, N, C, h, bias, kmask, pmult) in K12_SHAPES.items():
+        grad_bias = bias is True
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             (q, k, v), do, b, km, pm = k12_inputs(B, N, C, h, bias, kmask, pmult, dtype, device,
                                                   seed=N + C)
             o, p = ga.global_attention_fwd(q, k, v, b, km, pm, h, emit_p=True)
             ro, rp = ga.attention_core_plain(q, k, v, b, km, pm, h)
-            got = ga.global_attention_bwd(q, k, v, do, rp, pm, h, bias)
-            want = ga.attention_core_bwd_plain(q, k, v, do, rp, pm, h, bias)
+            got = ga.global_attention_bwd(q, k, v, do, rp, pm, h, grad_bias)
+            want = ga.attention_core_bwd_plain(q, k, v, do, rp, pm, h, grad_bias)
+            rec = ga.global_attention_bwd_recompute(q, k, v, do, b, km, pm, h, grad_bias)
             torch.cuda.synchronize()
-            check((got[3] is None) == (want[3] is None), "dbias present on one side only")
+            check((got[3] is None) == (want[3] is None) == (rec[3] is None),
+                  "dbias present on one side only")
             results = [("global_attention_fwd", "o", o, ro, tol),
                        ("global_attention_fwd", "P", p, rp, F32_TOL)]
+            parts = ("dq", "dk", "dv", "dbias")
             results += [("global_attention_bwd", part, g, w, tol if part != "dbias" else F32_TOL)
-                        for part, g, w in zip(("dq", "dk", "dv", "dbias"), got, want)
-                        if w is not None]
-            extras = "+".join(n for n, on in (("bias", bias), ("kmask", kmask), ("pmult", pmult))
+                        for part, g, w in zip(parts, got, want) if w is not None]
+            results += [(K12_RECOMPUTE, part, g, w, tol if part != "dbias" else F32_TOL)
+                        for part, g, w in zip(parts, rec, want) if w is not None]
+            extras = "+".join(n for n, on in (("bias" if bias is True else "causal bias", bias),
+                                              ("kmask", kmask), ("pmult", pmult))
                               if on) or "no extras"
             for name, part, out, ref, t in results:
                 err, ok = compare(out, ref, t)
@@ -760,32 +822,84 @@ def phase_k12(ga, device):
                     f"{extras}: max_abs_err={err:.3e} tol=atol {t[0]:g} + rtol {t[1]:g}·|twin| "
                     f"{'ok' if ok else 'FAIL'}")
                 check(ok, f"{name} {part} disagrees with its twin at {label} {dtype}")
+            if B * h * N * N * 4 <= ga.STORE_P_MAX_BYTES:
+                stored = ga.global_attention_bwd(q, k, v, do, p, pm, h, grad_bias)
+                torch.cuda.synchronize()
+                for part, r_, s_ in zip(parts, rec, stored):
+                    if s_ is None:
+                        continue
+                    err, ok = compare(r_, s_, tol if part != "dbias" else F32_TOL)
+                    log(f"kernel {K12_RECOMPUTE} {part:5s} {str(dtype):14s} {label} against "
+                        f"global_attention_bwd on the kernel's P: max_abs_err={err:.3e} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    check(ok, f"the recompute and stored-P backwards disagree on {part} at "
+                              f"{label} {dtype}")
+            del o, p, ro, rp, got, want, rec
     return errors
 
 
-def k12_bound(B, N, C, heads, itemsize, backward):
-    """The least time (ms) for one K12 call at BEiT-large's shape (with a
-    bias): every input read once and every output written once over the HBM
-    rate, against its products over the bf16 tensor-core rate. Forward: q,
-    k, v, bias → o, P; two products of 2·B·N²·C operations. Backward: q, k,
-    v, do, P → dq, dk, dv, dbias; four such products."""
+def k12_bound(B, N, C, heads, itemsize, kind, bias=True, grad_bias=True):
+    """The least time (ms) for one K12 call: every input read once and every
+    output written once over the HBM rate, against its products over the
+    bf16 tensor-core rate (2·B·N²·C operations each). Forward: q, k, v, the
+    bias → o, P; two products. Stored-P backward: q, k, v, do, P → dq, dk,
+    dv, dbias; four products. Recompute backward: q, k, v, do, the bias, the
+    kmask and pmult → dq, dk, dv, dbias; five products (the scores, dp, dv,
+    dq, dk). Returns (ms, bytes, operations)."""
     act = B * N * C * itemsize
     plane = heads * N * N * 4
-    if backward:
-        nbytes, ops = 7 * act + B * plane + plane, 8 * B * N * N * C
+    product = 2 * B * N * N * C
+    if kind == "fwd":
+        nbytes, ops = 4 * act + bias * plane + B * plane, 2 * product
+    elif kind == "bwd":
+        nbytes, ops = 7 * act + B * plane + grad_bias * plane, 4 * product
     else:
-        nbytes, ops = 4 * act + plane + B * plane, 4 * B * N * N * C
+        nbytes = 7 * act + bias * plane + grad_bias * plane + B * N * 4 + N * N * 4
+        ops = 5 * product
     return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3, nbytes, ops
 
 
-def phase_k12_times(ga, device, card):
-    """K12 forward (emitting P, as a train step does) and backward against
-    their twins at BEiT-large's shape, bf16, with a bias; the forward's
-    yardstick F.scaled_dot_product_attention on the same q, k, v as
-    (B, h, N, hd) with the bias as its additive mask (the port never calls
-    it)."""
+def sdpa_times(q, k, v, do, mask, h):
+    """F.scaled_dot_product_attention on the same q, k, v as (B, h, N, hd),
+    ``mask`` its additive attn_mask (the port never calls it): (forward ms,
+    backward ms). The forward is the mean of two runs of 20 calls by CUDA
+    events. The backward is the device time (torch.profiler, all its device
+    events) of autograd's backward alone, run again and again on one
+    retained graph: a difference of two host-clock means swung 2x from run
+    to run."""
     import torch
     import torch.nn.functional as F
+
+    B, N, C = q.shape
+    qh, kh, vh, doh = (t.reshape(B, N, h, C // h).transpose(1, 2).contiguous()
+                       for t in (q, k, v, do))
+    for t in (qh, kh, vh):
+        t.requires_grad_(True)
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    def bwd():
+        return torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+
+    f = (time_ms(fwd, 20, 3) + time_ms(fwd, 20, 3)) / 2
+    bwd()
+    b, _ = device_us(bwd, n=10)
+    return f, b / 1e3
+
+
+def phase_k12_times(ga, device, card):
+    """K12 forward (emitting P, as a train step does) and stored-P backward
+    against their twins at BEiT-large's shape, bf16, with a bias, and the
+    recompute backward against its twin at BERT-base's T=512 train shape
+    (B=32, kmask + pmult); the yardstick F.scaled_dot_product_attention on the
+    same q, k, v as (B, h, N, hd) with the bias (BEiT) or the key mask (BERT,
+    without pmult, which it does not take) as its additive mask, forward and
+    backward (the port never calls it)."""
+    import torch
 
     B, N, C, h, _, _, _ = K12_SHAPES["beitv2-large"]
     (q, k, v), do, b, _, _ = k12_inputs(B, N, C, h, True, False, False, torch.bfloat16, device,
@@ -799,10 +913,24 @@ def phase_k12_times(ga, device, card):
             lambda: ga.global_attention_bwd(q, k, v, do, p, None, h, True),
             lambda: ga.attention_core_bwd_plain(q, k, v, do, p, None, h, True)),
     }
-    qh, kh, vh = (t.reshape(B, N, h, C // h).transpose(1, 2).contiguous() for t in (q, k, v))
-    mask = b.to(torch.bfloat16)[None]
-    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)  # noqa: E731
-    lib_ms = (time_ms(sdpa, 20, 3) + time_ms(sdpa, 20, 3)) / 2
+    lib_fwd, lib_bwd = sdpa_times(q, k, v, do, b.to(torch.bfloat16)[None], h)
+    shapes = {name: ("beitv2-large", B, N, C, h, "bias") for name in calls}
+    library = {"global_attention_fwd": lib_fwd, "global_attention_bwd": lib_bwd}
+    bounds = {"global_attention_fwd": k12_bound(B, N, C, h, 2, "fwd"),
+              "global_attention_bwd": k12_bound(B, N, C, h, 2, "bwd")}
+
+    B2, N2, C2, h2, _, _, _ = K12_SHAPES["bert-base-T512"]
+    (q2, k2, v2), do2, _, km2, pm2 = k12_inputs(B2, N2, C2, h2, False, True, True,
+                                                torch.bfloat16, device, seed=37)
+    calls[K12_RECOMPUTE] = (
+        lambda: ga.global_attention_bwd_recompute(q2, k2, v2, do2, None, km2, pm2, h2, False),
+        lambda: ga.attention_core_bwd_recompute_plain(q2, k2, v2, do2, None, km2, pm2, h2,
+                                                      False))
+    shapes[K12_RECOMPUTE] = ("bert-base-T512", B2, N2, C2, h2, "kmask+pmult")
+    library[K12_RECOMPUTE] = sdpa_times(q2, k2, v2, do2, km2.to(torch.bfloat16)[:, None, None],
+                                        h2)[1]
+    bounds[K12_RECOMPUTE] = k12_bound(B2, N2, C2, h2, 2, "recompute", bias=False,
+                                      grad_bias=False)
     out = {}
     for name, (kern, twin) in calls.items():
         t = [time_ms(twin, 10, 2), time_ms(kern, 10, 2), time_ms(kern, 10, 2),
@@ -810,17 +938,22 @@ def phase_k12_times(ga, device, card):
         ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
         dev_k = kernel_device_us(kern, K12_KERNELS[name], n=5)
         dev_t, _ = device_us(twin, n=5)
-        bound_ms, nbytes, ops = k12_bound(B, N, C, h, 2, name.endswith("bwd"))
+        bound_ms, nbytes, ops = bounds[name]
         bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S else "operations"
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=lib_ms if name.endswith("fwd") else None)
-        log(f"[{card}] time {name} bf16 beitv2-large B={B} N={N} C={C} h={h} bias per call: "
+                         library_ms=library[name])
+        label, Bx, Nx, Cx, hx, extras = shapes[name]
+        log(f"[{card}] time {name} bf16 {label} B={Bx} N={Nx} C={Cx} h={hx} {extras} per call: "
             f"kernel {ms * 1e3:9.2f} us  twin {plain_ms * 1e3:9.2f} us (CUDA events, in turns "
             f"twin-kernel-kernel-twin); device time: kernel {us(dev_k)}  twin {dev_t:9.2f} us "
             f"(torch.profiler); bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s, "
-            f"{ops / 1e9:.2f} GFLOP at 989 TFLOP/s)")
-    log(f"[{card}] time F.scaled_dot_product_attention bf16 on the same (B, h, N, hd) q, k, v "
-        f"with the bias as attn_mask: {lib_ms * 1e3:.2f} us per call (forward only)")
+            f"{ops / 1e9:.2f} GFLOP at 989 TFLOP/s); F.scaled_dot_product_attention "
+            f"{'forward' if name.endswith('fwd') else 'backward'} {library[name] * 1e3:.2f} us")
+    log(f"[{card}] time F.scaled_dot_product_attention bf16 on the same (B, h, N, hd) q, k, v: "
+        f"beitv2-large with the bias as attn_mask forward {lib_fwd * 1e3:.2f} us, backward "
+        f"{lib_bwd * 1e3:.2f} us; bert-base-T512 with the key mask as attn_mask (no pmult) "
+        f"backward {library[K12_RECOMPUTE] * 1e3:.2f} us (forwards by CUDA events; backwards "
+        f"the device time of autograd's backward alone, torch.profiler)")
     return out
 
 
@@ -838,6 +971,25 @@ def train_batch(device, B=None, hw=None, seed=0):
     b = src.batch(np.arange(B))
     cw = torch.as_tensor(compute_class_weights(src.labels, 6)).to(device)
     return ({k: torch.as_tensor(v).to(device) for k, v in b.items()}, cw)
+
+
+def token_metadata(device, B, T, vocab=TOKEN_VOCAB, seed=0):
+    """A sentence batch's metadata: token ids drawn in [1, vocab) and an
+    attention mask with the last eighth of every other row padded."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 100)
+    mask = np.ones((B, T), np.int32)
+    mask[1::2, T - T // 8:] = 0
+    return {"input_ids": torch.as_tensor(rng.integers(1, vocab, (B, T)).astype(np.int32)).to(
+        device), "attention_mask": torch.as_tensor(mask).to(device)}
+
+
+def to_device(batch, device):
+    """A batch of tensors (the token metadata a dict of them) on ``device``."""
+    return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in batch.items()}
 
 
 def train_state(config, device, unfreeze="unfrozen_weights", lr=5e-5):
@@ -907,34 +1059,58 @@ def phase_train(counters, device, card, label="flagship", config=None, B=None,
     return batch, cw, step, launches
 
 
-def phase_card_vs_cpu(device, cnn="resnet-18", hw=64):
+def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
     """One fp32 step (TF32 off, augment off, dropout 0) of a small model on
-    the card and on the CPU from the same weights and batch."""
+    the card and on the CPU from the same weights and batch. With
+    ``sentence``, a tokens model with a small BERT (SMALL_BERT) over 48
+    tokens, its attention backward forced onto the recompute route by
+    ``STORE_P_MAX_BYTES`` = 0 on both sides (the card launches the recompute
+    kernel once a layer)."""
     import copy
 
     import torch
 
     from skinjax_torch.models import MultimodalModel
+    from skinjax_torch.models.text.bert import NativeBertEncoder, NativeSentenceTower
     from skinjax_torch.models.weights import init_weights
+    from skinjax_torch.ops import global_attention as ga
     from skinjax_torch.train.loop import TrainConfig, build_state
     from skinjax_torch.train.steps import make_train_step_weighted
 
     lr = 1e-3
+    text = {}
+    if sentence:
+        text = dict(text_model_name="bert-base-uncased", text_input_mode="tokens",
+                    text_module=NativeSentenceTower(NativeBertEncoder(**SMALL_BERT)))
     model = init_weights(MultimodalModel(num_classes=6, num_heads=8, cnn_model_name=cnn,
                                          common_dim=64, vocab_size=91,
                                          attention_mechanism="att-intramodal+residual+"
-                                                             "cross-attention-metadados"), seed=5)
+                                                             "cross-attention-metadados",
+                                         **text), seed=5)
     for m in model.modules():
         if isinstance(m, torch.nn.Dropout):
             m.p = 0.0
     step = make_train_step_weighted(augment=False, image_dtype=torch.float32)
     batch, cw = train_batch("cpu", B=8, hw=hw, seed=3)
-    out = []
+    if sentence:
+        batch["metadata"] = token_metadata("cpu", 8, 48, SMALL_BERT["vocab_size"], seed=3)
+    out, limit = [], ga.STORE_P_MAX_BYTES
     for dev in (device, torch.device("cpu")):
         state = build_state(copy.deepcopy(model),
                             TrainConfig(device=str(dev), learning_rate=lr, image_dtype="float32"))
-        b = {k: v.to(dev) for k, v in batch.items()}
-        loss = float(step(state, b["image"], b["metadata"], b["label"], 0, cw.to(dev)))
+        b = to_device(batch, dev)
+        ga.reset_launches()
+        if sentence:
+            ga.STORE_P_MAX_BYTES = 0
+        try:
+            loss = float(step(state, b["image"], b["metadata"], b["label"], 0, cw.to(dev)))
+        finally:
+            ga.STORE_P_MAX_BYTES = limit
+        if sentence and dev.type == "cuda":
+            layers = SMALL_BERT["num_layers"]
+            check(ga.LAUNCHES == {"global_attention_fwd": layers, "global_attention_bwd": 0,
+                                  K12_RECOMPUTE: layers},
+                  f"the small BERT's card step launched {ga.LAUNCHES}")
         # the step leaves each parameter's gradient in .grad
         grads = {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()
                  if p.grad is not None}
@@ -963,12 +1139,16 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64):
             C = pd[k].numel() // 3
             pd[k] = torch.cat([pd[k][:C], pd[k][2 * C:]])
             key_bias += C
+        elif k.endswith("attention.self.key.bias"):  # BERT's key bias, the same case
+            key_bias += pd[k].numel()
+            pd[k] = pd[k][:0]
     far = sum(int((d > 0.01 * lr).sum()) for d in pd.values())
     total = sum(d.numel() for d in pd.values())
     bn = [k for k in sc if k.endswith(("running_mean", "running_var"))]
     bdiff = max((float(((sc[k] - sh[k]).abs() / (sh[k].abs() + 1e-3)).max()) for k in bn),
                 default=0.0)
-    log(f"train fp32 card vs CPU ({cnn}, common_dim 64, {hw}x{hw}, B=8, one Adam step, lr "
+    tower = " + small BERT, 48 tokens, recompute route" if sentence else ""
+    log(f"train fp32 card vs CPU ({cnn}{tower}, common_dim 64, {hw}x{hw}, B=8, one Adam step, lr "
         f"{lr:g}): loss {lc:.6f} vs {lh:.6f} (tol rtol 1e-4); gradients of {len(gh)} tensors: "
         f"worst |diff|/(1e-3·|g_cpu| + 1e-6·|g_all|) = {gexcess[worst_g]:.3e} at {worst_g} "
         f"(tol 1); parameters max |diff| {pdiff:.3e} (tol 2·lr), {far} of {total} elements "
@@ -979,6 +1159,179 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64):
     check(pdiff <= 2 * lr and far <= 1e-4 * total,
           "the card and the CPU disagree on the parameters after one step")
     check(bdiff <= 1e-3, "the card and the CPU disagree on the BatchNorm statistics")
+
+
+def phase_sentence_train(counters, device, card, label, config, T, per_step,
+                         text_frozen=False, timed=False):
+    """The sentence datasets' model (``config``: ``SENTENCE`` or ``GPT2``) at
+    full width, B=32, T tokens, trained by the train step as the loop builds
+    it (``build_state``; augment on with the sentence recipe, bf16): finite
+    loss, the loss falls over 10 steps on one batch, the counted launches
+    per step are ``per_step``. With ``text_frozen`` the text tower is frozen
+    and DaViT trains (``text_train_mode="frozen_weights"``, the reference's
+    default that bench.py measures): the tower stays bit-identical and the
+    image tower moves. With ``timed``, train images/s by CUDA events and a
+    profiled step. Returns the 10 steps' launches and the ms per step (or
+    None)."""
+    import torch
+
+    from skinjax_torch import SENTENCE_BATCH
+    from skinjax_torch.train.loop import TrainConfig, build_state
+    from skinjax_torch.train.steps import make_train_step_weighted
+
+    B = SENTENCE_BATCH
+    batch, cw = train_batch(device, B=B)
+    batch["metadata"] = token_metadata(device, B, T)
+    step = make_train_step_weighted(augment=True, image_dtype=torch.bfloat16, recipe="sentence")
+    cfg = TrainConfig(device=str(device), learning_rate=SENTENCE_LR,
+                      text_train_mode="frozen_weights" if text_frozen else None)
+    state = build_state(smoke_model(config, torch.bfloat16), cfg)
+    model = state.model
+    text0 = {k: v.detach().clone() for k, v in model.text_encoder.named_parameters()}
+    image0 = {k: v.detach().clone() for k, v in model.image_encoder.named_parameters()}
+    call = lambda: step(state, batch["image"], batch["metadata"], batch["label"], 0, cw)  # noqa: E731
+    for c in counters:
+        c.reset_launches()
+    losses = [float(x) for x in [call() for _ in range(10)]]
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    text_same = all(torch.equal(v, text0[k]) for k, v in model.text_encoder.named_parameters())
+    image_moved = sum(not torch.equal(v, image0[k])
+                      for k, v in model.image_encoder.named_parameters())
+    mode = "text tower frozen" if text_frozen else "unfrozen"
+    log(f"train {label} {mode} B={B} T={T} (lr {SENTENCE_LR:g}, one batch, augment on, sentence "
+        f"recipe): losses " + " ".join(f"{x:.4f}" for x in losses) + f"; launches {launches} "
+        f"over 10 steps; text tower bit-identical: {text_same}; image_encoder tensors moved "
+        f"{image_moved}/{len(image0)}")
+    check(all(math.isfinite(x) for x in losses), "non-finite train loss")
+    check(sum(losses[-3:]) / 3 < sum(losses[:3]) / 3 and losses[-1] < losses[0],
+          f"the {label} loss did not fall over 10 steps on one batch")
+    expect = {k: 10 * v for k, v in per_step.items()}
+    check(launches == expect, f"launches {launches} over 10 steps != {expect}")
+    check(text_same == text_frozen, f"the {label} text tower {'moved' if text_frozen else 'froze'}")
+    check(image_moved == len(image0), "the image tower did not train")
+    ms = None
+    if timed:
+        ms = time_ms(call, iters=12, warmup=3)
+        log(f"[{card}] train {label} {mode} B={B} T={T}: {ms:.2f} ms per step, "
+            f"{B / ms * 1e3:.1f} img/s (12 steps after 3 warm-up, CUDA events, the batch "
+            f"already on the card)")
+        total, by_name = device_us(call, n=3)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        names = [n for names in K12_KERNELS.values() for n in names]
+        k12 = sum(v for k, v in by_name.items() if any(n in k for n in names))
+        k7 = sum(v for k, v in by_name.items() if any(n in k for names in K7_KERNELS.values()
+                                                      for n in names))
+        log(f"[{card}] profile train {label} {mode} step B={B} T={T}: device time "
+            f"{total / 1e3:.2f} ms per step = {100 * total / (ms * 1e3):.1f}% of the {ms:.2f} ms "
+            f"step; K12 {k12 / 1e3:.2f} ms ({100 * k12 / total:.1f}%), K7 {k7 / 1e3:.2f} ms "
+            f"({100 * k7 / total:.1f}%); {len(by_name)} kernel names")
+        log("  top kernels (us per step): " + "; ".join(f"{k[:70]} {v:.1f}" for k, v in top))
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+def phase_sentence_cli(ga, device, card):
+    """The train CLI on a sentence dataset, as a user runs it: a
+    PAD-UFES-20-shaped dataset with a ``sentence`` column (SENTENCE_CLI_IMAGES
+    rows, 224×224 PNGs) and a WordPiece vocabulary under
+    ``<tokenizers>/bert-base-uncased/vocab.txt`` in a temporary directory;
+    ``python -m skinjax_torch.tools.train_cli`` as a subprocess on the card
+    with ``TEXT_MODEL_NAME=bert-base-uncased``, ``MAX_SEQ_LENGTH=512`` and
+    ``TOKENIZERS_DIR`` (DaViT-tiny + full-size BERT-base drawn at random,
+    RG-ATT, 2 folds × 1 epoch, B=32, unfrozen); its fold results and
+    checkpoints; then the first fold's checkpoint reloaded strictly into a
+    new tokens model, which evaluates one batch of the token source on the
+    card (finite logits, K12 launched once a BERT layer). Returns the CLI's
+    wall time."""
+    import csv
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from skinjax_torch.data.fixtures import (
+        pad_ufes20_table,
+        row_sentences,
+        write_pad_ufes20_like,
+        write_wordpiece_vocab,
+    )
+    from skinjax_torch.data.schemas import prepare_dataset
+    from skinjax_torch.models.factory import create_model
+    from skinjax_torch.train.experiments import build_token_source
+    from skinjax_torch.train.loop import TrainConfig, build_state
+    from skinjax_torch.train.steps import make_eval_step
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    n, backbone, T = SENTENCE_CLI_IMAGES, SENTENCE_CLI_BACKBONE, SENTENCE_CLI_TOKENS
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path, images = write_pad_ufes20_like(os.path.join(tmp, "data"), n=n,
+                                                 image_hw=(224, 224), seed=0, paeth=False,
+                                                 sentences=True)
+        tokenizers = os.path.join(tmp, "tokenizers")
+        vocab = write_wordpiece_vocab(os.path.join(tokenizers, "bert-base-uncased", "vocab.txt"),
+                                      row_sentences(pad_ufes20_table(n, seed=0)))
+        results = os.path.join(tmp, "results")
+        cmd = [sys.executable, "-m", "skinjax_torch.tools.train_cli", "--dataset", "pad-ufes-20",
+               "--metadata-csv", csv_path, "--images-dir", images, "--results-dir", results,
+               "--mechanisms", RGATT, "--backbones", backbone, "--k-folds", "2",
+               "--epochs", "1", "--batch-size", "32"]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (root, os.environ.get("PYTHONPATH")) if p),
+            TEXT_MODEL_NAME="bert-base-uncased", MAX_SEQ_LENGTH=str(T),
+            TOKENIZERS_DIR=tokenizers)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0 or "failed:" in proc.stdout:
+            log(proc.stdout[-3000:] + proc.stderr[-6000:])
+        check(proc.returncode == 0, f"train_cli exited {proc.returncode}")
+        check("failed:" not in proc.stdout, "the sentence cell of the train CLI failed")
+        found = re.search(r'"n_runs": (\d+)', proc.stdout)
+        n_runs = int(found.group(1)) if found else -1
+        cell = os.path.join(results, f"multimodal_{backbone}_{RGATT}_h8")
+        with open(os.path.join(cell, "model_metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        ckpt = os.path.join(cell, f"multimodal_{backbone}_{RGATT}_h8_fold_1", "best", "state.pt")
+        log(f"[{card}] cli sentence dataset python -m skinjax_torch.tools.train_cli "
+            f"(TEXT_MODEL_NAME=bert-base-uncased MAX_SEQ_LENGTH={T}, {vocab}-token vocab.txt): "
+            f"{wall:.1f} s wall (process start, {n} PNG decodes, 2 folds of {backbone} + "
+            f"BERT-base at B=32, T={T}, 1 epoch); n_runs {n_runs} (expected 2); per fold "
+            f"balanced accuracy/auc " + ", ".join(f"{r['balanced_accuracy'][:6]}/{r['auc'][:6]}"
+                                                  for r in rows))
+        check(n_runs == 2, f"train_cli returned {n_runs} fold results, not 2")
+        check(len(rows) == 2 and all(math.isfinite(float(r["balanced_accuracy"])) for r in rows),
+              "model_metrics.csv lacks two finite folds")
+        check(os.path.isfile(ckpt), "the first fold's checkpoint is missing")
+
+        saved = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+        prepared = prepare_dataset("pad-ufes-20", csv_path)
+        source = build_token_source(prepared, images, "bert-base-uncased", max_seq_length=T,
+                                    tokenizers_dir=tokenizers)
+        model = create_model(num_classes=prepared.num_classes, cnn_model_name=backbone,
+                             text_model_name="bert-base-uncased", attention_mechanism=RGATT,
+                             vocab_size=prepared.feature_dim, dtype=torch.bfloat16)
+        model.load_state_dict(saved)
+        b = source.batch(np.arange(8))
+        state = build_state(model, TrainConfig(device=str(device)))
+        ga.reset_launches()
+        logits = make_eval_step(torch.bfloat16)(
+            state, torch.as_tensor(b["image"]).to(device),
+            {k: torch.as_tensor(v).to(device) for k, v in b["metadata"].items()})
+        torch.cuda.synchronize()
+        launches = dict(ga.LAUNCHES)
+        log(f"cli sentence checkpoint {os.path.relpath(ckpt, results)}: {len(saved)} tensors "
+            f"reloaded strictly into a new tokens model; one eval batch of the token source "
+            f"(B=8, T={T}, bf16) on the card: logits {tuple(logits.shape)}, finite "
+            f"{bool(torch.isfinite(logits).all())}; K12 launches {launches}")
+        check(logits.shape == (8, 6) and bool(torch.isfinite(logits).all()),
+              "non-finite or misshapen logits from the reloaded checkpoint")
+        check(launches == {"global_attention_fwd": K12_TEXT_LAYERS, "global_attention_bwd": 0,
+                           K12_RECOMPUTE: 0}, f"the eval forward launched {launches}")
+    return wall
 
 
 @contextlib.contextmanager
@@ -1453,7 +1806,17 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from skinjax_torch import BEIT, BEIT_BATCH, DAVIT, DAVIT_BATCH, FLAGSHIP
+    from skinjax_torch import (
+        BEIT,
+        BEIT_BATCH,
+        DAVIT,
+        DAVIT_BATCH,
+        FLAGSHIP,
+        GPT2,
+        SENTENCE,
+        SENTENCE_FROZEN_TOKENS,
+        SENTENCE_TOKENS,
+    )
     from skinjax_torch.ops import augment_kernel as ak
     from skinjax_torch.ops import build
     from skinjax_torch.ops import fusion_kernels as fk
@@ -1538,11 +1901,13 @@ def main() -> int:
     b_fused, b_plain = phase_slice(fk, device, card, "beitv2-large", BEIT, (ga, K12_SERVED),
                                    fp32=False)
     phase_server(fk, card, cnn=BEIT["cnn_model_name"], attn=(ga, K12_SERVED))
-    k12_step = {name: K12_PER_FORWARD for name in K12}
+    k12_step = {"global_attention_fwd": K12_PER_FORWARD, "global_attention_bwd": K12_PER_FORWARD,
+                K12_RECOMPUTE: 0}  # 79.5 MB of P a call: the stored-P route
     batch, cw, step, b_launches = phase_train(
         [ak, ga], device, card, "beitv2-large", BEIT, BEIT_BATCH, per_step={K5: 1, **k12_step},
         frozen_per_step={K5: 1, **k12_step, "global_attention_bwd": 0}, lr=BEIT_TRAIN_LR)
-    launches.update({name: b_launches[name] for name in K12})
+    launches.update({name: b_launches[name] for name in ("global_attention_fwd",
+                                                         "global_attention_bwd")})
     with small_beit_registered():
         phase_card_vs_cpu(device, cnn=SMALL_BEIT, hw=224)
     torch.cuda.synchronize()
@@ -1559,6 +1924,28 @@ def main() -> int:
     torch.cuda.synchronize()
     elapsed("BEiT-v2-large and ViT-large")
 
+    # the sentence path: DaViT-tiny + BERT-base (and GPT-2) tokens models at
+    # B=32, trained; the recompute backward's launches on the main path are
+    # the 10 unfrozen BERT T=512 steps' (402 MB of P a call, above the limit)
+    text_step = {K5: 0, "window_attention_fwd": K7_PER_FORWARD,
+                 "window_attention_bwd": K7_PER_FORWARD, "global_attention_fwd": K12_TEXT_LAYERS,
+                 "global_attention_bwd": 0, K12_RECOMPUTE: K12_TEXT_LAYERS}
+    s_launches, _ = phase_sentence_train([ak, wa, ga], device, card, "davit+bert-base",
+                                         SENTENCE, SENTENCE_TOKENS, text_step, timed=True)
+    launches[K12_RECOMPUTE] = s_launches[K12_RECOMPUTE]
+    _, frozen_ms = phase_sentence_train(
+        [ak, wa, ga], device, card, "davit+bert-base", SENTENCE, SENTENCE_FROZEN_TOKENS,
+        dict(text_step, **{K12_RECOMPUTE: 0}), text_frozen=True, timed=True)
+    log(f"[{card}] sentence_frozen_images_per_sec {32 / frozen_ms * 1e3:.1f} (DaViT-tiny + "
+        f"BERT-base, RG-ATT, B=32, T={SENTENCE_FROZEN_TOKENS}, text tower frozen, bf16, the "
+        f"sentence recipe; CUDA events)")
+    phase_sentence_train([ak, wa, ga], device, card, "davit+gpt2", GPT2, SENTENCE_TOKENS,
+                         text_step)
+    _SMOKE_MODELS.clear()
+    phase_card_vs_cpu(device, sentence=True)
+    torch.cuda.synchronize()
+    elapsed("the sentence path")
+
     # the train CLI slice: all 18 mechanisms; the CLI from disk, then the
     # service on its …+metablock checkpoint (K4's launches on the main path
     # are the served requests')
@@ -1571,6 +1958,9 @@ def main() -> int:
     metablock_latency(device, card)
     torch.cuda.synchronize()
     elapsed("the train CLI slice")
+    phase_sentence_cli(ga, device, card)
+    torch.cuda.synchronize()
+    elapsed("the sentence train CLI")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
@@ -1597,8 +1987,11 @@ def main() -> int:
          **k7_times[(name, K7_STAGES[0][0])]}
         for name in K7
     ] + [
-        # BEiT-v2-large's shape at its train batch: B=32, N=197, C=1024, 16
-        # heads, bf16, with the relative position bias (the others are above)
+        # the forward and stored-P backward at BEiT-v2-large's shape at its
+        # train batch: B=32, N=197, C=1024, 16 heads, bf16, with the relative
+        # position bias; the recompute backward at BERT-base's T=512 train
+        # shape: B=32, N=512, C=768, 12 heads, bf16, kmask + pmult (the other
+        # shapes are above)
         {"name": name, "route": "cuda", "source": K12_SOURCE, "replaces": K12[name],
          "launches": launches[name], "max_abs_err": errors[name], **k12_times[name]}
         for name in K12

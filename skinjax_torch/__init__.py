@@ -4,11 +4,13 @@ A second package beside ``skinjax``, which stays the reference it is held
 against. It imports ``torch`` and never JAX. It serves and trains the
 multimodal model with all 18 fusion mechanisms, a one-hot metadata tower and
 a ResNet-18/50, DaViT-tiny, ViT (tiny to large) or BEiT-v2-large image tower
-(the flagship: ResNet-50 + RG-ATT), and runs the train CLI
-(``python -m skinjax_torch.tools.train_cli``) from a PAD-UFES-20 CSV and PNG
-images on disk to checkpoints the service serves. The fusion stage (K1-K4),
-the augmentation's color stage (K5), DaViT's window attention (K7) and the
-ViT/BEiT global attention core (K12) run in hand-written CUDA kernels
+(the flagship: ResNet-50 + RG-ATT), trains the sentence datasets' tokens
+model (a BERT or GPT-2 tower over tokenized clinical sentences), and runs
+the train CLI (``python -m skinjax_torch.tools.train_cli``) from a
+PAD-UFES-20 CSV and PNG images on disk to checkpoints the service serves.
+The fusion stage (K1-K4), the augmentation's color stage (K5), DaViT's
+window attention (K7) and the global attention core of ViT, BEiT, BERT and
+GPT-2 (K12, forward and both backwards) run in hand-written CUDA kernels
 (``skinjax_torch/ops/``, ``skinjax_torch/csrc/``).
 """
 
@@ -34,3 +36,15 @@ DAVIT_BATCH = 64
 # at that bench's batch of 32.
 BEIT = dict(FLAGSHIP, cnn_model_name="beitv2_large_patch16_224")
 BEIT_BATCH = 32
+
+# The sentence datasets' model: DaViT-tiny + a BERT-base tokens tower + RG-ATT
+# (the JAX package's bench.py sentence configuration), bf16, at its batch of
+# 32. It trains unfrozen at the reference's max_length of 512 tokens, and with
+# the text tower frozen (the reference's default) at 256, the length bench.py
+# reports sentence_frozen_images_per_sec at. GPT2 is the same model with the
+# GPT-2 small tower.
+SENTENCE = dict(DAVIT, text_model_name="bert-base-uncased")
+GPT2 = dict(DAVIT, text_model_name="gpt2")
+SENTENCE_BATCH = 32
+SENTENCE_TOKENS = 512
+SENTENCE_FROZEN_TOKENS = 256

@@ -5,7 +5,9 @@
 BATCH_SIZE, UNFREEZE_WEIGHTS, LIST_NUM_HEADS, COMMON_DIM, K_FOLDS, …) from a
 file and the process environment, with the same names and the same literal
 parser as skinjax; ``save_config`` / ``load_config`` write and read it as
-JSON. The port's ``TrainConfig`` adds ``device`` (``cuda`` by default).
+JSON. The port's ``TrainConfig`` adds ``device`` (``cuda`` by default), and
+``load_env_config`` also reads the sentence datasets' ``TEXT_MODEL_NAME``,
+``MAX_SEQ_LENGTH`` and ``TOKENIZERS_DIR``.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ class ExperimentConfig:
     # model dims
     common_dim: int = 512
     k_folds: int = 5
-    # sentence datasets (not ported yet): tokenizer length and artifacts dir
+    # sentence datasets: tokenizer length and artifacts dir (None =
+    # $SKINJAX_TOKENIZERS, then ./tokenizers)
     max_seq_length: int = 256
     tokenizers_dir: Optional[str] = None
 
@@ -98,6 +101,9 @@ def load_env_config(
         unfreeze_weights=unfreeze,
     )
     return ExperimentConfig(
+        text_model_name=str(get("TEXT_MODEL_NAME", "one-hot-encoder")),
+        max_seq_length=int(get("MAX_SEQ_LENGTH", 256)),
+        tokenizers_dir=get("TOKENIZERS_DIR"),
         list_num_heads=list(_parse_literal(str(get("LIST_NUM_HEADS", "[8]")), [8])),
         common_dim=int(get("COMMON_DIM", 512)),
         k_folds=int(get("K_FOLDS", 5)),

@@ -1,12 +1,15 @@
-// Global (full-sequence) multi-head attention core, forward and stored-
-// probabilities backward, for Hopper (sm_90a).
+// Global (full-sequence) multi-head attention core: the forward, the
+// stored-probabilities backward and the recompute backward, for Hopper (sm_90a).
 //
 // It replaces the Pallas TPU kernel K12 of skinjax/ops/pallas/global_attention.py:
-// the forward _fwd_core (kernel _fwd_kernel, with emit_p) and the stored-P
-// backward _bwd_p_core (kernel _bwd_p_kernel). q, k and v are (B, N, C) in the
-// head-major channel layout (channel c belongs to head c / hd), each row at a
-// stride of ld elements (C when contiguous, 3C for slices of a packed qkv
-// projection). Per batch b and head h (hd = C / heads channels):
+// the forward _fwd_core (kernel _fwd_kernel, with emit_p), the stored-P
+// backward _bwd_p_core (kernel _bwd_p_kernel) and the recompute backward that
+// its _ac_bwd takes above the stored-P limit, skinjax/ops/pallas/
+// window_attention.py _bwd_core (kernel _bwd_core_kernel, with n_win = 1 and
+// no window mask). q, k and v are (B, N, C) in the head-major channel layout
+// (channel c belongs to head c / hd), each row at a stride of ld elements (C
+// when contiguous, 3C for slices of a packed qkv projection). Per batch b and
+// head h (hd = C / heads channels):
 //
 //   forward   s = (q.k^T) * scale (+ bias[h]) (+ kmask[b] over the keys)   fp32
 //             P = softmax(s) fp32, written to p (B, heads, N, N) when asked
@@ -20,6 +23,8 @@
 // casts; every sum is fp32. The scale multiplies the fp32 product, in the
 // forward before the bias and in the backward after the products, as the
 // Pallas kernel does (its reference instead scales q in the input type).
+// Both backwards round at the same points. The Pallas recompute kernel also
+// emits of = pb . v, which _ac_bwd drops; it is not computed here.
 //
 // Layout. No TPU padding: a block masks its own ragged edge (N = 197 for
 // ViT/BEiT at 224x224), and P is kept as (B, heads, N, N), not Mosaic's
@@ -28,21 +33,43 @@
 // Launches. Forward: one launch, a block per (32 query rows, head, batch),
 // which holds its 32 score rows in shared memory (so N <= 1024), streams K and
 // then V through shared memory 128 keys at a time, and does the softmax a warp
-// a row. Backward: the Pallas kernel sums dk, dv over every query and dbias
-// over the batch across its sequential grid; blocks here run in no order, so
-// the backward is three launches with no atomics: (1) a block per (32 query
-// rows, head, batch) computes dp, ds (written to an fp32 scratch the size of
-// P) and dq; (2) a block per (32 keys, head, batch) sums dv and dk over all
-// queries from P and ds; (3) with a bias gradient, dbias = the sum of ds over
-// the batch in batch order.
+// a row. The Pallas backwards sum dk, dv over every query and dbias over the
+// batch across their sequential grid; blocks here run in no order, so each
+// backward is a few launches with no atomics.
+//
+// Stored-P backward: (1) a block per (32 query rows, head, batch) computes dp,
+// ds (written to an fp32 scratch the size of P) and dq; (2) a block per (32
+// keys, head, batch) sums dv and dk over all queries from P and ds; (3) with a
+// bias gradient, dbias = the sum of ds over the batch in batch order.
+//
+// Recompute backward (no P and no ds of size B.heads.N^2 in memory; only
+// three fp32 row statistics a query row, (3, B, heads, N)): (1) a block per
+// (32 query rows, head, batch) recomputes whole score rows as the forward
+// does and the softmax with the forward's own code, writes each row's max
+// and sum, then streams V twice, for rowsum(dp * P) (written too) and for ds,
+// which it rounds in place of P, and computes dq; (2) a block per (32 keys,
+// head) recomputes its P and dp columns from q, k, v, do and those
+// statistics, with the same products in the same order, so P is the
+// forward's bit for bit and ds the one dq was computed from, and sums dv and
+// dk over every query. Without a bias gradient block (2) takes one batch
+// (grid z = batch); with one it loops over the batch in order and owns its
+// key columns of dbias[h], which it sums in device memory in batch order,
+// the order of the stored-P backward. The score of (query n, key m) is one
+// function, score(); K7's padded window kernel, whose backward is the same
+// Pallas function with a window mask, can add that mask as one more
+// additive term there.
 //
 // What bounds it: at BEiT-large (B=32, N=197, C=1024, 16 heads) the forward
-// moves ~134 MB (P's 79.5 MB of them) against 5.1 GFLOP, the backward ~172 MB
-// against 10.2 GFLOP: on the bf16 tensor cores both are bound by bytes (~40 and
-// ~51 us). This first version is simple: fp32 FMAs on the CUDA cores from
-// shared-memory tiles (4x4 and 4x2 outputs a thread), no mma, no TMA, and the
-// backward's ds scratch adds ~240 MB of traffic. PERF.md records how far it is
-// from its bound. Limits: N <= 1024, hd <= 64.
+// moves ~134 MB (P's 79.5 MB of them) against 5.1 GFLOP, the stored-P backward
+// ~172 MB against 10.2 GFLOP: on the bf16 tensor cores both are bound by bytes
+// (~40 and ~51 us). The recompute backward at BERT-base (B=32, N=512, C=768,
+// 12 heads) moves ~176 MB against ~64 GFLOP (five products): bound by
+// operations (~65 us). This first version is simple: fp32 FMAs on the CUDA
+// cores from shared-memory tiles (4x4 and 4x2 outputs a thread), no mma, no
+// TMA; the stored-P backward's ds scratch adds ~240 MB of traffic, the
+// recompute backward does each product once in (1) or (2) and the scores
+// and dp twice. PERF.md records how far each is from its bound. Limits:
+// N <= 1024, hd <= 64.
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() as an int (0 = success);
@@ -112,10 +139,50 @@ struct Dims {
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
+// The score of query n and key m of head hi of batch b from the fp32 product
+// a = q.k^T: every launch that computes a score computes it here, so that the
+// recompute backward reproduces the forward's scores bit for bit.
+__device__ __forceinline__ float score(float a, float scale, const float* __restrict__ bias,
+                                       const float* __restrict__ kmask, const Dims& g, int hi,
+                                       int b, int n, int m) {
+  a = __fmul_rn(a, scale);
+  if (bias) a = __fadd_rn(a, bias[((long long)hi * g.N + n) * g.N + m]);
+  if (kmask) a = __fadd_rn(a, kmask[(long long)b * g.N + m]);
+  return a;
+}
+
+// dp of query n and key m from the fp32 product a = do.v^T
+__device__ __forceinline__ float dprob(float a, const float* __restrict__ pmult, const Dims& g,
+                                       int n, int m) {
+  return pmult ? __fmul_rn(a, pmult[(long long)n * g.N + m]) : a;
+}
+
+// A score row (N values) through exp in place, a warp a row: row[m] =
+// exp(row[m] - max). Returns (max, sum); P = row[m] / sum. The recompute
+// backward's column launch computes expf(s - max) / sum from the same max
+// and sum, the same operations.
+__device__ __forceinline__ float2 exp_row(float* row, int N, int lane) {
+  float mx = -CUDART_INF_F;
+  for (int m = lane; m < N; m += 32) mx = fmaxf(mx, row[m]);
+  mx = warp_max(mx);
+  float sum = 0.f;
+  for (int m = lane; m < N; m += 32) {
+    const float e = expf(row[m] - mx);
+    row[m] = e;
+    sum += e;
+  }
+  return make_float2(mx, warp_sum(sum));
+}
+
 // shared memory of the forward and the dq kernel: kTq score rows, a (kTq, hd)
 // tile and a (kKc, hd) chunk
 int rows_smem_bytes(int N) { return 4 * (kTq * (round_up(N, kKc) + 1) + kTq * kHs + kKc * kHs); }
 constexpr int dkv_smem_bytes() { return 4 * (2 * kQc * kTs + 2 * kQc * kHs); }
+// the recompute backward's column kernel: K and V tiles (kTk, hd), Q and dO
+// chunks (kQc, hd), the pb and ds planes (kQc, kTk) and three row statistics
+constexpr int cols_smem_bytes() {
+  return 4 * (2 * kTk * kHs + 2 * kQc * kHs + 2 * kQc * kTs + 3 * kQc);
+}
 
 // Rows n0 .. n0 + count - 1 of head hi of batch b of x (rows at a stride of ld)
 // as fp32 into dst (count x kHs); zeros past N and past hd.
@@ -247,26 +314,14 @@ __global__ void __launch_bounds__(kThreads)
 
   load_rows<T>(q, g.ld, g, b, hi, n0, kTq, qs);
   score_rows<T>(qs, k, g.ld, g, b, hi, n_rows, s, ss, chunk, [&](int r, int m, float a) {
-    a = __fmul_rn(a, scale);
-    if (bias) a = __fadd_rn(a, bias[((long long)hi * N + n0 + r) * N + m]);
-    if (kmask) a = __fadd_rn(a, kmask[(long long)b * N + m]);
-    return a;
+    return score(a, scale, bias, kmask, g, hi, b, n0 + r, m);
   });
 
   // softmax, a warp a row; P written before pmult, then round(P * pmult) kept
   for (int r = warp; r < n_rows; r += kWarps) {
     float* row = s + r * ss;
     const long long n = n0 + r;
-    float mx = -CUDART_INF_F;
-    for (int m = lane; m < N; m += 32) mx = fmaxf(mx, row[m]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int m = lane; m < N; m += 32) {
-      const float e = expf(row[m] - mx);
-      row[m] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
+    const float sum = exp_row(row, N, lane).y;
     float* prow = p ? p + (((long long)b * g.heads + hi) * N + n) * N : nullptr;
     const float* mrow = pmult ? pmult + n * N : nullptr;
     for (int m = lane; m < N; m += 32) {
@@ -298,7 +353,7 @@ __global__ void __launch_bounds__(kThreads)
 
   load_rows<T>(dout, g.C, g, b, hi, n0, kTq, dos);
   score_rows<T>(dos, v, g.ld, g, b, hi, n_rows, s, ss, chunk, [&](int r, int m, float a) {
-    return pmult ? __fmul_rn(a, pmult[(long long)(n0 + r) * N + m]) : a;
+    return dprob(a, pmult, g, n0 + r, m);
   });
 
   // ds = P * (dp - rowsum(dp * P)), a warp a row; round(ds) kept for dq
@@ -406,6 +461,206 @@ __global__ void ga_dbias_reduce_kernel(const float* __restrict__ ds, float* __re
   out[i] = a;
 }
 
+// Recompute backward (1): for 32 query rows of one head of one batch, the
+// scores and the softmax as the forward computes them, each row's max and
+// sum (stats[0], stats[1]), rowsum(dp * P) (stats[2]), ds, and dq. stats is
+// (3, B, heads, N) fp32.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ga_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       const T* __restrict__ dout, const float* __restrict__ bias,
+                       const float* __restrict__ kmask, const float* __restrict__ pmult,
+                       T* __restrict__ dq, float* __restrict__ stats, Dims g, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int N = g.N;
+  const int ss = round_up(N, kKc) + 1;
+  float* s = smem;
+  float* tile = s + kTq * ss;  // q rows, then do rows
+  float* chunk = tile + kTq * kHs;
+  const int n0 = blockIdx.x * kTq, hi = blockIdx.y, b = blockIdx.z;
+  const int n_rows = min(kTq, N - n0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long plane = (long long)g.B * g.heads * N;  // one statistic
+  const long long row0 = ((long long)b * g.heads + hi) * N + n0;
+
+  load_rows<T>(q, g.ld, g, b, hi, n0, kTq, tile);
+  score_rows<T>(tile, k, g.ld, g, b, hi, n_rows, s, ss, chunk, [&](int r, int m, float a) {
+    return score(a, scale, bias, kmask, g, hi, b, n0 + r, m);
+  });
+  for (int r = warp; r < n_rows; r += kWarps) {  // P in place of the scores
+    float* row = s + r * ss;
+    const float2 ms = exp_row(row, N, lane);
+    for (int m = lane; m < N; m += 32) row[m] = row[m] / ms.y;
+    if (lane == 0) {
+      stats[row0 + r] = ms.x;
+      stats[plane + row0 + r] = ms.y;
+    }
+  }
+  __syncthreads();  // the q tile consumed
+  load_rows<T>(dout, g.C, g, b, hi, n0, kTq, tile);
+
+  // pass 1: rsum = rowsum(dp * P), dp streamed kKc keys at a time; each warp
+  // owns rows warp + 8i
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int m0 = 0; m0 < N; m0 += kKc) {
+    __syncthreads();
+    load_rows<T>(v, g.ld, g, b, hi, m0, kKc, chunk);
+    __syncthreads();
+    float acc[4][4];
+    tile_abt(tile, chunk, g.hd, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp + 8 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = m0 + lane + 32 * j;
+        if (r < n_rows && m < N)
+          part[i] += __fmul_rn(dprob(acc[i][j], pmult, g, n0 + r, m), s[r * ss + m]);
+      }
+    }
+  }
+  float rsum[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    rsum[i] = warp_sum(part[i]);
+    if (lane == 0 && warp + 8 * i < n_rows) stats[2 * plane + row0 + warp + 8 * i] = rsum[i];
+  }
+
+  // pass 2: ds = P * (dp - rsum), rounded, in place of P
+  for (int m0 = 0; m0 < N; m0 += kKc) {
+    __syncthreads();
+    load_rows<T>(v, g.ld, g, b, hi, m0, kKc, chunk);
+    __syncthreads();
+    float acc[4][4];
+    tile_abt(tile, chunk, g.hd, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp + 8 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = m0 + lane + 32 * j;
+        if (r < n_rows && m < N) {
+          float* at = s + r * ss + m;
+          const float dp = dprob(acc[i][j], pmult, g, n0 + r, m);
+          *at = round_to<T>(__fmul_rn(*at, __fsub_rn(dp, rsum[i])));
+        }
+      }
+    }
+  }
+  rows_product_out<T>(s, ss, k, g.ld, g, b, hi, n0, n_rows, chunk, scale, dq);
+}
+
+// Recompute backward (2): dv = round(P * pmult)^T . do and dk = round(ds)^T .
+// q * scale for 32 keys of one head, summed over every query, for b_count
+// batches from blockIdx.z * b_count in order. P and ds are recomputed from the
+// statistics of (1): the score and dp of (n, m) as sums over the head's
+// channels in channel order, the order of tile_abt, so they equal (1)'s and
+// the forward's. With dbias, dbias[hi][n][m] = the sum of ds over the batches
+// in order (the block owns its key columns; b_count is then the batch).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ga_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       const T* __restrict__ dout, const float* __restrict__ bias,
+                       const float* __restrict__ kmask, const float* __restrict__ pmult,
+                       const float* __restrict__ stats, T* __restrict__ dk, T* __restrict__ dv,
+                       float* __restrict__ dbias, Dims g, float scale, int b_count) {
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                 // kTk x kHs
+  float* vs = ks + kTk * kHs;       // kTk x kHs
+  float* qs = vs + kTk * kHs;       // kQc x kHs
+  float* dos = qs + kQc * kHs;      // kQc x kHs
+  float* pb = dos + kQc * kHs;      // kQc x kTs
+  float* dsb = pb + kQc * kTs;      // kQc x kTs
+  float* st = dsb + kQc * kTs;      // 3 x kQc: max, sum, rowsum(dp * P)
+  const int N = g.N;
+  const int m0 = blockIdx.x * kTk, hi = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long plane = (long long)g.B * g.heads * N;
+  const int m = m0 + lane;  // the key of this thread's P and ds entries
+
+  for (int b = blockIdx.z * b_count; b < (blockIdx.z + 1) * b_count; ++b) {
+    __syncthreads();  // the previous batch's tiles consumed
+    load_rows<T>(k, g.ld, g, b, hi, m0, kTk, ks);
+    load_rows<T>(v, g.ld, g, b, hi, m0, kTk, vs);
+    float adv[4][2], adk[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) adv[i][0] = adv[i][1] = adk[i][0] = adk[i][1] = 0.f;
+
+    for (int n0 = 0; n0 < N; n0 += kQc) {
+      __syncthreads();  // the previous chunk consumed
+      load_rows<T>(q, g.ld, g, b, hi, n0, kQc, qs);
+      load_rows<T>(dout, g.C, g, b, hi, n0, kQc, dos);
+      for (int idx = threadIdx.x; idx < 3 * kQc; idx += kThreads) {
+        const int which = idx / kQc, r = idx - which * kQc;
+        st[idx] = n0 + r < N
+                      ? stats[which * plane + ((long long)b * g.heads + hi) * N + n0 + r]
+                      : 0.f;
+      }
+      __syncthreads();
+      // the (kQc, kTk) planes: this thread's key m, rows warp + 8i
+#pragma unroll 2
+      for (int i = 0; i < kQc / kWarps; ++i) {
+        const int r = warp + kWarps * i, n = n0 + r;
+        float a = 0.f, d = 0.f;
+        if (n < N && m < N) {
+          float sv = 0.f, dp = 0.f;
+          for (int c = 0; c < g.hd; ++c) {
+            sv = fmaf(qs[r * kHs + c], ks[lane * kHs + c], sv);
+            dp = fmaf(dos[r * kHs + c], vs[lane * kHs + c], dp);
+          }
+          const float p = expf(score(sv, scale, bias, kmask, g, hi, b, n, m) - st[r]) /
+                          st[kQc + r];
+          const float ds = __fmul_rn(p, __fsub_rn(dprob(dp, pmult, g, n, m), st[2 * kQc + r]));
+          if (dbias) {
+            float* at = dbias + ((long long)hi * N + n) * N + m;
+            *at = (b == 0 ? 0.f : *at) + ds;
+          }
+          a = round_to<T>(pmult ? __fmul_rn(p, pmult[(long long)n * N + m]) : p);
+          d = round_to<T>(ds);
+        }
+        pb[r * kTs + lane] = a;
+        dsb[r * kTs + lane] = d;
+      }
+      __syncthreads();
+      const int nc = min(kQc, N - n0);
+#pragma unroll 4
+      for (int r = 0; r < nc; ++r) {
+        float pv[4], sv[4], dv_[2], qv[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = pb[r * kTs + warp + 8 * i];
+          sv[i] = dsb[r * kTs + warp + 8 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          dv_[j] = dos[r * kHs + lane + 32 * j];
+          qv[j] = qs[r * kHs + lane + 32 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            adv[i][j] = fmaf(pv[i], dv_[j], adv[i][j]);
+            adk[i][j] = fmaf(sv[i], qv[j], adk[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int mm = m0 + warp + 8 * i;
+      if (mm >= N) continue;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int d = lane + 32 * j;
+        if (d >= g.hd) continue;
+        const long long at = ((long long)b * N + mm) * g.C + hi * g.hd + d;
+        dv[at] = from_f32<T>(adv[i][j]);
+        dk[at] = from_f32<T>(adk[i][j] * scale);
+      }
+    }
+  }
+}
+
 Dims dims(int B, int N, int C, int heads, long long ld) {
   Dims g;
   g.B = B;
@@ -466,6 +721,34 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_bwd_recompute(const void* q, const void* k, const void* v, const void* dout,
+                                 const float* bias, const float* kmask, const float* pmult,
+                                 void* dq, void* dk, void* dv, float* stats, float* dbias,
+                                 const Dims& g, float scale, cudaStream_t stream) {
+  const int smem = rows_smem_bytes(g.N);
+  cudaError_t err = cudaFuncSetAttribute(ga_bwd_rows_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((g.N + kTq - 1) / kTq, g.heads, g.B);
+  ga_bwd_rows_kernel<T><<<grid_q, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), bias, kmask, pmult, static_cast<T*>(dq), stats, g, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ga_bwd_cols_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             cols_smem_bytes());
+  if (err != cudaSuccess) return err;
+  // with a bias gradient one block sums its key columns over the whole batch
+  const int b_count = dbias ? g.B : 1;
+  const dim3 grid_k((g.N + kTk - 1) / kTk, g.heads, g.B / b_count);
+  ga_bwd_cols_kernel<T><<<grid_k, kThreads, cols_smem_bytes(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), bias, kmask, pmult, stats, static_cast<T*>(dk),
+      static_cast<T*>(dv), dbias, g, scale, b_count);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -503,6 +786,25 @@ int skinjax_global_attention_bwd(int bf16, const void* q, const void* k, const v
   if (bf16)
     return launch_bwd<__nv_bfloat16>(q, k, v, dout, p, pmult, dq, dk, dv, ds, dbias, g, scale, s);
   return launch_bwd<float>(q, k, v, dout, p, pmult, dq, dk, dv, ds, dbias, g, scale, s);
+}
+
+// The recompute backward: the forward's inputs (bias for the scores, null
+// or not, whatever dbias is) and dout as for skinjax_global_attention_bwd.
+// Writes dq, dk, dv (B, N, C) contiguous, the row statistics stats (3, B,
+// heads, N) fp32 and, when dbias is not null, dbias (heads, N, N) fp32.
+int skinjax_global_attention_bwd_recompute(int bf16, const void* q, const void* k, const void* v,
+                                           long long ld, const void* dout, const float* bias,
+                                           const float* kmask, const float* pmult, void* dq,
+                                           void* dk, void* dv, float* stats, float* dbias, int B,
+                                           int N, int C, int heads, float scale, void* stream) {
+  const Dims g = dims(B, N, C, heads, ld);
+  if (bad_dims(g)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_bwd_recompute<__nv_bfloat16>(q, k, v, dout, bias, kmask, pmult, dq, dk, dv,
+                                               stats, dbias, g, scale, s);
+  return launch_bwd_recompute<float>(q, k, v, dout, bias, kmask, pmult, dq, dk, dv, stats, dbias,
+                                     g, scale, s);
 }
 
 }  // extern "C"

@@ -7,7 +7,10 @@ float column), the strings " ", "  ", "NÃO  ENCONTRADO" and "BRASIL", "UNK"
 answers, pandas' other missing-value strings ("NA", "NaN"), and several
 images per patient. Images are uint8 noise with a per-class brightness, so a
 model can learn something; ``paeth=True`` writes each row Paeth-filtered,
-the costly case for the stdlib PNG reader.
+the costly case for the stdlib PNG reader. ``sentences=True`` adds the
+sentence datasets' ``sentence`` column (a clinical sentence made from the
+row's cells), and ``write_wordpiece_vocab`` writes a ``vocab.txt`` that
+covers its words, for the BERT tokenizer.
 """
 
 from __future__ import annotations
@@ -71,6 +74,30 @@ def pad_ufes20_table(n: int, seed: int = 0) -> Dict[str, List[str]]:
     }
 
 
+def row_sentences(table: Dict[str, List[str]]) -> List[str]:
+    """One clinical sentence per row, from its cells."""
+    return [f"A {age} year old {gender or 'UNK'} patient has a lesion on the {region}; "
+            f"itch: {itch}, bleeding: {bleed}, grew: {grew}."
+            for age, gender, region, itch, bleed, grew in zip(
+                table["age"], table["gender"], table["region"], table["itch"], table["bleed"],
+                table["grew"])]
+
+
+def write_wordpiece_vocab(path: str, texts: List[str]) -> int:
+    """A BERT ``vocab.txt`` ([PAD], [UNK], [CLS], [SEP], [MASK], the texts'
+    lower-cased words and punctuation, and a few ``##`` pieces); returns its size."""
+    from skinjax_torch.data.tokenize import WordPieceTokenizer
+
+    basic = WordPieceTokenizer({t: i for i, t in enumerate(("[PAD]", "[UNK]", "[CLS]",
+                                                            "[SEP]"))})
+    words = sorted({w for t in texts for w in basic._basic_tokens(t)})
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *words, "##s", "##ing", "##ed"]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    return len(vocab)
+
+
 def write_csv(path: str, table: Dict[str, List[str]]) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     cols = list(table)
@@ -81,9 +108,13 @@ def write_csv(path: str, table: Dict[str, List[str]]) -> None:
 
 
 def write_pad_ufes20_like(root: str, n: int = 96, image_hw: Tuple[int, int] = (300, 400),
-                          seed: int = 0, paeth: bool = True) -> Tuple[str, str]:
-    """Write ``root/metadata.csv`` and ``root/images/<img_id>``; returns both paths."""
+                          seed: int = 0, paeth: bool = True,
+                          sentences: bool = False) -> Tuple[str, str]:
+    """Write ``root/metadata.csv`` (with a ``sentence`` column when asked)
+    and ``root/images/<img_id>``; returns both paths."""
     table = pad_ufes20_table(n, seed)
+    if sentences:
+        table["sentence"] = row_sentences(table)
     csv_path = os.path.join(root, "metadata.csv")
     write_csv(csv_path, table)
     images_dir = os.path.join(root, "images")

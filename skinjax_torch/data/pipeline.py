@@ -14,7 +14,8 @@ OpenCV. A JPEG or a PNG kind that reader does not decode raises
 Python loop, so decoding a photograph is slow (PERF.md).
 
 ``synthetic_source`` gives the same arrays as skinjax's for the same
-arguments. The sentence datasets' ``TokenSource`` is not ported yet.
+arguments. ``TokenSource`` serves the sentence datasets: its batches'
+metadata is ``{"input_ids", "attention_mask"}``, int32.
 """
 
 from __future__ import annotations
@@ -113,6 +114,44 @@ class FileSource:
         return {
             "image": self.store.gather([self.image_files[i] for i in idx]),
             "metadata": self.features[idx],
+            "label": self.labels[idx],
+        }
+
+
+class TokenSource:
+    """Source for the sentence-metadata datasets: images (an (N, H, W, 3)
+    uint8 array, or an ``ImageStore`` and file names) + tokenized sentences
+    (input_ids/attention_mask) + labels. A batch's metadata is a dict of
+    int32 arrays, which the train and eval steps take."""
+
+    def __init__(self, images_or_store, image_files, input_ids: np.ndarray,
+                 attention_mask: np.ndarray, labels: np.ndarray):
+        self._store = None
+        self._images = None
+        if isinstance(images_or_store, np.ndarray):
+            self._images = images_or_store
+        else:
+            self._store = images_or_store
+            self._files = list(image_files)
+        self.input_ids = input_ids.astype(np.int32)
+        self.attention_mask = attention_mask.astype(np.int32)
+        self.labels = labels.astype(np.int32)
+
+    def __len__(self):
+        return len(self.labels)
+
+    def batch(self, idx: np.ndarray) -> Dict[str, object]:
+        idx = np.asarray(idx)
+        if self._images is not None:
+            imgs = self._images[idx]
+        else:
+            imgs = self._store.gather([self._files[i] for i in idx])
+        return {
+            "image": imgs,
+            "metadata": {
+                "input_ids": self.input_ids[idx],
+                "attention_mask": self.attention_mask[idx],
+            },
             "label": self.labels[idx],
         }
 

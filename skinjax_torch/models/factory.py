@@ -1,8 +1,11 @@
 """Model factory (counterpart of ``skinjax/models/factory.py``): the
-reference's model-select switch. ``multimodal`` with the one-hot metadata
-tower builds the port's ``MultimodalModel`` with the requested backbone and
-fusion, initialised from a seed; the baselines and the sentence towers are
-not ported yet.
+reference's model-select switch. ``multimodal`` builds the port's
+``MultimodalModel`` with the requested backbone and fusion, initialised from
+a seed: with the one-hot metadata tower, or, for a ``bert*`` / ``gpt2*``
+text model, in tokens mode with the sentence tower of
+``build_sentence_tower`` (its weights from ``text_weights_dir`` where given,
+grafted over the seed's draw; random otherwise, with skinjax's warning). The
+baselines and the other text towers are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +15,11 @@ from typing import Optional
 import torch
 
 from skinjax_torch.models.fusion.multimodal import MultimodalModel
+from skinjax_torch.models.text.sentence import (
+    build_sentence_tower,
+    graft_pretrained,
+    is_sentence_model,
+)
 from skinjax_torch.models.weights import init_weights
 
 
@@ -27,12 +35,30 @@ def create_model(
     vocab_size: int = 91,
     dtype: Optional[torch.dtype] = None,
     seed: int = 0,
+    text_weights_dir: Optional[str] = None,
 ) -> MultimodalModel:
     """A new model with random weights drawn from ``seed`` (``init_weights``)."""
     name = model_name.lower()
     if name in ("mdnet", "liwterm", "metanet"):
         raise NotImplementedError(
             f"the {name} baseline is not ported to PyTorch yet; ROADMAP.md lists when it comes")
+    if is_sentence_model(text_model_name):
+        tower = build_sentence_tower(text_model_name, text_weights_dir)
+        model = init_weights(MultimodalModel(
+            num_classes=num_classes,
+            num_heads=num_heads,
+            cnn_model_name=cnn_model_name,
+            text_model_name=text_model_name,
+            text_module=tower,
+            text_input_mode="tokens",
+            common_dim=common_dim,
+            vocab_size=vocab_size,
+            attention_mechanism=attention_mechanism,
+            dtype=dtype,
+        ), seed)
+        if hasattr(model, "text_encoder"):
+            graft_pretrained(model.text_encoder, tower)
+        return model
     if text_model_name != "one-hot-encoder":
         raise NotImplementedError(
             f"text tower '{text_model_name}' is not ported to PyTorch yet; "

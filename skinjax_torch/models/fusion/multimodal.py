@@ -12,7 +12,15 @@ calls, the model holds only the submodules its mechanism uses, so its
 discards) the image projection first, so its tree, and this model, hold an
 ``image_projector`` that nothing reads.
 
-Input is NHWC ``(B, H, W, 3)`` and featurized metadata ``(B, vocab_size)``.
+Input is NHWC ``(B, H, W, 3)`` and featurized metadata ``(B, vocab_size)``,
+or, in tokens mode (``text_module`` a sentence tower, ``text_input_mode
+"tokens"``), ``{"input_ids", "attention_mask"}`` (B, T) integer tensors.
+The tokens model holds the tower's encoder as ``text_encoder``, as the
+reference's sentence model does, so its ``state_dict()`` reads as a
+reference sentence checkpoint (``text_encoder.embeddings.…`` for BERT,
+``text_encoder.h.…`` for GPT-2); it pools the last hidden state per the
+tower's family (``[:, 0]`` or ``[:, -1]``) into ``(B, text_encoder_dim_output)``,
+which every mechanism takes as it takes the one-hot tower's output.
 ``dtype=torch.bfloat16`` runs the model under autocast, the counterpart of
 the JAX model's ``dtype=bfloat16``; parameters stay fp32.
 """
@@ -28,6 +36,7 @@ from torch import nn
 from skinjax_torch.models.backbones import create_backbone
 from skinjax_torch.models.fusion.blocks import GatedAlteredResidualBlock, MetaBlock, MLPHead
 from skinjax_torch.models.text import OneHotMLP
+from skinjax_torch.models.text.bert import pool_hidden
 from skinjax_torch.ops.attention import MultiheadAttention
 
 MECHANISMS = (
@@ -100,6 +109,8 @@ class MultimodalModel(nn.Module):
         attention_mechanism: str = "concatenation",
         dropout_rate: float = 0.5,
         dtype: Optional[torch.dtype] = None,
+        text_module: Optional[nn.Module] = None,
+        text_input_mode: str = "features",
         *,
         device=None,
     ):
@@ -107,12 +118,21 @@ class MultimodalModel(nn.Module):
         mech = attention_mechanism
         if mech not in MECHANISMS:
             raise ValueError(f"Attention mechanism '{mech}' not implemented. Known: {MECHANISMS}")
-        if text_model_name != "one-hot-encoder":
+        if text_input_mode not in ("features", "tokens"):
+            raise NotImplementedError(f"text_input_mode '{text_input_mode}' is not ported to "
+                                      "PyTorch yet; ROADMAP.md lists when it comes")
+        if (text_input_mode == "tokens") != (text_module is not None):
+            raise ValueError("tokens mode takes a text_module (a sentence tower) and features "
+                             "mode none")
+        if text_module is None and text_model_name != "one-hot-encoder":
             raise NotImplementedError(
                 f"text tower '{text_model_name}' is not ported to PyTorch yet; "
                 "ROADMAP.md lists when it comes"
             )
+        if text_module is not None:
+            text_encoder_dim_output = text_module.hidden_size
         self.num_classes = num_classes
+        self.text_input_mode = text_input_mode
         self.common_dim = common_dim
         self.vocab_size = vocab_size
         self.attention_mechanism = mech
@@ -122,7 +142,10 @@ class MultimodalModel(nn.Module):
         self.image_encoder, self.cnn_dim_output = create_backbone(cnn_model_name, device=device)
         if mech != "no-metadata-without-mlp":
             self.image_projector = nn.Linear(self.cnn_dim_output, common_dim, device=device)
-        if mech not in _NO_TEXT:
+        if mech not in _NO_TEXT and text_module is not None:
+            self.text_encoder = text_module.encoder
+            self.text_pool = text_module.pool
+        elif mech not in _NO_TEXT:
             self.text_fc = OneHotMLP(vocab_size, text_encoder_dim_output, device=device)
         if mech not in (*_NO_TEXT, "metablock"):
             self.text_projector = nn.Linear(text_encoder_dim_output, common_dim, device=device)
@@ -166,7 +189,15 @@ class MultimodalModel(nn.Module):
             return contextlib.nullcontext()
         return torch.autocast(device.type, dtype=self.dtype)
 
-    def features(self, image: torch.Tensor, metadata: torch.Tensor
+    def text_features(self, metadata) -> torch.Tensor:
+        """The metadata tower's output (B, text_encoder_dim_output): the
+        one-hot MLP on features, or the pooled sentence encoder on tokens."""
+        if self.text_input_mode == "tokens":
+            hidden = self.text_encoder(metadata["input_ids"], metadata.get("attention_mask"))
+            return pool_hidden(hidden, self.text_pool)
+        return self.text_fc(metadata)
+
+    def features(self, image: torch.Tensor, metadata
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The fusion stage's inputs (img, txt): both towers' outputs,
         projected to common_dim unless the mechanism fuses the raw features
@@ -180,7 +211,7 @@ class MultimodalModel(nn.Module):
                 img = img.mean(dim=(1, 2))
             elif img.dim() == 3:  # token sequence → CLS
                 img = img[:, 0]
-            txt = None if mech in _NO_TEXT else self.text_fc(metadata)
+            txt = None if mech in _NO_TEXT else self.text_features(metadata)
             if mech not in _RAW_FEATURES:
                 img = self.image_projector(img)
                 if txt is not None:
@@ -250,8 +281,9 @@ class MultimodalModel(nn.Module):
             return cat(a_img * img_x, a_txt * txt_x)
         return cat(a_txt * img_x, a_img * txt_x)  # swapped gates
 
-    def forward(self, image: torch.Tensor, metadata: torch.Tensor) -> torch.Tensor:
-        """image (B, H, W, 3) NHWC, metadata (B, vocab_size) → logits (B, num_classes)."""
+    def forward(self, image: torch.Tensor, metadata) -> torch.Tensor:
+        """image (B, H, W, 3) NHWC, metadata (B, vocab_size) or the token
+        dict → logits (B, num_classes)."""
         img, txt = self.features(image, metadata)
         with self.autocast(image.device):
             return getattr(self, self.head_name)(self.fuse(img, txt))

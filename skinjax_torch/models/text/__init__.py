@@ -1,6 +1,8 @@
 """Metadata towers (counterpart of ``skinjax/models/text/__init__.py``).
 
-Only the one-hot MLP tower of the flagship is ported so far.
+The one-hot MLP tower of the flagship, and the sentence towers (BERT and
+GPT-2, ``bert.py``, ``gpt2.py``, ``sentence.py``) of the sentence datasets.
+The static-embedding and TabTransformer towers are not ported yet.
 """
 
 from __future__ import annotations

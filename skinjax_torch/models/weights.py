@@ -19,7 +19,13 @@ The image encoder converts by its tree: a DaViT tree (``stem_conv``), a ViT
 tree (``pos_embed``, per-block ``attn/{q,k,v}_proj``) and a BEiT tree
 (``fc_norm``, per-block ``attn/qkv_kernel``) to timm's keys, which
 ``skinjax.models.torch_import.import_davit``/``import_vit``/``import_beit``
-read back; a ResNet tree (``stem``) to torchvision's.
+read back; a ResNet tree (``stem``) to torchvision's. A tokens model's
+sentence tower (``text_module/bert`` or ``text_module/gpt2``, HF Flax's
+tree) converts to HF torch's ``BertModel``/``GPT2Model`` keys under
+``text_encoder.`` (``text_encoder_state_dict``), the inverse of
+``import_torch_bert``/``import_torch_gpt2``: Flax Dense kernels (in, out)
+transpose to (out, in), GPT-2's Flax Conv1D kernels (out, in) to HF torch's
+Conv1D (in, out), embeddings stay as they are.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 from torch import nn
 
 from skinjax_torch.models.backbones import beit, vit
+from skinjax_torch.models.text import gpt2
 from skinjax_torch.ops.attention import MultiheadAttention
 
 
@@ -154,6 +161,56 @@ def _resnet(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
                 _convbn(sd, f"{base}.{name}", f"{base}.bn{name[len('conv'):]}", sub, s[blk][name])
 
 
+def _bert(sd: Dict, prefix: str, p: Mapping) -> None:
+    """skinjax ``NativeBertEncoder`` params → HF torch ``BertModel`` keys
+    (the inverse of ``import_torch_bert``; no pooler)."""
+    emb = p["embeddings"]
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        sd[f"{prefix}embeddings.{name}.weight"] = _np(emb[name]["embedding"])
+    _ln(sd, f"{prefix}embeddings.LayerNorm", emb["LayerNorm"])
+    layers = p["encoder"]["layer"]
+    for i in range(len(layers)):
+        b, base = layers[str(i)], f"{prefix}encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            _linear(sd, f"{base}.attention.self.{name}", b["attention"]["self"][name])
+        _linear(sd, f"{base}.attention.output.dense", b["attention"]["output"]["dense"])
+        _ln(sd, f"{base}.attention.output.LayerNorm", b["attention"]["output"]["LayerNorm"])
+        _linear(sd, f"{base}.intermediate.dense", b["intermediate"]["dense"])
+        _linear(sd, f"{base}.output.dense", b["output"]["dense"])
+        _ln(sd, f"{base}.output.LayerNorm", b["output"]["LayerNorm"])
+
+
+def _gpt2(sd: Dict, prefix: str, p: Mapping) -> None:
+    """skinjax ``NativeGPT2Encoder`` params → HF torch ``GPT2Model`` keys
+    (the inverse of ``import_torch_gpt2``): Conv1D kernels (out, in) → (in, out)."""
+
+    def conv1d(key, q):
+        sd[f"{key}.weight"] = np.ascontiguousarray(_np(q["kernel"]).T)
+        sd[f"{key}.bias"] = _np(q["bias"])
+
+    sd[f"{prefix}wte.weight"] = _np(p["wte"]["embedding"])
+    sd[f"{prefix}wpe.weight"] = _np(p["wpe"]["embedding"])
+    for i in range(len(p["h"])):
+        b, base = p["h"][str(i)], f"{prefix}h.{i}"
+        _ln(sd, f"{base}.ln_1", b["ln_1"])
+        conv1d(f"{base}.attn.c_attn", b["attn"]["c_attn"])
+        conv1d(f"{base}.attn.c_proj", b["attn"]["c_proj"])
+        _ln(sd, f"{base}.ln_2", b["ln_2"])
+        conv1d(f"{base}.mlp.c_fc", b["mlp"]["c_fc"])
+        conv1d(f"{base}.mlp.c_proj", b["mlp"]["c_proj"])
+    _ln(sd, f"{prefix}ln_f", p["ln_f"])
+
+
+def text_encoder_state_dict(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A skinjax sentence encoder's params (the ``NativeSentenceTower``'s
+    child scope, ``{"bert": …}`` or ``{"gpt2": …}``) → HF torch keys under
+    ``prefix``."""
+    (scope, p), = tree.items()
+    sd: Dict[str, np.ndarray] = {}
+    {"bert": _bert, "gpt2": _gpt2}[scope](sd, prefix, p)
+    return sd
+
+
 def _mlp_head(sd: Dict, prefix: str, p: Mapping) -> None:
     _linear(sd, f"{prefix}.0", p["fc1"])
     _ln(sd, f"{prefix}.1", p["norm1"])
@@ -186,6 +243,8 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, np.
     if "text_tower" in params:
         for i, fc in enumerate(("fc0", "fc1", "fc2")):
             _linear(sd, f"text_fc.{2 * i}", params["text_tower"][fc])
+    if "text_module" in params:  # a tokens model's sentence tower
+        sd.update(text_encoder_state_dict(params["text_module"], "text_encoder."))
     for name in ("image_self_attention", "text_self_attention",
                  "image_cross_attention", "text_cross_attention"):
         if name in params:
@@ -224,7 +283,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     the attention's ``out_proj`` included: LeCun normal (flax's Dense
     default) and zero bias. The packed ``in_proj_weight``: Xavier uniform
     over each D×D block, as the JAX attention draws q/k/v, and zero bias.
-    Norms: unit scale, zero shift, running stats (0, 1).
+    Norms: unit scale, zero shift, running stats (0, 1). Embeddings:
+    normal with std dim^-0.5 (flax's Embed default); GPT-2's Conv1D
+    normal(0.02) and zero bias (skinjax's GPT-2 initialiser).
 
     Then the ViT and BEiT towers' own parameters, with skinjax's
     initialisers: the patch embedding LeCun normal (flax's Conv default);
@@ -258,6 +319,11 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             bound = (6.0 / (2 * d)) ** 0.5
             put(m.in_proj_weight, (torch.rand(m.in_proj_weight.shape, generator=g) * 2 - 1) * bound)
             m.in_proj_bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            put(m.weight, torch.randn(m.weight.shape, generator=g) * m.embedding_dim ** -0.5)
+        elif isinstance(m, gpt2.Conv1D):
+            put(m.weight, torch.randn(m.weight.shape, generator=g) * 0.02)
+            m.bias.zero_()
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()

@@ -1,12 +1,13 @@
-"""Global (full-sequence) multi-head attention core as a hand-written CUDA
-kernel pair: the forward, which also emits the fp32 softmax probabilities P,
-and the stored-probabilities backward.
+"""Global (full-sequence) multi-head attention core as hand-written CUDA
+kernels: the forward, which also emits the fp32 softmax probabilities P
+when asked, the stored-probabilities backward and the recompute backward.
 
 Counterpart of ``skinjax/ops/pallas/global_attention.py`` (K12):
 
-  kernel                 CUDA entry point (csrc/global_attention.cu)   replaces (Pallas TPU kernel)
-  global_attention_fwd   skinjax_global_attention_fwd                  global_attention.py _fwd_core
-  global_attention_bwd   skinjax_global_attention_bwd                  global_attention.py _bwd_p_core
+  kernel                           CUDA entry point (csrc/global_attention.cu)   replaces (Pallas TPU kernel)
+  global_attention_fwd             skinjax_global_attention_fwd                  global_attention.py _fwd_core
+  global_attention_bwd             skinjax_global_attention_bwd                  global_attention.py _bwd_p_core
+  global_attention_bwd_recompute   skinjax_global_attention_bwd_recompute        window_attention.py _bwd_core (n_win=1)
 
 ``attention_core(q, k, v, bias, kmask, pmult, num_heads)`` is a
 ``torch.autograd.Function`` with skinjax's signature and layouts: q, k, v
@@ -21,18 +22,23 @@ is cast to q's dtype before ``·v``; the backward casts ``P·pmult`` before
 ``dv``, keeps ``dp`` and ``ds`` in fp32, casts ``ds`` before ``dq`` and ``dk``
 and scales those after the product.
 
-When a gradient will be asked for, the forward keeps P (``B·h·N²·4`` bytes)
-for the backward. Above skinjax's limit for that residual (256 MB a call,
-``_store_p_ok``) skinjax switches to its recompute backward; that backward is
-not ported yet (ROADMAP.md, the BERT and GPT-2 text towers), so the port
-raises ``NotImplementedError`` there.
+The backward's route. When a gradient will be asked for and the stored-P
+residual of the call (``B·h·N²·4`` bytes) is at most ``STORE_P_MAX_BYTES``
+(skinjax's 256 MB, ``_store_p_ok``), the forward keeps P and the stored-P
+backward reads it. Above it the forward keeps no P, and the recompute
+backward recomputes the softmax from q, k, v, the bias and the masks, as
+skinjax's ``_ac_bwd`` does there. That constant is the port's one rule:
+skinjax's other recompute triggers are TPU workarounds that the port does
+not carry over (the Mosaic block cap ``4·hg·Np² > 4 MB`` and
+``SKINJAX_REMAT``; ROADMAP.md, "Leave out of the port").
 
-``attention_core_plain`` and ``attention_core_bwd_plain`` are the plain
-PyTorch twins, rounding at the same points; ``attention_core_reference`` is a
-copy of skinjax's einsum reference. The wrappers dispatch on the device of q:
-a CPU tensor goes to the twin, a CUDA tensor launches the kernel or raises.
-There is no fallback from a failed build or launch. ``LAUNCHES`` counts calls
-that launched a kernel (one per forward, one per backward; a twin call is not
+``attention_core_plain``, ``attention_core_bwd_plain`` and
+``attention_core_bwd_recompute_plain`` are the plain PyTorch twins,
+rounding at the same points; ``attention_core_reference`` is a copy of
+skinjax's einsum reference. The wrappers dispatch on the device of q: a CPU
+tensor goes to the twin, a CUDA tensor launches the kernel or raises. There
+is no fallback from a failed build or launch. ``LAUNCHES`` counts calls that
+launched a kernel (one per forward, one per backward; a twin call is not
 counted).
 """
 
@@ -45,7 +51,8 @@ import torch
 
 from skinjax_torch.ops import check_tensor
 
-LAUNCHES: Dict[str, int] = {"global_attention_fwd": 0, "global_attention_bwd": 0}
+LAUNCHES: Dict[str, int] = {"global_attention_fwd": 0, "global_attention_bwd": 0,
+                            "global_attention_bwd_recompute": 0}
 
 MAX_TOKENS = 1024
 MAX_HEAD_DIM = 64
@@ -60,6 +67,8 @@ _SIGNATURES = {
     "skinjax_global_attention_error_string": ([_I], ctypes.c_char_p),
     "skinjax_global_attention_fwd": ([_I, _P, _P, _P, _L] + [_P] * 5 + [_I] * 4 + [_F, _P], _I),
     "skinjax_global_attention_bwd": ([_I, _P, _P, _P, _L] + [_P] * 8 + [_I] * 4 + [_F, _P], _I),
+    "skinjax_global_attention_bwd_recompute": (
+        [_I, _P, _P, _P, _L] + [_P] * 9 + [_I] * 4 + [_F, _P], _I),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -163,22 +172,27 @@ def attention_core_bwd_plain(q, k, v, do, p, pmult, num_heads, has_bias
         return _merge(dq), _merge(dk), _merge(dv), dbias
 
 
+def attention_core_bwd_recompute_plain(q, k, v, do, bias, kmask, pmult, num_heads, has_bias
+                                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                  Optional[torch.Tensor]]:
+    """The recompute backward's arithmetic → (dq, dk, dv, dbias fp32 or
+    None), what skinjax's ``_bwd_core`` returns for the global call (its
+    ``of`` output left out): the forward's P recomputed, then the stored-P
+    backward's rounding."""
+    _, p = attention_core_plain(q, k, v, bias, kmask, pmult, num_heads)
+    return attention_core_bwd_plain(q, k, v, do, p, pmult, num_heads, has_bias)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def check_residual(q: torch.Tensor, num_heads: int) -> None:
-    """Raise where the stored-P residual of one call is above skinjax's
-    limit: skinjax's recompute backward for that case is not ported yet."""
+def stores_p(q: torch.Tensor, num_heads: int) -> bool:
+    """Whether the backward of this call reads a stored P: its residual
+    ``B·h·N²·4`` bytes is at most ``STORE_P_MAX_BYTES``."""
     B, N, _ = q.shape
-    nbytes = B * num_heads * N * N * 4
-    if nbytes > STORE_P_MAX_BYTES:
-        raise NotImplementedError(
-            f"the stored-probabilities residual of this attention call is {nbytes / 2**20:.0f} MB "
-            f"(B={B}, {num_heads} heads, N={N}), above skinjax's {STORE_P_MAX_BYTES >> 20} MB "
-            "limit, where skinjax takes its recompute backward; that backward is not ported yet "
-            "(ROADMAP.md: with the BERT and GPT-2 text towers)")
+    return B * num_heads * N * N * 4 <= STORE_P_MAX_BYTES
 
 
 def _row_stride(t: torch.Tensor) -> Optional[int]:
@@ -235,10 +249,7 @@ def _raise(lib, err: int, what: str) -> None:
 def global_attention_fwd(q, k, v, bias, kmask, pmult, num_heads: int, emit_p: bool
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(o (B, N, C), P (B, h, N, N) fp32 when ``emit_p``, else None) from the
-    forward kernel (CUDA) or its twin (CPU). With ``emit_p`` it raises above
-    the stored-P limit (``check_residual``)."""
-    if emit_p:
-        check_residual(q, num_heads)
+    forward kernel (CUDA) or its twin (CPU)."""
     if q.device.type == "cpu":
         o, p = attention_core_plain(q, k, v, bias, kmask, pmult, num_heads)
         return o, (p if emit_p else None)
@@ -289,32 +300,70 @@ def global_attention_bwd(q, k, v, do, p, pmult, num_heads: int, has_bias: bool):
     return dq, dk, dv, dbias
 
 
+def global_attention_bwd_recompute(q, k, v, do, bias, kmask, pmult, num_heads: int,
+                                   has_bias: bool):
+    """(dq, dk, dv, dbias fp32 or None) from the recompute backward kernel
+    (CUDA) or its twin (CPU), from the forward's inputs: no P."""
+    if q.device.type == "cpu":
+        return attention_core_bwd_recompute_plain(q, k, v, do, bias, kmask, pmult, num_heads,
+                                                  has_bias)
+    if q.device.type != "cuda":
+        raise ValueError(f"global attention takes CPU or CUDA tensors, got {q.device}")
+    q, k, v, ld, bias, kmask, pmult = _check(q, k, v, bias, kmask, pmult, num_heads)
+    B, N, C = q.shape
+    check_tensor("do", do, (B, N, C), q.dtype, q.device)
+    if has_bias and bias is None:
+        raise ValueError("a bias gradient needs the bias")
+    dq, dk, dv = (torch.empty((B, N, C), dtype=q.dtype, device=q.device) for _ in range(3))
+    stats = torch.empty((3, B, num_heads, N), dtype=torch.float32, device=q.device)
+    dbias = (torch.empty((num_heads, N, N), dtype=torch.float32, device=q.device) if has_bias
+             else None)
+    if q.numel() == 0:
+        return dq, dk, dv, None if dbias is None else dbias.zero_()
+    lib = library()
+    err = lib.skinjax_global_attention_bwd_recompute(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
+        do.data_ptr(), _ptr(bias), _ptr(kmask), _ptr(pmult), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), stats.data_ptr(), _ptr(dbias), B, N, C, num_heads,
+        (C // num_heads) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise(lib, err, "global_attention_bwd_recompute")
+    LAUNCHES["global_attention_bwd_recompute"] += 1
+    return dq, dk, dv, dbias
+
+
 class _AttentionCore(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, kmask, pmult, num_heads, emit_p):
+    def forward(ctx, q, k, v, bias, kmask, pmult, num_heads, needs_grad):
+        emit_p = needs_grad and stores_p(q, num_heads)
         o, p = global_attention_fwd(q, k, v, bias, kmask, pmult, num_heads, emit_p)
-        if emit_p:
-            ctx.save_for_backward(q, k, v, p, pmult)
+        if needs_grad:  # P, or what recomputes it
+            ctx.save_for_backward(q, k, v, p, pmult, *((None, None) if emit_p else (bias, kmask)))
         ctx.num_heads = num_heads
         ctx.bias_dtype = None if bias is None else bias.dtype
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, p, pmult = ctx.saved_tensors
+        q, k, v, p, pmult, bias, kmask = ctx.saved_tensors
         need = ctx.needs_input_grad
+        has_bias = ctx.bias_dtype is not None and need[3]
         with torch.autocast(q.device.type, enabled=False):
             do = do.to(q.dtype).contiguous()
-            dq, dk, dv, dbias = global_attention_bwd(q, k, v, do, p, pmult, ctx.num_heads,
-                                                     ctx.bias_dtype is not None and need[3])
+            if p is not None:
+                dq, dk, dv, dbias = global_attention_bwd(q, k, v, do, p, pmult, ctx.num_heads,
+                                                         has_bias)
+            else:
+                dq, dk, dv, dbias = global_attention_bwd_recompute(
+                    q, k, v, do, bias, kmask, pmult, ctx.num_heads, has_bias)
         return (dq if need[0] else None, dk if need[1] else None, dv if need[2] else None,
                 None if dbias is None else dbias.to(ctx.bias_dtype), None, None, None, None)
 
 
 def attention_core(q, k, v, bias, kmask, pmult, num_heads: int) -> torch.Tensor:
     """Global MHA core on head-major (B, N, C) q, k, v; differentiable in q,
-    k, v and the bias. P is kept for the backward only where grad mode is on
-    and an input needs a gradient."""
-    emit_p = torch.is_grad_enabled() and any(
+    k, v and the bias. Where grad mode is on and an input needs a gradient,
+    the forward keeps P for the backward at or below ``STORE_P_MAX_BYTES``
+    and what recomputes it above."""
+    needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (q, k, v, bias))
-    return _AttentionCore.apply(q, k, v, bias, kmask, pmult, num_heads, emit_p)
+    return _AttentionCore.apply(q, k, v, bias, kmask, pmult, num_heads, needs_grad)

@@ -16,6 +16,13 @@ and the checkpoint ``<cell>_fold_<k>/best/state.pt``, which
 ``python -m skinjax_torch.serve.run_service`` serves (``MODEL_CHECKPOINT``).
 It prints one JSON line: the number of fold results and the results.
 
+A sentence dataset (``--text-model bert-base-uncased`` or ``gpt2``, or
+``TEXT_MODEL_NAME``) reads the CSV's ``sentence`` column, tokenized at
+``MAX_SEQ_LENGTH`` with the vocabulary under ``TOKENIZERS_DIR/<text model>/``
+(``vocab.txt``; ``vocab.json`` + ``merges.txt``), and trains the tokens model
+with the ``sentence`` augment recipe. Its BERT or GPT-2 tower is drawn at
+random (with a warning): no pretrained weights are read by the CLI yet.
+
 ``--device`` defaults to ``cuda`` and raises without CUDA unless ``cpu`` is
 asked for. ``--mesh-data`` > 0 (mesh-parallel training) is not ported yet.
 """
@@ -37,7 +44,10 @@ def main(argv=None):
     p.add_argument("--backbones", nargs="+", default=["resnet-50"])
     p.add_argument("--num-heads", nargs="+", type=int, default=[8])
     p.add_argument("--model-name", default="multimodal")
-    p.add_argument("--text-model", default="one-hot-encoder")
+    p.add_argument("--text-model", default=None,
+                   help="metadata tower: one-hot-encoder (default), or a sentence encoder "
+                        "(bert-base-uncased, gpt2) on the CSV's sentence column; "
+                        "default TEXT_MODEL_NAME")
     p.add_argument("--common-dim", type=int, default=512)
     p.add_argument("--k-folds", type=int, default=5)
     p.add_argument("--epochs", type=int, default=None)
@@ -75,7 +85,8 @@ def main(argv=None):
     cfg.cnn_model_names = args.backbones
     cfg.list_num_heads = args.num_heads
     cfg.model_name = args.model_name
-    cfg.text_model_name = args.text_model
+    if args.text_model is not None:
+        cfg.text_model_name = args.text_model
     cfg.common_dim = args.common_dim
     cfg.k_folds = args.k_folds
     cfg.train.device = args.device

@@ -19,9 +19,11 @@ from typing import Dict, List, Optional
 import torch
 
 from skinjax_torch.configs import ExperimentConfig
-from skinjax_torch.data.pipeline import FileSource, ImageStore
+from skinjax_torch.data.pipeline import FileSource, ImageStore, TokenSource
 from skinjax_torch.data.schemas import PreparedDataset, prepare_dataset
+from skinjax_torch.data.tokenize import load_tokenizer, tokenize_sentences
 from skinjax_torch.models.factory import create_model
+from skinjax_torch.models.text.sentence import is_sentence_model
 from skinjax_torch.train.kfold import run_kfold
 
 DATASET_PRESETS: Dict[str, Dict] = {
@@ -42,12 +44,26 @@ def build_source(prepared: PreparedDataset, images_dir: str, image_size=(224, 22
     return FileSource(store, prepared.image_files, prepared.features, prepared.labels)
 
 
-def build_token_source(*args, **kwargs):
-    """The sentence datasets' source (tokenized LLM-generated sentences):
-    not ported yet."""
-    raise NotImplementedError(
-        "sentence datasets (BERT/GPT-2 text towers) are not ported to PyTorch yet; "
-        "ROADMAP.md lists when they come")
+def build_token_source(prepared: PreparedDataset, images_dir: str, text_model_name: str,
+                       max_seq_length: int = 256, tokenizers_dir: Optional[str] = None,
+                       image_size=(224, 224), cache: bool = True) -> TokenSource:
+    """The sentence datasets' source: the ``sentence`` column of the metadata
+    CSV (LLM-generated sentences) tokenized with the tokenizer of
+    ``text_model_name`` (``load_tokenizer``, from ``tokenizers_dir/<name>``,
+    or ``$SKINJAX_TOKENIZERS/<name>`` when None) at ``max_seq_length``; the
+    metadata of a batch is ``{"input_ids", "attention_mask"}``."""
+    if prepared.raw is None or "sentence" not in prepared.raw:
+        raise ValueError(
+            f"text model {text_model_name!r} needs a 'sentence' column in the metadata CSV "
+            "(LLM-generated sentences)")
+    tok = load_tokenizer(
+        text_model_name,
+        os.path.join(tokenizers_dir, text_model_name) if tokenizers_dir else None)
+    enc = tokenize_sentences([str(x) for x in prepared.raw["sentence"]], tok,
+                             max_length=max_seq_length)
+    store = ImageStore(images_dir, size=image_size, cache=cache)
+    return TokenSource(store, prepared.image_files, enc["input_ids"], enc["attention_mask"],
+                       prepared.labels)
 
 
 def run_experiments(
@@ -69,8 +85,10 @@ def run_experiments(
         )
     if source is None:
         images_dir = cfg.images_dir or os.path.join(cfg.dataset_folder_path or ".", "images")
-        if cfg.text_model_name.startswith(("bert", "gpt2")):
-            source = build_token_source(prepared, images_dir, cfg.text_model_name)
+        if is_sentence_model(cfg.text_model_name):
+            source = build_token_source(prepared, images_dir, cfg.text_model_name,
+                                        max_seq_length=cfg.max_seq_length,
+                                        tokenizers_dir=cfg.tokenizers_dir)
         else:
             source = build_source(prepared, images_dir)
 
@@ -80,6 +98,9 @@ def run_experiments(
     model_dtype = torch.bfloat16 if train_cfg.image_dtype == "bfloat16" else None
     if train_cfg.loss == "weighted_ce" and preset["loss"] != "weighted_ce":
         train_cfg = dataclasses.replace(train_cfg, loss=preset["loss"])
+    if is_sentence_model(cfg.text_model_name) and train_cfg.augment_recipe == "default":
+        # sentence datasets get the reference's heavier augmentation
+        train_cfg = dataclasses.replace(train_cfg, augment_recipe="sentence")
 
     all_metrics: List[Dict] = []
     for mechanism in cfg.attention_mechanisms:

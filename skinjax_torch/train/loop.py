@@ -38,7 +38,9 @@ from skinjax_torch.train.optimizer import (
 )
 from skinjax_torch.train.steps import TrainState, make_eval_step, make_train_step_weighted
 
-TEXT_PREFIXES = ("text_fc",)  # the port's one-hot tower (skinjax: text_tower / text_module)
+# the port's metadata towers: the one-hot MLP and a tokens model's sentence
+# encoder (skinjax: text_tower / text_module)
+TEXT_PREFIXES = ("text_fc", "text_encoder")
 
 
 @dataclasses.dataclass
@@ -55,8 +57,9 @@ class TrainConfig:
     plateau_factor: float = 0.1
     plateau_patience: int = 2
     unfreeze_weights: str = "unfrozen_weights"
-    # freeze mode for the text tower; None leaves the one-hot tower trainable,
-    # as in skinjax (an explicit mode overrides)
+    # freeze mode for the text tower; None leaves the one-hot tower trainable
+    # and makes a sentence tower follow unfreeze_weights, binarised, as in
+    # skinjax (text_mode); an explicit mode overrides
     text_train_mode: Optional[str] = None
     weighted_sampling: bool = True
     augment: bool = True
@@ -71,8 +74,11 @@ def _dtype(cfg: TrainConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.image_dtype == "bfloat16" else torch.float32
 
 
-def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device, non_blocking=True)
+def _to_device(batch: Dict, device: torch.device) -> Dict:
+    """A host batch's arrays as tensors on ``device``; a dict (a sentence
+    dataset's token metadata) is moved leaf by leaf."""
+    return {k: _to_device(v, device) if isinstance(v, dict)
+            else torch.as_tensor(np.ascontiguousarray(v)).to(device, non_blocking=True)
             for k, v in batch.items()}
 
 
@@ -110,6 +116,20 @@ def evaluate(
     return metrics, labels, preds, probs_out, mean_loss
 
 
+def text_mode(model: torch.nn.Module, cfg: TrainConfig) -> Optional[str]:
+    """The text tower's freeze mode: ``cfg.text_train_mode`` when set; else,
+    for a tokens model, ``unfreeze_weights`` binarised as skinjax does (the
+    reference sets requires_grad=False on the whole sentence tower in every
+    mode but ``unfrozen_weights``): ``unfrozen_weights`` or ``frozen_weights``;
+    else None (the one-hot tower trains)."""
+    if cfg.text_train_mode is not None:
+        return cfg.text_train_mode
+    if getattr(model, "text_input_mode", "features") == "tokens":
+        return ("unfrozen_weights" if cfg.unfreeze_weights == "unfrozen_weights"
+                else "frozen_weights")
+    return None
+
+
 def build_state(model: torch.nn.Module, cfg: TrainConfig) -> TrainState:
     """Move the model to the device, apply the freeze masks, build Adam."""
     device = torch.device(cfg.device)
@@ -117,8 +137,9 @@ def build_state(model: torch.nn.Module, cfg: TrainConfig) -> TrainState:
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     mask = trainable_mask(model, cfg.unfreeze_weights)
-    if cfg.text_train_mode and cfg.text_train_mode != "unfrozen_weights":
-        text_mask = trainable_mask(model, cfg.text_train_mode, frozen_prefixes=TEXT_PREFIXES)
+    mode = text_mode(model, cfg)
+    if mode and mode != "unfrozen_weights":
+        text_mask = trainable_mask(model, mode, frozen_prefixes=TEXT_PREFIXES)
         mask = {k: mask[k] and text_mask[k] for k in mask}
     apply_mask(model, mask)
     return TrainState(model, make_optimizer(model, cfg.learning_rate, cfg.weight_decay))

@@ -53,9 +53,17 @@ def compute_dtype(model: nn.Module) -> torch.dtype:
 def _inputs(model: nn.Module, image, metadata, image_dtype):
     """Round the image and the metadata to ``image_dtype`` (skinjax casts the
     metadata to the image dtype), then widen to the model's compute dtype, as
-    JAX promotes bf16 inputs against fp32 parameters."""
+    JAX promotes bf16 inputs against fp32 parameters. Metadata is a (B, F)
+    tensor or a dict of them (the token ids and mask of a sentence dataset):
+    float tensors are cast so, integer ones (ids, masks) stay as they are."""
     dtype = compute_dtype(model)
-    return image.to(dtype), metadata.to(image_dtype).to(dtype)
+
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        return t.to(image_dtype).to(dtype) if t.is_floating_point() else t
+
+    return image.to(dtype), cast(metadata)
 
 
 def _train_step(state: TrainState, image_u8, metadata, seed: int, loss_of: Callable,

@@ -3,10 +3,12 @@
 ``ops/pallas/global_attention.py``, run as its own tests run it on the CPU
 (the Pallas kernels in interpret mode): the same numpy inputs on both sides;
 the output and the stored probabilities P of ``_fwd_core``, the stored-P
-backward ``_bwd_p_core`` and ``jax.vjp`` of ``attention_core``; with no
-extras, a bias, a key mask, a probability multiplier and all three; fp32 and
-bf16. Then the autograd.Function against autograd of the reference in
-float64, the residual limit, and ``MultiheadAttention``'s three routes
+backward ``_bwd_p_core``, the recompute backward ``window_attention._bwd_core``
+(its global call: one window, no window mask) and ``jax.vjp`` of
+``attention_core`` on both of skinjax's backward routes; with no extras, a
+bias, a key mask, a probability multiplier and all three; fp32 and bf16.
+Then the autograd.Function against autograd of the reference in float64, the
+route the residual limit picks, and ``MultiheadAttention``'s three routes
 against skinjax's ``MultiHeadAttention``."""
 
 import jax
@@ -17,6 +19,7 @@ import torch
 
 from skinjax.ops import attention as jattn
 from skinjax.ops.pallas import global_attention as jga
+from skinjax.ops.pallas import window_attention as jwa
 from skinjax_torch.ops import global_attention as tga
 from skinjax_torch.ops.attention import MultiheadAttention
 
@@ -38,10 +41,13 @@ CASES = {
     "pmult": (1, 50, 128, 4, False, False, True),
     "all": (2, 50, 128, 4, True, True, True),
 }
+# the recompute backward's cases: the above (64 channels a head with 2 heads,
+# 32 with 4) and a ragged N
+RECOMPUTE_CASES = dict(CASES, ragged=(2, 37, 128, 4, True, True, True))
 
 
 def _inputs(case, seed):
-    B, N, C, h, bias, kmask, pmult = CASES[case]
+    B, N, C, h, bias, kmask, pmult = RECOMPUTE_CASES[case]
     rng = np.random.default_rng(seed)
     f = np.float32
     q, k, v, do = (rng.normal(size=(B, N, C)).astype(f) for _ in range(4))
@@ -183,17 +189,110 @@ def test_autograd_function_matches_reference_float64(case):
             np.testing.assert_allclose(t1.grad.numpy(), t2.grad.numpy(), atol=1e-12, rtol=1e-9)
 
 
-def test_residual_limit_raises():
-    """P for B=1, 16 heads, N=4096 is 1 GiB, above skinjax's 256 MB: skinjax
-    takes its recompute backward there, which is not ported; the port raises
-    before it computes anything. Without a gradient no P is kept."""
-    q = torch.zeros(1, 4096, 1024, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="recompute backward"):
-        tga.attention_core(q, q, q, None, None, None, 16)
-    small = torch.zeros(1, 8, 64)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(RECOMPUTE_CASES))
+def test_recompute_twin_matches_bwd_core(case, dtype):
+    """dq, dk, dv and dbias from the recompute backward's twin against
+    skinjax's ``_bwd_core`` (n_win=1, no window mask, with the kmask and
+    pmult) on the forward's inputs, no P; fp32 within 1e-5, bf16 within 2
+    ulps (dbias fp32 both ways)."""
+    (q, k, v), do, b, km, pm, h = _inputs(case, seed=7)
+    jdt, tdt = DTYPES[dtype]
+    ref = jwa._bwd_core(*(_jax(a, jdt) for a in (q, k, v, do)), _jax(b), None, num_heads=h,
+                        has_bias=b is not None, has_mask=False, n_win=1, kmask=_jax(km),
+                        pmult=_jax(pm))
+    tga.reset_launches()
+    out = tga.global_attention_bwd_recompute(*(_torch(a, tdt) for a in (q, k, v, do)),
+                                             _torch(b), _torch(km), _torch(pm), h, b is not None)
+    assert sum(tga.LAUNCHES.values()) == 0
+    assert (out[3] is None) == (b is None)
+    ref = (*ref[:3], ref[4])  # _bwd_core's ``of`` output is not ported
+    for name, o, r in zip(("dq", "dk", "dv", "dbias"), out, ref):
+        if r is None:
+            continue
+        assert o.shape == r.shape and o.dtype == (torch.float32 if name == "dbias" else tdt)
+        _close(o, r, "float32" if name == "dbias" else dtype, name)
+
+
+@pytest.mark.parametrize("case", list(RECOMPUTE_CASES))
+def test_recompute_route_matches_jax_vjp(case, monkeypatch):
+    """Through the autograd.Function on the recompute route (the residual
+    limit at 0): dq, dk, dv, dbias against ``jax.vjp`` of skinjax's
+    ``attention_core`` on its recompute route (``SKINJAX_GLOBATTN=pallas``,
+    ``SKINJAX_GLOBATTN_BWD=recompute``), fp32 within 1e-5; and the port's two
+    routes give the same gradients exactly (one P, the same arithmetic)."""
+    monkeypatch.setenv("SKINJAX_GLOBATTN", "pallas")
+    monkeypatch.setenv("SKINJAX_GLOBATTN_BWD", "recompute")
+    (q, k, v), do, b, km, pm, h = _inputs(case, seed=8)
+    args = [_jax(a) for a in (q, k, v)] + [_jax(b)]
+    y, vjp = jax.vjp(lambda q, k, v, b: jga.attention_core(q, k, v, b, _jax(km), _jax(pm), h),
+                     *args)
+    ref = vjp(jnp.asarray(do))
+
+    def grads():
+        targs = [_torch(a, grad=True) for a in (q, k, v)] + [_torch(b, grad=True)]
+        out = tga.attention_core(*targs, _torch(km), _torch(pm), h)
+        out.backward(torch.tensor(do))
+        return out, [t.grad for t in targs if t is not None]
+
+    stored_out, stored = grads()
+    monkeypatch.setattr(tga, "STORE_P_MAX_BYTES", 0)
+    tga.reset_launches()
+    out, rec = grads()
+    assert sum(tga.LAUNCHES.values()) == 0
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(y), atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, stored_out)
+    for name, o, s, r in zip(("dq", "dk", "dv", "dbias"), rec, stored, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-5, rtol=1e-5, err_msg=name)
+        assert torch.equal(o, s), name
+
+
+def test_residual_limit_routes(monkeypatch):
+    """The backward reads a stored P where its residual B·h·N²·4 is at most
+    skinjax's 256 MB and recomputes it above; the forward keeps P only then,
+    and keeps none without a gradient. At B=1, 16 heads, N=1024 (64 MB) both
+    routes run and agree."""
+    def q_of(B, N, C=1024):
+        return torch.zeros(B, N, C)
+
+    assert tga.STORE_P_MAX_BYTES == 256 * 1024 * 1024
+    assert tga.stores_p(q_of(32, 197), 16)  # BEiT-large at B=32: 79.5 MB
+    assert tga.stores_p(q_of(4, 1024), 16)  # exactly 256 MB
+    assert not tga.stores_p(q_of(5, 1024), 16)
+    assert not tga.stores_p(q_of(32, 512, 768), 12)  # BERT-base at T=512, B=32: 402 MB
+    assert not tga.stores_p(q_of(8, 1024, 768), 12)  # GPT-2 at T=1024, B=8: 402 MB
+
+    emitted, calls = [], {"global_attention_bwd": 0, "global_attention_bwd_recompute": 0}
+    fwd = tga.global_attention_fwd
+
+    def spy_fwd(*a):
+        emitted.append(a[-1])
+        return fwd(*a)
+
+    monkeypatch.setattr(tga, "global_attention_fwd", spy_fwd)
+    for name in calls:
+        def spy(*a, _fn=getattr(tga, name), _name=name):
+            calls[_name] += 1
+            return _fn(*a)
+
+        monkeypatch.setattr(tga, name, spy)
+    rng = np.random.default_rng(9)
+    B, N, C, h = 1, 1024, 64, 16  # 4 channels a head keeps the CPU products small
+    q, k, v, do = (torch.tensor(rng.normal(size=(B, N, C)).astype(np.float32))
+                   for _ in range(4))
+    results = []
+    for limit in (tga.STORE_P_MAX_BYTES, B * h * N * N * 4 - 1):
+        monkeypatch.setattr(tga, "STORE_P_MAX_BYTES", limit)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        tga.attention_core(*leaves, None, None, None, h).backward(do)
+        results.append([t.grad for t in leaves])
+    assert emitted == [True, False]
+    assert calls == {"global_attention_bwd": 1, "global_attention_bwd_recompute": 1}
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
     with torch.no_grad():
-        assert tga.attention_core(small, small, small, None, None, None, 1).shape == (1, 8, 64)
-    tga.check_residual(torch.zeros(32, 197, 1024), 16)  # BEiT-large at B=32: 79.5 MB
+        tga.attention_core(q, k, v, None, None, None, h)
+    assert emitted == [True, False, False]
 
 
 def test_packed_slices_and_bad_devices():

@@ -264,8 +264,9 @@ def test_service_builds_from_its_environment(monkeypatch, tmp_path):
 
 
 def test_port_never_imports_jax():
-    """Nor OpenCV or matplotlib at import time: the card's machine has
-    neither, and the plots import matplotlib only when they draw."""
+    """Nor OpenCV, matplotlib, transformers or safetensors at import time:
+    the card's machine has none of them, and the plots import matplotlib only
+    when they draw."""
     code = (
         "import sys\n"
         "import skinjax_torch, skinjax_torch.serve.engine, skinjax_torch.serve.api\n"
@@ -279,8 +280,13 @@ def test_port_never_imports_jax():
         "import skinjax_torch.train.loop, skinjax_torch.train.kfold\n"
         "import skinjax_torch.ops.global_attention, skinjax_torch.ops.attention\n"
         "import skinjax_torch.models.backbones.vit, skinjax_torch.models.backbones.beit\n"
+        "import skinjax_torch.data.tokenize, skinjax_torch.models.text.bert\n"
+        "import skinjax_torch.models.text.gpt2, skinjax_torch.models.text.sentence\n"
+        "import skinjax_torch.models.factory, skinjax_torch.train.experiments\n"
+        "import skinjax_torch.tools.train_cli\n"
         "import chip_smoke\n"
-        "banned = ('jax', 'jaxlib', 'flax', 'skinjax', 'cv2', 'matplotlib')\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'skinjax', 'cv2', 'matplotlib', 'transformers',\n"
+        "          'safetensors')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not bad, bad\n"
     )

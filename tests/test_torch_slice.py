@@ -14,6 +14,7 @@ from skinjax_torch.models import MultimodalModel
 from skinjax_torch.models.fusion.multimodal import _RGATT
 from skinjax_torch.models.weights import init_weights, load_numpy_state_dict, state_dict_from_flax
 from skinjax_torch.ops import fusion_kernels as fk
+from skinjax_torch.ops import global_attention as tga
 from skinjax_torch.ops.attention import MultiheadAttention
 from skinjax_torch.serve.engine import FUSED_MECHANISMS, InferenceEngine
 from tests.test_torch_weights import jax_variables
@@ -87,20 +88,27 @@ def test_fused_engine_matches_plain_engine(mech):
                                atol=1e-5)
 
 
-def test_unported_parts_raise():
+def test_unported_parts_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         MultimodalModel(num_classes=4, text_model_name="static-embedding")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        MultimodalModel(num_classes=4, text_input_mode="tabular")
     with pytest.raises(ValueError, match="not implemented"):
         MultimodalModel(num_classes=4, attention_mechanism="no-such-mechanism")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         MultimodalModel(num_classes=4, cnn_model_name="mvitv2_small")
-    # the general attention path runs (K12), but not above the stored-P limit,
-    # where skinjax takes its recompute backward: 4 heads × 4200² × 4 B > 256 MB
+    # the general attention path runs (K12); above the stored-P limit (lowered
+    # to 0 here) its backward is K12's recompute backward, no longer a raise
     mha = MultiheadAttention(16, 4)
     assert mha(*[torch.zeros(2, 3, 16)] * 3).shape == (2, 3, 16)
-    x = torch.zeros(1, 4200, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mha(x, x, x)
+    calls = []
+    recompute = tga.global_attention_bwd_recompute
+    monkeypatch.setattr(tga, "STORE_P_MAX_BYTES", 0)
+    monkeypatch.setattr(tga, "global_attention_bwd_recompute",
+                        lambda *a: calls.append(a) or recompute(*a))
+    x = torch.randn(1, 40, 16, requires_grad=True)
+    mha(x, x, x).sum().backward()
+    assert len(calls) == 1 and x.grad.shape == x.shape
 
 
 def test_measure_latency_refuses_the_cpu():
