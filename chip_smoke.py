@@ -9,16 +9,17 @@ metadata MLP + RG-ATT, 224×224, common_dim 512, bf16), served (the inference
 engine and the HTTP service) and trained (the train step and ``run_kfold``);
 the same model with a DaViT-tiny tower (``skinjax_torch.DAVIT``), served
 and trained at B=64; with a BEiT-v2-large tower (``skinjax_torch.BEIT``),
-served and trained at B=32, and with a ViT-large tower, served; the sentence
-datasets' tokens model (DaViT-tiny + BERT-base, and + GPT-2 small) trained at
+served and trained at B=32, and with a ViT-large tower, served; with an
+MViTv2-small tower (``skinjax_torch.MVIT``), served and trained at B=64; the
+sentence datasets' tokens model (DaViT-tiny + BERT-base, and + GPT-2 small) trained at
 B=32 over 512 and 256 tokens; all 18 fusion mechanisms; and the train CLI
 from a dataset on disk, whose checkpoint the service then serves, and on a
 sentence dataset. Phases, each printing its lines:
 
   1. card     nvidia-smi name and power limit, CUDA version
   2. build    nvcc builds of skinjax_torch/csrc/fusion_kernels.cu,
-              augment_kernel.cu, window_attention.cu and global_attention.cu,
-              started together; seconds, ptxas registers
+              augment_kernel.cu, window_attention.cu, global_attention.cu and
+              pooled_attention.cu, started together; seconds, ptxas registers
   3. kernels  K1-K4 against their plain PyTorch twins at the flagship shapes
               (K4 at Vd in {2048, 768, 512}), B in {1, 3, 8, 32}, fp32 (TF32
               off) and bf16 activations; K5 against its twin at B in
@@ -33,7 +34,10 @@ sentence dataset. Phases, each printing its lines:
               mask and dropout multiplier, GPT-2's at 1024 tokens with the
               causal bias and a padding mask, and N=50 with all three, bf16
               and fp32; the recompute backward against the stored-P one where
-              P is within the 256 MB limit
+              P is within the 256 MB limit; K11 forward (o and P) and backward
+              (dq, dk, dv, dbias_h, dbias_w) against their twins at
+              MViTv2-small's seven attention shapes (B=64 bf16, B=8 fp32) and
+              a rectangular key grid with a ragged query edge
   4. slice    fused against plain engine; launches per fused forward; the
               fp32 engine on the card against the same model on the CPU
   5. server   the engine run_service builds, served on a localhost port:
@@ -72,11 +76,23 @@ sentence dataset. Phases, each printing its lines:
               and frozen; a profiled train step
  12. vit      the ViT-large model served: fused against plain engine, K12
               (no bias) launched 24 times per forward at B=1 and 8
- 13. mechanisms  all 18 at full width around one ResNet-50 tower: the 10 the
+ 13. mvit     the MViTv2-small model: fused against plain engine (K11
+              launched 16 times per forward), the fp32 engine on the card
+              against the CPU; run_service with CNN_MODEL_NAME=mvitv2_small;
+              the train step at B=64 (augment on, bf16): the loss falls over
+              10 steps on one batch, K11 16 + 16 launches per unfrozen step and
+              16 + 0 per frozen one; one fp32 step of a small MViTv2 on the
+              card against the CPU; the engine's p50/p95; train images/s
+              unfrozen and frozen (mvitv2_small_images_per_sec) and a
+              profiled train step. (K11's
+              times at the seven shapes, against twins, bounds and
+              F.scaled_dot_product_attention with the expanded bias, forward
+              and backward, run right after phase 3.)
+ 14. mechanisms  all 18 at full width around one ResNet-50 tower: the 10 the
               engine fuses, fused against plain with their launches per fused
               forward (metablock: K4 1 + K3 1; …+metablock: K1 4 + K2 2 + K4 1);
               the other 8, the plain forward
- 14. cli      a PAD-UFES-20-shaped dataset written to a temporary directory
+ 15. cli      a PAD-UFES-20-shaped dataset written to a temporary directory
               (96 rows, 300×400 PNGs); python -m skinjax_torch.tools.train_cli
               as a subprocess (metablock and …+metablock × ResNet-50 × 2 folds,
               1 epoch, B=32): its fold results and artifacts; run_service with
@@ -84,7 +100,7 @@ sentence dataset. Phases, each printing its lines:
               with raw CSV lines, K4's launches counted over them; the CLI's
               wall time and the PNG decode rate; the metablock engine's p50/p95
 
- 15. sentence the tokens model (DaViT-tiny + BERT-base, RG-ATT, 768 text
+ 16. sentence the tokens model (DaViT-tiny + BERT-base, RG-ATT, 768 text
               features, bf16, B=32, the sentence augment recipe, drawn once on
               the CPU): 10 train steps on one batch at T=512, unfrozen (K12 12
               forwards + 12 recompute backwards, K7 6 + 6, K5 0 a step; the
@@ -93,7 +109,7 @@ sentence dataset. Phases, each printing its lines:
               timed and profiled; GPT-2 small at T=512 unfrozen (12 + 12
               recompute); one fp32 step of a small BERT tokens model on the
               card against the CPU, on the recompute route
- 16. sentence cli  python -m skinjax_torch.tools.train_cli as a subprocess on
+ 17. sentence cli  python -m skinjax_torch.tools.train_cli as a subprocess on
               a sentence dataset it writes (96 rows with a sentence column, a
               WordPiece vocab.txt, TEXT_MODEL_NAME=bert-base-uncased,
               MAX_SEQ_LENGTH=512; DaViT-tiny + BERT-base, 2 folds × 1 epoch,
@@ -142,12 +158,17 @@ K12 = {  # name -> the Pallas TPU function it replaces (file:line)
     "global_attention_bwd_recompute": "skinjax/ops/pallas/window_attention.py:351",
 }
 K12_RECOMPUTE = "global_attention_bwd_recompute"
+K11 = {  # name -> the Pallas TPU function it replaces (file:line)
+    "pooled_attention_fwd": "skinjax/ops/pallas/pooled_attention.py:169",
+    "pooled_attention_bwd": "skinjax/ops/pallas/pooled_attention.py:208",
+}
 SOURCE = "skinjax_torch/csrc/fusion_kernels.cu"
 K5_SOURCE = "skinjax_torch/csrc/augment_kernel.cu"
 K7_SOURCE = "skinjax_torch/csrc/window_attention.cu"
 K12_SOURCE = "skinjax_torch/csrc/global_attention.cu"
+K11_SOURCE = "skinjax_torch/csrc/pooled_attention.cu"
 BUILDS = {"fusion_kernels": SOURCE, "augment_kernel": K5_SOURCE, "window_attention": K7_SOURCE,
-          "global_attention": K12_SOURCE}
+          "global_attention": K12_SOURCE, "pooled_attention": K11_SOURCE}
 KERNEL_NAMES = {"seq1_attention": "seq1_attention_kernel",
                 "gated_residual_seq1": "gated_residual_kernel",
                 "metablock_film": "metablock_film_kernel", "mlp_head": "mlp_head_kernel"}
@@ -160,10 +181,13 @@ K12_KERNELS = {"global_attention_fwd": ["ga_fwd_kernel"],
                "global_attention_bwd": ["ga_bwd_dq_kernel", "ga_bwd_dkv_kernel",
                                         "ga_dbias_reduce_kernel"],
                K12_RECOMPUTE: ["ga_bwd_rows_kernel", "ga_bwd_cols_kernel"]}
+# each K11 call's kernels
+K11_KERNELS = {"pooled_attention_fwd": ["pa_fwd_kernel"],
+               "pooled_attention_bwd": ["pa_bwd_dq_kernel", "pa_bwd_dkv_kernel"]}
 KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", "wa_fwd_kernel",
                   "wa_bwd_kernel", "proj_kernel", "dbias_reduce_kernel", "ga_fwd_kernel",
                   "ga_bwd_dq_kernel", "ga_bwd_dkv_kernel", "ga_bwd_rows_kernel",
-                  "ga_bwd_cols_kernel")
+                  "ga_bwd_cols_kernel", "pa_fwd_kernel", "pa_bwd_dq_kernel", "pa_bwd_dkv_kernel")
 # the card's published peaks (H100 SXM data sheet): device memory, float32
 # outside the tensor cores, dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -196,6 +220,23 @@ K12_PER_FORWARD = 24  # one per block of BEiT-large and ViT-large
 K12_SERVED = {"global_attention_fwd": K12_PER_FORWARD, "global_attention_bwd": 0, K12_RECOMPUTE: 0}
 VIT_LARGE = "vit_large_patch16_224"
 SMALL_BEIT = "beit-smoke-small"  # width 256, depth 2, 4 heads (64 channels a head), 224×224
+# MViTv2-small's attention shapes at 224×224, 96 channels a head: label ->
+# (heads, Nq, (Kh, Kw), blocks of that shape); 16 blocks a forward. skinjax
+# chunks stage 0's queries and runs the stage-1 transition in XLA at B=64;
+# K11 takes every block whole. Then a rectangular key grid with a ragged
+# query edge, to catch swapped bias indices
+K11_SHAPES = {"stage0": (1, 3136, (14, 14), 1), "stage1-transition": (2, 784, (28, 28), 1),
+              "stage1": (2, 784, (14, 14), 1), "stage2-transition": (4, 196, (28, 28), 1),
+              "stage2": (4, 196, (14, 14), 10), "stage3-transition": (8, 49, (14, 14), 1),
+              "stage3": (8, 49, (7, 7), 1)}
+K11_RAGGED = (3, 2, 37, (5, 7))  # (B, heads, Nq, (Kh, Kw))
+K11_HD = 96
+K11_F32_BATCH = 8
+K11_RECORD = "stage2"  # the record line's shape: 10 of the 16 blocks
+K11_PER_FORWARD = sum(n for _, _, _, n in K11_SHAPES.values())
+K11_SERVED = {"pooled_attention_fwd": K11_PER_FORWARD, "pooled_attention_bwd": 0}
+SMALL_MVIT = "mvit-smoke-small"  # dims (96, 192), depths (1, 1), heads (1, 2), 64×64
+MVIT_TRAIN_LR = 1e-4
 # K5's float32 operations per pixel, counted from csrc/augment_kernel.cu:
 # dropout 5 holes × 4 + 3, RGB→HSV 15, mod 3, shift 10, HSV→RGB 10,
 # brightness/contrast 4 + normalize 3 × 6
@@ -414,6 +455,11 @@ def us(t) -> str:
     return "not measured" if t is None else f"{t:9.2f} us"
 
 
+def ms_us(t) -> str:
+    """A time in ms (or None) printed in µs."""
+    return "not measured" if t is None else f"{t * 1e3:.2f} us"
+
+
 _SMOKE_MODELS = {}
 
 
@@ -582,7 +628,8 @@ def phase_server(fk, card, cnn="resnet-50", attn=None, env=None, requests=None,
                     os.environ[k] = v
     check(engine.fused and engine.model.dtype is not None, "run_service built no fused bf16 engine")
     check(engine.model.cnn_dim_output == {"resnet-18": 512, "resnet-50": 2048, "davit_tiny": 768,
-                                          "beitv2_large_patch16_224": 1024}[cnn],
+                                          "beitv2_large_patch16_224": 1024,
+                                          "mvitv2_small": 768}[cnn],
           f"run_service did not build a {cnn} tower")
     if requests is None:
         n_cat = len(engine.featurizer.categorical_cols)
@@ -860,21 +907,25 @@ def k12_bound(B, N, C, heads, itemsize, kind, bias=True, grad_bias=True):
 
 
 def sdpa_times(q, k, v, do, mask, h):
-    """F.scaled_dot_product_attention on the same q, k, v as (B, h, N, hd),
-    ``mask`` its additive attn_mask (the port never calls it): (forward ms,
-    backward ms). The forward is the mean of two runs of 20 calls by CUDA
-    events. The backward is the device time (torch.profiler, all its device
-    events) of autograd's backward alone, run again and again on one
-    retained graph: a difference of two host-clock means swung 2x from run
-    to run."""
+    """F.scaled_dot_product_attention on the same (B, N, C) q, k, v as (B, h,
+    N, hd), ``mask`` its additive attn_mask (the port never calls it):
+    (forward ms, backward ms), as ``sdpa_head_times`` measures them."""
+    B, N, C = q.shape
+    return sdpa_head_times(*(t.reshape(B, N, h, C // h).transpose(1, 2).contiguous()
+                             for t in (q, k, v, do)), mask)
+
+
+def sdpa_head_times(qh, kh, vh, doh, mask):
+    """F.scaled_dot_product_attention on q (B, h, Nq, hd), k and v (B, h,
+    Nk, hd), ``mask`` its additive attn_mask or None: (forward ms, backward
+    ms). The forward is the mean of two runs of 20 calls by CUDA events. The
+    backward is the device time (torch.profiler, all its device events) of
+    autograd's backward alone, run again and again on one retained graph: a
+    difference of two host-clock means swung 2x from run to run."""
     import torch
     import torch.nn.functional as F
 
-    B, N, C = q.shape
-    qh, kh, vh, doh = (t.reshape(B, N, h, C // h).transpose(1, 2).contiguous()
-                       for t in (q, k, v, do))
-    for t in (qh, kh, vh):
-        t.requires_grad_(True)
+    qh, kh, vh = (t.detach().requires_grad_(True) for t in (qh, kh, vh))
 
     def fwd():
         with torch.no_grad():
@@ -888,7 +939,7 @@ def sdpa_times(q, k, v, do, mask, h):
     f = (time_ms(fwd, 20, 3) + time_ms(fwd, 20, 3)) / 2
     bwd()
     b, _ = device_us(bwd, n=10)
-    return f, b / 1e3
+    return f, (b / 1e3 if b > 0 else None)  # None: the trace kept no record of it
 
 
 def phase_k12_times(ga, device, card):
@@ -948,13 +999,167 @@ def phase_k12_times(ga, device, card):
             f"twin-kernel-kernel-twin); device time: kernel {us(dev_k)}  twin {dev_t:9.2f} us "
             f"(torch.profiler); bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s, "
             f"{ops / 1e9:.2f} GFLOP at 989 TFLOP/s); F.scaled_dot_product_attention "
-            f"{'forward' if name.endswith('fwd') else 'backward'} {library[name] * 1e3:.2f} us")
+            f"{'forward' if name.endswith('fwd') else 'backward'} {ms_us(library[name])}")
     log(f"[{card}] time F.scaled_dot_product_attention bf16 on the same (B, h, N, hd) q, k, v: "
-        f"beitv2-large with the bias as attn_mask forward {lib_fwd * 1e3:.2f} us, backward "
-        f"{lib_bwd * 1e3:.2f} us; bert-base-T512 with the key mask as attn_mask (no pmult) "
-        f"backward {library[K12_RECOMPUTE] * 1e3:.2f} us (forwards by CUDA events; backwards "
+        f"beitv2-large with the bias as attn_mask forward {ms_us(lib_fwd)}, backward "
+        f"{ms_us(lib_bwd)}; bert-base-T512 with the key mask as attn_mask (no pmult) "
+        f"backward {ms_us(library[K12_RECOMPUTE])} (forwards by CUDA events; backwards "
         f"the device time of autograd's backward alone, torch.profiler)")
     return out
+
+
+def k11_inputs(B, h, Nq, k_size, dtype, device, seed):
+    """q, k, v, bias_h, bias_w and do at one pooled-attention shape (96
+    channels a head), drawn on the card: unit-scale q, k, v (they come out
+    of a LayerNorm), rel-pos-like bias terms at 0.5."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    Kh, Kw = k_size
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+    return (r(B, h, Nq, K11_HD), r(B, h, Kh * Kw, K11_HD), r(B, h, Kh * Kw, K11_HD),
+            r(B, h, Nq, Kh, scale=0.5), r(B, h, Nq, Kw, scale=0.5), r(B, h, Nq, K11_HD))
+
+
+def phase_k11(pa, device):
+    """K11 forward (o and P) and backward (dq, dk, dv, dbias_h, dbias_w)
+    against their twins at MViTv2-small's seven attention shapes, B=64 in
+    bf16 (BF16_TOL; P and the bias gradients F32_TOL) and B=8 in fp32
+    (F32_TOL, TF32 off), and at a rectangular key grid with a ragged query
+    edge; the backward on both sides takes the twin's P."""
+    import torch
+
+    from skinjax_torch import MVIT_BATCH
+
+    errors = {name: 0.0 for name in K11}
+    cases = [(label, h, Nq, ks) for label, (h, Nq, ks, _) in K11_SHAPES.items()]
+    cases.append(("ragged", *K11_RAGGED[1:]))
+    for label, h, Nq, k_size in cases:
+        for dtype, tol, B in ((torch.bfloat16, BF16_TOL, MVIT_BATCH),
+                              (torch.float32, F32_TOL, K11_F32_BATCH)):
+            if label == "ragged":
+                B = K11_RAGGED[0]
+            q, k, v, bh, bw, do = k11_inputs(B, h, Nq, k_size, dtype, device, seed=Nq + h)
+            o, p = pa.pooled_attention_fwd(q, k, v, bh, bw, k_size, emit_p=True)
+            ro, rp = pa.pooled_attention_plain(q, k, v, bh, bw, k_size)
+            got = pa.pooled_attention_bwd(q, k, v, do, rp, k_size)
+            want = pa.pooled_attention_bwd_plain(q, k, v, do, rp, k_size)
+            torch.cuda.synchronize()
+            results = [("pooled_attention_fwd", "o", o, ro, tol),
+                       ("pooled_attention_fwd", "P", p, rp, F32_TOL)]
+            results += [("pooled_attention_bwd", part, g, w,
+                         tol if part in ("dq", "dk", "dv") else F32_TOL)
+                        for part, g, w in zip(("dq", "dk", "dv", "dbias_h", "dbias_w"), got, want)]
+            for name, part, out, ref, t in results:
+                err, ok = compare(out, ref, t)
+                errors[name] = max(errors[name], err)
+                log(f"kernel {name} {part:7s} {str(dtype):14s} {label} B={B} h={h} Nq={Nq} "
+                    f"k_size={k_size} hd={K11_HD}: max_abs_err={err:.3e} tol=atol {t[0]:g} + "
+                    f"rtol {t[1]:g}·|twin| {'ok' if ok else 'FAIL'}")
+                check(ok, f"{name} {part} disagrees with its twin at {label} {dtype}")
+            del o, p, ro, rp, got, want
+    torch.cuda.empty_cache()
+    return errors
+
+
+def k11_bound(B, h, Nq, k_size, itemsize, backward):
+    """The least time (ms) for one K11 call: every input read once and every
+    output written once over the HBM rate, against its products over the
+    bf16 tensor-core rate (2·B·h·Nq·Nk·hd operations each). Forward: q, k, v,
+    bias_h, bias_w → o, P; two products. Backward: q, k, v, do, P → dq, dk,
+    dv, dbias_h, dbias_w (fp32); four products. Returns (ms, bytes,
+    operations)."""
+    Kh, Kw = k_size
+    Nk = Kh * Kw
+    q = B * h * Nq * K11_HD * itemsize
+    kv = B * h * Nk * K11_HD * itemsize
+    plane = B * h * Nq * Nk * 4
+    product = 2 * B * h * Nq * Nk * K11_HD
+    if backward:
+        nbytes, ops = 3 * q + 4 * kv + plane + B * h * Nq * (Kh + Kw) * 4, 4 * product
+    else:
+        nbytes, ops = 2 * q + 2 * kv + B * h * Nq * (Kh + Kw) * itemsize + plane, 2 * product
+    return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3, nbytes, ops
+
+
+def phase_k11_times(pa, device, card):
+    """K11 forward (emitting P, as a train step does) and backward against
+    their twins at MViTv2-small's seven shapes, B=64, bf16: per call by CUDA
+    events in turns, device time by torch.profiler, the bound, and the
+    yardstick F.scaled_dot_product_attention on the same q, k, v with the
+    expanded (B, h, Nq, Nk) bias as its attn_mask (built outside the timed
+    region; the port never calls it), forward and backward. Then K11's sum
+    over the 16 blocks of a train step. Returns {(name, label): times}."""
+    import torch
+
+    from skinjax_torch import MVIT_BATCH
+
+    B = MVIT_BATCH
+    out = {}
+    step = {name: [0.0, 0.0, 0.0, 0.0] for name in K11}  # per call, device, twin, bound
+    for label, (h, Nq, k_size, count) in K11_SHAPES.items():
+        q, k, v, bh, bw, do = k11_inputs(B, h, Nq, k_size, torch.bfloat16, device, seed=41)
+        _, p = pa.pooled_attention_fwd(q, k, v, bh, bw, k_size, emit_p=True)
+        calls = {
+            "pooled_attention_fwd": (
+                lambda: pa.pooled_attention_fwd(q, k, v, bh, bw, k_size, emit_p=True),  # noqa: B023
+                lambda: pa.pooled_attention_plain(q, k, v, bh, bw, k_size)),  # noqa: B023
+            "pooled_attention_bwd": (
+                lambda: pa.pooled_attention_bwd(q, k, v, do, p, k_size),  # noqa: B023
+                lambda: pa.pooled_attention_bwd_plain(q, k, v, do, p, k_size)),  # noqa: B023
+        }
+        Nk = k_size[0] * k_size[1]
+        mask = (bh.float()[..., :, None] + bw.float()[..., None, :]).reshape(B, h, Nq, Nk)
+        library = dict(zip(K11, sdpa_head_times(q, k, v, do, mask.to(q.dtype))))
+        del mask
+        for name, (kern, twin) in calls.items():
+            t = [time_ms(twin, 10, 2), time_ms(kern, 10, 2), time_ms(kern, 10, 2),
+                 time_ms(twin, 10, 2)]
+            ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            dev_k = kernel_device_us(kern, K11_KERNELS[name], n=5)
+            dev_t, _ = device_us(twin, n=5)
+            bound_ms, nbytes, ops = k11_bound(B, h, Nq, k_size, 2, name.endswith("bwd"))
+            bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S \
+                else "operations"
+            out[(name, label)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by, library_ms=library[name])
+            for i, x in enumerate((ms, None if dev_k is None else dev_k / 1e3, plain_ms,
+                                   bound_ms)):
+                step[name][i] = None if None in (x, step[name][i]) else step[name][i] + count * x
+            log(f"[{card}] time {name} bf16 {label} B={B} h={h} Nq={Nq} k_size={k_size} "
+                f"hd={K11_HD} per call: kernel {ms * 1e3:9.2f} us  twin {plain_ms * 1e3:9.2f} us "
+                f"(CUDA events, in turns twin-kernel-kernel-twin); device time: kernel "
+                f"{us(dev_k)}  twin {dev_t:9.2f} us (torch.profiler); bound "
+                f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e9:.2f} "
+                f"GFLOP at 989 TFLOP/s); F.scaled_dot_product_attention with the expanded bias "
+                f"as attn_mask {'forward' if name.endswith('fwd') else 'backward'} "
+                f"{ms_us(library[name])}")
+        del q, k, v, bh, bw, do, p, calls
+        torch.cuda.empty_cache()
+    for name, (ms, dev, plain_ms, bound_ms) in step.items():
+        log(f"[{card}] time {name} bf16 MViTv2-small B={B}, the {K11_PER_FORWARD} blocks of a "
+            f"step: kernel {ms:.3f} ms per call sum, {ms_us(dev)} device time, twin "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms")
+    return out
+
+
+@contextlib.contextmanager
+def small_mvit_registered():
+    """A small MViTv2 (dims (96, 192), depths (1, 1), heads (1, 2): 96
+    channels a head, as mvitv2_small; 64×64 images, so Nq 256 → Nk 16 and
+    then 64 → 64) as backbone ``SMALL_MVIT`` meanwhile."""
+    from skinjax_torch.models.backbones import _REGISTRY
+    from skinjax_torch.models.backbones.mvit import MViTv2
+
+    _REGISTRY[SMALL_MVIT] = (
+        lambda device=None: MViTv2((96, 192), (1, 1), (1, 2), img_size=64, device=device), 192)
+    try:
+        yield
+    finally:
+        del _REGISTRY[SMALL_MVIT]
 
 
 def train_batch(device, B=None, hw=None, seed=0):
@@ -1067,6 +1272,7 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
     ``STORE_P_MAX_BYTES`` = 0 on both sides (the card launches the recompute
     kernel once a layer)."""
     import copy
+    import re
 
     import torch
 
@@ -1131,16 +1337,21 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
     # bias of a window attention is left out of that count: its gradient is 0
     # by the math (a constant added to every score of a row leaves the softmax
     # as it is), so its Adam step is lr·noise/(|noise| + eps) on either side.
+    # So are BERT's key bias and the shift of MViTv2's key LayerNorm (a
+    # constant added to every pooled key): the same case. Their largest CPU
+    # gradient is printed, as a share of all gradients' norm.
     pd = {k: (sc[k].float() - sh[k].float()).abs() for k in gh}
     pdiff = max(float(d.max()) for d in pd.values())
-    key_bias = 0
+    key_bias, key_grad = 0, 0.0
     for k in pd:
-        if k.startswith("image_encoder.stages.") and k.endswith(".0.attn.qkv.bias"):
+        if re.fullmatch(r"image_encoder\.stages\.\d+\.blocks\.\d+\.0\.attn\.qkv\.bias", k):
             C = pd[k].numel() // 3
             pd[k] = torch.cat([pd[k][:C], pd[k][2 * C:]])
             key_bias += C
-        elif k.endswith("attention.self.key.bias"):  # BERT's key bias, the same case
+            key_grad = max(key_grad, float(gh[k][C:2 * C].abs().max()))
+        elif k.endswith(("attention.self.key.bias", ".attn.norm_k.bias")):
             key_bias += pd[k].numel()
+            key_grad = max(key_grad, float(gh[k].abs().max()))
             pd[k] = pd[k][:0]
     far = sum(int((d > 0.01 * lr).sum()) for d in pd.values())
     total = sum(d.numel() for d in pd.values())
@@ -1152,7 +1363,8 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
         f"{lr:g}): loss {lc:.6f} vs {lh:.6f} (tol rtol 1e-4); gradients of {len(gh)} tensors: "
         f"worst |diff|/(1e-3·|g_cpu| + 1e-6·|g_all|) = {gexcess[worst_g]:.3e} at {worst_g} "
         f"(tol 1); parameters max |diff| {pdiff:.3e} (tol 2·lr), {far} of {total} elements "
-        f"beyond 0.01·lr (tol a share of 1e-4; {key_bias} key-bias elements left out); BN "
+        f"beyond 0.01·lr (tol a share of 1e-4; {key_bias} key-bias elements left out, their "
+        f"largest CPU gradient {key_grad / g_all:.1e}·|g_all|); BN "
         f"running stats ({len(bn)} tensors) max rel diff {bdiff:.3e} (tol 1e-3)")
     check(abs(lc - lh) <= 1e-4 * abs(lh), "the card and the CPU disagree on the fp32 loss")
     check(gexcess[worst_g] <= 1.0, f"the card and the CPU disagree on the gradient of {worst_g}")
@@ -1501,8 +1713,9 @@ def k7_bound(B, side, C, itemsize, backward):
 
 def phase_k7_times(wa, device, card):
     """K7 forward and backward against their twins at B=64, bf16, per stage;
-    F.scaled_dot_product_attention on the same per-window q, k, v as a
-    yardstick for the attention core (the port never calls it)."""
+    F.scaled_dot_product_attention on the same per-window q, k, v, forward
+    and backward, as a yardstick for the attention core (the port never
+    calls it)."""
     import torch
     import torch.nn.functional as F
 
@@ -1524,8 +1737,9 @@ def phase_k7_times(wa, device, card):
                 lambda: wa.window_attention_nhwc_bwd_plain(x, dy, wqkv, bqkv, wproj, None, None,
                                                            h, WINDOW)),
         }
-        sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
-        lib_ms = (time_ms(sdpa, 20, 3) + time_ms(sdpa, 20, 3)) / 2
+        do = torch.randn(q.shape, generator=torch.Generator(device=device).manual_seed(22),
+                         device=device).to(q.dtype)
+        library = dict(zip(K7, sdpa_head_times(q, k, v, do, None)))
         for name, (kern, twin) in calls.items():
             t = [time_ms(twin, 10, 2), time_ms(kern, 10, 2), time_ms(kern, 10, 2),
                  time_ms(twin, 10, 2)]
@@ -1536,15 +1750,17 @@ def phase_k7_times(wa, device, card):
             bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S \
                 else "operations"
             out[(name, side)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by,
-                                     library_ms=lib_ms if name.endswith("fwd") else None)
+                                     bound_by=bound_by, library_ms=library[name])
             log(f"[{card}] time {name} bf16 B={B} {side}x{side} C={C} h={h} per call: kernel "
                 f"{ms * 1e3:9.2f} us  twin {plain_ms * 1e3:9.2f} us (CUDA events, in turns "
                 f"twin-kernel-kernel-twin); device time: kernel {us(dev_k)}  twin "
                 f"{dev_t:9.2f} us (torch.profiler); bound {bound_ms * 1e3:.2f} us "
                 f"({nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e9:.2f} GFLOP at 989 TFLOP/s)")
         log(f"[{card}] time F.scaled_dot_product_attention bf16 on the same (nB, h, 49, 32) "
-            f"q, k, v at {side}x{side}: {lib_ms * 1e3:.2f} us per call (the attention core only)")
+            f"q, k, v at {side}x{side} (the attention core only): forward "
+            f"{ms_us(library['window_attention_fwd'])} per call (CUDA events), backward "
+            f"{ms_us(library['window_attention_bwd'])} (the device time of autograd's "
+            f"backward alone, torch.profiler)")
     return out
 
 
@@ -1813,6 +2029,8 @@ def main() -> int:
         DAVIT_BATCH,
         FLAGSHIP,
         GPT2,
+        MVIT,
+        MVIT_BATCH,
         SENTENCE,
         SENTENCE_FROZEN_TOKENS,
         SENTENCE_TOKENS,
@@ -1821,6 +2039,7 @@ def main() -> int:
     from skinjax_torch.ops import build
     from skinjax_torch.ops import fusion_kernels as fk
     from skinjax_torch.ops import global_attention as ga
+    from skinjax_torch.ops import pooled_attention as pa
     from skinjax_torch.ops import window_attention as wa
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1837,7 +2056,7 @@ def main() -> int:
     log(f"phase card: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}; TF32 off")
 
-    build_kernels(build, (fk, ak, wa, ga))
+    build_kernels(build, (fk, ak, wa, ga, pa))
     for name, src in BUILDS.items():
         info = build.build_info[name]
         built = f"built in {info['seconds']:.1f} s" if info["seconds"] else "already built"
@@ -1850,9 +2069,11 @@ def main() -> int:
     errors[K5] = phase_k5(ak, device)
     errors.update(phase_k7(wa, device))
     errors.update(phase_k12(ga, device))
-    # K12's and K7's times first: in a process that has traced much,
+    errors.update(phase_k11(pa, device))
+    # K12's, K11's and K7's times first: in a process that has traced much,
     # torch.profiler dropped K7's launches from its traces
     k12_times = phase_k12_times(ga, device, card)
+    k11_times = phase_k11_times(pa, device, card)
     k7_times = phase_k7_times(wa, device, card)
     k4_times = phase_k4_times(fk, device, card)
     torch.cuda.synchronize()
@@ -1923,6 +2144,30 @@ def main() -> int:
     _SMOKE_MODELS.clear()
     torch.cuda.synchronize()
     elapsed("BEiT-v2-large and ViT-large")
+
+    # MViTv2-small: served, trained; K11's launches on the main path are the
+    # 10 unfrozen train steps'
+    m_fused, m_plain = phase_slice(fk, device, card, "mvitv2-small", MVIT, (pa, K11_SERVED))
+    phase_server(fk, card, cnn=MVIT["cnn_model_name"], attn=(pa, K11_SERVED))
+    k11_step = {"pooled_attention_fwd": K11_PER_FORWARD, "pooled_attention_bwd": K11_PER_FORWARD}
+    batch, cw, step, m_launches = phase_train(
+        [ak, pa], device, card, "mvitv2-small", MVIT, MVIT_BATCH, per_step={K5: 1, **k11_step},
+        frozen_per_step={K5: 1, **k11_step, "pooled_attention_bwd": 0}, lr=MVIT_TRAIN_LR)
+    launches.update({name: m_launches[name] for name in K11})
+    with small_mvit_registered():
+        phase_card_vs_cpu(device, cnn=SMALL_MVIT, hw=64)
+    torch.cuda.synchronize()
+    engine_latency(m_fused, m_plain, "mvitv2-small", card)
+    del m_fused, m_plain
+    m_times = phase_train_times(device, card, batch, cw, step, "mvitv2-small", MVIT,
+                                kernel_names=[n for names in K11_KERNELS.values() for n in names])
+    log(f"[{card}] mvitv2_small_images_per_sec "
+        f"{MVIT_BATCH / m_times['unfrozen_weights'] * 1e3:.1f} (MViTv2-small, RG-ATT, "
+        f"B={MVIT_BATCH}, bf16, augment on, unfrozen; CUDA events)")
+    del batch, cw, step
+    _SMOKE_MODELS.clear()
+    torch.cuda.synchronize()
+    elapsed("MViTv2-small")
 
     # the sentence path: DaViT-tiny + BERT-base (and GPT-2) tokens models at
     # B=32, trained; the recompute backward's launches on the main path are
@@ -1995,6 +2240,14 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": K12_SOURCE, "replaces": K12[name],
          "launches": launches[name], "max_abs_err": errors[name], **k12_times[name]}
         for name in K12
+    ] + [
+        # MViTv2-small's stage-2 body at its train batch: B=64, Nq = Nk = 196,
+        # 4 heads, 96 channels a head, bf16 (10 of the 16 blocks; the other
+        # shapes are above)
+        {"name": name, "route": "cuda", "source": K11_SOURCE, "replaces": K11[name],
+         "launches": launches[name], "max_abs_err": errors[name],
+         **k11_times[(name, K11_RECORD)]}
+        for name in K11
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,14 +3,16 @@
 A second package beside ``skinjax``, which stays the reference it is held
 against. It imports ``torch`` and never JAX. It serves and trains the
 multimodal model with all 18 fusion mechanisms, a one-hot metadata tower and
-a ResNet-18/50, DaViT-tiny, ViT (tiny to large) or BEiT-v2-large image tower
+a ResNet-18/50, DaViT-tiny, ViT (tiny to large), BEiT-v2-large or
+MViTv2-small image tower
 (the flagship: ResNet-50 + RG-ATT), trains the sentence datasets' tokens
 model (a BERT or GPT-2 tower over tokenized clinical sentences), and runs
 the train CLI (``python -m skinjax_torch.tools.train_cli``) from a
 PAD-UFES-20 CSV and PNG images on disk to checkpoints the service serves.
 The fusion stage (K1-K4), the augmentation's color stage (K5), DaViT's
-window attention (K7) and the global attention core of ViT, BEiT, BERT and
-GPT-2 (K12, forward and both backwards) run in hand-written CUDA kernels
+window attention (K7), MViTv2's pooled attention (K11, forward and backward)
+and the global attention core of ViT, BEiT, BERT and GPT-2 (K12, forward and
+both backwards) run in hand-written CUDA kernels
 (``skinjax_torch/ops/``, ``skinjax_torch/csrc/``).
 """
 
@@ -36,6 +38,12 @@ DAVIT_BATCH = 64
 # at that bench's batch of 32.
 BEIT = dict(FLAGSHIP, cnn_model_name="beitv2_large_patch16_224")
 BEIT_BATCH = 32
+
+# MViTv2-small in place of ResNet-50, the second-best published backbone,
+# whose train rate bench.py reports as mvitv2_small_images_per_sec (bf16,
+# RG-ATT), at that bench's batch of 64.
+MVIT = dict(FLAGSHIP, cnn_model_name="mvitv2_small")
+MVIT_BATCH = 64
 
 # The sentence datasets' model: DaViT-tiny + a BERT-base tokens tower + RG-ATT
 # (the JAX package's bench.py sentence configuration), bf16, at its batch of

@@ -1,0 +1,507 @@
+// MViTv2's pooled attention core with the decomposed relative-position bias:
+// the forward and the stored-probabilities backward, for Hopper (sm_90a).
+//
+// It replaces the Pallas TPU kernel K11 of skinjax/ops/pallas/pooled_attention.py:
+// the forward _fwd_core (kernel _fwd_kernel, with emit_p) and the backward
+// _bwd_core (kernel _bwd_kernel). q is (B, heads, Nq, hd), k and v are (B,
+// heads, Nk, hd), bias_h (B, heads, Nq, Kh) and bias_w (B, heads, Nq, Kw), all
+// contiguous in the input type, with Nk = Kh * Kw (the pooled key grid). Per
+// batch b and head h:
+//
+//   forward   s[n, m] = (q.k^T)[n, m] * scale + bias_h[n, m / Kw] + bias_w[n, m % Kw]   fp32
+//             P = softmax(s) fp32, written to p (B, heads, Nq, Nk) when asked
+//             o = round(round(P) . v)
+//   backward  dv = round(round(P)^T . do)
+//             dp = do . v^T;  ds = P * (dp - rowsum(dp * P))                 fp32
+//             dbias_h[n, a] = sum over m with m / Kw == a of ds[n, m]          fp32
+//             dbias_w[n, c] = sum over m with m % Kw == c of ds[n, m]          fp32
+//             dq = round((round(ds) . k) * scale);  dk = round((round(ds)^T . q) * scale)
+//
+// "round" is the cast to the input type (bf16 or fp32) where the Pallas kernel
+// casts; every sum is fp32. The scale multiplies the fp32 product, in the
+// forward before the two bias terms (added in that order) and in the backward
+// after the products, as the Pallas kernel does (its reference instead scales
+// q in the input type). The Pallas kernel expands the bias with two 0/1
+// matrix products on the MXU; here it is an index, and (B, heads, Nq, Nk) is
+// never formed. The bias gradients are per sample: there is no sum over the
+// batch.
+//
+// Layout. No TPU padding: a block masks its own ragged edge (Nq = 3136, 784,
+// 196, 49 and Nk = 196, 784, 49 in MViTv2-small at 224x224), and P is kept as
+// (B, heads, Nq, Nk), not padded to multiples of 16. skinjax's query chunking
+// (pooled_attention_chunked) and its VMEM and residual caps (pooled_attn_ok)
+// guard Mosaic and a 16 GB TPU; a grid over query tiles needs neither.
+//
+// Launches. Forward: one launch, a block per (32 query rows, head, batch),
+// which holds its 32 score rows in shared memory (so Nk <= 1024), streams K
+// and then V through shared memory 64 keys at a time, adds the bias by index
+// and does the softmax a warp a row. The Pallas backward sums dk and dv over
+// every query across its sequential grid; blocks here run in no order, so the
+// backward is two launches with no atomics: (1) a block per (32 query rows,
+// head, batch) computes dp, ds (written to an fp32 scratch the size of P), the
+// two bias gradients and dq; (2) a block per (32 keys, head, batch) sums dv
+// and dk over all queries, in query order, from P and ds.
+//
+// What bounds it: at MViTv2-small's stage-2 body (B=64, Nq = Nk = 196, 4
+// heads, hd = 96, bf16) the forward moves ~81 MB (P's 39 MB of them) against
+// 3.8 GFLOP, the backward ~112 MB against 7.6 GFLOP: on the bf16 tensor cores
+// both are bound by bytes (~24 and ~34 us). This first version is simple:
+// fp32 FMAs on the CUDA cores from shared-memory tiles (4x2 and 4x4 outputs a
+// thread), no mma, no TMA; the backward's ds scratch adds two passes over a
+// plane the size of P. PERF.md records how far each is from its bound.
+// Limits: Nk <= 1024, hd <= 128.
+//
+// C interface: each entry point launches on the given stream and returns
+// cudaGetLastError() as an int (0 = success);
+// skinjax_pooled_attention_error_string maps the code to its message.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxNk = 1024;
+constexpr int kMaxHd = 128;
+constexpr int kHs = kMaxHd + 1;  // row stride of a (rows, head dim) tile in shared memory
+constexpr int kTq = 32;          // query rows a block: the forward and the dq kernel
+constexpr int kKc = 64;          // keys a chunk of K or V in shared memory
+constexpr int kTk = 32;          // keys a block of the dk/dv kernel
+constexpr int kQc = 32;          // query rows a chunk of the dk/dv kernel
+constexpr int kTs = kTk + 1;     // row stride of its (kQc, kTk) planes
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and back: the cast points of the Pallas kernel
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32<T>(from_f32<T>(x));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+struct Dims {
+  int B, heads, Nq, Kh, Kw, Nk, hd;
+};
+
+__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// shared memory of the forward and the dq kernel: kTq score rows, a (kTq, hd)
+// tile and a (kKc, hd) chunk
+int rows_smem_bytes(int Nk) { return 4 * (kTq * (round_up(Nk, kKc) + 1) + kTq * kHs + kKc * kHs); }
+constexpr int dkv_smem_bytes() { return 4 * (2 * kQc * kTs + 2 * kQc * kHs); }
+
+// Rows n0 .. n0 + count - 1 of the (N, hd) plane `plane` (= b * heads + h) of
+// x as fp32 into dst (count x kHs); zeros past N and past hd.
+template <typename T>
+__device__ void load_rows(const T* __restrict__ x, int N, int hd, long long plane, int n0,
+                          int count, float* dst) {
+  const T* base = x + plane * N * hd;
+  for (int idx = threadIdx.x; idx < count * kMaxHd; idx += kThreads) {
+    const int r = idx / kMaxHd, d = idx - r * kMaxHd;
+    const int n = n0 + r;
+    dst[r * kHs + d] = (n < N && d < hd) ? to_f32<T>(base[(long long)n * hd + d]) : 0.f;
+  }
+}
+
+// acc[i][j] = sum over d < hd of a[warp + 8i][d] * bm[lane + 32j][d]: the
+// (kTq x kKc) tile of a . bm^T
+__device__ __forceinline__ void tile_abt(const float* a, const float* bm, int hd,
+                                         float acc[4][2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < hd; ++d) {
+    float av[4], bv[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = a[(warp + 8 * i) * kHs + d];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) bv[j] = bm[(lane + 32 * j) * kHs + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// acc[i][j] += sum over m < mc of s[(warp + 8i) * ss + m0 + m] * x[m][lane + 32j]:
+// kTq score rows times a (kKc, hd) chunk of V or K
+__device__ __forceinline__ void rows_times_chunk(const float* s, int ss, int m0, int mc,
+                                                 const float* x, float acc[4][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll 4
+  for (int m = 0; m < mc; ++m) {
+    float av[4], xv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = s[(warp + 8 * i) * ss + m0 + m];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) xv[j] = x[m * kHs + lane + 32 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], xv[j], acc[i][j]);
+  }
+}
+
+// s[r][m] = f(r, m, rows[r] . x[m]) for every real row r < n_rows and key m <
+// Nk of plane `plane` of x (K or V), x streamed kKc keys at a time
+template <typename T, typename F>
+__device__ void score_rows(const float* rows, const T* __restrict__ x, const Dims& g,
+                           long long plane, int n_rows, float* s, int ss, float* chunk, F f) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int m0 = 0; m0 < g.Nk; m0 += kKc) {
+    __syncthreads();  // rows loaded; the previous chunk consumed
+    load_rows<T>(x, g.Nk, g.hd, plane, m0, kKc, chunk);
+    __syncthreads();
+    float acc[4][2];
+    tile_abt(rows, chunk, g.hd, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp + 8 * i;
+      if (r >= n_rows) continue;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int m = m0 + lane + 32 * j;
+        if (m < g.Nk) s[r * ss + m] = f(r, m, acc[i][j]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// out rows n0 + warp + 8i, channels lane + 32j of plane `plane`: acc = s . x,
+// x (K or V) streamed kKc keys at a time, written as round(acc * mul)
+template <typename T>
+__device__ void rows_product_out(const float* s, int ss, const T* __restrict__ x, const Dims& g,
+                                 long long plane, int n0, int n_rows, float* chunk, float mul,
+                                 T* __restrict__ out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int m0 = 0; m0 < g.Nk; m0 += kKc) {
+    __syncthreads();  // s complete; the previous chunk consumed
+    load_rows<T>(x, g.Nk, g.hd, plane, m0, kKc, chunk);
+    __syncthreads();
+    rows_times_chunk(s, ss, m0, min(kKc, g.Nk - m0), chunk, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = warp + 8 * i;
+    if (r >= n_rows) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = lane + 32 * j;
+      if (d < g.hd) out[(plane * g.Nq + n0 + r) * g.hd + d] = from_f32<T>(acc[i][j] * mul);
+    }
+  }
+}
+
+// Forward: o for 32 query rows of one head of one batch; P when p is not null.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    pa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const T* __restrict__ bias_h, const T* __restrict__ bias_w, T* __restrict__ o,
+                  float* __restrict__ p, Dims g, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int ss = round_up(g.Nk, kKc) + 1;
+  float* s = smem;
+  float* qs = s + kTq * ss;
+  float* chunk = qs + kTq * kHs;
+  const int n0 = blockIdx.x * kTq;
+  const long long plane = (long long)blockIdx.z * g.heads + blockIdx.y;
+  const int n_rows = min(kTq, g.Nq - n0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  load_rows<T>(q, g.Nq, g.hd, plane, n0, kTq, qs);
+  score_rows<T>(qs, k, g, plane, n_rows, s, ss, chunk, [&](int r, int m, float a) {
+    const long long n = plane * g.Nq + n0 + r;
+    a = __fmul_rn(a, scale);
+    a = __fadd_rn(a, to_f32<T>(bias_h[n * g.Kh + m / g.Kw]));
+    return __fadd_rn(a, to_f32<T>(bias_w[n * g.Kw + m % g.Kw]));
+  });
+
+  // softmax, a warp a row; P written, round(P) kept for the product with V
+  for (int r = warp; r < n_rows; r += kWarps) {
+    float* row = s + r * ss;
+    float mx = -CUDART_INF_F;
+    for (int m = lane; m < g.Nk; m += 32) mx = fmaxf(mx, row[m]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int m = lane; m < g.Nk; m += 32) {
+      const float e = expf(row[m] - mx);
+      row[m] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    float* prow = p ? p + (plane * g.Nq + n0 + r) * g.Nk : nullptr;
+    for (int m = lane; m < g.Nk; m += 32) {
+      const float pv = row[m] / sum;
+      if (prow) prow[m] = pv;
+      row[m] = round_to<T>(pv);
+    }
+  }
+  rows_product_out<T>(s, ss, v, g, plane, n0, n_rows, chunk, 1.f, o);
+}
+
+// Backward (1): dp, ds (to the scratch), the bias gradients and dq for 32
+// query rows of one head of one batch.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    pa_bwd_dq_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ p, T* __restrict__ dq, float* __restrict__ dbias_h,
+                     float* __restrict__ dbias_w, float* __restrict__ ds, Dims g, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int ss = round_up(g.Nk, kKc) + 1;
+  float* s = smem;
+  float* dos = s + kTq * ss;
+  float* chunk = dos + kTq * kHs;
+  const int n0 = blockIdx.x * kTq;
+  const long long plane = (long long)blockIdx.z * g.heads + blockIdx.y;
+  const int n_rows = min(kTq, g.Nq - n0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  load_rows<T>(dout, g.Nq, g.hd, plane, n0, kTq, dos);
+  score_rows<T>(dos, v, g, plane, n_rows, s, ss, chunk, [](int, int, float a) { return a; });
+
+  // ds = P * (dp - rowsum(dp * P)), a warp a row; its sums over the key
+  // grid's columns (dbias_h) and rows (dbias_w); round(ds) kept for dq
+  for (int r = warp; r < n_rows; r += kWarps) {
+    float* row = s + r * ss;
+    const long long n = plane * g.Nq + n0 + r;
+    const float* prow = p + n * g.Nk;
+    float rs = 0.f;
+    for (int m = lane; m < g.Nk; m += 32) rs += __fmul_rn(row[m], prow[m]);
+    rs = warp_sum(rs);
+    for (int m = lane; m < g.Nk; m += 32) {
+      const float d = __fmul_rn(prow[m], row[m] - rs);
+      ds[n * g.Nk + m] = d;
+      row[m] = d;
+    }
+    __syncwarp();
+    for (int a = lane; a < g.Kh; a += 32) {
+      float t = 0.f;
+      for (int c = 0; c < g.Kw; ++c) t += row[a * g.Kw + c];
+      dbias_h[n * g.Kh + a] = t;
+    }
+    for (int c = lane; c < g.Kw; c += 32) {
+      float t = 0.f;
+      for (int a = 0; a < g.Kh; ++a) t += row[a * g.Kw + c];
+      dbias_w[n * g.Kw + c] = t;
+    }
+    __syncwarp();
+    for (int m = lane; m < g.Nk; m += 32) row[m] = round_to<T>(row[m]);
+  }
+  rows_product_out<T>(s, ss, k, g, plane, n0, n_rows, chunk, scale, dq);
+}
+
+// Backward (2): dv = round(P)^T . do and dk = round(ds)^T . q * scale for 32
+// keys of one head of one batch, summed over every query in query order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    pa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ dout,
+                      const float* __restrict__ p, const float* __restrict__ ds,
+                      T* __restrict__ dk, T* __restrict__ dv, Dims g, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* pb = smem;               // kQc x kTs
+  float* dsb = pb + kQc * kTs;    // kQc x kTs
+  float* dos = dsb + kQc * kTs;   // kQc x kHs
+  float* qs = dos + kQc * kHs;    // kQc x kHs
+  const int m0 = blockIdx.x * kTk;
+  const long long plane = (long long)blockIdx.z * g.heads + blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float adv[4][4], adk[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) adv[i][j] = adk[i][j] = 0.f;
+
+  for (int n0 = 0; n0 < g.Nq; n0 += kQc) {
+    __syncthreads();  // the previous chunk consumed
+    for (int idx = threadIdx.x; idx < kQc * kTk; idx += kThreads) {
+      const int r = idx / kTk, c = idx - r * kTk;
+      const int n = n0 + r, m = m0 + c;
+      float a = 0.f, d = 0.f;
+      if (n < g.Nq && m < g.Nk) {
+        const long long at = (plane * g.Nq + n) * g.Nk + m;
+        a = round_to<T>(p[at]);
+        d = round_to<T>(ds[at]);
+      }
+      pb[r * kTs + c] = a;
+      dsb[r * kTs + c] = d;
+    }
+    load_rows<T>(dout, g.Nq, g.hd, plane, n0, kQc, dos);
+    load_rows<T>(q, g.Nq, g.hd, plane, n0, kQc, qs);
+    __syncthreads();
+    const int nc = min(kQc, g.Nq - n0);
+#pragma unroll 2
+    for (int r = 0; r < nc; ++r) {
+      float pv[4], sv[4], dov[4], qv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = pb[r * kTs + warp + 8 * i];
+        sv[i] = dsb[r * kTs + warp + 8 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        dov[j] = dos[r * kHs + lane + 32 * j];
+        qv[j] = qs[r * kHs + lane + 32 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          adv[i][j] = fmaf(pv[i], dov[j], adv[i][j]);
+          adk[i][j] = fmaf(sv[i], qv[j], adk[i][j]);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + warp + 8 * i;
+    if (m >= g.Nk) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = lane + 32 * j;
+      if (d >= g.hd) continue;
+      const long long at = (plane * g.Nk + m) * g.hd + d;
+      dv[at] = from_f32<T>(adv[i][j]);
+      dk[at] = from_f32<T>(adk[i][j] * scale);
+    }
+  }
+}
+
+Dims dims(int B, int heads, int Nq, int Kh, int Kw, int hd) {
+  Dims g;
+  g.B = B;
+  g.heads = heads;
+  g.Nq = Nq;
+  g.Kh = Kh;
+  g.Kw = Kw;
+  g.Nk = Kh * Kw;
+  g.hd = hd;
+  return g;
+}
+
+bool bad_dims(const Dims& g) {
+  return g.Nq < 1 || g.Kh < 1 || g.Kw < 1 || g.Nk > kMaxNk || g.hd < 1 || g.hd > kMaxHd ||
+         g.B < 1 || g.B > 65535 || g.heads < 1 || g.heads > 65535;
+}
+
+template <typename T>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias_h,
+                       const void* bias_w, void* o, float* p, const Dims& g, float scale,
+                       cudaStream_t stream) {
+  const int smem = rows_smem_bytes(g.Nk);
+  cudaError_t err =
+      cudaFuncSetAttribute(pa_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.Nq + kTq - 1) / kTq, g.heads, g.B);
+  pa_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(bias_h), static_cast<const T*>(bias_w), static_cast<T*>(o), p, g,
+      scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+                       const float* p, void* dq, void* dk, void* dv, float* dbias_h,
+                       float* dbias_w, float* ds, const Dims& g, float scale,
+                       cudaStream_t stream) {
+  const int smem = rows_smem_bytes(g.Nk);
+  cudaError_t err = cudaFuncSetAttribute(pa_bwd_dq_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((g.Nq + kTq - 1) / kTq, g.heads, g.B);
+  pa_bwd_dq_kernel<T><<<grid_q, kThreads, smem, stream>>>(
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), p,
+      static_cast<T*>(dq), dbias_h, dbias_w, ds, g, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(pa_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dkv_smem_bytes());
+  if (err != cudaSuccess) return err;
+  const dim3 grid_k((g.Nk + kTk - 1) / kTk, g.heads, g.B);
+  pa_bwd_dkv_kernel<T><<<grid_k, kThreads, dkv_smem_bytes(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(dout), p, ds, static_cast<T*>(dk),
+      static_cast<T*>(dv), g, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* skinjax_pooled_attention_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// bf16: 0 for float, 1 for bfloat16 (q, k, v, the biases and o share it). q
+// (B, heads, Nq, hd), k and v (B, heads, Kh * Kw, hd), bias_h (B, heads, Nq,
+// Kh), bias_w (B, heads, Nq, Kw), all contiguous. Writes o (B, heads, Nq, hd)
+// and, when p is not null, P (B, heads, Nq, Kh * Kw) fp32.
+int skinjax_pooled_attention_fwd(int bf16, const void* q, const void* k, const void* v,
+                                 const void* bias_h, const void* bias_w, void* o, float* p, int B,
+                                 int heads, int Nq, int Kh, int Kw, int hd, float scale,
+                                 void* stream) {
+  const Dims g = dims(B, heads, Nq, Kh, Kw, hd);
+  if (bad_dims(g)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_fwd<__nv_bfloat16>(q, k, v, bias_h, bias_w, o, p, g, scale, s);
+  return launch_fwd<float>(q, k, v, bias_h, bias_w, o, p, g, scale, s);
+}
+
+// dout (B, heads, Nq, hd) like o; p the forward's P. Writes dq (like q), dk
+// and dv (like k), dbias_h (B, heads, Nq, Kh) and dbias_w (B, heads, Nq, Kw)
+// fp32, and the scratch ds (like p).
+int skinjax_pooled_attention_bwd(int bf16, const void* q, const void* k, const void* v,
+                                 const void* dout, const float* p, void* dq, void* dk, void* dv,
+                                 float* dbias_h, float* dbias_w, float* ds, int B, int heads,
+                                 int Nq, int Kh, int Kw, int hd, float scale, void* stream) {
+  const Dims g = dims(B, heads, Nq, Kh, Kw, hd);
+  if (bad_dims(g)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_bwd<__nv_bfloat16>(q, k, v, dout, p, dq, dk, dv, dbias_h, dbias_w, ds, g,
+                                     scale, s);
+  return launch_bwd<float>(q, k, v, dout, p, dq, dk, dv, dbias_h, dbias_w, ds, g, scale, s);
+}
+
+}  // extern "C"

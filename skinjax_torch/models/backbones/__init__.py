@@ -1,7 +1,7 @@
 """Backbone registry (counterpart of ``skinjax/models/backbones/__init__.py``).
 
 ``create_backbone(name)`` returns ``(module, feature_dim)``. The ResNets,
-DaViT-tiny, the four ViTs and BEiT-v2-large are ported so far; ROADMAP.md
+DaViT-tiny, the four ViTs, BEiT-v2-large and MViTv2-small are ported so far; ROADMAP.md
 lists the other backbones in the order they come.
 """
 
@@ -11,7 +11,7 @@ from typing import Callable, Dict, Tuple
 
 from torch import nn
 
-from skinjax_torch.models.backbones import beit, davit, resnet, vit
+from skinjax_torch.models.backbones import beit, davit, mvit, resnet, vit
 
 _REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "resnet-18": (resnet.resnet18, resnet.FEATURE_DIMS["resnet-18"]),
@@ -22,6 +22,7 @@ _REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "vit_base_patch16_224": (vit.vit_base, 768),
     "vit_large_patch16_224": (vit.vit_large, 1024),
     "beitv2_large_patch16_224": (beit.beitv2_large, 1024),
+    "mvitv2_small": (mvit.mvitv2_small, mvit.FEATURE_DIM),
 }
 
 

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from skinjax_torch.ops import compute_dtype
 from skinjax_torch.ops.window_attention import window_attention_nhwc
 
 FEATURE_DIM = 768
@@ -40,13 +41,6 @@ FEATURE_DIM = 768
 
 def _ln(dim: int, *, device=None) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=1e-5, device=device)
-
-
-def _compute_dtype(x: torch.Tensor) -> torch.dtype:
-    """The autocast dtype where autocast is on, else x's dtype."""
-    if torch.is_autocast_enabled(x.device.type):
-        return torch.get_autocast_dtype(x.device.type)
-    return x.dtype
 
 
 def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -75,7 +69,7 @@ class DaViTWindowAttention(nn.Module):
         self.proj = nn.Linear(dim, dim, device=device)
 
     def forward(self, x):
-        dt = _compute_dtype(x)
+        dt = compute_dtype(x)
         return window_attention_nhwc(
             x.to(dt).contiguous(), self.qkv.weight.t().to(dt).contiguous(), self.qkv.bias.to(dt),
             self.proj.weight.t().to(dt).contiguous(), self.proj.bias.to(dt), None, None,

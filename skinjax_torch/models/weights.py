@@ -17,9 +17,10 @@ Flax creates parameters lazily, only for the submodules a mechanism calls
 (RG-ATT has no ``img_gate``), so only the subtrees present are converted.
 The image encoder converts by its tree: a DaViT tree (``stem_conv``), a ViT
 tree (``pos_embed``, per-block ``attn/{q,k,v}_proj``) and a BEiT tree
-(``fc_norm``, per-block ``attn/qkv_kernel``) to timm's keys, which
-``skinjax.models.torch_import.import_davit``/``import_vit``/``import_beit``
-read back; a ResNet tree (``stem``) to torchvision's. A tokens model's
+(``fc_norm``, per-block ``attn/qkv_kernel``) and an MViTv2 tree
+(``stage0_block0/attn/rel_pos_h``) to timm's keys, which
+``skinjax.models.torch_import.import_davit``/``import_vit``/``import_beit``/
+``import_mvit`` read back; a ResNet tree (``stem``) to torchvision's. A tokens model's
 sentence tower (``text_module/bert`` or ``text_module/gpt2``, HF Flax's
 tree) converts to HF torch's ``BertModel``/``GPT2Model`` keys under
 ``text_encoder.`` (``text_encoder_state_dict``), the inverse of
@@ -149,6 +150,31 @@ def _beit(sd: Dict, prefix: str, p: Mapping) -> None:
     _ln(sd, f"{prefix}fc_norm", p["fc_norm"])
 
 
+def _mvit(sd: Dict, prefix: str, p: Mapping) -> None:
+    """skinjax ``MViTv2`` params → timm keys (the inverse of ``import_mvit``)."""
+    _conv(sd, f"{prefix}patch_embed.proj", p["patch_embed"])
+    for name, b in p.items():
+        if not name.startswith("stage"):  # stage{i}_block{j}
+            continue
+        stage, block = name[len("stage"):].split("_block")
+        base = f"{prefix}stages.{stage}.blocks.{block}"
+        a = b["attn"]
+        for norm in ("norm1", "norm2"):
+            _ln(sd, f"{base}.{norm}", b[norm])
+        if "shortcut_proj" in b:
+            _linear(sd, f"{base}.shortcut_proj_attn", b["shortcut_proj"])
+        for lin in ("qkv", "proj"):
+            _linear(sd, f"{base}.attn.{lin}", a[lin])
+        for t in "qkv":
+            _conv(sd, f"{base}.attn.pool_{t}", a[f"pool_{t}"])
+            _ln(sd, f"{base}.attn.norm_{t}", a[f"norm_{t}"])
+        sd[f"{base}.attn.rel_pos_h"] = _np(a["rel_pos_h"])
+        sd[f"{base}.attn.rel_pos_w"] = _np(a["rel_pos_w"])
+        _linear(sd, f"{base}.mlp.fc1", b["mlp_fc1"])
+        _linear(sd, f"{base}.mlp.fc2", b["mlp_fc2"])
+    _ln(sd, f"{prefix}norm", p["norm"])
+
+
 def _resnet(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
     _convbn(sd, f"{prefix}conv1", f"{prefix}bn1", p["stem"], s["stem"])
     for blk in (k for k in p if k.startswith("layer")):
@@ -231,9 +257,12 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, np.
         _vit(sd, "image_encoder.", enc)
     elif "fc_norm" in enc:
         _beit(sd, "image_encoder.", enc)
+    elif "rel_pos_h" in enc.get("stage0_block0", {}).get("attn", {}):
+        _mvit(sd, "image_encoder.", enc)
     else:
         raise NotImplementedError(
-            "state_dict_from_flax converts ResNet, DaViT, ViT and BEiT image encoders only; "
+            "state_dict_from_flax converts ResNet, DaViT, ViT, BEiT and MViTv2 image encoders "
+            "only; "
             f"got an encoder with {sorted(enc)[:4]}..."
         )
     for name in ("image_projector", "text_projector", "img_gate", "txt_gate",

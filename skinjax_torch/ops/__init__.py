@@ -1,5 +1,21 @@
 """Operators and the hand-written CUDA kernels behind them."""
 
+import torch
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The plain twins' sums' dtype: fp32, or fp64 for fp64 inputs (the
+    gradient checks)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The autocast dtype where autocast is on, else x's dtype: the dtype a
+    module hands its kernel."""
+    if torch.is_autocast_enabled(x.device.type):
+        return torch.get_autocast_dtype(x.device.type)
+    return x.dtype
+
 
 def check_tensor(name: str, t, shape, dtype, device) -> None:
     """What a kernel wrapper checks of each tensor before it passes a

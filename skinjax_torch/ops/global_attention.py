@@ -49,7 +49,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from skinjax_torch.ops import check_tensor
+from skinjax_torch.ops import acc_dtype, check_tensor
 
 LAUNCHES: Dict[str, int] = {"global_attention_fwd": 0, "global_attention_bwd": 0,
                             "global_attention_bwd_recompute": 0}
@@ -92,7 +92,7 @@ def attention_core_reference(q, k, v, num_heads, bias=None, kmask=None, pmult=No
     B, N, C = q.shape
     h = num_heads
     hd = C // h
-    acc = _acc(q.dtype)
+    acc = acc_dtype(q.dtype)
     with torch.autocast(q.device.type, enabled=False):
         qh, kh, vh = (t.reshape(B, N, h, hd) for t in (q, k, v))
         s = torch.einsum("bnhd,bmhd->bhnm", (qh * hd ** -0.5).to(acc), kh.to(acc))
@@ -112,11 +112,6 @@ def attention_core_reference(q, k, v, num_heads, bias=None, kmask=None, pmult=No
 # ---------------------------------------------------------------------------
 
 
-def _acc(dtype: torch.dtype) -> torch.dtype:
-    """The sums' dtype: fp32, or fp64 for fp64 inputs (the gradient checks)."""
-    return torch.float64 if dtype == torch.float64 else torch.float32
-
-
 def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
     """(B, N, C) head-major → (B, h, N, hd)."""
     B, N, C = t.shape
@@ -133,7 +128,7 @@ def attention_core_plain(q, k, v, bias, kmask, pmult, num_heads
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's arithmetic in PyTorch ops → (o (B, N, C) in q's
     dtype, P (B, h, N, N) fp32, before pmult)."""
-    dt, acc = q.dtype, _acc(q.dtype)
+    dt, acc = q.dtype, acc_dtype(q.dtype)
     scale = (q.shape[-1] // num_heads) ** -0.5
     with torch.autocast(q.device.type, enabled=False):
         qh, kh, vh = (_heads(t, num_heads).to(acc) for t in (q, k, v))
@@ -153,7 +148,7 @@ def attention_core_bwd_plain(q, k, v, do, p, pmult, num_heads, has_bias
                                         Optional[torch.Tensor]]:
     """The backward kernel's arithmetic → (dq, dk, dv (B, N, C) in q's dtype,
     dbias (h, N, N) fp32 or None), what skinjax's ``_bwd_p_core`` returns."""
-    dt, acc = q.dtype, _acc(q.dtype)
+    dt, acc = q.dtype, acc_dtype(q.dtype)
     scale = (q.shape[-1] // num_heads) ** -0.5
     with torch.autocast(q.device.type, enabled=False):
         qh, kh, vh, doh = (_heads(t, num_heads).to(acc) for t in (q, k, v, do))

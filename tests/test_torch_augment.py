@@ -59,7 +59,8 @@ def test_k5_twin_matches_the_jnp_chain(shape):
     B, H, W = shape
     img = np.random.default_rng(B * H).uniform(0, 1, (B, H, W, 3)).astype(np.float32)
     fp, ip = _params(B, H, W, GATES_ON, seed=H)
-    ref = np.stack([np.asarray(_ref_chain(jnp.asarray(img[j]), fp[j], ip[j], H, W))
+    chain = jax.jit(_ref_chain, static_argnums=(3, 4))  # one program for the batch's samples
+    ref = np.stack([np.asarray(chain(jnp.asarray(img[j]), fp[j], ip[j], H, W))
                     for j in range(B)])
     np.testing.assert_allclose(_twin(img, fp, ip).numpy(), ref, atol=1e-5, rtol=0)
 

@@ -33,7 +33,7 @@ from skinjax_torch.serve.engine import InferenceEngine
 from skinjax_torch.train.loop import TrainConfig, build_state
 from skinjax_torch.train.steps import make_train_step_weighted
 from tests.test_torch_train import _assert_adam_close, _leaves, jax_without_dropout  # noqa: F401
-from tests.test_torch_weights import jax_variables
+from tests.test_torch_weights import jax_variable_shapes, jax_variables
 
 SMALL = "davit-small-test"
 DIMS, DEPTHS, HEADS = (16, 32), (1, 2), (2, 4)
@@ -72,12 +72,12 @@ def small_davit(monkeypatch):
 
 
 def _to_jax(port, cfg, hw):
-    """The port's weights as the JAX model's params (the JAX importer)."""
+    """The port's weights as the JAX model's params (the JAX importer; the
+    parameter template traced once per configuration)."""
     sd = {k: v.detach().numpy().copy() for k, v in port.state_dict().items()}
     params, _ = torch_import.import_multimodal_checkpoint(sd, common_dim=cfg["common_dim"],
                                                           backbone=cfg["cnn_model_name"])
-    template = jax.eval_shape(JaxModel(**cfg).init, jax.random.key(0), jnp.zeros((1, hw, hw, 3)),
-                              jnp.zeros((1, cfg["vocab_size"])))
+    template = jax_variable_shapes(JaxModel(**cfg), (hw, hw), cfg["vocab_size"])
     return filter_to_template(params, template["params"])
 
 

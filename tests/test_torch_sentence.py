@@ -11,6 +11,7 @@ column, ``build_token_source``, ``create_model``'s text route,
 ``build_sentence_tower`` with and without local weights, and the train CLI
 on a sentence dataset, with its checkpoint reloaded."""
 
+import functools
 import json
 import os
 import warnings
@@ -118,16 +119,23 @@ def batch(seed=21):
             rng.uniform(0.5, 2.0, CFG["num_classes"]).astype(np.float32))
 
 
-def pair(mech, seed):
-    """skinjax's tokens model with random parameters (its init plus noise,
-    so that biases and norms matter) and the port's holding them."""
+@functools.lru_cache(maxsize=None)
+def _jax_params(mech, seed):
+    """skinjax's init plus noise for ``pair``, drawn once a (mech, seed)."""
     jmodel = jax_model(mech)
     _, meta, _, _ = batch()
     params = jmodel.init(jax.random.key(seed), jnp.zeros((1, HW, HW, 3)),
                          jax.tree_util.tree_map(lambda a: jnp.asarray(a[:1]), meta))["params"]
     rng = np.random.default_rng(seed)
-    params = jax.tree_util.tree_map(
+    return jax.tree_util.tree_map(
         lambda a: np.asarray(a) + (0.05 * rng.normal(size=a.shape)).astype(np.float32), params)
+
+
+def pair(mech, seed):
+    """skinjax's tokens model with random parameters (its init plus noise,
+    so that biases and norms matter) and the port's holding them."""
+    jmodel = jax_model(mech)
+    params = _jax_params(mech, seed)
     port = load_numpy_state_dict(port_model(mech), state_dict_from_flax(params, {}))
     for m in port.modules():
         if isinstance(m, nn.Dropout):
@@ -153,6 +161,31 @@ def _spy_backwards(monkeypatch):
     return calls
 
 
+def _grad_batch():
+    _, meta, labels, cw = batch()
+    return np.random.default_rng(5).normal(size=(B, HW, HW, 3)).astype(np.float32), meta, \
+        labels, cw
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_logits_loss_grads(mech):
+    """skinjax's side of the gradient test, once a mechanism (the route is
+    the port's): eval logits, the train-mode loss and its gradients as a
+    state_dict."""
+    jmodel, params = jax_model(mech), _jax_params(mech, 1)
+    img, meta, labels, cw = _grad_batch()
+    jmeta = jax.tree_util.tree_map(jnp.asarray, meta)
+    ref = jax.jit(jmodel.apply)({"params": params}, img, jmeta)
+
+    def loss_of(p):
+        logits = jmodel.apply({"params": p}, img, jmeta, train=True,
+                              rngs={"dropout": jax.random.key(0)})
+        return jax_weighted_loss("weighted_ce")(logits, jnp.asarray(labels), jnp.asarray(cw))
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_of))(params)
+    return np.asarray(ref), float(jloss), state_dict_from_flax(jgrads, {})
+
+
 @pytest.mark.parametrize("route", ["stored", "recompute"])
 @pytest.mark.parametrize("mech", [RGATT, "metablock"])
 def test_logits_loss_and_gradients_match_skinjax(mech, route, small_vit, jax_without_dropout,
@@ -166,32 +199,22 @@ def test_logits_loss_and_gradients_match_skinjax(mech, route, small_vit, jax_wit
     if route == "recompute":
         monkeypatch.setattr(tga, "STORE_P_MAX_BYTES", 0)
     calls = _spy_backwards(monkeypatch)
-    jmodel, params, port = pair(mech, seed=1)
-    _, meta, labels, cw = batch()
-    img = np.random.default_rng(5).normal(size=(B, HW, HW, 3)).astype(np.float32)
-    jmeta = jax.tree_util.tree_map(jnp.asarray, meta)
-
-    ref = jax.jit(jmodel.apply)({"params": params}, img, jmeta)
+    _, _, port = pair(mech, seed=1)
+    img, meta, labels, cw = _grad_batch()
+    ref, jloss, ref_g = _jax_logits_loss_grads(mech)
     with torch.no_grad():
         out = port.eval()(torch.from_numpy(img), _tmeta(meta))
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=1e-4)
 
-    def loss_of(p):
-        logits = jmodel.apply({"params": p}, img, jmeta, train=True,
-                              rngs={"dropout": jax.random.key(0)})
-        return jax_weighted_loss("weighted_ce")(logits, jnp.asarray(labels), jnp.asarray(cw))
-
-    jloss, jgrads = jax.jit(jax.value_and_grad(loss_of))(params)
     port.train()
     loss = tl.weighted_loss("weighted_ce")(port(torch.from_numpy(img), _tmeta(meta)),
                                            torch.from_numpy(labels).long(), torch.from_numpy(cw))
     loss.backward()
-    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=2e-5)
+    np.testing.assert_allclose(float(loss.detach()), jloss, rtol=2e-5)
     want = {"global_attention_bwd": K12_LAYERS * (route == "stored"),
             "global_attention_bwd_recompute": K12_LAYERS * (route == "recompute")}
     assert calls == want
 
-    ref_g = state_dict_from_flax(jgrads, {})
     got = {k: p.grad if p.grad is not None else torch.zeros_like(p)
            for k, p in port.named_parameters()}
     assert set(got) == set(ref_g)

@@ -96,7 +96,7 @@ def test_unported_parts_raise(monkeypatch):
     with pytest.raises(ValueError, match="not implemented"):
         MultimodalModel(num_classes=4, attention_mechanism="no-such-mechanism")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MultimodalModel(num_classes=4, cnn_model_name="mvitv2_small")
+        MultimodalModel(num_classes=4, cnn_model_name="nextvit_small")
     # the general attention path runs (K12); above the stored-P limit (lowered
     # to 0 here) its backward is K12's recompute backward, no longer a raise
     mha = MultiheadAttention(16, 4)

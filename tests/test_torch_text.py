@@ -8,6 +8,7 @@ train-mode attention dropout from one shared (T, T) draw, and the other
 direction (the port's ``state_dict`` through skinjax's importers, and into
 ``transformers``' models where that package imports)."""
 
+import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,15 +42,23 @@ NO_DROPOUT = {"bert": dict(hidden_dropout=0.0, attention_dropout=0.0),
 B, T = 3, 24
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_params(family, seed):
+    """skinjax's init plus noise for ``_pair``, drawn once a (family, seed)
+    (the dropout knobs change no parameter)."""
+    jmod = (JBert if family == "bert" else JGPT2)(**SMALL)
+    params = jmod.init(jax.random.key(seed), jnp.zeros((1, 8), jnp.int32))["params"]
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + (0.05 * rng.normal(size=a.shape)).astype(np.float32), params)
+
+
 def _pair(family, seed=0, **kw):
     """skinjax's encoder with random parameters (its init plus noise, so
     that biases and norms are not trivial), and the port's holding them."""
     kw = dict(SMALL, **kw)
     jmod = (JBert if family == "bert" else JGPT2)(**kw)
-    params = jmod.init(jax.random.key(seed), jnp.zeros((1, 8), jnp.int32))["params"]
-    rng = np.random.default_rng(seed)
-    params = jax.tree_util.tree_map(
-        lambda a: np.asarray(a) + (0.05 * rng.normal(size=a.shape)).astype(np.float32), params)
+    params = _jax_params(family, seed)
     port = (tbert.NativeBertEncoder if family == "bert" else tgpt2.NativeGPT2Encoder)(**kw)
     load_numpy_state_dict(port, text_encoder_state_dict({family: params}))
     return jmod, params, port

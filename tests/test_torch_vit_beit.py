@@ -209,13 +209,27 @@ def test_registry_has_the_five_names():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_tree(arch, depth):
-    """skinjax's parameter tree of a narrow tower at a published depth, from
-    an eager ``init``: its dicts keep creation order, which the freeze
-    policy's "last layer" reads (``jax.eval_shape`` would sort the keys)."""
+def _jax_flags(arch, depth):
+    """skinjax's trainable mask in each mode over a narrow tower at a
+    published depth, as arrays of its flags shaped like the parameters:
+    {mode: tree}. The masks are taken inside
+    ``jax.eval_shape`` of ``init``, where the parameter dicts still keep
+    creation order, which the freeze policy's "last layer" reads (the traced
+    output's dicts come back sorted); an eager ``init`` gives the same tree
+    and takes seconds."""
     cls = JaxViT if arch == "vit" else JaxBeit
-    return cls(dim=8, depth=depth, num_heads=1).init(jax.random.key(0),
-                                                     jnp.zeros((1, 16, 16, 3)))["params"]
+    model = cls(dim=8, depth=depth, num_heads=1)
+    out = {}
+
+    def init(key, x):
+        tree = model.init(key, x)["params"]
+        for mode in ("partial", "last_layer_unfrozen_weights"):
+            flags = jax_trainable_mask({"image_encoder": tree}, mode)["image_encoder"]
+            out[mode] = jax.tree_util.tree_map(lambda f, p: np.full(np.shape(p), f), flags, tree)
+        return tree
+
+    jax.eval_shape(init, jax.random.key(0), jnp.zeros((1, 16, 16, 3)))
+    return out
 
 
 @pytest.mark.parametrize("mode", ["partial", "last_layer_unfrozen_weights"])
@@ -225,9 +239,7 @@ def test_freeze_policy_selects_skinjax_parameters(arch, depth, mode):
     map, is the port's: "partial" trains the same blocks (skinjax's
     "block11"/"block23" markers are the port's "blocks.11."/"blocks.23."),
     "last layer" the same final norm. The port's tower is shapes only."""
-    tree = _jax_tree(arch, depth)
-    flags = jax_trainable_mask({"image_encoder": tree}, mode)["image_encoder"]
-    as_arrays = jax.tree_util.tree_map(lambda f, p: np.full(np.shape(p), f), flags, tree)
+    as_arrays = _jax_flags(arch, depth)[mode]
     mapped = state_dict_from_flax({"image_encoder": as_arrays}, {})
     assert all(v.all() or not v.any() for v in mapped.values())
     want = {k for k, v in mapped.items() if v.all()}

@@ -17,14 +17,27 @@ from skinjax_torch.models.weights import init_weights, load_numpy_state_dict, st
 RGATT = "att-intramodal+residual+cross-attention-metadados"
 
 
+_SHAPES = {}
+
+
+def jax_variable_shapes(model, image_hw, vocab):
+    """The variable tree's shapes and dtypes that flax would create:
+    ``jax.eval_shape`` of ``model.init`` (it traces but compiles nothing),
+    once per configuration (flax's repr prints every attribute; the test
+    towers' registry names each stand for one tower)."""
+    key = (repr(model), tuple(image_hw), vocab)
+    if key not in _SHAPES:
+        _SHAPES[key] = jax.eval_shape(model.init, jax.random.key(0),
+                                      jnp.zeros((1, *image_hw, 3)), jnp.zeros((1, vocab)))
+    return _SHAPES[key]
+
+
 def jax_variables(model, image_hw, vocab, seed):
     """Random variables of a JAX MultimodalModel, drawn with numpy on the
-    parameter tree that flax would create (``jax.eval_shape`` of ``init``,
-    which traces but compiles nothing). Every leaf is random: kernels at
-    fan-in scale, biases and norm affines near 0 and 1, BN running stats
-    near (0, 1)."""
-    shapes = jax.eval_shape(model.init, jax.random.key(0),
-                            jnp.zeros((1, *image_hw, 3)), jnp.zeros((1, vocab)))
+    parameter tree that flax would create (``jax_variable_shapes``). Every
+    leaf is random: kernels at fan-in scale, biases and norm affines near 0
+    and 1, BN running stats near (0, 1)."""
+    shapes = jax_variable_shapes(model, image_hw, vocab)
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):
