@@ -10,7 +10,9 @@ engine and the HTTP service) and trained (the train step and ``run_kfold``);
 the same model with a DaViT-tiny tower (``skinjax_torch.DAVIT``), served
 and trained at B=64; with a BEiT-v2-large tower (``skinjax_torch.BEIT``),
 served and trained at B=32, and with a ViT-large tower, served; with an
-MViTv2-small tower (``skinjax_torch.MVIT``), served and trained at B=64; the
+MViTv2-small tower (``skinjax_torch.MVIT``), served and trained at B=64; with
+a CAFormer-b36 tower (``skinjax_torch.CAFORMER``), served and trained at
+B=32, and a CoaT-lite-small one (``skinjax_torch.COAT``) at B=64; the
 sentence datasets' tokens model (DaViT-tiny + BERT-base, and + GPT-2 small) trained at
 B=32 over 512 and 256 tokens; all 18 fusion mechanisms; and the train CLI
 from a dataset on disk, whose checkpoint the service then serves, and on a
@@ -18,8 +20,9 @@ sentence dataset. Phases, each printing its lines:
 
   1. card     nvidia-smi name and power limit, CUDA version
   2. build    nvcc builds of skinjax_torch/csrc/fusion_kernels.cu,
-              augment_kernel.cu, window_attention.cu, global_attention.cu and
-              pooled_attention.cu, started together; seconds, ptxas registers
+              augment_kernel.cu, window_attention.cu, global_attention.cu,
+              pooled_attention.cu and fused_mlp.cu, started together; seconds,
+              ptxas registers
   3. kernels  K1-K4 against their plain PyTorch twins at the flagship shapes
               (K4 at Vd in {2048, 768, 512}), B in {1, 3, 8, 32}, fp32 (TF32
               off) and bf16 activations; K5 against its twin at B in
@@ -37,7 +40,13 @@ sentence dataset. Phases, each printing its lines:
               P is within the 256 MB limit; K11 forward (o and P) and backward
               (dq, dk, dv, dbias_h, dbias_w) against their twins at
               MViTv2-small's seven attention shapes (B=64 bf16, B=8 fp32) and
-              a rectangular key grid with a ragged query edge
+              a rectangular key grid with a ragged query edge; K10 and K9
+              forward and backward (dx, dw1, dw2 and ds/db or db1/db2)
+              against their twins at every (D, H) of CAFormer-b36 and
+              CoaT-lite-small with 1000 tokens, and K10 at CAFormer-b36's
+              stage-0 shape at B=32, bf16 and fp32: two backward calls
+              bit-identical, zero dy rows adding nothing, the wrappers
+              raising on a bad dtype or width
   4. slice    fused against plain engine; launches per fused forward; the
               fp32 engine on the card against the same model on the CPU
   5. server   the engine run_service builds, served on a localhost port:
@@ -88,6 +97,21 @@ sentence dataset. Phases, each printing its lines:
               times at the seven shapes, against twins, bounds and
               F.scaled_dot_product_attention with the expanded bias, forward
               and backward, run right after phase 3.)
+ 13b. caformer the CAFormer-b36 model: fused against plain engine (K10
+              launched 36 times and K12 21 times per forward), the fp32 engine
+              on the card against the CPU; run_service with
+              CNN_MODEL_NAME=caformer_b36; the train step at B=32 (augment on,
+              bf16): the loss falls over 10 steps on one batch, K10 36 + 36
+              and K12 21 + 21 launches per unfrozen step, 36 + 0 and 21 + 0
+              frozen; one fp32 step of a small CAFormer on the card against
+              the CPU; the engine's p50/p95; train images/s unfrozen and frozen
+              (caformer_b36_images_per_sec) and a profiled step with K10's and
+              K12's device-time shares
+ 13c. coat    the CoaT-lite-small model, the same at B=64 with K9 16 + 16
+              launches per unfrozen step (coat_lite_small_images_per_sec).
+              (K10's and K9's times at each model's four shapes, against
+              their twins, bounds and the unfused F.linear → activation →
+              F.linear chain, forward and backward, run right after phase 3.)
  14. mechanisms  all 18 at full width around one ResNet-50 tower: the 10 the
               engine fuses, fused against plain with their launches per fused
               forward (metablock: K4 1 + K3 1; …+metablock: K1 4 + K2 2 + K4 1);
@@ -162,13 +186,23 @@ K11 = {  # name -> the Pallas TPU function it replaces (file:line)
     "pooled_attention_fwd": "skinjax/ops/pallas/pooled_attention.py:169",
     "pooled_attention_bwd": "skinjax/ops/pallas/pooled_attention.py:208",
 }
+K9 = {  # name -> the Pallas TPU function it replaces (file:line)
+    "mlp_gelu_fwd": "skinjax/ops/pallas/fused_mlp.py:133",
+    "mlp_gelu_bwd": "skinjax/ops/pallas/fused_mlp.py:154",
+}
+K10 = {  # name -> the Pallas TPU function it replaces (file:line)
+    "mlp_star_fwd": "skinjax/ops/pallas/fused_mlp.py:270",
+    "mlp_star_bwd": "skinjax/ops/pallas/fused_mlp.py:291",
+}
 SOURCE = "skinjax_torch/csrc/fusion_kernels.cu"
 K5_SOURCE = "skinjax_torch/csrc/augment_kernel.cu"
 K7_SOURCE = "skinjax_torch/csrc/window_attention.cu"
 K12_SOURCE = "skinjax_torch/csrc/global_attention.cu"
 K11_SOURCE = "skinjax_torch/csrc/pooled_attention.cu"
+MLP_SOURCE = "skinjax_torch/csrc/fused_mlp.cu"
 BUILDS = {"fusion_kernels": SOURCE, "augment_kernel": K5_SOURCE, "window_attention": K7_SOURCE,
-          "global_attention": K12_SOURCE, "pooled_attention": K11_SOURCE}
+          "global_attention": K12_SOURCE, "pooled_attention": K11_SOURCE,
+          "fused_mlp": MLP_SOURCE}
 KERNEL_NAMES = {"seq1_attention": "seq1_attention_kernel",
                 "gated_residual_seq1": "gated_residual_kernel",
                 "metablock_film": "metablock_film_kernel", "mlp_head": "mlp_head_kernel"}
@@ -184,10 +218,16 @@ K12_KERNELS = {"global_attention_fwd": ["ga_fwd_kernel"],
 # each K11 call's kernels
 K11_KERNELS = {"pooled_attention_fwd": ["pa_fwd_kernel"],
                "pooled_attention_bwd": ["pa_bwd_dq_kernel", "pa_bwd_dkv_kernel"]}
+# each fused-MLP call's kernels (K9 and K10 alike); a call whose token tiles
+# are too few to fill the card also sums its hidden splits (MLP_SPLIT)
+MLP_KERNELS = {"fwd": ["mlp_fwd_kernel"],
+               "bwd": ["mlp_bwd_dx_kernel", "mlp_bwd_dw_kernel", "mlp_bwd_reduce_kernel"]}
+MLP_SPLIT = "mlp_split_reduce_kernel"
 KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", "wa_fwd_kernel",
                   "wa_bwd_kernel", "proj_kernel", "dbias_reduce_kernel", "ga_fwd_kernel",
                   "ga_bwd_dq_kernel", "ga_bwd_dkv_kernel", "ga_bwd_rows_kernel",
-                  "ga_bwd_cols_kernel", "pa_fwd_kernel", "pa_bwd_dq_kernel", "pa_bwd_dkv_kernel")
+                  "ga_bwd_cols_kernel", "pa_fwd_kernel", "pa_bwd_dq_kernel", "pa_bwd_dkv_kernel",
+                  *MLP_KERNELS["fwd"], *MLP_KERNELS["bwd"], MLP_SPLIT)
 # the card's published peaks (H100 SXM data sheet): device memory, float32
 # outside the tensor cores, dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -207,7 +247,8 @@ SMALL_DAVIT = "davit-smoke-small"  # dims (64, 128), depths (1, 1), heads (2, 4)
 # the reference's max_length 512 at its train batch, with a padding mask and
 # broadcast dropout; GPT-2 at its train shape (T=512, B=32: causal bias, key
 # mask and dropout) and at its 1024 positions; a sequence that is not a
-# multiple of 16
+# multiple of 16; CAFormer-b36's attention stages at its train batch (32
+# channels a head, no bias, no mask)
 CAUSAL = "causal"
 K12_SHAPES = {"beitv2-large": (32, 197, 1024, 16, True, False, False),
               "vit-large": (32, 197, 1024, 16, False, False, False),
@@ -215,7 +256,9 @@ K12_SHAPES = {"beitv2-large": (32, 197, 1024, 16, True, False, False),
               "bert-base-T512": (32, 512, 768, 12, False, True, True),
               "gpt2-T512": (32, 512, 768, 12, CAUSAL, True, True),
               "gpt2-T1024": (8, 1024, 768, 12, CAUSAL, True, False),
-              "n50": (4, 50, 256, 4, True, True, True)}
+              "n50": (4, 50, 256, 4, True, True, True),
+              "caformer-b36-s3": (32, 196, 512, 16, False, False, False),
+              "caformer-b36-s4": (32, 49, 768, 24, False, False, False)}
 K12_PER_FORWARD = 24  # one per block of BEiT-large and ViT-large
 K12_SERVED = {"global_attention_fwd": K12_PER_FORWARD, "global_attention_bwd": 0, K12_RECOMPUTE: 0}
 VIT_LARGE = "vit_large_patch16_224"
@@ -236,7 +279,27 @@ K11_RECORD = "stage2"  # the record line's shape: 10 of the 16 blocks
 K11_PER_FORWARD = sum(n for _, _, _, n in K11_SHAPES.values())
 K11_SERVED = {"pooled_attention_fwd": K11_PER_FORWARD, "pooled_attention_bwd": 0}
 SMALL_MVIT = "mvit-smoke-small"  # dims (96, 192), depths (1, 1), heads (1, 2), 64×64
-MVIT_TRAIN_LR = 1e-4
+# The fused token MLPs' shapes at 224×224: label -> (tokens an image, D, H,
+# blocks of that shape), D2 = D. CAFormer-b36's K10 on 56², 28², 14², 7²
+# tokens (36 blocks); CoaT-lite-small's K9 on the same maps plus each stage's
+# cls token (16 blocks). A call's T is the batch times the tokens an image.
+K10_SHAPES = {"stage0": (3136, 128, 512, 3), "stage1": (784, 256, 1024, 12),
+              "stage2": (196, 512, 2048, 18), "stage3": (49, 768, 3072, 3)}
+K9_SHAPES = {"stage1": (3137, 64, 512, 3), "stage2": (785, 128, 1024, 4),
+             "stage3": (197, 320, 1280, 6), "stage4": (50, 512, 2048, 3)}
+MLP_CHECK_T = 1000  # the checks' reduced token count: a multiple of no tile
+K10_PER_FORWARD = sum(n for _, _, _, n in K10_SHAPES.values())
+K9_PER_FORWARD = sum(n for _, _, _, n in K9_SHAPES.values())
+K12_CAFORMER = 21  # CAFormer-b36's attention blocks: stages 3 and 4
+# the record line's shapes: K10 at CAFormer-b36's stage 2 (18 of the 36
+# blocks), K9 at CoaT-lite-small's stage 3 (6 of the 16)
+MLP_RECORD = {"mlp_star": "stage2", "mlp_gelu": "stage3"}
+# the weight and bias gradients: |kernel - twin| within this share of
+# max(1, max |twin|) (skinjax's gradient check): fp32 sums over up to 10^5
+# tokens in another order, and in bf16 an h or dpre that rounds the other way
+MLP_GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+SMALL_CAFORMER = "caformer-smoke-small"  # dims (64, 128), depths (1, 1), conv + attention
+SMALL_COAT = "coat-smoke-small"  # dims (64, 128), depths (1, 1), 8 heads, MLP ratio 8
 # K5's float32 operations per pixel, counted from csrc/augment_kernel.cu:
 # dropout 5 holes × 4 + 3, RGB→HSV 15, mod 3, shift 10, HSV→RGB 10,
 # brightness/contrast 4 + normalize 3 × 6
@@ -245,9 +308,10 @@ K5_SHAPES = ((1, 224, 224), (7, 224, 224), (128, 224, 224), (2, 300, 400))
 TRAIN_B = 128
 TRAIN_HW = 224
 TRAIN_LR = 1e-3  # the loss-falls check: 10 Adam steps on one batch
-# BEiT-large's: at 1e-3 its loss rose again after the first step (a step moves
-# every weight of 24 layer-scaled blocks by ~lr)
-BEIT_TRAIN_LR = 1e-4
+# BEiT-large's, MViTv2-small's, CAFormer-b36's and CoaT-lite-small's: at 1e-3
+# BEiT's loss rose again after the first step (a step moves every weight of 24
+# layer-scaled blocks by ~lr)
+TOWER_TRAIN_LR = 1e-4
 RGATT = "att-intramodal+residual+cross-attention-metadados"
 # the sentence path: BERT-base and GPT-2 small have 12 layers, a K12 call
 # each; the loss-falls check steps at BEiT's lr (random post-LN BERT weights)
@@ -498,12 +562,12 @@ def smoke_featurizer(vocab: int):
     return fz
 
 
-def phase_slice(fk, device, card, label="flagship", config=None, attn=None, fp32=True):
+def phase_slice(fk, device, card, label="flagship", config=None, towers=(), fp32=True):
     """A configuration served (the flagship unless ``config``): the fused
     engine against the plain one in bf16, with the launches per fused forward
-    (with ``attn`` = (module, {kernel: launches per forward}), the tower's
-    attention kernels' too), and, with ``fp32``, in fp32 on the card against
-    the same model on the CPU."""
+    (``towers``: the tower's (module, {kernel: launches per forward}) pairs,
+    counted too), and, with ``fp32``, in fp32 on the card against the same
+    model on the CPU."""
     import numpy as np
     import torch
 
@@ -511,8 +575,10 @@ def phase_slice(fk, device, card, label="flagship", config=None, attn=None, fp32
     from skinjax_torch.serve.engine import InferenceEngine
 
     config = config or FLAGSHIP
-    counters = [fk] + ([attn[0]] if attn else [])
-    expect = dict(PER_FORWARD, **(attn[1] if attn else {}))
+    counters = [fk] + [m for m, _ in towers]
+    expect = dict(PER_FORWARD)
+    for _, per_forward in towers:
+        expect.update(per_forward)
     rng = np.random.default_rng(2)
     # bf16, as served: fused (the kernels) against plain (autocast linears)
     model = smoke_model(config, torch.bfloat16)
@@ -592,16 +658,16 @@ def _multipart(image_bytes: bytes, metadata: str):
     return body, f"multipart/form-data; boundary={boundary}"
 
 
-def phase_server(fk, card, cnn="resnet-50", attn=None, env=None, requests=None,
+def phase_server(fk, card, cnn="resnet-50", towers=(), env=None, requests=None,
                  per_forward=None):
     """The service as ``python -m skinjax_torch.serve.run_service`` builds it
     (its environment: ``CNN_MODEL_NAME=cnn``, the flagship otherwise, random
     weights from seed 0, a featurizer JSON; or ``env``), served as
     ``api.serve`` serves it, on a localhost port, answering four requests (or
     ``requests``: (PNG bytes, CSV line) pairs). The fusion kernels' launches
-    over them must be ``per_forward`` (RG-ATT's by default) per request; with
-    ``attn`` = (module, {kernel: launches per forward}), the tower's attention
-    kernels' launches are counted too. Returns the launches and the engine."""
+    over them must be ``per_forward`` (RG-ATT's by default) per request;
+    ``towers``: the tower's (module, {kernel: launches per forward}) pairs,
+    counted too. Returns the launches and the engine."""
     import tempfile
     from http.server import ThreadingHTTPServer
 
@@ -629,7 +695,8 @@ def phase_server(fk, card, cnn="resnet-50", attn=None, env=None, requests=None,
     check(engine.fused and engine.model.dtype is not None, "run_service built no fused bf16 engine")
     check(engine.model.cnn_dim_output == {"resnet-18": 512, "resnet-50": 2048, "davit_tiny": 768,
                                           "beitv2_large_patch16_224": 1024,
-                                          "mvitv2_small": 768}[cnn],
+                                          "mvitv2_small": 768, "caformer_b36": 768,
+                                          "coat_lite_small": 512}[cnn],
           f"run_service did not build a {cnn} tower")
     if requests is None:
         n_cat = len(engine.featurizer.categorical_cols)
@@ -647,7 +714,7 @@ def phase_server(fk, card, cnn="resnet-50", attn=None, env=None, requests=None,
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     answers = []
-    counters = [fk] + ([attn[0]] if attn else [])
+    counters = [fk] + [m for m, _ in towers]
     try:
         for c in counters:
             c.reset_launches()
@@ -682,8 +749,8 @@ def phase_server(fk, card, cnn="resnet-50", attn=None, env=None, requests=None,
         check(abs(probs.sum() - 1.0) < 1e-4, "probabilities do not sum to 1")
         check(err <= 1e-5, "the server and engine.predict disagree")
     expect = {k: v * len(requests) for k, v in (per_forward or PER_FORWARD).items()}
-    if attn:
-        expect.update({k: v * len(requests) for k, v in attn[1].items()})
+    for _, tower_per_forward in towers:
+        expect.update({k: v * len(requests) for k, v in tower_per_forward.items()})
     log(f"server {cnn} {engine.model.attention_mechanism} launches over {len(requests)} "
         f"requests: {launches} (expected {expect})")
     check(launches == expect, "the served forwards did not run every kernel as expected")
@@ -1162,6 +1229,334 @@ def small_mvit_registered():
         del _REGISTRY[SMALL_MVIT]
 
 
+def mlp_inputs(kind, T, D, H, dtype, device, seed):
+    """A fused-MLP call's arguments at (T, D, H), D2 = D, drawn on the card:
+    unit-scale x and dy, fan-in-scaled weights; K9's biases at 0.1, K10's
+    s = 1.3 and b = -0.2 (fp32). Returns (args, dy)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+    x, w1, w2, dy = r(T, D), r(D, H, scale=D ** -0.5), r(H, D, scale=H ** -0.5), r(T, D)
+    if kind == "gelu":
+        return (x, w1, r(H, scale=0.1), w2, r(D, scale=0.1)), dy
+    s = torch.tensor([1.3], device=device)
+    b = torch.tensor([-0.2], device=device)
+    return (x, w1, s, b, w2), dy
+
+
+def mlp_calls(fm, kind, args, dy):
+    """(forward kernel, forward twin, backward kernel, backward twin) on args."""
+    if kind == "gelu":
+        x, w1, b1, w2, _ = args
+        return (lambda: fm.mlp_gelu_fwd(*args), lambda: fm.mlp_gelu_plain(*args),
+                lambda: fm.mlp_gelu_bwd(x, dy, w1, b1, w2),
+                lambda: fm.mlp_gelu_bwd_plain(x, dy, w1, b1, w2))
+    x, w1, s, b, w2 = args
+    return (lambda: fm.mlp_star_fwd(*args), lambda: fm.mlp_star_plain(*args),
+            lambda: fm.mlp_star_bwd(x, dy, w1, s, b, w2),
+            lambda: fm.mlp_star_bwd_plain(x, dy, w1, s, b, w2))
+
+
+def compare_scaled(out, ref, tol):
+    """(max abs error, within tol·max(1, max |ref|)) of a gradient against
+    its twin's."""
+    import torch
+
+    check(out.dtype == ref.dtype and out.shape == ref.shape,
+          f"{out.dtype}{tuple(out.shape)} vs twin {ref.dtype}{tuple(ref.shape)}")
+    check(bool(torch.isfinite(out.float()).all()), "non-finite kernel output")
+    err = float((out.float() - ref.float()).abs().max())
+    return err, err <= tol * max(1.0, float(ref.float().abs().max()))
+
+
+def raises(fn, exc) -> bool:
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def mlp_check(fm, fn, label, args, dy, errors):
+    """One fused-MLP case against its twin: y and dx at BF16_TOL/F32_TOL,
+    the weight, bias and scalar gradients at MLP_GRAD_TOL of max(1, max
+    |twin|), and two backward calls bit-identical. Raises ``errors[name]``
+    to each error seen; fails the run on a mismatch."""
+    import torch
+
+    kind = fn.split("_")[1]
+    parts = (("dx", "dw1", "db1", "dw2", "db2") if kind == "gelu"
+             else ("dx", "dw1", "ds", "db", "dw2"))
+    x, w1 = args[:2]
+    (T, D), H = x.shape, w1.shape[1]
+    dname = str(x.dtype).split(".")[1]
+    tol = BF16_TOL if x.dtype == torch.bfloat16 else F32_TOL
+    fwd, fwd_twin, bwd, bwd_twin = mlp_calls(fm, kind, args, dy)
+    y, y_twin = fwd(), fwd_twin()
+    got, want, again = bwd(), bwd_twin(), bwd()
+    torch.cuda.synchronize()
+    results = [(f"{fn}_fwd", "y", *compare(y, y_twin, tol),
+                f"atol {tol[0]:g} + rtol {tol[1]:g}·|twin|")]
+    for part, g, w in zip(parts, got, want):
+        if part == "dx":
+            results.append((f"{fn}_bwd", part, *compare(g, w, tol),
+                            f"atol {tol[0]:g} + rtol {tol[1]:g}·|twin|"))
+        else:
+            results.append((f"{fn}_bwd", part, *compare_scaled(g, w, MLP_GRAD_TOL[dname]),
+                            f"{MLP_GRAD_TOL[dname]:g}·max(1, |twin|)"))
+    for name, part, err, ok, tol_text in results:
+        errors[name] = max(errors[name], err)
+        log(f"kernel {name} {part:3s} {dname:8s} {label} T={T} D={D} H={H}: "
+            f"max_abs_err={err:.3e} tol={tol_text} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {part} disagrees with its twin at {label} {dname}")
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"kernel {fn}_bwd {dname} {label} T={T}: two calls bit-identical: {same}")
+    check(same, f"two {fn}_bwd calls differ at {label} {dname}")
+
+
+def phase_mlp(fm, device):
+    """K10 and K9, forward and backward, against their twins at every (D, H)
+    of CAFormer-b36 and CoaT-lite-small with T = MLP_CHECK_T, and K10 at
+    CAFormer-b36's stage-0 shape at its full T, bf16 and fp32 (TF32 off): y
+    and dx at BF16_TOL/F32_TOL, the weight, bias and scalar gradients at
+    MLP_GRAD_TOL of max(1, max |twin|). At each case: two backward calls are
+    bit-identical. At the first shape of each, in both dtypes: rows whose dy
+    is 0 add nothing (x changed on those rows leaves every weight gradient,
+    and dx on the other rows, bit-identical). The wrappers raise on fp16, a
+    width that is not a multiple of 16 and a misshapen bias."""
+    import torch
+
+    from skinjax_torch import CAFORMER_BATCH
+
+    errors = {name: 0.0 for name in (*K9, *K10)}
+    cases = [("mlp_star", label, MLP_CHECK_T, D, H) for label, (_, D, H, _) in K10_SHAPES.items()]
+    cases += [("mlp_gelu", label, MLP_CHECK_T, D, H) for label, (_, D, H, _) in K9_SHAPES.items()]
+    n0, D0, H0, _ = K10_SHAPES["stage0"]
+    cases.append(("mlp_star", "stage0-full", CAFORMER_BATCH * n0, D0, H0))
+    first = {"mlp_star": cases[0][1], "mlp_gelu": cases[len(K10_SHAPES)][1]}
+    for fn, label, T, D, H in cases:
+        kind = fn.split("_")[1]
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            args, dy = mlp_inputs(kind, T, D, H, dtype, device, seed=T + H)
+            mlp_check(fm, fn, label, args, dy, errors)
+            if label == first[fn]:
+                rows = slice(T // 3, T // 3 + 77)
+                dz = dy.clone()
+                dz[rows] = 0
+                x2 = args[0].clone()
+                gen = torch.Generator(device=device).manual_seed(T)
+                x2[rows] = (3 * torch.randn(x2[rows].shape, generator=gen, device=device)).to(dtype)
+                _, _, bwd_a, _ = mlp_calls(fm, kind, args, dz)
+                _, _, bwd_b, _ = mlp_calls(fm, kind, (x2, *args[1:]), dz)
+                a, b = bwd_a(), bwd_b()
+                keep = torch.ones(T, dtype=torch.bool, device=device)
+                keep[rows] = False
+                same = (all(torch.equal(u, v) for u, v in zip(a[1:], b[1:]))
+                        and torch.equal(a[0][keep], b[0][keep]))
+                log(f"kernel {fn}_bwd {dname} {label}: 77 rows of zero dy add nothing (x "
+                    f"changed there, the gradients bit-identical): {same}")
+                check(same, f"zero dy rows changed a {fn}_bwd gradient")
+            del args, dy
+    x = torch.randn(8, 64, device=device, dtype=torch.bfloat16)
+    w1 = torch.randn(64, 256, device=device, dtype=torch.bfloat16)
+    w2 = torch.randn(256, 64, device=device, dtype=torch.bfloat16)
+    s1 = torch.ones(1, device=device)
+    bad = {"fp16": (lambda: fm.mlp_star_fwd(x.half(), w1.half(), s1, s1, w2.half()), TypeError),
+           "D=24": (lambda: fm.mlp_star_fwd(x[:, :24], w1[:24], s1, s1, w2[:, :24]), ValueError),
+           "b1 (255,)": (lambda: fm.mlp_gelu_fwd(x, w1, w1[0, :255], w2, x[0]), ValueError)}
+    for what, (call, exc) in bad.items():
+        ok = raises(call, exc)
+        log(f"kernel wrappers raise {exc.__name__} on {what}: {ok}")
+        check(ok, f"the fused MLP wrappers took {what}")
+    torch.cuda.empty_cache()
+    return errors
+
+
+def mlp_bound(T, D, H, itemsize, kind, backward):
+    """The least time (ms) for one fused-MLP call (D2 = D): every input read
+    once and every output written once over the HBM rate, against its
+    products over the bf16 tensor-core rate (2·T·D·H operations each).
+    Forward: x, w1, w2 (K9: b1, b2; K10: s, b) → y; two products. Backward:
+    x, dy, w1, w2 (K9: b1) → dx, dw1 and dw2 fp32 (K9: db1, db2; K10: ds,
+    db); the recomputed pre-activation and four products. Returns (ms,
+    bytes, operations)."""
+    act, weights = T * D * itemsize, 2 * D * H * itemsize
+    extra_in = (H + D) * itemsize if kind == "gelu" else 8
+    if backward:
+        extra_out = (H + D) * 4 if kind == "gelu" else 8
+        nbytes = 3 * act + weights + 2 * D * H * 4 + (H * itemsize if kind == "gelu" else 8) \
+            + extra_out
+        ops = 10 * T * D * H
+    else:
+        nbytes, ops = 2 * act + weights + extra_in, 4 * T * D * H
+    return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3, nbytes, ops
+
+
+def mlp_chain_times(kind, args, dy):
+    """The unfused chain the kernel replaces, F.linear → activation →
+    F.linear (cuBLAS and PyTorch's elementwise kernels; the port never calls
+    it), on the same inputs: (forward ms by CUDA events, backward device ms
+    by torch.profiler of autograd's backward alone on one retained graph)."""
+    import torch
+    import torch.nn.functional as F
+
+    x = args[0].detach().requires_grad_(True)
+    if kind == "gelu":
+        _, w1, b1, w2, b2 = args
+        params = [t.detach().requires_grad_(True) for t in (w1.t(), b1, w2.t(), b2)]
+
+        def chain():
+            return F.linear(F.gelu(F.linear(x, params[0], params[1]), approximate="none"),
+                            params[2], params[3])
+    else:
+        _, w1, s, b, w2 = args
+        params = [t.detach().requires_grad_(True) for t in (w1.t(), s, b, w2.t())]
+
+        def chain():
+            r = F.relu(F.linear(x, params[0]))
+            return F.linear(params[1].to(x.dtype) * r * r + params[2].to(x.dtype), params[3])
+
+    def fwd():
+        with torch.no_grad():
+            return chain()
+
+    out = chain()
+
+    def bwd():
+        return torch.autograd.grad(out, [x, *params], dy, retain_graph=True)
+
+    f = (time_ms(fwd, 10, 2) + time_ms(fwd, 10, 2)) / 2
+    bwd()
+    b_us, _ = device_us(bwd, n=5)
+    return f, (b_us / 1e3 if b_us > 0 else None)
+
+
+def phase_mlp_times(fm, device, card, errors):
+    """K10 at CAFormer-b36's four shapes (B=32) and K9 at CoaT-lite-small's
+    four (B=64), bf16, forward and backward: first held against the twin on
+    those inputs (``mlp_check``, raising ``errors``), then per call by CUDA
+    events in turns against the twin, device time by torch.profiler, the
+    bound, and the unfused cuBLAS chain as the yardstick; then each kernel's
+    sum over the blocks of a train step. Returns {(name, label): times}."""
+    import torch
+
+    from skinjax_torch import CAFORMER_BATCH, COAT_BATCH
+
+    out = {}
+    for fn, shapes, B, model in (("mlp_star", K10_SHAPES, CAFORMER_BATCH, "CAFormer-b36"),
+                                 ("mlp_gelu", K9_SHAPES, COAT_BATCH, "CoaT-lite-small")):
+        kind = fn.split("_")[1]
+        step = {f"{fn}_{d}": [0.0, 0.0, 0.0, 0.0, 0.0] for d in ("fwd", "bwd")}
+        for label, (n, D, H, count) in shapes.items():
+            T = B * n
+            args, dy = mlp_inputs(kind, T, D, H, torch.bfloat16, device, seed=43)
+            mlp_check(fm, fn, f"{model} {label} B={B}", args, dy, errors)
+            fwd, fwd_twin, bwd, bwd_twin = mlp_calls(fm, kind, args, dy)
+            library = dict(zip((f"{fn}_fwd", f"{fn}_bwd"), mlp_chain_times(kind, args, dy)))
+            for d, kern, twin in (("fwd", fwd, fwd_twin), ("bwd", bwd, bwd_twin)):
+                name = f"{fn}_{d}"
+                t = [time_ms(twin, 10, 2), time_ms(kern, 10, 2), time_ms(kern, 10, 2),
+                     time_ms(twin, 10, 2)]
+                ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+                # per-launch means of each kernel the call runs (the split sum
+                # only where T/32 tiles are few)
+                means = {n: e.self_device_time_total / e.count for e in device_events(kern, 5)
+                         for n in (*MLP_KERNELS[d], MLP_SPLIT) if n in e.key}
+                dev_k = (sum(means.values()) if all(n in means for n in MLP_KERNELS[d])
+                         else None)
+                bound_ms, nbytes, ops = mlp_bound(T, D, H, 2, kind, d == "bwd")
+                bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
+                            else "operations")
+                out[(name, label)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                          bound_by=bound_by, library_ms=library[name])
+                for i, x in enumerate((ms, None if dev_k is None else dev_k / 1e3, plain_ms,
+                                       bound_ms, library[name])):
+                    step[name][i] = (None if None in (x, step[name][i])
+                                     else step[name][i] + count * x)
+                log(f"[{card}] time {name} bf16 {model} {label} T={T} D={D} H={H} per call: "
+                    f"kernel {ms * 1e3:9.2f} us  twin {plain_ms * 1e3:9.2f} us (CUDA events, in "
+                    f"turns twin-kernel-kernel-twin); device time: kernel {us(dev_k)} "
+                    f"(torch.profiler: "
+                    + ", ".join(f"{k} {v:.1f}" for k, v in means.items())
+                    + f"); bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at "
+                    f"3.35 TB/s, {ops / 1e9:.2f} GFLOP at 989 TFLOP/s, {bound_by}); the unfused "
+                    f"F.linear chain {'forward' if d == 'fwd' else 'backward (device time)'} "
+                    f"{ms_us(library[name])}")
+            del args, dy, fwd, fwd_twin, bwd, bwd_twin
+            torch.cuda.empty_cache()
+        for name, (ms, dev, plain_ms, bound_ms, lib_ms) in step.items():
+            log(f"[{card}] time {name} bf16 {model} B={B}, the "
+                f"{sum(c for *_, c in shapes.values())} blocks of a step: kernel {ms:.3f} ms per "
+                f"call sum, {ms_us(dev)} device time, twin {plain_ms:.3f} ms, bound "
+                f"{bound_ms:.3f} ms, the unfused chain {ms_us(lib_ms)}")
+    return out
+
+
+@contextlib.contextmanager
+def small_caformer_registered():
+    """A small CAFormer (dims (64, 128), depths (1, 1): a SepConv stage and
+    an attention stage with residual scaling, 32 channels a head, as
+    caformer_b36) as backbone ``SMALL_CAFORMER`` meanwhile."""
+    from skinjax_torch.models.backbones import _REGISTRY
+    from skinjax_torch.models.backbones.caformer import CAFormer
+
+    _REGISTRY[SMALL_CAFORMER] = (lambda device=None: CAFormer(
+        (64, 128), (1, 1), ("conv", "attention"), (False, True), device=device), 128)
+    try:
+        yield
+    finally:
+        del _REGISTRY[SMALL_CAFORMER]
+
+
+@contextlib.contextmanager
+def small_coat_registered():
+    """A small CoaT-lite (dims (64, 128), depths (1, 1), 8 heads, MLP ratio
+    8, as coat_lite_small's first stages) as backbone ``SMALL_COAT``
+    meanwhile."""
+    from skinjax_torch.models.backbones import _REGISTRY
+    from skinjax_torch.models.backbones.coat import CoaTLite
+
+    _REGISTRY[SMALL_COAT] = (lambda device=None: CoaTLite(
+        (64, 128), (1, 1), 8, (8.0, 8.0), device=device), 128)
+    try:
+        yield
+    finally:
+        del _REGISTRY[SMALL_COAT]
+
+
+def phase_mlp_tower(counters, device, card, label, config, batch, towers, per_step,
+                    frozen_per_step, registered, small, kernel_names):
+    """A tower with the fused MLP at full width, as the MViT phases drive
+    theirs: fused against plain engine (``towers``: the (module, launches
+    per forward) pairs), the fp32 engine on the card against the CPU;
+    run_service with its CNN_MODEL_NAME; the train step at ``batch`` (augment
+    on, bf16): the loss falls over 10 steps on one batch, ``per_step``
+    launches a step unfrozen and ``frozen_per_step`` frozen; one fp32 step of
+    a small tower on the card against the CPU; the engine's p50/p95 at B=1
+    (20 forwards in turns, no profile: these phases are host-bound and the
+    script's time is bounded); train img/s unfrozen and frozen, and a
+    profiled step with the shares of ``kernel_names``. Returns the 10
+    unfrozen steps' launches and the train times."""
+    fused, plain = phase_slice(counters[0], device, card, label, config, towers)
+    phase_server(counters[0], card, cnn=config["cnn_model_name"], towers=towers)
+    train_batch_, cw, step, launches = phase_train(
+        counters[1:], device, card, label, config, batch, per_step=per_step,
+        frozen_per_step=frozen_per_step, lr=TOWER_TRAIN_LR)
+    with registered():
+        phase_card_vs_cpu(device, cnn=small, hw=64)
+    engine_latency(fused, plain, label, card, batches=(1,), n=20, profile=False)
+    del fused, plain
+    times = phase_train_times(device, card, train_batch_, cw, step, label, config,
+                              kernel_names=kernel_names)
+    _SMOKE_MODELS.clear()
+    return launches, times
+
+
 def train_batch(device, B=None, hw=None, seed=0):
     """One batch of the synthetic dataset (class-dependent brightness and
     metadata) on ``device``, and its class weights."""
@@ -1338,13 +1733,16 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
     # by the math (a constant added to every score of a row leaves the softmax
     # as it is), so its Adam step is lr·noise/(|noise| + eps) on either side.
     # So are BERT's key bias and the shift of MViTv2's key LayerNorm (a
-    # constant added to every pooled key): the same case. Their largest CPU
-    # gradient is printed, as a share of all gradients' norm.
+    # constant added to every pooled key): the same case, and CoaT's key bias
+    # (a constant added to every token's key of a channel leaves its softmax
+    # over the tokens as it is). Their largest CPU gradient is printed, as a
+    # share of all gradients' norm.
     pd = {k: (sc[k].float() - sh[k].float()).abs() for k in gh}
     pdiff = max(float(d.max()) for d in pd.values())
     key_bias, key_grad = 0, 0.0
     for k in pd:
-        if re.fullmatch(r"image_encoder\.stages\.\d+\.blocks\.\d+\.0\.attn\.qkv\.bias", k):
+        if re.fullmatch(r"image_encoder\.(stages\.\d+\.blocks\.\d+\.0\.attn|"
+                        r"serial_blocks\d+\.\d+\.factoratt_crpe)\.qkv\.bias", k):
             C = pd[k].numel() // 3
             pd[k] = torch.cat([pd[k][:C], pd[k][2 * C:]])
             key_bias += C
@@ -1383,13 +1781,19 @@ def phase_sentence_train(counters, device, card, label, config, T, per_step,
     and DaViT trains (``text_train_mode="frozen_weights"``, the reference's
     default that bench.py measures): the tower stays bit-identical and the
     image tower moves. With ``timed``, train images/s by CUDA events and a
-    profiled step. Returns the 10 steps' launches and the ms per step (or
-    None)."""
+    profiled step. The loss that must fall is the batch's in eval mode (no
+    augmentation, no dropout), before the 10 steps and after them: each
+    train step's own loss carries its augmentation's and dropout's draw, and
+    with a random BERT at lr 1e-4 that noise is as large as the fall (the
+    last step's loss moved between 1.83 and 2.12 from run to run on an H100,
+    against a first step's 2.08). Returns the 10 steps' launches and the ms
+    per step (or None)."""
     import torch
 
     from skinjax_torch import SENTENCE_BATCH
     from skinjax_torch.train.loop import TrainConfig, build_state
-    from skinjax_torch.train.steps import make_train_step_weighted
+    from skinjax_torch.train.losses import weighted_loss
+    from skinjax_torch.train.steps import make_loss_eval_step, make_train_step_weighted
 
     B = SENTENCE_BATCH
     batch, cw = train_batch(device, B=B)
@@ -1402,22 +1806,28 @@ def phase_sentence_train(counters, device, card, label, config, T, per_step,
     text0 = {k: v.detach().clone() for k, v in model.text_encoder.named_parameters()}
     image0 = {k: v.detach().clone() for k, v in model.image_encoder.named_parameters()}
     call = lambda: step(state, batch["image"], batch["metadata"], batch["label"], 0, cw)  # noqa: E731
+    wloss = weighted_loss("weighted_ce")
+    eval_step = make_loss_eval_step(lambda logits, y: wloss(logits, y, cw), torch.bfloat16)
+    eval_loss = lambda: float(eval_step(state, batch["image"], batch["metadata"],  # noqa: E731
+                                        batch["label"])[0])
+    before = eval_loss()
     for c in counters:
         c.reset_launches()
     losses = [float(x) for x in [call() for _ in range(10)]]
     torch.cuda.synchronize()
     launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    after = eval_loss()
     text_same = all(torch.equal(v, text0[k]) for k, v in model.text_encoder.named_parameters())
     image_moved = sum(not torch.equal(v, image0[k])
                       for k, v in model.image_encoder.named_parameters())
     mode = "text tower frozen" if text_frozen else "unfrozen"
     log(f"train {label} {mode} B={B} T={T} (lr {SENTENCE_LR:g}, one batch, augment on, sentence "
-        f"recipe): losses " + " ".join(f"{x:.4f}" for x in losses) + f"; launches {launches} "
-        f"over 10 steps; text tower bit-identical: {text_same}; image_encoder tensors moved "
+        f"recipe): losses " + " ".join(f"{x:.4f}" for x in losses) + f"; the batch's eval-mode "
+        f"loss {before:.4f} before the 10 steps, {after:.4f} after; launches {launches} over 10 "
+        f"steps; text tower bit-identical: {text_same}; image_encoder tensors moved "
         f"{image_moved}/{len(image0)}")
-    check(all(math.isfinite(x) for x in losses), "non-finite train loss")
-    check(sum(losses[-3:]) / 3 < sum(losses[:3]) / 3 and losses[-1] < losses[0],
-          f"the {label} loss did not fall over 10 steps on one batch")
+    check(all(math.isfinite(x) for x in (*losses, before, after)), "non-finite train loss")
+    check(after < before, f"the {label} loss did not fall over 10 steps on one batch")
     expect = {k: 10 * v for k, v in per_step.items()}
     check(launches == expect, f"launches {launches} over 10 steps != {expect}")
     check(text_same == text_frozen, f"the {label} text tower {'moved' if text_frozen else 'froze'}")
@@ -1623,9 +2033,10 @@ def phase_fold(ak, device, card):
 
 
 def phase_train_times(device, card, batch, cw, step, label="flagship", config=None,
-                      kernel_names=("color_stage_kernel",)):
+                      kernel_names=None):
     """Train img/s at the batch's size, unfrozen and frozen; a profiled
-    unfrozen step, with the share of the kernels named."""
+    unfrozen step, with the share of each group of kernels named
+    (``kernel_names``: {label: kernel names}; K5's by default)."""
     from skinjax_torch import FLAGSHIP
 
     config = config or FLAGSHIP
@@ -1646,11 +2057,13 @@ def phase_train_times(device, card, batch, cw, step, label="flagship", config=No
     mean_ms = time_ms(call, iters=5, warmup=2)
     total, by_name = device_us(call, n=3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    ours = sum(v for k, v in by_name.items() if any(n in k for n in kernel_names))
+    shares = []
+    for name, names in (kernel_names or {"K5": ["color_stage_kernel"]}).items():
+        ours = sum(v for k, v in by_name.items() if any(n in k for n in names))
+        shares.append(f"{name} {ours:.1f} us ({100 * ours / total:.2f}%)")
     log(f"[{card}] profile train {label} step unfrozen B={B}: device time {total / 1e3:.2f} ms "
         f"per step = {100 * total / (mean_ms * 1e3):.1f}% of the untraced {mean_ms:.2f} ms "
-        f"step; {'/'.join(kernel_names)} {ours:.1f} us ({100 * ours / total:.2f}%); "
-        f"{len(by_name)} kernel names")
+        f"step; {'; '.join(shares)}; {len(by_name)} kernel names")
     log("  top kernels (us per step): " + "; ".join(f"{k[:70]} {v:.1f}" for k, v in top))
     return times
 
@@ -1764,19 +2177,19 @@ def phase_k7_times(wa, device, card):
     return out
 
 
-def engine_latency(fused, plain, label, card):
-    """p50/p95 of the fused and plain engines at B=1 and 8, in turns; then a
-    profile of each."""
-    for B in (1, 8):
+def engine_latency(fused, plain, label, card, batches=(1, 8), n=50, profile=True):
+    """p50/p95 of the fused and plain engines at each of ``batches``, n
+    forwards each, in turns; then, with ``profile``, a profile of each."""
+    for B in batches:
         means = {}
         for kind, eng in (("fused", fused), ("plain", plain), ("plain", plain),
                           ("fused", fused)):  # in turns
-            lat = eng.measure_latency(n=50, batch=B)
+            lat = eng.measure_latency(n=n, batch=B)
             means.setdefault(kind, []).append(lat["mean_ms"])
             log(f"[{card}] engine {label} bf16 {kind} B={B}: p50 {lat['p50_ms']:.3f} ms "
-                f"p95 {lat['p95_ms']:.3f} ms mean {lat['mean_ms']:.3f} ms (50 forwards, host "
+                f"p95 {lat['p95_ms']:.3f} ms mean {lat['mean_ms']:.3f} ms ({n} forwards, host "
                 f"clock to synchronize, inputs on the card)")
-        for kind, eng in (("fused", fused), ("plain", plain)):
+        for kind, eng in ((("fused", fused), ("plain", plain)) if profile else ()):
             phase_profile(eng, f"{label} {kind}", B, sum(means[kind]) / 2, card)
 
 
@@ -2025,6 +2438,10 @@ def main() -> int:
     from skinjax_torch import (
         BEIT,
         BEIT_BATCH,
+        CAFORMER,
+        CAFORMER_BATCH,
+        COAT,
+        COAT_BATCH,
         DAVIT,
         DAVIT_BATCH,
         FLAGSHIP,
@@ -2037,6 +2454,7 @@ def main() -> int:
     )
     from skinjax_torch.ops import augment_kernel as ak
     from skinjax_torch.ops import build
+    from skinjax_torch.ops import fused_mlp as fm
     from skinjax_torch.ops import fusion_kernels as fk
     from skinjax_torch.ops import global_attention as ga
     from skinjax_torch.ops import pooled_attention as pa
@@ -2056,7 +2474,7 @@ def main() -> int:
     log(f"phase card: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}; TF32 off")
 
-    build_kernels(build, (fk, ak, wa, ga, pa))
+    build_kernels(build, (fk, ak, wa, ga, pa, fm))
     for name, src in BUILDS.items():
         info = build.build_info[name]
         built = f"built in {info['seconds']:.1f} s" if info["seconds"] else "already built"
@@ -2070,10 +2488,12 @@ def main() -> int:
     errors.update(phase_k7(wa, device))
     errors.update(phase_k12(ga, device))
     errors.update(phase_k11(pa, device))
+    errors.update(phase_mlp(fm, device))
     # K12's, K11's and K7's times first: in a process that has traced much,
     # torch.profiler dropped K7's launches from its traces
     k12_times = phase_k12_times(ga, device, card)
     k11_times = phase_k11_times(pa, device, card)
+    mlp_times = phase_mlp_times(fm, device, card, errors)
     k7_times = phase_k7_times(wa, device, card)
     k4_times = phase_k4_times(fk, device, card)
     torch.cuda.synchronize()
@@ -2099,8 +2519,8 @@ def main() -> int:
 
     # DaViT: served, trained; K7's launches on the main path are the 10
     # unfrozen train steps'
-    d_fused, d_plain = phase_slice(fk, device, card, "davit", DAVIT, (wa, K7_SERVED))
-    phase_server(fk, card, cnn="davit_tiny", attn=(wa, K7_SERVED))
+    d_fused, d_plain = phase_slice(fk, device, card, "davit", DAVIT, [(wa, K7_SERVED)])
+    phase_server(fk, card, cnn="davit_tiny", towers=[(wa, K7_SERVED)])
     k7_step = {"window_attention_fwd": K7_PER_FORWARD, "window_attention_bwd": K7_PER_FORWARD}
     batch, cw, step, d_launches = phase_train(
         [ak, wa], device, card, "davit", DAVIT, DAVIT_BATCH, per_step={K5: 1, **k7_step},
@@ -2112,21 +2532,21 @@ def main() -> int:
     engine_latency(d_fused, d_plain, "davit", card)
     del d_fused, d_plain
     phase_train_times(device, card, batch, cw, step, "davit", DAVIT,
-                      kernel_names=[n for names in K7_KERNELS.values() for n in names])
+                      kernel_names={"K7": [n for names in K7_KERNELS.values() for n in names]})
     del batch, cw, step
     torch.cuda.synchronize()
     elapsed("DaViT")
 
     # BEiT-v2-large: served, trained; K12's launches on the main path are the
     # 10 unfrozen train steps'. Then ViT-large served: K12 without a bias
-    b_fused, b_plain = phase_slice(fk, device, card, "beitv2-large", BEIT, (ga, K12_SERVED),
+    b_fused, b_plain = phase_slice(fk, device, card, "beitv2-large", BEIT, [(ga, K12_SERVED)],
                                    fp32=False)
-    phase_server(fk, card, cnn=BEIT["cnn_model_name"], attn=(ga, K12_SERVED))
+    phase_server(fk, card, cnn=BEIT["cnn_model_name"], towers=[(ga, K12_SERVED)])
     k12_step = {"global_attention_fwd": K12_PER_FORWARD, "global_attention_bwd": K12_PER_FORWARD,
                 K12_RECOMPUTE: 0}  # 79.5 MB of P a call: the stored-P route
     batch, cw, step, b_launches = phase_train(
         [ak, ga], device, card, "beitv2-large", BEIT, BEIT_BATCH, per_step={K5: 1, **k12_step},
-        frozen_per_step={K5: 1, **k12_step, "global_attention_bwd": 0}, lr=BEIT_TRAIN_LR)
+        frozen_per_step={K5: 1, **k12_step, "global_attention_bwd": 0}, lr=TOWER_TRAIN_LR)
     launches.update({name: b_launches[name] for name in ("global_attention_fwd",
                                                          "global_attention_bwd")})
     with small_beit_registered():
@@ -2135,10 +2555,10 @@ def main() -> int:
     engine_latency(b_fused, b_plain, "beitv2-large", card)
     del b_fused, b_plain
     phase_train_times(device, card, batch, cw, step, "beitv2-large", BEIT,
-                      kernel_names=[n for names in K12_KERNELS.values() for n in names])
+                      kernel_names={"K12": [n for names in K12_KERNELS.values() for n in names]})
     del batch, cw, step
     v_fused, v_plain = phase_slice(fk, device, card, "vit-large",
-                                   dict(FLAGSHIP, cnn_model_name=VIT_LARGE), (ga, K12_SERVED),
+                                   dict(FLAGSHIP, cnn_model_name=VIT_LARGE), [(ga, K12_SERVED)],
                                    fp32=False)
     del v_fused, v_plain
     _SMOKE_MODELS.clear()
@@ -2147,12 +2567,12 @@ def main() -> int:
 
     # MViTv2-small: served, trained; K11's launches on the main path are the
     # 10 unfrozen train steps'
-    m_fused, m_plain = phase_slice(fk, device, card, "mvitv2-small", MVIT, (pa, K11_SERVED))
-    phase_server(fk, card, cnn=MVIT["cnn_model_name"], attn=(pa, K11_SERVED))
+    m_fused, m_plain = phase_slice(fk, device, card, "mvitv2-small", MVIT, [(pa, K11_SERVED)])
+    phase_server(fk, card, cnn=MVIT["cnn_model_name"], towers=[(pa, K11_SERVED)])
     k11_step = {"pooled_attention_fwd": K11_PER_FORWARD, "pooled_attention_bwd": K11_PER_FORWARD}
     batch, cw, step, m_launches = phase_train(
         [ak, pa], device, card, "mvitv2-small", MVIT, MVIT_BATCH, per_step={K5: 1, **k11_step},
-        frozen_per_step={K5: 1, **k11_step, "pooled_attention_bwd": 0}, lr=MVIT_TRAIN_LR)
+        frozen_per_step={K5: 1, **k11_step, "pooled_attention_bwd": 0}, lr=TOWER_TRAIN_LR)
     launches.update({name: m_launches[name] for name in K11})
     with small_mvit_registered():
         phase_card_vs_cpu(device, cnn=SMALL_MVIT, hw=64)
@@ -2160,7 +2580,8 @@ def main() -> int:
     engine_latency(m_fused, m_plain, "mvitv2-small", card)
     del m_fused, m_plain
     m_times = phase_train_times(device, card, batch, cw, step, "mvitv2-small", MVIT,
-                                kernel_names=[n for names in K11_KERNELS.values() for n in names])
+                                kernel_names={"K11": [n for names in K11_KERNELS.values()
+                                                      for n in names]})
     log(f"[{card}] mvitv2_small_images_per_sec "
         f"{MVIT_BATCH / m_times['unfrozen_weights'] * 1e3:.1f} (MViTv2-small, RG-ATT, "
         f"B={MVIT_BATCH}, bf16, augment on, unfrozen; CUDA events)")
@@ -2168,6 +2589,40 @@ def main() -> int:
     _SMOKE_MODELS.clear()
     torch.cuda.synchronize()
     elapsed("MViTv2-small")
+
+    # CAFormer-b36 (K10 on every MLP, K12 on the attention blocks) and
+    # CoaT-lite-small (K9 on every serial MLP): served, trained; the fused
+    # MLPs' launches on the main path are the 10 unfrozen train steps'
+    mlp_off = {name: 0 for name in (*K9, *K10)}
+    k12_off = {name: 0 for name in K12}
+    k10_fwd = dict(mlp_off, mlp_star_fwd=K10_PER_FORWARD)
+    k12_fwd = dict(k12_off, global_attention_fwd=K12_CAFORMER)  # 79 MB of P: stored-P
+    c_step = {K5: 1, **k10_fwd, "mlp_star_bwd": K10_PER_FORWARD, **k12_fwd,
+              "global_attention_bwd": K12_CAFORMER}
+    c_launches, c_times = phase_mlp_tower(
+        [fk, ak, fm, ga], device, card, "caformer-b36", CAFORMER, CAFORMER_BATCH,
+        [(fm, k10_fwd), (ga, k12_fwd)], c_step,
+        dict(c_step, mlp_star_bwd=0, global_attention_bwd=0), small_caformer_registered,
+        SMALL_CAFORMER, {"K10": MLP_KERNELS["fwd"] + MLP_KERNELS["bwd"] + [MLP_SPLIT],
+                         "K12": [n for names in K12_KERNELS.values() for n in names]})
+    launches.update({name: c_launches[name] for name in K10})
+    log(f"[{card}] caformer_b36_images_per_sec "
+        f"{CAFORMER_BATCH / c_times['unfrozen_weights'] * 1e3:.1f} (CAFormer-b36, RG-ATT, "
+        f"B={CAFORMER_BATCH}, bf16, augment on, unfrozen; CUDA events)")
+    torch.cuda.synchronize()
+    elapsed("CAFormer-b36")
+    k9_fwd = dict(mlp_off, mlp_gelu_fwd=K9_PER_FORWARD)
+    t_step = {K5: 1, **k9_fwd, "mlp_gelu_bwd": K9_PER_FORWARD}
+    t_launches, t_times = phase_mlp_tower(
+        [fk, ak, fm], device, card, "coat-lite-small", COAT, COAT_BATCH,
+        [(fm, k9_fwd)], t_step, dict(t_step, mlp_gelu_bwd=0), small_coat_registered, SMALL_COAT,
+        {"K9": MLP_KERNELS["fwd"] + MLP_KERNELS["bwd"] + [MLP_SPLIT]})
+    launches.update({name: t_launches[name] for name in K9})
+    log(f"[{card}] coat_lite_small_images_per_sec "
+        f"{COAT_BATCH / t_times['unfrozen_weights'] * 1e3:.1f} (CoaT-lite-small, RG-ATT, "
+        f"B={COAT_BATCH}, bf16, augment on, unfrozen; CUDA events)")
+    torch.cuda.synchronize()
+    elapsed("CoaT-lite-small")
 
     # the sentence path: DaViT-tiny + BERT-base (and GPT-2) tokens models at
     # B=32, trained; the recompute backward's launches on the main path are
@@ -2248,6 +2703,15 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": errors[name],
          **k11_times[(name, K11_RECORD)]}
         for name in K11
+    ] + [
+        # K10 at CAFormer-b36's stage 2 at its train batch: T = 6272, D = 512,
+        # H = 2048 (18 of the 36 blocks); K9 at CoaT-lite-small's stage 3:
+        # T = 12608, D = 320, H = 1280 (6 of the 16); bf16 (the other shapes
+        # are above)
+        {"name": name, "route": "cuda", "source": MLP_SOURCE, "replaces": {**K10, **K9}[name],
+         "launches": launches[name], "max_abs_err": errors[name],
+         **mlp_times[(name, MLP_RECORD[name[:8]])]}
+        for name in (*K10, *K9)
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

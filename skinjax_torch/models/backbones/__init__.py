@@ -1,7 +1,8 @@
 """Backbone registry (counterpart of ``skinjax/models/backbones/__init__.py``).
 
 ``create_backbone(name)`` returns ``(module, feature_dim)``. The ResNets,
-DaViT-tiny, the four ViTs, BEiT-v2-large and MViTv2-small are ported so far; ROADMAP.md
+DaViT-tiny, the four ViTs, BEiT-v2-large, MViTv2-small, CAFormer-s18/b36
+and CoaT-lite-small are ported so far; ROADMAP.md
 lists the other backbones in the order they come.
 """
 
@@ -11,7 +12,7 @@ from typing import Callable, Dict, Tuple
 
 from torch import nn
 
-from skinjax_torch.models.backbones import beit, davit, mvit, resnet, vit
+from skinjax_torch.models.backbones import beit, caformer, coat, davit, mvit, resnet, vit
 
 _REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "resnet-18": (resnet.resnet18, resnet.FEATURE_DIMS["resnet-18"]),
@@ -23,6 +24,9 @@ _REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "vit_large_patch16_224": (vit.vit_large, 1024),
     "beitv2_large_patch16_224": (beit.beitv2_large, 1024),
     "mvitv2_small": (mvit.mvitv2_small, mvit.FEATURE_DIM),
+    "caformer_b36": (caformer.caformer_b36, 768),
+    "caformer_s18": (caformer.caformer_s18, 512),
+    "coat_lite_small": (coat.coat_lite_small, coat.FEATURE_DIM),
 }
 
 

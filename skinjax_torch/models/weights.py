@@ -15,11 +15,14 @@ back to the same trees. It uses numpy only.
 
 Flax creates parameters lazily, only for the submodules a mechanism calls
 (RG-ATT has no ``img_gate``), so only the subtrees present are converted.
-The image encoder converts by its tree: a DaViT tree (``stem_conv``), a ViT
-tree (``pos_embed``, per-block ``attn/{q,k,v}_proj``) and a BEiT tree
-(``fc_norm``, per-block ``attn/qkv_kernel``) and an MViTv2 tree
-(``stage0_block0/attn/rel_pos_h``) to timm's keys, which
-``skinjax.models.torch_import.import_davit``/``import_vit``/``import_beit``/
+The image encoder converts by its tree's own markers: a DaViT tree
+(``stage0_block0_spatial``), a CAFormer tree (``down1_norm``, or
+``token_mixer`` under ``stage0_block0``; it has a ``stem_conv`` too), a
+CoaT-lite tree (``patch_embed1_proj``), a ViT tree (``pos_embed``, per-block
+``attn/{q,k,v}_proj``), a BEiT tree (``fc_norm``, per-block
+``attn/qkv_kernel``) and an MViTv2 tree (``stage0_block0/attn/rel_pos_h``) to
+timm's keys, which ``skinjax.models.torch_import.import_davit``/
+``import_caformer``/``import_coat``/``import_vit``/``import_beit``/
 ``import_mvit`` read back; a ResNet tree (``stem``) to torchvision's. A tokens model's
 sentence tower (``text_module/bert`` or ``text_module/gpt2``, HF Flax's
 tree) converts to HF torch's ``BertModel``/``GPT2Model`` keys under
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from skinjax_torch.models.backbones import beit, vit
+from skinjax_torch.models.backbones import beit, coat, vit
 from skinjax_torch.models.text import gpt2
 from skinjax_torch.ops.attention import MultiheadAttention
 
@@ -175,6 +178,72 @@ def _mvit(sd: Dict, prefix: str, p: Mapping) -> None:
     _ln(sd, f"{prefix}norm", p["norm"])
 
 
+def _star(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.scale"] = _np(p["scale"])
+    sd[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def _caformer(sd: Dict, prefix: str, p: Mapping) -> None:
+    """skinjax ``CAFormer`` params → timm keys (the inverse of
+    ``import_caformer``): bias-free LayerNorms keep only ``weight``."""
+    _conv(sd, f"{prefix}stem.conv", p["stem_conv"])
+    sd[f"{prefix}stem.norm.weight"] = _np(p["stem_norm"]["scale"])
+    for name, sub in p.items():
+        if name.startswith("down"):  # down{i}_{norm,conv}
+            stage, part = name[len("down"):].split("_")
+            key = f"{prefix}stages.{stage}.downsample.{part}"
+            if part == "norm":
+                sd[f"{key}.weight"] = _np(sub["scale"])
+            else:
+                _conv(sd, key, sub)
+        elif name.startswith("stage"):  # stage{i}_block{j}
+            stage, block = name[len("stage"):].split("_block")
+            base = f"{prefix}stages.{stage}.blocks.{block}"
+            for norm in ("norm1", "norm2"):
+                sd[f"{base}.{norm}.weight"] = _np(sub[norm]["scale"])
+            tm = sub["token_mixer"]
+            if "qkv" in tm:
+                _linear(sd, f"{base}.token_mixer.qkv", tm["qkv"])
+                _linear(sd, f"{base}.token_mixer.proj", tm["proj"])
+            else:
+                _linear(sd, f"{base}.token_mixer.pwconv1", tm["pwconv1"])
+                _star(sd, f"{base}.token_mixer.act1", tm["act1"])
+                _conv(sd, f"{base}.token_mixer.dwconv", tm["dwconv"])
+                _linear(sd, f"{base}.token_mixer.pwconv2", tm["pwconv2"])
+            _linear(sd, f"{base}.mlp.fc1", sub["mlp"]["fc1"])
+            _star(sd, f"{base}.mlp.act", sub["mlp"]["act"])
+            _linear(sd, f"{base}.mlp.fc2", sub["mlp"]["fc2"])
+            for rs in ("res_scale1", "res_scale2"):
+                if rs in sub:
+                    sd[f"{base}.{rs}.scale"] = _np(sub[rs])
+    _ln(sd, f"{prefix}head.norm", p["head_norm"])
+
+
+_COAT_PARTS = {"norm1": "norm1", "qkv": "factoratt_crpe.qkv", "proj": "factoratt_crpe.proj",
+               "norm2": "norm2", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def _coat(sd: Dict, prefix: str, p: Mapping) -> None:
+    """skinjax ``CoaTLite`` params → timm's model-level keys (the inverse of
+    ``import_coat``)."""
+    for name, sub in p.items():
+        if name.startswith("patch_embed"):  # patch_embed{k}_{proj,norm}
+            stage, part = name[len("patch_embed"):].split("_")
+            (_conv if part == "proj" else _ln)(sd, f"{prefix}patch_embed{stage}.{part}", sub)
+        elif name.startswith("cls_token"):
+            sd[f"{prefix}{name}"] = _np(sub)
+        elif name.startswith("cpe"):
+            _conv(sd, f"{prefix}{name}.proj", sub["proj"])
+        elif name.startswith("crpe"):
+            for conv, q in sub.items():  # conv{i}
+                _conv(sd, f"{prefix}{name}.conv_list.{conv[len('conv'):]}", q)
+        elif name.startswith("serial"):  # serial{k}_{j}_{part}
+            stage, block, part = name[len("serial"):].split("_", 2)
+            key = f"{prefix}serial_blocks{stage}.{block}.{_COAT_PARTS[part]}"
+            (_ln if part.startswith("norm") else _linear)(sd, key, sub)
+    _ln(sd, f"{prefix}norm4", p["norm4"])
+
+
 def _resnet(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
     _convbn(sd, f"{prefix}conv1", f"{prefix}bn1", p["stem"], s["stem"])
     for blk in (k for k in p if k.startswith("layer")):
@@ -249,8 +318,12 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, np.
     """JAX ``MultimodalModel`` (params, batch_stats) → reference ``state_dict``."""
     sd: Dict[str, np.ndarray] = {}
     enc = params["image_encoder"]
-    if "stem_conv" in enc:
+    if "stage0_block0_spatial" in enc:
         _davit(sd, "image_encoder.", enc)
+    elif "down1_norm" in enc or "token_mixer" in enc.get("stage0_block0", {}):
+        _caformer(sd, "image_encoder.", enc)
+    elif "patch_embed1_proj" in enc:
+        _coat(sd, "image_encoder.", enc)
     elif "stem" in enc:
         _resnet(sd, "image_encoder.", enc, batch_stats["image_encoder"])
     elif "pos_embed" in enc:
@@ -261,8 +334,8 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, np.
         _mvit(sd, "image_encoder.", enc)
     else:
         raise NotImplementedError(
-            "state_dict_from_flax converts ResNet, DaViT, ViT, BEiT and MViTv2 image encoders "
-            "only; "
+            "state_dict_from_flax converts ResNet, DaViT, ViT, BEiT, MViTv2, CAFormer and "
+            "CoaT-lite image encoders only; "
             f"got an encoder with {sorted(enc)[:4]}..."
         )
     for name in ("image_projector", "text_projector", "img_gate", "txt_gate",
@@ -322,7 +395,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     projections Xavier uniform each (skinjax's attention draws them so), its
     qkv bias zero; BEiT's packed qkv Xavier uniform over (C, 3C), its q/v
     biases and relative position bias table zero, ``gamma_1``/``gamma_2``
-    1e-5.
+    1e-5; CoaT's ``cls_token{k}`` normal(0.02). (StarReLU's scalars and
+    CAFormer's residual scales keep their constructors' 1 and 0.)
     """
     g = torch.Generator(device="cpu").manual_seed(seed)
 
@@ -355,7 +429,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             m.bias.zero_()
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.weight.fill_(1.0)
-            m.bias.zero_()
+            if m.bias is not None:  # CAFormer's LayerNorms have none
+                m.bias.zero_()
             if isinstance(m, nn.BatchNorm2d):
                 m.reset_running_stats()
     for m in model.modules():
@@ -379,4 +454,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(m, beit.BeitBlock):
             m.gamma_1.fill_(1e-5)
             m.gamma_2.fill_(1e-5)
+        elif isinstance(m, coat.CoaTLite):
+            for k in range(1, m.num_stages + 1):
+                t = getattr(m, f"cls_token{k}")
+                put(t, torch.randn(t.shape, generator=g) * 0.02)
     return model

@@ -120,15 +120,28 @@ def batch(seed=21):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_params(mech, seed):
-    """skinjax's init plus noise for ``pair``, drawn once a (mech, seed)."""
-    jmodel = jax_model(mech)
+@functools.lru_cache(maxsize=None)
+def _jax_param_shapes(mech):
+    """skinjax's parameter tree for ``mech``: ``jax.eval_shape`` of ``init``
+    (it traces and compiles nothing; an eager init compiles every op)."""
     _, meta, _, _ = batch()
-    params = jmodel.init(jax.random.key(seed), jnp.zeros((1, HW, HW, 3)),
-                         jax.tree_util.tree_map(lambda a: jnp.asarray(a[:1]), meta))["params"]
+    return jax.eval_shape(jax_model(mech).init, jax.random.key(0), jnp.zeros((1, HW, HW, 3)),
+                          jax.tree_util.tree_map(lambda a: jnp.asarray(a[:1]), meta))["params"]
+
+
+def _jax_params(mech, seed):
+    """Parameters for ``pair`` drawn with numpy from a seed as skinjax's init
+    draws them (kernels at fan-in scale, norm scales 1, embeddings at 0.02,
+    the rest 0), plus noise at 0.05, so that biases and norms matter."""
     rng = np.random.default_rng(seed)
-    return jax.tree_util.tree_map(
-        lambda a: np.asarray(a) + (0.05 * rng.normal(size=a.shape)).astype(np.float32), params)
+
+    def leaf(path, s):
+        name = path[-1].key
+        base = {"kernel": int(np.prod(s.shape[:-1])) ** -0.5, "embedding": 0.02}.get(name, 0.0)
+        a = base * rng.normal(size=s.shape) + 0.05 * rng.normal(size=s.shape)
+        return (a + (name == "scale")).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, dict(_jax_param_shapes(mech)))
 
 
 def pair(mech, seed):

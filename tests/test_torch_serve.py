@@ -284,7 +284,8 @@ def test_port_never_imports_jax():
         "import skinjax_torch.models.text.gpt2, skinjax_torch.models.text.sentence\n"
         "import skinjax_torch.models.factory, skinjax_torch.train.experiments\n"
         "import skinjax_torch.tools.train_cli, skinjax_torch.ops.pooled_attention\n"
-        "import skinjax_torch.models.backbones.mvit\n"
+        "import skinjax_torch.models.backbones.mvit, skinjax_torch.ops.fused_mlp\n"
+        "import skinjax_torch.models.backbones.caformer, skinjax_torch.models.backbones.coat\n"
         "import chip_smoke\n"
         "banned = ('jax', 'jaxlib', 'flax', 'skinjax', 'cv2', 'matplotlib', 'transformers',\n"
         "          'safetensors')\n"

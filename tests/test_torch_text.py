@@ -43,11 +43,19 @@ B, T = 3, 24
 
 
 @functools.lru_cache(maxsize=None)
+def _jitted(family, kind, **kw):
+    """skinjax's encoder's jitted ``init`` or ``apply`` (``kind``), one a
+    (family, knobs): each compiles once a call signature and is shared by
+    the tests, where eager dispatch compiled every primitive again."""
+    jmod = (JBert if family == "bert" else JGPT2)(**dict(SMALL, **kw))
+    return jax.jit(getattr(jmod, kind), static_argnames=("deterministic",))
+
+
+@functools.lru_cache(maxsize=None)
 def _jax_params(family, seed):
     """skinjax's init plus noise for ``_pair``, drawn once a (family, seed)
     (the dropout knobs change no parameter)."""
-    jmod = (JBert if family == "bert" else JGPT2)(**SMALL)
-    params = jmod.init(jax.random.key(seed), jnp.zeros((1, 8), jnp.int32))["params"]
+    params = _jitted(family, "init")(jax.random.key(seed), jnp.zeros((1, 8), jnp.int32))["params"]
     rng = np.random.default_rng(seed)
     return jax.tree_util.tree_map(
         lambda a: np.asarray(a) + (0.05 * rng.normal(size=a.shape)).astype(np.float32), params)
@@ -78,10 +86,10 @@ def _tokens(seed=1, masked=True):
 @pytest.mark.parametrize("family", FAMILIES)
 def test_hidden_state_matches_skinjax(family, masked):
     """The last hidden state in fp32 eval, with and without padding (1e-5)."""
-    jmod, params, port = _pair(family)
+    _, params, port = _pair(family)
     ids, mask = _tokens(masked=masked)
     jm = jnp.asarray(mask) if masked else None
-    ref = jmod.apply({"params": params}, jnp.asarray(ids), jm)
+    ref = _jitted(family, "apply")({"params": params}, jnp.asarray(ids), jm)
     tga.reset_launches()
     with torch.no_grad():
         out = port.eval()(torch.tensor(ids), torch.tensor(mask) if masked else None)
@@ -120,7 +128,7 @@ def test_gradients_match_skinjax(family):
         return jnp.sum(jmod.apply({"params": p}, jnp.asarray(ids), jnp.asarray(mask),
                                   deterministic=False) * w)
 
-    ref = text_encoder_state_dict({family: jax.grad(loss)(params)})
+    ref = text_encoder_state_dict({family: jax.jit(jax.grad(loss))(params)})
     port.train()
     (port(torch.tensor(ids), torch.tensor(mask)) * torch.tensor(w)).sum().backward()
     got = {k: p.grad for k, p in port.named_parameters()}
@@ -203,7 +211,7 @@ def test_state_dict_imports_into_skinjax_and_transformers(family):
     ids, mask = _tokens(seed=5)
     sd = {k: v.numpy() for k, v in port.state_dict().items()}
     params = (import_torch_bert if family == "bert" else import_torch_gpt2)(sd)
-    ref = jmod.apply({"params": params}, jnp.asarray(ids), jnp.asarray(mask))
+    ref = _jitted(family, "apply")({"params": params}, jnp.asarray(ids), jnp.asarray(mask))
     port.eval()
     with torch.no_grad():
         out = port(torch.tensor(ids), torch.tensor(mask))
