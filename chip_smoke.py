@@ -13,7 +13,10 @@ served and trained at B=32, and with a ViT-large tower, served; with an
 MViTv2-small tower (``skinjax_torch.MVIT``), served and trained at B=64; with
 a CAFormer-b36 tower (``skinjax_torch.CAFORMER``), served and trained at
 B=32, and a CoaT-lite-small one (``skinjax_torch.COAT``) at B=64; the
-sentence datasets' tokens model (DaViT-tiny + BERT-base, and + GPT-2 small) trained at
+DaViT model with its channel attention through K8 (skinjax's
+``SKINJAX_CHATTN=pallas``), served and trained at B=64; with a Swin-tiny
+tower (``skinjax_torch.SWIN``), served and trained at B=64, and trained
+through K7's padded entry; the sentence datasets' tokens model (DaViT-tiny + BERT-base, and + GPT-2 small) trained at
 B=32 over 512 and 256 tokens; all 18 fusion mechanisms; and the train CLI
 from a dataset on disk, whose checkpoint the service then serves, and on a
 sentence dataset. Phases, each printing its lines:
@@ -21,8 +24,8 @@ sentence dataset. Phases, each printing its lines:
   1. card     nvidia-smi name and power limit, CUDA version
   2. build    nvcc builds of skinjax_torch/csrc/fusion_kernels.cu,
               augment_kernel.cu, window_attention.cu, global_attention.cu,
-              pooled_attention.cu and fused_mlp.cu, started together; seconds,
-              ptxas registers
+              pooled_attention.cu, fused_mlp.cu and channel_attention.cu,
+              started together; seconds, ptxas registers
   3. kernels  K1-K4 against their plain PyTorch twins at the flagship shapes
               (K4 at Vd in {2048, 768, 512}), B in {1, 3, 8, 32}, fp32 (TF32
               off) and bf16 activations; K5 against its twin at B in
@@ -46,7 +49,14 @@ sentence dataset. Phases, each printing its lines:
               CoaT-lite-small with 1000 tokens, and K10 at CAFormer-b36's
               stage-0 shape at B=32, bf16 and fp32: two backward calls
               bit-identical, zero dy rows adding nothing, the wrappers
-              raising on a bad dtype or width
+              raising on a bad dtype or width; K8 forward and backward (y,
+              dqkv, of) against their twins at DaViT-tiny's four stage shapes
+              (B=64 bf16, B=8 fp32), two backward calls bit-identical; K7's
+              padded forward and its backward core (K12's recompute kernel
+              with the window mask: dq, dk, dv, of, dbias) against their
+              twins at Swin-tiny's four stage shapes (B=64 bf16, B=8 fp32)
+              with the relative-position bias and, at stages 0-2, the
+              shifted windows' mask, two backward calls bit-identical
   4. slice    fused against plain engine; launches per fused forward; the
               fp32 engine on the card against the same model on the CPU
   5. server   the engine run_service builds, served on a localhost port:
@@ -112,6 +122,25 @@ sentence dataset. Phases, each printing its lines:
               (K10's and K9's times at each model's four shapes, against
               their twins, bounds and the unfused F.linear → activation →
               F.linear chain, forward and backward, run right after phase 3.)
+ 13d. davit+k8 the DaViT model with SKINJAX_CHATTN=pallas: run_service (K8
+              6 launches a request), the train step at B=64 (the loss falls,
+              K8 6 + 6 and K7 6 + 6 launches per unfrozen step, 6 + 0 frozen),
+              one fp32 step of a small DaViT on the card against the CPU, and
+              the train step A/B'd against the plain channel attention in
+              turns
+ 13e. swin    the Swin-tiny model: fused against plain engine (K7 with the
+              relative-position bias and the shifted mask launched 12 times
+              per forward), the fp32 engine on the card against the CPU;
+              run_service with CNN_MODEL_NAME=swin_tiny_patch4_window7_224;
+              the train step at B=64: the loss falls, K7 12 + 12 per unfrozen
+              step, 12 + 0 frozen; a small Swin's fp32 step on the card
+              against the CPU; swin_tiny_images_per_sec and a profiled step;
+              then swin_tiny(fused_attn=True, strip_attn=False): the train
+              step at B=64 (K7-pad 12 forwards + 12 recompute backward cores
+              with the window mask a step), a small padded Swin's fp32 step on
+              the card against the CPU, and the two routes' train steps A/B'd.
+              (K8's and K7-pad's times at each stage, against their twins,
+              bounds and a library yardstick, run right after phase 3.)
  14. mechanisms  all 18 at full width around one ResNet-50 tower: the 10 the
               engine fuses, fused against plain with their launches per fused
               forward (metablock: K4 1 + K3 1; …+metablock: K1 4 + K2 2 + K4 1);
@@ -182,6 +211,16 @@ K12 = {  # name -> the Pallas TPU function it replaces (file:line)
     "global_attention_bwd_recompute": "skinjax/ops/pallas/window_attention.py:351",
 }
 K12_RECOMPUTE = "global_attention_bwd_recompute"
+K8 = {  # name -> the Pallas TPU function it replaces (file:line)
+    "channel_attention_fwd": "skinjax/ops/pallas/channel_attention.py:201",
+    "channel_attention_bwd": "skinjax/ops/pallas/channel_attention.py:201",
+}
+K7_PAD = "window_attention_pad_fwd"
+K7_PAD_REPLACES = "skinjax/ops/pallas/window_attention.py:199"
+# the padded entry's backward core: K12's recompute kernel with the window
+# mask (its launches count as K12_RECOMPUTE's); the record's name for it
+K7_PAD_BWD = "global_attention_bwd_recompute (window mask)"
+K7_PAD_BWD_REPLACES = "skinjax/ops/pallas/window_attention.py:351"
 K11 = {  # name -> the Pallas TPU function it replaces (file:line)
     "pooled_attention_fwd": "skinjax/ops/pallas/pooled_attention.py:169",
     "pooled_attention_bwd": "skinjax/ops/pallas/pooled_attention.py:208",
@@ -200,9 +239,10 @@ K7_SOURCE = "skinjax_torch/csrc/window_attention.cu"
 K12_SOURCE = "skinjax_torch/csrc/global_attention.cu"
 K11_SOURCE = "skinjax_torch/csrc/pooled_attention.cu"
 MLP_SOURCE = "skinjax_torch/csrc/fused_mlp.cu"
+K8_SOURCE = "skinjax_torch/csrc/channel_attention.cu"
 BUILDS = {"fusion_kernels": SOURCE, "augment_kernel": K5_SOURCE, "window_attention": K7_SOURCE,
           "global_attention": K12_SOURCE, "pooled_attention": K11_SOURCE,
-          "fused_mlp": MLP_SOURCE}
+          "fused_mlp": MLP_SOURCE, "channel_attention": K8_SOURCE}
 KERNEL_NAMES = {"seq1_attention": "seq1_attention_kernel",
                 "gated_residual_seq1": "gated_residual_kernel",
                 "metablock_film": "metablock_film_kernel", "mlp_head": "mlp_head_kernel"}
@@ -223,11 +263,22 @@ K11_KERNELS = {"pooled_attention_fwd": ["pa_fwd_kernel"],
 MLP_KERNELS = {"fwd": ["mlp_fwd_kernel"],
                "bwd": ["mlp_bwd_dx_kernel", "mlp_bwd_dw_kernel", "mlp_bwd_reduce_kernel"]}
 MLP_SPLIT = "mlp_split_reduce_kernel"
+# each K8 call's kernels
+K8_KERNELS = {"channel_attention_fwd": ["ca_partial_kernel", "ca_softmax_kernel", "ca_out_kernel",
+                                        "ca_proj_kernel"],
+              "channel_attention_bwd": ["ca_partial_kernel", "ca_softmax_kernel",
+                                        "ca_grad_kernel"]}
+# the padded entry's forward, and its backward core with a bias gradient
+# summed over groups of windows
+K7_PAD_KERNELS = {K7_PAD: ["wa_fwd_kernel", "proj_kernel"],
+                  K7_PAD_BWD: ["ga_bwd_rows_kernel", "ga_bwd_cols_kernel",
+                               "ga_dbias_reduce_kernel"]}
 KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", "wa_fwd_kernel",
                   "wa_bwd_kernel", "proj_kernel", "dbias_reduce_kernel", "ga_fwd_kernel",
                   "ga_bwd_dq_kernel", "ga_bwd_dkv_kernel", "ga_bwd_rows_kernel",
                   "ga_bwd_cols_kernel", "pa_fwd_kernel", "pa_bwd_dq_kernel", "pa_bwd_dkv_kernel",
-                  *MLP_KERNELS["fwd"], *MLP_KERNELS["bwd"], MLP_SPLIT)
+                  *MLP_KERNELS["fwd"], *MLP_KERNELS["bwd"], MLP_SPLIT,
+                  *K8_KERNELS["channel_attention_fwd"], "ca_grad_kernel")
 # the card's published peaks (H100 SXM data sheet): device memory, float32
 # outside the tensor cores, dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -239,8 +290,30 @@ K7_STAGES = ((56, 96, 3), (28, 192, 6), (14, 384, 12), (7, 768, 24))
 K7_BATCHES = (1, 64)
 WINDOW = 7
 K7_PER_FORWARD = 6  # one per spatial block: depths (1, 1, 3, 1)
-K7_SERVED = {"window_attention_fwd": K7_PER_FORWARD, "window_attention_bwd": 0}
+K7_SERVED = {"window_attention_fwd": K7_PER_FORWARD, "window_attention_bwd": 0,
+             "window_attention_pad_fwd": 0}
 SMALL_DAVIT = "davit-smoke-small"  # dims (64, 128), depths (1, 1), heads (2, 4)
+# DaViT-tiny's channel attention at 224×224: (tokens, channels, heads) per
+# stage, 32 channels a head; one ChannelBlock per spatial block
+K8_STAGES = ((3136, 96, 3), (784, 192, 6), (196, 384, 12), (49, 768, 24))
+K8_F32_BATCH = 8
+K8_PER_FORWARD = K7_PER_FORWARD
+K8_ON = {"SKINJAX_CHATTN": "pallas"}  # skinjax's knob, which the port reads
+# K8's fp32 outputs: |kernel - twin| within this share of max(1, max |twin|).
+# Its scores sum N products (3136 at stage 0) whose partial sums reach ~100
+# in another order than the twin's, ~sqrt(N)·|s|·2^-24 ≈ 2e-4 apart, and the
+# scale puts that into a softmax exponent of ~10: y and of moved by ~1e-4 of
+# their scale on the card (bf16 keeps BF16_TOL and MLP_GRAD_TOL)
+K8_F32_TOL = 1e-3
+# Swin-tiny's window attention at 224×224: (map side, channels, heads,
+# shifted) per stage; window 7, 32 channels a head; the last stage's 7×7 map
+# is one window, so it never shifts. 12 blocks: depths (2, 2, 6, 2)
+SWIN_STAGES = ((56, 96, 3, True), (28, 192, 6, True), (14, 384, 12, True), (7, 768, 24, False))
+SWIN_PER_FORWARD = 12
+K7_PAD_F32_BATCH = 8
+SMALL_SWIN = "swin-smoke-small"  # dims (64, 128), depths (2, 2), heads (2, 4), 56×56
+SMALL_SWIN_PADDED = "swin-smoke-small-padded"  # the same through the padded entry
+SWIN_PADDED = "swin-tiny-padded"  # swin_tiny with fused_attn=True, strip_attn=False
 # K12's shapes: (B, N, C, heads, bias, kmask, pmult); bias True is a bias with a
 # gradient, CAUSAL GPT-2's causal mask as a bias without one. BEiT-large and
 # ViT-large at 224×224 and their train batch; BERT-base at 128 tokens and at
@@ -524,6 +597,25 @@ def ms_us(t) -> str:
     return "not measured" if t is None else f"{t * 1e3:.2f} us"
 
 
+def time_record(card, name, label, kern, twin, kernel_names, bound, library):
+    """One kernel timed in turns with its twin (CUDA events), their device
+    times (torch.profiler), its bound and its library yardstick; logged and
+    returned as the record's numbers."""
+    t = [time_ms(twin, 10, 2), time_ms(kern, 10, 2), time_ms(kern, 10, 2), time_ms(twin, 10, 2)]
+    ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    dev_k = kernel_device_us(kern, kernel_names, n=5)
+    dev_t, _ = device_us(twin, n=5)
+    bound_ms, nbytes, ops = bound
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S else "operations"
+    log(f"[{card}] time {name} bf16 {label} per call: kernel {ms * 1e3:9.2f} us  twin "
+        f"{plain_ms * 1e3:9.2f} us (CUDA events, in turns twin-kernel-kernel-twin); device time: "
+        f"kernel {us(dev_k)}  twin {dev_t:9.2f} us (torch.profiler); bound "
+        f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e9:.2f} GFLOP at "
+        f"989 TFLOP/s); library {ms_us(library)}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library)
+
+
 _SMOKE_MODELS = {}
 
 
@@ -696,7 +788,8 @@ def phase_server(fk, card, cnn="resnet-50", towers=(), env=None, requests=None,
     check(engine.model.cnn_dim_output == {"resnet-18": 512, "resnet-50": 2048, "davit_tiny": 768,
                                           "beitv2_large_patch16_224": 1024,
                                           "mvitv2_small": 768, "caformer_b36": 768,
-                                          "coat_lite_small": 512}[cnn],
+                                          "coat_lite_small": 512,
+                                          "swin_tiny_patch4_window7_224": 768}[cnn],
           f"run_service did not build a {cnn} tower")
     if requests is None:
         n_cat = len(engine.featurizer.categorical_cols)
@@ -1051,22 +1144,9 @@ def phase_k12_times(ga, device, card):
                                       grad_bias=False)
     out = {}
     for name, (kern, twin) in calls.items():
-        t = [time_ms(twin, 10, 2), time_ms(kern, 10, 2), time_ms(kern, 10, 2),
-             time_ms(twin, 10, 2)]
-        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-        dev_k = kernel_device_us(kern, K12_KERNELS[name], n=5)
-        dev_t, _ = device_us(twin, n=5)
-        bound_ms, nbytes, ops = bounds[name]
-        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S else "operations"
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library[name])
         label, Bx, Nx, Cx, hx, extras = shapes[name]
-        log(f"[{card}] time {name} bf16 {label} B={Bx} N={Nx} C={Cx} h={hx} {extras} per call: "
-            f"kernel {ms * 1e3:9.2f} us  twin {plain_ms * 1e3:9.2f} us (CUDA events, in turns "
-            f"twin-kernel-kernel-twin); device time: kernel {us(dev_k)}  twin {dev_t:9.2f} us "
-            f"(torch.profiler); bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s, "
-            f"{ops / 1e9:.2f} GFLOP at 989 TFLOP/s); F.scaled_dot_product_attention "
-            f"{'forward' if name.endswith('fwd') else 'backward'} {ms_us(library[name])}")
+        out[name] = time_record(card, name, f"{label} B={Bx} N={Nx} C={Cx} h={hx} {extras}", kern,
+                                twin, K12_KERNELS[name], bounds[name], library[name])
     log(f"[{card}] time F.scaled_dot_product_attention bf16 on the same (B, h, N, hd) q, k, v: "
         f"beitv2-large with the bias as attn_mask forward {ms_us(lib_fwd)}, backward "
         f"{ms_us(lib_bwd)}; bert-base-T512 with the key mask as attn_mask (no pmult) "
@@ -1529,15 +1609,16 @@ def small_coat_registered():
         del _REGISTRY[SMALL_COAT]
 
 
-def phase_mlp_tower(counters, device, card, label, config, batch, towers, per_step,
-                    frozen_per_step, registered, small, kernel_names):
-    """A tower with the fused MLP at full width, as the MViT phases drive
-    theirs: fused against plain engine (``towers``: the (module, launches
+def phase_tower(counters, device, card, label, config, batch, towers, per_step,
+                frozen_per_step, registered, small, kernel_names, hw=64):
+    """A tower at full width, as the MViT phases drive theirs: fused against
+    plain engine (``towers``: the (module, launches
     per forward) pairs), the fp32 engine on the card against the CPU;
     run_service with its CNN_MODEL_NAME; the train step at ``batch`` (augment
     on, bf16): the loss falls over 10 steps on one batch, ``per_step``
     launches a step unfrozen and ``frozen_per_step`` frozen; one fp32 step of
-    a small tower on the card against the CPU; the engine's p50/p95 at B=1
+    a small tower on the card against the CPU (at hw × hw); the engine's
+    p50/p95 at B=1
     (20 forwards in turns, no profile: these phases are host-bound and the
     script's time is bounded); train img/s unfrozen and frozen, and a
     profiled step with the shares of ``kernel_names``. Returns the 10
@@ -1548,7 +1629,7 @@ def phase_mlp_tower(counters, device, card, label, config, batch, towers, per_st
         counters[1:], device, card, label, config, batch, per_step=per_step,
         frozen_per_step=frozen_per_step, lr=TOWER_TRAIN_LR)
     with registered():
-        phase_card_vs_cpu(device, cnn=small, hw=64)
+        phase_card_vs_cpu(device, cnn=small, hw=hw)
     engine_latency(fused, plain, label, card, batches=(1,), n=20, profile=False)
     del fused, plain
     times = phase_train_times(device, card, train_batch_, cw, step, label, config,
@@ -1731,7 +1812,10 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
     # sign in the other summation order does it go beyond 0.01·lr. The key
     # bias of a window attention is left out of that count: its gradient is 0
     # by the math (a constant added to every score of a row leaves the softmax
-    # as it is), so its Adam step is lr·noise/(|noise| + eps) on either side.
+    # as it is), so its Adam step is lr·noise/(|noise| + eps) on either side
+    # (DaViT's and Swin's window attentions; DaViT's channel attention is not
+    # such a case: its key bias shifts each score row by b_k[c]·Σ v, which
+    # varies along the row, so it stays in the count).
     # So are BERT's key bias and the shift of MViTv2's key LayerNorm (a
     # constant added to every pooled key): the same case, and CoaT's key bias
     # (a constant added to every token's key of a channel leaves its softmax
@@ -1742,6 +1826,7 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
     key_bias, key_grad = 0, 0.0
     for k in pd:
         if re.fullmatch(r"image_encoder\.(stages\.\d+\.blocks\.\d+\.0\.attn|"
+                        r"layers\.\d+\.blocks\.\d+\.attn|"
                         r"serial_blocks\d+\.\d+\.factoratt_crpe)\.qkv\.bias", k):
             C = pd[k].numel() // 3
             pd[k] = torch.cat([pd[k][:C], pd[k][2 * C:]])
@@ -2154,21 +2239,9 @@ def phase_k7_times(wa, device, card):
                          device=device).to(q.dtype)
         library = dict(zip(K7, sdpa_head_times(q, k, v, do, None)))
         for name, (kern, twin) in calls.items():
-            t = [time_ms(twin, 10, 2), time_ms(kern, 10, 2), time_ms(kern, 10, 2),
-                 time_ms(twin, 10, 2)]
-            ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-            dev_k = kernel_device_us(kern, K7_KERNELS[name], n=5)
-            dev_t, _ = device_us(twin, n=5)
-            bound_ms, nbytes, ops = k7_bound(B, side, C, 2, name.endswith("bwd"))
-            bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S \
-                else "operations"
-            out[(name, side)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by, library_ms=library[name])
-            log(f"[{card}] time {name} bf16 B={B} {side}x{side} C={C} h={h} per call: kernel "
-                f"{ms * 1e3:9.2f} us  twin {plain_ms * 1e3:9.2f} us (CUDA events, in turns "
-                f"twin-kernel-kernel-twin); device time: kernel {us(dev_k)}  twin "
-                f"{dev_t:9.2f} us (torch.profiler); bound {bound_ms * 1e3:.2f} us "
-                f"({nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e9:.2f} GFLOP at 989 TFLOP/s)")
+            out[(name, side)] = time_record(
+                card, name, f"B={B} {side}x{side} C={C} h={h}", kern, twin, K7_KERNELS[name],
+                k7_bound(B, side, C, 2, name.endswith("bwd")), library[name])
         log(f"[{card}] time F.scaled_dot_product_attention bf16 on the same (nB, h, 49, 32) "
             f"q, k, v at {side}x{side} (the attention core only): forward "
             f"{ms_us(library['window_attention_fwd'])} per call (CUDA events), backward "
@@ -2416,6 +2489,412 @@ def metablock_latency(device, card):
             f"to synchronize, inputs on the card)")
 
 
+@contextlib.contextmanager
+def env_set(env):
+    """The environment variables ``env`` set meanwhile (the knobs a user sets)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def swin_registered():
+    """As backbones meanwhile: ``SWIN_PADDED`` (swin_tiny through the padded
+    entry), and ``SMALL_SWIN`` / ``SMALL_SWIN_PADDED``, a small Swin (dims
+    (64, 128), depths (2, 2), heads (2, 4): 32 channels a head, as
+    swin_tiny; at 56×56 a shifted 2×2-window stage and a one-window stage) on
+    the strip route and through the padded entry."""
+    from skinjax_torch.models.backbones import _REGISTRY
+    from skinjax_torch.models.backbones.swin import Swin, swin_tiny
+
+    def small(padded):
+        return lambda device=None: Swin((64, 128), (2, 2), (2, 4), fused_attn=padded,
+                                        strip_attn=not padded, device=device)
+
+    _REGISTRY[SWIN_PADDED] = (lambda device=None: swin_tiny(
+        fused_attn=True, strip_attn=False, device=device), 768)
+    _REGISTRY[SMALL_SWIN] = (small(False), 128)
+    _REGISTRY[SMALL_SWIN_PADDED] = (small(True), 128)
+    try:
+        yield
+    finally:
+        for name in (SWIN_PADDED, SMALL_SWIN, SMALL_SWIN_PADDED):
+            del _REGISTRY[name]
+
+
+def k8_inputs(B, N, C, dtype, device, seed):
+    """x, the weights and dy at one channel-attention shape, drawn on the
+    card: unit-scale x and dy (x is a LayerNorm's output), weights at fan-in
+    scale."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    args = [r(B, N, C), r(C, 3 * C, scale=C ** -0.5), r(3 * C, scale=0.1),
+            r(C, C, scale=C ** -0.5), r(C, scale=0.1)]
+    return [a.to(dtype) for a in args], r(B, N, C).to(dtype)
+
+
+def log_checks(results, label):
+    """Logs each (name, part, error, ok, tolerance text) and fails the run on
+    the first mismatch."""
+    for name, part, err, ok, tol_text in results:
+        log(f"kernel {name} {part:5s} {label}: max_abs_err={err:.3e} tol={tol_text} "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {part} disagrees with its twin at {label}")
+
+
+def tol_text(tol):
+    return f"atol {tol[0]:g} + rtol {tol[1]:g}·|twin|"
+
+
+def phase_k8(ca, device):
+    """K8 forward and backward against their twins at DaViT-tiny's four
+    stage shapes, B=64 bf16 and B=8 fp32 (TF32 off): in bf16 y and ``of`` at
+    BF16_TOL and dqkv at MLP_GRAD_TOL of max(1, max |twin|), since its dk and
+    dv come through ds, the gradient of scores summed over every token (3136
+    at stage 0) in another order; in fp32 all three at K8_F32_TOL of max(1,
+    max |twin|); two backward calls bit-identical."""
+    import torch
+
+    from skinjax_torch import DAVIT_BATCH
+
+    errors = {name: 0.0 for name in K8}
+    for N, C, h in K8_STAGES:
+        for B, dtype in ((DAVIT_BATCH, torch.bfloat16), (K8_F32_BATCH, torch.float32)):
+            dname = str(dtype).split(".")[1]
+            tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+            args, dy = k8_inputs(B, N, C, dtype, device, seed=N + C)
+            x, wqkv, bqkv, wproj, _ = args
+            y, y_twin = ca.channel_attention_fwd(*args, h), ca.channel_attention_plain(*args, h)
+            got = ca.channel_attention_bwd(x, dy, wqkv, bqkv, wproj, h)
+            again = ca.channel_attention_bwd(x, dy, wqkv, bqkv, wproj, h)
+            want = ca.channel_attention_bwd_plain(x, dy, wqkv, bqkv, wproj, h)
+            torch.cuda.synchronize()
+            if dtype == torch.bfloat16:
+                results = [
+                    ("channel_attention_fwd", "y", *compare(y, y_twin, tol), tol_text(tol)),
+                    ("channel_attention_bwd", "dqkv",
+                     *compare_scaled(got[0], want[0], MLP_GRAD_TOL[dname]),
+                     f"{MLP_GRAD_TOL[dname]:g}·max(1, |twin|)"),
+                    ("channel_attention_bwd", "of", *compare(got[1], want[1], tol),
+                     tol_text(tol))]
+            else:
+                results = [(name, part, *compare_scaled(o, r, K8_F32_TOL),
+                            f"{K8_F32_TOL:g}·max(1, |twin|)")
+                           for name, part, o, r in (
+                               ("channel_attention_fwd", "y", y, y_twin),
+                               ("channel_attention_bwd", "dqkv", got[0], want[0]),
+                               ("channel_attention_bwd", "of", got[1], want[1]))]
+            for name, _, err, _, _ in results:
+                errors[name] = max(errors[name], err)
+            label = f"{dname} B={B} N={N} C={C} h={h}"
+            log_checks(results, label)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"kernel channel_attention_bwd {label}: two calls bit-identical: {same}")
+            check(same, f"two channel_attention_bwd calls differ at {label}")
+            del args, dy, y, y_twin, got, again, want
+    return errors
+
+
+def k7pad_inputs(B, side, C, h, shifted, dtype, device, seed):
+    """Swin's windows at one stage, drawn on the card: x (nB, 49, C) and the
+    weights as ``k7_inputs`` draws them, a relative-position bias (h, 49,
+    49), the shifted windows' mask (where the stage shifts; skinjax's
+    ``_swin_attn_mask``, as the port's Swin builds it), and q, k, v, do for
+    the backward core."""
+    import torch
+
+    from skinjax_torch.models.backbones.swin import swin_attn_mask
+
+    N = WINDOW * WINDOW
+    nB = B * (side // WINDOW) ** 2
+    args, _, b, _ = k7_inputs(nB, WINDOW, C, h, dtype, device, seed, bias=True)
+    args[0] = args[0].reshape(nB, N, C)
+    mask = (torch.as_tensor(swin_attn_mask(side, side, WINDOW, WINDOW // 2), device=device)
+            if shifted else None)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    qkvd = [torch.randn((nB, N, C), generator=gen, device=device).to(dtype) for _ in range(4)]
+    return args, b, mask, qkvd
+
+
+def phase_k7pad(wa, ga, device):
+    """K7's padded entry at Swin-tiny's four stage shapes (B=64 bf16, B=8
+    fp32), with the relative-position bias and, at stages 0-2, the shifted
+    windows' mask: the forward against its twin; the backward core (the
+    recompute kernel with the window mask) against its twin, dq, dk, dv and
+    of at BF16_TOL/F32_TOL, dbias (summed over every window, in groups) at
+    F32_TOL; two backward calls bit-identical."""
+    import torch
+
+    from skinjax_torch import SWIN_BATCH
+
+    errors = {K7_PAD: 0.0, K7_PAD_BWD: 0.0}
+    for side, C, h, shifted in SWIN_STAGES:
+        for B, dtype in ((SWIN_BATCH, torch.bfloat16), (K7_PAD_F32_BATCH, torch.float32)):
+            tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+            args, b, m, (q, k, v, do) = k7pad_inputs(B, side, C, h, shifted, dtype, device,
+                                                     seed=side + C)
+            y = wa.window_attention_pad_fwd(*args, b, m, h)
+            y_twin = wa.window_attention_pad_plain(*args, b, m, h)
+            got = ga.window_core_bwd(q, k, v, do, b, m, h, True)
+            again = ga.window_core_bwd(q, k, v, do, b, m, h, True)
+            want = ga.window_core_bwd_plain(q, k, v, do, b, m, h, True)
+            torch.cuda.synchronize()
+            results = [(K7_PAD, "y", *compare(y, y_twin, tol), tol_text(tol))]
+            for part, g, w in zip(("dq", "dk", "dv", "of", "dbias"), got, want):
+                t = F32_TOL if part == "dbias" else tol
+                results.append((K7_PAD_BWD, part, *compare(g, w, t), tol_text(t)))
+            for name, _, err, _, _ in results:
+                errors[name] = max(errors[name], err)
+            label = (f"{str(dtype).split('.')[1]} B={B} {side}x{side} ({q.shape[0]} windows) "
+                     f"C={C} h={h} bias{'+mask' if shifted else ''}")
+            log_checks(results, label)
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            log(f"kernel {K7_PAD_BWD} {label}: two calls bit-identical: {same}")
+            check(same, f"two window_core_bwd calls differ at {label}")
+            del args, y, y_twin, got, again, want
+    return errors
+
+
+def k8_bound(B, N, C, h, itemsize, backward):
+    """The least time (ms) for one K8 call: every input read once and every
+    output written once over the HBM rate, against its products over the
+    bf16 tensor-core rate. Forward: x, the weights → y; the q, k, v and
+    output projections (2·4C² operations a token) and kᵀv, q·pᵀ (2·C·hd
+    each). Backward: x, dy, the weights → dqkv, of; the q, k, v and do
+    projections and six (hd, hd) products (kᵀv, doᵀq, of, dq, dk, dv)."""
+    T, hd = B * N, C // h
+    weights = (4 * C * C + 4 * C) * itemsize
+    if backward:
+        nbytes = (2 + 4) * T * C * itemsize + weights - C * itemsize
+        ops = 2 * T * C * 4 * C + 6 * 2 * T * C * hd
+    else:
+        nbytes = 2 * T * C * itemsize + weights
+        ops = 2 * T * C * 4 * C + 2 * 2 * T * C * hd
+    return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3, nbytes, ops
+
+
+def k7pad_bound(nB, C, h, n_mask, itemsize, backward):
+    """The least time (ms) for the padded entry's forward (as ``k7_bound``,
+    plus the bias and the mask) or its backward core: q, k, v, do, the bias,
+    the mask → dq, dk, dv, of, dbias; six (N, N) products a head (the
+    scores, dp, of, dv, dq, dk)."""
+    N = WINDOW * WINDOW
+    T = nB * N
+    planes = (h + n_mask) * N * N * 4
+    if backward:
+        nbytes = 8 * T * C * itemsize + planes + h * N * N * 4
+        ops = 6 * 2 * T * N * C
+    else:
+        nbytes = 2 * T * C * itemsize + (4 * C * C + 4 * C) * itemsize + planes
+        ops = 2 * T * C * 4 * C + 4 * T * N * C
+    return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3, nbytes, ops
+
+
+def module_times(module, x, dy):
+    """A PyTorch module as a yardstick (the port never calls it so): its
+    forward by CUDA events (two runs of 20 calls), its autograd backward as
+    the torch.profiler device time of the backward alone on one retained
+    graph (ms, or None where the trace kept no record)."""
+    import torch
+
+    params = [p for p in module.parameters()]
+    xr = x.detach().requires_grad_(True)
+
+    def fwd():
+        with torch.no_grad():
+            return module(x)
+
+    out = module(xr)
+
+    def bwd():
+        return torch.autograd.grad(out, [xr, *params], dy, retain_graph=True)
+
+    f = (time_ms(fwd, 20, 3) + time_ms(fwd, 20, 3)) / 2
+    bwd()
+    b, _ = device_us(bwd, n=10)
+    return f, (b / 1e3 if b > 0 else None)
+
+
+def phase_k8_times(ca, device, card):
+    """K8 forward and backward against their twins at B=64, bf16, per
+    DaViT-tiny stage; the yardstick is the port's plain
+    ``DaViTChannelAttention`` on the same inputs (cuBLAS linears and
+    einsums), forward by CUDA events and autograd backward by device time."""
+    import torch
+
+    from skinjax_torch import DAVIT_BATCH
+    from skinjax_torch.models.backbones.davit import DaViTChannelAttention
+
+    B, out = DAVIT_BATCH, {}
+    for N, C, h in K8_STAGES:
+        args, dy = k8_inputs(B, N, C, torch.bfloat16, device, seed=41 + N)
+        x, wqkv, bqkv, wproj, bproj = args
+        plain = DaViTChannelAttention(C, h, fused=False).to(device, torch.bfloat16)
+        with torch.no_grad():
+            for lin, w, b in ((plain.qkv, wqkv, bqkv), (plain.proj, wproj, bproj)):
+                lin.weight.copy_(w.t())
+                lin.bias.copy_(b)
+        lib = dict(zip(K8, module_times(plain, x, dy)))
+        calls = {
+            "channel_attention_fwd": (lambda: ca.channel_attention_fwd(*args, h),
+                                      lambda: ca.channel_attention_plain(*args, h)),
+            "channel_attention_bwd": (
+                lambda: ca.channel_attention_bwd(x, dy, wqkv, bqkv, wproj, h),
+                lambda: ca.channel_attention_bwd_plain(x, dy, wqkv, bqkv, wproj, h)),
+        }
+        for name, (kern, twin) in calls.items():
+            out[(name, N)] = time_record(
+                card, name, f"B={B} N={N} C={C} h={h}", kern, twin, K8_KERNELS[name],
+                k8_bound(B, N, C, h, 2, name.endswith("bwd")), lib[name])
+        log(f"[{card}] time the port's plain DaViTChannelAttention bf16 B={B} N={N} C={C} "
+            f"(cuBLAS linears + einsums): forward {ms_us(lib['channel_attention_fwd'])} per call "
+            f"(CUDA events), backward {ms_us(lib['channel_attention_bwd'])} (the device time of "
+            f"autograd's backward alone, torch.profiler)")
+        del args, dy, plain
+    return out
+
+
+def phase_k7pad_times(wa, ga, device, card):
+    """K7's padded forward and its masked backward core against their twins
+    at B=64, bf16, per Swin-tiny stage; the yardstick is
+    F.scaled_dot_product_attention on the same per-window q, k, v with the
+    bias and the mask as its (nB, h, 49, 49) attn_mask, forward and backward
+    (the attention core only; the port never calls it)."""
+    import torch
+
+    from skinjax_torch import SWIN_BATCH
+
+    B, out = SWIN_BATCH, {}
+    for side, C, h, shifted in SWIN_STAGES:
+        args, b, m, (q, k, v, do) = k7pad_inputs(B, side, C, h, shifted, torch.bfloat16, device,
+                                                 seed=51 + side)
+        nB, N, _ = q.shape
+        n_mask = 0 if m is None else m.shape[0]
+        attn = b[None] + (m[:, None] if m is not None else 0.0)
+        attn = attn.expand(nB // attn.shape[0], *attn.shape).reshape(nB, h, N, N)
+        lib = dict(zip((K7_PAD, K7_PAD_BWD), sdpa_times(q, k, v, do, attn.to(q.dtype), h)))
+        del attn
+        calls = {
+            K7_PAD: (lambda: wa.window_attention_pad_fwd(*args, b, m, h),
+                     lambda: wa.window_attention_pad_plain(*args, b, m, h)),
+            K7_PAD_BWD: (lambda: ga.window_core_bwd(q, k, v, do, b, m, h, True),
+                         lambda: ga.window_core_bwd_plain(q, k, v, do, b, m, h, True)),
+        }
+        for name, (kern, twin) in calls.items():
+            out[(name, side)] = time_record(
+                card, name, f"B={B} {side}x{side} ({nB} windows) C={C} h={h} "
+                f"bias{'+mask' if shifted else ''}", kern, twin, K7_PAD_KERNELS[name],
+                k7pad_bound(nB, C, h, n_mask, 2, name == K7_PAD_BWD), lib[name])
+        del args, q, k, v, do
+    return out
+
+
+def phase_route_ab(device, card, label, routes, batch, cw, step):
+    """Train steps of two routes of one model in turns (A, B, B, A), each
+    from its own state: ``routes`` maps a route's name to (config, the
+    environment it runs under). 12 unfrozen steps after 3 warm-up each,
+    CUDA events; returns {route: mean ms a step}."""
+    states = {}
+    for name, (config, env) in routes.items():
+        states[name] = train_state(config, device)
+    order = list(routes)
+    times = {name: [] for name in order}
+    for name in (order[0], order[1], order[1], order[0]):
+        state, env = states[name], routes[name][1]
+        with env_set(env):
+            call = lambda: step(state, batch["image"], batch["metadata"], batch["label"], 0, cw)  # noqa: E731,B023
+            for _ in range(3):
+                call()
+            times[name].append(time_ms(call, iters=12, warmup=0))
+    B = batch["image"].shape[0]
+    means = {name: sum(t) / len(t) for name, t in times.items()}
+    log(f"[{card}] A/B train {label} unfrozen B={B}, in turns "
+        f"{order[0]}-{order[1]}-{order[1]}-{order[0]} (12 steps each after 3 warm-up, CUDA "
+        f"events): " + "; ".join(f"{n} {means[n]:.2f} ms ({B / means[n] * 1e3:.1f} img/s; runs "
+                                 + ", ".join(f"{t:.2f}" for t in times[n]) + ")" for n in order)
+        + f"; faster: {min(means, key=means.get)}")
+    return means
+
+
+
+def phase_davit_k8(counters, device, card, batch, cw, step, k7_step):
+    """DaViT-tiny with K8: skinjax's ``SKINJAX_CHATTN=pallas``, which the
+    port's model reads at each forward, sends every channel attention through
+    K8. Served by run_service (K8 6 a request), trained at B=64 (the loss
+    falls; K8 6 + 6 a step, 6 + 0 frozen), a small DaViT's fp32 step on the
+    card against the CPU, and the train step A/B'd against the plain route
+    (``batch``, ``cw`` and ``step`` DaViT's). Returns K8's launches over the
+    10 unfrozen steps."""
+    from skinjax_torch import DAVIT, DAVIT_BATCH
+
+    fk, ak, wa, ca = counters
+    k8_step = {"channel_attention_fwd": K8_PER_FORWARD, "channel_attention_bwd": K8_PER_FORWARD}
+    with env_set(K8_ON):
+        phase_server(fk, card, cnn="davit_tiny",
+                     towers=[(wa, K7_SERVED), (ca, dict(k8_step, channel_attention_bwd=0))])
+        _, _, _, launches = phase_train(
+            [ak, wa, ca], device, card, "davit+k8", DAVIT, DAVIT_BATCH,
+            per_step={K5: 1, **k7_step, **k8_step},
+            frozen_per_step={K5: 1, **k7_step, "window_attention_bwd": 0, **k8_step,
+                             "channel_attention_bwd": 0})
+        with small_davit_registered():
+            phase_card_vs_cpu(device, cnn=SMALL_DAVIT, hw=56)
+    phase_route_ab(device, card, "davit channel attention",
+                   {"plain": (DAVIT, {}), "K8": (DAVIT, K8_ON)}, batch, cw, step)
+    return {name: launches[name] for name in K8}
+
+
+def phase_swin(counters, device, card):
+    """Swin-tiny on its default route, K7 on the map with the relative-position
+    bias and the shifted windows' mask: served, trained at B=64 (K7 12 + 12
+    a step, 12 + 0 frozen; swin_tiny_images_per_sec), a small Swin's fp32
+    step on the card against the CPU, as ``phase_tower`` drives a tower. Then
+    through K7's padded entry (``swin_tiny(fused_attn=True,
+    strip_attn=False)``): trained (K7-pad 12 forwards and 12 recompute
+    backward cores with the window mask a step), a small padded Swin's fp32
+    step on the card against the CPU, and the two routes' train steps A/B'd.
+    Returns the padded entry's launches over its 10 unfrozen steps."""
+    from skinjax_torch import SWIN, SWIN_BATCH
+
+    fk, ak, wa, ga = counters
+    wa_off = {name: 0 for name in wa.LAUNCHES}
+    sw_fwd = dict(wa_off, window_attention_fwd=SWIN_PER_FORWARD)
+    sw_step = {K5: 1, **sw_fwd, "window_attention_bwd": SWIN_PER_FORWARD}
+    _, sw_times = phase_tower(
+        [fk, ak, wa], device, card, "swin-tiny", SWIN, SWIN_BATCH, [(wa, sw_fwd)], sw_step,
+        dict(sw_step, window_attention_bwd=0), swin_registered, SMALL_SWIN,
+        {"K7": [n for names in K7_KERNELS.values() for n in names]}, hw=56)
+    log(f"[{card}] swin_tiny_images_per_sec "
+        f"{SWIN_BATCH / sw_times['unfrozen_weights'] * 1e3:.1f} (Swin-tiny, RG-ATT, "
+        f"B={SWIN_BATCH}, bf16, augment on, unfrozen; CUDA events)")
+    with swin_registered():
+        padded = dict(SWIN, cnn_model_name=SWIN_PADDED)
+        pad_step = {K5: 1, **dict(wa_off, window_attention_pad_fwd=SWIN_PER_FORWARD),
+                    "global_attention_fwd": 0, "global_attention_bwd": 0,
+                    K12_RECOMPUTE: SWIN_PER_FORWARD}
+        batch, cw, step, launches = phase_train(
+            [ak, wa, ga], device, card, "swin-tiny-padded", padded, SWIN_BATCH,
+            per_step=pad_step, frozen_per_step=dict(pad_step, **{K12_RECOMPUTE: 0}),
+            lr=TOWER_TRAIN_LR)
+        phase_card_vs_cpu(device, cnn=SMALL_SWIN_PADDED, hw=56)
+        phase_route_ab(device, card, "swin-tiny window attention",
+                       {"strip": (SWIN, {}), "padded": (padded, {})}, batch, cw, step)
+    _SMOKE_MODELS.clear()
+    return {K7_PAD: launches[K7_PAD], K7_PAD_BWD: launches[K12_RECOMPUTE]}
+
+
 def build_kernels(build, modules):
     """One nvcc per source, started together (each thread waits in
     subprocess.run); then each module loads its library."""
@@ -2452,6 +2931,7 @@ def main() -> int:
         SENTENCE_FROZEN_TOKENS,
         SENTENCE_TOKENS,
     )
+    from skinjax_torch.ops import channel_attention as ca
     from skinjax_torch.ops import augment_kernel as ak
     from skinjax_torch.ops import build
     from skinjax_torch.ops import fused_mlp as fm
@@ -2474,7 +2954,7 @@ def main() -> int:
     log(f"phase card: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}; TF32 off")
 
-    build_kernels(build, (fk, ak, wa, ga, pa, fm))
+    build_kernels(build, (fk, ak, wa, ga, pa, fm, ca))
     for name, src in BUILDS.items():
         info = build.build_info[name]
         built = f"built in {info['seconds']:.1f} s" if info["seconds"] else "already built"
@@ -2489,12 +2969,16 @@ def main() -> int:
     errors.update(phase_k12(ga, device))
     errors.update(phase_k11(pa, device))
     errors.update(phase_mlp(fm, device))
+    errors.update(phase_k8(ca, device))
+    errors.update(phase_k7pad(wa, ga, device))
     # K12's, K11's and K7's times first: in a process that has traced much,
     # torch.profiler dropped K7's launches from its traces
     k12_times = phase_k12_times(ga, device, card)
     k11_times = phase_k11_times(pa, device, card)
     mlp_times = phase_mlp_times(fm, device, card, errors)
     k7_times = phase_k7_times(wa, device, card)
+    k8_times = phase_k8_times(ca, device, card)
+    pad_times = phase_k7pad_times(wa, ga, device, card)
     k4_times = phase_k4_times(fk, device, card)
     torch.cuda.synchronize()
     elapsed("the build and the kernel checks and times")
@@ -2521,7 +3005,8 @@ def main() -> int:
     # unfrozen train steps'
     d_fused, d_plain = phase_slice(fk, device, card, "davit", DAVIT, [(wa, K7_SERVED)])
     phase_server(fk, card, cnn="davit_tiny", towers=[(wa, K7_SERVED)])
-    k7_step = {"window_attention_fwd": K7_PER_FORWARD, "window_attention_bwd": K7_PER_FORWARD}
+    k7_step = {"window_attention_fwd": K7_PER_FORWARD, "window_attention_bwd": K7_PER_FORWARD,
+               K7_PAD: 0}
     batch, cw, step, d_launches = phase_train(
         [ak, wa], device, card, "davit", DAVIT, DAVIT_BATCH, per_step={K5: 1, **k7_step},
         frozen_per_step={K5: 1, **k7_step, "window_attention_bwd": 0})
@@ -2529,13 +3014,18 @@ def main() -> int:
     with small_davit_registered():
         phase_card_vs_cpu(device, cnn=SMALL_DAVIT, hw=56)
     torch.cuda.synchronize()
-    engine_latency(d_fused, d_plain, "davit", card)
+    engine_latency(d_fused, d_plain, "davit", card, batches=(1,), n=20, profile=False)
     del d_fused, d_plain
     phase_train_times(device, card, batch, cw, step, "davit", DAVIT,
                       kernel_names={"K7": [n for names in K7_KERNELS.values() for n in names]})
-    del batch, cw, step
     torch.cuda.synchronize()
     elapsed("DaViT")
+
+    launches.update(phase_davit_k8((fk, ak, wa, ca), device, card, batch, cw, step, k7_step))
+    del batch, cw, step
+    _SMOKE_MODELS.clear()
+    torch.cuda.synchronize()
+    elapsed("DaViT with K8")
 
     # BEiT-v2-large: served, trained; K12's launches on the main path are the
     # 10 unfrozen train steps'. Then ViT-large served: K12 without a bias
@@ -2552,7 +3042,7 @@ def main() -> int:
     with small_beit_registered():
         phase_card_vs_cpu(device, cnn=SMALL_BEIT, hw=224)
     torch.cuda.synchronize()
-    engine_latency(b_fused, b_plain, "beitv2-large", card)
+    engine_latency(b_fused, b_plain, "beitv2-large", card, batches=(1,), n=20, profile=False)
     del b_fused, b_plain
     phase_train_times(device, card, batch, cw, step, "beitv2-large", BEIT,
                       kernel_names={"K12": [n for names in K12_KERNELS.values() for n in names]})
@@ -2577,7 +3067,7 @@ def main() -> int:
     with small_mvit_registered():
         phase_card_vs_cpu(device, cnn=SMALL_MVIT, hw=64)
     torch.cuda.synchronize()
-    engine_latency(m_fused, m_plain, "mvitv2-small", card)
+    engine_latency(m_fused, m_plain, "mvitv2-small", card, batches=(1,), n=20, profile=False)
     del m_fused, m_plain
     m_times = phase_train_times(device, card, batch, cw, step, "mvitv2-small", MVIT,
                                 kernel_names={"K11": [n for names in K11_KERNELS.values()
@@ -2599,7 +3089,7 @@ def main() -> int:
     k12_fwd = dict(k12_off, global_attention_fwd=K12_CAFORMER)  # 79 MB of P: stored-P
     c_step = {K5: 1, **k10_fwd, "mlp_star_bwd": K10_PER_FORWARD, **k12_fwd,
               "global_attention_bwd": K12_CAFORMER}
-    c_launches, c_times = phase_mlp_tower(
+    c_launches, c_times = phase_tower(
         [fk, ak, fm, ga], device, card, "caformer-b36", CAFORMER, CAFORMER_BATCH,
         [(fm, k10_fwd), (ga, k12_fwd)], c_step,
         dict(c_step, mlp_star_bwd=0, global_attention_bwd=0), small_caformer_registered,
@@ -2613,7 +3103,7 @@ def main() -> int:
     elapsed("CAFormer-b36")
     k9_fwd = dict(mlp_off, mlp_gelu_fwd=K9_PER_FORWARD)
     t_step = {K5: 1, **k9_fwd, "mlp_gelu_bwd": K9_PER_FORWARD}
-    t_launches, t_times = phase_mlp_tower(
+    t_launches, t_times = phase_tower(
         [fk, ak, fm], device, card, "coat-lite-small", COAT, COAT_BATCH,
         [(fm, k9_fwd)], t_step, dict(t_step, mlp_gelu_bwd=0), small_coat_registered, SMALL_COAT,
         {"K9": MLP_KERNELS["fwd"] + MLP_KERNELS["bwd"] + [MLP_SPLIT]})
@@ -2624,11 +3114,16 @@ def main() -> int:
     torch.cuda.synchronize()
     elapsed("CoaT-lite-small")
 
+    launches.update(phase_swin((fk, ak, wa, ga), device, card))
+    torch.cuda.synchronize()
+    elapsed("Swin-tiny")
+
     # the sentence path: DaViT-tiny + BERT-base (and GPT-2) tokens models at
     # B=32, trained; the recompute backward's launches on the main path are
     # the 10 unfrozen BERT T=512 steps' (402 MB of P a call, above the limit)
     text_step = {K5: 0, "window_attention_fwd": K7_PER_FORWARD,
-                 "window_attention_bwd": K7_PER_FORWARD, "global_attention_fwd": K12_TEXT_LAYERS,
+                 "window_attention_bwd": K7_PER_FORWARD, K7_PAD: 0,
+                 "global_attention_fwd": K12_TEXT_LAYERS,
                  "global_attention_bwd": 0, K12_RECOMPUTE: K12_TEXT_LAYERS}
     s_launches, _ = phase_sentence_train([ak, wa, ga], device, card, "davit+bert-base",
                                          SENTENCE, SENTENCE_TOKENS, text_step, timed=True)
@@ -2712,6 +3207,22 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": errors[name],
          **mlp_times[(name, MLP_RECORD[name[:8]])]}
         for name in (*K10, *K9)
+    ] + [
+        # K8 at DaViT-tiny's stage 0 at its train batch: B=64, N=3136, C=96,
+        # 3 heads, bf16 (the other stages are above)
+        {"name": name, "route": "cuda", "source": K8_SOURCE, "replaces": K8[name],
+         "launches": launches[name], "max_abs_err": errors[name],
+         **k8_times[(name, K8_STAGES[0][0])]}
+        for name in K8
+    ] + [
+        # K7's padded entry and its masked backward core at Swin-tiny's stage
+        # 0 at its train batch: 4096 windows of 49 tokens, C=96, 3 heads, the
+        # bias and the shifted mask, bf16 (the other stages are above)
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": errors[name],
+         **pad_times[(name, SWIN_STAGES[0][0])]}
+        for name, source, replaces in ((K7_PAD, K7_SOURCE, K7_PAD_REPLACES),
+                                       (K7_PAD_BWD, K12_SOURCE, K7_PAD_BWD_REPLACES))
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

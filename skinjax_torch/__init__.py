@@ -3,14 +3,15 @@
 A second package beside ``skinjax``, which stays the reference it is held
 against. It imports ``torch`` and never JAX. It serves and trains the
 multimodal model with all 18 fusion mechanisms, a one-hot metadata tower and
-a ResNet-18/50, DaViT-tiny, ViT (tiny to large), BEiT-v2-large,
+a ResNet-18/50, DaViT-tiny, Swin-tiny, ViT (tiny to large), BEiT-v2-large,
 MViTv2-small, CAFormer-s18/b36 or CoaT-lite-small image tower
 (the flagship: ResNet-50 + RG-ATT), trains the sentence datasets' tokens
 model (a BERT or GPT-2 tower over tokenized clinical sentences), and runs
 the train CLI (``python -m skinjax_torch.tools.train_cli``) from a
 PAD-UFES-20 CSV and PNG images on disk to checkpoints the service serves.
-The fusion stage (K1-K4), the augmentation's color stage (K5), DaViT's
-window attention (K7), MViTv2's pooled attention (K11, forward and backward),
+The fusion stage (K1-K4), the augmentation's color stage (K5), DaViT's and
+Swin's window attention (K7, on the map and on partitioned windows), DaViT's
+channel attention (K8, forward and backward), MViTv2's pooled attention (K11, forward and backward),
 the global attention core of ViT, BEiT, CAFormer, BERT and GPT-2 (K12,
 forward and both backwards) and the fused token MLPs of CoaT-lite (K9) and
 CAFormer (K10), forward and recompute backward, run in hand-written CUDA
@@ -50,6 +51,11 @@ MVIT_BATCH = 64
 # CAFormer-b36 and CoaT-lite-small in place of ResNet-50, whose train rates
 # bench.py reports as caformer_b36_images_per_sec (B=32) and
 # coat_lite_small_images_per_sec (B=64), bf16, RG-ATT.
+# Swin-tiny in place of ResNet-50, whose train rate bench.py reports as
+# swin_tiny_images_per_sec (bf16, RG-ATT), at that bench's batch of 64.
+SWIN = dict(FLAGSHIP, cnn_model_name="swin_tiny_patch4_window7_224")
+SWIN_BATCH = 64
+
 CAFORMER = dict(FLAGSHIP, cnn_model_name="caformer_b36")
 CAFORMER_BATCH = 32
 COAT = dict(FLAGSHIP, cnn_model_name="coat_lite_small")

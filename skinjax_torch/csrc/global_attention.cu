@@ -5,13 +5,15 @@
 // the forward _fwd_core (kernel _fwd_kernel, with emit_p), the stored-P
 // backward _bwd_p_core (kernel _bwd_p_kernel) and the recompute backward that
 // its _ac_bwd takes above the stored-P limit, skinjax/ops/pallas/
-// window_attention.py _bwd_core (kernel _bwd_core_kernel, with n_win = 1 and
-// no window mask). q, k and v are (B, N, C) in the head-major channel layout
+// window_attention.py _bwd_core (kernel _bwd_core_kernel), which is also the
+// backward core of K7's padded-window entry window_attention (_bwd_call, with
+// the per-window mask: window b adds mask[b % n_win]; there B counts windows).
+// q, k and v are (B, N, C) in the head-major channel layout
 // (channel c belongs to head c / hd), each row at a stride of ld elements (C
 // when contiguous, 3C for slices of a packed qkv projection). Per batch b and
 // head h (hd = C / heads channels):
 //
-//   forward   s = (q.k^T) * scale (+ bias[h]) (+ kmask[b] over the keys)   fp32
+//   forward   s = (q.k^T) * scale (+ bias[h]) (+ mask[b % n_win]) (+ kmask[b] over the keys)
 //             P = softmax(s) fp32, written to p (B, heads, N, N) when asked
 //             o = round(round(P * pmult) . v)
 //   backward  pb = round(P * pmult);  dv = round(pb^T . do)
@@ -24,7 +26,8 @@
 // forward before the bias and in the backward after the products, as the
 // Pallas kernel does (its reference instead scales q in the input type).
 // Both backwards round at the same points. The Pallas recompute kernel also
-// emits of = pb . v, which _ac_bwd drops; it is not computed here.
+// emits of = pb . v, which _ac_bwd drops and _bwd_call reads; the recompute
+// backward writes it when asked (without pmult).
 //
 // Layout. No TPU padding: a block masks its own ragged edge (N = 197 for
 // ViT/BEiT at 224x224), and P is kept as (B, heads, N, N), not Mosaic's
@@ -46,18 +49,21 @@
 // three fp32 row statistics a query row, (3, B, heads, N)): (1) a block per
 // (32 query rows, head, batch) recomputes whole score rows as the forward
 // does and the softmax with the forward's own code, writes each row's max
-// and sum, then streams V twice, for rowsum(dp * P) (written too) and for ds,
-// which it rounds in place of P, and computes dq; (2) a block per (32 keys,
-// head) recomputes its P and dp columns from q, k, v, do and those
-// statistics, with the same products in the same order, so P is the
-// forward's bit for bit and ds the one dq was computed from, and sums dv and
-// dk over every query. Without a bias gradient block (2) takes one batch
-// (grid z = batch); with one it loops over the batch in order and owns its
-// key columns of dbias[h], which it sums in device memory in batch order,
-// the order of the stored-P backward. The score of (query n, key m) is one
-// function, score(); K7's padded window kernel, whose backward is the same
-// Pallas function with a window mask, can add that mask as one more
-// additive term there.
+// and sum (and, when asked, of = round(round(P) . v)), then streams V twice,
+// for rowsum(dp * P) (written too) and for ds, which it rounds in place of
+// P, and computes dq; (2) a block per (32 keys, head) recomputes its P and dp
+// columns from q, k, v, do and those statistics, with the same products in
+// the same order, so P is the forward's bit for bit and ds the one dq was
+// computed from, and sums dv and dk over every query. Without a bias
+// gradient block (2) takes one batch (grid z = batch); with one it loops
+// over a group of consecutive batches in order and owns its key columns of
+// that group's dbias[h] plane, which it sums in device memory in batch
+// order; with more than one group, (3) adds the groups' planes in group
+// order (no atomics). The wrapper picks as many groups as fill the card
+// (Swin-tiny's stage 0 at B=64: 4096 windows, 2 key tiles, 3 heads), each
+// plane heads.N^2 fp32, their scratch within the stored-P limit; with one
+// group the sum has the stored-P backward's order. The score of (query n,
+// key m) is one function, score(), which adds the window mask too.
 //
 // What bounds it: at BEiT-large (B=32, N=197, C=1024, 16 heads) the forward
 // moves ~134 MB (P's 79.5 MB of them) against 5.1 GFLOP, the stored-P backward
@@ -134,7 +140,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 struct Dims {
   int B, N, C, heads, hd;
-  long long ld;  // row stride of q, k and v in elements
+  long long ld;        // row stride of q, k and v in elements
+  const float* wmask;  // the window mask (n_win, N, N) fp32, or null
+  int n_win;           // batch b adds plane b % n_win of it
 };
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -147,6 +155,7 @@ __device__ __forceinline__ float score(float a, float scale, const float* __rest
                                        int b, int n, int m) {
   a = __fmul_rn(a, scale);
   if (bias) a = __fadd_rn(a, bias[((long long)hi * g.N + n) * g.N + m]);
+  if (g.wmask) a = __fadd_rn(a, g.wmask[((long long)(b % g.n_win) * g.N + n) * g.N + m]);
   if (kmask) a = __fadd_rn(a, kmask[(long long)b * g.N + m]);
   return a;
 }
@@ -221,7 +230,9 @@ __device__ __forceinline__ void tile_abt(const float* a, const float* bm, int hd
 }
 
 // acc[i][j] += sum over m < mc of s[(warp + 8i) * ss + m0 + m] * x[m][lane + 32j]:
-// kTq score rows times a (kKc, hd) chunk of V or K
+// kTq score rows times a (kKc, hd) chunk of V or K; with kRoundS each s entry
+// is rounded to T first
+template <typename T, bool kRoundS>
 __device__ __forceinline__ void rows_times_chunk(const float* s, int ss, int m0, int mc,
                                                  const float* x, float acc[4][2]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -229,7 +240,10 @@ __device__ __forceinline__ void rows_times_chunk(const float* s, int ss, int m0,
   for (int m = 0; m < mc; ++m) {
     float av[4], xv[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = s[(warp + 8 * i) * ss + m0 + m];
+    for (int i = 0; i < 4; ++i) {
+      av[i] = s[(warp + 8 * i) * ss + m0 + m];
+      if (kRoundS) av[i] = round_to<T>(av[i]);
+    }
 #pragma unroll
     for (int j = 0; j < 2; ++j) xv[j] = x[m * kHs + lane + 32 * j];
 #pragma unroll
@@ -266,9 +280,10 @@ __device__ void score_rows(const float* rows, const T* __restrict__ x, long long
   __syncthreads();
 }
 
-// out rows n0 + warp + 8i, channels lane + 32j of head hi: acc = s . x, x
-// streamed kKc keys at a time, written as round(acc * mul)
-template <typename T>
+// out rows n0 + warp + 8i, channels lane + 32j of head hi: acc = s . x (with
+// kRoundS, round(s) . x), x streamed kKc keys at a time, written as
+// round(acc * mul)
+template <typename T, bool kRoundS = false>
 __device__ void rows_product_out(const float* s, int ss, const T* __restrict__ x, long long ld,
                                  const Dims& g, int b, int hi, int n0, int n_rows, float* chunk,
                                  float mul, T* __restrict__ out) {
@@ -280,7 +295,7 @@ __device__ void rows_product_out(const float* s, int ss, const T* __restrict__ x
     __syncthreads();  // s complete; the previous chunk consumed
     load_rows<T>(x, ld, g, b, hi, m0, kKc, chunk);
     __syncthreads();
-    rows_times_chunk(s, ss, m0, min(kKc, g.N - m0), chunk, acc);
+    rows_times_chunk<T, kRoundS>(s, ss, m0, min(kKc, g.N - m0), chunk, acc);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -463,14 +478,16 @@ __global__ void ga_dbias_reduce_kernel(const float* __restrict__ ds, float* __re
 
 // Recompute backward (1): for 32 query rows of one head of one batch, the
 // scores and the softmax as the forward computes them, each row's max and
-// sum (stats[0], stats[1]), rowsum(dp * P) (stats[2]), ds, and dq. stats is
-// (3, B, heads, N) fp32.
+// sum (stats[0], stats[1]), of = round(round(P) . v) when of is not null (no
+// pmult), rowsum(dp * P) (stats[2]), ds, and dq. stats is (3, B, heads, N)
+// fp32.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     ga_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        const T* __restrict__ dout, const float* __restrict__ bias,
                        const float* __restrict__ kmask, const float* __restrict__ pmult,
-                       T* __restrict__ dq, float* __restrict__ stats, Dims g, float scale) {
+                       T* __restrict__ dq, T* __restrict__ of, float* __restrict__ stats, Dims g,
+                       float scale) {
   extern __shared__ __align__(16) float smem[];
   const int N = g.N;
   const int ss = round_up(N, kKc) + 1;
@@ -496,6 +513,7 @@ __global__ void __launch_bounds__(kThreads)
       stats[plane + row0 + r] = ms.y;
     }
   }
+  if (of) rows_product_out<T, true>(s, ss, v, g.ld, g, b, hi, n0, n_rows, chunk, 1.f, of);
   __syncthreads();  // the q tile consumed
   load_rows<T>(dout, g.C, g, b, hi, n0, kTq, tile);
 
@@ -552,11 +570,12 @@ __global__ void __launch_bounds__(kThreads)
 
 // Recompute backward (2): dv = round(P * pmult)^T . do and dk = round(ds)^T .
 // q * scale for 32 keys of one head, summed over every query, for b_count
-// batches from blockIdx.z * b_count in order. P and ds are recomputed from the
-// statistics of (1): the score and dp of (n, m) as sums over the head's
-// channels in channel order, the order of tile_abt, so they equal (1)'s and
-// the forward's. With dbias, dbias[hi][n][m] = the sum of ds over the batches
-// in order (the block owns its key columns; b_count is then the batch).
+// batches from blockIdx.z * b_count in order (the last group may be shorter).
+// P and ds are recomputed from the statistics of (1): the score and dp of (n,
+// m) as sums over the head's channels in channel order, the order of
+// tile_abt, so they equal (1)'s and the forward's. With dbias, plane
+// blockIdx.z of dbias (groups, heads, N, N) gets [hi][n][m] = the sum of ds
+// over the group's batches in order (the block owns its key columns).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     ga_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -577,8 +596,10 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long plane = (long long)g.B * g.heads * N;
   const int m = m0 + lane;  // the key of this thread's P and ds entries
+  const int b0 = blockIdx.z * b_count, b1 = min(g.B, b0 + b_count);
+  if (dbias) dbias += (long long)blockIdx.z * g.heads * N * N;
 
-  for (int b = blockIdx.z * b_count; b < (blockIdx.z + 1) * b_count; ++b) {
+  for (int b = b0; b < b1; ++b) {
     __syncthreads();  // the previous batch's tiles consumed
     load_rows<T>(k, g.ld, g, b, hi, m0, kTk, ks);
     load_rows<T>(v, g.ld, g, b, hi, m0, kTk, vs);
@@ -613,7 +634,7 @@ __global__ void __launch_bounds__(kThreads)
           const float ds = __fmul_rn(p, __fsub_rn(dprob(dp, pmult, g, n, m), st[2 * kQc + r]));
           if (dbias) {
             float* at = dbias + ((long long)hi * N + n) * N + m;
-            *at = (b == 0 ? 0.f : *at) + ds;
+            *at = (b == b0 ? 0.f : *at) + ds;
           }
           a = round_to<T>(pmult ? __fmul_rn(p, pmult[(long long)n * N + m]) : p);
           d = round_to<T>(ds);
@@ -669,12 +690,15 @@ Dims dims(int B, int N, int C, int heads, long long ld) {
   g.heads = heads;
   g.hd = C / heads;
   g.ld = ld;
+  g.wmask = nullptr;
+  g.n_win = 1;
   return g;
 }
 
 bool bad_dims(const Dims& g) {
   return g.N < 1 || g.N > kMaxN || g.heads < 1 || g.C % g.heads != 0 || g.hd > kMaxHd ||
-         g.ld < g.C || g.B < 1 || g.B > 65535 || g.heads > 65535;
+         g.ld < g.C || g.B < 1 || g.B > 65535 || g.heads > 65535 || g.n_win < 1 ||
+         g.B % g.n_win != 0;
 }
 
 template <typename T>
@@ -724,8 +748,9 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 template <typename T>
 cudaError_t launch_bwd_recompute(const void* q, const void* k, const void* v, const void* dout,
                                  const float* bias, const float* kmask, const float* pmult,
-                                 void* dq, void* dk, void* dv, float* stats, float* dbias,
-                                 const Dims& g, float scale, cudaStream_t stream) {
+                                 void* dq, void* dk, void* dv, void* of, float* stats,
+                                 float* dbias, float* dbias_partial, int groups, const Dims& g,
+                                 float scale, cudaStream_t stream) {
   const int smem = rows_smem_bytes(g.N);
   cudaError_t err = cudaFuncSetAttribute(ga_bwd_rows_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -733,19 +758,29 @@ cudaError_t launch_bwd_recompute(const void* q, const void* k, const void* v, co
   const dim3 grid_q((g.N + kTq - 1) / kTq, g.heads, g.B);
   ga_bwd_rows_kernel<T><<<grid_q, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), bias, kmask, pmult, static_cast<T*>(dq), stats, g, scale);
+      static_cast<const T*>(dout), bias, kmask, pmult, static_cast<T*>(dq), static_cast<T*>(of),
+      stats, g, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(ga_bwd_cols_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              cols_smem_bytes());
   if (err != cudaSuccess) return err;
-  // with a bias gradient one block sums its key columns over the whole batch
-  const int b_count = dbias ? g.B : 1;
-  const dim3 grid_k((g.N + kTk - 1) / kTk, g.heads, g.B / b_count);
+  // with a bias gradient a block sums its key columns over a group of
+  // consecutive batches, each group into a plane of its own
+  const int b_count = dbias ? (g.B + groups - 1) / groups : 1;
+  const int n_groups = (g.B + b_count - 1) / b_count;
+  float* planes = dbias && n_groups > 1 ? dbias_partial : dbias;
+  const dim3 grid_k((g.N + kTk - 1) / kTk, g.heads, n_groups);
   ga_bwd_cols_kernel<T><<<grid_k, kThreads, cols_smem_bytes(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), bias, kmask, pmult, stats, static_cast<T*>(dk),
-      static_cast<T*>(dv), dbias, g, scale, b_count);
+      static_cast<T*>(dv), planes, g, scale, b_count);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !dbias || n_groups == 1) return err;
+  // (3) the groups' planes summed in group order
+  const long long count = (long long)g.heads * g.N * g.N;
+  ga_dbias_reduce_kernel<<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      dbias_partial, dbias, n_groups, count);
   return cudaGetLastError();
 }
 
@@ -789,22 +824,31 @@ int skinjax_global_attention_bwd(int bf16, const void* q, const void* k, const v
 }
 
 // The recompute backward: the forward's inputs (bias for the scores, null
-// or not, whatever dbias is) and dout as for skinjax_global_attention_bwd.
-// Writes dq, dk, dv (B, N, C) contiguous, the row statistics stats (3, B,
-// heads, N) fp32 and, when dbias is not null, dbias (heads, N, N) fp32.
+// or not, whatever dbias is; mask (n_win, N, N) fp32 or null, B a multiple
+// of n_win) and dout as for skinjax_global_attention_bwd. Writes dq, dk, dv
+// (B, N, C) contiguous, of (B, N, C) when of is not null (pmult must be null
+// then), the row statistics stats (3, B, heads, N) fp32 and, when dbias is
+// not null, dbias (heads, N, N) fp32, summed in groups of ceil(B / groups)
+// batches (1 <= groups <= B; with more than one group, dbias_partial is a
+// (groups, heads, N, N) fp32 scratch).
 int skinjax_global_attention_bwd_recompute(int bf16, const void* q, const void* k, const void* v,
                                            long long ld, const void* dout, const float* bias,
-                                           const float* kmask, const float* pmult, void* dq,
-                                           void* dk, void* dv, float* stats, float* dbias, int B,
-                                           int N, int C, int heads, float scale, void* stream) {
-  const Dims g = dims(B, N, C, heads, ld);
-  if (bad_dims(g)) return static_cast<int>(cudaErrorInvalidValue);
+                                           const float* kmask, const float* pmult,
+                                           const float* mask, int n_win, void* dq, void* dk,
+                                           void* dv, void* of, float* stats, float* dbias,
+                                           float* dbias_partial, int groups, int B, int N, int C,
+                                           int heads, float scale, void* stream) {
+  Dims g = dims(B, N, C, heads, ld);
+  g.wmask = mask;
+  g.n_win = mask ? n_win : 1;
+  if (bad_dims(g) || groups < 1 || groups > B || (of && pmult))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_bwd_recompute<__nv_bfloat16>(q, k, v, dout, bias, kmask, pmult, dq, dk, dv,
-                                               stats, dbias, g, scale, s);
-  return launch_bwd_recompute<float>(q, k, v, dout, bias, kmask, pmult, dq, dk, dv, stats, dbias,
-                                     g, scale, s);
+    return launch_bwd_recompute<__nv_bfloat16>(q, k, v, dout, bias, kmask, pmult, dq, dk, dv, of,
+                                               stats, dbias, dbias_partial, groups, g, scale, s);
+  return launch_bwd_recompute<float>(q, k, v, dout, bias, kmask, pmult, dq, dk, dv, of, stats,
+                                     dbias, dbias_partial, groups, g, scale, s);
 }
 
 }  // extern "C"

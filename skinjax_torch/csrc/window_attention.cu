@@ -4,8 +4,11 @@
 // It replaces the Pallas TPU kernel K7 of skinjax/ops/pallas/window_attention.py:
 // the strip-blocked NHWC entry window_attention_nhwc, forward _strip_fwd
 // (_strip_fwd_kernel, and its 4-D twin _strip_fwd4) and backward _strip_bwd
-// (_strip_bwd_kernel, _strip_bwd4). Per window of w x w tokens (N = w*w) and
-// per head (hd = C / heads channels):
+// (_strip_bwd_kernel, _strip_bwd4); and the forward _fwd (_fwd_kernel) of the
+// padded-window entry window_attention, which takes windows already
+// partitioned, x (nB, N, C). (That entry's backward is the recompute core in
+// global_attention.cu.) Per window of N tokens (w x w on the map) and per head
+// (hd = C / heads channels):
 //
 //   forward   qkv = round(x.Wqkv + bqkv)
 //             s = (q.k^T) * scale (+ bias[head]) (+ mask[window])   fp32
@@ -29,11 +32,13 @@
 // fixed order (no atomics, so the result does not depend on block order).
 //
 // Layout. There is no TPU layout here: no 56-token interleaved window, no
-// -1e9 key pad, no 6-D view. A block reads the N real tokens of window
-// (i, j) of image b from the NHWC map through their offsets, and masks its
-// own ragged edges. Window index win = (b*nH + i)*nW + j, as window_partition
-// orders them; the mask has one (N, N) plane per window of an image and window
-// win uses plane win % (nH*nW).
+// padding of N to 16 with -1e9 keys, no 6-D view. A block reads the N real
+// tokens of its window through their offsets, and masks its own ragged edges:
+// on the NHWC map, window (i, j) of image b, win = (b*nH + i)*nW + j, as
+// window_partition orders them, with the mask's plane win % (nH*nW); on
+// partitioned windows (the padded entry's layout) window win's rows win*N ..
+// win*N + N - 1, with the mask's plane win % n_win, n_win its plane count.
+// The two layouts share every line of the forward but this address map.
 //
 // What bounds it: at DaViT's stage 1 (B=64, 56x56, C=96, 3 heads) a forward is
 // ~18.6 GFLOP against ~77 MB, ~240 operations per byte: on the bf16 tensor
@@ -107,7 +112,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 struct Geometry {
-  int H, W, C, heads, hd, w, N, nWw, n_win, nB;  // n_win: windows per image
+  int H, W, C, heads, hd, w, N, nWw, n_win, nB;  // n_win: the mask's planes
+  int partitioned;  // x is (nB, N, C) windows, not an NHWC map
 };
 
 // shared-memory floats of each core kernel (the token offsets come first)
@@ -123,8 +129,13 @@ constexpr int bwd_smem_bytes() {
          4 * (2 * kChunkFloats + kKc * (4 * kMaxHd + 1) + 4 * kQkvFloats + 2 * kPlaneFloats);
 }
 
-// Token offsets (in tokens of the NHWC map) of the N rows of window win.
+// Token offsets (in tokens of the NHWC map, or of the partitioned windows)
+// of the N rows of window win.
 __device__ __forceinline__ void window_tokens(const Geometry& g, int win, long long* tok) {
+  if (g.partitioned) {
+    for (int r = threadIdx.x; r < g.N; r += kThreads) tok[r] = (long long)win * g.N + r;
+    return;
+  }
   const int b = win / g.n_win;
   const int rem = win - b * g.n_win;
   const int wi = rem / g.nWw;
@@ -446,6 +457,21 @@ Geometry geometry(int B, int H, int W, int C, int heads, int window) {
   g.nWw = W / window;
   g.n_win = (H / window) * (W / window);
   g.nB = B * g.n_win;
+  g.partitioned = 0;
+  return g;
+}
+
+// nB partitioned windows of N tokens; the mask has n_win planes
+Geometry partitioned(int nB, int N, int C, int heads, int n_win) {
+  Geometry g;
+  g.H = g.W = g.w = g.nWw = 0;
+  g.C = C;
+  g.heads = heads;
+  g.hd = heads > 0 ? C / heads : 0;
+  g.N = N;
+  g.n_win = n_win;
+  g.nB = nB;
+  g.partitioned = 1;
   return g;
 }
 
@@ -509,6 +535,25 @@ int skinjax_window_attention_fwd(int bf16, const void* x, const void* wqkv, cons
                                  int heads, int window, float scale, void* stream) {
   const Geometry g = geometry(B, H, W, C, heads, window);
   const int M = B * H * W;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_fwd<__nv_bfloat16>(x, wqkv, bqkv, wproj, bproj, bias, mask, of, y, g, M, scale,
+                                     s);
+  return launch_fwd<float>(x, wqkv, bqkv, wproj, bproj, bias, mask, of, y, g, M, scale, s);
+}
+
+// The padded-window entry's forward: x (nB, N, C) contiguous windows, N <=
+// 64, hd <= 32; bias (heads, N, N) fp32 or null; mask (n_win, N, N) fp32 or
+// null, window win adding plane win % n_win. of and y (nB, N, C) are written.
+int skinjax_window_attention_pad_fwd(int bf16, const void* x, const void* wqkv, const void* bqkv,
+                                     const void* wproj, const void* bproj, const float* bias,
+                                     const float* mask, void* of, void* y, int nB, int N, int C,
+                                     int heads, int n_win, float scale, void* stream) {
+  const Geometry g = partitioned(nB, N, C, heads, mask ? n_win : 1);
+  if (N < 1 || N > kMaxN || heads < 1 || C % heads != 0 || g.hd > kMaxHd || g.n_win < 1 ||
+      heads > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int M = nB * N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_fwd<__nv_bfloat16>(x, wqkv, bqkv, wproj, bproj, bias, mask, of, y, g, M, scale,

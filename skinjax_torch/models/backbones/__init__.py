@@ -1,8 +1,8 @@
 """Backbone registry (counterpart of ``skinjax/models/backbones/__init__.py``).
 
 ``create_backbone(name)`` returns ``(module, feature_dim)``. The ResNets,
-DaViT-tiny, the four ViTs, BEiT-v2-large, MViTv2-small, CAFormer-s18/b36
-and CoaT-lite-small are ported so far; ROADMAP.md
+DaViT-tiny, Swin-tiny, the four ViTs, BEiT-v2-large, MViTv2-small,
+CAFormer-s18/b36 and CoaT-lite-small are ported so far; ROADMAP.md
 lists the other backbones in the order they come.
 """
 
@@ -12,12 +12,13 @@ from typing import Callable, Dict, Tuple
 
 from torch import nn
 
-from skinjax_torch.models.backbones import beit, caformer, coat, davit, mvit, resnet, vit
+from skinjax_torch.models.backbones import beit, caformer, coat, davit, mvit, resnet, swin, vit
 
 _REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "resnet-18": (resnet.resnet18, resnet.FEATURE_DIMS["resnet-18"]),
     "resnet-50": (resnet.resnet50, resnet.FEATURE_DIMS["resnet-50"]),
     "davit_tiny": (davit.davit_tiny, davit.FEATURE_DIM),
+    "swin_tiny_patch4_window7_224": (swin.swin_tiny, swin.FEATURE_DIM),
     "vit_tiny_patch16_224": (vit.vit_tiny, 192),
     "vit_small_patch16_224": (vit.vit_small, 384),
     "vit_base_patch16_224": (vit.vit_base, 768),

@@ -13,7 +13,12 @@ norm2,mlp.fc1,mlp.fc2}``, ``head.norm`` (created last, so the freeze policy's
 It runs what skinjax runs by default on the TPU: the depthwise-conv
 positional encoding, window attention through the K7 kernel pair
 (``ops/window_attention.py``, NHWC in and out, no window partition), and
-plain channel attention and MLP. Input is NHWC ``(B, H, W, 3)``; output is
+plain channel attention and MLP. skinjax's ``ch_fused_attn`` sends the channel
+attention through K8 (``ops/channel_attention.py``, forward and backward); as
+in skinjax it is off unless asked for, and where the attribute is None the
+environment asks (``SKINJAX_CHATTN=pallas``, read at each forward), so that
+``run_service`` and the train CLI reach K8 with skinjax's knob. skinjax's
+VMEM gate, which sends stage 0 to XLA, is a TPU limit and is left out. Input is NHWC ``(B, H, W, 3)``; output is
 ``LN(GAP(map))``, ``(B, dims[-1])``. A map whose H or W is not a multiple of
 the window raises ``ValueError``.
 
@@ -27,13 +32,15 @@ dtype, and returns that dtype.
 
 from __future__ import annotations
 
-from typing import Sequence
+import os
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from skinjax_torch.ops import compute_dtype
+from skinjax_torch.ops.channel_attention import channel_attention
 from skinjax_torch.ops.window_attention import window_attention_nhwc
 
 FEATURE_DIM = 768
@@ -78,15 +85,25 @@ class DaViTWindowAttention(nn.Module):
 
 class DaViTChannelAttention(nn.Module):
     """timm ChannelAttention: scaled keys, (hd × hd) token-aggregated
-    attention, output re-expanded through the queries."""
+    attention, output re-expanded through the queries. ``fused``: skinjax's
+    ``ch_fused_attn`` (None: ``SKINJAX_CHATTN=pallas`` decides)."""
 
-    def __init__(self, dim: int, num_heads: int, *, device=None):
+    def __init__(self, dim: int, num_heads: int, fused: Optional[bool] = None, *, device=None):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.fused = num_heads, fused
         self.qkv = nn.Linear(dim, 3 * dim, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
 
     def forward(self, x):
+        fused = self.fused
+        if fused is None:
+            fused = os.environ.get("SKINJAX_CHATTN", "") == "pallas"
+        if fused:
+            dt = compute_dtype(x)
+            return channel_attention(
+                x.to(dt).contiguous(), self.qkv.weight.t().to(dt).contiguous(),
+                self.qkv.bias.to(dt), self.proj.weight.t().to(dt).contiguous(),
+                self.proj.bias.to(dt), self.num_heads)
         B, N, C = x.shape
         h = self.num_heads
         hd = C // h
@@ -139,11 +156,11 @@ class ChannelBlock(nn.Module):
     """cpe1 → LN → channel attention over the H·W tokens → +res → cpe2 → LN →
     MLP → +res."""
 
-    def __init__(self, dim: int, num_heads: int, *, device=None):
+    def __init__(self, dim: int, num_heads: int, fused: Optional[bool] = None, *, device=None):
         super().__init__()
         self.cpe1 = ConvPosEnc(dim, device=device)
         self.norm1 = _ln(dim, device=device)
-        self.attn = DaViTChannelAttention(dim, num_heads, device=device)
+        self.attn = DaViTChannelAttention(dim, num_heads, fused, device=device)
         self.cpe2 = ConvPosEnc(dim, device=device)
         self.norm2 = _ln(dim, device=device)
         self.mlp = DaViTMlp(dim, device=device)
@@ -181,13 +198,13 @@ class DaViTStem(nn.Module):
 
 class DaViTStage(nn.Module):
     def __init__(self, in_dim: int, dim: int, depth: int, num_heads: int, window: int,
-                 downsample: bool, *, device=None):
+                 downsample: bool, ch_fused_attn: Optional[bool] = None, *, device=None):
         super().__init__()
         if downsample:
             self.downsample = DaViTDownsample(in_dim, dim, device=device)
         self.blocks = nn.ModuleList(
             nn.Sequential(SpatialBlock(dim, num_heads, window, device=device),
-                          ChannelBlock(dim, num_heads, device=device))
+                          ChannelBlock(dim, num_heads, ch_fused_attn, device=device))
             for _ in range(depth))
 
     def forward(self, x):
@@ -213,12 +230,12 @@ class DaViT(nn.Module):
 
     def __init__(self, dims: Sequence[int] = (96, 192, 384, 768),
                  depths: Sequence[int] = (1, 1, 3, 1), heads: Sequence[int] = (3, 6, 12, 24),
-                 window: int = 7, *, device=None):
+                 window: int = 7, ch_fused_attn: Optional[bool] = None, *, device=None):
         super().__init__()
         self.stem = DaViTStem(dims[0], device=device)
         self.stages = nn.ModuleList(
             DaViTStage(dims[max(i - 1, 0)], dims[i], depths[i], heads[i], window, i > 0,
-                       device=device)
+                       ch_fused_attn, device=device)
             for i in range(len(dims)))
         self.head = DaViTHead(dims[-1], device=device)
 
@@ -229,5 +246,5 @@ class DaViT(nn.Module):
         return self.head(x)
 
 
-def davit_tiny(*, device=None) -> DaViT:
-    return DaViT(device=device)
+def davit_tiny(*, ch_fused_attn: Optional[bool] = None, device=None) -> DaViT:
+    return DaViT(ch_fused_attn=ch_fused_attn, device=device)

@@ -18,12 +18,13 @@ Flax creates parameters lazily, only for the submodules a mechanism calls
 The image encoder converts by its tree's own markers: a DaViT tree
 (``stage0_block0_spatial``), a CAFormer tree (``down1_norm``, or
 ``token_mixer`` under ``stage0_block0``; it has a ``stem_conv`` too), a
-CoaT-lite tree (``patch_embed1_proj``), a ViT tree (``pos_embed``, per-block
+CoaT-lite tree (``patch_embed1_proj``), a Swin tree (``patch_norm``), a ViT
+tree (``pos_embed``, per-block
 ``attn/{q,k,v}_proj``), a BEiT tree (``fc_norm``, per-block
 ``attn/qkv_kernel``) and an MViTv2 tree (``stage0_block0/attn/rel_pos_h``) to
 timm's keys, which ``skinjax.models.torch_import.import_davit``/
-``import_caformer``/``import_coat``/``import_vit``/``import_beit``/
-``import_mvit`` read back; a ResNet tree (``stem``) to torchvision's. A tokens model's
+``import_caformer``/``import_coat``/``import_swin``/``import_vit``/
+``import_beit``/``import_mvit`` read back; a ResNet tree (``stem``) to torchvision's. A tokens model's
 sentence tower (``text_module/bert`` or ``text_module/gpt2``, HF Flax's
 tree) converts to HF torch's ``BertModel``/``GPT2Model`` keys under
 ``text_encoder.`` (``text_encoder_state_dict``), the inverse of
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from skinjax_torch.models.backbones import beit, coat, vit
+from skinjax_torch.models.backbones import beit, coat, swin, vit
 from skinjax_torch.models.text import gpt2
 from skinjax_torch.ops.attention import MultiheadAttention
 
@@ -109,6 +110,29 @@ def _davit(sd: Dict, prefix: str, p: Mapping) -> None:
             for lin in ("fc1", "fc2"):
                 _linear(sd, f"{base}.mlp.{lin}", sub["mlp"][lin])
     _ln(sd, f"{prefix}head.norm", p["head_norm"])
+
+
+def _swin(sd: Dict, prefix: str, p: Mapping) -> None:
+    """skinjax ``Swin`` params → timm keys (the inverse of ``import_swin``;
+    patch merges as timm's ``layers.{i}.downsample``)."""
+    _conv(sd, f"{prefix}patch_embed.proj", p["patch_embed"])
+    _ln(sd, f"{prefix}patch_embed.norm", p["patch_norm"])
+    for name, sub in p.items():
+        if name.startswith("merge"):
+            base = f"{prefix}layers.{name[len('merge'):]}.downsample"
+            _ln(sd, f"{base}.norm", sub["norm"])
+            _linear(sd, f"{base}.reduction", sub["reduction"])
+        elif name.startswith("stage"):  # stage{i}_block{j}
+            stage, block = name[len("stage"):].split("_block")
+            base = f"{prefix}layers.{stage}.blocks.{block}"
+            for norm in ("norm1", "norm2"):
+                _ln(sd, f"{base}.{norm}", sub[norm])
+            for lin in ("qkv", "proj"):
+                _linear(sd, f"{base}.attn.{lin}", sub["attn"][lin])
+            sd[f"{base}.attn.relative_position_bias_table"] = _np(sub["attn"]["rel_bias"])
+            for lin in ("fc1", "fc2"):
+                _linear(sd, f"{base}.mlp.{lin}", sub["mlp"][lin])
+    _ln(sd, f"{prefix}norm", p["norm"])
 
 
 def _blocks(p: Mapping):
@@ -324,6 +348,8 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, np.
         _caformer(sd, "image_encoder.", enc)
     elif "patch_embed1_proj" in enc:
         _coat(sd, "image_encoder.", enc)
+    elif "patch_norm" in enc:
+        _swin(sd, "image_encoder.", enc)
     elif "stem" in enc:
         _resnet(sd, "image_encoder.", enc, batch_stats["image_encoder"])
     elif "pos_embed" in enc:
@@ -334,8 +360,8 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, np.
         _mvit(sd, "image_encoder.", enc)
     else:
         raise NotImplementedError(
-            "state_dict_from_flax converts ResNet, DaViT, ViT, BEiT, MViTv2, CAFormer and "
-            "CoaT-lite image encoders only; "
+            "state_dict_from_flax converts ResNet, DaViT, Swin, ViT, BEiT, MViTv2, CAFormer "
+            "and CoaT-lite image encoders only; "
             f"got an encoder with {sorted(enc)[:4]}..."
         )
     for name in ("image_projector", "text_projector", "img_gate", "txt_gate",
@@ -395,7 +421,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     projections Xavier uniform each (skinjax's attention draws them so), its
     qkv bias zero; BEiT's packed qkv Xavier uniform over (C, 3C), its q/v
     biases and relative position bias table zero, ``gamma_1``/``gamma_2``
-    1e-5; CoaT's ``cls_token{k}`` normal(0.02). (StarReLU's scalars and
+    1e-5; CoaT's ``cls_token{k}`` normal(0.02); Swin's patch embedding LeCun
+    normal and its relative position bias tables normal(0.02). (StarReLU's scalars and
     CAFormer's residual scales keep their constructors' 1 and 0.)
     """
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -434,7 +461,7 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             if isinstance(m, nn.BatchNorm2d):
                 m.reset_running_stats()
     for m in model.modules():
-        if isinstance(m, vit.PatchEmbed):
+        if isinstance(m, (vit.PatchEmbed, swin.PatchEmbed)):
             fan_in = m.proj.in_channels * m.proj.kernel_size[0] * m.proj.kernel_size[1]
             put(m.proj.weight, torch.randn(m.proj.weight.shape, generator=g) * fan_in ** -0.5)
         elif isinstance(m, (vit.VisionTransformer, beit.Beit)):
@@ -454,6 +481,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(m, beit.BeitBlock):
             m.gamma_1.fill_(1e-5)
             m.gamma_2.fill_(1e-5)
+        elif isinstance(m, swin.WindowAttention):
+            t = m.relative_position_bias_table
+            put(t, torch.randn(t.shape, generator=g) * 0.02)
         elif isinstance(m, coat.CoaTLite):
             for k in range(1, m.num_stages + 1):
                 t = getattr(m, f"cls_token{k}")

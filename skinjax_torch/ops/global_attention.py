@@ -8,6 +8,7 @@ Counterpart of ``skinjax/ops/pallas/global_attention.py`` (K12):
   global_attention_fwd             skinjax_global_attention_fwd                  global_attention.py _fwd_core
   global_attention_bwd             skinjax_global_attention_bwd                  global_attention.py _bwd_p_core
   global_attention_bwd_recompute   skinjax_global_attention_bwd_recompute        window_attention.py _bwd_core (n_win=1)
+  window_core_bwd                  skinjax_global_attention_bwd_recompute        window_attention.py _bwd_core (window mask)
 
 ``attention_core(q, k, v, bias, kmask, pmult, num_heads)`` is a
 ``torch.autograd.Function`` with skinjax's signature and layouts: q, k, v
@@ -22,6 +23,14 @@ is cast to q's dtype before ``·v``; the backward casts ``P·pmult`` before
 ``dv``, keeps ``dp`` and ``ds`` in fp32, casts ``ds`` before ``dq`` and ``dk``
 and scales those after the product.
 
+``window_core_bwd`` is the same recompute kernel as skinjax's
+``_bwd_core`` runs it under K7's padded-window entry (``window_attention.py``
+``_bwd_call``): B counts windows, window b adds the mask plane ``mask[b %
+n_win]`` to its scores, and it also returns ``of = round(P)·v``, which the
+padded entry's projection gradient reads. A bias gradient is summed over
+groups of windows and then over the groups in order (``bias_groups``), so
+that Swin-tiny's 4096 windows at stage 0 fill the card with no atomics.
+
 The backward's route. When a gradient will be asked for and the stored-P
 residual of the call (``B·h·N²·4`` bytes) is at most ``STORE_P_MAX_BYTES``
 (skinjax's 256 MB, ``_store_p_ok``), the forward keeps P and the stored-P
@@ -33,7 +42,8 @@ not carry over (the Mosaic block cap ``4·hg·Np² > 4 MB`` and
 ``SKINJAX_REMAT``; ROADMAP.md, "Leave out of the port").
 
 ``attention_core_plain``, ``attention_core_bwd_plain`` and
-``attention_core_bwd_recompute_plain`` are the plain PyTorch twins,
+``attention_core_bwd_recompute_plain`` and ``window_core_bwd_plain`` are the
+plain PyTorch twins,
 rounding at the same points; ``attention_core_reference`` is a copy of
 skinjax's einsum reference. The wrappers dispatch on the device of q: a CPU
 tensor goes to the twin, a CUDA tensor launches the kernel or raises. There
@@ -58,6 +68,9 @@ MAX_TOKENS = 1024
 MAX_HEAD_DIM = 64
 # skinjax's ceiling for the stored-P residual (_STORE_P_DEFAULT_MAX_MB)
 STORE_P_MAX_BYTES = 256 * 1024 * 1024
+# blocks the recompute backward's key-column launch aims at when it sums a
+# bias gradient in groups of windows (about eight waves of the H100's 132 SMs)
+BIAS_GROUP_BLOCKS = 1056
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,7 +81,7 @@ _SIGNATURES = {
     "skinjax_global_attention_fwd": ([_I, _P, _P, _P, _L] + [_P] * 5 + [_I] * 4 + [_F, _P], _I),
     "skinjax_global_attention_bwd": ([_I, _P, _P, _P, _L] + [_P] * 8 + [_I] * 4 + [_F, _P], _I),
     "skinjax_global_attention_bwd_recompute": (
-        [_I, _P, _P, _P, _L] + [_P] * 9 + [_I] * 4 + [_F, _P], _I),
+        [_I, _P, _P, _P, _L] + [_P] * 5 + [_I] + [_P] * 7 + [_I] * 5 + [_F, _P], _I),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -124,10 +137,11 @@ def _merge(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(1, 2).reshape(B, N, h * hd)
 
 
-def attention_core_plain(q, k, v, bias, kmask, pmult, num_heads
+def attention_core_plain(q, k, v, bias, kmask, pmult, num_heads, mask=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's arithmetic in PyTorch ops → (o (B, N, C) in q's
-    dtype, P (B, h, N, N) fp32, before pmult)."""
+    dtype, P (B, h, N, N) fp32, before pmult); ``mask`` (n_win, N, N) adds
+    plane b % n_win to batch b's scores, after the bias."""
     dt, acc = q.dtype, acc_dtype(q.dtype)
     scale = (q.shape[-1] // num_heads) ** -0.5
     with torch.autocast(q.device.type, enabled=False):
@@ -135,6 +149,10 @@ def attention_core_plain(q, k, v, bias, kmask, pmult, num_heads
         s = (qh @ kh.transpose(-1, -2)) * scale
         if bias is not None:
             s = s + bias.to(acc)[None]
+        if mask is not None:
+            B, h, N, _ = s.shape
+            nw = mask.shape[0]
+            s = (s.reshape(B // nw, nw, h, N, N) + mask.to(acc)[None, :, None]).reshape(B, h, N, N)
         if kmask is not None:
             s = s + kmask.to(acc)[:, None, None, :]
         p = torch.softmax(s, dim=-1)
@@ -176,6 +194,14 @@ def attention_core_bwd_recompute_plain(q, k, v, do, bias, kmask, pmult, num_head
     backward's rounding."""
     _, p = attention_core_plain(q, k, v, bias, kmask, pmult, num_heads)
     return attention_core_bwd_plain(q, k, v, do, p, pmult, num_heads, has_bias)
+
+
+def window_core_bwd_plain(q, k, v, do, bias, mask, num_heads, has_bias):
+    """The recompute backward's arithmetic with a window mask → (dq, dk, dv,
+    of, dbias fp32 or None), what skinjax's ``_bwd_core`` returns."""
+    of, p = attention_core_plain(q, k, v, bias, None, None, num_heads, mask)
+    dq, dk, dv, dbias = attention_core_bwd_plain(q, k, v, do, p, None, num_heads, has_bias)
+    return dq, dk, dv, of, dbias
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +321,51 @@ def global_attention_bwd(q, k, v, do, p, pmult, num_heads: int, has_bias: bool):
     return dq, dk, dv, dbias
 
 
+def bias_groups(B: int, N: int, num_heads: int) -> int:
+    """The groups of consecutive batches (windows) over which the recompute
+    backward sums a bias gradient, each into an (h, N, N) fp32 plane before
+    the planes are added in order: enough that the key-column launch has
+    about ``BIAS_GROUP_BLOCKS`` blocks of 32 keys a head, at most B. Their
+    scratch, groups·h·N²·4 bytes, is at most 1056·32·4·N bytes (138 MB at
+    ``MAX_TOKENS``), within the stored-P limit (5.3 MB at Swin-tiny's stage
+    0: 176 planes of 3 × 49²)."""
+    return max(1, min(B, -(-BIAS_GROUP_BLOCKS // (-(-N // 32) * num_heads))))
+
+
+def _bwd_recompute(q, k, v, do, bias, kmask, pmult, mask, num_heads, has_bias, emit_of):
+    """The recompute backward kernel → (dq, dk, dv, of or None, dbias or None)."""
+    q, k, v, ld, bias, kmask, pmult = _check(q, k, v, bias, kmask, pmult, num_heads)
+    B, N, C = q.shape
+    check_tensor("do", do, (B, N, C), q.dtype, q.device)
+    if has_bias and bias is None:
+        raise ValueError("a bias gradient needs the bias")
+    if mask is not None:
+        mask = mask.float().contiguous()
+        if mask.dim() != 3 or B % mask.shape[0]:
+            raise ValueError(f"mask must be (n_win, {N}, {N}) with n_win dividing {B}; got "
+                             f"{tuple(mask.shape)}")
+        check_tensor("mask", mask, (mask.shape[0], N, N), torch.float32, q.device)
+    empty = lambda *shape, dt=q.dtype: torch.empty(shape, dtype=dt, device=q.device)  # noqa: E731
+    dq, dk, dv = (empty(B, N, C) for _ in range(3))
+    of = empty(B, N, C) if emit_of else None
+    stats = empty(3, B, num_heads, N, dt=torch.float32)
+    dbias = empty(num_heads, N, N, dt=torch.float32) if has_bias else None
+    if q.numel() == 0:
+        return dq, dk, dv, of, None if dbias is None else dbias.zero_()
+    groups = bias_groups(B, N, num_heads) if has_bias else 1
+    partial = empty(groups, num_heads, N, N, dt=torch.float32) if groups > 1 else None
+    lib = library()
+    err = lib.skinjax_global_attention_bwd_recompute(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
+        do.data_ptr(), _ptr(bias), _ptr(kmask), _ptr(pmult), _ptr(mask),
+        1 if mask is None else mask.shape[0], dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _ptr(of), stats.data_ptr(), _ptr(dbias), _ptr(partial), groups, B, N, C, num_heads,
+        (C // num_heads) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise(lib, err, "global_attention_bwd_recompute")
+    LAUNCHES["global_attention_bwd_recompute"] += 1
+    return dq, dk, dv, of, dbias
+
+
 def global_attention_bwd_recompute(q, k, v, do, bias, kmask, pmult, num_heads: int,
                                    has_bias: bool):
     """(dq, dk, dv, dbias fp32 or None) from the recompute backward kernel
@@ -304,26 +375,21 @@ def global_attention_bwd_recompute(q, k, v, do, bias, kmask, pmult, num_heads: i
                                                   has_bias)
     if q.device.type != "cuda":
         raise ValueError(f"global attention takes CPU or CUDA tensors, got {q.device}")
-    q, k, v, ld, bias, kmask, pmult = _check(q, k, v, bias, kmask, pmult, num_heads)
-    B, N, C = q.shape
-    check_tensor("do", do, (B, N, C), q.dtype, q.device)
-    if has_bias and bias is None:
-        raise ValueError("a bias gradient needs the bias")
-    dq, dk, dv = (torch.empty((B, N, C), dtype=q.dtype, device=q.device) for _ in range(3))
-    stats = torch.empty((3, B, num_heads, N), dtype=torch.float32, device=q.device)
-    dbias = (torch.empty((num_heads, N, N), dtype=torch.float32, device=q.device) if has_bias
-             else None)
-    if q.numel() == 0:
-        return dq, dk, dv, None if dbias is None else dbias.zero_()
-    lib = library()
-    err = lib.skinjax_global_attention_bwd_recompute(
-        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
-        do.data_ptr(), _ptr(bias), _ptr(kmask), _ptr(pmult), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), stats.data_ptr(), _ptr(dbias), B, N, C, num_heads,
-        (C // num_heads) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    _raise(lib, err, "global_attention_bwd_recompute")
-    LAUNCHES["global_attention_bwd_recompute"] += 1
+    dq, dk, dv, _, dbias = _bwd_recompute(q, k, v, do, bias, kmask, pmult, None, num_heads,
+                                          has_bias, False)
     return dq, dk, dv, dbias
+
+
+def window_core_bwd(q, k, v, do, bias, mask, num_heads: int, has_bias: bool):
+    """(dq, dk, dv, of, dbias fp32 or None) from the recompute backward kernel
+    (CUDA) or its twin (CPU) on B windows, window b with the mask plane
+    ``mask[b % n_win]`` (``mask`` (n_win, N, N) or None): skinjax's
+    ``_bwd_core`` with its window mask."""
+    if q.device.type == "cpu":
+        return window_core_bwd_plain(q, k, v, do, bias, mask, num_heads, has_bias)
+    if q.device.type != "cuda":
+        raise ValueError(f"global attention takes CPU or CUDA tensors, got {q.device}")
+    return _bwd_recompute(q, k, v, do, bias, None, None, mask, num_heads, has_bias, True)
 
 
 class _AttentionCore(torch.autograd.Function):

@@ -1,14 +1,17 @@
-"""Window multi-head attention on an NHWC map as a hand-written CUDA kernel
-pair, forward and backward.
+"""Window multi-head attention as hand-written CUDA kernels: on an NHWC map
+(forward and backward), and on windows already partitioned (forward; its
+backward is K12's recompute core with the window mask).
 
 Counterpart of ``skinjax/ops/pallas/window_attention.py``'s strip-blocked
-entry ``window_attention_nhwc`` (K7): per window of ``window × window``
-tokens, qkv projection → per-head scores (+ relative-position bias, + a
-per-window additive mask) → softmax → ·V → head merge → output projection.
+entry ``window_attention_nhwc`` and padded-window entry ``window_attention``
+(K7): per window of ``window × window`` tokens, qkv projection → per-head
+scores (+ relative-position bias, + a per-window additive mask) → softmax →
+·V → head merge → output projection.
 
-  kernel                 CUDA entry point (csrc/window_attention.cu)  replaces (Pallas TPU kernel)
-  window_attention_fwd   skinjax_window_attention_fwd                 window_attention.py _strip_fwd
-  window_attention_bwd   skinjax_window_attention_bwd                 window_attention.py _strip_bwd
+  kernel                     CUDA entry point (csrc/window_attention.cu)  replaces (Pallas TPU kernel)
+  window_attention_fwd       skinjax_window_attention_fwd                 window_attention.py _strip_fwd
+  window_attention_bwd       skinjax_window_attention_bwd                 window_attention.py _strip_bwd
+  window_attention_pad_fwd   skinjax_window_attention_pad_fwd             window_attention.py _fwd
 
 ``window_attention_nhwc`` is a ``torch.autograd.Function`` with the JAX
 signature and layouts: x ``(B, H, W, C)``, wqkv ``(C, 3C)``, bqkv ``(3C,)``,
@@ -28,8 +31,21 @@ the plain PyTorch twins, rounding at the same points. The wrappers dispatch
 on the device of x: a CPU tensor goes to the twin, a CUDA tensor launches the
 kernel or raises. There is no fallback from a failed build or launch.
 
+``window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads)`` is
+the padded entry: x ``(nB, N, C)`` windows (``window_partition``'s layout),
+bias ``(h, N, N)`` or None, mask ``(nW, N, N)`` or None, window j adding
+``mask[j % nW]``. Its forward is the NHWC forward's code with the other
+address map (no copies around the call, and none of skinjax's pad of N to a
+multiple of 16 with -1e9 keys, a Mosaic workaround); its backward follows
+``_bwd_call``: ``do = dy·wprojᵀ`` and the recomputed qkv by matrix products
+rounded to the dtype, the core by ``global_attention.window_core_bwd`` (the
+recompute kernel with the window mask, which also returns ``of``), then dW,
+db and dx by matrix products and sums. ``window_attention_pad_plain`` is the
+forward's twin.
+
 ``LAUNCHES`` counts calls that launched a kernel (one per forward, one per
-backward; a twin call is not counted). The module also keeps its own copies
+backward; a twin call is not counted; the padded entry's backward counts in
+``global_attention.LAUNCHES``). The module also keeps its own copies
 of ``window_partition``/``window_reverse`` (skinjax
 ``models/backbones/transformer_zoo.py``) and of the einsum reference
 ``window_attention_reference``.
@@ -44,7 +60,8 @@ import torch
 
 from skinjax_torch.ops import check_tensor
 
-LAUNCHES: Dict[str, int] = {"window_attention_fwd": 0, "window_attention_bwd": 0}
+LAUNCHES: Dict[str, int] = {"window_attention_fwd": 0, "window_attention_bwd": 0,
+                            "window_attention_pad_fwd": 0}
 
 MAX_TOKENS = 64  # window <= 8
 MAX_HEAD_DIM = 32
@@ -59,6 +76,7 @@ _SIGNATURES = {
     "skinjax_window_attention_error_string": ([_I], ctypes.c_char_p),
     "skinjax_window_attention_fwd": ([_I] + [_P] * 9 + [_I] * 6 + [_F, _P], _I),
     "skinjax_window_attention_bwd": ([_I] + [_P] * 11 + [_I] * 7 + [_F, _P], _I),
+    "skinjax_window_attention_pad_fwd": ([_I] + [_P] * 9 + [_I] * 5 + [_F, _P], _I),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -171,6 +189,21 @@ def window_attention_nhwc_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, num_hea
             B, H, W, C)
 
 
+def window_attention_pad_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads):
+    """The padded entry's forward arithmetic on windows x (nB, N, C) → y (nB,
+    N, C): the NHWC forward's, on windows already partitioned."""
+    nB, N, C = x.shape
+    dt = x.dtype
+    h, hd = num_heads, C // num_heads
+    with torch.autocast(x.device.type, enabled=False):
+        qkv = (x.float() @ wqkv.float() + bqkv.float()).to(dt)
+        q, k, v = (qkv[..., i * C:(i + 1) * C].reshape(nB, N, h, hd).transpose(1, 2)
+                   for i in range(3))
+        p = _probs(q, k, bias, mask, hd ** -0.5).to(dt)
+        of = _rmm(p, v, dt).transpose(1, 2).reshape(nB, N, C)
+        return (of.float() @ wproj.float() + bproj.float()).to(dt)
+
+
 def window_attention_nhwc_bwd_plain(x, dy, wqkv, bqkv, wproj, bias, mask, num_heads, window
                                     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The backward kernel's arithmetic → (dqkv (B, H, W, 3C), of (B, H, W, C),
@@ -203,19 +236,17 @@ def window_attention_nhwc_bwd_plain(x, dy, wqkv, bqkv, wproj, bias, mask, num_he
 # ---------------------------------------------------------------------------
 
 
-def _check(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, window):
-    """Shapes the kernels take; returns (bias, mask) as contiguous fp32 or None."""
+def _check_weights(x, wqkv, bqkv, wproj, bproj, bias, num_heads, N):
+    """What both entries take of x's dtype and channels, the weights and the
+    bias (N tokens a window); returns the bias as contiguous fp32 or None."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"window attention takes {_DTYPES}; got {x.dtype}")
-    if x.dim() != 4:
-        raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
-    B, H, W, C = x.shape
-    N = window * window
+    C = x.shape[-1]
     if C % num_heads or C // num_heads > MAX_HEAD_DIM or N > MAX_TOKENS:
         raise ValueError(f"the kernel takes C divisible by the heads, at most {MAX_HEAD_DIM} "
                          f"channels a head and {MAX_TOKENS} tokens a window; got C={C}, "
-                         f"{num_heads} heads, window {window}")
-    check_tensor("x", x, (B, H, W, C), x.dtype, x.device)
+                         f"{num_heads} heads, {N} tokens")
+    check_tensor("x", x, tuple(x.shape), x.dtype, x.device)
     check_tensor("wqkv", wqkv, (C, 3 * C), x.dtype, x.device)
     check_tensor("bqkv", bqkv, (3 * C,), x.dtype, x.device)
     check_tensor("wproj", wproj, (C, C), x.dtype, x.device)
@@ -224,6 +255,17 @@ def _check(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, window):
     if bias is not None:
         bias = bias.float().contiguous()
         check_tensor("bias", bias, (num_heads, N, N), torch.float32, x.device)
+    return bias
+
+
+def _check(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, window):
+    """Shapes the NHWC kernels take; returns (bias, mask) as contiguous fp32
+    or None."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
+    _, H, W, _ = x.shape
+    N = window * window
+    bias = _check_weights(x, wqkv, bqkv, wproj, bproj, bias, num_heads, N)
     if mask is not None:
         mask = mask.float().contiguous()
         check_tensor("mask", mask, ((H // window) * (W // window), N, N), torch.float32,
@@ -235,6 +277,46 @@ def _raise(lib, err: int, what: str) -> None:
     if err != 0:
         msg = lib.skinjax_window_attention_error_string(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def _check_pad(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads):
+    """Shapes the padded forward takes; returns (bias, mask) as contiguous
+    fp32 or None."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (nB, N, C) windows, got {tuple(x.shape)}")
+    nB, N, _ = x.shape
+    bias = _check_weights(x, wqkv, bqkv, wproj, bproj, bias, num_heads, N)
+    if mask is not None:
+        mask = mask.float().contiguous()
+        if mask.dim() != 3 or nB % mask.shape[0]:
+            raise ValueError(f"mask must be (nW, {N}, {N}) with nW dividing {nB}; got "
+                             f"{tuple(mask.shape)}")
+        check_tensor("mask", mask, (mask.shape[0], N, N), torch.float32, x.device)
+    return bias, mask
+
+
+def window_attention_pad_fwd(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads):
+    """y (nB, N, C) of the padded entry from its forward kernel (CUDA) or its
+    twin (CPU)."""
+    if x.device.type == "cpu":
+        return window_attention_pad_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"window attention takes CPU or CUDA tensors, got {x.device}")
+    bias, mask = _check_pad(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads)
+    nB, N, C = x.shape
+    of, y = torch.empty_like(x), torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    lib = library()
+    err = lib.skinjax_window_attention_pad_fwd(
+        int(x.dtype == torch.bfloat16), x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+        wproj.data_ptr(), bproj.data_ptr(), None if bias is None else bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), of.data_ptr(), y.data_ptr(), nB, N, C,
+        num_heads, 1 if mask is None else mask.shape[0], (C // num_heads) ** -0.5,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise(lib, err, "window_attention_pad_fwd")
+    LAUNCHES["window_attention_pad_fwd"] += 1
+    return y
 
 
 def window_attention_fwd(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, window):
@@ -339,3 +421,42 @@ def window_attention_nhwc(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads: in
                          f"{window}; got {tuple(x.shape)}")
     return _WindowAttentionNHWC.apply(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads,
                                       window)
+
+
+class _WindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads):
+        ctx.save_for_backward(x, wqkv, bqkv, wproj, bias, mask)
+        ctx.num_heads = num_heads
+        return window_attention_pad_fwd(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from skinjax_torch.ops.global_attention import window_core_bwd
+
+        x, wqkv, bqkv, wproj, bias, mask = ctx.saved_tensors
+        nB, N, C = x.shape
+        need = ctx.needs_input_grad
+        with torch.autocast(x.device.type, enabled=False):
+            dt = x.dtype
+            dyf, xf = dy.to(dt).reshape(-1, C), x.reshape(-1, C)
+            do = _mm(dyf, wproj.t(), dt).reshape(nB, N, C)
+            qkv = (xf.float() @ wqkv.float() + bqkv.float()).to(dt).reshape(nB, N, 3 * C)
+            dq, dk, dv, of, dbias = window_core_bwd(
+                qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], do, bias, mask,
+                ctx.num_heads, bias is not None and need[5])
+            dqkvf = torch.cat([dq, dk, dv], dim=-1).reshape(-1, 3 * C)
+            dx = _mm(dqkvf, wqkv.t(), dt).reshape(nB, N, C) if need[0] else None
+            dwqkv = _mm(xf.t(), dqkvf, wqkv.dtype) if need[1] else None
+            dbqkv = dqkvf.float().sum(0).to(bqkv.dtype) if need[2] else None
+            dwproj = _mm(of.reshape(-1, C).t(), dyf, wproj.dtype) if need[3] else None
+            dbproj = dyf.float().sum(0).to(wproj.dtype) if need[4] else None
+            dbias = dbias.to(bias.dtype) if dbias is not None else None
+        return dx, dwqkv, dbqkv, dwproj, dbproj, dbias, None, None
+
+
+def window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads: int) -> torch.Tensor:
+    """K7's padded-window entry: window MHA on x (nB, N, C) windows (bias (h,
+    N, N) or None; mask (nW, N, N) or None, window j adding mask[j % nW]);
+    differentiable in x, the weights and the bias."""
+    return _WindowAttention.apply(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads)

@@ -16,6 +16,7 @@ from skinjax_torch.data import augment as A
 from skinjax_torch.ops import augment_kernel as ak
 from tests.test_augment_distribution import _structured_batch
 from tests.test_augment_kernel import _ref_chain
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 GATES_ON = dict(J.DEFAULT_CFG, p_dropout=1.0, p_hsv=1.0, p_bc=1.0)
 

@@ -31,6 +31,7 @@ from skinjax.models.backbones import coat as jax_coat
 from skinjax.models.backbones import davit as jax_davit
 from skinjax.models.backbones import mvit as jax_mvit
 from skinjax.models.backbones import resnet as jax_resnet
+from skinjax.models.backbones import transformer_zoo as jax_zoo
 from skinjax.models.backbones import vit as jax_vit
 from skinjax.models.torch_import import import_caformer, import_coat
 from skinjax.train import steps as jsteps
@@ -45,6 +46,7 @@ from skinjax_torch.models.backbones import (
     davit,
     mvit,
     resnet,
+    swin,
     vit,
 )
 from skinjax_torch.models.weights import init_weights, load_numpy_state_dict, state_dict_from_flax
@@ -56,6 +58,7 @@ from skinjax_torch.train.steps import make_train_step_weighted
 from tests.test_torch_davit import _perturbed, _to_jax
 from tests.test_torch_train import _assert_adam_close, _leaves, jax_without_dropout  # noqa: F401
 from tests.test_torch_weights import jax_variables
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 HW = 32
 RGATT = "att-intramodal+residual+cross-attention-metadados"
@@ -281,6 +284,8 @@ FAMILIES = {
                            lambda: caformer.CAFormer((16,), (1,), device="meta")),
     "coat": (lambda: jax_coat.CoaTLite(**COAT_KW),
              lambda: coat.CoaTLite(*COAT_KW.values(), device="meta")),
+    "swin": (lambda: jax_zoo.Swin(dims=(16, 32), depths=(2, 2), heads=(1, 2), window=4),
+             lambda: swin.Swin((16, 32), (2, 2), (1, 2), window=4, device="meta")),
 }
 
 
@@ -289,7 +294,8 @@ def test_state_dict_from_flax_dispatches_on_tree_markers(family):
     """Each family's tree converts by its own markers to exactly the port
     tower's state_dict keys and shapes: a CAFormer tree (which has a
     ``stem_conv``, as DaViT's does) as CAFormer, with or without a
-    downsample, and the other families as before."""
+    downsample, a Swin tree (``patch_norm``) as Swin, and the other families
+    as before."""
     jmodule, pmodule = FAMILIES[family]
     variables = jax.eval_shape(jmodule().init, jax.random.key(0), jnp.zeros((1, HW, HW, 3)))
     arrays = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), dict(variables))

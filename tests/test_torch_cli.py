@@ -31,6 +31,7 @@ from skinjax_torch.data.fixtures import (
 from skinjax_torch.serve import png, run_service
 from skinjax_torch.tools import train_cli
 from skinjax_torch.tracking import Tracker
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 RGATT_MB = "att-intramodal+residual+cross-attention-metadados+metablock"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -34,6 +34,7 @@ from skinjax_torch.train.loop import TrainConfig, build_state
 from skinjax_torch.train.steps import make_train_step_weighted
 from tests.test_torch_train import _assert_adam_close, _leaves, jax_without_dropout  # noqa: F401
 from tests.test_torch_weights import jax_variable_shapes, jax_variables
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 SMALL = "davit-small-test"
 DIMS, DEPTHS, HEADS = (16, 32), (1, 2), (2, 4)

@@ -24,6 +24,7 @@ from skinjax_torch.train.early_stopping import EarlyStopping
 from skinjax_torch.train.kfold import run_kfold
 from skinjax_torch.train.loop import TrainConfig, train_process
 from skinjax_torch.train.optimizer import PlateauScheduler
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 CFG = dict(num_classes=3, num_heads=4, cnn_model_name="resnet-18", common_dim=16,
            text_encoder_dim_output=16, vocab_size=7,

@@ -20,6 +20,7 @@ import torch
 
 from skinjax.ops.pallas import fused_mlp as jax_mlp
 from skinjax_torch.ops import fused_mlp as fm
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 # (T, D, H, D2): below one tile; above it and ragged, with D ≠ D2
 SHAPES = [(37, 16, 64, 16), (600, 32, 64, 48)]

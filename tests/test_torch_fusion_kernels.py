@@ -10,6 +10,7 @@ import torch
 
 from skinjax.ops.pallas import fusion_kernels as jfk
 from skinjax_torch.ops import fusion_kernels as tfk
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 B, D = 5, 64
 HEAD = (2 * D, D, D // 2, 6)  # x width, fc1, fc2 (hidden // 2), classes

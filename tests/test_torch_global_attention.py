@@ -22,6 +22,7 @@ from skinjax.ops.pallas import global_attention as jga
 from skinjax.ops.pallas import window_attention as jwa
 from skinjax_torch.ops import global_attention as tga
 from skinjax_torch.ops.attention import MultiheadAttention
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -349,3 +350,53 @@ def test_multihead_attention_matches_skinjax(route):
                    None if mask is None else torch.tensor(mask))
     assert sum(tga.LAUNCHES.values()) == 0
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+# the recompute core as K7's padded entry runs it: name -> (windows, N, C,
+# heads, bias, mask planes); window b adds mask[b % planes]
+WINDOW_CASES = {"bias, 4 masks": (8, 49, 64, 2, True, 4),
+                "mask only, 2 masks": (4, 49, 96, 3, False, 2)}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_window_core_twin_matches_bwd_core(case, dtype):
+    """dq, dk, dv, of and dbias from ``window_core_bwd``'s twin against
+    skinjax's ``_bwd_core`` with its window mask (n_win planes, Pallas in
+    interpret mode): fp32 within 1e-5, bf16 within 2 ulps (dbias fp32 both
+    ways)."""
+    nB, N, C, h, bias, n_mask = WINDOW_CASES[case]
+    rng = np.random.default_rng(9)
+    f = np.float32
+    q, k, v, do = (rng.normal(size=(nB, N, C)).astype(f) for _ in range(4))
+    b = (rng.normal(size=(h, N, N)) * 0.5).astype(f) if bias else None
+    m = np.where(rng.uniform(size=(n_mask, N, N)) > 0.8, -100.0, 0.0).astype(f)
+    m[:, np.arange(N), np.arange(N)] = 0.0
+    jdt, tdt = DTYPES[dtype]
+    ref = jwa._bwd_core(*(_jax(a, jdt) for a in (q, k, v, do)), _jax(b), _jax(m), num_heads=h,
+                        has_bias=bias, has_mask=True, n_win=n_mask)
+    tga.reset_launches()
+    out = tga.window_core_bwd(*(_torch(a, tdt) for a in (q, k, v, do)), _torch(b), _torch(m),
+                              h, bias)
+    assert sum(tga.LAUNCHES.values()) == 0
+    assert (out[4] is None) == (b is None)
+    for name, o, r in zip(("dq", "dk", "dv", "of", "dbias"), out, ref):
+        if r is None:
+            continue
+        assert o.shape == r.shape and o.dtype == (torch.float32 if name == "dbias" else tdt)
+        _close(o, r, "float32" if name == "dbias" else dtype, name)
+
+
+def test_bias_groups():
+    """The recompute backward sums a bias gradient over groups of windows:
+    at Swin-tiny's stage 0 (4096 windows, 2 key tiles, 3 heads) enough for
+    ~1056 blocks; never more groups than batches, one where there is one
+    batch; the planes' scratch within the stored-P limit at the kernel's
+    widest N."""
+    assert tga.bias_groups(4096, 49, 3) == 176
+    assert tga.bias_groups(64, 49, 24) == 22
+    assert tga.bias_groups(3, 49, 3) == 3
+    assert tga.bias_groups(1, 197, 16) == 1
+    for h in (1, 2, 16, 64):
+        N = tga.MAX_TOKENS
+        assert tga.bias_groups(65535, N, h) * h * N * N * 4 <= tga.STORE_P_MAX_BYTES

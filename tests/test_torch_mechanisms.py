@@ -27,6 +27,7 @@ from skinjax_torch.train.loop import TrainConfig, build_state
 from skinjax_torch.train.steps import make_train_step_weighted
 from tests.test_torch_train import LR, WD, _assert_adam_close, jax_without_dropout  # noqa: F401
 from tests.test_torch_weights import jax_variables
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 CFG = dict(num_classes=4, num_heads=4, cnn_model_name="resnet-18", common_dim=32,
            text_encoder_dim_output=24, vocab_size=7)

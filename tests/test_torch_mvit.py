@@ -40,6 +40,7 @@ from skinjax_torch.train.steps import make_train_step_weighted
 from tests.test_torch_davit import _perturbed, _to_jax
 from tests.test_torch_train import _assert_adam_close, _leaves, jax_without_dropout  # noqa: F401
 from tests.test_torch_weights import jax_variables
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 DIMS, DEPTHS, HEADS, HW = (16, 32, 64, 128), (1, 2, 2, 2), (1, 2, 4, 8), 64
 TOWER = "mvit-small-test"

@@ -19,6 +19,7 @@ import torch
 
 from skinjax.ops.pallas import pooled_attention as jpa
 from skinjax_torch.ops import pooled_attention as tpa
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

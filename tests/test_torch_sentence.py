@@ -55,6 +55,7 @@ from skinjax_torch.train.loop import TEXT_PREFIXES, TrainConfig, build_state
 from skinjax_torch.train.optimizer import FREEZE_MODES
 from skinjax_torch.train.steps import make_eval_step, make_train_step_weighted
 from tests.test_torch_train import _assert_adam_close, jax_without_dropout  # noqa: F401
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 RGATT = "att-intramodal+residual+cross-attention-metadados"
 BERT = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64,

@@ -31,6 +31,7 @@ from skinjax_torch.serve import png, run_service
 from skinjax_torch.serve.api import make_handler
 from skinjax_torch.serve.engine import InferenceEngine, resize_u8
 from tests.test_torch_weights import jax_variables
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(num_classes=4, num_heads=4, cnn_model_name="resnet-18", common_dim=32,
@@ -286,6 +287,8 @@ def test_port_never_imports_jax():
         "import skinjax_torch.tools.train_cli, skinjax_torch.ops.pooled_attention\n"
         "import skinjax_torch.models.backbones.mvit, skinjax_torch.ops.fused_mlp\n"
         "import skinjax_torch.models.backbones.caformer, skinjax_torch.models.backbones.coat\n"
+        "import skinjax_torch.ops.channel_attention, skinjax_torch.ops.window_attention\n"
+        "import skinjax_torch.models.backbones.swin, skinjax_torch.models.backbones.davit\n"
         "import chip_smoke\n"
         "banned = ('jax', 'jaxlib', 'flax', 'skinjax', 'cv2', 'matplotlib', 'transformers',\n"
         "          'safetensors')\n"

@@ -18,6 +18,7 @@ from skinjax_torch.ops import global_attention as tga
 from skinjax_torch.ops.attention import MultiheadAttention
 from skinjax_torch.serve.engine import FUSED_MECHANISMS, InferenceEngine
 from tests.test_torch_weights import jax_variables
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 CFG = dict(num_classes=4, num_heads=8, cnn_model_name="resnet-50", common_dim=32,
            vocab_size=7, attention_mechanism=_RGATT)

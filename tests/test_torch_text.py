@@ -23,6 +23,7 @@ from skinjax_torch.models.text import bert as tbert
 from skinjax_torch.models.text import gpt2 as tgpt2
 from skinjax_torch.models.weights import load_numpy_state_dict, text_encoder_state_dict
 from skinjax_torch.ops import global_attention as tga
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

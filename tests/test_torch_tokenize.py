@@ -15,6 +15,7 @@ from skinjax.data import pipeline as jpipe
 from skinjax.data import tokenize as jtok
 from skinjax_torch.data import pipeline as tpipe
 from skinjax_torch.data import tokenize as ttok
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 SENTENCES = [
     "The patient, a 55-year-old male, presents a lesion on the left arm.",

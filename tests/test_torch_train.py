@@ -29,6 +29,7 @@ from skinjax_torch.train.steps import (
     make_train_step,
     make_train_step_weighted,
 )
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 RGATT = "att-intramodal+residual+cross-attention-metadados"
 CFG = dict(num_classes=5, num_heads=4, cnn_model_name="resnet-18", common_dim=32,

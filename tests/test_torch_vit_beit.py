@@ -38,6 +38,7 @@ from skinjax_torch.train.steps import make_train_step_weighted
 from tests.test_torch_davit import _perturbed, _to_jax
 from tests.test_torch_train import _assert_adam_close, _leaves, jax_without_dropout  # noqa: F401
 from tests.test_torch_weights import jax_variables
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 DIM, DEPTH, HEADS, HW = 128, 2, 2, 64
 RGATT = "att-intramodal+residual+cross-attention-metadados"

@@ -13,6 +13,7 @@ from skinjax.models import MultimodalModel as JaxModel
 from skinjax.models.torch_import import filter_to_template, import_multimodal_checkpoint
 from skinjax_torch.models import MultimodalModel
 from skinjax_torch.models.weights import init_weights, load_numpy_state_dict, state_dict_from_flax
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 RGATT = "att-intramodal+residual+cross-attention-metadados"
 

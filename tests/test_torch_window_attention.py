@@ -13,6 +13,7 @@ import torch
 
 from skinjax.ops.pallas import window_attention as jwa
 from skinjax_torch.ops import window_attention as twa
+from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
 
 WINDOW = 7
 
@@ -212,3 +213,75 @@ def test_bad_shapes_raise():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         twa.window_attention_fwd(x.to("meta"), *(torch.zeros(s, device="meta") for s in
                                      ((96, 288), (288,), (96, 96), (96,))), None, None, 3, WINDOW)
+
+
+# K7's padded entry on partitioned windows: name -> (windows, C, heads, bias,
+# mask planes); window j adds mask[j % planes]. The second is skinjax's
+# test_mask_period_exceeds_block case (64 shifted masks, more than its
+# kernel's window block).
+PAD_CASES = {"bias, 4 masks": (8, 64, 2, True, 4),
+             "mask period exceeds block": (128, 96, 3, False, 64)}
+
+
+def _pad_inputs(case, seed):
+    nB, C, h, bias, n_mask = PAD_CASES[case]
+    rng = np.random.default_rng(seed)
+    N = WINDOW * WINDOW
+    f = np.float32
+    arrays = [rng.normal(size=(nB, N, C)).astype(f) * 0.5,
+              (rng.normal(size=(C, 3 * C)) * 0.05).astype(f),
+              (rng.normal(size=(3 * C,)) * 0.02).astype(f),
+              (rng.normal(size=(C, C)) * 0.05).astype(f),
+              (rng.normal(size=(C,)) * 0.02).astype(f)]
+    b = (rng.normal(size=(h, N, N)) * 0.1).astype(f) if bias else None
+    m = np.where(rng.uniform(size=(n_mask, N, N)) > 0.8, -100.0, 0.0).astype(f)
+    m[:, np.arange(N), np.arange(N)] = 0.0
+    return arrays, b, m, h
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(PAD_CASES))
+def test_padded_forward_matches_skinjax(case, dtype):
+    """The padded entry's forward twin against skinjax's ``window_attention``
+    (its ``_fwd`` Pallas kernel, interpret mode) with the bias and
+    period-``nW`` masks: fp32 within 1e-5, bf16 within 2 ulps."""
+    arrays, b, m, h = _pad_inputs(case, seed=10)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                        torch.bfloat16)
+    ref = _f32(jwa.window_attention(*(_jax(a, jdt) for a in arrays), _jax(b, jnp.float32),
+                                    _jax(m, jnp.float32), h))
+    twa.reset_launches()
+    out = twa.window_attention(*(_torch(a, tdt) for a in arrays), _torch(b, torch.float32),
+                               _torch(m, torch.float32), h)
+    assert sum(twa.LAUNCHES.values()) == 0
+    assert out.dtype == tdt and out.shape == arrays[0].shape
+    if dtype == "float32":
+        np.testing.assert_allclose(_f32(out), ref, atol=1e-5, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(_f32(out), ref, atol=2 * _bf16_ulp(ref), rtol=0)
+
+
+@pytest.mark.parametrize("case", list(PAD_CASES))
+def test_padded_gradients_match_skinjax(case):
+    """dx, dwqkv, dbqkv, dwproj, dbproj (and dbias) through the padded
+    entry's autograd.Function (``_bwd_call``'s matrix products around the
+    recompute core's twin with the window mask) against jax.grad through
+    skinjax's custom VJP (its ``_bwd_core`` Pallas kernel), jitted, fp32 at
+    1e-4."""
+    arrays, b, m, h = _pad_inputs(case, seed=11)
+    dy = np.random.default_rng(12).normal(size=arrays[0].shape).astype(np.float32)
+    mask = jnp.asarray(m)
+
+    def loss(*a):
+        bias = a[5] if b is not None else None
+        return jnp.sum(jwa.window_attention(*a[:5], bias, mask, h) * jnp.asarray(dy))
+
+    jargs = [jnp.asarray(a) for a in arrays] + ([jnp.asarray(b)] if b is not None else [])
+    ref = jax.jit(jax.grad(loss, argnums=tuple(range(len(jargs)))))(*jargs)
+    targs = [_torch(a, torch.float32, grad=True) for a in arrays]
+    bias = _torch(b, torch.float32, grad=True)
+    twa.window_attention(*targs, bias, _torch(m, torch.float32), h).backward(torch.tensor(dy))
+    out = [t.grad for t in targs] + ([bias.grad] if bias is not None else [])
+    assert len(out) == len(ref)
+    for name, o, r in zip(["dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias"], out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-4, rtol=1e-4, err_msg=name)
