@@ -16,7 +16,10 @@ B=32, and a CoaT-lite-small one (``skinjax_torch.COAT``) at B=64; the
 DaViT model with its channel attention through K8 (skinjax's
 ``SKINJAX_CHATTN=pallas``), served and trained at B=64; with a Swin-tiny
 tower (``skinjax_torch.SWIN``), served and trained at B=64, and trained
-through K7's padded entry; the sentence datasets' tokens model (DaViT-tiny + BERT-base, and + GPT-2 small) trained at
+through K7's padded entry; with a NextViT-small tower
+(``skinjax_torch.NEXTVIT``) on K6's BatchNorm route, served and trained at
+B=64, and the CNN zoo (DenseNet-169, MobileNet-V2, EfficientNet-B0/B7,
+VGG16) served and trained; the sentence datasets' tokens model (DaViT-tiny + BERT-base, and + GPT-2 small) trained at
 B=32 over 512 and 256 tokens; all 18 fusion mechanisms; and the train CLI
 from a dataset on disk, whose checkpoint the service then serves, and on a
 sentence dataset. Phases, each printing its lines:
@@ -24,8 +27,8 @@ sentence dataset. Phases, each printing its lines:
   1. card     nvidia-smi name and power limit, CUDA version
   2. build    nvcc builds of skinjax_torch/csrc/fusion_kernels.cu,
               augment_kernel.cu, window_attention.cu, global_attention.cu,
-              pooled_attention.cu, fused_mlp.cu and channel_attention.cu,
-              started together; seconds, ptxas registers
+              pooled_attention.cu, fused_mlp.cu, channel_attention.cu and
+              bn_kernels.cu, started together; seconds, ptxas registers
   3. kernels  K1-K4 against their plain PyTorch twins at the flagship shapes
               (K4 at Vd in {2048, 768, 512}), B in {1, 3, 8, 32}, fp32 (TF32
               off) and bf16 activations; K5 against its twin at B in
@@ -56,7 +59,8 @@ sentence dataset. Phases, each printing its lines:
               with the window mask: dq, dk, dv, of, dbias) against their
               twins at Swin-tiny's four stage shapes (B=64 bf16, B=8 fp32)
               with the relative-position bias and, at stages 0-2, the
-              shifted windows' mask, two backward calls bit-identical
+              shifted windows' mask, two backward calls bit-identical; K6
+              (bn_stats, bn_grad_stats) against its twins, as phase 13f says
   4. slice    fused against plain engine; launches per fused forward; the
               fp32 engine on the card against the same model on the CPU
   5. server   the engine run_service builds, served on a localhost port:
@@ -141,6 +145,23 @@ sentence dataset. Phases, each printing its lines:
               the card against the CPU, and the two routes' train steps A/B'd.
               (K8's and K7-pad's times at each stage, against their twins,
               bounds and a library yardstick, run right after phase 3.)
+ 13f. batchnorm  NextViT-small (``skinjax_torch.NEXTVIT``) with its 61
+              BatchNorms fused (``fuse_batch_norms``: K6 in train mode): fused
+              against plain engine at B=1 and 8 (K6 launching nothing in eval
+              mode), the fp32 engine on the card against the CPU, run_service;
+              the train step at B=64: the loss falls, K6 61 stats + 61 grad
+              stats a step, 61 + 0 frozen; a small fused NextViT's fp32 step on
+              the card against the CPU's twin route; train images/s and a
+              profiled step; its train step and the flagship's (B=128) A/B'd
+              against the native BatchNorm in turns (nextvit_small_images_per_sec
+              on both routes); DenseNet-169, MobileNet-V2, EfficientNet-B0/B7 and
+              VGG16 on the K6 route: a served forward and the train step
+              (densenet169_images_per_sec). (K6's checks, at ResNet-50's first
+              BN at B=128 and NextViT-small's stem, stage-3 and pooled-token
+              BNs at B=64, bf16, fp32, odd rows and odd channels, and the
+              train route against the twin route, run in phase 3; its times,
+              with torch.batch_norm_stats and batch_norm_backward_reduce as
+              yardsticks, right after.)
  14. mechanisms  all 18 at full width around one ResNet-50 tower: the 10 the
               engine fuses, fused against plain with their launches per fused
               forward (metablock: K4 1 + K3 1; …+metablock: K1 4 + K2 2 + K4 1);
@@ -233,6 +254,10 @@ K10 = {  # name -> the Pallas TPU function it replaces (file:line)
     "mlp_star_fwd": "skinjax/ops/pallas/fused_mlp.py:270",
     "mlp_star_bwd": "skinjax/ops/pallas/fused_mlp.py:291",
 }
+K6 = {  # name -> the Pallas TPU function it replaces (file:line)
+    "bn_stats": "skinjax/ops/pallas/bn_kernels.py:62",
+    "bn_grad_stats": "skinjax/ops/pallas/bn_kernels.py:106",
+}
 SOURCE = "skinjax_torch/csrc/fusion_kernels.cu"
 K5_SOURCE = "skinjax_torch/csrc/augment_kernel.cu"
 K7_SOURCE = "skinjax_torch/csrc/window_attention.cu"
@@ -240,9 +265,10 @@ K12_SOURCE = "skinjax_torch/csrc/global_attention.cu"
 K11_SOURCE = "skinjax_torch/csrc/pooled_attention.cu"
 MLP_SOURCE = "skinjax_torch/csrc/fused_mlp.cu"
 K8_SOURCE = "skinjax_torch/csrc/channel_attention.cu"
+K6_SOURCE = "skinjax_torch/csrc/bn_kernels.cu"
 BUILDS = {"fusion_kernels": SOURCE, "augment_kernel": K5_SOURCE, "window_attention": K7_SOURCE,
           "global_attention": K12_SOURCE, "pooled_attention": K11_SOURCE,
-          "fused_mlp": MLP_SOURCE, "channel_attention": K8_SOURCE}
+          "fused_mlp": MLP_SOURCE, "channel_attention": K8_SOURCE, "bn_kernels": K6_SOURCE}
 KERNEL_NAMES = {"seq1_attention": "seq1_attention_kernel",
                 "gated_residual_seq1": "gated_residual_kernel",
                 "metablock_film": "metablock_film_kernel", "mlp_head": "mlp_head_kernel"}
@@ -273,7 +299,9 @@ K8_KERNELS = {"channel_attention_fwd": ["ca_partial_kernel", "ca_softmax_kernel"
 K7_PAD_KERNELS = {K7_PAD: ["wa_fwd_kernel", "proj_kernel"],
                   K7_PAD_BWD: ["ga_bwd_rows_kernel", "ga_bwd_cols_kernel",
                                "ga_dbias_reduce_kernel"]}
-KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", "wa_fwd_kernel",
+# each K6 call's two launches (the partial sums, then their reduction)
+K6_KERNELS = ["bn_partial_kernel", "bn_reduce_kernel"]
+KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", "wa_fwd_kernel", *K6_KERNELS,
                   "wa_bwd_kernel", "proj_kernel", "dbias_reduce_kernel", "ga_fwd_kernel",
                   "ga_bwd_dq_kernel", "ga_bwd_dkv_kernel", "ga_bwd_rows_kernel",
                   "ga_bwd_cols_kernel", "pa_fwd_kernel", "pa_bwd_dq_kernel", "pa_bwd_dkv_kernel",
@@ -376,6 +404,26 @@ SMALL_COAT = "coat-smoke-small"  # dims (64, 128), depths (1, 1), 8 heads, MLP r
 # K5's float32 operations per pixel, counted from csrc/augment_kernel.cu:
 # dropout 5 holes × 4 + 3, RGB→HSV 15, mod 3, shift 10, HSV→RGB 10,
 # brightness/contrast 4 + normalize 3 × 6
+# K6's shapes, (N, C, H, W) maps channels_last or (B, N, C) tokens as their
+# (B, C, N) view: ResNet-50's first BN at B=128, NextViT-small's stem and
+# stage-3 BNs and its stage-1 pooled tokens at B=64 (bf16, as trained); an
+# fp32 map; an odd row count; an odd channel count (one element a load)
+K6_SHAPES = {"resnet50-bn1": ((128, 64, 112, 112), "map", "bfloat16"),
+             "nextvit-stem": ((64, 64, 112, 112), "map", "bfloat16"),
+             "nextvit-stage3-768": ((64, 768, 7, 7), "map", "bfloat16"),
+             "nextvit-stage3-1024": ((64, 1024, 7, 7), "map", "bfloat16"),
+             "nextvit-tokens": ((64, 49, 192), "tokens", "bfloat16"),
+             "fp32-map": ((64, 96, 56, 56), "map", "float32"),
+             "odd-rows": ((3, 64, 37, 41), "map", "bfloat16"),
+             "odd-channels": ((5, 37, 9, 11), "map", "float32")}
+K6_RECORD = "resnet50-bn1"
+K6_SUM_TOL = 1e-5  # of Σ|terms| per channel: fp32 sums in another order
+# the CNN zoo: name -> train batch on the card (DenseNet-169's is DENSENET_BATCH;
+# the others as the card holds them at 224×224)
+ZOO = {"densenet169": 64, "mobilenet-v2": 64, "efficientnet-b0": 64, "efficientnet-b7": 16,
+       "vgg16": 32}
+K6_ROUTE = "+k6"  # a registered tower name + this: its BatchNorms fused (K6)
+SMALL_NEXTVIT = "nextvit-smoke-small"  # stem (16, 16, 32), 4 narrow stages, 64×64
 K5_OPS_PER_PIXEL = 83
 K5_SHAPES = ((1, 224, 224), (7, 224, 224), (128, 224, 224), (2, 300, 400))
 TRAIN_B = 128
@@ -789,7 +837,8 @@ def phase_server(fk, card, cnn="resnet-50", towers=(), env=None, requests=None,
                                           "beitv2_large_patch16_224": 1024,
                                           "mvitv2_small": 768, "caformer_b36": 768,
                                           "coat_lite_small": 512,
-                                          "swin_tiny_patch4_window7_224": 768}[cnn],
+                                          "swin_tiny_patch4_window7_224": 768,
+                                          "nextvit_small" + K6_ROUTE: 1024}[cnn],
           f"run_service did not build a {cnn} tower")
     if requests is None:
         n_cat = len(engine.featurizer.categorical_cols)
@@ -1753,6 +1802,7 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
     import torch
 
     from skinjax_torch.models import MultimodalModel
+    from skinjax_torch.models.backbones.nextvit import NextViT
     from skinjax_torch.models.text.bert import NativeBertEncoder, NativeSentenceTower
     from skinjax_torch.models.weights import init_weights
     from skinjax_torch.ops import global_attention as ga
@@ -1823,6 +1873,26 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
     # share of all gradients' norm.
     pd = {k: (sc[k].float() - sh[k].float()).abs() for k in gh}
     pdiff = max(float(d.max()) for d in pd.values())
+    # So are the biases that add a constant to the residual stream of a
+    # NextViT block whose output only a train-mode BatchNorm reads (through
+    # the next block's 1×1 patch embedding, or the final norm), whose batch
+    # mean takes it away: the block's MLP and E-MHSA output biases, and, in
+    # an NTB, E-MHSA's value bias and pooled-token norm shift (attention rows
+    # sum to 1) and the patch embedding's shift (its E-MHSA and MHCA halves
+    # read it through a BatchNorm and a 1×1 conv); and E-MHSA's key bias.
+    before_bn = set()
+    if isinstance(model.image_encoder, NextViT):
+        blocks = [(f"image_encoder.stages.{si}.{bi}", b)
+                  for si, stage in enumerate(model.image_encoder.stages)
+                  for bi, b in enumerate(stage)]
+        for i, (name, b) in enumerate(blocks):
+            if i + 1 < len(blocks) and blocks[i + 1][1].patch_embed.identity:
+                continue
+            before_bn.add(f"{name}.mlp.conv2.bias")
+            if hasattr(b, "e_mhsa"):
+                before_bn |= {f"{name}.{p}" for p in ("e_mhsa.proj.bias", "e_mhsa.v.bias",
+                                                      "e_mhsa.norm.bias",
+                                                      "patch_embed.norm.bias")}
     key_bias, key_grad = 0, 0.0
     for k in pd:
         if re.fullmatch(r"image_encoder\.(stages\.\d+\.blocks\.\d+\.0\.attn|"
@@ -1832,7 +1902,8 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
             pd[k] = torch.cat([pd[k][:C], pd[k][2 * C:]])
             key_bias += C
             key_grad = max(key_grad, float(gh[k][C:2 * C].abs().max()))
-        elif k.endswith(("attention.self.key.bias", ".attn.norm_k.bias")):
+        elif k.endswith(("attention.self.key.bias", ".attn.norm_k.bias", ".e_mhsa.k.bias")) \
+                or k in before_bn:
             key_bias += pd[k].numel()
             key_grad = max(key_grad, float(gh[k].abs().max()))
             pd[k] = pd[k][:0]
@@ -2895,6 +2966,315 @@ def phase_swin(counters, device, card):
     return {K7_PAD: launches[K7_PAD], K7_PAD_BWD: launches[K12_RECOMPUTE]}
 
 
+def k6_inputs(shape, layout, dtype, device, seed):
+    """x and dy at one K6 shape, drawn on the card, in the layout the towers
+    hand their BatchNorms: a channels_last map, or the (B, C, N) view of
+    (B, N, C) tokens. x has a per-channel offset (a BN input is not
+    centered)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    if layout == "map":
+        N, C, H, W = shape
+        x = torch.randn((N, H, W, C), generator=gen, device=device)
+        x = x + torch.randn((C,), generator=gen, device=device)
+        dy = torch.randn((N, H, W, C), generator=gen, device=device)
+        return x.to(dt).permute(0, 3, 1, 2), dy.to(dt).permute(0, 3, 1, 2)
+    B, N, C = shape
+    x = torch.randn((B, N, C), generator=gen, device=device) + torch.randn(
+        (C,), generator=gen, device=device)
+    dy = torch.randn((B, N, C), generator=gen, device=device)
+    return x.to(dt).transpose(1, 2), dy.to(dt).transpose(1, 2)
+
+
+def k6_sums_ok(got, want, terms):
+    """(max abs error, every channel's sum within K6_SUM_TOL·Σ|terms|)."""
+    import torch
+
+    check(got.dtype == torch.float32 and got.shape == want.shape, "misshapen K6 sums")
+    check(bool(torch.isfinite(got).all()), "non-finite K6 sums")
+    err = (got - want).abs()
+    return float(err.max()), bool((err <= K6_SUM_TOL * terms).all())
+
+
+@contextlib.contextmanager
+def k6_twins(bn):
+    """batch_norm_train's sums through the twins meanwhile, on any device:
+    the twin route that a K6 route is held against."""
+    saved = bn.bn_stats, bn.bn_grad_stats
+    bn.bn_stats, bn.bn_grad_stats = bn.bn_stats_reference, bn.bn_grad_stats_reference
+    try:
+        yield
+    finally:
+        bn.bn_stats, bn.bn_grad_stats = saved
+
+
+def phase_k6(bn, device):
+    """K6 against its twins at K6_SHAPES: (Σx, Σx²) and (Σdy, Σdy·x) within
+    K6_SUM_TOL of each channel's Σ|terms|, two calls bit-identical; the
+    wrappers raise on a plain NCHW map (no hidden copy); and the train route
+    (``FusedBatchNorm2d``/``1d``: y, dx, dweight, dbias and the running
+    statistics) against the same module on the twin route: y and dx within
+    two bf16 roundings of their largest value (fp32: 1e-5 of it), the fp32
+    weight gradients and statistics within 1e-5 of max(1, |twin|)."""
+    import torch
+
+    errors = {name: 0.0 for name in K6}
+    for label, (shape, layout, dtype) in K6_SHAPES.items():
+        x, dy = k6_inputs(shape, layout, dtype, device, seed=len(label))
+        got = bn.bn_stats(x) + bn.bn_grad_stats(x, dy)
+        again = bn.bn_stats(x) + bn.bn_grad_stats(x, dy)
+        want = bn.bn_stats_reference(x) + bn.bn_grad_stats_reference(x, dy)
+        torch.cuda.synchronize()
+        xr, gr = bn._rows(x).float(), bn._rows(dy).float()
+        terms = (xr.abs().sum(0), (xr * xr).sum(0), gr.abs().sum(0), (gr * xr).abs().sum(0))
+        results = []
+        for i, part in enumerate(("sum x", "sum x^2", "sum dy", "sum dy*x")):
+            name = "bn_stats" if i < 2 else "bn_grad_stats"
+            err, ok = k6_sums_ok(got[i], want[i], terms[i])
+            errors[name] = max(errors[name], err)
+            results.append((name, part, err, ok, f"{K6_SUM_TOL:g}·Σ|terms| per channel"))
+        M = x.numel() // x.shape[1]
+        log_checks(results, f"{label} {dtype} M={M} C={x.shape[1]} {layout}")
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"kernel bn_stats/bn_grad_stats {label}: two calls bit-identical: {same}")
+        check(same, f"two K6 calls differ at {label}")
+        del x, dy, got, again, want, xr, gr, terms
+    plain = torch.randn(2, 8, 4, 4, device=device, dtype=torch.bfloat16)
+    refused = raises(lambda: bn.bn_stats(plain), ValueError)
+    log(f"kernel bn_stats on a plain NCHW map (C not contiguous): raises {refused}")
+    check(refused, "bn_stats took a layout it does not read")
+
+    for label in ("nextvit-stem", "nextvit-tokens", "fp32-map", "odd-rows"):
+        shape, layout, dtype = K6_SHAPES[label]
+        C = shape[1] if layout == "map" else shape[2]
+        outs = []
+        for route in ("K6", "twin"):
+            x, dy = k6_inputs(shape, layout, dtype, device, seed=7)
+            x.requires_grad_(True)
+            cls = bn.FusedBatchNorm2d if layout == "map" else bn.FusedBatchNorm1d
+            m = cls(C).to(device).train()
+            with torch.no_grad():
+                m.weight.copy_(torch.linspace(0.5, 1.5, C))
+                m.bias.copy_(torch.linspace(-0.2, 0.2, C))
+            with k6_twins(bn) if route == "twin" else contextlib.nullcontext():
+                y = m(x)
+                y.backward(dy)
+            outs.append((y.detach(), x.grad, m.weight.grad, m.bias.grad, m.running_mean,
+                         m.running_var))
+        torch.cuda.synchronize()
+        results = []
+        for part, a, b in zip(("y", "dx", "dweight", "dbias", "running_mean", "running_var"),
+                              *outs):
+            big = float(b.float().abs().max())
+            if part in ("y", "dx"):
+                tol = (2 * 2.0 ** -8 if dtype == "bfloat16" else 1e-5) * big
+            else:
+                tol = 1e-5 * max(1.0, big)
+            err = float((a.float() - b.float()).abs().max())
+            results.append(("batch_norm_train", part, err, err <= tol, f"{tol:.3g}"))
+        log_checks(results, f"{label} {dtype} K6 route vs the twin route")
+        del outs, x, dy
+    return errors
+
+
+def k6_bound(M, C, itemsize, grad):
+    """The least time (ms) for one K6 call: x (and dy) read once, the two
+    (C,) fp32 sums written once, over the HBM rate, against 3 fp32
+    operations an element (an add and a fused multiply-add) over the fp32
+    rate (the sums run on the CUDA cores)."""
+    nbytes = (2 if grad else 1) * M * C * itemsize + 2 * C * 4
+    ops = 3 * M * C
+    return max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3, nbytes, ops
+
+
+def phase_k6_times(bn, device, card):
+    """K6 against its twins at each map shape of K6_SHAPES in bf16 (the
+    record's at K6_RECORD): CUDA events in turns, device times, the bound,
+    and one PyTorch call of the same sums as the yardstick
+    (``torch.batch_norm_stats``, whose Welford sums give mean and invstd, and
+    ``torch.batch_norm_backward_reduce``, Σdy and Σdy·(x − mean)), which the
+    port never calls."""
+    import torch
+
+    out = {}
+    for label in ("resnet50-bn1", "nextvit-stem", "nextvit-stage3-1024"):
+        shape, layout, dtype = K6_SHAPES[label]
+        x, dy = k6_inputs(shape, layout, dtype, device, seed=3)
+        C = x.shape[1]
+        M = x.numel() // C
+        mean, invstd = torch.batch_norm_stats(x, 1e-5)
+        w = torch.ones(C, device=device)
+        lib = {"bn_stats": time_ms(lambda: torch.batch_norm_stats(x, 1e-5), 20, 3),
+               "bn_grad_stats": time_ms(lambda: torch.batch_norm_backward_reduce(
+                   dy, x, mean, invstd, w, True, False, False), 20, 3)}
+        calls = {"bn_stats": (lambda: bn.bn_stats(x), lambda: bn.bn_stats_reference(x)),
+                 "bn_grad_stats": (lambda: bn.bn_grad_stats(x, dy),
+                                   lambda: bn.bn_grad_stats_reference(x, dy))}
+        for name, (kern, twin) in calls.items():
+            out[(name, label)] = time_record(
+                card, name, f"{label} M={M} C={C} {layout}", kern, twin, K6_KERNELS,
+                k6_bound(M, C, x.element_size(), name == "bn_grad_stats"), lib[name])
+        del x, dy
+    return out
+
+
+def k6_count(name):
+    """BatchNorms of a registered tower: K6's launches of each kind per
+    unfrozen train step on its K6 route."""
+    from skinjax_torch.models.backbones import create_backbone
+    from skinjax_torch.ops import batch_norm as bn
+
+    return bn.count_batch_norms(bn.fuse_batch_norms(create_backbone(name, device="meta")[0]))
+
+
+def k6_steps(name):
+    """(per unfrozen step, per frozen step) launches on a tower's K6 route:
+    stats once per BatchNorm in both modes; grad stats once per BatchNorm
+    whose input, weight or bias needs a gradient: all of them unfrozen, none
+    frozen (no tower parameter and no image needs one)."""
+    n = k6_count(name)
+    return ({K5: 1, "bn_stats": n, "bn_grad_stats": n},
+            {K5: 1, "bn_stats": n, "bn_grad_stats": 0})
+
+
+@contextlib.contextmanager
+def k6_registered():
+    """Meanwhile each BatchNorm tower also under ``name + K6_ROUTE`` with its
+    BatchNorms fused (``fuse_batch_norms``: K6 in train mode), and
+    ``SMALL_NEXTVIT`` (fused) for the card-vs-CPU step."""
+    from skinjax_torch.models.backbones import _REGISTRY
+    from skinjax_torch.models.backbones.nextvit import NextViT
+    from skinjax_torch.ops.batch_norm import fuse_batch_norms
+
+    def fused(ctor):
+        return lambda device=None: fuse_batch_norms(ctor(device=device))
+
+    added = {f"{name}{K6_ROUTE}": (fused(_REGISTRY[name][0]), _REGISTRY[name][1])
+             for name in ("resnet-50", "nextvit_small", *ZOO)}
+    added[SMALL_NEXTVIT] = (fused(lambda device=None: NextViT(
+        (1, 2, 2, 1), (16, 16, 32), stage_channels=((32,), (64, 128), (64, 128), (128,)),
+        stage_types=(("ncb",), ("ncb", "ntb"), ("ncb", "ntb"), ("ntb",)), device=device)), 128)
+    _REGISTRY.update(added)
+    try:
+        yield
+    finally:
+        for name in added:
+            del _REGISTRY[name]
+
+
+def phase_nextvit(counters, device, card):
+    """NextViT-small (``skinjax_torch.NEXTVIT``) on its K6 route: served
+    (fused against plain engine at B=1 and 8, K6 launching nothing in eval
+    mode; the fp32 engine on the card against the CPU; run_service), trained
+    at B=64 unfrozen and frozen (the loss falls; K6 as ``k6_steps`` counts;
+    the gradients laid out anew per step), a small fused NextViT's fp32 step on
+    the card against the CPU's twin route, train images/s and a profiled
+    step; then the native and K6 routes' train steps A/B'd in turns
+    (nextvit_small_images_per_sec on both). Returns K6's launches over the 10
+    unfrozen steps and the A/B means."""
+    import torch
+
+    from skinjax_torch import NEXTVIT, NEXTVIT_BATCH
+
+    fk, ak, bn = counters
+    k6 = dict(NEXTVIT, cnn_model_name="nextvit_small" + K6_ROUTE)
+    bn_off = {name: 0 for name in K6}
+    per_step, frozen = k6_steps("nextvit_small")
+    log(f"nextvit-small: {per_step['bn_stats']} BatchNorms ("
+        f"{sum(isinstance(m, torch.nn.BatchNorm1d) for m in smoke_model(k6, None).modules())} "
+        f"of them BatchNorm1d on pooled tokens); K6 a step: {per_step} unfrozen, {frozen} frozen")
+    fused, plain = phase_slice(fk, device, card, "nextvit-small", k6, [(bn, bn_off)])
+    phase_server(fk, card, cnn=k6["cnn_model_name"], towers=[(bn, bn_off)])
+    engine_latency(fused, plain, "nextvit-small", card, batches=(1,), n=20, profile=False)
+    del fused, plain
+    batch, cw, step, launches = phase_train(
+        [ak, bn], device, card, "nextvit-small K6", k6, NEXTVIT_BATCH, per_step=per_step,
+        frozen_per_step=frozen, lr=TOWER_TRAIN_LR)
+    state = train_state(k6, device)
+    bn.reset_launches()
+    step(state, batch["image"], batch["metadata"], batch["label"], 0, cw)
+    torch.cuda.synchronize()
+    log(f"nextvit-small K6 step: {bn.COPIES['dy']} incoming gradients laid out anew as x "
+        f"(explicit copies in batch_norm_train's backward; the final BN's gradient is the mean "
+        f"pool's broadcast)")
+    del state
+    phase_card_vs_cpu(device, cnn=SMALL_NEXTVIT, hw=64)
+    phase_train_times(device, card, batch, cw, step, "nextvit-small K6", k6,
+                      kernel_names={"K6": K6_KERNELS, "K5": ["color_stage_kernel"]})
+    means = phase_route_ab(device, card, "nextvit-small BatchNorm",
+                           {"native": (NEXTVIT, {}), "K6": (k6, {})}, batch, cw, step)
+    for route, ms in means.items():
+        log(f"[{card}] nextvit_small_images_per_sec {NEXTVIT_BATCH / ms * 1e3:.1f} on the "
+            f"{route} BatchNorm route (NextViT-small, RG-ATT, B={NEXTVIT_BATCH}, bf16, augment "
+            f"on, unfrozen; the A/B's means, CUDA events)")
+    _SMOKE_MODELS.clear()
+    return {name: launches[name] for name in K6}, means
+
+
+def phase_flagship_k6_ab(device, card):
+    """The flagship (ResNet-50 + RG-ATT, B=128) on the native and K6
+    BatchNorm routes, train steps A/B'd in turns; returns the means."""
+    import torch
+
+    from skinjax_torch import FLAGSHIP
+    from skinjax_torch.train.steps import make_train_step_weighted
+
+    batch, cw = train_batch(device)
+    step = make_train_step_weighted(augment=True, image_dtype=torch.bfloat16)
+    means = phase_route_ab(device, card, "flagship BatchNorm",
+                           {"native": (FLAGSHIP, {}),
+                            "K6": (dict(FLAGSHIP, cnn_model_name="resnet-50" + K6_ROUTE), {})},
+                           batch, cw, step)
+    _SMOKE_MODELS.clear()
+    return means
+
+
+def phase_zoo(counters, device, card):
+    """The CNN zoo at full width on its K6 route (VGG16 has no BatchNorm):
+    one served bf16 forward at B=1 through the engine (K6 launching nothing),
+    and the train step at ZOO's batch (phase_train: the loss falls over 10
+    steps, frozen mode, K6 as ``k6_steps`` counts); DenseNet-169's train
+    images/s (densenet169_images_per_sec) and a profiled step."""
+    import numpy as np
+    import torch
+
+    from skinjax_torch import FLAGSHIP
+    from skinjax_torch.serve.engine import InferenceEngine
+
+    fk, ak, bn = counters
+    for name, B in ZOO.items():
+        n = k6_count(name)
+        config = dict(FLAGSHIP, cnn_model_name=name + K6_ROUTE)
+        engine = InferenceEngine(smoke_model(config, torch.bfloat16), use_fused=True,
+                                 device=device)
+        rng = np.random.default_rng(5)
+        bn.reset_launches()
+        probs = engine.predict_probs(rng.integers(0, 256, (1, 224, 224, 3), dtype=np.uint8),
+                                     rng.normal(size=(1, 91)).astype(np.float32))
+        torch.cuda.synchronize()
+        log(f"serve {name} bf16 B=1: probs {np.round(probs, 4).tolist()}; K6 launches "
+            f"{dict(bn.LAUNCHES)}")
+        check(probs.shape == (1, 6) and bool(np.isfinite(probs).all())
+              and abs(float(probs.sum()) - 1) < 1e-3, f"bad {name} probabilities")
+        check(sum(bn.LAUNCHES.values()) == 0, "K6 launched in eval mode")
+        del engine
+        per_step, frozen = k6_steps(name)
+        log(f"{name}: {n} BatchNorms; K6 a step: {per_step} unfrozen, {frozen} frozen")
+        batch, cw, step, _ = phase_train([ak, bn], device, card, f"{name} K6", config, B,
+                                         per_step=per_step, frozen_per_step=frozen,
+                                         lr=TOWER_TRAIN_LR)
+        if name == "densenet169":
+            times = phase_train_times(device, card, batch, cw, step, f"{name} K6", config,
+                                      kernel_names={"K6": K6_KERNELS})
+            log(f"[{card}] densenet169_images_per_sec "
+                f"{B / times['unfrozen_weights'] * 1e3:.1f} (DenseNet-169, RG-ATT, B={B}, bf16, "
+                f"augment on, unfrozen, K6 route; CUDA events)")
+        del batch, cw, step
+        _SMOKE_MODELS.clear()
+
+
 def build_kernels(build, modules):
     """One nvcc per source, started together (each thread waits in
     subprocess.run); then each module loads its library."""
@@ -2933,6 +3313,7 @@ def main() -> int:
     )
     from skinjax_torch.ops import channel_attention as ca
     from skinjax_torch.ops import augment_kernel as ak
+    from skinjax_torch.ops import batch_norm as bn
     from skinjax_torch.ops import build
     from skinjax_torch.ops import fused_mlp as fm
     from skinjax_torch.ops import fusion_kernels as fk
@@ -2954,7 +3335,7 @@ def main() -> int:
     log(f"phase card: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}; TF32 off")
 
-    build_kernels(build, (fk, ak, wa, ga, pa, fm, ca))
+    build_kernels(build, (fk, ak, wa, ga, pa, fm, ca, bn))
     for name, src in BUILDS.items():
         info = build.build_info[name]
         built = f"built in {info['seconds']:.1f} s" if info["seconds"] else "already built"
@@ -2971,6 +3352,7 @@ def main() -> int:
     errors.update(phase_mlp(fm, device))
     errors.update(phase_k8(ca, device))
     errors.update(phase_k7pad(wa, ga, device))
+    errors.update(phase_k6(bn, device))
     # K12's, K11's and K7's times first: in a process that has traced much,
     # torch.profiler dropped K7's launches from its traces
     k12_times = phase_k12_times(ga, device, card)
@@ -2980,6 +3362,7 @@ def main() -> int:
     k8_times = phase_k8_times(ca, device, card)
     pad_times = phase_k7pad_times(wa, ga, device, card)
     k4_times = phase_k4_times(fk, device, card)
+    k6_times = phase_k6_times(bn, device, card)
     torch.cuda.synchronize()
     elapsed("the build and the kernel checks and times")
     # the flagship: served, trained, run_kfold
@@ -3118,6 +3501,25 @@ def main() -> int:
     torch.cuda.synchronize()
     elapsed("Swin-tiny")
 
+    # the BatchNorm towers on K6's route: NextViT-small served and trained
+    # (K6's launches on the main path are its 10 unfrozen train steps'), its
+    # train step and the flagship's A/B'd against the native BatchNorm; the
+    # CNN zoo served and trained
+    with k6_registered():
+        k6_launches, nextvit_ab = phase_nextvit((fk, ak, bn), device, card)
+        launches.update(k6_launches)
+        torch.cuda.synchronize()
+        elapsed("NextViT-small")
+        flagship_ab = phase_flagship_k6_ab(device, card)
+        wins = nextvit_ab["K6"] < nextvit_ab["native"] and flagship_ab["K6"] < flagship_ab["native"]
+        log(f"[{card}] K6 against the native BatchNorm, same run: NextViT-small "
+            f"{nextvit_ab['native'] / nextvit_ab['K6']:.3f}x, flagship "
+            f"{flagship_ab['native'] / flagship_ab['K6']:.3f}x (native ms / K6 ms); K6 wins both: "
+            f"{wins}")
+        phase_zoo((fk, ak, bn), device, card)
+    torch.cuda.synchronize()
+    elapsed("the BatchNorm towers")
+
     # the sentence path: DaViT-tiny + BERT-base (and GPT-2) tokens models at
     # B=32, trained; the recompute backward's launches on the main path are
     # the 10 unfrozen BERT T=512 steps' (402 MB of P a call, above the limit)
@@ -3223,6 +3625,13 @@ def main() -> int:
          **pad_times[(name, SWIN_STAGES[0][0])]}
         for name, source, replaces in ((K7_PAD, K7_SOURCE, K7_PAD_REPLACES),
                                        (K7_PAD_BWD, K12_SOURCE, K7_PAD_BWD_REPLACES))
+    ] + [
+        # K6 at ResNet-50's first BN at its train batch: 1,605,632 rows of 64
+        # channels, bf16, channels_last (NextViT-small's shapes are above)
+        {"name": name, "route": "cuda", "source": K6_SOURCE, "replaces": K6[name],
+         "launches": launches[name], "max_abs_err": errors[name],
+         **k6_times[(name, K6_RECORD)]}
+        for name in K6
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

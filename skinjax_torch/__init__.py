@@ -4,7 +4,8 @@ A second package beside ``skinjax``, which stays the reference it is held
 against. It imports ``torch`` and never JAX. It serves and trains the
 multimodal model with all 18 fusion mechanisms, a one-hot metadata tower and
 a ResNet-18/50, DaViT-tiny, Swin-tiny, ViT (tiny to large), BEiT-v2-large,
-MViTv2-small, CAFormer-s18/b36 or CoaT-lite-small image tower
+MViTv2-small, CAFormer-s18/b36, CoaT-lite-small, NextViT-small or CNN-zoo
+(custom-cnn, VGG16, DenseNet-169, MobileNet-V2, EfficientNet-B0/B7) image tower
 (the flagship: ResNet-50 + RG-ATT), trains the sentence datasets' tokens
 model (a BERT or GPT-2 tower over tokenized clinical sentences), and runs
 the train CLI (``python -m skinjax_torch.tools.train_cli``) from a
@@ -14,8 +15,9 @@ Swin's window attention (K7, on the map and on partitioned windows), DaViT's
 channel attention (K8, forward and backward), MViTv2's pooled attention (K11, forward and backward),
 the global attention core of ViT, BEiT, CAFormer, BERT and GPT-2 (K12,
 forward and both backwards) and the fused token MLPs of CoaT-lite (K9) and
-CAFormer (K10), forward and recompute backward, run in hand-written CUDA
-kernels
+CAFormer (K10), forward and recompute backward, and train-mode BatchNorm's
+statistics and backward sums (K6, where a tower's BatchNorms are fused), run in
+hand-written CUDA kernels
 (``skinjax_torch/ops/``, ``skinjax_torch/csrc/``).
 """
 
@@ -60,6 +62,18 @@ CAFORMER = dict(FLAGSHIP, cnn_model_name="caformer_b36")
 CAFORMER_BATCH = 32
 COAT = dict(FLAGSHIP, cnn_model_name="coat_lite_small")
 COAT_BATCH = 64
+
+# NextViT-small and DenseNet-169 in place of ResNet-50, the BatchNorm towers
+# (the best published backbone of the reference's table after the ported
+# ones, and its most BatchNorm-heavy one), bf16, RG-ATT, at the batch of 64
+# that bench.py gives its towers of that size; chip_smoke.py reports their
+# train rates as nextvit_small_images_per_sec and densenet169_images_per_sec.
+# Their train-mode BatchNorms go through K6 where the tower is fused
+# (``ops.batch_norm.fuse_batch_norms``).
+NEXTVIT = dict(FLAGSHIP, cnn_model_name="nextvit_small")
+NEXTVIT_BATCH = 64
+DENSENET = dict(FLAGSHIP, cnn_model_name="densenet169")
+DENSENET_BATCH = 64
 
 # The sentence datasets' model: DaViT-tiny + a BERT-base tokens tower + RG-ATT
 # (the JAX package's bench.py sentence configuration), bf16, at its batch of

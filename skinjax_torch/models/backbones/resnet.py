@@ -5,7 +5,7 @@ torchvision topology and parameter names (``conv1``, ``bn1``,
 ``layerL.B.convN``/``bnN``, ``layerL.B.downsample.0|1``): stem 7×7/2 pad 3,
 max-pool 3/2 pad 1, stride on the bottleneck's 3×3 conv, BatchNorm with eps
 1e-5: running statistics in eval mode, batch statistics in train mode, with
-flax's running-variance update (``BatchNorm2d``).
+flax's running-variance update (``ops.batch_norm.BatchNorm2d``).
 
 Input and output are NHWC, as in the JAX package; inside, the NCHW view of
 an NHWC tensor is exactly PyTorch's ``channels_last`` layout, which cuDNN
@@ -20,34 +20,13 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from skinjax_torch.ops.batch_norm import BatchNorm2d
+
 FEATURE_DIMS = {"resnet-18": 512, "resnet-50": 2048}
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, *, device=None) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False, device=device)
-
-
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose train-mode running variance is the *biased*
-    batch variance, as flax's BatchNorm stores it (momentum 0.9 in flax is
-    0.1 here). torch's own update stores the unbiased one, n/(n−1) larger.
-
-    The running statistics are updated from the statistics that the
-    normalization itself computed (``torch.native_batch_norm`` returns the
-    batch mean and 1/sqrt(var + eps)), so the update is (C,)-sized work and
-    no second pass over the activation."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
-        with torch.no_grad():
-            var = invstd.float().pow(-2) - self.eps
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean.float(), alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
-        return y
 
 
 def _bn(c: int, *, device=None) -> nn.BatchNorm2d:

@@ -139,7 +139,8 @@ class MultimodalModel(nn.Module):
         self.head_name = _head_name(mech)
         self.dtype = dtype
 
-        self.image_encoder, self.cnn_dim_output = create_backbone(cnn_model_name, device=device)
+        self.image_encoder, self.cnn_dim_output = create_backbone(cnn_model_name, device=device,
+                                                                  common_dim=common_dim)
         if mech != "no-metadata-without-mlp":
             self.image_projector = nn.Linear(self.cnn_dim_output, common_dim, device=device)
         if mech not in _NO_TEXT and text_module is not None:

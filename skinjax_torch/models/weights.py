@@ -24,7 +24,14 @@ tree (``pos_embed``, per-block
 ``attn/qkv_kernel``) and an MViTv2 tree (``stage0_block0/attn/rel_pos_h``) to
 timm's keys, which ``skinjax.models.torch_import.import_davit``/
 ``import_caformer``/``import_coat``/``import_swin``/``import_vit``/
-``import_beit``/``import_mvit`` read back; a ResNet tree (``stem``) to torchvision's. A tokens model's
+``import_beit``/``import_mvit`` read back; a NextViT tree (``stem0_conv``) to
+timm's ``stages.{si}.{bi}`` keys (``import_nextvit``); a ResNet tree
+(``stem``), a DenseNet tree (``norm_final``), an EfficientNet tree
+(``stem_bn`` and ``se`` in ``block0``), a MobileNet-V2 tree (``stem_bn``
+alone), a VGG16 tree (``conv0`` and ``fc2``) and a custom-cnn tree
+(``conv``, ``fc``) to torchvision's (``import_densenet``,
+``import_efficientnet``, ``import_mobilenet_v2``, ``import_vgg16``), BatchNorm
+running statistics included. A tokens model's
 sentence tower (``text_module/bert`` or ``text_module/gpt2``, HF Flax's
 tree) converts to HF torch's ``BertModel``/``GPT2Model`` keys under
 ``text_encoder.`` (``text_encoder_state_dict``), the inverse of
@@ -35,7 +42,7 @@ Conv1D (in, out), embeddings stay as they are.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -280,6 +287,164 @@ def _resnet(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
                 _convbn(sd, f"{base}.{name}", f"{base}.bn{name[len('conv'):]}", sub, s[blk][name])
 
 
+def _bn(sd: Dict, key: str, p: Mapping, s: Optional[Mapping]) -> None:
+    """A flax BatchNorm → torch's keys; the running statistics where its
+    batch_stats are given (a tree of parameters alone, as the freeze
+    policy's masks, has none)."""
+    sd[f"{key}.weight"] = _np(p["scale"])
+    sd[f"{key}.bias"] = _np(p["bias"])
+    if s is not None:
+        sd[f"{key}.running_mean"] = _np(s["mean"])
+        sd[f"{key}.running_var"] = _np(s["var"])
+        sd[f"{key}.num_batches_tracked"] = np.array(0, dtype=np.int64)
+
+
+def _sub(s: Optional[Mapping], name: str) -> Optional[Mapping]:
+    return None if s is None else s.get(name)
+
+
+def _dense_as_conv1x1(sd: Dict, key: str, p: Mapping) -> None:
+    """A flax Dense (in, out) → a 1×1 conv's (out, in, 1, 1) weight and bias."""
+    sd[f"{key}.weight"] = np.ascontiguousarray(_np(p["kernel"]).T)[:, :, None, None]
+    sd[f"{key}.bias"] = _np(p["bias"])
+
+
+def _blocks_of(p: Mapping, stem: str) -> int:
+    """The number of ``{stem}{i}`` subtrees (i a number) in a tree."""
+    return sum(k.startswith(stem) and k[len(stem):].isdigit() for k in p)
+
+
+# NextViT's stage depths by its number of blocks (nextvit_small, nextvit_base)
+NEXTVIT_DEPTHS = {20: (3, 4, 10, 3), 30: (3, 4, 20, 3)}
+
+
+def _nextvit(sd: Dict, prefix: str, p: Mapping, s: Optional[Mapping],
+             depths: Optional[Sequence[int]]) -> None:
+    """skinjax ``NextViT`` → timm's ``stages.{si}.{bi}`` keys (the inverse of
+    ``import_nextvit``); the MLPs as 1×1 convs. The flax tree numbers its
+    blocks ``b{idx}`` across stages, so the stage depths come from
+    ``depths``, or from the block count for the published towers."""
+    for i in range(4):
+        _conv(sd, f"{prefix}stem.{i}.conv", p[f"stem{i}_conv"])
+        _bn(sd, f"{prefix}stem.{i}.norm", p[f"stem{i}_norm"], _sub(s, f"stem{i}_norm"))
+    n = _blocks_of(p, "b")
+    depths = depths or NEXTVIT_DEPTHS.get(n)
+    if depths is None or sum(depths) != n:
+        raise ValueError(f"a NextViT tree of {n} blocks: pass its stage depths")
+    idx = 0
+    for si, d in enumerate(depths):
+        for bi in range(d):
+            b, bs, base = p[f"b{idx}"], _sub(s, f"b{idx}"), f"{prefix}stages.{si}.{bi}"
+            for name in ("patch_embed", "projection"):
+                if "conv" in b.get(name, {}):
+                    _conv(sd, f"{base}.{name}.conv", b[name]["conv"])
+                    _bn(sd, f"{base}.{name}.norm", b[name]["norm"], _sub(_sub(bs, name), "norm"))
+            for name in ("norm", "norm1", "norm2"):
+                if name in b:
+                    _bn(sd, f"{base}.{name}", b[name], _sub(bs, name))
+            if "mhca" in b:
+                m = b["mhca"]
+                _conv(sd, f"{base}.mhca.group_conv3x3", m["group_conv3x3"])
+                _bn(sd, f"{base}.mhca.norm", m["norm"], _sub(_sub(bs, "mhca"), "norm"))
+                _conv(sd, f"{base}.mhca.projection", m["projection"])
+            if "e_mhsa" in b:
+                e = b["e_mhsa"]
+                for lin in ("q", "k", "v", "proj"):
+                    _linear(sd, f"{base}.e_mhsa.{lin}", e[lin])
+                if "norm" in e:
+                    _bn(sd, f"{base}.e_mhsa.norm", e["norm"], _sub(_sub(bs, "e_mhsa"), "norm"))
+            for lin in ("conv1", "conv2"):
+                _dense_as_conv1x1(sd, f"{base}.mlp.{lin}", b["mlp"][lin])
+            idx += 1
+    _bn(sd, f"{prefix}norm", p["norm"], _sub(s, "norm"))
+
+
+def _densenet(sd: Dict, prefix: str, p: Mapping, s: Optional[Mapping]) -> None:
+    """skinjax ``DenseNet`` → torchvision's ``features.*`` keys (the inverse
+    of ``import_densenet``)."""
+    f = f"{prefix}features."
+    _conv(sd, f"{f}conv0", p["conv0"])
+    _bn(sd, f"{f}norm0", p["norm0"], _sub(s, "norm0"))
+    for name, sub in p.items():
+        if name.startswith("block"):  # block{i}_layer{j}
+            i, j = (int(t) for t in name[len("block"):].split("_layer"))
+            base = f"{f}denseblock{i + 1}.denselayer{j + 1}"
+            for norm in ("norm1", "norm2"):
+                _bn(sd, f"{base}.{norm}", sub[norm], _sub(_sub(s, name), norm))
+            for conv in ("conv1", "conv2"):
+                _conv(sd, f"{base}.{conv}", sub[conv])
+        elif name.startswith("trans"):  # trans{i}_{norm,conv}
+            i, part = name[len("trans"):].split("_")
+            key = f"{f}transition{int(i) + 1}.{part}"
+            if part == "norm":
+                _bn(sd, key, sub, _sub(s, name))
+            else:
+                _conv(sd, key, sub)
+    _bn(sd, f"{f}norm5", p["norm_final"], _sub(s, "norm_final"))
+
+
+def _convbn_seq(sd: Dict, key: str, p: Mapping, s: Optional[Mapping], conv: str, bn: str) -> None:
+    """A flax conv and its BatchNorm → torchvision's Conv2dNormActivation
+    keys ``{key}.0`` and ``{key}.1``."""
+    _conv(sd, f"{key}.0", p[conv])
+    _bn(sd, f"{key}.1", p[bn], _sub(s, bn))
+
+
+def _mobilenet_v2(sd: Dict, prefix: str, p: Mapping, s: Optional[Mapping]) -> None:
+    """skinjax ``MobileNetV2`` → torchvision's ``features.*`` keys (the
+    inverse of ``import_mobilenet_v2``)."""
+    f = f"{prefix}features."
+    _convbn_seq(sd, f"{f}0", p, s, "stem", "stem_bn")
+    n = _blocks_of(p, "block")
+    for idx in range(n):
+        b, bs, base = p[f"block{idx}"], _sub(s, f"block{idx}"), f"{f}{idx + 1}.conv"
+        k = 0
+        if "expand" in b:
+            _convbn_seq(sd, f"{base}.0", b, bs, "expand", "expand_bn")
+            k = 1
+        _convbn_seq(sd, f"{base}.{k}", b, bs, "dw", "dw_bn")
+        _conv(sd, f"{base}.{k + 1}", b["project"])
+        _bn(sd, f"{base}.{k + 2}", b["project_bn"], _sub(bs, "project_bn"))
+    _convbn_seq(sd, f"{f}{n + 1}", p, s, "head", "head_bn")
+
+
+def _efficientnet(sd: Dict, prefix: str, p: Mapping, s: Optional[Mapping]) -> None:
+    """skinjax ``EfficientNet`` → torchvision's ``features.{stage}.{b}.block``
+    keys (the inverse of ``import_efficientnet``). A stage starts where the
+    project conv's width changes (every stage of the B0-B7 plans has its own
+    width)."""
+    f = f"{prefix}features."
+    _convbn_seq(sd, f"{f}0", p, s, "stem", "stem_bn")
+    stage, b, width = 0, 0, None
+    for idx in range(_blocks_of(p, "block")):
+        blk, bs = p[f"block{idx}"], _sub(s, f"block{idx}")
+        out = _np(blk["project"]["kernel"]).shape[-1]
+        stage, b = (stage + 1, 0) if out != width else (stage, b + 1)
+        width = out
+        base = f"{f}{stage}.{b}.block"
+        k = 0
+        if "expand" in blk:
+            _convbn_seq(sd, f"{base}.0", blk, bs, "expand", "expand_bn")
+            k = 1
+        _convbn_seq(sd, f"{base}.{k}", blk, bs, "dw", "dw_bn")
+        for fc in ("fc1", "fc2"):
+            _dense_as_conv1x1(sd, f"{base}.{k + 1}.{fc}", blk["se"][fc])
+        _convbn_seq(sd, f"{base}.{k + 2}", blk, bs, "project", "project_bn")
+    _convbn_seq(sd, f"{f}{stage + 1}", p, s, "head", "head_bn")
+
+
+# the features.{i} index of each of VGG16's 13 convs (torchvision's layout)
+VGG16_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def _vgg16(sd: Dict, prefix: str, p: Mapping) -> None:
+    """skinjax ``VGG16`` → torchvision's keys (the inverse of ``import_vgg16``)."""
+    for i, li in enumerate(VGG16_CONVS):
+        _conv(sd, f"{prefix}features.{li}", p[f"conv{i}"])
+    _linear(sd, f"{prefix}classifier.0", p["fc1"])
+    _linear(sd, f"{prefix}classifier.3", p["fc2"])
+
+
 def _bert(sd: Dict, prefix: str, p: Mapping) -> None:
     """skinjax ``NativeBertEncoder`` params → HF torch ``BertModel`` keys
     (the inverse of ``import_torch_bert``; no pooler)."""
@@ -338,11 +503,28 @@ def _mlp_head(sd: Dict, prefix: str, p: Mapping) -> None:
     _linear(sd, f"{prefix}.8", p["fc_out"])
 
 
-def state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, np.ndarray]:
-    """JAX ``MultimodalModel`` (params, batch_stats) → reference ``state_dict``."""
+def state_dict_from_flax(params: Mapping, batch_stats: Mapping, *,
+                         nextvit_depths: Optional[Sequence[int]] = None) -> Dict[str, np.ndarray]:
+    """JAX ``MultimodalModel`` (params, batch_stats) → reference ``state_dict``
+    (``nextvit_depths``: a NextViT tree's stage depths, where it is not a
+    published tower's)."""
     sd: Dict[str, np.ndarray] = {}
     enc = params["image_encoder"]
-    if "stage0_block0_spatial" in enc:
+    enc_stats = batch_stats.get("image_encoder")
+    if "stem0_conv" in enc:
+        _nextvit(sd, "image_encoder.", enc, enc_stats, nextvit_depths)
+    elif "norm_final" in enc:
+        _densenet(sd, "image_encoder.", enc, enc_stats)
+    elif "stem_bn" in enc and "se" in enc["block0"]:
+        _efficientnet(sd, "image_encoder.", enc, enc_stats)
+    elif "stem_bn" in enc:
+        _mobilenet_v2(sd, "image_encoder.", enc, enc_stats)
+    elif "conv0" in enc and "fc2" in enc:
+        _vgg16(sd, "image_encoder.", enc)
+    elif "conv" in enc and "fc" in enc:  # custom-cnn
+        _conv(sd, "image_encoder.conv", enc["conv"])
+        _linear(sd, "image_encoder.fc", enc["fc"])
+    elif "stage0_block0_spatial" in enc:
         _davit(sd, "image_encoder.", enc)
     elif "down1_norm" in enc or "token_mixer" in enc.get("stage0_block0", {}):
         _caformer(sd, "image_encoder.", enc)
@@ -360,8 +542,9 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, np.
         _mvit(sd, "image_encoder.", enc)
     else:
         raise NotImplementedError(
-            "state_dict_from_flax converts ResNet, DaViT, Swin, ViT, BEiT, MViTv2, CAFormer "
-            "and CoaT-lite image encoders only; "
+            "state_dict_from_flax converts ResNet, DaViT, Swin, ViT, BEiT, MViTv2, CAFormer, "
+            "CoaT-lite, NextViT, DenseNet, MobileNet-V2, EfficientNet, VGG16 and custom-cnn "
+            "image encoders only; "
             f"got an encoder with {sorted(enc)[:4]}..."
         )
     for name in ("image_projector", "text_projector", "img_gate", "txt_gate",
@@ -454,11 +637,11 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(m, gpt2.Conv1D):
             put(m.weight, torch.randn(m.weight.shape, generator=g) * 0.02)
             m.bias.zero_()
-        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+        elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm1d, nn.LayerNorm)):
             m.weight.fill_(1.0)
             if m.bias is not None:  # CAFormer's LayerNorms have none
                 m.bias.zero_()
-            if isinstance(m, nn.BatchNorm2d):
+            if not isinstance(m, nn.LayerNorm):
                 m.reset_running_stats()
     for m in model.modules():
         if isinstance(m, (vit.PatchEmbed, swin.PatchEmbed)):

@@ -35,6 +35,14 @@ LAST_STAGE_MARKERS = (
     "blocks.23.",  # vit_large last block
 )
 
+# skinjax's markers as it has them, applied to skinjax's own scope names by the
+# towers that map their parameters to those (``flax_scopes()``: NextViT and
+# the CNN zoo, whose torchvision/timm names differ from skinjax's, so that
+# substrings of the port's names would select another set: skinjax's
+# "layer4" hits DenseNet's block{i}_layer4 in every dense block, the port's
+# denselayer5)
+FLAX_MARKERS = ("layer4", "trans2", "norm_final", "head", "block11", "block23")
+
 FREEZE_MODES = ("unfrozen_weights", "frozen_weights", "last_layer_unfrozen_weights", "partial")
 
 
@@ -43,7 +51,11 @@ def trainable_mask(model: nn.Module, mode: str,
     """Parameter name → trainable. ``mode`` applies to the parameters under
     ``frozen_prefixes`` (the backbone); everything else is always trainable.
     ``last_layer_unfrozen_weights`` keeps the module that owns the last
-    backbone parameter (in creation order) trainable."""
+    backbone parameter (in creation order) trainable. ``partial`` trains the
+    parameters a last-stage marker names: inside a tower with
+    ``flax_scopes()``, those whose skinjax scope holds one of
+    ``FLAX_MARKERS``; elsewhere, those whose own name holds one of
+    ``LAST_STAGE_MARKERS``."""
     if mode not in FREEZE_MODES:
         raise ValueError(f"Invalid backbone_train_mode: {mode}")
     names = [n for n, _ in model.named_parameters()]
@@ -57,6 +69,18 @@ def trainable_mask(model: nn.Module, mode: str,
         if ordered:
             last_module = ordered[-1].rsplit(".", 1)[0]
 
+    scopes = {}  # a scoped tower's name prefix → {parameter prefix: skinjax scope}
+    for name, m in model.named_modules():
+        if hasattr(m, "flax_scopes"):
+            scopes[f"{name}."] = {f"{name}.{p}": f for p, f in m.flax_scopes()}
+
+    def marked(n):
+        tower = next((t for t in scopes if n.startswith(t)), None)
+        if tower is None:
+            return any(m in n for m in LAST_STAGE_MARKERS if "{" not in m)
+        scope = next(f for p, f in scopes[tower].items() if n.startswith(p))
+        return any(m in scope for m in FLAX_MARKERS)
+
     def leaf(n):
         if not inside(n) or mode == "unfrozen_weights":
             return True
@@ -64,7 +88,7 @@ def trainable_mask(model: nn.Module, mode: str,
             return False
         if mode == "last_layer_unfrozen_weights":
             return last_module is not None and n.startswith(last_module + ".")
-        return any(m in n for m in LAST_STAGE_MARKERS if "{" not in m)
+        return marked(n)
 
     return {n: leaf(n) for n in names}
 

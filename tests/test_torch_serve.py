@@ -289,6 +289,8 @@ def test_port_never_imports_jax():
         "import skinjax_torch.models.backbones.caformer, skinjax_torch.models.backbones.coat\n"
         "import skinjax_torch.ops.channel_attention, skinjax_torch.ops.window_attention\n"
         "import skinjax_torch.models.backbones.swin, skinjax_torch.models.backbones.davit\n"
+        "import skinjax_torch.ops.batch_norm, skinjax_torch.models.backbones.nextvit\n"
+        "import skinjax_torch.models.backbones.cnn_zoo\n"
         "import chip_smoke\n"
         "banned = ('jax', 'jaxlib', 'flax', 'skinjax', 'cv2', 'matplotlib', 'transformers',\n"
         "          'safetensors')\n"

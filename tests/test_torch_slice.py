@@ -96,8 +96,10 @@ def test_unported_parts_raise(monkeypatch):
         MultimodalModel(num_classes=4, text_input_mode="tabular")
     with pytest.raises(ValueError, match="not implemented"):
         MultimodalModel(num_classes=4, attention_mechanism="no-such-mechanism")
+    # every backbone of skinjax's registry is ported; a name outside it (skinjax
+    # defines nextvit_base but registers no such tower) still raises
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MultimodalModel(num_classes=4, cnn_model_name="nextvit_small")
+        MultimodalModel(num_classes=4, cnn_model_name="nextvit_base")
     # the general attention path runs (K12); above the stored-P limit (lowered
     # to 0 here) its backward is K12's recompute backward, no longer a raise
     mha = MultiheadAttention(16, 4)
