@@ -43,10 +43,12 @@ sentence dataset. Phases, each printing its lines:
               mask and dropout multiplier, GPT-2's at 1024 tokens with the
               causal bias and a padding mask, and N=50 with all three, bf16
               and fp32; the recompute backward against the stored-P one where
-              P is within the 256 MB limit; K11 forward (o and P) and backward
+              P is within the 256 MB limit, and two bf16 recompute calls at
+              BERT-base T=512 bit-identical; K11 forward (o and P) and backward
               (dq, dk, dv, dbias_h, dbias_w) against their twins at
               MViTv2-small's seven attention shapes (B=64 bf16, B=8 fp32) and
-              a rectangular key grid with a ragged query edge; K10 and K9
+              a rectangular key grid with a ragged query edge, two bf16
+              forward calls at stage 0 bit-identical; K10 and K9
               forward and backward (dx, dw1, dw2 and ds/db or db1/db2)
               against their twins at every (D, H) of CAFormer-b36 and
               CoaT-lite-small with 1000 tokens, and K10 at CAFormer-b36's
@@ -87,8 +89,9 @@ sentence dataset. Phases, each printing its lines:
               shape, its recompute backward's at BERT-base's T=512 one, and
               K7's at each stage, against their twins and bounds, with
               F.scaled_dot_product_attention on the same q, k, v, forward and
-              backward, as a yardstick, and K4's at each Vd, run right after
-              phase 3.)
+              backward, as a yardstick: each time's share of its bound and its
+              factor against the same run's SDPA call; and K4's at each Vd,
+              run right after phase 3.)
  11. beit     the BEiT-v2-large model (307 M parameters drawn once on the
               CPU): fused against plain engine (K12 launched 24 times per
               forward); run_service with CNN_MODEL_NAME=beitv2_large_patch16_224;
@@ -192,6 +195,13 @@ sentence dataset. Phases, each printing its lines:
 Any failure exits non-zero. The second-to-last line is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Exits non-zero, with
 no result, when CUDA is not available or the package is not beside it.
+
+    python3 chip_smoke.py --attention
+
+builds the three attention sources only and runs the checks and times of
+K12 (with the recompute backward's split by kernel at BERT-base T=512: with
+kmask + pmult, kmask alone and neither), K11 and the K7-pad core: the quick
+loop for work on those kernels (last line {"ok": true, "attention": true}).
 """
 
 from __future__ import annotations
@@ -275,14 +285,15 @@ KERNEL_NAMES = {"seq1_attention": "seq1_attention_kernel",
 # each K7 call's kernels (a call with a bias adds dbias_reduce_kernel)
 K7_KERNELS = {"window_attention_fwd": ["wa_fwd_kernel", "proj_kernel"],
               "window_attention_bwd": ["wa_bwd_kernel"]}
-# each K12 call's kernels at BEiT's shape (the backward's last one sums the
-# bias gradient)
+# each bf16 K12 call's kernels at BEiT's shape (the backward's last one sums
+# the bias gradient); the recompute backward's two run on the tensor cores
+# (its fp32 instantiation keeps ga_bwd_rows_kernel and ga_bwd_cols_kernel)
 K12_KERNELS = {"global_attention_fwd": ["ga_fwd_kernel"],
                "global_attention_bwd": ["ga_bwd_dq_kernel", "ga_bwd_dkv_kernel",
                                         "ga_dbias_reduce_kernel"],
-               K12_RECOMPUTE: ["ga_bwd_rows_kernel", "ga_bwd_cols_kernel"]}
-# each K11 call's kernels
-K11_KERNELS = {"pooled_attention_fwd": ["pa_fwd_kernel"],
+               K12_RECOMPUTE: ["ga_bwd_rows_mma_kernel", "ga_bwd_cols_mma_kernel"]}
+# each bf16 K11 call's kernels (the fp32 forward keeps pa_fwd_kernel)
+K11_KERNELS = {"pooled_attention_fwd": ["pa_fwd_mma_kernel"],
                "pooled_attention_bwd": ["pa_bwd_dq_kernel", "pa_bwd_dkv_kernel"]}
 # each fused-MLP call's kernels (K9 and K10 alike); a call whose token tiles
 # are too few to fill the card also sums its hidden splits (MLP_SPLIT)
@@ -297,14 +308,14 @@ K8_KERNELS = {"channel_attention_fwd": ["ca_partial_kernel", "ca_softmax_kernel"
 # the padded entry's forward, and its backward core with a bias gradient
 # summed over groups of windows
 K7_PAD_KERNELS = {K7_PAD: ["wa_fwd_kernel", "proj_kernel"],
-                  K7_PAD_BWD: ["ga_bwd_rows_kernel", "ga_bwd_cols_kernel",
-                               "ga_dbias_reduce_kernel"]}
+                  K7_PAD_BWD: [*K12_KERNELS[K12_RECOMPUTE], "ga_dbias_reduce_kernel"]}
 # each K6 call's two launches (the partial sums, then their reduction)
 K6_KERNELS = ["bn_partial_kernel", "bn_reduce_kernel"]
 KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", "wa_fwd_kernel", *K6_KERNELS,
                   "wa_bwd_kernel", "proj_kernel", "dbias_reduce_kernel", "ga_fwd_kernel",
                   "ga_bwd_dq_kernel", "ga_bwd_dkv_kernel", "ga_bwd_rows_kernel",
-                  "ga_bwd_cols_kernel", "pa_fwd_kernel", "pa_bwd_dq_kernel", "pa_bwd_dkv_kernel",
+                  "ga_bwd_cols_kernel", *K12_KERNELS[K12_RECOMPUTE], "pa_fwd_kernel",
+                  *K11_KERNELS["pooled_attention_fwd"], "pa_bwd_dq_kernel", "pa_bwd_dkv_kernel",
                   *MLP_KERNELS["fwd"], *MLP_KERNELS["bwd"], MLP_SPLIT,
                   *K8_KERNELS["channel_attention_fwd"], "ca_grad_kernel")
 # the card's published peaks (H100 SXM data sheet): device memory, float32
@@ -361,6 +372,7 @@ K12_SHAPES = {"beitv2-large": (32, 197, 1024, 16, True, False, False),
               "caformer-b36-s3": (32, 196, 512, 16, False, False, False),
               "caformer-b36-s4": (32, 49, 768, 24, False, False, False)}
 K12_PER_FORWARD = 24  # one per block of BEiT-large and ViT-large
+K12_SAME_SHAPE = "bert-base-T512"  # where two recompute calls must be bit-identical
 K12_SERVED = {"global_attention_fwd": K12_PER_FORWARD, "global_attention_bwd": 0, K12_RECOMPUTE: 0}
 VIT_LARGE = "vit_large_patch16_224"
 SMALL_BEIT = "beit-smoke-small"  # width 256, depth 2, 4 heads (64 channels a head), 224×224
@@ -377,6 +389,7 @@ K11_RAGGED = (3, 2, 37, (5, 7))  # (B, heads, Nq, (Kh, Kw))
 K11_HD = 96
 K11_F32_BATCH = 8
 K11_RECORD = "stage2"  # the record line's shape: 10 of the 16 blocks
+K11_SAME_SHAPE = "stage0"  # where two forward calls must be bit-identical
 K11_PER_FORWARD = sum(n for _, _, _, n in K11_SHAPES.values())
 K11_SERVED = {"pooled_attention_fwd": K11_PER_FORWARD, "pooled_attention_bwd": 0}
 SMALL_MVIT = "mvit-smoke-small"  # dims (96, 192), depths (1, 1), heads (1, 2), 64×64
@@ -636,6 +649,13 @@ def kernel_device_us(fn, names, n: int = 10):
     return sum(means.values()) if len(means) == len(names) else None
 
 
+def against(ms, bound_ms, library_ms) -> str:
+    """A kernel's time (ms) as a share of its bound and as a factor of the
+    same run's library call (None: not measured)."""
+    factor = "not measured" if library_ms is None else f"{ms / library_ms:.2f}x"
+    return f"share of bound {100 * bound_ms / ms:.1f}%, factor against the library call {factor}"
+
+
 def us(t) -> str:
     return "not measured" if t is None else f"{t:9.2f} us"
 
@@ -659,7 +679,7 @@ def time_record(card, name, label, kern, twin, kernel_names, bound, library):
         f"{plain_ms * 1e3:9.2f} us (CUDA events, in turns twin-kernel-kernel-twin); device time: "
         f"kernel {us(dev_k)}  twin {dev_t:9.2f} us (torch.profiler); bound "
         f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e9:.2f} GFLOP at "
-        f"989 TFLOP/s); library {ms_us(library)}")
+        f"989 TFLOP/s); library {ms_us(library)}; {against(ms, bound_ms, library)}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library)
 
@@ -1042,9 +1062,11 @@ def phase_k12(ga, device):
     K12_SHAPES, bf16 (BF16_TOL; P and dbias F32_TOL) and fp32 (F32_TOL, TF32
     off); the stored-P sides take the twin's P. Then, at each shape whose P
     is within the stored-P limit, the recompute backward against the
-    stored-P backward on the kernel's own P: the same products in the same
-    order, so the two agree exactly (checked at the twins' tolerances,
-    printed as is)."""
+    stored-P backward on the kernel's own P: the bf16 recompute backward
+    takes its products on the tensor cores in another order than the
+    stored-P backward's CUDA-core sums, so the two agree at the twins'
+    tolerances (printed as is). At ``K12_SAME_SHAPE`` two bf16 recompute
+    calls are bit-identical."""
     import torch
 
     errors = {name: 0.0 for name in K12}
@@ -1061,6 +1083,13 @@ def phase_k12(ga, device):
             torch.cuda.synchronize()
             check((got[3] is None) == (want[3] is None) == (rec[3] is None),
                   "dbias present on one side only")
+            if label == K12_SAME_SHAPE and dtype == torch.bfloat16:
+                again = ga.global_attention_bwd_recompute(q, k, v, do, b, km, pm, h, grad_bias)
+                same = all(torch.equal(x, y) for x, y in zip(rec, again) if x is not None)
+                log(f"kernel {K12_RECOMPUTE} {str(dtype):14s} {label}: two calls bit-identical: "
+                    f"{same}")
+                check(same, f"two {K12_RECOMPUTE} calls differ at {label}")
+                del again
             results = [("global_attention_fwd", "o", o, ro, tol),
                        ("global_attention_fwd", "P", p, rp, F32_TOL)]
             parts = ("dq", "dk", "dv", "dbias")
@@ -1225,7 +1254,8 @@ def phase_k11(pa, device):
     against their twins at MViTv2-small's seven attention shapes, B=64 in
     bf16 (BF16_TOL; P and the bias gradients F32_TOL) and B=8 in fp32
     (F32_TOL, TF32 off), and at a rectangular key grid with a ragged query
-    edge; the backward on both sides takes the twin's P."""
+    edge; the backward on both sides takes the twin's P. At ``K11_SAME_SHAPE``
+    two bf16 forward calls are bit-identical."""
     import torch
 
     from skinjax_torch import MVIT_BATCH
@@ -1240,6 +1270,13 @@ def phase_k11(pa, device):
                 B = K11_RAGGED[0]
             q, k, v, bh, bw, do = k11_inputs(B, h, Nq, k_size, dtype, device, seed=Nq + h)
             o, p = pa.pooled_attention_fwd(q, k, v, bh, bw, k_size, emit_p=True)
+            if label == K11_SAME_SHAPE and dtype == torch.bfloat16:
+                o2, p2 = pa.pooled_attention_fwd(q, k, v, bh, bw, k_size, emit_p=True)
+                same = torch.equal(o, o2) and torch.equal(p, p2)
+                log(f"kernel pooled_attention_fwd {str(dtype):14s} {label}: two calls "
+                    f"bit-identical (o and P): {same}")
+                check(same, f"two pooled_attention_fwd calls differ at {label}")
+                del o2, p2
             ro, rp = pa.pooled_attention_plain(q, k, v, bh, bw, k_size)
             got = pa.pooled_attention_bwd(q, k, v, do, rp, k_size)
             want = pa.pooled_attention_bwd_plain(q, k, v, do, rp, k_size)
@@ -1332,7 +1369,7 @@ def phase_k11_times(pa, device, card):
                 f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e9:.2f} "
                 f"GFLOP at 989 TFLOP/s); F.scaled_dot_product_attention with the expanded bias "
                 f"as attn_mask {'forward' if name.endswith('fwd') else 'backward'} "
-                f"{ms_us(library[name])}")
+                f"{ms_us(library[name])}; {against(ms, bound_ms, library[name])}")
         del q, k, v, bh, bw, do, p, calls
         torch.cuda.empty_cache()
     for name, (ms, dev, plain_ms, bound_ms) in step.items():
@@ -3287,6 +3324,68 @@ def build_kernels(build, modules):
         f"{time.perf_counter() - t0:.1f} s to build and load")
 
 
+def phase_k12_split(ga, device, card):
+    """The recompute backward at BERT-base T=512 (B=32, bf16) with kmask +
+    pmult, kmask alone and neither: per call (CUDA events) and each kernel's
+    device time (torch.profiler), what the staged planes cost."""
+    import torch
+
+    B, N, C, h, _, _, _ = K12_SHAPES["bert-base-T512"]
+    (q, k, v), do, _, km, pm = k12_inputs(B, N, C, h, False, True, True, torch.bfloat16, device,
+                                          seed=37)
+    for label, kmx, pmx in (("kmask+pmult", km, pm), ("kmask", km, None), ("neither", None, None)):
+        def call(kmx=kmx, pmx=pmx):
+            return ga.global_attention_bwd_recompute(q, k, v, do, None, kmx, pmx, h, False)
+
+        ms = time_ms(call, 10, 2)
+        _, by_name = device_us(call, n=5)
+        split = "; ".join(f"{name} {by_name_us:.2f} us" for name in K12_KERNELS[K12_RECOMPUTE]
+                          for key, by_name_us in by_name.items() if name in key)
+        log(f"[{card}] time {K12_RECOMPUTE} bf16 bert-base-T512 B={B} {label}: "
+            f"{ms * 1e3:.2f} us per call (CUDA events); device time {split} (torch.profiler)")
+
+
+def attention_only() -> int:
+    """``--attention``: the attention kernels' checks and times alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from skinjax_torch.ops import build
+    from skinjax_torch.ops import global_attention as ga
+    from skinjax_torch.ops import pooled_attention as pa
+    from skinjax_torch.ops import window_attention as wa
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(card)
+    names = ("window_attention", "global_attention", "pooled_attention")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(build.build, names))
+    for m in (wa, ga, pa):
+        m.library()
+    log(f"phase build: {len(names)} sources at once, {time.perf_counter() - t0:.1f} s")
+    for name in names:
+        for line in build.build_info[name]["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
+    phase_k12(ga, device)
+    phase_k11(pa, device)
+    phase_k7pad(wa, ga, device)
+    phase_k12_split(ga, device, card)
+    phase_k12_times(ga, device, card)
+    phase_k11_times(pa, device, card)
+    phase_k7pad_times(wa, ga, device, card)
+    torch.cuda.synchronize()
+    print(json.dumps({"ok": True, "attention": True}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3641,4 +3740,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(attention_only() if sys.argv[1:] == ["--attention"] else main())

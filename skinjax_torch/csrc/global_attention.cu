@@ -46,36 +46,61 @@
 // bias gradient, dbias = the sum of ds over the batch in batch order.
 //
 // Recompute backward (no P and no ds of size B.heads.N^2 in memory; only
-// three fp32 row statistics a query row, (3, B, heads, N)): (1) a block per
-// (32 query rows, head, batch) recomputes whole score rows as the forward
-// does and the softmax with the forward's own code, writes each row's max
-// and sum (and, when asked, of = round(round(P) . v)), then streams V twice,
-// for rowsum(dp * P) (written too) and for ds, which it rounds in place of
-// P, and computes dq; (2) a block per (32 keys, head) recomputes its P and dp
-// columns from q, k, v, do and those statistics, with the same products in
-// the same order, so P is the forward's bit for bit and ds the one dq was
+// three fp32 row statistics a query row, (3, B, heads, N)): (1) a rows
+// kernel, a block per (query tile, head, batch), recomputes the scores and
+// the softmax, writes each row's max, sum and rowsum(dp * P) (and, when
+// asked, of = round(round(P) . v)), forms ds, which it rounds, and computes
+// dq; (2) a cols kernel, a block per (key tile, head), recomputes its P and
+// dp columns from q, k, v, do and those statistics, with the same products
+// in the same order, so P is (1)'s bit for bit and ds the one dq was
 // computed from, and sums dv and dk over every query. Without a bias
 // gradient block (2) takes one batch (grid z = batch); with one it loops
 // over a group of consecutive batches in order and owns its key columns of
 // that group's dbias[h] plane, which it sums in device memory in batch
 // order; with more than one group, (3) adds the groups' planes in group
 // order (no atomics). The wrapper picks as many groups as fill the card
-// (Swin-tiny's stage 0 at B=64: 4096 windows, 2 key tiles, 3 heads), each
-// plane heads.N^2 fp32, their scratch within the stored-P limit; with one
-// group the sum has the stored-P backward's order. The score of (query n,
-// key m) is one function, score(), which adds the window mask too.
+// (Swin-tiny's stage 0 at B=64: 4096 windows, 3 heads), each plane
+// heads.N^2 fp32, their scratch within the stored-P limit; with one group
+// the sum has the stored-P backward's order. The score of (query n, key m)
+// adds the bias, the window mask and the key mask in that order.
+//
+// The recompute backward's bf16 instantiation (the main path under
+// autocast) runs on the tensor cores: ga_bwd_rows_mma_kernel and
+// ga_bwd_cols_mma_kernel, 64-row tiles, four warps of 16 rows, every
+// product an mma.sync.m16n8k16 (bf16 operands from ldmatrix, fp32
+// accumulators in registers), K/V (rows) or Q/dO (cols) tiles and the
+// (64 x 64) fp32 tiles of the bias, mask and pmult planes streaming two deep
+// through shared memory by cp.async. mma.sync rather than wgmma: a warp's 16
+// rows keep the score tile, P, dp and ds in the accumulator registers, where
+// the softmax, the masks and the rounding happen, and the packed bf16 result
+// is the next product's A operand without a trip through shared memory;
+// wgmma's 64-row warpgroup tiles would put those epilogues across four warps.
+// The rows kernel makes two passes over the key tiles, (a) an online max,
+// sum and rowsum(dp * exp(s - max)) (rescaled as the max grows; rowsum(dp *
+// P) is the last over the sum) and (b) P, dp and ds, 16 keys at a time, with
+// dq += round(ds) . K; the cols kernel holds its warp's 16 keys of K and V in
+// registers and, for each 16 query rows, transposes the rounded pb and ds
+// blocks in registers (movmatrix) into the A operands of pb^T . dO and
+// ds^T . Q. Score side and column side use one operand order (A = query
+// rows, B = key rows) and one k-step order, and one fp32 epilogue, so their
+// P agree exactly; exp is the special-function unit's 2^x of a fused
+// s * log2(e) - max * log2(e). The fp32 instantiation (the card-vs-CPU and
+// fp32 twin checks at 1e-4) keeps ga_bwd_rows_kernel and ga_bwd_cols_kernel,
+// fp32 FMAs on the CUDA cores: TF32 tensor cores would not hold 1e-4.
 //
 // What bounds it: at BEiT-large (B=32, N=197, C=1024, 16 heads) the forward
 // moves ~134 MB (P's 79.5 MB of them) against 5.1 GFLOP, the stored-P backward
 // ~172 MB against 10.2 GFLOP: on the bf16 tensor cores both are bound by bytes
 // (~40 and ~51 us). The recompute backward at BERT-base (B=32, N=512, C=768,
 // 12 heads) moves ~176 MB against ~64 GFLOP (five products): bound by
-// operations (~65 us). This first version is simple: fp32 FMAs on the CUDA
-// cores from shared-memory tiles (4x4 and 4x2 outputs a thread), no mma, no
-// TMA; the stored-P backward's ds scratch adds ~240 MB of traffic, the
-// recompute backward does each product once in (1) or (2) and the scores
-// and dp twice. PERF.md records how far each is from its bound. Limits:
-// N <= 1024, hd <= 64.
+// operations (~65 us); its bf16 kernels compute nine (the scores three
+// times, dp three times), and the staged pmult plane is read from L2 three
+// times a (batch, head). The forward and the stored-P backward are the first
+// version: fp32 FMAs on the CUDA cores from shared-memory tiles (4x4 and 4x2
+// outputs a thread), no mma, no TMA; the stored-P backward's ds scratch adds
+// ~240 MB of traffic. PERF.md records how far each is from its bound.
+// Limits: N <= 1024 (the CUDA-core kernels keep whole score rows in shared
+// memory), hd <= 64.
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() as an int (0 = success);
@@ -84,6 +109,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cstdint>
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -143,6 +173,7 @@ struct Dims {
   long long ld;        // row stride of q, k and v in elements
   const float* wmask;  // the window mask (n_win, N, N) fp32, or null
   int n_win;           // batch b adds plane b % n_win of it
+  int vec;             // the bf16 tensor-core kernels may copy 16 bytes at a time
 };
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -682,6 +713,438 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- The recompute backward's bf16 instantiation on the tensor cores ----
+//
+// Every product runs as mma.sync.m16n8k16 (bf16 operands, fp32 accumulators
+// in registers; mma_bf16.cuh). A block is four warps. Tiles of 64 rows of K
+// and V (rows kernel) or of Q and dO (cols kernel) stream two deep through
+// shared memory with cp.async, and with them the (64 x 64) fp32 tiles of the
+// bias, window mask and pmult planes, the 64 keys' kmask and (cols kernel)
+// the 64 rows' statistics, so no score-side operand is read from device
+// memory inside the products' loop. Both kernels compute a (16 query x 16
+// key) block of scores as warp_abt_chunk(A = Q rows, B = K rows) and of dp as
+// warp_abt_chunk(A = dO rows, B = V rows), 16-column steps in ascending
+// order, with query and key tiles on the same 64-grid, and finish them with
+// the same fp32 code (scores_chunk, dprob_chunk, prob): a (query, key) pair
+// gets the same bits in both, so the cols kernel's P and ds are the rows
+// kernel's.
+
+// Where each staged operand of a tile step sits in a stage of shared memory
+// (fp32 offsets; -1 where absent)
+struct Stage {
+  int bias, mask, pmult, kmask, stats, floats;
+};
+
+__host__ __device__ inline Stage stage_layout(bool bias, bool mask, bool pmult, bool kmask,
+                                              bool stats) {
+  Stage s;
+  int o = 0;
+  s.bias = bias ? o : -1;
+  o += bias ? kPlaneFloats : 0;
+  s.mask = mask ? o : -1;
+  o += mask ? kPlaneFloats : 0;
+  s.pmult = pmult ? o : -1;
+  o += pmult ? kPlaneFloats : 0;
+  s.kmask = kmask ? o : -1;
+  o += kmask ? kTile : 0;
+  s.stats = stats ? o : -1;
+  o += stats ? 3 * kTile : 0;
+  s.floats = o;
+  return s;
+}
+
+// A stage's planes for query rows r0.. and keys c0.. of head hi of batch b
+__device__ __forceinline__ void load_stage(float* st, const Stage& ly, const float* bias,
+                                           const float* kmask, const float* pmult, const Dims& g,
+                                           int hi, int b, int r0, int c0) {
+  const long long nn = (long long)g.N * g.N;
+  if (ly.bias >= 0) load_plane(st + ly.bias, bias + hi * nn, g.N, r0, c0);
+  if (ly.mask >= 0) load_plane(st + ly.mask, g.wmask + (b % g.n_win) * nn, g.N, r0, c0);
+  if (ly.pmult >= 0) load_plane(st + ly.pmult, pmult, g.N, r0, c0);
+  if (ly.kmask >= 0) load_vec64(st + ly.kmask, kmask + (long long)b * g.N + c0, g.N - c0);
+}
+
+// x[j][e] op= the staged plane p at (local row rl + 8 (e / 2), local column
+// cl0 + 8 j + 2 t + e % 2), pairs read as float2
+template <bool kMul>
+__device__ __forceinline__ void plane_chunk(float (&x)[2][4], const float* p, int rl, int cl0) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 v = *reinterpret_cast<const float2*>(p + (rl + 8 * h) * kPlaneLd + cl0 +
+                                                        8 * j + 2 * t);
+      x[j][2 * h] = kMul ? __fmul_rn(x[j][2 * h], v.x) : __fadd_rn(x[j][2 * h], v.x);
+      x[j][2 * h + 1] = kMul ? __fmul_rn(x[j][2 * h + 1], v.y) : __fadd_rn(x[j][2 * h + 1], v.y);
+    }
+}
+
+// The scores of a (16 x 16) block in place from its fp32 products, as score()
+// computes them: the scale, then the bias, the window mask and the key mask;
+// -inf for keys at or past local column kend (N - the tile's first key)
+__device__ __forceinline__ void scores_chunk(float (&s)[2][4], float scale, const float* st,
+                                             const Stage& ly, int rl, int cl0, int kend) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
+  if (ly.bias >= 0) plane_chunk<false>(s, st + ly.bias, rl, cl0);
+  if (ly.mask >= 0) plane_chunk<false>(s, st + ly.mask, rl, cl0);
+  if (ly.kmask >= 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(st + ly.kmask + cl0 + 8 * j + 2 * t);
+      s[j][0] = __fadd_rn(s[j][0], v.x);
+      s[j][1] = __fadd_rn(s[j][1], v.y);
+      s[j][2] = __fadd_rn(s[j][2], v.x);
+      s[j][3] = __fadd_rn(s[j][3], v.y);
+    }
+  }
+  if (kend < cl0 + 16) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (cl0 + 8 * j + 2 * t + (e & 1) >= kend) s[j][e] = -CUDART_INF_F;
+  }
+}
+
+// dp of a (16 x 16) block in place from its fp32 products (past N the dO or
+// V rows are zeros, and so is the staged pmult)
+__device__ __forceinline__ void dprob_chunk(float (&d)[2][4], const float* st, const Stage& ly,
+                                            int rl, int cl0) {
+  if (ly.pmult >= 0) plane_chunk<true>(d, st + ly.pmult, rl, cl0);
+}
+
+// P from a score, its row's max times log2(e) and 1 / sum: the one
+// expression both kernels use
+__device__ __forceinline__ float prob(float s, float mxl, float inv) {
+  return __fmul_rn(ex2(__fmaf_rn(s, kLog2e, -mxl)), inv);
+}
+
+// rows r and r + 8 of x (kD / 8 blocks of 16 x 8 accumulators), columns 8 jd +
+// 2 t + {0, 1} below hd, rounded (times mul) to bf16 into out (row n at out +
+// n * ldo); rows past N skipped
+template <int kD>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out, long long ldo,
+                                           const float (&x)[kD / 8][4], int r, int N, int hd,
+                                           float mul, bool pairs) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = r + 8 * h;
+    if (n >= N) continue;
+    bf16* row = out + (long long)n * ldo;
+#pragma unroll
+    for (int jd = 0; jd < kD / 8; ++jd) {
+      const int d = 8 * jd + 2 * t;
+      const float a = x[jd][2 * h] * mul, c = x[jd][2 * h + 1] * mul;
+      if (pairs && d < hd) {
+        *reinterpret_cast<__nv_bfloat162*>(row + d) = __floats2bfloat162_rn(a, c);
+      } else {
+        if (d < hd) row[d] = __float2bfloat16_rn(a);
+        if (d + 1 < hd) row[d + 1] = __float2bfloat16_rn(c);
+      }
+    }
+  }
+}
+
+template <int kD>
+__device__ __forceinline__ void zero_acc(float (&x)[kD / 8][4]) {
+#pragma unroll
+  for (int jd = 0; jd < kD / 8; ++jd) x[jd][0] = x[jd][1] = x[jd][2] = x[jd][3] = 0.f;
+}
+
+// shared memory of the bf16 kernels: K and V (rows kernel) or Q and dO (cols
+// kernel), two buffers each, and two stages of staged planes
+template <int kD>
+int rows_mma_smem_bytes(const Stage& ly) {
+  return 4 * tile_bytes<kD>() + 2 * 4 * ly.floats;
+}
+
+template <int kD>
+int cols_mma_smem_bytes(const Stage& ly) {
+  return 4 * tile_bytes<kD>() + 2 * 4 * ly.floats;
+}
+
+// Recompute backward (1), bf16: for 64 query rows of one head of one batch
+// (a warp 16 of them), two passes over the key tiles. (a) The scores and dp,
+// and a row's running max m, sum l of exp(s - m) and sum r of
+// dp * exp(s - m), each rescaled by exp(m_old - m) when the max grows; then
+// stats = (m, l, r / l), the last being rowsum(dp * P). (b) P, dp,
+// ds = P (dp - rowsum) rounded to bf16 in registers as the A operand of
+// dq += ds . K (and with kOf, of += round(P) . V), 16 keys at a time;
+// dq = round(dq * scale).
+template <int kD, bool kOf>
+__global__ void __launch_bounds__(kTileThreads, 3)
+    ga_bwd_rows_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ bias, const float* __restrict__ kmask,
+                           const float* __restrict__ pmult, bf16* __restrict__ dq,
+                           bf16* __restrict__ of, float* __restrict__ stats, Dims g, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int L = tile_ld<kD>(), kT = kTile * L;
+  bf16* const ks = reinterpret_cast<bf16*>(smem_raw);  // K, buffers 0 and 1
+  bf16* const vs = ks + 2 * kT;                         // V, buffers 0 and 1
+  float* const pl = reinterpret_cast<float*>(vs + 2 * kT);  // staged planes, stages 0 and 1
+  const Stage ly = stage_layout(bias, g.wmask, pmult, kmask, false);
+  const int N = g.N;
+  const int n0 = blockIdx.x * kTile, hi = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int rl = 16 * warp + gq;  // this thread's rows of the tile: rl, rl + 8
+  const long long head = (long long)b * N * g.ld + hi * g.hd;
+  const bf16 *kh = k + head, *vh = v + head;
+  const int nt = (N + kTile - 1) / kTile;
+
+  // this warp's q and do rows as A fragments, for the whole block
+  unsigned qf[kD / 16][4], df[kD / 16][4];
+  load_tile<kD>(ks, q + head, g.ld, n0, N, g.hd, g.vec);
+  load_tile<kD>(vs, dout + (long long)b * N * g.C + hi * g.hd, g.C, n0, N, g.hd, g.vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  load_a<kD>(qf, ks + 16 * warp * L);
+  load_a<kD>(df, vs + 16 * warp * L);
+  __syncthreads();
+
+  auto load = [&](int kt, int buf) {
+    load_tile<kD>(ks + buf * kT, kh, g.ld, kt * kTile, N, g.hd, g.vec);
+    load_tile<kD>(vs + buf * kT, vh, g.ld, kt * kTile, N, g.hd, g.vec);
+    load_stage(pl + buf * ly.floats, ly, bias, kmask, pmult, g, hi, b, n0, kt * kTile);
+  };
+
+  // (a) online max, sum and rowsum(dp * exp(s - max)), 32 keys at a time
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+  pipeline(nt, load, [&](int kt, int buf) {
+    const float* st = pl + buf * ly.floats;
+    const int kend = N - kt * kTile;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float s[2][2][4], d[2][2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        warp_abt_chunk<kD>(s[u], qf, ks + buf * kT, 2 * half + u);
+        warp_abt_chunk<kD>(d[u], df, vs + buf * kT, 2 * half + u);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        scores_chunk(s[u], scale, st, ly, rl, 16 * (2 * half + u), kend);
+        dprob_chunk(d[u], st, ly, rl, 16 * (2 * half + u));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float tm = -CUDART_INF_F;
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) tm = fmaxf(tm, fmaxf(s[u][j][2 * h], s[u][j][2 * h + 1]));
+        const float mn = fmaxf(mx[h], quad_max(tm));
+        const float mnl = mn * kLog2e;
+        const float sc = ex2(__fmaf_rn(mx[h], kLog2e, -mnl));
+        float se = 0.f, sd = 0.f;
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float e = ex2(__fmaf_rn(s[u][j][2 * h + c], kLog2e, -mnl));
+              se += e;
+              sd += __fmul_rn(d[u][j][2 * h + c], e);
+            }
+        l[h] = l[h] * sc + se;
+        rs[h] = rs[h] * sc + sd;
+        mx[h] = mn;
+      }
+    }
+  });
+  const long long plane = (long long)g.B * g.heads * N;  // one statistic
+  const long long row0 = ((long long)b * g.heads + hi) * N + n0;
+  float inv[2], mxl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = quad_sum(l[h]);
+    inv[h] = 1.f / l[h];
+    mxl[h] = mx[h] * kLog2e;
+    rs[h] = __fmul_rn(quad_sum(rs[h]), inv[h]);
+    if (t == 0 && n0 + rl + 8 * h < N) {
+      stats[row0 + rl + 8 * h] = mx[h];
+      stats[plane + row0 + rl + 8 * h] = l[h];
+      stats[2 * plane + row0 + rl + 8 * h] = rs[h];
+    }
+  }
+
+  // (b) ds and dq (and of), 16 keys at a time
+  float dqa[kD / 8][4], oacc[kOf ? kD / 8 : 1][4];
+  zero_acc<kD>(dqa);
+  if constexpr (kOf) zero_acc<kD>(oacc);
+  pipeline(nt, load, [&](int kt, int buf) {
+    const float* st = pl + buf * ly.floats;
+    const bf16 *kb = ks + buf * kT, *vb = vs + buf * kT;
+    const int kend = N - kt * kTile;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float s[2][4], d[2][4];
+      warp_abt_chunk<kD>(s, qf, kb, kk);
+      warp_abt_chunk<kD>(d, df, vb, kk);
+      scores_chunk(s, scale, st, ly, rl, 16 * kk, kend);
+      dprob_chunk(d, st, ly, rl, 16 * kk);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = prob(s[j][e], mxl[e >> 1], inv[e >> 1]);
+          d[j][e] = __fmul_rn(s[j][e], __fsub_rn(d[j][e], rs[e >> 1]));
+        }
+      unsigned a[4];
+      if constexpr (kOf) {
+        pack_a_chunk(a, s);
+        warp_ax_chunk<kD>(oacc, a, vb, kk);
+      }
+      pack_a_chunk(a, d);
+      warp_ax_chunk<kD>(dqa, a, kb, kk);
+    }
+  });
+  const long long out0 = (long long)b * N * g.C + hi * g.hd;
+  if constexpr (kOf) store_rows<kD>(of + out0, g.C, oacc, n0 + rl, N, g.hd, 1.f, g.vec);
+  store_rows<kD>(dq + out0, g.C, dqa, n0 + rl, N, g.hd, scale, g.vec);
+}
+
+// Recompute backward (2), bf16: dv = round(P * pmult)^T . do and dk =
+// round(ds)^T . q * scale for 64 keys of one head (a warp 16 of them),
+// summed over every query tile, for b_count batches from blockIdx.z *
+// b_count in order. A warp holds its 16 keys of K and V as B fragments in
+// registers for the batch. For each 16 query rows of a tile, it recomputes
+// the scores and dp of those rows against its keys, forms P and ds in
+// registers from the rows kernel's statistics (and the dbias plane's
+// entries, as ga_bwd_cols_kernel does), and transposes the rounded pb and ds
+// blocks in registers (movmatrix) into the A operands of dv += pb^T . dO and
+// dk += ds^T . Q. The warps share the streamed tiles and nothing else.
+template <int kD>
+__global__ void __launch_bounds__(kTileThreads, 3)
+    ga_bwd_cols_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ bias, const float* __restrict__ kmask,
+                           const float* __restrict__ pmult, const float* __restrict__ stats,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           float* __restrict__ dbias, Dims g, float scale, int b_count) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int L = tile_ld<kD>(), kT = kTile * L;
+  bf16* const qs = reinterpret_cast<bf16*>(smem_raw);  // Q, buffers 0 and 1
+  bf16* const dos = qs + 2 * kT;                        // dO, buffers 0 and 1
+  float* const pl = reinterpret_cast<float*>(dos + 2 * kT);  // staged, stages 0 and 1
+  const Stage ly = stage_layout(bias, g.wmask, pmult, kmask, true);
+  const int N = g.N;
+  const int m0 = blockIdx.x * kTile, hi = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int cl0 = 16 * warp;  // this warp's keys in the block: m0 + cl0 ..
+  const int kend = N - m0;
+  const long long plane = (long long)g.B * g.heads * N;
+  const int b0 = blockIdx.z * b_count, b1 = min(g.B, b0 + b_count);
+  const int nt = (N + kTile - 1) / kTile;
+  if (dbias) dbias += (long long)blockIdx.z * g.heads * N * N;
+
+  for (int b = b0; b < b1; ++b) {
+    const long long head = (long long)b * N * g.ld + hi * g.hd;
+    const long long dhead = (long long)b * N * g.C + hi * g.hd;
+    const long long row0 = ((long long)b * g.heads + hi) * N;
+    float dva[kD / 8][4], dka[kD / 8][4];
+    unsigned kf[kD / 16][4], vf[kD / 16][4];
+    zero_acc<kD>(dva);
+    zero_acc<kD>(dka);
+    load_b_global<kD>(kf, k + head, g.ld, m0 + cl0, N, g.hd, g.vec);
+    load_b_global<kD>(vf, v + head, g.ld, m0 + cl0, N, g.hd, g.vec);
+    pipeline(
+        nt,
+        [&](int it, int buf) {
+          load_tile<kD>(qs + buf * kT, q + head, g.ld, it * kTile, N, g.hd, g.vec);
+          load_tile<kD>(dos + buf * kT, dout + dhead, g.C, it * kTile, N, g.hd, g.vec);
+          float* st = pl + buf * ly.floats;
+          load_stage(st, ly, bias, kmask, pmult, g, hi, b, it * kTile, m0);
+          for (int w = 0; w < 3; ++w)
+            load_vec64(st + ly.stats + w * kTile, stats + w * plane + row0 + it * kTile,
+                       N - it * kTile);
+        },
+        [&](int it, int buf) {
+          const float* st = pl + buf * ly.floats;
+          const bf16 *qb = qs + buf * kT, *db = dos + buf * kT;
+          const int n0 = it * kTile;
+#pragma unroll
+          for (int mq = 0; mq < 4; ++mq) {
+            const int rl = 16 * mq + gq;  // this thread's rows of the tile: rl, rl + 8
+            float mxl[2], inv[2], rs[2];
+            bool row_ok[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              row_ok[h] = n0 + rl + 8 * h < N;
+              mxl[h] = st[ly.stats + rl + 8 * h] * kLog2e;
+              inv[h] = 1.f / (row_ok[h] ? st[ly.stats + kTile + rl + 8 * h] : 1.f);
+              rs[h] = st[ly.stats + 2 * kTile + rl + 8 * h];
+            }
+            unsigned qa[kD / 16][4], da[kD / 16][4];
+            load_a<kD>(qa, qb + 16 * mq * L);
+            load_a<kD>(da, db + 16 * mq * L);
+            float s[2][4], d[2][4];
+            warp_abt_frag<kD>(s, qa, kf);
+            warp_abt_frag<kD>(d, da, vf);
+            scores_chunk(s, scale, st, ly, rl, cl0, kend);
+            float2 pm[2][2] = {};  // pmult at (row rl + 8 h, keys of block j), read once
+            if (ly.pmult >= 0) {
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  pm[j][h] = *reinterpret_cast<const float2*>(
+                      st + ly.pmult + (rl + 8 * h) * kPlaneLd + cl0 + 8 * j + 2 * t);
+            }
+            // s becomes pb, d becomes ds; both 0 past N
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int h = e >> 1;
+                const bool ok = row_ok[h] && cl0 + 8 * j + 2 * t + (e & 1) < kend;
+                const float pmv = (e & 1) ? pm[j][h].y : pm[j][h].x;
+                const float p = prob(s[j][e], mxl[h], inv[h]);
+                const float dp = ly.pmult >= 0 ? __fmul_rn(d[j][e], pmv) : d[j][e];
+                d[j][e] = ok ? __fmul_rn(p, __fsub_rn(dp, rs[h])) : 0.f;
+                s[j][e] = !ok ? 0.f : ly.pmult >= 0 ? __fmul_rn(p, pmv) : p;
+              }
+            if (dbias) {
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int h = e >> 1, c = cl0 + 8 * j + 2 * t + (e & 1);
+                  if (row_ok[h] && c < kend) {
+                    float* at = dbias + ((long long)hi * N + n0 + rl + 8 * h) * N + m0 + c;
+                    *at = (b == b0 ? 0.f : *at) + d[j][e];
+                  }
+                }
+            }
+            // (keys x queries) A fragments of pb^T and ds^T: the transposed
+            // 8 x 8 blocks (queries g / g + 8, keys of block j)
+            unsigned pa[4], sa[4];
+            pa[0] = movmatrix_t(pack_bf16(s[0][0], s[0][1]));
+            pa[1] = movmatrix_t(pack_bf16(s[1][0], s[1][1]));
+            pa[2] = movmatrix_t(pack_bf16(s[0][2], s[0][3]));
+            pa[3] = movmatrix_t(pack_bf16(s[1][2], s[1][3]));
+            sa[0] = movmatrix_t(pack_bf16(d[0][0], d[0][1]));
+            sa[1] = movmatrix_t(pack_bf16(d[1][0], d[1][1]));
+            sa[2] = movmatrix_t(pack_bf16(d[0][2], d[0][3]));
+            sa[3] = movmatrix_t(pack_bf16(d[1][2], d[1][3]));
+            warp_ax_chunk<kD>(dva, pa, db, mq);
+            warp_ax_chunk<kD>(dka, sa, qb, mq);
+          }
+        });
+    const int m = m0 + cl0 + gq;
+    store_rows<kD>(dv + dhead, g.C, dva, m, N, g.hd, 1.f, g.vec);
+    store_rows<kD>(dk + dhead, g.C, dka, m, N, g.hd, scale, g.vec);
+  }
+}
+
 Dims dims(int B, int N, int C, int heads, long long ld) {
   Dims g;
   g.B = B;
@@ -692,6 +1155,7 @@ Dims dims(int B, int N, int C, int heads, long long ld) {
   g.ld = ld;
   g.wmask = nullptr;
   g.n_win = 1;
+  g.vec = 0;
   return g;
 }
 
@@ -745,37 +1209,88 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// the recompute backward's two kernels on the tensor cores (bf16), kD
+// columns a head (hd <= kD, zero-padded)
+template <int kD, bool kOf>
+cudaError_t launch_rows_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                            const float* bias, const float* kmask, const float* pmult, void* dq,
+                            void* of, float* stats, const Dims& g, float scale,
+                            cudaStream_t stream) {
+  const int smem = rows_mma_smem_bytes<kD>(stage_layout(bias, g.wmask, pmult, kmask, false));
+  cudaError_t err = cudaFuncSetAttribute(ga_bwd_rows_mma_kernel<kD, kOf>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.N + kTile - 1) / kTile, g.heads, g.B);
+  ga_bwd_rows_mma_kernel<kD, kOf><<<grid, kTileThreads, smem, stream>>>(
+      q, k, v, dout, bias, kmask, pmult, static_cast<bf16*>(dq), static_cast<bf16*>(of), stats,
+      g, scale);
+  return cudaGetLastError();
+}
+
+template <int kD>
+cudaError_t launch_recompute_mma(const void* q, const void* k, const void* v, const void* dout,
+                                 const float* bias, const float* kmask, const float* pmult,
+                                 void* dq, void* dk, void* dv, void* of, float* stats,
+                                 float* planes, int n_groups, int b_count, const Dims& g,
+                                 float scale, cudaStream_t stream) {
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
+  cudaError_t err =
+      of ? launch_rows_mma<kD, true>(qb, kb, vb, db, bias, kmask, pmult, dq, of, stats, g, scale,
+                                     stream)
+         : launch_rows_mma<kD, false>(qb, kb, vb, db, bias, kmask, pmult, dq, of, stats, g, scale,
+                                      stream);
+  if (err != cudaSuccess) return err;
+  const int smem = cols_mma_smem_bytes<kD>(stage_layout(bias, g.wmask, pmult, kmask, true));
+  err = cudaFuncSetAttribute(ga_bwd_cols_mma_kernel<kD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.N + kTile - 1) / kTile, g.heads, n_groups);
+  ga_bwd_cols_mma_kernel<kD><<<grid, kTileThreads, smem, stream>>>(
+      qb, kb, vb, db, bias, kmask, pmult, stats, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      planes, g, scale, b_count);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_bwd_recompute(const void* q, const void* k, const void* v, const void* dout,
                                  const float* bias, const float* kmask, const float* pmult,
                                  void* dq, void* dk, void* dv, void* of, float* stats,
                                  float* dbias, float* dbias_partial, int groups, const Dims& g,
                                  float scale, cudaStream_t stream) {
-  const int smem = rows_smem_bytes(g.N);
-  cudaError_t err = cudaFuncSetAttribute(ga_bwd_rows_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((g.N + kTq - 1) / kTq, g.heads, g.B);
-  ga_bwd_rows_kernel<T><<<grid_q, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), bias, kmask, pmult, static_cast<T*>(dq), static_cast<T*>(of),
-      stats, g, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ga_bwd_cols_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             cols_smem_bytes());
-  if (err != cudaSuccess) return err;
   // with a bias gradient a block sums its key columns over a group of
   // consecutive batches, each group into a plane of its own
   const int b_count = dbias ? (g.B + groups - 1) / groups : 1;
   const int n_groups = (g.B + b_count - 1) / b_count;
   float* planes = dbias && n_groups > 1 ? dbias_partial : dbias;
-  const dim3 grid_k((g.N + kTk - 1) / kTk, g.heads, n_groups);
-  ga_bwd_cols_kernel<T><<<grid_k, kThreads, cols_smem_bytes(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), bias, kmask, pmult, stats, static_cast<T*>(dk),
-      static_cast<T*>(dv), planes, g, scale, b_count);
-  err = cudaGetLastError();
+  cudaError_t err;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    err = g.hd <= 32 ? launch_recompute_mma<32>(q, k, v, dout, bias, kmask, pmult, dq, dk, dv, of,
+                                                stats, planes, n_groups, b_count, g, scale, stream)
+                     : launch_recompute_mma<64>(q, k, v, dout, bias, kmask, pmult, dq, dk, dv, of,
+                                                stats, planes, n_groups, b_count, g, scale, stream);
+  } else {
+    const int smem = rows_smem_bytes(g.N);
+    err = cudaFuncSetAttribute(ga_bwd_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid_q((g.N + kTq - 1) / kTq, g.heads, g.B);
+    ga_bwd_rows_kernel<T><<<grid_q, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), bias, kmask, pmult, static_cast<T*>(dq), static_cast<T*>(of),
+        stats, g, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(ga_bwd_cols_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               cols_smem_bytes());
+    if (err != cudaSuccess) return err;
+    const dim3 grid_k((g.N + kTk - 1) / kTk, g.heads, n_groups);
+    ga_bwd_cols_kernel<T><<<grid_k, kThreads, cols_smem_bytes(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), bias, kmask, pmult, stats, static_cast<T*>(dk),
+        static_cast<T*>(dv), planes, g, scale, b_count);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess || !dbias || n_groups == 1) return err;
   // (3) the groups' planes summed in group order
   const long long count = (long long)g.heads * g.N * g.N;
@@ -783,6 +1298,8 @@ cudaError_t launch_bwd_recompute(const void* q, const void* k, const void* v, co
       dbias_partial, dbias, n_groups, count);
   return cudaGetLastError();
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
@@ -843,6 +1360,9 @@ int skinjax_global_attention_bwd_recompute(int bf16, const void* q, const void* 
   g.n_win = mask ? n_win : 1;
   if (bad_dims(g) || groups < 1 || groups > B || (of && pmult))
     return static_cast<int>(cudaErrorInvalidValue);
+  g.vec = ld % 8 == 0 && C % 8 == 0 && g.hd % 8 == 0 && aligned16(q) && aligned16(k) &&
+          aligned16(v) && aligned16(dout) && aligned16(dq) && aligned16(dk) && aligned16(dv) &&
+          (!of || aligned16(of));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_bwd_recompute<__nv_bfloat16>(q, k, v, dout, bias, kmask, pmult, dq, dk, dv, of,

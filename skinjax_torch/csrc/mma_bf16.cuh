@@ -1,0 +1,312 @@
+// Building blocks of the bf16 tensor-core attention kernels (sm_90a):
+// global_attention.cu's recompute backward and pooled_attention.cu's forward.
+//
+// A warp computes (16 rows x 16 keys) blocks of scores with
+// mma.sync.m16n8k16 (bf16 operands, fp32 accumulators in registers), its
+// operands brought from shared memory by ldmatrix; tiles of 64 rows (and the
+// fp32 planes added to the scores) stream through shared memory two deep
+// with cp.async. Fragment layouts (PTX ISA, "Matrix fragments for
+// mma.m16n8k16"; g = lane / 4, t = lane % 4):
+//   A (16 x 16, row major)  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 8+2t..)  a3 (g+8, 8+2t..)
+//   B (16 x 8, k x n)       b0 (k 2t..2t+1, n g)  b1 (k 8+2t.., n g)
+//   C (16 x 8, fp32)        c0, c1 (g, 2t..2t+1)  c2, c3 (g+8, 2t..2t+1)
+// so the accumulator of a score block, rounded to bf16 and packed in pairs,
+// is the A operand of the next product (P.V, ds.K) without leaving
+// registers, and movmatrix transposes it into the A operand of P^T.dO.
+//
+// A shared-memory tile holds 64 rows of kD bf16 at a row stride of kD + 8
+// elements: 16 bytes of padding put the eight rows an ldmatrix phase reads on
+// eight different 16-byte bank groups for kD = 32, 64, 96 and 128.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTile = 64;          // rows (queries or keys) a tile
+constexpr int kTileThreads = 128;  // four warps, 16 rows of a tile each
+
+template <int kD>
+__host__ __device__ constexpr int tile_ld() {
+  return kD + 8;
+}
+
+template <int kD>
+__host__ __device__ constexpr int tile_bytes() {
+  return kTile * tile_ld<kD>() * 2;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(smem)), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a . b on the tensor cores: a 16 x 16 and b 16 x 8 bf16, c 16 x 8 fp32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit (flush to zero; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The transpose of an 8 x 8 bf16 block held as an accumulator pair (thread
+// g, t holds row g, columns 2t..2t+1), in the same layout
+__device__ __forceinline__ unsigned movmatrix_t(unsigned x) {
+  unsigned y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// two fp32 rounded to bf16 and packed, the lower column in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// dst (kTile x kD at row stride tile_ld<kD>()) = rows [r0, r0 + kTile) and
+// columns [0, kD) of the row-major bf16 matrix src (row r at src + r * ld),
+// zero at rows >= rows and columns >= cols. With vec the copies are 16-byte
+// cp.async, in flight until the caller waits for its group (cols, ld and src
+// must then be multiples of 8 elements and 16-byte aligned); else plain
+// element copies.
+template <int kD>
+__device__ __forceinline__ void load_tile(bf16* __restrict__ dst, const bf16* __restrict__ src,
+                                          long long ld, int r0, int rows, int cols, bool vec) {
+  constexpr int L = tile_ld<kD>(), V = kD / 8;
+  for (int i = threadIdx.x; i < kTile * V; i += kTileThreads) {
+    const int r = i / V, c = (i - r * V) * 8;
+    bf16* d = dst + r * L + c;
+    const bf16* s = src + (long long)(r0 + r) * ld + c;
+    if (r0 + r < rows && c < cols) {
+      if (vec) {
+        cp_async16(d, s);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d[e] = c + e < cols ? s[e] : __float2bfloat16_rn(0.f);
+      }
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// An fp32 plane tile in shared memory: 64 rows at a stride of kPlaneLd
+// floats. A thread reads its score fragment's pairs as float2; the 8-float
+// padding keeps each half-warp's 64-bit reads on distinct banks.
+constexpr int kPlaneLd = kTile + 8;
+constexpr int kPlaneFloats = kTile * kPlaneLd;
+
+// dst (64 x kPlaneLd) = rows [r0, r0 + 64) and columns [c0, c0 + 64) of the
+// (n x n) fp32 plane src, zero outside it; in flight (cp.async) until the
+// caller waits for its group: 16-byte copies when n % 4 == 0 (and src is
+// 16-byte aligned), else 4-byte ones.
+__device__ __forceinline__ void load_plane(float* __restrict__ dst, const float* __restrict__ src,
+                                           int n, int r0, int c0) {
+  if ((n & 3) == 0) {
+    for (int i = threadIdx.x; i < kTile * kTile / 4; i += kTileThreads) {
+      const int r = i >> 4, c = (i & 15) * 4;
+      float* d = dst + r * kPlaneLd + c;
+      if (r0 + r < n && c0 + c < n)
+        cp_async16(d, src + (long long)(r0 + r) * n + c0 + c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * kTile; i += kTileThreads) {
+      const int r = i >> 6, c = i & 63;
+      float* d = dst + r * kPlaneLd + c;
+      if (r0 + r < n && c0 + c < n)
+        cp_async4(d, src + (long long)(r0 + r) * n + c0 + c);
+      else
+        *d = 0.f;
+    }
+  }
+}
+
+// dst[i] = src[i] for i < count (count <= 64), zero up to 64; cp.async
+__device__ __forceinline__ void load_vec64(float* __restrict__ dst, const float* __restrict__ src,
+                                           int count) {
+  for (int i = threadIdx.x; i < kTile; i += kTileThreads) {
+    if (i < count)
+      cp_async4(dst + i, src + i);
+    else
+      dst[i] = 0.f;
+  }
+}
+
+// The A fragments of this warp's 16 rows of a tile (rows at a stride of
+// tile_ld<kD>()), one set of four registers per 16 columns.
+template <int kD>
+__device__ __forceinline__ void load_a(unsigned (&a)[kD / 16][4], const bf16* rows) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ks = 0; ks < kD / 16; ++ks)
+    ldsm_x4(a[ks], rows + (lane & 15) * tile_ld<kD>() + 16 * ks + (lane >> 4) * 8);
+}
+
+// s[jj] = the 16 x 8 blocks 2 kk + jj of A . X^T: A this warp's 16 rows
+// (fragments a), X keys 16 kk .. 16 kk + 15 of the tile xs; the sum over the
+// kD columns runs in 16-column steps in ascending order, the same for every
+// caller, so the same operands give the same bits
+template <int kD>
+__device__ __forceinline__ void warp_abt_chunk(float (&s)[2][4], const unsigned (&a)[kD / 16][4],
+                                               const bf16* xs, int kk) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kD / 16; ++ks) {
+    unsigned b[4];
+    ldsm_x4(b, xs + (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * tile_ld<kD>() + 16 * ks +
+                   ((lane >> 3) & 1) * 8);
+    mma_bf16(s[0], a[ks], b[0], b[1]);
+    mma_bf16(s[1], a[ks], b[2], b[3]);
+  }
+}
+
+// The B fragments of keys key0 .. key0 + 15 for a . x^T, as warp_abt_chunk
+// reads them from a tile (b[ks] holds its two 16 x 8 blocks of the 16-column
+// step ks), read here from device memory: rows key0.. of the row-major bf16
+// matrix src (row r at src + r * ld), zero at rows >= rows and columns >=
+// cols; with vec (cols and ld even, src 4-byte aligned) as 32-bit pairs
+template <int kD>
+__device__ __forceinline__ void load_b_global(unsigned (&b)[kD / 16][4],
+                                              const bf16* __restrict__ src, long long ld,
+                                              int key0, int rows, int cols, bool vec) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < kD / 16; ++ks)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = key0 + gq + ((u >> 1) << 3), c = 16 * ks + ((u & 1) << 3) + 2 * t;
+      const bf16* x = src + (long long)r * ld + c;
+      unsigned w = 0u;
+      if (r < rows && c < cols) {
+        if (vec) {
+          w = *reinterpret_cast<const unsigned*>(x);
+        } else {
+          __nv_bfloat162 pair;
+          pair.x = x[0];
+          pair.y = c + 1 < cols ? x[1] : __float2bfloat16_rn(0.f);
+          w = *reinterpret_cast<const unsigned*>(&pair);
+        }
+      }
+      b[ks][u] = w;
+    }
+}
+
+// warp_abt_chunk with the B fragments already in registers (load_b_global):
+// the same products in the same order
+template <int kD>
+__device__ __forceinline__ void warp_abt_frag(float (&s)[2][4], const unsigned (&a)[kD / 16][4],
+                                              const unsigned (&b)[kD / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kD / 16; ++ks) {
+    mma_bf16(s[0], a[ks], b[ks][0], b[ks][1]);
+    mma_bf16(s[1], a[ks], b[ks][2], b[ks][3]);
+  }
+}
+
+// The A fragment of 16 keys of a score-shaped tile held as the two
+// accumulator blocks x: rounded to bf16 and packed
+__device__ __forceinline__ void pack_a_chunk(unsigned (&a)[4], const float (&x)[2][4]) {
+  a[0] = pack_bf16(x[0][0], x[0][1]);
+  a[1] = pack_bf16(x[0][2], x[0][3]);
+  a[2] = pack_bf16(x[1][0], x[1][1]);
+  a[3] = pack_bf16(x[1][2], x[1][3]);
+}
+
+// acc (16 x kD) += A . X[16 kk .. 16 kk + 15]: A one 16-key fragment, X the
+// (64 x kD) tile xs (B fragments by ldmatrix.trans)
+template <int kD>
+__device__ __forceinline__ void warp_ax_chunk(float (&acc)[kD / 8][4], const unsigned (&a)[4],
+                                              const bf16* xs, int kk) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int jd = 0; jd < kD / 16; ++jd) {
+    unsigned b[4];
+    ldsm_x4_trans(b, xs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * tile_ld<kD>() +
+                         16 * jd + (lane >> 4) * 8);
+    mma_bf16(acc[2 * jd], a, b[0], b[1]);
+    mma_bf16(acc[2 * jd + 1], a, b[2], b[3]);
+  }
+}
+
+// Steps of load(k, buffer) then compute(k, buffer), two buffers deep: step
+// k + 1's tiles are in flight (cp.async) while step k computes. Every compute
+// starts after a barrier that follows its tiles' arrival, and ends with one,
+// so the buffers are free when the loop returns.
+template <typename Load, typename Compute>
+__device__ __forceinline__ void pipeline(int steps, Load load, Compute compute) {
+  load(0, 0);
+  cp_async_commit();
+  for (int k = 0; k < steps; ++k) {
+    if (k + 1 < steps) {
+      load(k + 1, (k + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    compute(k, k & 1);
+    __syncthreads();
+  }
+}
+
+// the largest of a row's values over the four threads of its quad
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// the sum of a row's values over the four threads of its quad; every thread
+// of the quad gets the same bits (a + b == b + a)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+}  // namespace

@@ -32,24 +32,42 @@
 // (pooled_attention_chunked) and its VMEM and residual caps (pooled_attn_ok)
 // guard Mosaic and a 16 GB TPU; a grid over query tiles needs neither.
 //
-// Launches. Forward: one launch, a block per (32 query rows, head, batch),
-// which holds its 32 score rows in shared memory (so Nk <= 1024), streams K
-// and then V through shared memory 64 keys at a time, adds the bias by index
-// and does the softmax a warp a row. The Pallas backward sums dk and dv over
-// every query across its sequential grid; blocks here run in no order, so the
-// backward is two launches with no atomics: (1) a block per (32 query rows,
-// head, batch) computes dp, ds (written to an fp32 scratch the size of P), the
-// two bias gradients and dq; (2) a block per (32 keys, head, batch) sums dv
-// and dk over all queries, in query order, from P and ds.
+// Launches. Forward: one launch. Its bf16 instantiation (the main path
+// under autocast), pa_fwd_mma_kernel, runs on the tensor cores: a block per
+// (64 query rows, head, batch), four warps of 16 rows, q as A fragments in
+// registers, K (and V) tiles of 64 keys streaming two deep through shared
+// memory by cp.async, every product an mma.sync.m16n8k16 (bf16 operands from
+// ldmatrix, fp32 accumulators in registers; mma_bf16.cuh). The rows' bias
+// terms (bias_h as Kh values a row, bias_w as Kw) and each key's (m / Kw,
+// m % Kw) are loaded once into shared memory and added in registers. Two
+// passes over the key tiles: (a) the scores and an online max and sum a row;
+// (b) the scores again, P = exp(s - max) / sum written fp32 with streaming
+// stores, and o += round(P) . V with the accumulators packed to bf16 as the
+// A operand (FlashAttention-2's register reuse), 16 keys at a time. exp is
+// the special-function unit's 2^x of a fused s * log2(e) - max * log2(e).
+// The fp32 instantiation (the card-vs-CPU and fp32 twin checks at 1e-4)
+// keeps pa_fwd_kernel: a block per (32 query rows, head, batch) holds its
+// score rows in shared memory, streams K and then V 64 keys at a time, adds
+// the bias by index and does the softmax a warp a row, fp32 FMAs on the CUDA
+// cores (TF32 tensor cores would not hold 1e-4). The Pallas backward sums dk
+// and dv over every query across its sequential grid; blocks here run in no
+// order, so the backward is two launches with no atomics: (1) a block per
+// (32 query rows, head, batch) computes dp, ds (written to an fp32 scratch
+// the size of P), the two bias gradients and dq; (2) a block per (32 keys,
+// head, batch) sums dv and dk over all queries, in query order, from P and
+// ds.
 //
 // What bounds it: at MViTv2-small's stage-2 body (B=64, Nq = Nk = 196, 4
 // heads, hd = 96, bf16) the forward moves ~81 MB (P's 39 MB of them) against
 // 3.8 GFLOP, the backward ~112 MB against 7.6 GFLOP: on the bf16 tensor cores
-// both are bound by bytes (~24 and ~34 us). This first version is simple:
-// fp32 FMAs on the CUDA cores from shared-memory tiles (4x2 and 4x4 outputs a
-// thread), no mma, no TMA; the backward's ds scratch adds two passes over a
+// both are bound by bytes (~24 and ~34 us). The bf16 forward writes P once,
+// with every other operand read once from device memory, and recomputes the
+// scores (three products where two are needed). The backward is the first
+// version: fp32 FMAs on the CUDA cores from shared-memory tiles (4x2 and 4x4
+// outputs a thread), no mma, no TMA; its ds scratch adds two passes over a
 // plane the size of P. PERF.md records how far each is from its bound.
-// Limits: Nk <= 1024, hd <= 128.
+// Limits: Nk <= 1024 (the CUDA-core kernels keep whole score rows in shared
+// memory), hd <= 128.
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() as an int (0 = success);
@@ -58,6 +76,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cstdint>
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -279,6 +302,191 @@ __global__ void __launch_bounds__(kThreads)
   rows_product_out<T>(s, ss, v, g, plane, n0, n_rows, chunk, 1.f, o);
 }
 
+// Forward, bf16, on the tensor cores (mma_bf16.cuh): o for 64 query rows of
+// one head of one batch, four warps of 16 rows; P when p is not null. The
+// rows' bias terms (bias_h as Kh values a row, bias_w as Kw) and each key's
+// (m / Kw, m % Kw) sit in shared memory for the block. Two passes over the
+// key tiles, K (and V) streaming two deep with cp.async: (a) the scores,
+// bias added in registers, and an online max and sum a row; (b) the scores
+// again, P = exp(s - max) / sum written fp32 to p, and o += round(P) . V with
+// the accumulators packed to bf16 as the A operand, then o = round(o).
+template <int kD>
+__global__ void __launch_bounds__(kTileThreads)
+    pa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ bias_h,
+                      const bf16* __restrict__ bias_w, bf16* __restrict__ o,
+                      float* __restrict__ p, Dims g, float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int L = tile_ld<kD>(), kT = kTile * L;
+  bf16* const ks = reinterpret_cast<bf16*>(smem_raw);  // K, buffers 0 and 1
+  bf16* const vs = ks + 2 * kT;                         // V, buffers 0 and 1
+  short2* const kidx = reinterpret_cast<short2*>(vs + 2 * kT);  // (m / Kw, m % Kw)
+  bf16* const bhs = reinterpret_cast<bf16*>(kidx + g.Nk);         // (64, Kh)
+  bf16* const bws = bhs + kTile * g.Kh;                            // (64, Kw)
+  const int n0 = blockIdx.x * kTile;
+  const long long plane = (long long)blockIdx.z * g.heads + blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int rl = 16 * warp + gq;  // this thread's rows in the tile: rl, rl + 8
+  const bf16 *kh = k + plane * g.Nk * g.hd, *vh = v + plane * g.Nk * g.hd;
+  const int nt = (g.Nk + kTile - 1) / kTile;
+
+  load_tile<kD>(ks, q + plane * g.Nq * g.hd, g.hd, n0, g.Nq, g.hd, vec);
+  cp_async_commit();
+  for (int m = threadIdx.x; m < g.Nk; m += kTileThreads)
+    kidx[m] = make_short2(static_cast<short>(m / g.Kw), static_cast<short>(m % g.Kw));
+  for (int i = threadIdx.x; i < kTile * g.Kh; i += kTileThreads) {
+    const int r = i / g.Kh, n = n0 + r;
+    bhs[i] = n < g.Nq ? bias_h[(plane * g.Nq + n) * g.Kh + i - r * g.Kh] : __float2bfloat16_rn(0.f);
+  }
+  for (int i = threadIdx.x; i < kTile * g.Kw; i += kTileThreads) {
+    const int r = i / g.Kw, n = n0 + r;
+    bws[i] = n < g.Nq ? bias_w[(plane * g.Nq + n) * g.Kw + i - r * g.Kw] : __float2bfloat16_rn(0.f);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  unsigned qf[kD / 16][4];
+  load_a<kD>(qf, ks + 16 * warp * L);
+  __syncthreads();
+
+  // the scores of a (16 x 16) block, keys m0 + 16 kk.., in place from their
+  // fp32 products: the scale, then bias_h, then bias_w; -inf past Nk
+  auto scores = [&](float (&s)[2][4], int m0, int kk) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const short2 ix = kidx[min(m0 + 16 * kk + 8 * j + 2 * t + c, g.Nk - 1)];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rl + 8 * h;
+          const float a = __fadd_rn(__fmul_rn(s[j][2 * h + c], scale),
+                                    __bfloat162float(bhs[r * g.Kh + ix.x]));
+          s[j][2 * h + c] = __fadd_rn(a, __bfloat162float(bws[r * g.Kw + ix.y]));
+        }
+      }
+    if (m0 + 16 * kk + 16 > g.Nk) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (m0 + 16 * kk + 8 * j + 2 * t + (e & 1) >= g.Nk) s[j][e] = -CUDART_INF_F;
+    }
+  };
+
+  // (a) max and sum, online
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  pipeline(
+      nt,
+      [&](int kt, int buf) {
+        load_tile<kD>(ks + buf * kT, kh, g.hd, kt * kTile, g.Nk, g.hd, vec);
+      },
+      [&](int kt, int buf) {
+        const int m0 = kt * kTile;
+        float s[4][2][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) warp_abt_chunk<kD>(s[kk], qf, ks + buf * kT, kk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) scores(s[kk], m0, kk);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float tm = -CUDART_INF_F;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) tm = fmaxf(tm, fmaxf(s[kk][j][2 * h], s[kk][j][2 * h + 1]));
+          const float mn = fmaxf(mx[h], quad_max(tm));
+          const float mnl = mn * kLog2e;
+          float sum = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              sum += ex2(__fmaf_rn(s[kk][j][2 * h], kLog2e, -mnl)) +
+                     ex2(__fmaf_rn(s[kk][j][2 * h + 1], kLog2e, -mnl));
+          l[h] = l[h] * ex2(__fmaf_rn(mx[h], kLog2e, -mnl)) + sum;
+          mx[h] = mn;
+        }
+      });
+  float inv[2], mxl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    inv[h] = 1.f / quad_sum(l[h]);
+    mxl[h] = mx[h] * kLog2e;
+  }
+
+  // (b) P written, o = round(round(P) . V), 16 keys at a time
+  float oacc[kD / 8][4];
+#pragma unroll
+  for (int jd = 0; jd < kD / 8; ++jd) oacc[jd][0] = oacc[jd][1] = oacc[jd][2] = oacc[jd][3] = 0.f;
+  const bool pairs = (g.Nk & 1) == 0;  // P's rows start 8-byte aligned
+  pipeline(
+      nt,
+      [&](int kt, int buf) {
+        load_tile<kD>(ks + buf * kT, kh, g.hd, kt * kTile, g.Nk, g.hd, vec);
+        load_tile<kD>(vs + buf * kT, vh, g.hd, kt * kTile, g.Nk, g.hd, vec);
+      },
+      [&](int kt, int buf) {
+        const int m0 = kt * kTile;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float s[2][4];
+          warp_abt_chunk<kD>(s, qf, ks + buf * kT, kk);
+          scores(s, m0, kk);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[j][e] = __fmul_rn(ex2(__fmaf_rn(s[j][e], kLog2e, -mxl[e >> 1])), inv[e >> 1]);
+          if (p) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int n = n0 + rl + 8 * h;
+              if (n >= g.Nq) continue;
+              float* prow = p + (plane * g.Nq + n) * g.Nk;
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int m = m0 + 16 * kk + 8 * j + 2 * t;
+                if (pairs && m < g.Nk) {
+                  __stcs(reinterpret_cast<float2*>(prow + m),
+                         make_float2(s[j][2 * h], s[j][2 * h + 1]));
+                } else {
+                  if (m < g.Nk) __stcs(prow + m, s[j][2 * h]);
+                  if (m + 1 < g.Nk) __stcs(prow + m + 1, s[j][2 * h + 1]);
+                }
+              }
+            }
+          }
+          unsigned pa[4];
+          pack_a_chunk(pa, s);
+          warp_ax_chunk<kD>(oacc, pa, vs + buf * kT, kk);
+        }
+      });
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + rl + 8 * h;
+    if (n >= g.Nq) continue;
+    bf16* orow = o + (plane * g.Nq + n) * g.hd;
+#pragma unroll
+    for (int jd = 0; jd < kD / 8; ++jd) {
+      const int d = 8 * jd + 2 * t;
+      if (vec && d < g.hd) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+            __floats2bfloat162_rn(oacc[jd][2 * h], oacc[jd][2 * h + 1]);
+      } else {
+        if (d < g.hd) orow[d] = __float2bfloat16_rn(oacc[jd][2 * h]);
+        if (d + 1 < g.hd) orow[d + 1] = __float2bfloat16_rn(oacc[jd][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// shared memory of pa_fwd_mma_kernel: K and V twice, the key indices and the
+// rows' bias terms
+template <int kD>
+int fwd_mma_smem_bytes(const Dims& g) {
+  return 4 * tile_bytes<kD>() + 4 * g.Nk + 2 * kTile * (g.Kh + g.Kw);
+}
+
 // Backward (1): dp, ds (to the scratch), the bias gradients and dq for 32
 // query rows of one head of one batch.
 template <typename T>
@@ -423,20 +631,43 @@ bool bad_dims(const Dims& g) {
          g.B < 1 || g.B > 65535 || g.heads < 1 || g.heads > 65535;
 }
 
+template <int kD>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, const void* bias_h,
+                           const void* bias_w, void* o, float* p, const Dims& g, float scale,
+                           int vec, cudaStream_t stream) {
+  const int smem = fwd_mma_smem_bytes<kD>(g);
+  cudaError_t err = cudaFuncSetAttribute(pa_fwd_mma_kernel<kD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.Nq + kTile - 1) / kTile, g.heads, g.B);
+  pa_fwd_mma_kernel<kD><<<grid, kTileThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(bias_h), static_cast<const bf16*>(bias_w), static_cast<bf16*>(o),
+      p, g, scale, vec);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias_h,
                        const void* bias_w, void* o, float* p, const Dims& g, float scale,
-                       cudaStream_t stream) {
-  const int smem = rows_smem_bytes(g.Nk);
-  cudaError_t err =
-      cudaFuncSetAttribute(pa_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((g.Nq + kTq - 1) / kTq, g.heads, g.B);
-  pa_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(bias_h), static_cast<const T*>(bias_w), static_cast<T*>(o), p, g,
-      scale);
-  return cudaGetLastError();
+                       int vec, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (g.hd <= 32) return launch_fwd_mma<32>(q, k, v, bias_h, bias_w, o, p, g, scale, vec, stream);
+    if (g.hd <= 64) return launch_fwd_mma<64>(q, k, v, bias_h, bias_w, o, p, g, scale, vec, stream);
+    if (g.hd <= 96) return launch_fwd_mma<96>(q, k, v, bias_h, bias_w, o, p, g, scale, vec, stream);
+    return launch_fwd_mma<128>(q, k, v, bias_h, bias_w, o, p, g, scale, vec, stream);
+  } else {
+    const int smem = rows_smem_bytes(g.Nk);
+    cudaError_t err =
+        cudaFuncSetAttribute(pa_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((g.Nq + kTq - 1) / kTq, g.heads, g.B);
+    pa_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(bias_h), static_cast<const T*>(bias_w), static_cast<T*>(o), p, g,
+        scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -483,9 +714,11 @@ int skinjax_pooled_attention_fwd(int bf16, const void* q, const void* k, const v
   const Dims g = dims(B, heads, Nq, Kh, Kw, hd);
   if (bad_dims(g)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto al16 = [](const void* x) { return (reinterpret_cast<std::uintptr_t>(x) & 15) == 0; };
+  const int vec = hd % 8 == 0 && al16(q) && al16(k) && al16(v) && al16(o);
   if (bf16)
-    return launch_fwd<__nv_bfloat16>(q, k, v, bias_h, bias_w, o, p, g, scale, s);
-  return launch_fwd<float>(q, k, v, bias_h, bias_w, o, p, g, scale, s);
+    return launch_fwd<__nv_bfloat16>(q, k, v, bias_h, bias_w, o, p, g, scale, vec, s);
+  return launch_fwd<float>(q, k, v, bias_h, bias_w, o, p, g, scale, vec, s);
 }
 
 // dout (B, heads, Nq, hd) like o; p the forward's P. Writes dq (like q), dk

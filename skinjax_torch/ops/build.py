@@ -7,9 +7,10 @@ compile in seconds without PyTorch's headers:
          -Xcompiler -fPIC -o build/skinjax_torch/lib<name>-<hash>.so csrc/<name>.cu
 
 The library goes into ``build/skinjax_torch/`` beside the package, on first
-use. Its file name carries a hash of the source and the flags, so an edited
-source builds anew and a stale library is never loaded. Nothing here runs at
-import time.
+use. Its file name carries a hash of the source, of every shared header
+``csrc/*.cuh`` (a source may include any of them) and of the flags, so an
+edited source or header builds anew and a stale library is never loaded.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -53,8 +54,11 @@ def find_nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

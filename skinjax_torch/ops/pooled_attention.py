@@ -28,8 +28,9 @@ skinjax's TPU guards are not carried over (ROADMAP.md, "Leave out of the
 port"): the VMEM and residual caps of ``pooled_attn_ok``, the query chunking
 of ``pooled_attention_chunked`` and the ``SKINJAX_POOLED_ATTN`` scopes. A
 grid over query tiles needs no chunks, and every call stores P for its
-backward. The kernels' own limits are ``Nk ≤ MAX_KEYS`` (a block keeps whole
-score rows in shared memory) and ``hd ≤ MAX_HEAD_DIM``.
+backward. The kernels' own limits are ``Nk ≤ MAX_KEYS`` (the fp32 kernels
+keep whole score rows in shared memory; the bf16 forward on the tensor cores
+streams them) and ``hd ≤ MAX_HEAD_DIM``.
 
 ``pooled_attention_plain`` and ``pooled_attention_bwd_plain`` are the plain
 PyTorch twins, rounding at the same points. The wrappers dispatch on the

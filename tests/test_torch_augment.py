@@ -16,7 +16,7 @@ from skinjax_torch.data import augment as A
 from skinjax_torch.ops import augment_kernel as ak
 from tests.test_augment_distribution import _structured_batch
 from tests.test_augment_kernel import _ref_chain
-from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
+from tests.xla_compile_cache import xla_compile_cache, xla_optimized  # noqa: F401
 
 GATES_ON = dict(J.DEFAULT_CFG, p_dropout=1.0, p_hsv=1.0, p_bc=1.0)
 
@@ -147,8 +147,9 @@ def test_hsv_round_trip_matches_jax():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_eval_normalize_is_exact(dtype):
-    """Every uint8 value in every channel."""
+def test_eval_normalize_is_exact(dtype, xla_optimized):
+    """Every uint8 value in every channel, against XLA's optimised program
+    (its fused multiply-add)."""
     u8 = np.stack([np.arange(256, dtype=np.uint8).reshape(16, 16)] * 3, axis=-1)
     u8 = np.stack([u8, u8[::-1, :, ::-1]])
     ref = J.augment_batch(jnp.asarray(u8), jax.random.key(0), train=False,

@@ -7,6 +7,8 @@ frozen; the fused engine against skinjax's fused engine. The small DaViT is
 registered under a test name in both backbone registries for the length of
 each test only."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,11 +28,13 @@ from skinjax.train.optimizer import make_optimizer as jax_make_optimizer
 from skinjax.train.optimizer import trainable_mask as jax_trainable_mask
 from skinjax_torch import DAVIT
 from skinjax_torch.models import MultimodalModel
+from skinjax_torch.models.backbones import create_backbone
 from skinjax_torch.models.backbones.davit import DaViT
 from skinjax_torch.models.weights import init_weights, load_numpy_state_dict, state_dict_from_flax
 from skinjax_torch.ops import window_attention as twa
 from skinjax_torch.serve.engine import InferenceEngine
 from skinjax_torch.train.loop import TrainConfig, build_state
+from skinjax_torch.train.optimizer import FREEZE_MODES, trainable_mask
 from skinjax_torch.train.steps import make_train_step_weighted
 from tests.test_torch_train import _assert_adam_close, _leaves, jax_without_dropout  # noqa: F401
 from tests.test_torch_weights import jax_variable_shapes, jax_variables
@@ -194,6 +198,47 @@ def test_train_steps_match_skinjax(small_davit, jax_without_dropout, mode):
             assert torch.equal(v, encoder0[k]), k
         assert all(np.array_equal(jax_params[k], _leaves(params)[k])
                    for k in jax_params if "image_encoder" in k)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_davit_tiny_masks():
+    """skinjax's trainable mask over davit_tiny in each mode, read inside
+    ``jax.eval_shape`` of ``init`` at 224×224 (nothing drawn), where the
+    parameter dicts still keep creation order (the freeze policy's "last
+    layer" reads it), as {mode: {state_dict key: flag}} (each leaf stood in
+    for by an array of its rank)."""
+    module = jax_backbones._REGISTRY["davit_tiny"][0]("davit_tiny")
+    masks = {}
+
+    def init(key, x):
+        params = module.init(key, x)["params"]
+        for mode in FREEZE_MODES:
+            flags = jax_trainable_mask({"image_encoder": params}, mode)["image_encoder"]
+            arrays = jax.tree_util.tree_map(lambda f, p: np.full((1,) * p.ndim, f), flags,
+                                            params)
+            masks[mode] = {k: bool(v.all()) for k, v in
+                           state_dict_from_flax({"image_encoder": arrays}, {}).items()}
+        return params
+
+    jax.eval_shape(init, jax.random.key(0), jnp.zeros((1, 224, 224, 3)))
+    return masks
+
+
+@pytest.mark.parametrize("mode", FREEZE_MODES)
+def test_freeze_policy_selects_skinjax_parameters(mode):
+    """skinjax's trainable set over davit_tiny, mapped through
+    state_dict_from_flax's key map, is the port's in each mode: all 210
+    tensors unfrozen, none frozen, the head norm in "partial" (skinjax's
+    "head" marker) and in "last layer". The port's tower is shapes only."""
+    want = _jax_davit_tiny_masks()[mode]
+    holder = nn.Module()
+    holder.image_encoder = create_backbone("davit_tiny", device="meta")[0]
+    got = trainable_mask(holder, mode)
+    assert set(got) == set(want)
+    assert got == want
+    expect = {"unfrozen_weights": 210, "frozen_weights": 0, "partial": 2,
+              "last_layer_unfrozen_weights": 2}[mode]
+    assert sum(got.values()) == expect
 
 
 @pytest.mark.parametrize("kind", ["uint8", "float"])

@@ -1,5 +1,5 @@
 """A persistent XLA compile cache for the port's test files, one per test
-process, on only while a port file's tests run.
+process, and XLA's cheap compile mode, on only while a port file's tests run.
 
 skinjax's references run its Pallas kernels in interpret mode, which executes
 a kernel's body one operation at a time and compiles the same small programs
@@ -9,6 +9,19 @@ back instead. Numbers do not change: a cached executable is the one the
 compiler built. The cache lives in a temporary directory that is removed when
 the process ends; the files that import ``xla_compile_cache`` switch it on
 for their own tests and off after them, so no other test file runs with it.
+
+Most of the port's test time is spent compiling skinjax's references and
+train steps (a small tower's jitted train step takes ~10 s to compile and
+runs in milliseconds), so the same fixture also compiles with
+``jax_disable_most_optimizations`` (XLA's backend optimization level 0):
+each program compiles in a fraction of the time and computes the same fp32
+or bf16 operations; a sum may be taken in another order, far inside every
+tolerance the port's tests state. The flag is read when a program is
+compiled, not when a jitted function looks up its cache, so the fixture
+clears JAX's caches when the module ends: no executable compiled in the
+cheap mode serves a later test file. A test that holds the port to XLA's
+optimised numerics bit for bit (a fused multiply-add) takes the
+``xla_optimized`` fixture.
 
 Import the fixture into a test module to use it::
 
@@ -36,12 +49,27 @@ def _cache_dir() -> str:
 @pytest.fixture(scope="module", autouse=True)
 def xla_compile_cache():
     """The process's compile cache on (every program, however fast it
-    compiled) for this module's tests, then off again."""
+    compiled) and XLA's cheap compile mode on for this module's tests, then
+    both off again."""
     min_secs = jax.config.jax_persistent_cache_min_compile_time_secs
+    cheap = jax.config.values["jax_disable_most_optimizations"]
     compilation_cache.set_cache_dir(_cache_dir())
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    jax.config.update("jax_disable_most_optimizations", True)
     compilation_cache.reset_cache()
     yield
     compilation_cache.set_cache_dir(None)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", min_secs)
+    jax.config.update("jax_disable_most_optimizations", cheap)
+    jax.clear_caches()
     compilation_cache.reset_cache()
+
+
+@pytest.fixture
+def xla_optimized():
+    """XLA's full optimisation for one test, with no executable compiled in
+    the cheap mode reused; the cheap mode again after it."""
+    jax.clear_caches()
+    jax.config.update("jax_disable_most_optimizations", False)
+    yield
+    jax.config.update("jax_disable_most_optimizations", True)
