@@ -53,7 +53,9 @@ sentence dataset. Phases, each printing its lines:
               against their twins at every (D, H) of CAFormer-b36 and
               CoaT-lite-small with 1000 tokens, and K10 at CAFormer-b36's
               stage-0 shape at B=32, bf16 and fp32: two backward calls
-              bit-identical, zero dy rows adding nothing, the wrappers
+              bit-identical (and at the record shapes, CAFormer-b36's stage
+              2 at B=32 and CoaT-lite-small's stage 3 at B=64), zero dy rows
+              adding nothing, the wrappers
               raising on a bad dtype or width; K8 forward and backward (y,
               dqkv, of) against their twins at DaViT-tiny's four stage shapes
               (B=64 bf16, B=8 fp32), two backward calls bit-identical; K7's
@@ -128,7 +130,8 @@ sentence dataset. Phases, each printing its lines:
               launches per unfrozen step (coat_lite_small_images_per_sec).
               (K10's and K9's times at each model's four shapes, against
               their twins, bounds and the unfused F.linear → activation →
-              F.linear chain, forward and backward, run right after phase 3.)
+              F.linear chain, forward and backward, with each backward
+              launch's device time, run right after phase 3.)
  13d. davit+k8 the DaViT model with SKINJAX_CHATTN=pallas: run_service (K8
               6 launches a request), the train step at B=64 (the loss falls,
               K8 6 + 6 and K7 6 + 6 launches per unfrozen step, 6 + 0 frozen),
@@ -202,6 +205,13 @@ builds the three attention sources only and runs the checks and times of
 K12 (with the recompute backward's split by kernel at BERT-base T=512: with
 kmask + pmult, kmask alone and neither), K11 and the K7-pad core: the quick
 loop for work on those kernels (last line {"ok": true, "attention": true}).
+
+    python3 chip_smoke.py --mlp
+
+builds csrc/fused_mlp.cu only and runs K9's and K10's checks (every shape,
+bf16 and fp32, two backward calls bit-identical at the record shapes) and
+times (per call, device time by kernel, bound, the unfused chain, a train
+step's sums) alone (last line {"ok": true, "mlp": true}).
 """
 
 from __future__ import annotations
@@ -295,10 +305,15 @@ K12_KERNELS = {"global_attention_fwd": ["ga_fwd_kernel"],
 # each bf16 K11 call's kernels (the fp32 forward keeps pa_fwd_kernel)
 K11_KERNELS = {"pooled_attention_fwd": ["pa_fwd_mma_kernel"],
                "pooled_attention_bwd": ["pa_bwd_dq_kernel", "pa_bwd_dkv_kernel"]}
-# each fused-MLP call's kernels (K9 and K10 alike); a call whose token tiles
-# are too few to fill the card also sums its hidden splits (MLP_SPLIT)
+# each bf16 fused-MLP call's kernels (K9 and K10 alike); a forward whose
+# token tiles are too few to fill the card also sums its hidden splits
+# (MLP_SPLIT). The bf16 backward runs on the tensor cores: the hidden planes,
+# dx, dW, then the fixed-order sums; its fp32 instantiation keeps the
+# CUDA-core kernels (MLP_F32_BWD)
 MLP_KERNELS = {"fwd": ["mlp_fwd_kernel"],
-               "bwd": ["mlp_bwd_dx_kernel", "mlp_bwd_dw_kernel", "mlp_bwd_reduce_kernel"]}
+               "bwd": ["mlp_bwd_act_wgmma_kernel", "mlp_bwd_dx_wgmma_kernel",
+                       "mlp_bwd_dw_wgmma_kernel", "mlp_bwd_colsum_kernel"]}
+MLP_F32_BWD = ["mlp_bwd_dx_kernel", "mlp_bwd_dw_kernel", "mlp_bwd_reduce_kernel"]
 MLP_SPLIT = "mlp_split_reduce_kernel"
 # each K8 call's kernels
 K8_KERNELS = {"channel_attention_fwd": ["ca_partial_kernel", "ca_softmax_kernel", "ca_out_kernel",
@@ -316,7 +331,7 @@ KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", "wa_fwd_kernel",
                   "ga_bwd_dq_kernel", "ga_bwd_dkv_kernel", "ga_bwd_rows_kernel",
                   "ga_bwd_cols_kernel", *K12_KERNELS[K12_RECOMPUTE], "pa_fwd_kernel",
                   *K11_KERNELS["pooled_attention_fwd"], "pa_bwd_dq_kernel", "pa_bwd_dkv_kernel",
-                  *MLP_KERNELS["fwd"], *MLP_KERNELS["bwd"], MLP_SPLIT,
+                  *MLP_KERNELS["fwd"], *MLP_KERNELS["bwd"], *MLP_F32_BWD, MLP_SPLIT,
                   *K8_KERNELS["channel_attention_fwd"], "ca_grad_kernel")
 # the card's published peaks (H100 SXM data sheet): device memory, float32
 # outside the tensor cores, dense bf16 on the tensor cores
@@ -1543,6 +1558,32 @@ def phase_mlp(fm, device):
     return errors
 
 
+def phase_mlp_same_bits(fm, device):
+    """Two bf16 backward calls on the same inputs give the same bits (every
+    sum in a fixed order, no atomics): ``mlp_star_bwd`` at CAFormer-b36's
+    stage 2 (B=32) and ``mlp_gelu_bwd`` at CoaT-lite-small's stage 3 (B=64),
+    the record shapes, on inputs of their own seed."""
+    import torch
+
+    from skinjax_torch import CAFORMER_BATCH, COAT_BATCH
+
+    for fn, shapes, B in (("mlp_star", K10_SHAPES, CAFORMER_BATCH),
+                          ("mlp_gelu", K9_SHAPES, COAT_BATCH)):
+        label = MLP_RECORD[fn]
+        n, D, H, _ = shapes[label]
+        kind = fn.split("_")[1]
+        args, dy = mlp_inputs(kind, B * n, D, H, torch.bfloat16, device, seed=97)
+        _, _, bwd, _ = mlp_calls(fm, kind, args, dy)
+        first, second = bwd(), bwd()
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(first, second))
+        log(f"kernel {fn}_bwd bfloat16 {label} B={B} T={B * n} D={D} H={H}: two calls on the "
+            f"same inputs bit-identical (dx and every weight and bias gradient): {same}")
+        check(same, f"two {fn}_bwd calls differ at {label} B={B}")
+        del args, dy, first, second
+    torch.cuda.empty_cache()
+
+
 def mlp_bound(T, D, H, itemsize, kind, backward):
     """The least time (ms) for one fused-MLP call (D2 = D): every input read
     once and every output written once over the HBM rate, against its
@@ -1635,6 +1676,7 @@ def phase_mlp_times(fm, device, card, errors):
                          for n in (*MLP_KERNELS[d], MLP_SPLIT) if n in e.key}
                 dev_k = (sum(means.values()) if all(n in means for n in MLP_KERNELS[d])
                          else None)
+                dev_t, _ = device_us(twin, n=3)
                 bound_ms, nbytes, ops = mlp_bound(T, D, H, 2, kind, d == "bwd")
                 bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
                             else "operations")
@@ -1649,9 +1691,10 @@ def phase_mlp_times(fm, device, card, errors):
                     f"turns twin-kernel-kernel-twin); device time: kernel {us(dev_k)} "
                     f"(torch.profiler: "
                     + ", ".join(f"{k} {v:.1f}" for k, v in means.items())
-                    + f"); bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB at "
-                    f"3.35 TB/s, {ops / 1e9:.2f} GFLOP at 989 TFLOP/s, {bound_by}); the unfused "
-                    f"F.linear chain {'forward' if d == 'fwd' else 'backward (device time)'} "
+                    + f"), twin {dev_t:.2f} us; bound {bound_ms * 1e3:.2f} us "
+                    f"({nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e9:.2f} GFLOP at 989 TFLOP/s, "
+                    f"{bound_by}); the unfused F.linear chain "
+                    f"{'forward' if d == 'fwd' else 'backward (device time)'} "
                     f"{ms_us(library[name])}")
             del args, dy, fwd, fwd_twin, bwd, bwd_twin
             torch.cuda.empty_cache()
@@ -2317,11 +2360,57 @@ def k7_bound(B, side, C, itemsize, backward):
     return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3, nbytes, ops
 
 
+def window_chain_times(wa, x, wqkv, bqkv, wproj, bproj, attn, h, dy):
+    """The function K7's forwards compute as PyTorch calls (the port never
+    calls them so): F.linear (qkv) → F.scaled_dot_product_attention
+    (``attn``, the bias and mask, as its attn_mask) → F.linear (proj) on the
+    same inputs; an NHWC x (B, H, W, C) is partitioned into windows first
+    and merged after, windows (nB, N, C) are taken as they are. Returns
+    (forward ms by CUDA events, two runs of 20 calls; backward ms: the
+    device time of autograd's backward alone from dy to the qkv
+    projection's output, what the strip backward's dqkv is, or None where
+    the trace kept no record)."""
+    import torch
+    import torch.nn.functional as F
+
+    nhwc = x.dim() == 4
+
+    def windows(t):
+        return wa.window_partition(t, WINDOW) if nhwc else t
+
+    def merged(t):
+        return wa.window_reverse(t, WINDOW, x.shape[1], x.shape[2]) if nhwc else t
+
+    xw = windows(x)
+    nB, N, C = xw.shape
+
+    def attend(qkv):
+        q, k, v = (t.reshape(nB, N, h, C // h).transpose(1, 2) for t in qkv.split(C, dim=-1))
+        of = F.scaled_dot_product_attention(q, k, v, attn_mask=attn)
+        return F.linear(of.transpose(1, 2).reshape(nB, N, C), wproj.t(), bproj)
+
+    def fwd():
+        with torch.no_grad():
+            return merged(attend(F.linear(windows(x), wqkv.t(), bqkv)))
+
+    qkv = F.linear(xw, wqkv.t(), bqkv).detach().requires_grad_(True)
+    out, dyw = attend(qkv), windows(dy)
+
+    def bwd():
+        return torch.autograd.grad(out, [qkv], dyw, retain_graph=True)
+
+    f = (time_ms(fwd, 20, 3) + time_ms(fwd, 20, 3)) / 2
+    bwd()
+    b, _ = device_us(bwd, n=10)
+    return f, (b / 1e3 if b > 0 else None)
+
+
 def phase_k7_times(wa, device, card):
     """K7 forward and backward against their twins at B=64, bf16, per stage;
-    F.scaled_dot_product_attention on the same per-window q, k, v, forward
-    and backward, as a yardstick for the attention core (the port never
-    calls it)."""
+    the yardstick is the same function as PyTorch calls (``window_chain_times``:
+    F.linear → SDPA → F.linear, the backward to dqkv); SDPA alone on the same
+    per-window q, k, v (the attention core only) is logged beside it (the
+    port never calls either)."""
     import torch
     import torch.nn.functional as F
 
@@ -2345,16 +2434,20 @@ def phase_k7_times(wa, device, card):
         }
         do = torch.randn(q.shape, generator=torch.Generator(device=device).manual_seed(22),
                          device=device).to(q.dtype)
-        library = dict(zip(K7, sdpa_head_times(q, k, v, do, None)))
+        core = dict(zip(K7, sdpa_head_times(q, k, v, do, None)))
+        library = dict(zip(K7, window_chain_times(wa, x, wqkv, bqkv, wproj, args[4], None, h,
+                                                  dy)))
         for name, (kern, twin) in calls.items():
             out[(name, side)] = time_record(
                 card, name, f"B={B} {side}x{side} C={C} h={h}", kern, twin, K7_KERNELS[name],
                 k7_bound(B, side, C, 2, name.endswith("bwd")), library[name])
-        log(f"[{card}] time F.scaled_dot_product_attention bf16 on the same (nB, h, 49, 32) "
-            f"q, k, v at {side}x{side} (the attention core only): forward "
-            f"{ms_us(library['window_attention_fwd'])} per call (CUDA events), backward "
-            f"{ms_us(library['window_attention_bwd'])} (the device time of autograd's "
-            f"backward alone, torch.profiler)")
+        log(f"[{card}] time the same function as PyTorch calls bf16 at {side}x{side} "
+            f"(partition, F.linear qkv, SDPA, F.linear proj, merge): forward "
+            f"{ms_us(library['window_attention_fwd'])} per call (CUDA events), backward to dqkv "
+            f"{ms_us(library['window_attention_bwd'])} (device time); "
+            f"F.scaled_dot_product_attention alone on the same (nB, h, 49, 32) q, k, v (the "
+            f"attention core only): forward {ms_us(core['window_attention_fwd'])}, backward "
+            f"{ms_us(core['window_attention_bwd'])}")
     return out
 
 
@@ -2876,10 +2969,12 @@ def phase_k8_times(ca, device, card):
 
 def phase_k7pad_times(wa, ga, device, card):
     """K7's padded forward and its masked backward core against their twins
-    at B=64, bf16, per Swin-tiny stage; the yardstick is
-    F.scaled_dot_product_attention on the same per-window q, k, v with the
-    bias and the mask as its (nB, h, 49, 49) attn_mask, forward and backward
-    (the attention core only; the port never calls it)."""
+    at B=64, bf16, per Swin-tiny stage. The forward's yardstick is the same
+    function as PyTorch calls (``window_chain_times``, the bias and the mask
+    as SDPA's (nB, h, 49, 49) attn_mask), the backward core's
+    F.scaled_dot_product_attention's backward on the same per-window q, k, v
+    and mask; SDPA's forward alone (the attention core only) is logged
+    beside the forward (the port never calls either)."""
     import torch
 
     from skinjax_torch import SWIN_BATCH
@@ -2892,8 +2987,17 @@ def phase_k7pad_times(wa, ga, device, card):
         n_mask = 0 if m is None else m.shape[0]
         attn = b[None] + (m[:, None] if m is not None else 0.0)
         attn = attn.expand(nB // attn.shape[0], *attn.shape).reshape(nB, h, N, N)
-        lib = dict(zip((K7_PAD, K7_PAD_BWD), sdpa_times(q, k, v, do, attn.to(q.dtype), h)))
-        del attn
+        core = dict(zip((K7_PAD, K7_PAD_BWD), sdpa_times(q, k, v, do, attn.to(q.dtype), h)))
+        x, wqkv, bqkv, wproj, bproj = args
+        dy = torch.randn(x.shape, generator=torch.Generator(device=device).manual_seed(side),
+                         device=device).to(x.dtype)
+        chain, _ = window_chain_times(wa, x, wqkv, bqkv, wproj, bproj, attn.to(x.dtype), h, dy)
+        lib = {K7_PAD: chain, K7_PAD_BWD: core[K7_PAD_BWD]}
+        log(f"[{card}] time the same function as PyTorch calls bf16 at Swin {side}x{side} "
+            f"(F.linear qkv, SDPA with bias{'+mask' if shifted else ''}, F.linear proj): forward "
+            f"{ms_us(chain)} per call (CUDA events); SDPA's forward alone (the attention core "
+            f"only) {ms_us(core[K7_PAD])}")
+        del attn, dy
         calls = {
             K7_PAD: (lambda: wa.window_attention_pad_fwd(*args, b, m, h),
                      lambda: wa.window_attention_pad_plain(*args, b, m, h)),
@@ -3345,6 +3449,42 @@ def phase_k12_split(ga, device, card):
             f"{ms * 1e3:.2f} us per call (CUDA events); device time {split} (torch.profiler)")
 
 
+def log_ptxas(build, names):
+    """What ptxas said of each kernel of the named sources: registers, spills."""
+    for name in names:
+        for line in build.build_info[name]["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
+
+
+def mlp_only() -> int:
+    """``--mlp``: the fused-MLP kernels' checks and times alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from skinjax_torch.ops import build
+    from skinjax_torch.ops import fused_mlp as fm
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(card)
+    t0 = time.perf_counter()
+    fm.library()
+    log(f"phase build: fused_mlp, {time.perf_counter() - t0:.1f} s")
+    log_ptxas(build, ("fused_mlp",))
+    errors = phase_mlp(fm, device)
+    phase_mlp_same_bits(fm, device)
+    phase_mlp_times(fm, device, card, errors)
+    torch.cuda.synchronize()
+    print(json.dumps({"ok": True, "mlp": True}), flush=True)
+    return 0
+
+
 def attention_only() -> int:
     """``--attention``: the attention kernels' checks and times alone."""
     import torch
@@ -3370,10 +3510,7 @@ def attention_only() -> int:
     for m in (wa, ga, pa):
         m.library()
     log(f"phase build: {len(names)} sources at once, {time.perf_counter() - t0:.1f} s")
-    for name in names:
-        for line in build.build_info[name]["log"].splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"  ptxas: {line.strip()}")
+    log_ptxas(build, names)
     phase_k12(ga, device)
     phase_k11(pa, device)
     phase_k7pad(wa, ga, device)
@@ -3449,6 +3586,7 @@ def main() -> int:
     errors.update(phase_k12(ga, device))
     errors.update(phase_k11(pa, device))
     errors.update(phase_mlp(fm, device))
+    phase_mlp_same_bits(fm, device)
     errors.update(phase_k8(ca, device))
     errors.update(phase_k7pad(wa, ga, device))
     errors.update(phase_k6(bn, device))
@@ -3740,4 +3878,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(attention_only() if sys.argv[1:] == ["--attention"] else main())
+    sys.exit({"--attention": attention_only, "--mlp": mlp_only}.get(" ".join(sys.argv[1:]),
+                                                                    main)())

@@ -29,16 +29,22 @@
 // Layout and launches. The TPU kernel keeps w1 and w2 whole in VMEM and walks
 // a sequential grid of token tiles, carrying dW in scratch. Neither holds
 // here: CAFormer-b36's stage-3 w1 is 768 x 3072 (4.7 MB in bf16), and blocks
-// run in no order. So the weights stream through shared memory in 64 x 64
-// slices, and nothing of the (T, H) hidden plane reaches device memory:
+// run in no order.
 //   forward   a block per 32 token rows keeps its (32, D2) fp32 output in
 //             shared memory, loops over 64-wide hidden chunks (pre for the
 //             chunk from 64-wide K slices of x and w1, the activation, then
-//             the chunk's h.w2 added to the output slice by slice). Where
-//             the token tiles are too few to fill the card (a small batch),
-//             the hidden chunks are split over blocks too: each writes fp32
-//             partials, and a second launch sums them in split order (+ b2);
-//   backward  (1) dx: a block per 32 token rows (and hidden split), as the
+//             the chunk's h.w2 added to the output slice by slice), nothing
+//             of the (T, H) plane reaching device memory. Where the token
+//             tiles are too few to fill the card (a small batch), the hidden
+//             chunks are split over blocks too: each writes fp32 partials,
+//             and a second launch sums them in split order (+ b2);
+//   backward, bf16: five products on the tensor cores (the section "backward,
+//             bf16" below): one launch computes pre and dh once and writes
+//             round(h) and round(dpre) as (T, H) planes into the call's
+//             scratch, then dx, dw1 and dw2 are tiled products of those
+//             planes, and a last launch sums every partial in a fixed order;
+//   backward, fp32 (held at 1e-4, which TF32 products would not meet):
+//             (1) dx: a block per 32 token rows (and hidden split), as the
 //             forward, with pre and dh both recomputed for each hidden chunk
 //             and round(dpre).w1^T summed into a (32, D) fp32 tile;
 //             (2) dW: a block per (hidden chunk of hw = 16, 32 or 64 columns,
@@ -52,11 +58,8 @@
 //             (3) a reduction sums the partials over the segments in segment
 //             order.
 // No atomics: every sum runs in an order fixed by the shapes, so two calls on
-// the same inputs give bit-identical gradients. The scratch of (2) is
-// segments x (D.H + H.D2 + H + D2 + 2 H/hw) fp32, with segments chosen so
-// that chunks x segments is about twice the number of SMs; a split forward or
-// dx adds splits x T x D2 (or D) fp32, splits only where T / 32 is below
-// the number of SMs.
+// the same inputs give bit-identical gradients. skinjax_fused_mlp_scratch
+// sizes each call's scratch.
 // Padding: rows past T (or past a segment), columns past D, H or D2 load as
 // zeros; zero dy rows make dh and dpre exactly 0, so they add nothing to any
 // gradient.
@@ -64,13 +67,14 @@
 // What bounds it: at CAFormer-b36's stage 0 at B=32 (T = 100352, D = 128,
 // H = 512, bf16) the forward does 26.3 GFLOP against 51 MB of x and y, so the
 // tensor cores bound it (~27 us at 989 TFLOP/s), and the backward 66 GFLOP.
-// This first version computes bf16 products on the tensor cores through
+// The forward computes bf16 products on the tensor cores through
 // nvcuda::wmma 16x16x16 fragments with fp32 accumulation, from shared-memory
-// tiles, with the accumulators in shared memory; fp32 products run as plain
-// fp32 FMAs. The 64-wide slices stream two deep (cp.async: the next slice's
-// tiles are in flight while the block computes on this one's). No TMA or
-// wgmma: PERF.md records how far each kernel is from its bound. D, H and D2
-// are multiples of 16, and D, D2 <= 1024 (the dW tiles fit shared memory).
+// tiles, with the accumulators in shared memory; the bf16 backward through
+// wgmma (warpgroup products from 128-byte-swizzled shared-memory tiles) with
+// its accumulators in registers; fp32 products run as plain fp32 FMAs. No
+// TMA: PERF.md records how far each kernel is from its bound. D, H and D2
+// are multiples of 16, and D, D2 <= 1024 (the fp32 dW tiles fit shared
+// memory).
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() as an int (0 = success); skinjax_fused_mlp_error_string
@@ -83,9 +87,9 @@
 #include <initializer_list>
 #include <type_traits>
 
-namespace {
+#include "mma_bf16.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -135,31 +139,14 @@ __device__ __forceinline__ float gelu(float p) {
   return __fmul_rn(__fmul_rn(p, 0.5f), __fadd_rn(1.0f, erff(__fmul_rn(p, kInvSqrt2))));
 }
 
-__device__ __forceinline__ float dgelu(float p) {
-  const float cdf = __fmul_rn(0.5f, __fadd_rn(1.0f, erff(__fmul_rn(p, kInvSqrt2))));
-  const float pdf = __fmul_rn(expf(__fmul_rn(__fmul_rn(-0.5f, p), p)), kInvSqrt2Pi);
-  return __fadd_rn(cdf, __fmul_rn(p, pdf));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // dst[r * ldd + c] = src[(r0 + r) * lds + c0 + c] for r < R, c < C; zero where
 // r0 + r >= rows or c0 + c >= cols. In flight (cp.async) until the caller
 // waits for its group. 16-byte vectors: C, c0, lds and cols are multiples of
-// 16 / sizeof(T), and src and dst rows are 16-byte aligned.
+// 16 / sizeof(T), and src and dst rows are 16-byte aligned. (mma_bf16.cuh's
+// load_tile is the attention kernels' fixed 64-row bf16 form.)
 template <typename T>
-__device__ void load_tile(T* __restrict__ dst, int ldd, const T* __restrict__ src, int lds, int r0,
-                          int rows, int c0, int cols, int R, int C) {
+__device__ void load_slice(T* __restrict__ dst, int ldd, const T* __restrict__ src, int lds, int r0,
+                           int rows, int c0, int cols, int R, int C) {
   constexpr int V = 16 / sizeof(T);
   const int vecs = C / V;
   for (int i = threadIdx.x; i < R * vecs; i += kThreads) {
@@ -168,28 +155,6 @@ __device__ void load_tile(T* __restrict__ dst, int ldd, const T* __restrict__ sr
       cp_async16(dst + r * ldd + c, src + (long long)(r0 + r) * lds + c0 + c);
     else
       *reinterpret_cast<uint4*>(dst + r * ldd + c) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// steps of load(k, buffer) then compute(k, buffer), two buffers deep: step
-// k + 1's tiles are in flight while step k computes. Every compute starts
-// after a barrier that follows its tiles' arrival, and the loop ends with a
-// barrier, so the buffers and the computed tile are free afterwards.
-template <typename Load, typename Compute>
-__device__ void pipeline(int steps, Load load, Compute compute) {
-  load(0, 0);
-  cp_async_commit();
-  for (int k = 0; k < steps; ++k) {
-    if (k + 1 < steps) {
-      load(k + 1, (k + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    compute(k, k & 1);
-    __syncthreads();
   }
 }
 
@@ -292,8 +257,8 @@ __device__ void product_pre(float* pre, int ldp, const Stage<T>& st, const T* x,
   pipeline(
       (g.D + kKc - 1) / kKc,
       [&](int k, int b) {
-        load_tile(st.xs[b], kKc + P, x, g.D, t0, row_end, k * kKc, g.D, R, kKc);
-        load_tile(st.ws[b], hw + P, w1, g.H, k * kKc, g.D, h0, g.H, kKc, hw);
+        load_slice(st.xs[b], kKc + P, x, g.D, t0, row_end, k * kKc, g.D, R, kKc);
+        load_slice(st.ws[b], hw + P, w1, g.H, k * kKc, g.D, h0, g.H, kKc, hw);
       },
       [&](int, int b) {
         block_mma<T, true, true>(pre, ldp, st.xs[b], kKc + P, st.ws[b], hw + P, R, hw, kKc);
@@ -311,8 +276,8 @@ __device__ void product_dh(float* dh, int ldp, const Stage<T>& st, const T* dy, 
   pipeline(
       (g.D2 + kKc - 1) / kKc,
       [&](int k, int b) {
-        load_tile(st.xs[b], kKc + P, dy, g.D2, t0, row_end, k * kKc, g.D2, R, kKc);
-        load_tile(st.ws[b], kKc + P, w2, g.D2, h0, g.H, k * kKc, g.D2, hw, kKc);
+        load_slice(st.xs[b], kKc + P, dy, g.D2, t0, row_end, k * kKc, g.D2, R, kKc);
+        load_slice(st.ws[b], kKc + P, w2, g.D2, h0, g.H, k * kKc, g.D2, hw, kKc);
       },
       [&](int, int b) {
         block_mma<T, true, false>(dh, ldp, st.xs[b], kKc + P, st.ws[b], kKc + P, R, hw, kKc);
@@ -394,7 +359,7 @@ __global__ void __launch_bounds__(kThreads)
     pipeline(
         (g.D2 + kNc - 1) / kNc,
         [&](int n, int b) {
-          load_tile(st.ws[b], kNc + P, w2, g.D2, h0, g.H, n * kNc, g.D2, kHc, kNc);
+          load_slice(st.ws[b], kNc + P, w2, g.D2, h0, g.H, n * kNc, g.D2, kHc, kNc);
         },
         [&](int n, int b) {
           block_mma<T, true, true>(acc + n * kNc, ldo, hs, kHc + P, st.ws[b], kNc + P, kTm, kNc,
@@ -414,16 +379,26 @@ int dx_smem_bytes(int D, int tsize) {
          tsize * (3 * kTm * (kHc + P) + 2 * kKc * (kHc + P));
 }
 
-// dpre of hidden column j from its pre-activation p (fp32 product) and dh;
-// K10 also returns r^2 for ds
+// K9's b1 of hidden column j as fp32 (K10: 0, unused)
 template <typename T, int ACT>
-__device__ __forceinline__ float bwd_act(float p, float dh, int j, const ActArgs<T>& a, float* h,
-                                         float* r2) {
+__device__ __forceinline__ float b1_at(const ActArgs<T>& a, int j) {
+  if constexpr (ACT == kGelu) return to_f32<T>(a.b1[j]);
+  return 0.f;
+}
+
+// dpre of a hidden column from its pre-activation p (fp32 product), dh and
+// b1 (b1_at); K10 also returns r^2 for ds
+template <typename T, int ACT>
+__device__ __forceinline__ float bwd_act(float p, float dh, float b1, const ActArgs<T>& a,
+                                         float* h, float* r2) {
   if constexpr (ACT == kGelu) {
-    p = __fadd_rn(p, to_f32<T>(a.b1[j]));
-    *h = gelu(p);
+    // gelu(p) and dgelu(p) with one erf: the same roundings as theirs
+    p = __fadd_rn(p, b1);
+    const float onep = __fadd_rn(1.0f, erff(__fmul_rn(p, kInvSqrt2)));
+    *h = __fmul_rn(__fmul_rn(p, 0.5f), onep);
     *r2 = 0.f;
-    return __fmul_rn(dh, dgelu(p));
+    const float pdf = __fmul_rn(expf(__fmul_rn(__fmul_rn(-0.5f, p), p)), kInvSqrt2Pi);
+    return __fmul_rn(dh, __fadd_rn(__fmul_rn(0.5f, onep), __fmul_rn(p, pdf)));
   } else {
     const float r = fmaxf(p, 0.f);
     *r2 = __fmul_rn(r, r);
@@ -459,15 +434,15 @@ __global__ void __launch_bounds__(kThreads)
       const int r = i / kHc, c = i - r * kHc;
       float h, r2, d = 0.f;
       if (h0 + c < g.H)
-        d = bwd_act<T, ACT>(pre[r * (kHc + kFpad) + c], dh[r * (kHc + kFpad) + c], h0 + c, act,
-                            &h, &r2);
+        d = bwd_act<T, ACT>(pre[r * (kHc + kFpad) + c], dh[r * (kHc + kFpad) + c],
+                            b1_at<T, ACT>(act, h0 + c), act, &h, &r2);
       ps[r * (kHc + P) + c] = from_f32<T>(d);
     }
     // dx += round(dpre) . w1[n0:n0 + kNc, h0:h0 + kHc]^T, slice by slice
     pipeline(
         (g.D + kNc - 1) / kNc,
         [&](int n, int b) {
-          load_tile(st.ws[b], kHc + P, w1, g.H, n * kNc, g.D, h0, g.H, kNc, kHc);
+          load_slice(st.ws[b], kHc + P, w1, g.H, n * kNc, g.D, h0, g.H, kNc, kHc);
         },
         [&](int n, int b) {
           block_mma<T, true, false>(acc + n * kNc, ldo, ps, kHc + P, st.ws[b], kHc + P, kTm, kNc,
@@ -592,7 +567,8 @@ __global__ void __launch_bounds__(kThreads)
       const int r = i / hw, c = i - r * hw;
       float h = 0.f, r2 = 0.f, d = 0.f;
       const float dhv = dh[r * ldp + c];
-      if (h0 + c < g.H) d = bwd_act<T, ACT>(pre[r * ldp + c], dhv, h0 + c, act, &h, &r2);
+      if (h0 + c < g.H)
+        d = bwd_act<T, ACT>(pre[r * ldp + c], dhv, b1_at<T, ACT>(act, h0 + c), act, &h, &r2);
       if constexpr (ACT == kStar) {
         ds = __fadd_rn(ds, __fmul_rn(dhv, r2));
         db = __fadd_rn(db, dhv);
@@ -608,7 +584,7 @@ __global__ void __launch_bounds__(kThreads)
     pipeline(
         (g.D + kKc - 1) / kKc,
         [&](int m, int b) {
-          load_tile(st.xs[b], kKc + P, x, g.D, t0, t_end, m * kKc, g.D, tw, kKc);
+          load_slice(st.xs[b], kKc + P, x, g.D, t0, t_end, m * kKc, g.D, tw, kKc);
         },
         [&](int m, int b) {
           block_mma<T, false, true>(acc1 + m * kKc * ldp, ldp, st.xs[b], kKc + P, ps, hw + P, kKc,
@@ -618,7 +594,7 @@ __global__ void __launch_bounds__(kThreads)
     pipeline(
         (g.D2 + kNc - 1) / kNc,
         [&](int n, int b) {
-          load_tile(st.xs[b], kNc + P, dy, g.D2, t0, t_end, n * kNc, g.D2, tw, kNc);
+          load_slice(st.xs[b], kNc + P, dy, g.D2, t0, t_end, n * kNc, g.D2, tw, kNc);
         },
         [&](int n, int b) {
           const T* ys = st.xs[b];
@@ -674,6 +650,575 @@ __global__ void mlp_bwd_reduce_kernel(const float* __restrict__ part, float* __r
 }
 
 // ---------------------------------------------------------------------------
+// backward, bf16, on the tensor cores: five products, accumulators in
+// registers (wgmma: warpgroup matrix multiply-accumulate from shared memory)
+//   (A) mlp_bwd_act_wgmma_kernel: a block per (128 token rows, 64 hidden
+//       columns) computes pre = x.w1 and dh = dy.w2^T once each, applies the
+//       activation in registers, writes round(h) and round(dpre) as bf16
+//       (T, H) planes, and per-block partials of db1 (from the fp32 dpre)
+//       or of K10's ds and db (from fp32 terms);
+//   (B) mlp_bwd_dx_wgmma_kernel: dx = round(round(dpre).w1^T), a block per
+//       (128 token rows, 128 columns of D);
+//   (C) mlp_bwd_dw_wgmma_kernel: dw1 = x^T.round(dpre) and dw2 =
+//       round(h)^T.dy, a block per (128 x 128 output tile, token segment);
+//       the token rows are split into segments only where the output tiles
+//       are too few to fill the card, each writing fp32 partials; the dw2
+//       blocks of hidden rows 0..127 also sum dy's columns (db2) from the
+//       staged tiles;
+//   (D) mlp_bwd_colsum_kernel: every partial summed over its rows in a
+//       fixed order (contiguous row ranges, then the ranges in order).
+// Operand tiles are 64 deep (one 128-byte swizzle row of bf16) and stream
+// through a ring of cp.async stages (wgmma_ring), one barrier a step. No
+// TMA: the loads are plain cp.async into the swizzled layout. No atomics:
+// two calls give the same bits.
+// ---------------------------------------------------------------------------
+
+constexpr int kActM = 128, kActN = 64;  // (A): token rows x hidden columns a block
+constexpr int kGemm = 128;              // (B), (C): output rows and columns a block
+
+// Where the bf16 backward's scratch goes (floats; each part 16-byte aligned):
+// the two (T, H) bf16 planes, the db1 partials (a row per token tile of
+// (A)), K10's (ds, db) partials (a pair per block of (A)), the db2 partials
+// (a row per segment of (C)), and the dW partials (segments x (D.H + H.D2),
+// only where the tokens are split)
+struct Bf16Plan {
+  int act_m, act_n;    // (A)'s grid: token tiles, hidden tiles
+  int tiles1, tiles2;  // (C)'s output tiles of dw1 and of dw2
+  int segments, seg_rows;
+  long long b1, sb, b2, dw, total;  // offsets (the planes at 0) and size
+};
+
+long long round4(long long n) { return (n + 3) / 4 * 4; }
+
+Bf16Plan make_bf16_plan(const Dims& g, int sms) {
+  Bf16Plan p;
+  p.act_m = (g.T + kActM - 1) / kActM;
+  p.act_n = (g.H + kActN - 1) / kActN;
+  const int dt = (g.D + kGemm - 1) / kGemm, ht = (g.H + kGemm - 1) / kGemm;
+  p.tiles1 = dt * ((g.H + kGemm - 1) / kGemm);
+  p.tiles2 = ht * ((g.D2 + kGemm - 1) / kGemm);
+  // token segments for about two blocks an SM where the tiles are few
+  constexpr int kSegStep = 64;  // token rows a step of (C)
+  const int tiles = p.tiles1 + p.tiles2, steps = (g.T + kSegStep - 1) / kSegStep;
+  int want = (2 * sms + tiles / 2) / tiles;
+  want = want < 1 ? 1 : (want > steps ? steps : want);
+  p.seg_rows = (steps + want - 1) / want * kSegStep;
+  p.segments = (g.T + p.seg_rows - 1) / p.seg_rows;
+  const long long L = (long long)g.D * g.H + (long long)g.H * g.D2;
+  p.b1 = round4((long long)g.T * g.H);  // two bf16 planes
+  p.sb = p.b1 + round4((long long)p.act_m * g.H);
+  p.b2 = p.sb + round4(2LL * p.act_m * p.act_n);
+  p.dw = p.b2 + round4((long long)p.segments * g.D2);
+  p.total = p.dw + (p.segments > 1 ? p.segments * L : 0);
+  return p;
+}
+
+// d (the warpgroup's 64 x N fp32 accumulator fragment: warp w holds rows
+// 16 w + g and 16 w + g + 8, d[4 j + 2 e + u] at row 16 w + g + 8 e, column
+// 8 j + 2 t + u) += A (64 x 16) . B (16 x N), both read from shared memory
+// through their descriptors; TA and TB: 1 where the operand is MN-major
+// (transposed), 0 where K-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], unsigned long long da,
+                                                 unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], unsigned long long da,
+                                                 unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// makes this thread's shared-memory writes (cp.async, st.shared) visible to
+// the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// ties the accumulators to the surrounding wgmma instructions, so that the
+// compiler moves no access to them across an issue or a wait
+template <int N>
+__device__ __forceinline__ void wgmma_hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A wgmma shared-memory descriptor with 128-byte swizzling: the start
+// address and the leading and stride byte offsets, in 16-byte units
+__device__ __forceinline__ unsigned long long wgmma_desc(unsigned addr, unsigned lbo,
+                                                         unsigned sbo) {
+  return (unsigned long long)((addr & 0x3FFFFu) >> 4) | ((unsigned long long)(lbo >> 4) << 16) |
+         ((unsigned long long)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// dst (1024-byte aligned) = R rows x 64 bf16 (128 bytes a row) of the
+// row-major src (row stride lds) from row r0 and column c0, zero at rows >=
+// rows and columns >= cols, in the 128-byte swizzle wgmma reads: row r at r
+// * 128 bytes, its 16-byte chunk c at chunk c ^ (r % 8); cp.async
+template <int R, int NT>
+__device__ __forceinline__ void stage_sw128(unsigned char* __restrict__ dst,
+                                            const bf16* __restrict__ src, long long lds, int r0,
+                                            int rows, int c0, int cols) {
+  static_assert((R * 8) % NT == 0, "chunks a thread");
+#pragma unroll
+  for (int j = 0; j < R * 8 / NT; ++j) {
+    const int i = threadIdx.x + j * NT;
+    const int r = i >> 3, c = i & 7;
+    unsigned char* d = dst + r * 128 + ((c ^ (r & 7)) << 4);
+    if (r0 + r < rows && c0 + 8 * c < cols)
+      cp_async16(d, src + (long long)(r0 + r) * lds + c0 + 8 * c);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// (B) and (C) on wgmma: a block of two warpgroups takes a 128 x 128 output
+// tile, each warpgroup 64 rows (m64n128k16, 64 fp32 accumulators a thread);
+// 128 x 64 bf16 operand tiles (16 KB each) stream kWgStages deep by
+// cp.async, one barrier and one committed group of four wgmma a step
+constexpr int kWgThreads = 256;
+constexpr int kWgBk = 64;  // K depth of a step: one 128-byte swizzle row
+constexpr int kWgStages = 3;  // (B), (C): loads two steps ahead, groups done within a step
+constexpr int kWgOperand = 128 * kWgBk * 2;  // bytes of one operand's tile
+constexpr int kWgSmem = kWgStages * 2 * kWgOperand + 1024;  // + the 1024-byte alignment
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// steps of load(step, slot), then compute(step, slot), which issues and
+// commits one wgmma group, over an S-deep ring whose loads run AHEAD steps
+// ahead. Each step's tiles are fenced for the async proxy before the
+// barrier; where AHEAD <= S - 2 one wgmma group stays in flight past its
+// step (the slot being loaded is then neither this step's nor the last
+// one's), else each group completes within its step. The buffers are free
+// when it returns.
+template <int S, int AHEAD, typename Load, typename Compute>
+__device__ __forceinline__ void wgmma_ring(int steps, Load load, Compute compute) {
+  static_assert(AHEAD >= 1 && AHEAD <= S - 1, "ring depth");
+#pragma unroll
+  for (int s = 0; s < AHEAD; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int k = 0; k < steps; ++k) {
+    cp_async_wait<AHEAD - 1>();
+    fence_async_smem();
+    __syncthreads();
+    const int next = k + AHEAD;
+    if (next < steps) load(next, next % S);
+    cp_async_commit();
+    compute(k, k % S);
+    wgmma_wait<AHEAD <= S - 2 ? 1 : 0>();
+  }
+  wgmma_wait<0>();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// (A) on wgmma: a block of two warpgroups takes 128 token rows x 64 hidden
+// columns, each warpgroup 64 rows: pre = x.w1 over D (x K-major, the w1
+// slice MN-major), then dh = dy.w2^T over D2 (dy and the w2 slice K-major),
+// m64n64k16 into 32 + 32 fp32 accumulators a thread; then the activation,
+// the planes and the partials as the section's header says
+constexpr int kWgActA = kActM * kWgBk * 2;  // x or dy tile: 16 KB
+constexpr int kWgActB = kActN * kWgBk * 2;  // w1 or w2 tile: 8 KB
+constexpr int kWgActStages = 4;  // (A): loads two steps ahead, one group in flight
+constexpr int kWgActSmem = kWgActStages * (kWgActA + kWgActB) + 1024;
+// the planes on their way out: 128 x 64 bf16 tiles at a row stride of 16
+// bytes more, so a warp's 4-byte writes (eight rows of one column pair) fall
+// on distinct banks; each thread then copies 16-byte row chunks
+constexpr int kPlaneTileLd = kActN + 8;
+
+template <int ACT>
+__global__ void __launch_bounds__(kWgThreads, 2)
+    mlp_bwd_act_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                             const bf16* __restrict__ w1, ActPtrs<bf16> ap,
+                             const bf16* __restrict__ w2, bf16* __restrict__ hplane,
+                             bf16* __restrict__ pplane, float* __restrict__ b1part,
+                             float* __restrict__ sbpart, Dims g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* const sm = align1024(smem_raw);
+  const ActArgs<bf16> act = act_args(ap);
+  const int h0 = blockIdx.x * kActN, t0 = blockIdx.y * 128;
+  const int warp = threadIdx.x >> 5, wg = warp >> 2, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  float pre[32], dh[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) pre[i] = dh[i] = 0.f;
+  const int sd = (g.D + kWgBk - 1) / kWgBk, sd2 = (g.D2 + kWgBk - 1) / kWgBk;
+  wgmma_ring<kWgActStages, 2>(
+      sd + sd2,
+      [&](int s, int slot) {
+        unsigned char* a = sm + slot * (kWgActA + kWgActB);
+        if (s < sd) {
+          stage_sw128<128, kWgThreads>(a, x, g.D, t0, g.T, s * kWgBk, g.D);
+          stage_sw128<kWgBk, kWgThreads>(a + kWgActA, w1, g.H, s * kWgBk, g.D, h0, g.H);
+        } else {
+          const int k0 = (s - sd) * kWgBk;
+          stage_sw128<128, kWgThreads>(a, dy, g.D2, t0, g.T, k0, g.D2);
+          stage_sw128<kActN, kWgThreads>(a + kWgActA, w2, g.D2, h0, g.H, k0, g.D2);
+        }
+      },
+      [&](int s, int slot) {
+        const unsigned a = smem_u32(sm + slot * (kWgActA + kWgActB)), ra = a + wg * 8192;
+        wgmma_hold(pre);
+        wgmma_hold(dh);
+        wgmma_fence();
+        if (s < sd) {
+#pragma unroll
+          for (int k = 0; k < kWgBk / 16; ++k)
+            wgmma_m64n64k16<0, 1>(pre, wgmma_desc(ra + 32 * k, 16, 1024),
+                                  wgmma_desc(a + kWgActA + 2048 * k, 8192, 1024));
+        } else {
+#pragma unroll
+          for (int k = 0; k < kWgBk / 16; ++k)
+            wgmma_m64n64k16<0, 0>(dh, wgmma_desc(ra + 32 * k, 16, 1024),
+                                  wgmma_desc(a + kWgActA + 32 * k, 16, 1024));
+        }
+        wgmma_commit();
+      });
+  wgmma_hold(pre);
+  wgmma_hold(dh);
+
+  // the activation in registers; rows past T have dy = 0, so dh = dpre = 0
+  // there, and columns past H have w2 = 0: neither adds to a partial.
+  // round(h) and round(dpre) go to the staging tiles hs and ps (the ring is
+  // free here)
+  bf16* const hs = reinterpret_cast<bf16*>(sm);
+  bf16* const ps = hs + 128 * kPlaneTileLd;
+  float col[8][2] = {}, ds = 0.f, db = 0.f, bias[8][2];
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = h0 + 8 * jn + 2 * tq + u;
+      bias[jn][u] = j < g.H ? b1_at<bf16, ACT>(act, j) : 0.f;
+    }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = 16 * warp + gq + 8 * e;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      const int c = 8 * jn + 2 * tq, j = h0 + c;
+      float hv[2] = {0.f, 0.f}, dp[2] = {0.f, 0.f};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float d = dh[4 * jn + 2 * e + u];
+        float r2 = 0.f;
+        if (j + u < g.H)
+          dp[u] = bwd_act<bf16, ACT>(pre[4 * jn + 2 * e + u], d, bias[jn][u], act, &hv[u], &r2);
+        if constexpr (ACT == kStar) {
+          ds = __fadd_rn(ds, __fmul_rn(d, r2));
+          db = __fadd_rn(db, d);
+        } else {
+          col[jn][u] = __fadd_rn(col[jn][u], dp[u]);
+        }
+      }
+      *reinterpret_cast<unsigned*>(hs + r * kPlaneTileLd + c) = pack_bf16(hv[0], hv[1]);
+      *reinterpret_cast<unsigned*>(ps + r * kPlaneTileLd + c) = pack_bf16(dp[0], dp[1]);
+    }
+  }
+  __syncthreads();
+  // rows < T and columns < H of the tiles, 16 bytes (8 columns) a copy
+  constexpr int kChunks = kActN / 8;
+  for (int i = threadIdx.x; i < 2 * 128 * kChunks; i += kWgThreads) {
+    const int plane = i / (128 * kChunks), k = i - plane * 128 * kChunks;
+    const int r = k / kChunks, c = (k - r * kChunks) * 8;
+    if (t0 + r < g.T && h0 + c < g.H) {
+      const bf16* from = (plane ? ps : hs) + r * kPlaneTileLd + c;
+      bf16* to = (plane ? pplane : hplane) + (long long)(t0 + r) * g.H + h0 + c;
+      *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(from);
+    }
+  }
+
+  float* red = reinterpret_cast<float*>(ps + 128 * kPlaneTileLd);
+  if constexpr (ACT == kStar) {
+    static_assert(kWgThreads == kThreads, "block_sum's warps");
+    ds = block_sum(ds, red);
+    db = block_sum(db, red);
+    if (threadIdx.x == 0) {
+      const long long at = 2LL * ((long long)blockIdx.y * gridDim.x + blockIdx.x);
+      sbpart[at] = ds;
+      sbpart[at + 1] = db;
+    }
+  } else {
+    // db1: the column sums over the warp's rows (shuffles over g), then over
+    // the eight warps (16 rows each) in order
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float v = col[jn][u];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (gq == 0) red[warp * kActN + 8 * jn + 2 * tq + u] = v;
+      }
+    __syncthreads();
+    if (threadIdx.x < kActN && h0 + threadIdx.x < g.H) {
+      float v = red[threadIdx.x];
+      for (int w = 1; w < kWgThreads / 32; ++w) v += red[w * kActN + threadIdx.x];
+      b1part[(long long)blockIdx.y * g.H + h0 + threadIdx.x] = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWgThreads, 2)
+    mlp_bwd_dx_wgmma_kernel(const bf16* __restrict__ pplane, const bf16* __restrict__ w1,
+                            bf16* __restrict__ dx, Dims g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* const sm = align1024(smem_raw);
+  const int n0 = blockIdx.x * 128, t0 = blockIdx.y * 128;
+  const int wg = threadIdx.x >> 7, wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // round(dpre) (tokens x hidden) and w1 (D x hidden): both K-major
+  wgmma_ring<kWgStages, 2>(
+      (g.H + kWgBk - 1) / kWgBk,
+      [&](int s, int slot) {
+        unsigned char* a = sm + slot * 2 * kWgOperand;
+        stage_sw128<128, kWgThreads>(a, pplane, g.H, t0, g.T, s * kWgBk, g.H);
+        stage_sw128<128, kWgThreads>(a + kWgOperand, w1, g.H, n0, g.D, s * kWgBk, g.H);
+      },
+      [&](int, int slot) {
+        const unsigned a = smem_u32(sm + slot * 2 * kWgOperand);
+        wgmma_hold(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < kWgBk / 16; ++k)
+          wgmma_m64n128k16<0, 0>(acc, wgmma_desc(a + wg * 8192 + 32 * k, 16, 1024),
+                                 wgmma_desc(a + kWgOperand + 32 * k, 16, 1024));
+        wgmma_commit();
+      });
+  wgmma_hold(acc);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = t0 + 64 * wg + 16 * wi + gq + 8 * e;
+    if (row >= g.T) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = n0 + 8 * j + 2 * tq;
+      if (n < g.D)
+        *reinterpret_cast<unsigned*>(dx + (long long)row * g.D + n) =
+            pack_bf16(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWgThreads, 2)
+    mlp_bwd_dw_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                            const bf16* __restrict__ hplane, const bf16* __restrict__ pplane,
+                            float* __restrict__ out, float* __restrict__ dwpart,
+                            float* __restrict__ b2part, Dims g, int tiles1, int seg_rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* const sm = align1024(smem_raw);
+  // dw1 = x^T.round(dpre) (D x H) for tiles below tiles1, else dw2 =
+  // round(h)^T.dy (H x D2); both operands MN-major (tokens are K)
+  const bool first = static_cast<int>(blockIdx.x) < tiles1;
+  const int tile = first ? blockIdx.x : blockIdx.x - tiles1;
+  const int M = first ? g.D : g.H, N = first ? g.H : g.D2;
+  const bf16* A = first ? x : hplane;
+  const bf16* B = first ? pplane : dy;
+  const int tiles_n = (N + 127) / 128;
+  const int m0 = (tile / tiles_n) * 128, n0 = (tile % tiles_n) * 128;
+  const int t_begin = blockIdx.y * seg_rows, t_end = min(g.T, t_begin + seg_rows);
+  const int wg = threadIdx.x >> 7, wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  // db2: the dw2 blocks of hidden rows 0..127 sum dy's columns from the
+  // staged tiles, thread (column, half) over its 32 rows of each step
+  const bool colsum = b2part != nullptr && !first && m0 == 0;
+  const int cs_col = threadIdx.x & 127, cs_half = threadIdx.x >> 7;
+  float cs = 0.f;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // a tile is two 64-column blocks of kWgBk token rows (8 KB each)
+  wgmma_ring<kWgStages, 2>(
+      (t_end - t_begin + kWgBk - 1) / kWgBk,
+      [&](int s, int slot) {
+        unsigned char* a = sm + slot * 2 * kWgOperand;
+        const int r0 = t_begin + s * kWgBk;
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          stage_sw128<kWgBk, kWgThreads>(a + b * 8192, A, M, r0, t_end, m0 + 64 * b, M);
+          stage_sw128<kWgBk, kWgThreads>(a + kWgOperand + b * 8192, B, N, r0, t_end,
+                                         n0 + 64 * b, N);
+        }
+      },
+      [&](int, int slot) {
+        unsigned char* a = sm + slot * 2 * kWgOperand;
+        const unsigned sa = smem_u32(a);
+        wgmma_hold(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < kWgBk / 16; ++k)
+          wgmma_m64n128k16<1, 1>(acc, wgmma_desc(sa + wg * 8192 + 2048 * k, 8192, 1024),
+                                 wgmma_desc(sa + kWgOperand + 2048 * k, 8192, 1024));
+        wgmma_commit();
+        if (colsum) {
+          const unsigned char* bt = a + kWgOperand + (cs_col >> 6) * 8192;
+          const int c = cs_col & 63;
+          for (int r = 32 * cs_half; r < 32 * cs_half + 32; ++r)
+            cs += __bfloat162float(*reinterpret_cast<const bf16*>(
+                bt + r * 128 + (((c >> 3) ^ (r & 7)) << 4) + 2 * (c & 7)));
+        }
+      });
+  wgmma_hold(acc);
+  const long long L = (long long)g.D * g.H + (long long)g.H * g.D2;
+  float* dst = (gridDim.y == 1 ? out : dwpart + blockIdx.y * L) +
+               (first ? 0 : (long long)g.D * g.H);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int m = m0 + 64 * wg + 16 * wi + gq + 8 * e;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = n0 + 8 * j + 2 * tq;
+      if (n < N)
+        *reinterpret_cast<float2*>(dst + (long long)m * N + n) =
+            make_float2(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
+    }
+  }
+  if (colsum) {
+    float* red = reinterpret_cast<float*>(sm);  // the ring is free here
+    if (cs_half) red[cs_col] = cs;
+    __syncthreads();
+    if (!cs_half && n0 + cs_col < N)
+      b2part[(long long)blockIdx.y * g.D2 + n0 + cs_col] = cs + red[cs_col];
+  }
+}
+
+// dst[i] = sum over r < rows of src[r * n + i]. Columns go in units of four
+// (float4) where n % 4 == 0, else one by one. A block takes cpb units and
+// kThreads / cpb fixed, contiguous row ranges of at least 8 rows (as many as
+// fit, up to 256 / cpb_min with cpb_min units = 128 bytes a row), each
+// summed in ascending order, then the ranges in order.
+struct ColSum {
+  const float* src;
+  float* dst;
+  long long n;
+  int rows;
+};
+
+constexpr int kMaxColSums = 4;
+
+struct ColSums {
+  ColSum job[kMaxColSums];
+  int jobs;
+  unsigned first[kMaxColSums + 1];  // each job's first block
+};
+
+// units a block of a column sum takes (a power of two dividing kThreads)
+__host__ __device__ inline int colsum_cpb(long long n, int rows) {
+  const long long units = n % 4 == 0 ? n / 4 : n;
+  int cpb = n % 4 == 0 ? 8 : 32;
+  while (cpb > 1 && cpb / 2 >= units) cpb /= 2;
+  int groups = 1;
+  while (groups * 2 <= kThreads / cpb && groups * 2 * 8 <= rows) groups *= 2;
+  return kThreads / groups;
+}
+
+__host__ __device__ inline long long colsum_blocks(const ColSum& job) {
+  const long long units = job.n % 4 == 0 ? job.n / 4 : job.n;
+  const int cpb = colsum_cpb(job.n, job.rows);
+  return (units + cpb - 1) / cpb;
+}
+
+__global__ void __launch_bounds__(kThreads) mlp_bwd_colsum_kernel(ColSums c) {
+  __shared__ float4 red[kThreads];
+  int j = 0;
+  while (j + 1 < c.jobs && blockIdx.x >= c.first[j + 1]) ++j;
+  const ColSum job = c.job[j];
+  const bool vec = job.n % 4 == 0;
+  const long long units = vec ? job.n / 4 : job.n;
+  const int cpb = colsum_cpb(job.n, job.rows);
+  const int groups = kThreads / cpb, lane = threadIdx.x % cpb, grp = threadIdx.x / cpb;
+  const long long u = (long long)(blockIdx.x - c.first[j]) * cpb + lane;
+  const int chunk = (job.rows + groups - 1) / groups;
+  const int r_begin = grp * chunk, r_end = min(job.rows, r_begin + chunk);
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (u < units) {
+    if (vec) {
+      const float4* src = reinterpret_cast<const float4*>(job.src) + u;
+#pragma unroll 4
+      for (int r = r_begin; r < r_end; ++r) {
+        const float4 v = src[(long long)r * units];
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+    } else {
+#pragma unroll 4
+      for (int r = r_begin; r < r_end; ++r) s.x += job.src[(long long)r * job.n + u];
+    }
+  }
+  red[threadIdx.x] = s;
+  __syncthreads();
+  if (grp == 0 && u < units) {
+    float4 t = red[lane];
+    for (int w = 1; w < groups; ++w) {
+      const float4 v = red[w * cpb + lane];
+      t.x += v.x;
+      t.y += v.y;
+      t.z += v.z;
+      t.w += v.w;
+    }
+    if (vec)
+      reinterpret_cast<float4*>(job.dst)[u] = t;
+    else
+      job.dst[u] = t.x;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -725,36 +1270,99 @@ cudaError_t launch_fwd(const void* x, const void* w1, const void* b1, const floa
   return reduce_splits<T, ACT == kGelu>(plan, part, b2, y, g.T, g.D2, stream);
 }
 
+// the bf16 backward: (A), then (B) and (C), then (D); part is the scratch of
+// make_bf16_plan's size
+template <int ACT>
+cudaError_t launch_bwd_bf16(const bf16* x, const bf16* dy, const bf16* w1, const bf16* b1,
+                           const float* s, const float* b, const bf16* w2, bf16* dx, float* part,
+                           float* out, const Dims& g, cudaStream_t stream) {
+  const Bf16Plan plan = make_bf16_plan(g, sm_count());
+  bf16* hplane = reinterpret_cast<bf16*>(part);
+  bf16* pplane = hplane + (long long)g.T * g.H;
+  float* b1part = part + plan.b1;
+  float* sbpart = part + plan.sb;
+  float* b2part = part + plan.b2;
+  cudaError_t err = set_smem(mlp_bwd_act_wgmma_kernel<ACT>, kWgActSmem);
+  if (err != cudaSuccess) return err;
+  mlp_bwd_act_wgmma_kernel<ACT><<<dim3(plan.act_n, plan.act_m), kWgThreads, kWgActSmem,
+                                  stream>>>(
+      x, dy, w1, ActPtrs<bf16>{b1, s, b}, w2, hplane, pplane, b1part, sbpart, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = set_smem(mlp_bwd_dx_wgmma_kernel, kWgSmem);
+  if (err != cudaSuccess) return err;
+  mlp_bwd_dx_wgmma_kernel<<<dim3((g.D + 127) / 128, (g.T + 127) / 128), kWgThreads, kWgSmem,
+                            stream>>>(pplane, w1, dx, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = set_smem(mlp_bwd_dw_wgmma_kernel, kWgSmem);
+  if (err != cudaSuccess) return err;
+  mlp_bwd_dw_wgmma_kernel<<<dim3(plan.tiles1 + plan.tiles2, plan.segments), kWgThreads, kWgSmem,
+                            stream>>>(x, dy, hplane, pplane, out, part + plan.dw,
+                                      ACT == kGelu ? b2part : nullptr, g, plan.tiles1,
+                                      plan.seg_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // the fixed-order sums: dW over segments (where split), then K9's db1 over
+  // (A)'s token tiles and db2 over segments, or K10's ds and db over (A)'s
+  // blocks
+  const long long L = (long long)g.D * g.H + (long long)g.H * g.D2;
+  ColSums c{};
+  c.jobs = 0;
+  if (plan.segments > 1) c.job[c.jobs++] = ColSum{part + plan.dw, out, L, plan.segments};
+  if (ACT == kGelu) {
+    c.job[c.jobs++] = ColSum{b1part, out + L, g.H, plan.act_m};
+    c.job[c.jobs++] = ColSum{b2part, out + L + g.H, g.D2, plan.segments};
+  } else {
+    c.job[c.jobs++] = ColSum{sbpart, out + L + g.H + g.D2, 2, plan.act_m * plan.act_n};
+  }
+  unsigned blocks = 0;
+  for (int j = 0; j < c.jobs; ++j) {
+    c.first[j] = blocks;
+    blocks += static_cast<unsigned>(colsum_blocks(c.job[j]));
+  }
+  c.first[c.jobs] = blocks;
+  mlp_bwd_colsum_kernel<<<blocks, kThreads, 0, stream>>>(c);
+  return cudaGetLastError();
+}
+
 template <typename T, int ACT>
 cudaError_t launch_bwd(const void* x, const void* dy, const void* w1, const void* b1,
                        const float* s, const float* b, const void* w2, void* dx, float* part,
                        float* out, const Dims& g, cudaStream_t stream) {
-  const Plan plan = make_plan(g, sizeof(T), sm_count());
-  float* dx_part = part + plan.segments * plan.L;
-  ActPtrs<T> act{static_cast<const T*>(b1), s, b};
-  int smem = dx_smem_bytes(g.D, sizeof(T));
-  cudaError_t err = set_smem(mlp_bwd_dx_kernel<T, ACT>, smem);
-  if (err != cudaSuccess) return err;
-  mlp_bwd_dx_kernel<T, ACT><<<dim3((g.T + kTm - 1) / kTm, plan.splits), kThreads, smem,
-                              stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(w1), act,
-      static_cast<const T*>(w2), static_cast<T*>(dx), dx_part, g, plan.split_cols);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = reduce_splits<T, false>(plan, dx_part, nullptr, dx, g.T, g.D, stream);
-  if (err != cudaSuccess) return err;
-  if (plan.hw == 0) return cudaErrorInvalidValue;
-  smem = dw_smem_bytes(g.D, g.D2, plan.hw, plan.tw, sizeof(T));
-  err = set_smem(mlp_bwd_dw_kernel<T, ACT>, smem);
-  if (err != cudaSuccess) return err;
-  mlp_bwd_dw_kernel<T, ACT><<<dim3(plan.chunks, plan.segments), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(w1), act,
-      static_cast<const T*>(w2), part, g, plan);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  mlp_bwd_reduce_kernel<<<static_cast<unsigned>((plan.L0 + kThreads - 1) / kThreads), kThreads,
-                          0, stream>>>(part, out, plan);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value)
+    return launch_bwd_bf16<ACT>(static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
+                               static_cast<const bf16*>(w1), static_cast<const bf16*>(b1), s, b,
+                               static_cast<const bf16*>(w2), static_cast<bf16*>(dx), part, out, g,
+                               stream);
+  else {
+    const Plan plan = make_plan(g, sizeof(T), sm_count());
+    float* dx_part = part + plan.segments * plan.L;
+    ActPtrs<T> act{static_cast<const T*>(b1), s, b};
+    int smem = dx_smem_bytes(g.D, sizeof(T));
+    cudaError_t err = set_smem(mlp_bwd_dx_kernel<T, ACT>, smem);
+    if (err != cudaSuccess) return err;
+    mlp_bwd_dx_kernel<T, ACT><<<dim3((g.T + kTm - 1) / kTm, plan.splits), kThreads, smem,
+                                stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(w1), act,
+        static_cast<const T*>(w2), static_cast<T*>(dx), dx_part, g, plan.split_cols);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = reduce_splits<T, false>(plan, dx_part, nullptr, dx, g.T, g.D, stream);
+    if (err != cudaSuccess) return err;
+    if (plan.hw == 0) return cudaErrorInvalidValue;
+    smem = dw_smem_bytes(g.D, g.D2, plan.hw, plan.tw, sizeof(T));
+    err = set_smem(mlp_bwd_dw_kernel<T, ACT>, smem);
+    if (err != cudaSuccess) return err;
+    mlp_bwd_dw_kernel<T, ACT><<<dim3(plan.chunks, plan.segments), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(w1), act,
+        static_cast<const T*>(w2), part, g, plan);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    mlp_bwd_reduce_kernel<<<static_cast<unsigned>((plan.L0 + kThreads - 1) / kThreads), kThreads,
+                            0, stream>>>(part, out, plan);
+    return cudaGetLastError();
+  }
 }
 
 Dims dims(int T, int D, int H, int D2) {
@@ -782,7 +1390,9 @@ int skinjax_fused_mlp_scratch(int bf16_in, int backward, int T, int D, int H, in
                               long long* floats) {
   const Dims g = dims(T, D, H, D2);
   if (bad_dims(g)) return static_cast<int>(cudaErrorInvalidValue);
-  *floats = scratch_floats(make_plan(g, bf16_in ? 2 : 4, sm_count()), g, backward != 0);
+  *floats = bf16_in && backward ? make_bf16_plan(g, sm_count()).total
+                                : scratch_floats(make_plan(g, bf16_in ? 2 : 4, sm_count()), g,
+                                                 backward != 0);
   return 0;
 }
 

@@ -26,21 +26,30 @@ form (``torch.erf`` in the twins, ``erff`` in the kernel); skinjax's
 Abramowitz–Stegun erf is a Mosaic workaround the port leaves out.
 
 Nothing is saved for the backward but the arguments: no ``(T, H)`` tensor is
-kept. The backward's scratch is the weight gradients' per-segment fp32
-partials, ``segments · (D·H + H·D2 + H + D2 + 2·H/hw)`` floats, where the
-kernel picks ``segments`` so that (H/hw) · segments is about twice the SM
-count, plus the ``D·H + H·D2 + H + D2 + 2`` floats of the summed gradients.
-Where T/32 token tiles are fewer than the SMs (a small batch), the
-forward and dx kernels also split the hidden columns over blocks, with
-``splits · T · D2`` (or ``· D``) fp32 partials summed in split order
-(``skinjax_fused_mlp_scratch`` gives each call's size). Two calls on the same
-inputs give bit-identical results (no atomics).
+kept between the forward and the backward. The bf16 backward runs five
+products on the tensor cores and writes the hidden plane once, inside the
+call: its scratch holds ``round(h)`` and ``round(dpre)`` as two bf16
+``(T, H)`` planes (``T·H`` floats; 205 MB at CAFormer-b36's stage 0 at B=32),
+the per-token-tile partials of db1 (``⌈T/128⌉·H``) or of ds and db, the
+per-segment db2 partials, and, only where the dW output tiles are too few to
+fill the card and the tokens are split into segments, ``segments · (D·H +
+H·D2)`` fp32 dW partials. The fp32 backward keeps the CUDA-core kernels,
+which recompute the plane: its scratch is the weight gradients'
+per-segment fp32 partials, ``segments · (D·H + H·D2 + H + D2 + 2·H/hw)``
+floats, where the kernel picks ``segments`` so that (H/hw) · segments is
+about twice the SM count, and, where T/32 token tiles are fewer than the
+SMs, ``splits · T · D`` dx partials. Each backward also takes the ``D·H +
+H·D2 + H + D2 + 2`` floats of the summed gradients. Where T/32 token tiles
+are fewer than the SMs (a small batch), the forward splits the hidden
+columns over blocks, with ``splits · T · D2`` fp32 partials summed in split
+order (``skinjax_fused_mlp_scratch`` gives each call's size). Two calls on
+the same inputs give bit-identical results (no atomics).
 
 skinjax's routing knobs are not carried over (ROADMAP.md, "Leave out of the
 port"): ``SKINJAX_CAFORMER_MLP``/``SKINJAX_COAT_MLP`` and the 48 MB threshold
 chose the kernel on the TPU; the port's blocks run it everywhere. The
 kernel's own limits: D, H and D2 are multiples of 16 and D, D2 ≤ 1024 (the
-backward keeps (D, hw) and (hw, D2) fp32 tiles in shared memory).
+fp32 backward keeps (D, hw) and (hw, D2) fp32 tiles in shared memory).
 
 ``mlp_gelu_plain``/``mlp_gelu_bwd_plain`` and ``mlp_star_plain``/
 ``mlp_star_bwd_plain`` are the plain PyTorch twins, rounding at the same

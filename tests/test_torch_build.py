@@ -1,5 +1,10 @@
 """The kernels' build: a library's name hashes its source and every shared
-header, so an edited header never loads a stale library. No nvcc needed."""
+header, so an edited header never loads a stale library; and every kernel
+name ``chip_smoke.py`` profiles is a kernel of the sources. No nvcc needed."""
+
+import importlib.util
+import re
+from pathlib import Path
 
 import pytest
 
@@ -28,9 +33,46 @@ def test_library_path_follows_source_and_headers(csrc, edit):
 
 
 def test_repo_sources_share_a_header():
-    """The attention kernels include the shared tensor-core header, which the
-    hash covers."""
+    """The attention kernels and the fused MLP include the shared tensor-core
+    header, which the hash covers, and keep no copy of its helpers."""
     headers = sorted(p.name for p in build.CSRC.glob("*.cuh"))
     assert "mma_bf16.cuh" in headers
-    for name in ("global_attention", "pooled_attention"):
-        assert '#include "mma_bf16.cuh"' in (build.CSRC / f"{name}.cu").read_text()
+    header = (build.CSRC / "mma_bf16.cuh").read_text()
+    helpers = ("cp_async16", "cp_async_commit", "cp_async_wait", "load_tile", "pipeline")
+    for name in ("global_attention", "pooled_attention", "fused_mlp"):
+        source = (build.CSRC / f"{name}.cu").read_text()
+        assert '#include "mma_bf16.cuh"' in source
+        assert "using bf16 =" not in source
+        for helper in helpers:
+            assert re.search(rf"\b{helper}\s*\(", header)
+            assert not re.search(rf"void\s+{helper}\s*\(", source), (name, helper)
+
+
+_PROFILED = ("KERNEL_NAMES", "K7_KERNELS", "MLP_KERNELS", "MLP_F32_BWD", "MLP_SPLIT",
+             "K12_KERNELS", "K11_KERNELS", "K8_KERNELS", "K7_PAD_KERNELS", "K6_KERNELS",
+             "KERNEL_SYMBOLS")
+
+
+def _names(value):
+    if isinstance(value, str):
+        return {value}
+    if isinstance(value, dict):
+        value = value.values()
+    return set().union(*(_names(v) for v in value))
+
+
+def test_profiled_kernel_names_are_kernels():
+    """Every kernel name ``chip_smoke.py`` looks up in a profiler trace is a
+    ``__global__`` function of ``skinjax_torch/csrc/*.cu``: a renamed kernel
+    would otherwise leave its device time unmeasured without an error."""
+    path = Path(build.CSRC).parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_names", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)  # torch is imported inside its functions only
+    profiled = set().union(*(_names(getattr(smoke, name)) for name in _PROFILED))
+    kernels = set()
+    for source in build.CSRC.glob("*.cu"):
+        kernels.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?"
+                                  r"(\w+)\s*\(", source.read_text()))
+    assert {"mlp_bwd_act_wgmma_kernel", "mlp_bwd_dw_kernel", "ga_bwd_rows_mma_kernel"} <= kernels
+    assert sorted(profiled - kernels) == []
