@@ -43,12 +43,16 @@ sentence dataset. Phases, each printing its lines:
               mask and dropout multiplier, GPT-2's at 1024 tokens with the
               causal bias and a padding mask, and N=50 with all three, bf16
               and fp32; the recompute backward against the stored-P one where
-              P is within the 256 MB limit, and two bf16 recompute calls at
-              BERT-base T=512 bit-identical; K11 forward (o and P) and backward
+              P is within the 256 MB limit, two bf16 recompute calls at
+              BERT-base T=512 bit-identical, and two bf16 stored-P backward
+              calls at BEiT-large (bias gradient summed in groups) and
+              BERT-base (kmask + pmult); K11 forward (o and P) and backward
               (dq, dk, dv, dbias_h, dbias_w) against their twins at
-              MViTv2-small's seven attention shapes (B=64 bf16, B=8 fp32) and
-              a rectangular key grid with a ragged query edge, two bf16
-              forward calls at stage 0 bit-identical; K10 and K9
+              MViTv2-small's seven attention shapes (B=64 bf16, B=8 fp32), a
+              rectangular key grid with a ragged query edge and a one-row
+              key grid too wide for the bias sums in shared memory, two bf16
+              forward calls at stage 0 and two backward calls at stages 0 and
+              2 bit-identical; K10 and K9
               forward and backward (dx, dw1, dw2 and ds/db or db1/db2)
               against their twins at every (D, H) of CAFormer-b36 and
               CoaT-lite-small with 1000 tokens, and K10 at CAFormer-b36's
@@ -88,7 +92,9 @@ sentence dataset. Phases, each printing its lines:
               one; one fp32 step of a small DaViT on the card against the CPU
  10. times    the DaViT engine's p50/p95; DaViT train images/s unfrozen and
               frozen; a profiled DaViT train step. (K12's times at BEiT-large's
-              shape, its recompute backward's at BERT-base's T=512 one, and
+              shape, its stored-P backward's also at every other shape within
+              the stored-P limit, split by kernel, its recompute backward's at
+              BERT-base's T=512 one, and
               K7's at each stage, against their twins and bounds, with
               F.scaled_dot_product_attention on the same q, k, v, forward and
               backward, as a yardstick: each time's share of its bound and its
@@ -115,7 +121,8 @@ sentence dataset. Phases, each printing its lines:
               profiled train step. (K11's
               times at the seven shapes, against twins, bounds and
               F.scaled_dot_product_attention with the expanded bias, forward
-              and backward, run right after phase 3.)
+              and backward, its backward split by kernel at stages 0 and 2,
+              run right after phase 3.)
  13b. caformer the CAFormer-b36 model: fused against plain engine (K10
               launched 36 times and K12 21 times per forward), the fp32 engine
               on the card against the CPU; run_service with
@@ -203,8 +210,10 @@ no result, when CUDA is not available or the package is not beside it.
 
 builds the three attention sources only and runs the checks and times of
 K12 (with the recompute backward's split by kernel at BERT-base T=512: with
-kmask + pmult, kmask alone and neither), K11 and the K7-pad core: the quick
-loop for work on those kernels (last line {"ok": true, "attention": true}).
+kmask + pmult, kmask alone and neither), K11 and the K7-pad core, and the
+bf16 stored-P backwards' split by kernel (K12 at BEiT-large over bias-group
+counts, K11 at stages 0 and 2): the quick loop for work on those kernels
+(last line {"ok": true, "attention": true}).
 
     python3 chip_smoke.py --mlp
 
@@ -295,16 +304,19 @@ KERNEL_NAMES = {"seq1_attention": "seq1_attention_kernel",
 # each K7 call's kernels (a call with a bias adds dbias_reduce_kernel)
 K7_KERNELS = {"window_attention_fwd": ["wa_fwd_kernel", "proj_kernel"],
               "window_attention_bwd": ["wa_bwd_kernel"]}
-# each bf16 K12 call's kernels at BEiT's shape (the backward's last one sums
-# the bias gradient); the recompute backward's two run on the tensor cores
-# (its fp32 instantiation keeps ga_bwd_rows_kernel and ga_bwd_cols_kernel)
+# each bf16 K12 call's kernels at BEiT's shape (the stored-P backward's last
+# one adds the bias gradient's group planes, in tiles, into dbias's layout;
+# without a bias gradient it is not launched); both backwards run on the
+# tensor cores (their fp32 instantiations keep ga_bwd_dq_kernel and
+# ga_bwd_dkv_kernel, ga_bwd_rows_kernel and ga_bwd_cols_kernel)
 K12_KERNELS = {"global_attention_fwd": ["ga_fwd_kernel"],
-               "global_attention_bwd": ["ga_bwd_dq_kernel", "ga_bwd_dkv_kernel",
-                                        "ga_dbias_reduce_kernel"],
+               "global_attention_bwd": ["ga_bwd_p_rows_mma_kernel", "ga_bwd_p_cols_mma_kernel",
+                                        "ga_dbias_tiles_kernel"],
                K12_RECOMPUTE: ["ga_bwd_rows_mma_kernel", "ga_bwd_cols_mma_kernel"]}
-# each bf16 K11 call's kernels (the fp32 forward keeps pa_fwd_kernel)
+# each bf16 K11 call's kernels (the fp32 forward keeps pa_fwd_kernel, the
+# fp32 backward pa_bwd_dq_kernel and pa_bwd_dkv_kernel)
 K11_KERNELS = {"pooled_attention_fwd": ["pa_fwd_mma_kernel"],
-               "pooled_attention_bwd": ["pa_bwd_dq_kernel", "pa_bwd_dkv_kernel"]}
+               "pooled_attention_bwd": ["pa_bwd_rows_mma_kernel", "pa_bwd_cols_mma_kernel"]}
 # each bf16 fused-MLP call's kernels (K9 and K10 alike); a forward whose
 # token tiles are too few to fill the card also sums its hidden splits
 # (MLP_SPLIT). The bf16 backward runs on the tensor cores: the hidden planes,
@@ -329,8 +341,10 @@ K6_KERNELS = ["bn_partial_kernel", "bn_reduce_kernel"]
 KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", "wa_fwd_kernel", *K6_KERNELS,
                   "wa_bwd_kernel", "proj_kernel", "dbias_reduce_kernel", "ga_fwd_kernel",
                   "ga_bwd_dq_kernel", "ga_bwd_dkv_kernel", "ga_bwd_rows_kernel",
-                  "ga_bwd_cols_kernel", *K12_KERNELS[K12_RECOMPUTE], "pa_fwd_kernel",
+                  "ga_bwd_cols_kernel", *K12_KERNELS[K12_RECOMPUTE],
+                  *K12_KERNELS["global_attention_bwd"], "pa_fwd_kernel",
                   *K11_KERNELS["pooled_attention_fwd"], "pa_bwd_dq_kernel", "pa_bwd_dkv_kernel",
+                  *K11_KERNELS["pooled_attention_bwd"],
                   *MLP_KERNELS["fwd"], *MLP_KERNELS["bwd"], *MLP_F32_BWD, MLP_SPLIT,
                   *K8_KERNELS["channel_attention_fwd"], "ca_grad_kernel")
 # the card's published peaks (H100 SXM data sheet): device memory, float32
@@ -388,6 +402,9 @@ K12_SHAPES = {"beitv2-large": (32, 197, 1024, 16, True, False, False),
               "caformer-b36-s4": (32, 49, 768, 24, False, False, False)}
 K12_PER_FORWARD = 24  # one per block of BEiT-large and ViT-large
 K12_SAME_SHAPE = "bert-base-T512"  # where two recompute calls must be bit-identical
+# where two bf16 stored-P backward calls must be bit-identical: the bias
+# gradient summed over groups of batches, and kmask + pmult
+K12_P_SAME_SHAPES = ("beitv2-large", "bert-base")
 K12_SERVED = {"global_attention_fwd": K12_PER_FORWARD, "global_attention_bwd": 0, K12_RECOMPUTE: 0}
 VIT_LARGE = "vit_large_patch16_224"
 SMALL_BEIT = "beit-smoke-small"  # width 256, depth 2, 4 heads (64 channels a head), 224×224
@@ -401,10 +418,16 @@ K11_SHAPES = {"stage0": (1, 3136, (14, 14), 1), "stage1-transition": (2, 784, (2
               "stage2": (4, 196, (14, 14), 10), "stage3-transition": (8, 49, (14, 14), 1),
               "stage3": (8, 49, (7, 7), 1)}
 K11_RAGGED = (3, 2, 37, (5, 7))  # (B, heads, Nq, (Kh, Kw))
+# a one-row key grid whose bias accumulators (Kh + Kw floats a query row)
+# do not fit beside the bf16 backward's tiles in shared memory: the rows
+# kernel sums them in the output rows instead
+K11_WIDE = (2, 2, 40, (1, 1000))
 K11_HD = 96
 K11_F32_BATCH = 8
 K11_RECORD = "stage2"  # the record line's shape: 10 of the 16 blocks
 K11_SAME_SHAPE = "stage0"  # where two forward calls must be bit-identical
+# where two bf16 backward calls must be bit-identical
+K11_BWD_SAME_SHAPES = ("stage0", "stage2")
 K11_PER_FORWARD = sum(n for _, _, _, n in K11_SHAPES.values())
 K11_SERVED = {"pooled_attention_fwd": K11_PER_FORWARD, "pooled_attention_bwd": 0}
 SMALL_MVIT = "mvit-smoke-small"  # dims (96, 192), depths (1, 1), heads (1, 2), 64×64
@@ -1081,7 +1104,8 @@ def phase_k12(ga, device):
     takes its products on the tensor cores in another order than the
     stored-P backward's CUDA-core sums, so the two agree at the twins'
     tolerances (printed as is). At ``K12_SAME_SHAPE`` two bf16 recompute
-    calls are bit-identical."""
+    calls are bit-identical, at ``K12_P_SAME_SHAPES`` two bf16 stored-P
+    backward calls."""
     import torch
 
     errors = {name: 0.0 for name in K12}
@@ -1104,6 +1128,13 @@ def phase_k12(ga, device):
                 log(f"kernel {K12_RECOMPUTE} {str(dtype):14s} {label}: two calls bit-identical: "
                     f"{same}")
                 check(same, f"two {K12_RECOMPUTE} calls differ at {label}")
+                del again
+            if label in K12_P_SAME_SHAPES and dtype == torch.bfloat16:
+                again = ga.global_attention_bwd(q, k, v, do, rp, pm, h, grad_bias)
+                same = all(torch.equal(x, y) for x, y in zip(got, again) if x is not None)
+                log(f"kernel global_attention_bwd {str(dtype):14s} {label}: two calls "
+                    f"bit-identical: {same}")
+                check(same, f"two global_attention_bwd calls differ at {label}")
                 del again
             results = [("global_attention_fwd", "o", o, ro, tol),
                        ("global_attention_fwd", "P", p, rp, F32_TOL)]
@@ -1245,7 +1276,41 @@ def phase_k12_times(ga, device, card):
         f"{ms_us(lib_bwd)}; bert-base-T512 with the key mask as attn_mask (no pmult) "
         f"backward {ms_us(library[K12_RECOMPUTE])} (forwards by CUDA events; backwards "
         f"the device time of autograd's backward alone, torch.profiler)")
+    del q, k, v, do, b, p, q2, k2, v2, do2, km2, pm2, calls
+    phase_k12_p_shapes(ga, device, card)
     return out
+
+
+def phase_k12_p_shapes(ga, device, card):
+    """The bf16 stored-P backward at every other shape of K12_SHAPES whose P
+    is within the stored-P limit (where the main path runs it): per call and
+    device time against the twin, the bound and the same run's SDPA
+    backward, with the bias, the causal bias or the key mask as its attn_mask
+    (SDPA takes no pmult)."""
+    import torch
+
+    for label, (B, N, C, h, bias, kmask, pmult) in K12_SHAPES.items():
+        if label == "beitv2-large" or B * h * N * N * 4 > ga.STORE_P_MAX_BYTES:
+            continue
+        grad_bias = bias is True
+        (q, k, v), do, b, km, pm = k12_inputs(B, N, C, h, bias, kmask, pmult, torch.bfloat16,
+                                              device, seed=N + C)
+        _, p = ga.global_attention_fwd(q, k, v, b, km, pm, h, emit_p=True)
+        mask = None if b is None else b.to(torch.bfloat16)[None]
+        if km is not None:
+            kmb = km.to(torch.bfloat16)[:, None, None]
+            mask = kmb if mask is None else mask + kmb
+        extras = "+".join(n for n, on in (("bias" if bias is True else "causal bias", bias),
+                                          ("kmask", kmask), ("pmult", pmult)) if on) or "no extras"
+        names = K12_KERNELS["global_attention_bwd"][:3 if grad_bias else 2]
+        time_record(card, "global_attention_bwd", f"{label} B={B} N={N} C={C} h={h} {extras}",
+                    lambda: ga.global_attention_bwd(q, k, v, do, p, pm, h, grad_bias),  # noqa: B023
+                    lambda: ga.attention_core_bwd_plain(q, k, v, do, p, pm, h,  # noqa: B023
+                                                        grad_bias),
+                    names, k12_bound(B, N, C, h, 2, "bwd", grad_bias=grad_bias),
+                    sdpa_times(q, k, v, do, mask, h)[1])
+        del q, k, v, do, b, km, pm, p, mask
+    torch.cuda.empty_cache()
 
 
 def k11_inputs(B, h, Nq, k_size, dtype, device, seed):
@@ -1269,20 +1334,23 @@ def phase_k11(pa, device):
     against their twins at MViTv2-small's seven attention shapes, B=64 in
     bf16 (BF16_TOL; P and the bias gradients F32_TOL) and B=8 in fp32
     (F32_TOL, TF32 off), and at a rectangular key grid with a ragged query
-    edge; the backward on both sides takes the twin's P. At ``K11_SAME_SHAPE``
-    two bf16 forward calls are bit-identical."""
+    edge, and at a one-row key grid whose bias accumulators do not fit in
+    shared memory; the backward on both sides takes the twin's P. At
+    ``K11_SAME_SHAPE`` two bf16 forward calls are bit-identical, at
+    ``K11_BWD_SAME_SHAPES`` two bf16 backward calls."""
     import torch
 
     from skinjax_torch import MVIT_BATCH
 
     errors = {name: 0.0 for name in K11}
     cases = [(label, h, Nq, ks) for label, (h, Nq, ks, _) in K11_SHAPES.items()]
-    cases.append(("ragged", *K11_RAGGED[1:]))
+    extra = {"ragged": K11_RAGGED, "wide": K11_WIDE}
+    cases += [(label, *shape[1:]) for label, shape in extra.items()]
     for label, h, Nq, k_size in cases:
         for dtype, tol, B in ((torch.bfloat16, BF16_TOL, MVIT_BATCH),
                               (torch.float32, F32_TOL, K11_F32_BATCH)):
-            if label == "ragged":
-                B = K11_RAGGED[0]
+            if label in extra:
+                B = extra[label][0]
             q, k, v, bh, bw, do = k11_inputs(B, h, Nq, k_size, dtype, device, seed=Nq + h)
             o, p = pa.pooled_attention_fwd(q, k, v, bh, bw, k_size, emit_p=True)
             if label == K11_SAME_SHAPE and dtype == torch.bfloat16:
@@ -1294,6 +1362,13 @@ def phase_k11(pa, device):
                 del o2, p2
             ro, rp = pa.pooled_attention_plain(q, k, v, bh, bw, k_size)
             got = pa.pooled_attention_bwd(q, k, v, do, rp, k_size)
+            if label in K11_BWD_SAME_SHAPES and dtype == torch.bfloat16:
+                again = pa.pooled_attention_bwd(q, k, v, do, rp, k_size)
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                log(f"kernel pooled_attention_bwd {str(dtype):14s} {label}: two calls "
+                    f"bit-identical: {same}")
+                check(same, f"two pooled_attention_bwd calls differ at {label}")
+                del again
             want = pa.pooled_attention_bwd_plain(q, k, v, do, rp, k_size)
             torch.cuda.synchronize()
             results = [("pooled_attention_fwd", "o", o, ro, tol),
@@ -3449,6 +3524,53 @@ def phase_k12_split(ga, device, card):
             f"{ms * 1e3:.2f} us per call (CUDA events); device time {split} (torch.profiler)")
 
 
+def phase_bwd_p_split(ga, pa, device, card):
+    """The bf16 stored-P backwards split by kernel (torch.profiler device
+    time): K12 at BEiT-large's shape with its bias gradient at the wrapper's
+    group count and at others, and without a bias gradient; K11 at
+    MViTv2-small's stage 0 and stage 2."""
+    import torch
+
+    from skinjax_torch import MVIT_BATCH
+
+    def split(call, names):
+        ms = time_ms(call, 10, 2)
+        _, by_name = device_us(call, n=5)
+        return ms, "; ".join(f"{name} {t:.2f} us" for name in names
+                             for key, t in by_name.items() if name in key)
+
+    B, N, C, h, _, _, _ = K12_SHAPES["beitv2-large"]
+    (q, k, v), do, b, _, _ = k12_inputs(B, N, C, h, True, False, False, torch.bfloat16, device,
+                                         seed=31)
+    _, p = ga.global_attention_fwd(q, k, v, b, None, None, h, emit_p=True)
+    groups = ga.stored_p_groups
+    cases = [(f"bias, {groups(B, N, h)} groups (the wrapper's)", True, None)]
+    cases += [(f"bias, {n} groups", True, n) for n in (1, 2, 4, 8, 16, 32)
+              if n != groups(B, N, h)]
+    cases.append(("no bias gradient", False, None))
+    for label, grad_bias, n in cases:
+        ga.stored_p_groups = groups if n is None else (lambda *_, n=n: n)
+        try:
+            ms, by = split(lambda g=grad_bias: ga.global_attention_bwd(q, k, v, do, p, None, h, g),
+                           K12_KERNELS["global_attention_bwd"])
+        finally:
+            ga.stored_p_groups = groups
+        log(f"[{card}] time global_attention_bwd bf16 beitv2-large B={B} {label}: "
+            f"{ms * 1e3:.2f} us per call (CUDA events); device time {by} (torch.profiler)")
+    del q, k, v, do, b, p
+    for label in ("stage0", "stage2"):
+        hh, Nq, k_size, _ = K11_SHAPES[label]
+        q, k, v, bh, bw, do = k11_inputs(MVIT_BATCH, hh, Nq, k_size, torch.bfloat16, device,
+                                         seed=41)
+        _, p = pa.pooled_attention_fwd(q, k, v, bh, bw, k_size, emit_p=True)
+        ms, by = split(lambda: pa.pooled_attention_bwd(q, k, v, do, p, k_size),  # noqa: B023
+                       K11_KERNELS["pooled_attention_bwd"])
+        log(f"[{card}] time pooled_attention_bwd bf16 {label} B={MVIT_BATCH}: {ms * 1e3:.2f} us "
+            f"per call (CUDA events); device time {by} (torch.profiler)")
+        del q, k, v, bh, bw, do, p
+    torch.cuda.empty_cache()
+
+
 def log_ptxas(build, names):
     """What ptxas said of each kernel of the named sources: registers, spills."""
     for name in names:
@@ -3515,6 +3637,7 @@ def attention_only() -> int:
     phase_k11(pa, device)
     phase_k7pad(wa, ga, device)
     phase_k12_split(ga, device, card)
+    phase_bwd_p_split(ga, pa, device, card)
     phase_k12_times(ga, device, card)
     phase_k11_times(pa, device, card)
     phase_k7pad_times(wa, ga, device, card)
@@ -3594,6 +3717,7 @@ def main() -> int:
     # torch.profiler dropped K7's launches from its traces
     k12_times = phase_k12_times(ga, device, card)
     k11_times = phase_k11_times(pa, device, card)
+    phase_bwd_p_split(ga, pa, device, card)
     mlp_times = phase_mlp_times(fm, device, card, errors)
     k7_times = phase_k7_times(wa, device, card)
     k8_times = phase_k8_times(ca, device, card)

@@ -40,10 +40,27 @@
 // batch across their sequential grid; blocks here run in no order, so each
 // backward is a few launches with no atomics.
 //
-// Stored-P backward: (1) a block per (32 query rows, head, batch) computes dp,
-// ds (written to an fp32 scratch the size of P) and dq; (2) a block per (32
-// keys, head, batch) sums dv and dk over all queries from P and ds; (3) with a
-// bias gradient, dbias = the sum of ds over the batch in batch order.
+// Stored-P backward, bf16 (the main path under autocast), on the tensor
+// cores (no ds of size B.heads.N^2 in memory; one fp32 statistic a query
+// row, r = rowsum(dp * P), (B, heads, N)): (1) ga_bwd_p_rows_mma_kernel, a
+// block per (64 query rows, head, batch), makes two passes over the key
+// tiles, (a) dp and r, which it writes, (b) dp again, ds in registers and
+// dq; (2) ga_bwd_p_cols_mma_kernel, a block per (64 keys, head, batch or
+// group of batches), computes each dp block in the rows kernel's operand
+// and k-step order, so its ds is (1)'s bit for bit, and sums dv and dk over
+// every query. Without a bias gradient (2) takes one batch; with one it
+// walks a group of consecutive batches in order and sums the fp32 ds of its
+// key columns into that group's dbias[h] plane, the previous batches' sum of
+// each tile staged with the tile by cp.async; with more than one group, (3)
+// ga_dbias_reduce_kernel adds the groups' planes in group order. The wrapper
+// picks the groups (about one wave of (2)'s blocks; 4 of 8 batches at
+// BEiT-large, 9.9 MB of planes where the fp32 ds is 79.5 MB). The fp32
+// instantiation (the card-vs-CPU and fp32 twin checks at 1e-4) keeps the
+// CUDA-core kernels: (1) ga_bwd_dq_kernel, a block per (32 query rows, head,
+// batch), computes dp, ds (written to an fp32 scratch the size of P) and
+// dq; (2) ga_bwd_dkv_kernel, a block per (32 keys, head, batch), sums dv and
+// dk over all queries from P and ds; (3) with a bias gradient, dbias = the
+// sum of ds over the batch in batch order.
 //
 // Recompute backward (no P and no ds of size B.heads.N^2 in memory; only
 // three fp32 row statistics a query row, (3, B, heads, N)): (1) a rows
@@ -95,10 +112,13 @@
 // 12 heads) moves ~176 MB against ~64 GFLOP (five products): bound by
 // operations (~65 us); its bf16 kernels compute nine (the scores three
 // times, dp three times), and the staged pmult plane is read from L2 three
-// times a (batch, head). The forward and the stored-P backward are the first
-// version: fp32 FMAs on the CUDA cores from shared-memory tiles (4x4 and 4x2
-// outputs a thread), no mma, no TMA; the stored-P backward's ds scratch adds
-// ~240 MB of traffic. PERF.md records how far each is from its bound.
+// times a (batch, head). The bf16 stored-P backward computes six products
+// (dp three times) where the bound counts four, reads P three times (its
+// rows kernel's second pass mostly from L2) and re-reads K and V once a
+// query tile from L2; its rows and columns of 64 leave a quarter of the
+// blocks near-idle at N = 197. The forward is the first version: fp32 FMAs
+// on the CUDA cores from shared-memory tiles (4x4 and 4x2 outputs a thread),
+// no mma, no TMA. PERF.md records how far each is from its bound.
 // Limits: N <= 1024 (the CUDA-core kernels keep whole score rows in shared
 // memory), hd <= 64.
 //
@@ -758,9 +778,9 @@ __device__ __forceinline__ void load_stage(float* st, const Stage& ly, const flo
                                            const float* kmask, const float* pmult, const Dims& g,
                                            int hi, int b, int r0, int c0) {
   const long long nn = (long long)g.N * g.N;
-  if (ly.bias >= 0) load_plane(st + ly.bias, bias + hi * nn, g.N, r0, c0);
-  if (ly.mask >= 0) load_plane(st + ly.mask, g.wmask + (b % g.n_win) * nn, g.N, r0, c0);
-  if (ly.pmult >= 0) load_plane(st + ly.pmult, pmult, g.N, r0, c0);
+  if (ly.bias >= 0) load_plane(st + ly.bias, bias + hi * nn, g.N, g.N, r0, c0);
+  if (ly.mask >= 0) load_plane(st + ly.mask, g.wmask + (b % g.n_win) * nn, g.N, g.N, r0, c0);
+  if (ly.pmult >= 0) load_plane(st + ly.pmult, pmult, g.N, g.N, r0, c0);
   if (ly.kmask >= 0) load_vec64(st + ly.kmask, kmask + (long long)b * g.N + c0, g.N - c0);
 }
 
@@ -822,39 +842,6 @@ __device__ __forceinline__ void dprob_chunk(float (&d)[2][4], const float* st, c
 // expression both kernels use
 __device__ __forceinline__ float prob(float s, float mxl, float inv) {
   return __fmul_rn(ex2(__fmaf_rn(s, kLog2e, -mxl)), inv);
-}
-
-// rows r and r + 8 of x (kD / 8 blocks of 16 x 8 accumulators), columns 8 jd +
-// 2 t + {0, 1} below hd, rounded (times mul) to bf16 into out (row n at out +
-// n * ldo); rows past N skipped
-template <int kD>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ out, long long ldo,
-                                           const float (&x)[kD / 8][4], int r, int N, int hd,
-                                           float mul, bool pairs) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int n = r + 8 * h;
-    if (n >= N) continue;
-    bf16* row = out + (long long)n * ldo;
-#pragma unroll
-    for (int jd = 0; jd < kD / 8; ++jd) {
-      const int d = 8 * jd + 2 * t;
-      const float a = x[jd][2 * h] * mul, c = x[jd][2 * h + 1] * mul;
-      if (pairs && d < hd) {
-        *reinterpret_cast<__nv_bfloat162*>(row + d) = __floats2bfloat162_rn(a, c);
-      } else {
-        if (d < hd) row[d] = __float2bfloat16_rn(a);
-        if (d + 1 < hd) row[d + 1] = __float2bfloat16_rn(c);
-      }
-    }
-  }
-}
-
-template <int kD>
-__device__ __forceinline__ void zero_acc(float (&x)[kD / 8][4]) {
-#pragma unroll
-  for (int jd = 0; jd < kD / 8; ++jd) x[jd][0] = x[jd][1] = x[jd][2] = x[jd][3] = 0.f;
 }
 
 // shared memory of the bf16 kernels: K and V (rows kernel) or Q and dO (cols
@@ -1008,8 +995,8 @@ __global__ void __launch_bounds__(kTileThreads, 3)
     }
   });
   const long long out0 = (long long)b * N * g.C + hi * g.hd;
-  if constexpr (kOf) store_rows<kD>(of + out0, g.C, oacc, n0 + rl, N, g.hd, 1.f, g.vec);
-  store_rows<kD>(dq + out0, g.C, dqa, n0 + rl, N, g.hd, scale, g.vec);
+  if constexpr (kOf) store_frag_rows<kD>(of + out0, g.C, oacc, n0 + rl, N, g.hd, 1.f, g.vec);
+  store_frag_rows<kD>(dq + out0, g.C, dqa, n0 + rl, N, g.hd, scale, g.vec);
 }
 
 // Recompute backward (2), bf16: dv = round(P * pmult)^T . do and dk =
@@ -1127,22 +1114,282 @@ __global__ void __launch_bounds__(kTileThreads, 3)
             // (keys x queries) A fragments of pb^T and ds^T: the transposed
             // 8 x 8 blocks (queries g / g + 8, keys of block j)
             unsigned pa[4], sa[4];
-            pa[0] = movmatrix_t(pack_bf16(s[0][0], s[0][1]));
-            pa[1] = movmatrix_t(pack_bf16(s[1][0], s[1][1]));
-            pa[2] = movmatrix_t(pack_bf16(s[0][2], s[0][3]));
-            pa[3] = movmatrix_t(pack_bf16(s[1][2], s[1][3]));
-            sa[0] = movmatrix_t(pack_bf16(d[0][0], d[0][1]));
-            sa[1] = movmatrix_t(pack_bf16(d[1][0], d[1][1]));
-            sa[2] = movmatrix_t(pack_bf16(d[0][2], d[0][3]));
-            sa[3] = movmatrix_t(pack_bf16(d[1][2], d[1][3]));
+            pack_at_chunk(pa, s);
+            pack_at_chunk(sa, d);
             warp_ax_chunk<kD>(dva, pa, db, mq);
             warp_ax_chunk<kD>(dka, sa, qb, mq);
           }
         });
     const int m = m0 + cl0 + gq;
-    store_rows<kD>(dv + dhead, g.C, dva, m, N, g.hd, 1.f, g.vec);
-    store_rows<kD>(dk + dhead, g.C, dka, m, N, g.hd, scale, g.vec);
+    store_frag_rows<kD>(dv + dhead, g.C, dva, m, N, g.hd, 1.f, g.vec);
+    store_frag_rows<kD>(dk + dhead, g.C, dka, m, N, g.hd, scale, g.vec);
   }
+}
+
+// ---- The stored-P backward's bf16 instantiation on the tensor cores ----
+//
+// The recompute pair above with the score recompute replaced by reading P:
+// the forward's P (and pmult) stream as (64 x 64) fp32 planes beside the
+// V/K (rows kernel) or Q/dO (cols kernel) tiles, so no score is computed and
+// no ds leaves registers. Both kernels compute dp of a (16 query x 16 key)
+// block as dO rows (A) times V rows (B) in ascending 16-column steps, on the
+// same 64-grids, times pmult, and ds = P (dp - r) with the one r the rows
+// kernel wrote: a (query, key) pair gets the same ds bits in both, so dq
+// and dk are taken from the same round(ds).
+
+// shared memory of a stored-P kernel: two bf16 tiles, two buffers each, and
+// two stages of `planes` staged fp32 planes plus `extra` floats
+template <int kD>
+int p_mma_smem_bytes(int planes, int extra) {
+  return 4 * tile_bytes<kD>() + 2 * 4 * (planes * kPlaneFloats + extra);
+}
+
+// Stored-P backward (1), bf16: dq for 64 query rows of one head of one batch
+// (a warp 16 of them), two passes over the key tiles in one pipeline of 2 nt
+// steps, V (and K) and P's (and pmult's) (64 x 64) tiles streaming two deep.
+// (a) dp = (dO . V^T) * pmult and r = rowsum(dp * P), written to rsum (B,
+// heads, N); (b) dp again, ds = P (dp - r) fp32 in registers, rounded to bf16
+// as the A operand of dq += round(ds) . K, 16 keys at a time; dq = round(dq *
+// scale). A warp whose rows are all past N only joins the loads.
+template <int kD>
+__global__ void __launch_bounds__(kTileThreads, 3)
+    ga_bwd_p_rows_mma_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout, const float* __restrict__ p,
+                             const float* __restrict__ pmult, bf16* __restrict__ dq,
+                             float* __restrict__ rsum, Dims g, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int L = tile_ld<kD>(), kT = kTile * L;
+  bf16* const ks = reinterpret_cast<bf16*>(smem_raw);  // K, buffers 0 and 1
+  bf16* const vs = ks + 2 * kT;                         // V, buffers 0 and 1
+  float* const pl = reinterpret_cast<float*>(vs + 2 * kT);  // P (and pmult), stages 0 and 1
+  const int stage = (pmult ? 2 : 1) * kPlaneFloats;
+  const int N = g.N;
+  const int n0 = blockIdx.x * kTile, hi = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int rl = 16 * warp + gq;  // this thread's rows of the tile: rl, rl + 8
+  const bool live = n0 + 16 * warp < N;
+  const long long head = (long long)b * N * g.ld + hi * g.hd;
+  const long long row0 = ((long long)b * g.heads + hi) * N;
+  const bf16 *kh = k + head, *vh = v + head;
+  const float* ph = p + row0 * N;
+  const int nt = (N + kTile - 1) / kTile;
+
+  // this warp's dO rows as A fragments, for the whole block
+  unsigned df[kD / 16][4];
+  load_tile<kD>(vs, dout + (long long)b * N * g.C + hi * g.hd, g.C, n0, N, g.hd, g.vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  load_a<kD>(df, vs + 16 * warp * L);
+  __syncthreads();
+
+  float rs[2] = {0.f, 0.f}, r[2] = {0.f, 0.f};
+  float dqa[kD / 8][4];
+  zero_acc<kD>(dqa);
+  pipeline(
+      2 * nt,
+      [&](int s, int buf) {  // steps nt.. are pass (b)'s, which also reads K
+        const int kt = s < nt ? s : s - nt;
+        if (s >= nt) load_tile<kD>(ks + buf * kT, kh, g.ld, kt * kTile, N, g.hd, g.vec);
+        load_tile<kD>(vs + buf * kT, vh, g.ld, kt * kTile, N, g.hd, g.vec);
+        float* st = pl + buf * stage;
+        load_plane(st, ph, N, N, n0, kt * kTile);
+        if (pmult) load_plane(st + kPlaneFloats, pmult, N, N, n0, kt * kTile);
+      },
+      [&](int s, int buf) {
+        if (!live) return;
+        const float* st = pl + buf * stage;
+        if (s == nt) {  // (a) done: r
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            r[h] = quad_sum(rs[h]);
+            if (t == 0 && n0 + rl + 8 * h < N) rsum[row0 + n0 + rl + 8 * h] = r[h];
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          // dp of keys 16 kk .. 16 kk + 15 of the tile, times the staged pmult
+          float d[2][4];
+          warp_abt_chunk<kD>(d, df, vs + buf * kT, kk);
+          if (pmult) plane_chunk<true>(d, st + kPlaneFloats, rl, 16 * kk);
+          if (s < nt) {  // (a)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float2 pv = plane_pair(st, rl + 8 * h, 16 * kk + 8 * j + 2 * t);
+                rs[h] = __fmaf_rn(d[j][2 * h], pv.x, rs[h]);
+                rs[h] = __fmaf_rn(d[j][2 * h + 1], pv.y, rs[h]);
+              }
+          } else {  // (b)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float2 pv = plane_pair(st, rl + 8 * h, 16 * kk + 8 * j + 2 * t);
+                d[j][2 * h] = __fmul_rn(pv.x, __fsub_rn(d[j][2 * h], r[h]));
+                d[j][2 * h + 1] = __fmul_rn(pv.y, __fsub_rn(d[j][2 * h + 1], r[h]));
+              }
+            unsigned a[4];
+            pack_a_chunk(a, d);
+            warp_ax_chunk<kD>(dqa, a, ks + buf * kT, kk);
+          }
+        }
+      });
+  store_frag_rows<kD>(dq + (long long)b * N * g.C + hi * g.hd, g.C, dqa, n0 + rl, N, g.hd, scale,
+                      g.vec);
+}
+
+// Stored-P backward (2), bf16: dv = round(P * pmult)^T . dO and dk =
+// round(ds)^T . Q * scale for 64 keys of one head (a warp 16 of them),
+// summed over every query tile, for b_count batches from blockIdx.z *
+// b_count in order, in one pipeline over (batch, query tile). Q, dO, P,
+// pmult and the rows kernel's r stream in 64-query tiles; a warp holds its
+// 16 keys of V as B fragments in registers, loading the next batch's at the
+// end of a batch's last tile.
+// For each 16 query rows it computes dp against its keys as the rows kernel
+// does, forms pb and ds in registers, and transposes them (movmatrix) into
+// the A operands of dv += pb^T . dO and dk += ds^T . Q. With dbias, plane
+// blockIdx.z of dbias (groups, heads, nt x nt tiles of 64 x 64) gets the sum
+// of the fp32 ds over the group's batches in order, tile (query tile, key
+// tile) at ((z * heads + hi) * nt + it) * nt + kt (the block owns its key
+// tile's column of tiles): the previous batches' sum of a tile streams in
+// with it (one more staged plane; with one key tile, where the next
+// batch's tile would be staged before this one's is written, the thread
+// reads back what it wrote), and the new sum goes out as float2 stores.
+template <int kD>
+__global__ void __launch_bounds__(kTileThreads, 3)
+    ga_bwd_p_cols_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout, const float* __restrict__ p,
+                             const float* __restrict__ pmult, const float* __restrict__ rsum,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             float* __restrict__ dbias, Dims g, float scale, int b_count) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int L = tile_ld<kD>(), kT = kTile * L, kTileFloats = kTile * kTile;
+  bf16* const qs = reinterpret_cast<bf16*>(smem_raw);  // Q, buffers 0 and 1
+  bf16* const dos = qs + 2 * kT;                        // dO, buffers 0 and 1
+  const int N = g.N;
+  const int nt = (N + kTile - 1) / kTile;
+  // stages 0 and 1: P, (pmult,) (dbias's running sum,) r
+  float* const pl = reinterpret_cast<float*>(dos + 2 * kT);
+  const bool staged = dbias && nt > 1;
+  const int o_pm = kPlaneFloats, o_db = o_pm + (pmult ? kPlaneFloats : 0);
+  const int o_r = o_db + (staged ? kPlaneFloats : 0), stage = o_r + kTile;
+  const int m0 = blockIdx.x * kTile, hi = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int cl0 = 16 * warp;  // this warp's keys in the block: m0 + cl0 ..
+  const int kend = N - m0;
+  const bool live = cl0 < kend;
+  const int b0 = blockIdx.z * b_count, b1 = min(g.B, b0 + b_count);
+  // this block's column of dbias tiles: tile it at dbt + it * nt * kTileFloats
+  float* const dbt =
+      dbias ? dbias + (((long long)blockIdx.z * g.heads + hi) * nt * nt + blockIdx.x) * kTileFloats
+            : nullptr;
+
+  float dva[kD / 8][4], dka[kD / 8][4];
+  unsigned vf[kD / 16][4];
+  if (live)
+    load_b_global<kD>(vf, v + (long long)b0 * N * g.ld + hi * g.hd, g.ld, m0 + cl0, N, g.hd,
+                      g.vec);
+  pipeline(
+      (b1 - b0) * nt,
+      [&](int s, int buf) {
+        const int b = b0 + s / nt, it = s % nt, n0 = it * kTile;
+        const long long row0 = ((long long)b * g.heads + hi) * N;
+        load_tile<kD>(qs + buf * kT, q + (long long)b * N * g.ld + hi * g.hd, g.ld, n0, N, g.hd,
+                      g.vec);
+        load_tile<kD>(dos + buf * kT, dout + (long long)b * N * g.C + hi * g.hd, g.C, n0, N,
+                      g.hd, g.vec);
+        float* st = pl + buf * stage;
+        load_plane(st, p + row0 * N, N, N, n0, m0);
+        if (pmult) load_plane(st + o_pm, pmult, N, N, n0, m0);
+        if (staged && b > b0)
+          load_plane(st + o_db, dbt + (long long)it * nt * kTileFloats, kTile, kTile, 0, 0);
+        load_vec64(st + o_r, rsum + row0 + n0, N - n0);
+      },
+      [&](int s, int buf) {
+        if (!live) return;
+        const int b = b0 + s / nt, it = s % nt, n0 = it * kTile;
+        const long long dhead = (long long)b * N * g.C + hi * g.hd;
+        if (it == 0) {
+          zero_acc<kD>(dva);
+          zero_acc<kD>(dka);
+        }
+        const float* st = pl + buf * stage;
+        const bf16 *qb = qs + buf * kT, *db = dos + buf * kT;
+        float* const tile = dbias ? dbt + (long long)it * nt * kTileFloats : nullptr;
+#pragma unroll
+        for (int mq = 0; mq < 4; ++mq) {
+          const int rl = 16 * mq + gq;  // this thread's rows of the tile: rl, rl + 8
+          unsigned da[kD / 16][4];
+          load_a<kD>(da, db + 16 * mq * L);
+          float d[2][4], pb[2][4];
+          warp_abt_frag<kD>(d, da, vf);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float r = st[o_r + rl + 8 * h];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int c = cl0 + 8 * j + 2 * t;
+              const float2 pv = plane_pair(st, rl + 8 * h, c);
+              float2 pm = make_float2(1.f, 1.f);
+              if (pmult) {
+                pm = plane_pair(st + o_pm, rl + 8 * h, c);
+                d[j][2 * h] = __fmul_rn(d[j][2 * h], pm.x);
+                d[j][2 * h + 1] = __fmul_rn(d[j][2 * h + 1], pm.y);
+              }
+              d[j][2 * h] = __fmul_rn(pv.x, __fsub_rn(d[j][2 * h], r));
+              d[j][2 * h + 1] = __fmul_rn(pv.y, __fsub_rn(d[j][2 * h + 1], r));
+              pb[j][2 * h] = pmult ? __fmul_rn(pv.x, pm.x) : pv.x;
+              pb[j][2 * h + 1] = pmult ? __fmul_rn(pv.y, pm.y) : pv.y;
+            }
+          }
+          if (dbias) {  // past N, ds is 0: the padded tiles take it as it is
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int c = cl0 + 8 * j + 2 * t;
+                float2* at = reinterpret_cast<float2*>(tile + (rl + 8 * h) * kTile + c);
+                const float2 old = b == b0 ? make_float2(0.f, 0.f)
+                                   : staged ? plane_pair(st + o_db, rl + 8 * h, c)
+                                            : *at;
+                *at = make_float2(old.x + d[j][2 * h], old.y + d[j][2 * h + 1]);
+              }
+          }
+          unsigned pa[4], sa[4];
+          pack_at_chunk(pa, pb);
+          pack_at_chunk(sa, d);
+          warp_ax_chunk<kD>(dva, pa, db, mq);
+          warp_ax_chunk<kD>(dka, sa, qb, mq);
+        }
+        if (it == nt - 1) {
+          const int m = m0 + cl0 + gq;
+          store_frag_rows<kD>(dv + dhead, g.C, dva, m, N, g.hd, 1.f, g.vec);
+          store_frag_rows<kD>(dk + dhead, g.C, dka, m, N, g.hd, scale, g.vec);
+          if (b + 1 < b1)  // the next batch's V fragments, in flight over the step's barrier
+            load_b_global<kD>(vf, v + (long long)(b + 1) * N * g.ld + hi * g.hd, g.ld, m0 + cl0,
+                              N, g.hd, g.vec);
+        }
+      });
+}
+
+// Stored-P backward (3), bf16: dbias[h][n][m] = the sum over the groups, in
+// group order, of the (groups, heads, nt x nt tiles of 64 x 64) planes of
+// ga_bwd_p_cols_mma_kernel
+__global__ void ga_dbias_tiles_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                      int groups, int heads, int N) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)heads * N * N) return;
+  const int m = static_cast<int>(i % N), n = static_cast<int>(i / N % N);
+  const long long hi = i / ((long long)N * N);
+  const int nt = (N + kTile - 1) / kTile;
+  const long long per = (long long)heads * nt * nt * kTile * kTile;  // floats a group
+  const float* x = part + ((hi * nt + n / kTile) * nt + m / kTile) * kTile * kTile +
+                   (n % kTile) * kTile + m % kTile;
+  float a = 0.f;
+  for (int z = 0; z < groups; ++z) a += x[z * per];
+  out[i] = a;
 }
 
 Dims dims(int B, int N, int C, int heads, long long ld) {
@@ -1180,33 +1427,84 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float*
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
-                       const float* p, const float* pmult, void* dq, void* dk, void* dv, float* ds,
-                       float* dbias, const Dims& g, float scale, cudaStream_t stream) {
-  const int smem = rows_smem_bytes(g.N);
-  cudaError_t err = cudaFuncSetAttribute(ga_bwd_dq_kernel<T>,
+// the stored-P backward's two kernels on the tensor cores (bf16), kD columns
+// a head (hd <= kD, zero-padded); the bias gradient summed over n_groups
+// groups of b_count batches into planes
+template <int kD>
+cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
+                           const float* p, const float* pmult, void* dq, void* dk, void* dv,
+                           float* rsum, float* planes, int n_groups, int b_count, const Dims& g,
+                           float scale, cudaStream_t stream) {
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
+  int smem = p_mma_smem_bytes<kD>(pmult ? 2 : 1, 0);
+  cudaError_t err = cudaFuncSetAttribute(ga_bwd_p_rows_mma_kernel<kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid_q((g.N + kTq - 1) / kTq, g.heads, g.B);
-  ga_bwd_dq_kernel<T><<<grid_q, kThreads, smem, stream>>>(
-      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), p, pmult,
-      static_cast<T*>(dq), ds, g, scale);
+  const int tiles = (g.N + kTile - 1) / kTile;
+  ga_bwd_p_rows_mma_kernel<kD><<<dim3(tiles, g.heads, g.B), kTileThreads, smem, stream>>>(
+      kb, vb, db, p, pmult, static_cast<bf16*>(dq), rsum, g, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ga_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkv_smem_bytes());
+  const bool staged = planes && tiles > 1;
+  smem = p_mma_smem_bytes<kD>((pmult ? 2 : 1) + (staged ? 1 : 0), kTile);
+  err = cudaFuncSetAttribute(ga_bwd_p_cols_mma_kernel<kD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid_k((g.N + kTk - 1) / kTk, g.heads, g.B);
-  ga_bwd_dkv_kernel<T><<<grid_k, kThreads, dkv_smem_bytes(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(dout), p, pmult, ds, static_cast<T*>(dk),
-      static_cast<T*>(dv), g, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !dbias) return err;
-  const long long count = (long long)g.heads * g.N * g.N;
-  ga_dbias_reduce_kernel<<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      ds, dbias, g.B, count);
+  ga_bwd_p_cols_mma_kernel<kD><<<dim3(tiles, g.heads, n_groups), kTileThreads, smem, stream>>>(
+      qb, vb, db, p, pmult, rsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), planes, g,
+      scale, b_count);
   return cudaGetLastError();
+}
+
+// scratch: ds (B, heads, N, N) for fp32, the row statistic r (B, heads, N)
+// for bf16; dbias_partial: the bf16 groups' planes
+template <typename T>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+                       const float* p, const float* pmult, void* dq, void* dk, void* dv,
+                       float* scratch, float* dbias, float* dbias_partial, int groups,
+                       const Dims& g, float scale, cudaStream_t stream) {
+  const long long count = (long long)g.heads * g.N * g.N;
+  const unsigned reduce_blocks = (unsigned)((count + kThreads - 1) / kThreads);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // with a bias gradient a block sums its key columns over a group of
+    // consecutive batches, each group into a plane of its own
+    const int b_count = dbias ? (g.B + groups - 1) / groups : 1;
+    const int n_groups = (g.B + b_count - 1) / b_count;
+    float* planes = dbias ? dbias_partial : nullptr;
+    cudaError_t err =
+        g.hd <= 32 ? launch_bwd_mma<32>(q, k, v, dout, p, pmult, dq, dk, dv, scratch, planes,
+                                        n_groups, b_count, g, scale, stream)
+                   : launch_bwd_mma<64>(q, k, v, dout, p, pmult, dq, dk, dv, scratch, planes,
+                                        n_groups, b_count, g, scale, stream);
+    if (err != cudaSuccess || !dbias) return err;
+    // (3) the groups' planes summed in group order, into dbias's layout
+    ga_dbias_tiles_kernel<<<reduce_blocks, kThreads, 0, stream>>>(dbias_partial, dbias, n_groups,
+                                                                  g.heads, g.N);
+    return cudaGetLastError();
+  } else {
+    const int smem = rows_smem_bytes(g.N);
+    cudaError_t err = cudaFuncSetAttribute(ga_bwd_dq_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid_q((g.N + kTq - 1) / kTq, g.heads, g.B);
+    ga_bwd_dq_kernel<T><<<grid_q, kThreads, smem, stream>>>(
+        static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), p, pmult,
+        static_cast<T*>(dq), scratch, g, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(ga_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dkv_smem_bytes());
+    if (err != cudaSuccess) return err;
+    const dim3 grid_k((g.N + kTk - 1) / kTk, g.heads, g.B);
+    ga_bwd_dkv_kernel<T><<<grid_k, kThreads, dkv_smem_bytes(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(dout), p, pmult, scratch,
+        static_cast<T*>(dk), static_cast<T*>(dv), g, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || !dbias) return err;
+    ga_dbias_reduce_kernel<<<reduce_blocks, kThreads, 0, stream>>>(scratch, dbias, g.B, count);
+    return cudaGetLastError();
+  }
 }
 
 // the recompute backward's two kernels on the tensor cores (bf16), kD
@@ -1301,6 +1599,13 @@ cudaError_t launch_bwd_recompute(const void* q, const void* k, const void* v, co
 
 bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
 
+// whether the bf16 tensor-core kernels may copy 16 bytes at a time
+bool vec_ok(const Dims& g, const void* q, const void* k, const void* v, const void* dout,
+            const void* dq, const void* dk, const void* dv) {
+  return g.ld % 8 == 0 && g.C % 8 == 0 && g.hd % 8 == 0 && aligned16(q) && aligned16(k) &&
+         aligned16(v) && aligned16(dout) && aligned16(dq) && aligned16(dk) && aligned16(dv);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1325,19 +1630,27 @@ int skinjax_global_attention_fwd(int bf16, const void* q, const void* k, const v
 }
 
 // dout (B, N, C) contiguous like o; p the forward's P. Writes dq, dk, dv (B,
-// N, C) contiguous, the scratch ds (B, heads, N, N) fp32 and, when dbias is
-// not null, dbias (heads, N, N) fp32.
+// N, C) contiguous, the fp32 scratch (for float: ds (B, heads, N, N); for
+// bfloat16: the row statistic rowsum(dp * P) (B, heads, N)) and, when dbias
+// is not null, dbias (heads, N, N) fp32: for bfloat16 summed in groups of
+// ceil(B / groups) batches (1 <= groups <= B) into dbias_partial, a (groups,
+// heads, Np, Np) fp32 scratch with Np = N rounded up to 64 (tiles of 64 x
+// 64), then over the groups; for float over the whole batch in order
+// (groups and dbias_partial unused).
 int skinjax_global_attention_bwd(int bf16, const void* q, const void* k, const void* v,
                                  long long ld, const void* dout, const float* p,
-                                 const float* pmult, void* dq, void* dk, void* dv, float* ds,
-                                 float* dbias, int B, int N, int C, int heads, float scale,
-                                 void* stream) {
-  const Dims g = dims(B, N, C, heads, ld);
-  if (bad_dims(g)) return static_cast<int>(cudaErrorInvalidValue);
+                                 const float* pmult, void* dq, void* dk, void* dv, float* scratch,
+                                 float* dbias, float* dbias_partial, int groups, int B, int N,
+                                 int C, int heads, float scale, void* stream) {
+  Dims g = dims(B, N, C, heads, ld);
+  if (bad_dims(g) || groups < 1 || groups > B) return static_cast<int>(cudaErrorInvalidValue);
+  g.vec = vec_ok(g, q, k, v, dout, dq, dk, dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_bwd<__nv_bfloat16>(q, k, v, dout, p, pmult, dq, dk, dv, ds, dbias, g, scale, s);
-  return launch_bwd<float>(q, k, v, dout, p, pmult, dq, dk, dv, ds, dbias, g, scale, s);
+    return launch_bwd<__nv_bfloat16>(q, k, v, dout, p, pmult, dq, dk, dv, scratch, dbias,
+                                     dbias_partial, groups, g, scale, s);
+  return launch_bwd<float>(q, k, v, dout, p, pmult, dq, dk, dv, scratch, dbias, dbias_partial,
+                           groups, g, scale, s);
 }
 
 // The recompute backward: the forward's inputs (bias for the scores, null
@@ -1360,9 +1673,7 @@ int skinjax_global_attention_bwd_recompute(int bf16, const void* q, const void* 
   g.n_win = mask ? n_win : 1;
   if (bad_dims(g) || groups < 1 || groups > B || (of && pmult))
     return static_cast<int>(cudaErrorInvalidValue);
-  g.vec = ld % 8 == 0 && C % 8 == 0 && g.hd % 8 == 0 && aligned16(q) && aligned16(k) &&
-          aligned16(v) && aligned16(dout) && aligned16(dq) && aligned16(dk) && aligned16(dv) &&
-          (!of || aligned16(of));
+  g.vec = vec_ok(g, q, k, v, dout, dq, dk, dv) && (!of || aligned16(of));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_bwd_recompute<__nv_bfloat16>(q, k, v, dout, bias, kmask, pmult, dq, dk, dv, of,

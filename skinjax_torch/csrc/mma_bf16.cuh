@@ -1,5 +1,6 @@
 // Building blocks of the bf16 tensor-core attention kernels (sm_90a):
-// global_attention.cu's recompute backward and pooled_attention.cu's forward.
+// global_attention.cu's backwards and pooled_attention.cu's forward and
+// backward.
 //
 // A warp computes (16 rows x 16 keys) blocks of scores with
 // mma.sync.m16n8k16 (bf16 operands, fp32 accumulators in registers), its
@@ -137,30 +138,46 @@ constexpr int kPlaneLd = kTile + 8;
 constexpr int kPlaneFloats = kTile * kPlaneLd;
 
 // dst (64 x kPlaneLd) = rows [r0, r0 + 64) and columns [c0, c0 + 64) of the
-// (n x n) fp32 plane src, zero outside it; in flight (cp.async) until the
-// caller waits for its group: 16-byte copies when n % 4 == 0 (and src is
-// 16-byte aligned), else 4-byte ones.
+// row-major (rows x cols) fp32 plane src, zero outside it; in flight
+// (cp.async) until the caller waits for its group: 16-byte copies when cols
+// % 4 == 0 and src is 16-byte aligned, else 4-byte ones. A thread keeps one
+// column (of 16 bytes or 4) and walks rows kTileThreads / 16 (or / 64)
+// apart, a fixed count of steps (unrolled, fully or by 4), so a copy costs a
+// compare and two pointer steps.
 __device__ __forceinline__ void load_plane(float* __restrict__ dst, const float* __restrict__ src,
-                                           int n, int r0, int c0) {
-  if ((n & 3) == 0) {
-    for (int i = threadIdx.x; i < kTile * kTile / 4; i += kTileThreads) {
-      const int r = i >> 4, c = (i & 15) * 4;
-      float* d = dst + r * kPlaneLd + c;
-      if (r0 + r < n && c0 + c < n)
-        cp_async16(d, src + (long long)(r0 + r) * n + c0 + c);
+                                           int rows, int cols, int r0, int c0) {
+  if ((cols & 3) == 0 && (reinterpret_cast<unsigned long long>(src) & 15) == 0) {
+    constexpr int kStep = kTileThreads / 16;
+    const int c = (threadIdx.x & 15) * 4, r = threadIdx.x >> 4;
+    const bool in = c0 + c < cols;
+    const float* s = src + (long long)(r0 + r) * cols + c0 + c;
+    float* d = dst + r * kPlaneLd + c;
+#pragma unroll
+    for (int i = 0; i < kTile / kStep; ++i, s += (long long)kStep * cols, d += kStep * kPlaneLd) {
+      if (in && r0 + r + i * kStep < rows)
+        cp_async16(d, s);
       else
         *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   } else {
-    for (int i = threadIdx.x; i < kTile * kTile; i += kTileThreads) {
-      const int r = i >> 6, c = i & 63;
-      float* d = dst + r * kPlaneLd + c;
-      if (r0 + r < n && c0 + c < n)
-        cp_async4(d, src + (long long)(r0 + r) * n + c0 + c);
+    constexpr int kStep = kTileThreads / 64;
+    const int c = threadIdx.x & 63, r = threadIdx.x >> 6;
+    const bool in = c0 + c < cols;
+    const float* s = src + (long long)(r0 + r) * cols + c0 + c;
+    float* d = dst + r * kPlaneLd + c;
+#pragma unroll 4
+    for (int i = 0; i < kTile / kStep; ++i, s += (long long)kStep * cols, d += kStep * kPlaneLd) {
+      if (in && r0 + r + i * kStep < rows)
+        cp_async4(d, s);
       else
         *d = 0.f;
     }
   }
+}
+
+// The pair of a staged plane tile p at (local row rl, local columns c, c + 1)
+__device__ __forceinline__ float2 plane_pair(const float* p, int rl, int c) {
+  return *reinterpret_cast<const float2*>(p + rl * kPlaneLd + c);
 }
 
 // dst[i] = src[i] for i < count (count <= 64), zero up to 64; cp.async
@@ -294,6 +311,49 @@ __device__ __forceinline__ void pipeline(int steps, Load load, Compute compute) 
     compute(k, k & 1);
     __syncthreads();
   }
+}
+
+// rows r and r + 8 of x (kD / 8 blocks of 16 x 8 accumulators), columns 8 jd +
+// 2 t + {0, 1} below hd, rounded (times mul) to bf16 into out (row n at out +
+// n * ldo); rows past N skipped
+template <int kD>
+__device__ __forceinline__ void store_frag_rows(bf16* __restrict__ out, long long ldo,
+                                                const float (&x)[kD / 8][4], int r, int N,
+                                                int hd, float mul, bool pairs) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = r + 8 * h;
+    if (n >= N) continue;
+    bf16* row = out + (long long)n * ldo;
+#pragma unroll
+    for (int jd = 0; jd < kD / 8; ++jd) {
+      const int d = 8 * jd + 2 * t;
+      const float a = x[jd][2 * h] * mul, c = x[jd][2 * h + 1] * mul;
+      if (pairs && d < hd) {
+        *reinterpret_cast<__nv_bfloat162*>(row + d) = __floats2bfloat162_rn(a, c);
+      } else {
+        if (d < hd) row[d] = __float2bfloat16_rn(a);
+        if (d + 1 < hd) row[d + 1] = __float2bfloat16_rn(c);
+      }
+    }
+  }
+}
+
+template <int kD>
+__device__ __forceinline__ void zero_acc(float (&x)[kD / 8][4]) {
+#pragma unroll
+  for (int jd = 0; jd < kD / 8; ++jd) x[jd][0] = x[jd][1] = x[jd][2] = x[jd][3] = 0.f;
+}
+
+// The transposes of a (16 x 16) score-shaped block held as the two
+// accumulator blocks x, rounded to bf16 and packed: the A fragment of its
+// (16 keys x 16 queries) transpose, for x^T . X (movmatrix in registers)
+__device__ __forceinline__ void pack_at_chunk(unsigned (&a)[4], const float (&x)[2][4]) {
+  a[0] = movmatrix_t(pack_bf16(x[0][0], x[0][1]));
+  a[1] = movmatrix_t(pack_bf16(x[1][0], x[1][1]));
+  a[2] = movmatrix_t(pack_bf16(x[0][2], x[0][3]));
+  a[3] = movmatrix_t(pack_bf16(x[1][2], x[1][3]));
 }
 
 // the largest of a row's values over the four threads of its quad

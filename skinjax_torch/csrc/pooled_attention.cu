@@ -51,21 +51,39 @@
 // the bias by index and does the softmax a warp a row, fp32 FMAs on the CUDA
 // cores (TF32 tensor cores would not hold 1e-4). The Pallas backward sums dk
 // and dv over every query across its sequential grid; blocks here run in no
-// order, so the backward is two launches with no atomics: (1) a block per
-// (32 query rows, head, batch) computes dp, ds (written to an fp32 scratch
-// the size of P), the two bias gradients and dq; (2) a block per (32 keys,
-// head, batch) sums dv and dk over all queries, in query order, from P and
-// ds.
+// order, so the backward is two launches with no atomics. Its bf16
+// instantiation runs on the tensor cores with the same building blocks (no
+// ds of size B.heads.Nq.Nk in memory; one fp32 statistic a query row, r =
+// rowsum(dp * P), (B, heads, Nq)): (1) pa_bwd_rows_mma_kernel, a block per
+// (64 query rows, head, batch), streams V (and K) and P's (64 x 64) tiles
+// through two passes over the key tiles, (a) dp and r, which it writes, (b)
+// dp again, ds in registers, dq += round(ds) . K, and the bias gradients:
+// each warp writes its ds over its rows of the staged P tile, and its lanes
+// sum them into (Kh + Kw) fp32 accumulators a row, in shared memory (at most
+// 14 KB at the stage-1 transition) or, for a key grid too wide for it, in
+// the block's own output rows; a lane owns each (row, grid row) and (row,
+// grid column) pair a tile touches, so the sums take a fixed order and no
+// atomics; (2) pa_bwd_cols_mma_kernel, a block per (64 keys, head, batch),
+// computes each dp block in (1)'s operand and k-step order, so its ds is
+// (1)'s bit for bit, and sums dv and dk over every query tile from the
+// transposed (movmatrix) round(P) and round(ds). The fp32 instantiation keeps
+// the CUDA-core kernels: (1) pa_bwd_dq_kernel, a block per (32 query rows,
+// head, batch), computes dp, ds (written to an fp32 scratch the size of P),
+// the two bias gradients and dq; (2) pa_bwd_dkv_kernel, a block per (32
+// keys, head, batch), sums dv and dk over all queries, in query order, from
+// P and ds.
 //
 // What bounds it: at MViTv2-small's stage-2 body (B=64, Nq = Nk = 196, 4
 // heads, hd = 96, bf16) the forward moves ~81 MB (P's 39 MB of them) against
 // 3.8 GFLOP, the backward ~112 MB against 7.6 GFLOP: on the bf16 tensor cores
 // both are bound by bytes (~24 and ~34 us). The bf16 forward writes P once,
 // with every other operand read once from device memory, and recomputes the
-// scores (three products where two are needed). The backward is the first
-// version: fp32 FMAs on the CUDA cores from shared-memory tiles (4x2 and 4x4
-// outputs a thread), no mma, no TMA; its ds scratch adds two passes over a
-// plane the size of P. PERF.md records how far each is from its bound.
+// scores (three products where two are needed). The bf16 backward computes
+// six products (dp three times) where the bound counts four, reads P three
+// times (its rows kernel's second pass mostly from L2), re-reads K and V
+// once a query tile from L2, and sums the bias gradients on the CUDA cores;
+// at Nk = 196 a quarter of its column blocks hold 4 keys. PERF.md records
+// how far each is from its bound.
 // Limits: Nk <= 1024 (the CUDA-core kernels keep whole score rows in shared
 // memory), hd <= 128.
 //
@@ -416,8 +434,7 @@ __global__ void __launch_bounds__(kTileThreads)
 
   // (b) P written, o = round(round(P) . V), 16 keys at a time
   float oacc[kD / 8][4];
-#pragma unroll
-  for (int jd = 0; jd < kD / 8; ++jd) oacc[jd][0] = oacc[jd][1] = oacc[jd][2] = oacc[jd][3] = 0.f;
+  zero_acc<kD>(oacc);
   const bool pairs = (g.Nk & 1) == 0;  // P's rows start 8-byte aligned
   pipeline(
       nt,
@@ -461,23 +478,7 @@ __global__ void __launch_bounds__(kTileThreads)
           warp_ax_chunk<kD>(oacc, pa, vs + buf * kT, kk);
         }
       });
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int n = n0 + rl + 8 * h;
-    if (n >= g.Nq) continue;
-    bf16* orow = o + (plane * g.Nq + n) * g.hd;
-#pragma unroll
-    for (int jd = 0; jd < kD / 8; ++jd) {
-      const int d = 8 * jd + 2 * t;
-      if (vec && d < g.hd) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
-            __floats2bfloat162_rn(oacc[jd][2 * h], oacc[jd][2 * h + 1]);
-      } else {
-        if (d < g.hd) orow[d] = __float2bfloat16_rn(oacc[jd][2 * h]);
-        if (d + 1 < g.hd) orow[d + 1] = __float2bfloat16_rn(oacc[jd][2 * h + 1]);
-      }
-    }
-  }
+  store_frag_rows<kD>(o + plane * g.Nq * g.hd, g.hd, oacc, n0 + rl, g.Nq, g.hd, 1.f, vec);
 }
 
 // shared memory of pa_fwd_mma_kernel: K and V twice, the key indices and the
@@ -614,6 +615,254 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- The backward's bf16 instantiation on the tensor cores ----
+//
+// K12's stored-P pair (global_attention.cu) on this layout, with the bias
+// gradients in the rows kernel: dp of a (16 query x 16 key) block is dO rows
+// (A) times V rows (B) in ascending 16-column steps on the same 64-grids in
+// both kernels, and ds = P (dp - r) with the one r the rows kernel wrote, so
+// a (query, key) pair gets the same ds bits in both and dq and dk are taken
+// from the same round(ds).
+
+// The largest dynamic shared memory a block may have (227 KB)
+constexpr int kMaxSmemBytes = 232448;
+
+// shared memory of the rows kernel without its bias accumulators: K and V,
+// two buffers each, and two stages of the staged P plane
+template <int kD>
+constexpr int rows_mma_base_bytes() {
+  return 4 * tile_bytes<kD>() + 2 * 4 * kPlaneFloats;
+}
+
+// Backward (1), bf16: dq and the bias gradients for 64 query rows of one
+// head of one batch (a warp 16 of them), two passes over the key tiles in
+// one pipeline of 2 nt steps, V (and K) and P's (64 x 64) tiles streaming
+// two deep. (a) dp = dO . V^T and
+// r = rowsum(dp * P), written to rsum (B, heads, Nq); (b) dp again and ds =
+// P (dp - r) fp32 in registers, which the warp writes over its rows of the
+// staged P tile and rounds to bf16 as the A operand of dq += round(ds) . K,
+// 16 keys at a time; dq = round(dq * scale). Then, for each key tile, a lane
+// owns each (row, key-grid row a) and each (row, key-grid column c) pair
+// that the tile's keys touch and adds the tile's ds of it, in key order, to
+// the row's accumulators: (Kh + Kw) floats a row in shared memory with
+// acc_smem, else the block's own rows of dbias_h and dbias_w. No atomics.
+template <int kD>
+__global__ void __launch_bounds__(kTileThreads, 2)
+    pa_bwd_rows_mma_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout, const float* __restrict__ p,
+                           bf16* __restrict__ dq, float* __restrict__ dbias_h,
+                           float* __restrict__ dbias_w, float* __restrict__ rsum, Dims g,
+                           float scale, int vec, int acc_smem) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int L = tile_ld<kD>(), kT = kTile * L;
+  bf16* const ks = reinterpret_cast<bf16*>(smem_raw);  // K, buffers 0 and 1
+  bf16* const vs = ks + 2 * kT;                         // V, buffers 0 and 1
+  float* const pl = reinterpret_cast<float*>(vs + 2 * kT);  // P, stages 0 and 1
+  const int n0 = blockIdx.x * kTile;
+  const long long plane = (long long)blockIdx.z * g.heads + blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int rl = 16 * warp + gq;  // this thread's rows of the tile: rl, rl + 8
+  const int rows = min(16, g.Nq - n0 - 16 * warp);  // this warp's real rows (<= 0: none)
+  const bf16 *kh = k + plane * g.Nk * g.hd, *vh = v + plane * g.Nk * g.hd;
+  const float* ph = p + plane * g.Nq * g.Nk;
+  const int nt = (g.Nk + kTile - 1) / kTile;
+  // this warp's rows of the bias accumulators (row r at wh + r * Kh, ww + r * Kw)
+  const long long out_row = plane * g.Nq + n0 + 16 * warp;
+  float* const wh = acc_smem ? pl + 2 * kPlaneFloats + 16 * warp * g.Kh : dbias_h + out_row * g.Kh;
+  float* const ww = acc_smem ? pl + 2 * kPlaneFloats + kTile * g.Kh + 16 * warp * g.Kw
+                             : dbias_w + out_row * g.Kw;
+  for (int i = lane; i < rows * g.Kh; i += 32) wh[i] = 0.f;
+  for (int i = lane; i < rows * g.Kw; i += 32) ww[i] = 0.f;
+
+  // this warp's dO rows as A fragments, for the whole block
+  unsigned df[kD / 16][4];
+  load_tile<kD>(vs, dout + plane * g.Nq * g.hd, g.hd, n0, g.Nq, g.hd, vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  load_a<kD>(df, vs + 16 * warp * L);
+  __syncthreads();
+
+  float rs[2] = {0.f, 0.f}, r[2] = {0.f, 0.f};
+  float dqa[kD / 8][4];
+  zero_acc<kD>(dqa);
+  pipeline(
+      2 * nt,
+      [&](int s, int buf) {  // steps nt.. are pass (b)'s, which also reads K
+        const int kt = s < nt ? s : s - nt;
+        if (s >= nt) load_tile<kD>(ks + buf * kT, kh, g.hd, kt * kTile, g.Nk, g.hd, vec);
+        load_tile<kD>(vs + buf * kT, vh, g.hd, kt * kTile, g.Nk, g.hd, vec);
+        load_plane(pl + buf * kPlaneFloats, ph, g.Nq, g.Nk, n0, kt * kTile);
+      },
+      [&](int s, int buf) {
+        if (rows <= 0) return;
+        float* st = pl + buf * kPlaneFloats;
+        if (s < nt) {  // (a) r = rowsum(dp * P)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            float d[2][4];
+            warp_abt_chunk<kD>(d, df, vs + buf * kT, kk);
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float2 pv = plane_pair(st, rl + 8 * h, 16 * kk + 8 * j + 2 * t);
+                rs[h] = __fmaf_rn(d[j][2 * h], pv.x, rs[h]);
+                rs[h] = __fmaf_rn(d[j][2 * h + 1], pv.y, rs[h]);
+              }
+          }
+          return;
+        }
+        if (s == nt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            r[h] = quad_sum(rs[h]);
+            if (t == 0 && n0 + rl + 8 * h < g.Nq) rsum[plane * g.Nq + n0 + rl + 8 * h] = r[h];
+          }
+        }
+        // (b) ds, the bias gradients and dq
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float d[2][4];
+          warp_abt_chunk<kD>(d, df, vs + buf * kT, kk);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float2* at =
+                  reinterpret_cast<float2*>(st + (rl + 8 * h) * kPlaneLd + 16 * kk + 8 * j + 2 * t);
+              const float2 pv = *at;
+              d[j][2 * h] = __fmul_rn(pv.x, __fsub_rn(d[j][2 * h], r[h]));
+              d[j][2 * h + 1] = __fmul_rn(pv.y, __fsub_rn(d[j][2 * h + 1], r[h]));
+              *at = make_float2(d[j][2 * h], d[j][2 * h + 1]);
+            }
+          unsigned a[4];
+          pack_a_chunk(a, d);
+          warp_ax_chunk<kD>(dqa, a, ks + buf * kT, kk);
+        }
+        __syncwarp();
+        // the tile's ds of this warp's rows, summed into the bias
+        // accumulators: a lane takes the (row, bucket) pairs lane, lane + 32,
+        // ... of each sum (the item index stepped without a division)
+        const float* wds = st + 16 * warp * kPlaneLd;
+        const int m0 = (s - nt) * kTile, kn = min(kTile, g.Nk - m0);
+        // dbias_h: grid rows a0 .. a0 + na - 1, each a run of keys
+        const int a0 = m0 / g.Kw, na = (m0 + kn - 1) / g.Kw - a0 + 1;
+        const int dra = 32 / na, daa = 32 - dra * na;
+        for (int rr = lane / na, ai = lane - rr * na; rr < rows;) {
+          const int lo = max((a0 + ai) * g.Kw - m0, 0), hi = min((a0 + ai + 1) * g.Kw - m0, kn);
+          const float* row = wds + rr * kPlaneLd;
+          float sum = 0.f;
+          for (int m = lo; m < hi; ++m) sum += row[m];
+          wh[rr * g.Kh + a0 + ai] += sum;
+          rr += dra;
+          ai += daa;
+          if (ai >= na) {
+            ai -= na;
+            ++rr;
+          }
+        }
+        // dbias_w: the tile's first nc keys' grid columns, each every Kw keys
+        const int nc = min(g.Kw, kn), w0 = m0 % g.Kw;
+        const int drc = 32 / nc, dcc = 32 - drc * nc;
+        for (int rr = lane / nc, c = lane - rr * nc; rr < rows;) {
+          const float* row = wds + rr * kPlaneLd;
+          float sum = 0.f;
+          for (int m = c; m < kn; m += g.Kw) sum += row[m];
+          ww[rr * g.Kw + (w0 + c < g.Kw ? w0 + c : w0 + c - g.Kw)] += sum;
+          rr += drc;
+          c += dcc;
+          if (c >= nc) {
+            c -= nc;
+            ++rr;
+          }
+        }
+      });
+  store_frag_rows<kD>(dq + plane * g.Nq * g.hd, g.hd, dqa, n0 + rl, g.Nq, g.hd, scale, vec);
+  if (acc_smem) {
+    __syncwarp();
+    for (int i = lane; i < rows * g.Kh; i += 32) dbias_h[out_row * g.Kh + i] = wh[i];
+    for (int i = lane; i < rows * g.Kw; i += 32) dbias_w[out_row * g.Kw + i] = ww[i];
+  }
+}
+
+// Backward (2), bf16: dv = round(P)^T . dO and dk = round(ds)^T . Q * scale
+// for 64 keys of one head of one batch (a warp 16 of them), summed over
+// every query tile in order. A warp holds its 16 keys of V as B fragments
+// in registers; Q, dO, P and the rows kernel's r stream in 64-query tiles.
+// For each 16 query rows it computes dp against its keys as the rows kernel
+// does, forms round(P) and ds in registers, and transposes them (movmatrix)
+// into the A operands of dv += P^T . dO and dk += ds^T . Q.
+template <int kD>
+__global__ void __launch_bounds__(kTileThreads, 2)
+    pa_bwd_cols_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout, const float* __restrict__ p,
+                           const float* __restrict__ rsum, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, Dims g, float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int L = tile_ld<kD>(), kT = kTile * L;
+  constexpr int stage = kPlaneFloats + kTile;  // P, then r
+  bf16* const qs = reinterpret_cast<bf16*>(smem_raw);  // Q, buffers 0 and 1
+  bf16* const dos = qs + 2 * kT;                        // dO, buffers 0 and 1
+  float* const pl = reinterpret_cast<float*>(dos + 2 * kT);  // P and r, stages 0 and 1
+  const int m0 = blockIdx.x * kTile;
+  const long long plane = (long long)blockIdx.z * g.heads + blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int cl0 = 16 * warp;  // this warp's keys in the block: m0 + cl0 ..
+  const bool live = m0 + cl0 < g.Nk;
+  const bf16 *qh = q + plane * g.Nq * g.hd, *dh = dout + plane * g.Nq * g.hd;
+  const float* ph = p + plane * g.Nq * g.Nk;
+  const int nt = (g.Nq + kTile - 1) / kTile;
+
+  float dva[kD / 8][4], dka[kD / 8][4];
+  unsigned vf[kD / 16][4];
+  zero_acc<kD>(dva);
+  zero_acc<kD>(dka);
+  load_b_global<kD>(vf, v + plane * g.Nk * g.hd, g.hd, m0 + cl0, g.Nk, g.hd, vec);
+  pipeline(
+      nt,
+      [&](int it, int buf) {
+        load_tile<kD>(qs + buf * kT, qh, g.hd, it * kTile, g.Nq, g.hd, vec);
+        load_tile<kD>(dos + buf * kT, dh, g.hd, it * kTile, g.Nq, g.hd, vec);
+        float* st = pl + buf * stage;
+        load_plane(st, ph, g.Nq, g.Nk, it * kTile, m0);
+        load_vec64(st + kPlaneFloats, rsum + plane * g.Nq + it * kTile, g.Nq - it * kTile);
+      },
+      [&](int it, int buf) {
+        if (!live) return;
+        const float* st = pl + buf * stage;
+        const bf16 *qb = qs + buf * kT, *db = dos + buf * kT;
+#pragma unroll
+        for (int mq = 0; mq < 4; ++mq) {
+          const int rl = 16 * mq + gq;  // this thread's rows of the tile: rl, rl + 8
+          unsigned da[kD / 16][4];
+          load_a<kD>(da, db + 16 * mq * L);
+          float d[2][4], pb[2][4];
+          warp_abt_frag<kD>(d, da, vf);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float r = st[kPlaneFloats + rl + 8 * h];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float2 pv = plane_pair(st, rl + 8 * h, cl0 + 8 * j + 2 * t);
+              d[j][2 * h] = __fmul_rn(pv.x, __fsub_rn(d[j][2 * h], r));
+              d[j][2 * h + 1] = __fmul_rn(pv.y, __fsub_rn(d[j][2 * h + 1], r));
+              pb[j][2 * h] = pv.x;
+              pb[j][2 * h + 1] = pv.y;
+            }
+          }
+          unsigned pa[4], sa[4];
+          pack_at_chunk(pa, pb);
+          pack_at_chunk(sa, d);
+          warp_ax_chunk<kD>(dva, pa, db, mq);
+          warp_ax_chunk<kD>(dka, sa, qb, mq);
+        }
+      });
+  const int m = m0 + cl0 + gq;
+  store_frag_rows<kD>(dv + plane * g.Nk * g.hd, g.hd, dva, m, g.Nk, g.hd, 1.f, vec);
+  store_frag_rows<kD>(dk + plane * g.Nk * g.hd, g.hd, dka, m, g.Nk, g.hd, scale, vec);
+}
+
 Dims dims(int B, int heads, int Nq, int Kh, int Kw, int hd) {
   Dims g;
   g.B = B;
@@ -670,30 +919,76 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
   }
 }
 
+template <int kD>
+cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
+                           const float* p, void* dq, void* dk, void* dv, float* dbias_h,
+                           float* dbias_w, float* rsum, const Dims& g, float scale, int vec,
+                           cudaStream_t stream) {
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
+  // the bias accumulators in shared memory where they fit
+  const int acc = 4 * kTile * (g.Kh + g.Kw);
+  const int acc_smem = rows_mma_base_bytes<kD>() + acc <= kMaxSmemBytes;
+  int smem = rows_mma_base_bytes<kD>() + (acc_smem ? acc : 0);
+  cudaError_t err = cudaFuncSetAttribute(pa_bwd_rows_mma_kernel<kD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  pa_bwd_rows_mma_kernel<kD><<<dim3((g.Nq + kTile - 1) / kTile, g.heads, g.B), kTileThreads, smem,
+                               stream>>>(kb, vb, db, p, static_cast<bf16*>(dq), dbias_h, dbias_w,
+                                         rsum, g, scale, vec, acc_smem);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  smem = 4 * tile_bytes<kD>() + 2 * 4 * (kPlaneFloats + kTile);
+  err = cudaFuncSetAttribute(pa_bwd_cols_mma_kernel<kD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  pa_bwd_cols_mma_kernel<kD><<<dim3((g.Nk + kTile - 1) / kTile, g.heads, g.B), kTileThreads, smem,
+                               stream>>>(qb, vb, db, p, rsum, static_cast<bf16*>(dk),
+                                         static_cast<bf16*>(dv), g, scale, vec);
+  return cudaGetLastError();
+}
+
+// scratch: ds (like p) for fp32, the row statistic r (B, heads, Nq) for bf16
 template <typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                        const float* p, void* dq, void* dk, void* dv, float* dbias_h,
-                       float* dbias_w, float* ds, const Dims& g, float scale,
+                       float* dbias_w, float* scratch, const Dims& g, float scale, int vec,
                        cudaStream_t stream) {
-  const int smem = rows_smem_bytes(g.Nk);
-  cudaError_t err = cudaFuncSetAttribute(pa_bwd_dq_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((g.Nq + kTq - 1) / kTq, g.heads, g.B);
-  pa_bwd_dq_kernel<T><<<grid_q, kThreads, smem, stream>>>(
-      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), p,
-      static_cast<T*>(dq), dbias_h, dbias_w, ds, g, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(pa_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkv_smem_bytes());
-  if (err != cudaSuccess) return err;
-  const dim3 grid_k((g.Nk + kTk - 1) / kTk, g.heads, g.B);
-  pa_bwd_dkv_kernel<T><<<grid_k, kThreads, dkv_smem_bytes(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(dout), p, ds, static_cast<T*>(dk),
-      static_cast<T*>(dv), g, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (g.hd <= 32)
+      return launch_bwd_mma<32>(q, k, v, dout, p, dq, dk, dv, dbias_h, dbias_w, scratch, g, scale,
+                                vec, stream);
+    if (g.hd <= 64)
+      return launch_bwd_mma<64>(q, k, v, dout, p, dq, dk, dv, dbias_h, dbias_w, scratch, g, scale,
+                                vec, stream);
+    if (g.hd <= 96)
+      return launch_bwd_mma<96>(q, k, v, dout, p, dq, dk, dv, dbias_h, dbias_w, scratch, g, scale,
+                                vec, stream);
+    return launch_bwd_mma<128>(q, k, v, dout, p, dq, dk, dv, dbias_h, dbias_w, scratch, g, scale,
+                               vec, stream);
+  } else {
+    const int smem = rows_smem_bytes(g.Nk);
+    cudaError_t err = cudaFuncSetAttribute(pa_bwd_dq_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid_q((g.Nq + kTq - 1) / kTq, g.heads, g.B);
+    pa_bwd_dq_kernel<T><<<grid_q, kThreads, smem, stream>>>(
+        static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), p,
+        static_cast<T*>(dq), dbias_h, dbias_w, scratch, g, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(pa_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dkv_smem_bytes());
+    if (err != cudaSuccess) return err;
+    const dim3 grid_k((g.Nk + kTk - 1) / kTk, g.heads, g.B);
+    pa_bwd_dkv_kernel<T><<<grid_k, kThreads, dkv_smem_bytes(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(dout), p, scratch, static_cast<T*>(dk),
+        static_cast<T*>(dv), g, scale);
+    return cudaGetLastError();
+  }
 }
+
+bool aligned16(const void* x) { return (reinterpret_cast<std::uintptr_t>(x) & 15) == 0; }
 
 }  // namespace
 
@@ -714,8 +1009,7 @@ int skinjax_pooled_attention_fwd(int bf16, const void* q, const void* k, const v
   const Dims g = dims(B, heads, Nq, Kh, Kw, hd);
   if (bad_dims(g)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto al16 = [](const void* x) { return (reinterpret_cast<std::uintptr_t>(x) & 15) == 0; };
-  const int vec = hd % 8 == 0 && al16(q) && al16(k) && al16(v) && al16(o);
+  const int vec = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
   if (bf16)
     return launch_fwd<__nv_bfloat16>(q, k, v, bias_h, bias_w, o, p, g, scale, vec, s);
   return launch_fwd<float>(q, k, v, bias_h, bias_w, o, p, g, scale, vec, s);
@@ -723,18 +1017,22 @@ int skinjax_pooled_attention_fwd(int bf16, const void* q, const void* k, const v
 
 // dout (B, heads, Nq, hd) like o; p the forward's P. Writes dq (like q), dk
 // and dv (like k), dbias_h (B, heads, Nq, Kh) and dbias_w (B, heads, Nq, Kw)
-// fp32, and the scratch ds (like p).
+// fp32, and the fp32 scratch: for float ds (like p), for bfloat16 the row
+// statistic rowsum(dp * P) (B, heads, Nq).
 int skinjax_pooled_attention_bwd(int bf16, const void* q, const void* k, const void* v,
                                  const void* dout, const float* p, void* dq, void* dk, void* dv,
-                                 float* dbias_h, float* dbias_w, float* ds, int B, int heads,
+                                 float* dbias_h, float* dbias_w, float* scratch, int B, int heads,
                                  int Nq, int Kh, int Kw, int hd, float scale, void* stream) {
   const Dims g = dims(B, heads, Nq, Kh, Kw, hd);
   if (bad_dims(g)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                  aligned16(dout) && aligned16(dq) && aligned16(dk) && aligned16(dv);
   if (bf16)
-    return launch_bwd<__nv_bfloat16>(q, k, v, dout, p, dq, dk, dv, dbias_h, dbias_w, ds, g,
-                                     scale, s);
-  return launch_bwd<float>(q, k, v, dout, p, dq, dk, dv, dbias_h, dbias_w, ds, g, scale, s);
+    return launch_bwd<__nv_bfloat16>(q, k, v, dout, p, dq, dk, dv, dbias_h, dbias_w, scratch, g,
+                                     scale, vec, s);
+  return launch_bwd<float>(q, k, v, dout, p, dq, dk, dv, dbias_h, dbias_w, scratch, g, scale, vec,
+                           s);
 }
 
 }  // extern "C"

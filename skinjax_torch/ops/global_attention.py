@@ -41,6 +41,13 @@ skinjax's other recompute triggers are TPU workarounds that the port does
 not carry over (the Mosaic block cap ``4·hg·Np² > 4 MB`` and
 ``SKINJAX_REMAT``; ROADMAP.md, "Leave out of the port").
 
+The stored-P backward's scratch depends on the dtype (``bwd_scratch_shapes``):
+the fp32 kernels pass ds, a plane the size of P, from one launch to the next
+and sum it over the batch for the bias gradient; the bf16 kernels keep ds in
+registers, pass one statistic a query row, rowsum(dp·P), and sum a bias
+gradient over groups of batches (``stored_p_groups``), each into a plane, and
+then over the groups in order.
+
 ``attention_core_plain``, ``attention_core_bwd_plain`` and
 ``attention_core_bwd_recompute_plain`` and ``window_core_bwd_plain`` are the
 plain PyTorch twins,
@@ -71,6 +78,10 @@ STORE_P_MAX_BYTES = 256 * 1024 * 1024
 # blocks the recompute backward's key-column launch aims at when it sums a
 # bias gradient in groups of windows (about eight waves of the H100's 132 SMs)
 BIAS_GROUP_BLOCKS = 1056
+# blocks the bf16 stored-P backward's key-column launch aims at when it sums
+# a bias gradient in groups of batches: one wave of the H100's 132 SMs at its
+# two blocks an SM (more groups add plane traffic and the planes' sum)
+STORED_P_GROUP_BLOCKS = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,7 +90,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "skinjax_global_attention_error_string": ([_I], ctypes.c_char_p),
     "skinjax_global_attention_fwd": ([_I, _P, _P, _P, _L] + [_P] * 5 + [_I] * 4 + [_F, _P], _I),
-    "skinjax_global_attention_bwd": ([_I, _P, _P, _P, _L] + [_P] * 8 + [_I] * 4 + [_F, _P], _I),
+    "skinjax_global_attention_bwd": ([_I, _P, _P, _P, _L] + [_P] * 9 + [_I] * 5 + [_F, _P], _I),
     "skinjax_global_attention_bwd_recompute": (
         [_I, _P, _P, _P, _L] + [_P] * 5 + [_I] + [_P] * 7 + [_I] * 5 + [_F, _P], _I),
 }
@@ -304,21 +315,56 @@ def global_attention_bwd(q, k, v, do, p, pmult, num_heads: int, has_bias: bool):
     B, N, C = q.shape
     check_tensor("do", do, (B, N, C), q.dtype, q.device)
     check_tensor("p", p, (B, num_heads, N, N), torch.float32, q.device)
-    dq, dk, dv = (torch.empty((B, N, C), dtype=q.dtype, device=q.device) for _ in range(3))
-    ds = torch.empty((B, num_heads, N, N), dtype=torch.float32, device=q.device)
-    dbias = (torch.empty((num_heads, N, N), dtype=torch.float32, device=q.device) if has_bias
-             else None)
+    empty = lambda *shape, dt=q.dtype: torch.empty(shape, dtype=dt, device=q.device)  # noqa: E731
+    dq, dk, dv = (empty(B, N, C) for _ in range(3))
+    dbias = empty(num_heads, N, N, dt=torch.float32) if has_bias else None
     if q.numel() == 0:
         return dq, dk, dv, None if dbias is None else dbias.zero_()
+    scratch_shape, partial_shape = bwd_scratch_shapes(q.dtype, B, N, num_heads, has_bias)
+    scratch = empty(*scratch_shape, dt=torch.float32)
+    partial = None if partial_shape is None else empty(*partial_shape, dt=torch.float32)
+    groups = 1 if partial_shape is None else partial_shape[0]
     lib = library()
     err = lib.skinjax_global_attention_bwd(
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
         do.data_ptr(), p.data_ptr(), _ptr(pmult), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        ds.data_ptr(), _ptr(dbias), B, N, C, num_heads, (C // num_heads) ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        scratch.data_ptr(), _ptr(dbias), _ptr(partial), groups, B, N, C, num_heads,
+        (C // num_heads) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     _raise(lib, err, "global_attention_bwd")
     LAUNCHES["global_attention_bwd"] += 1
     return dq, dk, dv, dbias
+
+
+def stored_p_groups(B: int, N: int, num_heads: int) -> int:
+    """The groups of consecutive batches over which the bf16 stored-P
+    backward sums a bias gradient, each into its own (h, Np, Np) fp32 plane
+    (Np = N rounded up to the kernel's 64-key tiles) before the planes are
+    added in order: enough that its key-column launch has about
+    ``STORED_P_GROUP_BLOCKS`` blocks of 64 keys a head, at most B, and no
+    more than keep the planes within ``STORE_P_MAX_BYTES`` (at least one).
+    At BEiT-large (B=32, N=197, 16 heads) 4 groups of 8 batches: 16.8 MB of
+    planes, where the ds plane of the float32 kernels is 79.5 MB."""
+    tiles = -(-N // 64)
+    plane = num_heads * (64 * tiles) ** 2 * 4
+    fit = max(1, STORE_P_MAX_BYTES // plane)
+    return max(1, min(B, fit, -(-STORED_P_GROUP_BLOCKS // (tiles * num_heads))))
+
+
+def bwd_scratch_shapes(dtype: torch.dtype, B: int, N: int, num_heads: int, has_bias: bool):
+    """The fp32 scratch the stored-P backward kernel takes → (its shape, the
+    shape of the bias gradient's group planes or None). float32: ds, a plane
+    the size of P, which its CUDA-core launches pass on and sum over the
+    batch. bfloat16: the row statistic rowsum(dp·P), one value a query row
+    (its tensor-core kernels keep ds in registers), and, with a bias
+    gradient, the planes of the groups the kernel forms (ceil(B / groups)
+    batches each, ``stored_p_groups``), in tiles of 64 × 64."""
+    if dtype == torch.float32:
+        return (B, num_heads, N, N), None
+    if not has_bias:
+        return (B, num_heads, N), None
+    groups = -(-B // -(-B // stored_p_groups(B, N, num_heads)))
+    Np = 64 * -(-N // 64)
+    return (B, num_heads, N), (groups, num_heads, Np, Np)
 
 
 def bias_groups(B: int, N: int, num_heads: int) -> int:

@@ -29,8 +29,12 @@ port"): the VMEM and residual caps of ``pooled_attn_ok``, the query chunking
 of ``pooled_attention_chunked`` and the ``SKINJAX_POOLED_ATTN`` scopes. A
 grid over query tiles needs no chunks, and every call stores P for its
 backward. The kernels' own limits are ``Nk ≤ MAX_KEYS`` (the fp32 kernels
-keep whole score rows in shared memory; the bf16 forward on the tensor cores
-streams them) and ``hd ≤ MAX_HEAD_DIM``.
+keep whole score rows in shared memory; the bf16 kernels on the tensor cores
+stream them) and ``hd ≤ MAX_HEAD_DIM``. The backward takes an fp32 scratch
+whose size depends on the dtype (``bwd_scratch_shape``): the fp32 kernels
+pass ds, a plane the size of P, from one launch to the next; the bf16
+kernels keep ds in registers and pass one statistic a query row,
+rowsum(dp·P).
 
 ``pooled_attention_plain`` and ``pooled_attention_bwd_plain`` are the plain
 PyTorch twins, rounding at the same points. The wrappers dispatch on the
@@ -200,6 +204,14 @@ def pooled_attention_fwd(q, k, v, bias_h, bias_w, k_size: Sequence[int], emit_p:
     return o, p
 
 
+def bwd_scratch_shape(dtype: torch.dtype, B: int, h: int, Nq: int, Nk: int) -> Tuple[int, ...]:
+    """The fp32 scratch the backward kernel takes: ds, a plane the size of P,
+    for float32 (its CUDA-core kernels pass it from one launch to the next);
+    the row statistic rowsum(dp·P), one value a query row, for bfloat16 (its
+    tensor-core kernels keep ds in registers)."""
+    return (B, h, Nq, Nk) if dtype == torch.float32 else (B, h, Nq)
+
+
 def pooled_attention_bwd(q, k, v, do, p, k_size: Sequence[int]):
     """(dq, dk, dv, dbias_h fp32, dbias_w fp32) from the backward kernel
     (CUDA) or its twin (CPU); ``p`` is the forward's P."""
@@ -216,12 +228,13 @@ def pooled_attention_bwd(q, k, v, do, p, k_size: Sequence[int]):
     dbw = torch.empty((B, h, Nq, Kw), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_(), dbh, dbw
-    ds = torch.empty_like(p)
+    scratch = torch.empty(bwd_scratch_shape(q.dtype, B, h, Nq, Kh * Kw), dtype=torch.float32,
+                          device=q.device)
     lib = library()
     err = lib.skinjax_pooled_attention_bwd(
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         p.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbh.data_ptr(),
-        dbw.data_ptr(), ds.data_ptr(), B, h, Nq, Kh, Kw, hd, hd ** -0.5,
+        dbw.data_ptr(), scratch.data_ptr(), B, h, Nq, Kh, Kw, hd, hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise(lib, err, "pooled_attention_bwd")
     LAUNCHES["pooled_attention_bwd"] += 1

@@ -74,5 +74,9 @@ def test_profiled_kernel_names_are_kernels():
     for source in build.CSRC.glob("*.cu"):
         kernels.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?"
                                   r"(\w+)\s*\(", source.read_text()))
-    assert {"mlp_bwd_act_wgmma_kernel", "mlp_bwd_dw_kernel", "ga_bwd_rows_mma_kernel"} <= kernels
+    assert {"mlp_bwd_act_wgmma_kernel", "mlp_bwd_dw_kernel", "ga_bwd_rows_mma_kernel",
+            "ga_bwd_p_rows_mma_kernel", "ga_bwd_p_cols_mma_kernel", "ga_dbias_tiles_kernel",
+            "pa_bwd_rows_mma_kernel", "pa_bwd_cols_mma_kernel"} <= kernels
+    assert set(smoke.K12_KERNELS["global_attention_bwd"]) | set(
+        smoke.K11_KERNELS["pooled_attention_bwd"]) <= kernels
     assert sorted(profiled - kernels) == []

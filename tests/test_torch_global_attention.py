@@ -400,3 +400,29 @@ def test_bias_groups():
     for h in (1, 2, 16, 64):
         N = tga.MAX_TOKENS
         assert tga.bias_groups(65535, N, h) * h * N * N * 4 <= tga.STORE_P_MAX_BYTES
+
+
+def test_stored_p_scratch_and_groups():
+    """What the stored-P backward's wrapper allocates: float32 keeps the ds
+    plane its CUDA-core launches pass on; bfloat16 a row statistic and, with
+    a bias gradient, the planes (in 64 × 64 tiles) of as many groups of
+    batches as give its key-column launch ~STORED_P_GROUP_BLOCKS blocks of 64
+    keys (the groups the kernel forms, ceil(B / groups) batches each), at
+    least one, at most B, their scratch within the stored-P limit wherever
+    one plane is."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert tga.bwd_scratch_shapes(f32, 32, 197, 16, True) == ((32, 16, 197, 197), None)
+    assert tga.bwd_scratch_shapes(bf16, 32, 197, 16, False) == ((32, 16, 197), None)
+    assert tga.stored_p_groups(32, 197, 16) == 4
+    assert tga.bwd_scratch_shapes(bf16, 32, 197, 16, True) == ((32, 16, 197), (4, 16, 256, 256))
+    assert tga.bwd_scratch_shapes(bf16, 1, 197, 16, True) == ((1, 16, 197), (1, 16, 256, 256))
+    assert tga.bwd_scratch_shapes(bf16, 4, 50, 4, True) == ((4, 4, 50), (4, 4, 64, 64))
+    for B in range(1, 70):
+        for N, h in ((1, 1), (50, 4), (197, 16), (512, 12), (1024, 1), (1024, 64)):
+            g = tga.stored_p_groups(B, N, h)
+            assert 1 <= g <= B
+            _, planes = tga.bwd_scratch_shapes(bf16, B, N, h, True)
+            n, _, Np, _ = planes
+            per = -(-B // n)  # the kernel's batches a group, from the count it is given
+            assert n == -(-B // per) and n <= g and Np % 64 == 0 and 0 <= Np - N < 64
+            assert n == 1 or n * h * Np * Np * 4 <= tga.STORE_P_MAX_BYTES

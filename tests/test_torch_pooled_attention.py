@@ -231,3 +231,12 @@ def test_wrapper_checks():
     m = torch.zeros(1, 1, 4, 8, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tpa.pooled_attention_fwd(m, m, m, m[..., :2], m[..., :2], (2, 2), emit_p=False)
+
+
+def test_backward_scratch():
+    """The backward kernel's fp32 scratch: float32 keeps ds, a plane the
+    size of P; bfloat16 one row statistic a query row (its tensor-core
+    kernels keep ds in registers)."""
+    assert tpa.bwd_scratch_shape(torch.float32, 64, 4, 196, 196) == (64, 4, 196, 196)
+    assert tpa.bwd_scratch_shape(torch.bfloat16, 64, 4, 196, 196) == (64, 4, 196)
+    assert tpa.bwd_scratch_shape(torch.bfloat16, 64, 1, 3136, 196) == (64, 1, 3136)
