@@ -36,14 +36,19 @@ sentence dataset. Phases, each printing its lines:
               drawn parameters and with every gate on; K7 forward and
               backward against their twins at DaViT-tiny's four stage shapes,
               B in {1, 64}, bf16 and fp32, and with a relative-position bias
-              and 64 per-window masks (dbias checked); K12 forward (o and P),
+              and 64 per-window masks (dbias checked), two bf16 backward
+              calls bit-identical at stage 1 (B=64) and with bias + masks;
+              K12 forward (o and P),
               stored-P backward and recompute backward (dq, dk, dv, dbias)
               against their twins at BEiT-large's shape with a bias,
               ViT-large's, BERT-base's at 128 and 512 tokens with a padding
               mask and dropout multiplier, GPT-2's at 1024 tokens with the
               causal bias and a padding mask, and N=50 with all three, bf16
               and fp32; the recompute backward against the stored-P one where
-              P is within the 256 MB limit, two bf16 recompute calls at
+              P is within the 256 MB limit, two bf16 forward calls at
+              BEiT-large (P emitted) and BERT-base T=512 bit-identical, the
+              forward's o against the recompute rows kernel's of (bit for
+              bit, logged), two bf16 recompute calls at
               BERT-base T=512 bit-identical, and two bf16 stored-P backward
               calls at BEiT-large (bias gradient summed in groups) and
               BERT-base (kmask + pmult); K11 forward (o and P) and backward
@@ -92,10 +97,12 @@ sentence dataset. Phases, each printing its lines:
               one; one fp32 step of a small DaViT on the card against the CPU
  10. times    the DaViT engine's p50/p95; DaViT train images/s unfrozen and
               frozen; a profiled DaViT train step. (K12's times at BEiT-large's
-              shape, its stored-P backward's also at every other shape within
-              the stored-P limit, split by kernel, its recompute backward's at
-              BERT-base's T=512 one, and
-              K7's at each stage, against their twins and bounds, with
+              shape, its forward's at every shape (P emitted where the
+              stored-P route emits it), its stored-P backward's also at every
+              other shape within the stored-P limit, split by kernel, its
+              recompute backward's at BERT-base's T=512 one, and
+              K7's at each stage and with bias + masks at Swin-tiny's stage
+              0, against their twins and bounds, with
               F.scaled_dot_product_attention on the same q, k, v, forward and
               backward, as a yardstick: each time's share of its bound and its
               factor against the same run's SDPA call; and K4's at each Vd,
@@ -209,7 +216,8 @@ no result, when CUDA is not available or the package is not beside it.
     python3 chip_smoke.py --attention
 
 builds the three attention sources only and runs the checks and times of
-K12 (with the recompute backward's split by kernel at BERT-base T=512: with
+K7's strip pair, K12 (with the recompute backward's split by kernel at
+BERT-base T=512: with
 kmask + pmult, kmask alone and neither), K11 and the K7-pad core, and the
 bf16 stored-P backwards' split by kernel (K12 at BEiT-large over bias-group
 counts, K11 at stages 0 and 2): the quick loop for work on those kernels
@@ -301,15 +309,18 @@ BUILDS = {"fusion_kernels": SOURCE, "augment_kernel": K5_SOURCE, "window_attenti
 KERNEL_NAMES = {"seq1_attention": "seq1_attention_kernel",
                 "gated_residual_seq1": "gated_residual_kernel",
                 "metablock_film": "metablock_film_kernel", "mlp_head": "mlp_head_kernel"}
-# each K7 call's kernels (a call with a bias adds dbias_reduce_kernel)
+# each bf16 K7 call's kernels (a call with a bias adds dbias_reduce_kernel);
+# the backward runs on the tensor cores (its fp32 instantiation keeps
+# wa_bwd_kernel)
 K7_KERNELS = {"window_attention_fwd": ["wa_fwd_kernel", "proj_kernel"],
-              "window_attention_bwd": ["wa_bwd_kernel"]}
+              "window_attention_bwd": ["wa_bwd_mma_kernel"]}
 # each bf16 K12 call's kernels at BEiT's shape (the stored-P backward's last
 # one adds the bias gradient's group planes, in tiles, into dbias's layout;
-# without a bias gradient it is not launched); both backwards run on the
-# tensor cores (their fp32 instantiations keep ga_bwd_dq_kernel and
-# ga_bwd_dkv_kernel, ga_bwd_rows_kernel and ga_bwd_cols_kernel)
-K12_KERNELS = {"global_attention_fwd": ["ga_fwd_kernel"],
+# without a bias gradient it is not launched); the forward and both
+# backwards run on the tensor cores (their fp32 instantiations keep
+# ga_fwd_kernel, ga_bwd_dq_kernel and ga_bwd_dkv_kernel, ga_bwd_rows_kernel
+# and ga_bwd_cols_kernel)
+K12_KERNELS = {"global_attention_fwd": ["ga_fwd_mma_kernel"],
                "global_attention_bwd": ["ga_bwd_p_rows_mma_kernel", "ga_bwd_p_cols_mma_kernel",
                                         "ga_dbias_tiles_kernel"],
                K12_RECOMPUTE: ["ga_bwd_rows_mma_kernel", "ga_bwd_cols_mma_kernel"]}
@@ -356,6 +367,14 @@ BF16_OPS_PER_S = 989e12
 # stage; window 7, 32 channels a head
 K7_STAGES = ((56, 96, 3), (28, 192, 6), (14, 384, 12), (7, 768, 24))
 K7_BATCHES = (1, 64)
+# K7 with a relative-position bias (B, map side, channels, heads, bias,
+# shifted-window masks): a few windows at stage 0 (one a bias block), a
+# count of windows that the bias blocks do not divide (320 over 256), and
+# Swin-tiny's four stages at its train batch, where a bias block sums dbias
+# over 16, 4, 1 and 1 windows (the last stage, one window a map, unshifted)
+K7_BIAS_CASES = ((4, 56, 96, 3, True, True), (5, 56, 96, 3, True, True),
+                 (64, 56, 96, 3, True, True), (64, 28, 192, 6, True, True),
+                 (64, 14, 384, 12, True, True), (64, 7, 768, 24, True, False))
 WINDOW = 7
 K7_PER_FORWARD = 6  # one per spatial block: depths (1, 1, 3, 1)
 K7_SERVED = {"window_attention_fwd": K7_PER_FORWARD, "window_attention_bwd": 0,
@@ -402,6 +421,12 @@ K12_SHAPES = {"beitv2-large": (32, 197, 1024, 16, True, False, False),
               "caformer-b36-s4": (32, 49, 768, 24, False, False, False)}
 K12_PER_FORWARD = 24  # one per block of BEiT-large and ViT-large
 K12_SAME_SHAPE = "bert-base-T512"  # where two recompute calls must be bit-identical
+# where two bf16 forward calls must be bit-identical: P emitted with a bias,
+# and kmask + pmult without P
+K12_FWD_SAME_SHAPES = ("beitv2-large", "bert-base-T512")
+# where the forward without P is held against the twin and, in bf16, against
+# the o of the call with P, bit for bit (its own shared memory; no P staged)
+K12_NO_P_SHAPES = ("beitv2-large", "bert-base-T512")
 # where two bf16 stored-P backward calls must be bit-identical: the bias
 # gradient summed over groups of batches, and kmask + pmult
 K12_P_SAME_SHAPES = ("beitv2-large", "bert-base")
@@ -1035,15 +1060,20 @@ def k7_inputs(B, side, C, heads, dtype, device, seed, bias=False, mask=False):
 def phase_k7(wa, device):
     """K7 forward and backward against their twins at DaViT-tiny's stage
     shapes, B in {1, 64}, bf16 (BF16_TOL) and fp32 (F32_TOL, TF32 off), and
-    one bias + mask case; the backward's dqkv, of and dbias."""
+    at the cases with a bias (``K7_BIAS_CASES``); the backward's dqkv, of
+    and dbias. Two bf16 backward calls bit-identical at stage 1, B=64, and
+    at every bias case (dbias summed in a fixed order, one window or several
+    a block)."""
     import torch
 
     errors = {name: 0.0 for name in K7}
-    cases = [(B, *stage, False) for stage in K7_STAGES for B in K7_BATCHES] + [(4, 56, 96, 3, True)]
-    for B, side, C, h, extra in cases:
+    cases = [(B, *stage, False, False) for stage in K7_STAGES for B in K7_BATCHES]
+    cases += list(K7_BIAS_CASES)
+    for B, side, C, h, bias, mask in cases:
+        extras = " bias+mask" if mask else " bias" if bias else ""
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-            args, dy, b, m = k7_inputs(B, side, C, h, dtype, device, seed=B + side, bias=extra,
-                                       mask=extra)
+            args, dy, b, m = k7_inputs(B, side, C, h, dtype, device, seed=B + side, bias=bias,
+                                       mask=mask)
             x, wqkv, bqkv, wproj, _ = args
             results = [("window_attention_fwd", "y",
                         wa.window_attention_fwd(*args, b, m, h, WINDOW),
@@ -1052,15 +1082,28 @@ def phase_k7(wa, device):
             want = wa.window_attention_nhwc_bwd_plain(x, dy, wqkv, bqkv, wproj, b, m, h, WINDOW)
             torch.cuda.synchronize()
             check((got[2] is None) == (want[2] is None), "dbias present on one side only")
+            if dtype == torch.bfloat16 and (bias or (B, side) == (K7_BATCHES[-1], 56)):
+                again = wa.window_attention_bwd(x, dy, wqkv, bqkv, wproj, b, m, h, WINDOW)
+                same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again) if a_ is not None)
+                n_win = B * (side // WINDOW) ** 2
+                blocks = wa.bwd_blocks(n_win, bias)
+                log(f"kernel window_attention_bwd {str(dtype):14s} B={B:2d} {side}x{side} C={C} "
+                    f"h={h}{extras} ({n_win} windows, {blocks} blocks, up to "
+                    f"{-(-n_win // blocks)} windows a block): two calls bit-identical: {same}")
+                check(same, f"two window_attention_bwd calls differ at B={B} {side}x{side}{extras}")
+                del again
             results += [("window_attention_bwd", part, o, r)
                         for part, o, r in zip(("dqkv", "of", "dbias"), got, want) if r is not None]
             for name, part, out, ref in results:
                 err, ok = compare(out, ref, tol)
                 errors[name] = max(errors[name], err)
                 log(f"kernel {name} {part:5s} {str(dtype):14s} B={B:2d} {side}x{side} C={C} h={h}"
-                    f"{' bias+mask' if extra else ''}: max_abs_err={err:.3e} tol=atol {tol[0]:g} "
+                    f"{extras}: max_abs_err={err:.3e} tol=atol {tol[0]:g} "
                     f"+ rtol {tol[1]:g}·|twin| {'ok' if ok else 'FAIL'}")
-                check(ok, f"{name} {part} disagrees with its twin at B={B} {side}x{side} {dtype}")
+                check(ok, f"{name} {part} disagrees with its twin at B={B} {side}x{side}{extras} "
+                          f"{dtype}")
+            del args, dy, b, m, x, wqkv, bqkv, wproj, results, got, want
+    torch.cuda.empty_cache()
     return errors
 
 
@@ -1105,7 +1148,13 @@ def phase_k12(ga, device):
     stored-P backward's CUDA-core sums, so the two agree at the twins'
     tolerances (printed as is). At ``K12_SAME_SHAPE`` two bf16 recompute
     calls are bit-identical, at ``K12_P_SAME_SHAPES`` two bf16 stored-P
-    backward calls."""
+    backward calls; at ``K12_FWD_SAME_SHAPES`` two bf16 forward calls (P
+    included where emitted); at ``K12_NO_P_SHAPES`` the forward without P
+    against the twin and, in bf16, against the o of the call with P, bit for
+    bit. At every shape with no kmask and no pmult the bf16 forward's o is
+    held against the recompute rows kernel's of (the padded window core's
+    output, round(round(P).v) from the same scores and the same
+    online_softmax): the two must be bit for bit the same."""
     import torch
 
     errors = {name: 0.0 for name in K12}
@@ -1122,6 +1171,38 @@ def phase_k12(ga, device):
             torch.cuda.synchronize()
             check((got[3] is None) == (want[3] is None) == (rec[3] is None),
                   "dbias present on one side only")
+            if label in K12_FWD_SAME_SHAPES and dtype == torch.bfloat16:
+                again = ga.global_attention_fwd(q, k, v, b, km, pm, h, emit_p=True)
+                same = torch.equal(o, again[0]) and torch.equal(p, again[1])
+                log(f"kernel global_attention_fwd {str(dtype):14s} {label}: two calls "
+                    f"bit-identical (o and P): {same}")
+                check(same, f"two global_attention_fwd calls differ at {label}")
+                del again
+            if label in K12_NO_P_SHAPES:
+                o_np, p_np = ga.global_attention_fwd(q, k, v, b, km, pm, h, emit_p=False)
+                torch.cuda.synchronize()
+                check(p_np is None, f"global_attention_fwd emitted P unasked at {label}")
+                err, ok = compare(o_np, ro, tol)
+                errors["global_attention_fwd"] = max(errors["global_attention_fwd"], err)
+                same = torch.equal(o_np, o)
+                log(f"kernel global_attention_fwd o     {str(dtype):14s} {label} without P: "
+                    f"max_abs_err={err:.3e} tol=atol {tol[0]:g} + rtol {tol[1]:g}·|twin| "
+                    f"{'ok' if ok else 'FAIL'}; bit for bit the o of the call with P: {same}")
+                check(ok, f"global_attention_fwd without P disagrees with its twin at {label} "
+                          f"{dtype}")
+                if dtype == torch.bfloat16:
+                    check(same, f"the bf16 forward's o differs with and without P at {label}")
+                del o_np
+            if dtype == torch.bfloat16 and km is None and pm is None:
+                of = ga.window_core_bwd(q, k, v, do, b, None, h, False)[3]
+                torch.cuda.synchronize()
+                same = torch.equal(o, of)
+                log(f"kernel global_attention_fwd {str(dtype):14s} {label}: o equals the "
+                    f"recompute rows kernel's of bit for bit: {same} (max abs "
+                    f"difference {float((o.float() - of.float()).abs().max()):.3e})")
+                check(same, f"the bf16 forward's o and the recompute rows kernel's of differ at "
+                            f"{label}")
+                del of
             if label == K12_SAME_SHAPE and dtype == torch.bfloat16:
                 again = ga.global_attention_bwd_recompute(q, k, v, do, b, km, pm, h, grad_bias)
                 same = all(torch.equal(x, y) for x, y in zip(rec, again) if x is not None)
@@ -1169,19 +1250,22 @@ def phase_k12(ga, device):
     return errors
 
 
-def k12_bound(B, N, C, heads, itemsize, kind, bias=True, grad_bias=True):
+def k12_bound(B, N, C, heads, itemsize, kind, bias=True, grad_bias=True, emit_p=True,
+              kmask=False, pmult=False):
     """The least time (ms) for one K12 call: every input read once and every
     output written once over the HBM rate, against its products over the
     bf16 tensor-core rate (2·B·N²·C operations each). Forward: q, k, v, the
-    bias → o, P; two products. Stored-P backward: q, k, v, do, P → dq, dk,
-    dv, dbias; four products. Recompute backward: q, k, v, do, the bias, the
-    kmask and pmult → dq, dk, dv, dbias; five products (the scores, dp, dv,
-    dq, dk). Returns (ms, bytes, operations)."""
+    bias, kmask and pmult → o, and P when emitted; two products. Stored-P
+    backward: q, k, v, do, P → dq, dk, dv, dbias; four products. Recompute
+    backward: q, k, v, do, the bias, the kmask and pmult → dq, dk, dv,
+    dbias; five products (the scores, dp, dv, dq, dk). Returns (ms, bytes,
+    operations)."""
     act = B * N * C * itemsize
     plane = heads * N * N * 4
     product = 2 * B * N * N * C
     if kind == "fwd":
-        nbytes, ops = 4 * act + bias * plane + B * plane, 2 * product
+        nbytes = 4 * act + bias * plane + emit_p * B * plane + kmask * B * N * 4 + pmult * N * N * 4
+        ops = 2 * product
     elif kind == "bwd":
         nbytes, ops = 7 * act + B * plane + grad_bias * plane, 4 * product
     else:
@@ -1277,7 +1361,67 @@ def phase_k12_times(ga, device, card):
         f"backward {ms_us(library[K12_RECOMPUTE])} (forwards by CUDA events; backwards "
         f"the device time of autograd's backward alone, torch.profiler)")
     del q, k, v, do, b, p, q2, k2, v2, do2, km2, pm2, calls
+    phase_k12_fwd_shapes(ga, device, card)
     phase_k12_p_shapes(ga, device, card)
+    return out
+
+
+def sdpa_mask(b, km):
+    """SDPA's additive attn_mask for K12's bias (or causal bias) and key
+    mask, bf16 (None without either; SDPA takes no pmult)."""
+    import torch
+
+    mask = None if b is None else b.to(torch.bfloat16)[None]
+    if km is not None:
+        kmb = km.to(torch.bfloat16)[:, None, None]
+        mask = kmb if mask is None else mask + kmb
+    return mask
+
+
+def sdpa_fwd_ms(q, k, v, mask, h):
+    """F.scaled_dot_product_attention's forward on the same (B, N, C) q, k, v
+    as (B, h, N, hd) with ``mask`` as its attn_mask (the port never calls
+    it): the mean of two runs of 20 calls by CUDA events."""
+    import torch
+    import torch.nn.functional as F
+
+    B, N, C = q.shape
+    qh, kh, vh = (t.reshape(B, N, h, C // h).transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    return (time_ms(fwd, 20, 3) + time_ms(fwd, 20, 3)) / 2
+
+
+def phase_k12_fwd_shapes(ga, device, card):
+    """The bf16 forward at every shape of K12_SHAPES, emitting P where the
+    stored-P route does (its P within STORE_P_MAX_BYTES) and without it
+    where the recompute route runs (BERT-base and GPT-2 at T=512, GPT-2 at
+    T=1024): per call and device time against the twin, the bound and the
+    same run's SDPA forward, with the bias, the causal bias or the key mask
+    as its attn_mask (SDPA takes no pmult)."""
+    import torch
+
+    out = {}
+    for label, (B, N, C, h, bias, kmask, pmult) in K12_SHAPES.items():
+        emit_p = B * h * N * N * 4 <= ga.STORE_P_MAX_BYTES
+        (q, k, v), _, b, km, pm = k12_inputs(B, N, C, h, bias, kmask, pmult, torch.bfloat16,
+                                             device, seed=N + C)
+        extras = "+".join(n for n, on in (("bias" if bias is True else "causal bias", bias),
+                                          ("kmask", kmask), ("pmult", pmult)) if on) or "no extras"
+        out[label] = time_record(
+            card, "global_attention_fwd",
+            f"{label} B={B} N={N} C={C} h={h} {extras}, {'P emitted' if emit_p else 'no P'}",
+            lambda: ga.global_attention_fwd(q, k, v, b, km, pm, h, emit_p),  # noqa: B023
+            lambda: ga.attention_core_plain(q, k, v, b, km, pm, h),  # noqa: B023
+            K12_KERNELS["global_attention_fwd"],
+            k12_bound(B, N, C, h, 2, "fwd", bias=b is not None, emit_p=emit_p,
+                      kmask=km is not None, pmult=pm is not None),
+            sdpa_fwd_ms(q, k, v, sdpa_mask(b, km), h))
+        del q, k, v, b, km, pm
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1296,10 +1440,7 @@ def phase_k12_p_shapes(ga, device, card):
         (q, k, v), do, b, km, pm = k12_inputs(B, N, C, h, bias, kmask, pmult, torch.bfloat16,
                                               device, seed=N + C)
         _, p = ga.global_attention_fwd(q, k, v, b, km, pm, h, emit_p=True)
-        mask = None if b is None else b.to(torch.bfloat16)[None]
-        if km is not None:
-            kmb = km.to(torch.bfloat16)[:, None, None]
-            mask = kmb if mask is None else mask + kmb
+        mask = sdpa_mask(b, km)
         extras = "+".join(n for n, on in (("bias" if bias is True else "causal bias", bias),
                                           ("kmask", kmask), ("pmult", pmult)) if on) or "no extras"
         names = K12_KERNELS["global_attention_bwd"][:3 if grad_bias else 2]
@@ -2417,15 +2558,18 @@ def phase_k5_times(ak, device, card, batch):
     return k5
 
 
-def k7_bound(B, side, C, itemsize, backward):
+def k7_bound(B, side, C, itemsize, backward, heads=0, masks=0):
     """The least time (ms) for one K7 call: every input read once and every
     output written once over the HBM rate, against its products over the
     bf16 tensor-core rate. Forward: x, the weights → y; 2·C·4C operations a
     token for the projections, 4·N·C for scores and p·v. Backward: x, dy,
     the weights → dqkv, of; the projections recomputed, 12·N·C for the
-    six attention products."""
+    six attention products. With ``heads``, a bias (heads, N, N) fp32 read
+    (and in the backward its gradient written); with ``masks``, that many
+    (N, N) fp32 mask planes read."""
     T, N = B * side * side, WINDOW * WINDOW
-    weights = (4 * C * C + 4 * C) * itemsize
+    weights = (4 * C * C + 4 * C) * itemsize + (1 + backward) * heads * N * N * 4
+    weights += masks * N * N * 4
     if backward:
         nbytes = (2 * T * C + 4 * T * C) * itemsize + weights - C * itemsize
         ops = 2 * T * C * 4 * C + 12 * T * N * C
@@ -2523,6 +2667,32 @@ def phase_k7_times(wa, device, card):
             f"F.scaled_dot_product_attention alone on the same (nB, h, 49, 32) q, k, v (the "
             f"attention core only): forward {ms_us(core['window_attention_fwd'])}, backward "
             f"{ms_us(core['window_attention_bwd'])}")
+
+    # the bias + mask case at Swin-tiny's stage 0 (its strip route): a
+    # relative-position bias with a gradient and 64 shifted-window masks
+    side, C, h = K7_STAGES[0]
+    args, dy, b, m = k7_inputs(B, side, C, h, torch.bfloat16, device, seed=23, bias=True,
+                               mask=True)
+    x, wqkv, bqkv, wproj, _ = args
+    n_win = m.shape[0]
+    attn = (b[None] + m[:, None]).to(torch.bfloat16).repeat(B, 1, 1, 1)  # (B n_win, h, N, N)
+    q, k, v = (t.contiguous() for t in wa._windows_qkv(x, wqkv, bqkv, h, WINDOW))
+    do = torch.randn(q.shape, generator=torch.Generator(device=device).manual_seed(24),
+                     device=device).to(q.dtype)
+    core_bwd = sdpa_head_times(q, k, v, do, attn)[1]
+    chain_bwd = window_chain_times(wa, x, wqkv, bqkv, wproj, args[4], attn, h, dy)[1]
+    name = "window_attention_bwd"
+    out[(name, "bias+mask")] = time_record(
+        card, name, f"B={B} {side}x{side} C={C} h={h} bias+mask",
+        lambda: wa.window_attention_bwd(x, dy, wqkv, bqkv, wproj, b, m, h, WINDOW),
+        lambda: wa.window_attention_nhwc_bwd_plain(x, dy, wqkv, bqkv, wproj, b, m, h, WINDOW),
+        [*K7_KERNELS[name], "dbias_reduce_kernel"],
+        k7_bound(B, side, C, 2, True, heads=h, masks=n_win), chain_bwd)
+    log(f"[{card}] time the same function as PyTorch calls bf16 at {side}x{side} with the bias "
+        f"and masks as SDPA's attn_mask: backward to dqkv {ms_us(chain_bwd)} (device time); "
+        f"F.scaled_dot_product_attention's backward alone {ms_us(core_bwd)}")
+    del x, wqkv, bqkv, wproj, args, dy, b, m, attn, q, k, v, do
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3633,6 +3803,7 @@ def attention_only() -> int:
         m.library()
     log(f"phase build: {len(names)} sources at once, {time.perf_counter() - t0:.1f} s")
     log_ptxas(build, names)
+    phase_k7(wa, device)
     phase_k12(ga, device)
     phase_k11(pa, device)
     phase_k7pad(wa, ga, device)
@@ -3640,6 +3811,7 @@ def attention_only() -> int:
     phase_bwd_p_split(ga, pa, device, card)
     phase_k12_times(ga, device, card)
     phase_k11_times(pa, device, card)
+    phase_k7_times(wa, device, card)
     phase_k7pad_times(wa, ga, device, card)
     torch.cuda.synchronize()
     print(json.dumps({"ok": True, "attention": True}), flush=True)

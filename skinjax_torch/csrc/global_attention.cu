@@ -33,12 +33,16 @@
 // ViT/BEiT at 224x224), and P is kept as (B, heads, N, N), not Mosaic's
 // (groups, B, heads/group, Np, Np).
 //
-// Launches. Forward: one launch, a block per (32 query rows, head, batch),
-// which holds its 32 score rows in shared memory (so N <= 1024), streams K and
-// then V through shared memory 128 keys at a time, and does the softmax a warp
-// a row. The Pallas backwards sum dk, dv over every query and dbias over the
-// batch across their sequential grid; blocks here run in no order, so each
-// backward is a few launches with no atomics.
+// Launches. Forward: one launch. bf16 (the main path under autocast):
+// ga_fwd_mma_kernel, a block per (64 query rows, head, batch) on the tensor
+// cores (below, after the recompute rows kernel, whose score code and steps
+// it shares). fp32 (the card-vs-CPU and fp32 twin checks at 1e-4; TF32 would
+// not hold them): ga_fwd_kernel, a block per (32 query rows, head, batch),
+// which holds its 32 score rows in shared memory, streams K and then V
+// through shared memory 128 keys at a time as fp32 FMAs on the CUDA cores,
+// and does the softmax a warp a row. The Pallas backwards sum dk, dv over
+// every query and dbias over the batch across their sequential grid; blocks
+// here run in no order, so each backward is a few launches with no atomics.
 //
 // Stored-P backward, bf16 (the main path under autocast), on the tensor
 // cores (no ds of size B.heads.N^2 in memory; one fp32 statistic a query
@@ -116,9 +120,20 @@
 // (dp three times) where the bound counts four, reads P three times (its
 // rows kernel's second pass mostly from L2) and re-reads K and V once a
 // query tile from L2; its rows and columns of 64 leave a quarter of the
-// blocks near-idle at N = 197. The forward is the first version: fp32 FMAs
-// on the CUDA cores from shared-memory tiles (4x4 and 4x2 outputs a thread),
-// no mma, no TMA. PERF.md records how far each is from its bound.
+// blocks near-idle at N = 197. The forward's fp32 kernel computes every
+// product as fp32 FMAs on the CUDA cores from shared-memory tiles (4x4 and
+// 4x2 outputs a thread), with 32 whole fp32 score rows a block in shared
+// memory and an expf and a division an element: FMAs and shared-memory
+// traffic bound it, not its bytes. The bf16 kernel computes the scores twice
+// on the tensor cores (four products where the bound counts two), so that P
+// is normalised before it is rounded, as the Pallas kernel rounds it; keeps
+// the score tile, P and o in registers; streams K, V and the fp32 planes by
+// cp.async (the bias by 16-byte copies, from rows that the wrapper pads to a
+// multiple of 4 floats where N is not one: 4-byte copies, 32 a thread a tile,
+// would bound the call at BEiT's N = 197); and writes P a row at a time from
+// shared memory, 32 consecutive keys a store, with streaming
+// stores. Its instructions bound it more than P's bytes. PERF.md records how
+// far each is from its bound.
 // Limits: N <= 1024 (the CUDA-core kernels keep whole score rows in shared
 // memory), hd <= 64.
 //
@@ -194,6 +209,7 @@ struct Dims {
   const float* wmask;  // the window mask (n_win, N, N) fp32, or null
   int n_win;           // batch b adds plane b % n_win of it
   int vec;             // the bf16 tensor-core kernels may copy 16 bytes at a time
+  int bias_ld;         // row stride of the bias (heads, N, bias_ld) in floats, >= N
 };
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -205,7 +221,7 @@ __device__ __forceinline__ float score(float a, float scale, const float* __rest
                                        const float* __restrict__ kmask, const Dims& g, int hi,
                                        int b, int n, int m) {
   a = __fmul_rn(a, scale);
-  if (bias) a = __fadd_rn(a, bias[((long long)hi * g.N + n) * g.N + m]);
+  if (bias) a = __fadd_rn(a, bias[((long long)hi * g.N + n) * g.bias_ld + m]);
   if (g.wmask) a = __fadd_rn(a, g.wmask[((long long)(b % g.n_win) * g.N + n) * g.N + m]);
   if (kmask) a = __fadd_rn(a, kmask[(long long)b * g.N + m]);
   return a;
@@ -778,7 +794,8 @@ __device__ __forceinline__ void load_stage(float* st, const Stage& ly, const flo
                                            const float* kmask, const float* pmult, const Dims& g,
                                            int hi, int b, int r0, int c0) {
   const long long nn = (long long)g.N * g.N;
-  if (ly.bias >= 0) load_plane(st + ly.bias, bias + hi * nn, g.N, g.N, r0, c0);
+  if (ly.bias >= 0)
+    load_plane(st + ly.bias, bias + hi * g.N * (long long)g.bias_ld, g.N, g.N, r0, c0, g.bias_ld);
   if (ly.mask >= 0) load_plane(st + ly.mask, g.wmask + (b % g.n_win) * nn, g.N, g.N, r0, c0);
   if (ly.pmult >= 0) load_plane(st + ly.pmult, pmult, g.N, g.N, r0, c0);
   if (ly.kmask >= 0) load_vec64(st + ly.kmask, kmask + (long long)b * g.N + c0, g.N - c0);
@@ -836,12 +853,6 @@ __device__ __forceinline__ void scores_chunk(float (&s)[2][4], float scale, cons
 __device__ __forceinline__ void dprob_chunk(float (&d)[2][4], const float* st, const Stage& ly,
                                             int rl, int cl0) {
   if (ly.pmult >= 0) plane_chunk<true>(d, st + ly.pmult, rl, cl0);
-}
-
-// P from a score, its row's max times log2(e) and 1 / sum: the one
-// expression both kernels use
-__device__ __forceinline__ float prob(float s, float mxl, float inv) {
-  return __fmul_rn(ex2(__fmaf_rn(s, kLog2e, -mxl)), inv);
 }
 
 // shared memory of the bf16 kernels: K and V (rows kernel) or Q and dO (cols
@@ -920,41 +931,20 @@ __global__ void __launch_bounds__(kTileThreads, 3)
         scores_chunk(s[u], scale, st, ly, rl, 16 * (2 * half + u), kend);
         dprob_chunk(d[u], st, ly, rl, 16 * (2 * half + u));
       }
+      float sc[2], sd[2] = {0.f, 0.f};
+      online_softmax(s, mx, l, sc, [&](int h, int u, int j, int c, float e) {
+        sd[h] += __fmul_rn(d[u][j][2 * h + c], e);
+      });
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float tm = -CUDART_INF_F;
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) tm = fmaxf(tm, fmaxf(s[u][j][2 * h], s[u][j][2 * h + 1]));
-        const float mn = fmaxf(mx[h], quad_max(tm));
-        const float mnl = mn * kLog2e;
-        const float sc = ex2(__fmaf_rn(mx[h], kLog2e, -mnl));
-        float se = 0.f, sd = 0.f;
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const float e = ex2(__fmaf_rn(s[u][j][2 * h + c], kLog2e, -mnl));
-              se += e;
-              sd += __fmul_rn(d[u][j][2 * h + c], e);
-            }
-        l[h] = l[h] * sc + se;
-        rs[h] = rs[h] * sc + sd;
-        mx[h] = mn;
-      }
+      for (int h = 0; h < 2; ++h) rs[h] = rs[h] * sc[h] + sd[h];
     }
   });
   const long long plane = (long long)g.B * g.heads * N;  // one statistic
   const long long row0 = ((long long)b * g.heads + hi) * N + n0;
   float inv[2], mxl[2];
+  softmax_finish(mx, l, inv, mxl);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    l[h] = quad_sum(l[h]);
-    inv[h] = 1.f / l[h];
-    mxl[h] = mx[h] * kLog2e;
     rs[h] = __fmul_rn(quad_sum(rs[h]), inv[h]);
     if (t == 0 && n0 + rl + 8 * h < N) {
       stats[row0 + rl + 8 * h] = mx[h];
@@ -997,6 +987,130 @@ __global__ void __launch_bounds__(kTileThreads, 3)
   const long long out0 = (long long)b * N * g.C + hi * g.hd;
   if constexpr (kOf) store_frag_rows<kD>(of + out0, g.C, oacc, n0 + rl, N, g.hd, 1.f, g.vec);
   store_frag_rows<kD>(dq + out0, g.C, dqa, n0 + rl, N, g.hd, scale, g.vec);
+}
+
+// Forward, bf16, on the tensor cores: o for 64 query rows of one head of one
+// batch (a warp 16 of them), and P when p is not null. This warp's Q rows sit
+// in registers as A fragments; K (and, in (b), V) tiles of 64 keys and the
+// staged bias and kmask (and, in (b), pmult) tiles stream two deep by
+// cp.async, a pipeline for each of the two passes. (a) The scores and a
+// row's online max m and sum l of exp(s - m), in the recompute rows kernel's
+// steps (32 keys a step) and its online_softmax and softmax_finish, so m and
+// l are its bits for the same inputs; (b) the scores again, P = prob(s)
+// before pmult, then round(P * pmult) packed in registers as the A operand
+// of o += . V, 16 keys at a time; o = round(o). A warp stages its 16 rows of a tile's P in shared
+// memory (over its rows of the staged bias tile, which it has read by then,
+// or in a plane of their own) and writes them a row at a time, 32
+// consecutive keys a store, with streaming stores.
+template <int kD>
+__global__ void __launch_bounds__(kTileThreads, 4)
+    ga_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const float* __restrict__ bias,
+                      const float* __restrict__ kmask, const float* __restrict__ pmult,
+                      bf16* __restrict__ o, float* __restrict__ p, Dims g, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int L = tile_ld<kD>(), kT = kTile * L;
+  bf16* const ks = reinterpret_cast<bf16*>(smem_raw);  // K, buffers 0 and 1
+  bf16* const vs = ks + 2 * kT;                         // V, buffers 0 and 1
+  float* const pl = reinterpret_cast<float*>(vs + 2 * kT);  // staged planes, stages 0 and 1
+  const Stage ly = stage_layout(bias, false, pmult, kmask, false);
+  Stage la = ly;  // pass (a) stages no pmult
+  la.pmult = -1;
+  const int N = g.N;
+  const int n0 = blockIdx.x * kTile, hi = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int rl = 16 * warp + gq;  // this thread's rows of the tile: rl, rl + 8
+  const long long head = (long long)b * N * g.ld + hi * g.hd;
+  const bf16 *kh = k + head, *vh = v + head;
+  const int nt = (N + kTile - 1) / kTile;
+  float* const ph = p ? p + ((long long)b * g.heads + hi) * N * N : nullptr;
+
+  unsigned qf[kD / 16][4];  // this warp's q rows as A fragments, for the whole block
+  load_tile<kD>(ks, q + head, g.ld, n0, N, g.hd, g.vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  load_a<kD>(qf, ks + 16 * warp * L);
+  __syncthreads();
+
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, inv[2], mxl[2];
+  float oacc[kD / 8][4];
+  zero_acc<kD>(oacc);
+  auto load_a_step = [&](int kt, int buf) {
+    load_tile<kD>(ks + buf * kT, kh, g.ld, kt * kTile, N, g.hd, g.vec);
+    load_stage(pl + buf * ly.floats, la, bias, kmask, pmult, g, hi, b, n0, kt * kTile);
+  };
+  auto load_b_step = [&](int kt, int buf) {
+    load_tile<kD>(ks + buf * kT, kh, g.ld, kt * kTile, N, g.hd, g.vec);
+    load_tile<kD>(vs + buf * kT, vh, g.ld, kt * kTile, N, g.hd, g.vec);
+    load_stage(pl + buf * ly.floats, ly, bias, kmask, pmult, g, hi, b, n0, kt * kTile);
+  };
+  // (a) online max and sum, 32 keys at a time
+  auto pass_a = [&](int kt, int buf) {
+    const float* st = pl + buf * ly.floats;
+    const int kend = N - kt * kTile;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float sc2[2][2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) warp_abt_chunk<kD>(sc2[u], qf, ks + buf * kT, 2 * half + u);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        scores_chunk(sc2[u], scale, st, ly, rl, 16 * (2 * half + u), kend);
+      online_softmax(sc2, mx, l);
+    }
+  };
+  // (b) P, and o += round(P * pmult) . V, 16 keys at a time
+  auto pass_b = [&](int kt, int buf) {
+    float* const st = pl + buf * ly.floats;
+    const int m0 = kt * kTile, kend = N - m0;
+    float* const pst = ly.bias >= 0 ? st + ly.bias : pl + 2 * ly.floats;  // P's staging rows
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float sc[2][4];
+      warp_abt_chunk<kD>(sc, qf, ks + buf * kT, kk);
+      scores_chunk(sc, scale, st, ly, rl, 16 * kk, kend);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = prob(sc[j][e], mxl[e >> 1], inv[e >> 1]);
+      if (ph) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(pst + (rl + 8 * h) * kPlaneLd + 16 * kk + 8 * j + 2 * t) =
+                make_float2(sc[j][2 * h], sc[j][2 * h + 1]);
+      }
+      if (ly.pmult >= 0) plane_chunk<true>(sc, st + ly.pmult, rl, 16 * kk);
+      unsigned a[4];
+      pack_a_chunk(a, sc);
+      warp_ax_chunk<kD>(oacc, a, vs + buf * kT, kk);
+    }
+    if (ph) {  // this warp's 16 rows of the tile's P, a row at a time
+      __syncwarp();
+      const int rows = min(16, N - n0 - 16 * warp);
+      for (int r = 0; r < rows; ++r) {
+        float* prow = ph + (long long)(n0 + 16 * warp + r) * N + m0;
+        const float* srow = pst + (16 * warp + r) * kPlaneLd;
+        if (lane < kend) __stcs(prow + lane, srow[lane]);
+        if (lane + 32 < kend) __stcs(prow + lane + 32, srow[lane + 32]);
+      }
+    }
+  };
+  pipeline(nt, load_a_step, pass_a);
+  softmax_finish(mx, l, inv, mxl);
+  pipeline(nt, load_b_step, pass_b);
+  store_frag_rows<kD>(o + (long long)b * N * g.C + hi * g.hd, g.C, oacc, n0 + rl, N, g.hd, 1.f,
+                      g.vec);
+}
+
+// shared memory of ga_fwd_mma_kernel: K and V, two buffers each, two stages
+// of staged planes and, when P is written without a staged bias tile to
+// stage it in, a plane for it
+template <int kD>
+int fwd_mma_smem_bytes(const Stage& ly, bool p) {
+  return 4 * tile_bytes<kD>() + 2 * 4 * ly.floats + (p && ly.bias < 0 ? 4 * kPlaneFloats : 0);
 }
 
 // Recompute backward (2), bf16: dv = round(P * pmult)^T . do and dk =
@@ -1403,6 +1517,7 @@ Dims dims(int B, int N, int C, int heads, long long ld) {
   g.wmask = nullptr;
   g.n_win = 1;
   g.vec = 0;
+  g.bias_ld = N;
   return g;
 }
 
@@ -1412,19 +1527,39 @@ bool bad_dims(const Dims& g) {
          g.B % g.n_win != 0;
 }
 
+template <int kD>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, const float* bias,
+                           const float* kmask, const float* pmult, void* o, float* p,
+                           const Dims& g, float scale, cudaStream_t stream) {
+  const int smem = fwd_mma_smem_bytes<kD>(stage_layout(bias, false, pmult, kmask, false), p);
+  cudaError_t err = cudaFuncSetAttribute(ga_fwd_mma_kernel<kD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.N + kTile - 1) / kTile, g.heads, g.B);
+  ga_fwd_mma_kernel<kD><<<grid, kTileThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      bias, kmask, pmult, static_cast<bf16*>(o), p, g, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float* bias,
                        const float* kmask, const float* pmult, void* o, float* p, const Dims& g,
                        float scale, cudaStream_t stream) {
-  const int smem = rows_smem_bytes(g.N);
-  cudaError_t err =
-      cudaFuncSetAttribute(ga_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((g.N + kTq - 1) / kTq, g.heads, g.B);
-  ga_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias, kmask,
-      pmult, static_cast<T*>(o), p, g, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return g.hd <= 32 ? launch_fwd_mma<32>(q, k, v, bias, kmask, pmult, o, p, g, scale, stream)
+                      : launch_fwd_mma<64>(q, k, v, bias, kmask, pmult, o, p, g, scale, stream);
+  } else {
+    const int smem = rows_smem_bytes(g.N);
+    cudaError_t err =
+        cudaFuncSetAttribute(ga_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((g.N + kTq - 1) / kTq, g.heads, g.B);
+    ga_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias, kmask,
+        pmult, static_cast<T*>(o), p, g, scale);
+    return cudaGetLastError();
+  }
 }
 
 // the stored-P backward's two kernels on the tensor cores (bf16), kD columns
@@ -1597,8 +1732,6 @@ cudaError_t launch_bwd_recompute(const void* q, const void* k, const void* v, co
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
-
 // whether the bf16 tensor-core kernels may copy 16 bytes at a time
 bool vec_ok(const Dims& g, const void* q, const void* k, const void* v, const void* dout,
             const void* dq, const void* dk, const void* dv) {
@@ -1616,14 +1749,19 @@ const char* skinjax_global_attention_error_string(int code) {
 
 // bf16: 0 for float, 1 for bfloat16 (q, k, v and o share it). q, k, v (B, N, C)
 // with rows at a stride of ld elements and unit channel stride; bias (heads,
-// N, N), kmask (B, N), pmult (N, N), each fp32 or null. Writes o (B, N, C)
-// contiguous and, when p is not null, P (B, heads, N, N) fp32.
+// N, bias_ld) with bias_ld >= N (bfloat16; float takes bias_ld = N), kmask
+// (B, N), pmult (N, N), each fp32 or null. Writes o (B, N, C) contiguous and,
+// when p is not null, P (B, heads, N, N) fp32.
 int skinjax_global_attention_fwd(int bf16, const void* q, const void* k, const void* v,
-                                 long long ld, const float* bias, const float* kmask,
+                                 long long ld, const float* bias, int bias_ld, const float* kmask,
                                  const float* pmult, void* o, float* p, int B, int N, int C,
                                  int heads, float scale, void* stream) {
-  const Dims g = dims(B, N, C, heads, ld);
-  if (bad_dims(g)) return static_cast<int>(cudaErrorInvalidValue);
+  Dims g = dims(B, N, C, heads, ld);
+  if (bad_dims(g) || (bias && (bias_ld < N || (!bf16 && bias_ld != N))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bias) g.bias_ld = bias_ld;
+  g.vec = g.ld % 8 == 0 && g.C % 8 == 0 && g.hd % 8 == 0 && aligned16(q) && aligned16(k) &&
+          aligned16(v) && aligned16(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) return launch_fwd<__nv_bfloat16>(q, k, v, bias, kmask, pmult, o, p, g, scale, s);
   return launch_fwd<float>(q, k, v, bias, kmask, pmult, o, p, g, scale, s);

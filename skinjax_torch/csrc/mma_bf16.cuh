@@ -1,6 +1,6 @@
 // Building blocks of the bf16 tensor-core attention kernels (sm_90a):
-// global_attention.cu's backwards and pooled_attention.cu's forward and
-// backward.
+// global_attention.cu's forward and backwards, pooled_attention.cu's forward
+// and backward, and window_attention.cu's strip backward.
 //
 // A warp computes (16 rows x 16 keys) blocks of scores with
 // mma.sync.m16n8k16 (bf16 operands, fp32 accumulators in registers), its
@@ -23,6 +23,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -40,6 +43,9 @@ template <int kD>
 __host__ __device__ constexpr int tile_bytes() {
   return kTile * tile_ld<kD>() * 2;
 }
+
+// whether a pointer allows 16-byte copies
+inline bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -138,22 +144,22 @@ constexpr int kPlaneLd = kTile + 8;
 constexpr int kPlaneFloats = kTile * kPlaneLd;
 
 // dst (64 x kPlaneLd) = rows [r0, r0 + 64) and columns [c0, c0 + 64) of the
-// row-major (rows x cols) fp32 plane src, zero outside it; in flight
-// (cp.async) until the caller waits for its group: 16-byte copies when cols
-// % 4 == 0 and src is 16-byte aligned, else 4-byte ones. A thread keeps one
-// column (of 16 bytes or 4) and walks rows kTileThreads / 16 (or / 64)
-// apart, a fixed count of steps (unrolled, fully or by 4), so a copy costs a
-// compare and two pointer steps.
+// row-major (rows x cols) fp32 plane src with rows ld floats apart (ld >=
+// cols), zero outside it; in flight (cp.async) until the caller waits for its
+// group: 16-byte copies when ld % 4 == 0 and src is 16-byte aligned, else
+// 4-byte ones. A thread keeps one column (of 16 bytes or 4) and walks rows
+// kTileThreads / 16 (or / 64) apart, a fixed count of steps (unrolled, fully
+// or by 4), so a copy costs a compare and two pointer steps.
 __device__ __forceinline__ void load_plane(float* __restrict__ dst, const float* __restrict__ src,
-                                           int rows, int cols, int r0, int c0) {
-  if ((cols & 3) == 0 && (reinterpret_cast<unsigned long long>(src) & 15) == 0) {
+                                           int rows, int cols, int r0, int c0, int ld) {
+  if ((ld & 3) == 0 && (reinterpret_cast<unsigned long long>(src) & 15) == 0) {
     constexpr int kStep = kTileThreads / 16;
     const int c = (threadIdx.x & 15) * 4, r = threadIdx.x >> 4;
     const bool in = c0 + c < cols;
-    const float* s = src + (long long)(r0 + r) * cols + c0 + c;
+    const float* s = src + (long long)(r0 + r) * ld + c0 + c;
     float* d = dst + r * kPlaneLd + c;
 #pragma unroll
-    for (int i = 0; i < kTile / kStep; ++i, s += (long long)kStep * cols, d += kStep * kPlaneLd) {
+    for (int i = 0; i < kTile / kStep; ++i, s += (long long)kStep * ld, d += kStep * kPlaneLd) {
       if (in && r0 + r + i * kStep < rows)
         cp_async16(d, s);
       else
@@ -163,16 +169,22 @@ __device__ __forceinline__ void load_plane(float* __restrict__ dst, const float*
     constexpr int kStep = kTileThreads / 64;
     const int c = threadIdx.x & 63, r = threadIdx.x >> 6;
     const bool in = c0 + c < cols;
-    const float* s = src + (long long)(r0 + r) * cols + c0 + c;
+    const float* s = src + (long long)(r0 + r) * ld + c0 + c;
     float* d = dst + r * kPlaneLd + c;
 #pragma unroll 4
-    for (int i = 0; i < kTile / kStep; ++i, s += (long long)kStep * cols, d += kStep * kPlaneLd) {
+    for (int i = 0; i < kTile / kStep; ++i, s += (long long)kStep * ld, d += kStep * kPlaneLd) {
       if (in && r0 + r + i * kStep < rows)
         cp_async4(d, s);
       else
         *d = 0.f;
     }
   }
+}
+
+// load_plane of a plane with rows cols floats apart
+__device__ __forceinline__ void load_plane(float* __restrict__ dst, const float* __restrict__ src,
+                                           int rows, int cols, int r0, int c0) {
+  load_plane(dst, src, rows, cols, r0, c0, cols);
 }
 
 // The pair of a staged plane tile p at (local row rl, local columns c, c + 1)
@@ -367,6 +379,69 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// One step of the online softmax for this thread's two rows (h = 0: row g,
+// h = 1: row g + 8) over U blocks of (16 x 16) scores s: each row's max m
+// grows to the max over its quad, its sum becomes l * 2^((m_old - m) log2 e)
+// plus the exponents 2^((s - m) log2 e) of the step, added in block, column
+// order, and each exponent e also goes to f(h, u, j, c, e) in that order;
+// sc[h] is the step's rescale 2^((m_old - m) log2 e). Every bf16 attention
+// kernel's first pass over the keys takes this step and ends with
+// softmax_finish, so that for the same scores their m and l are the same bits.
+template <int U, typename F>
+__device__ __forceinline__ void online_softmax(const float (&s)[U][2][4], float (&mx)[2],
+                                               float (&l)[2], float (&sc)[2], F&& f) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float tm = -CUDART_INF_F;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) tm = fmaxf(tm, fmaxf(s[u][j][2 * h], s[u][j][2 * h + 1]));
+    const float mn = fmaxf(mx[h], quad_max(tm));
+    const float mnl = mn * kLog2e;
+    sc[h] = ex2(__fmaf_rn(mx[h], kLog2e, -mnl));
+    float se = 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float e = ex2(__fmaf_rn(s[u][j][2 * h + c], kLog2e, -mnl));
+          se += e;
+          f(h, u, j, c, e);
+        }
+    l[h] = l[h] * sc[h] + se;
+    mx[h] = mn;
+  }
+}
+
+// online_softmax with nothing more to do with an exponent
+template <int U>
+__device__ __forceinline__ void online_softmax(const float (&s)[U][2][4], float (&mx)[2],
+                                               float (&l)[2]) {
+  float sc[2];
+  online_softmax(s, mx, l, sc, [](int, int, int, int, float) {});
+}
+
+// The end of the online softmax: l becomes the row's sum over its quad (the
+// same bits in every thread of the quad), inv = 1 / l and mxl = m log2 e
+__device__ __forceinline__ void softmax_finish(const float (&mx)[2], float (&l)[2],
+                                               float (&inv)[2], float (&mxl)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = quad_sum(l[h]);
+    inv[h] = 1.f / l[h];
+    mxl[h] = mx[h] * kLog2e;
+  }
+}
+
+// P from a score, its row's max times log2(e) and 1 / sum: the one
+// expression every bf16 attention kernel uses
+__device__ __forceinline__ float prob(float s, float mxl, float inv) {
+  return __fmul_rn(ex2(__fmaf_rn(s, kLog2e, -mxl)), inv);
 }
 
 }  // namespace

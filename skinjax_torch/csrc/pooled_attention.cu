@@ -325,7 +325,7 @@ __global__ void __launch_bounds__(kThreads)
 // rows' bias terms (bias_h as Kh values a row, bias_w as Kw) and each key's
 // (m / Kw, m % Kw) sit in shared memory for the block. Two passes over the
 // key tiles, K (and V) streaming two deep with cp.async: (a) the scores,
-// bias added in registers, and an online max and sum a row; (b) the scores
+// bias added in registers, and a row's max and sum (online_softmax); (b) the scores
 // again, P = exp(s - max) / sum written fp32 to p, and o += round(P) . V with
 // the accumulators packed to bf16 as the A operand, then o = round(o).
 template <int kD>
@@ -405,32 +405,10 @@ __global__ void __launch_bounds__(kTileThreads)
         for (int kk = 0; kk < 4; ++kk) warp_abt_chunk<kD>(s[kk], qf, ks + buf * kT, kk);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) scores(s[kk], m0, kk);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float tm = -CUDART_INF_F;
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) tm = fmaxf(tm, fmaxf(s[kk][j][2 * h], s[kk][j][2 * h + 1]));
-          const float mn = fmaxf(mx[h], quad_max(tm));
-          const float mnl = mn * kLog2e;
-          float sum = 0.f;
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              sum += ex2(__fmaf_rn(s[kk][j][2 * h], kLog2e, -mnl)) +
-                     ex2(__fmaf_rn(s[kk][j][2 * h + 1], kLog2e, -mnl));
-          l[h] = l[h] * ex2(__fmaf_rn(mx[h], kLog2e, -mnl)) + sum;
-          mx[h] = mn;
-        }
+        online_softmax(s, mx, l);
       });
   float inv[2], mxl[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    inv[h] = 1.f / quad_sum(l[h]);
-    mxl[h] = mx[h] * kLog2e;
-  }
+  softmax_finish(mx, l, inv, mxl);
 
   // (b) P written, o = round(round(P) . V), 16 keys at a time
   float oacc[kD / 8][4];
@@ -453,7 +431,7 @@ __global__ void __launch_bounds__(kTileThreads)
           for (int j = 0; j < 2; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              s[j][e] = __fmul_rn(ex2(__fmaf_rn(s[j][e], kLog2e, -mxl[e >> 1])), inv[e >> 1]);
+              s[j][e] = prob(s[j][e], mxl[e >> 1], inv[e >> 1]);
           if (p) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
@@ -987,8 +965,6 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
     return cudaGetLastError();
   }
 }
-
-bool aligned16(const void* x) { return (reinterpret_cast<std::uintptr_t>(x) & 15) == 0; }
 
 }  // namespace
 

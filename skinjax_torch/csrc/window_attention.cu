@@ -27,9 +27,12 @@
 //
 // Launches. Forward: one core launch (grid: window blocks x heads) writes
 // of = p.v per head to an NHWC scratch, then one projection launch computes
-// y = of.Wproj + bproj as a tiled product. Backward: one core launch; with a
-// bias, per-block partial dbias sums and one second pass that adds them in a
-// fixed order (no atomics, so the result does not depend on block order).
+// y = of.Wproj + bproj as a tiled product. Backward: one core launch, a block
+// per (window, head) (bf16: wa_bwd_mma_kernel; fp32: wa_bwd_kernel); with a
+// bias, a block per (window group, head) that sums its windows' dbias in
+// order into a partial plane of its own, and one second pass,
+// dbias_reduce_kernel, that adds the partials in block order (no atomics, so
+// the result does not depend on block order).
 //
 // Layout. There is no TPU layout here: no 56-token interleaved window, no
 // padding of N to 16 with -1e9 keys, no 6-D view. A block reads the N real
@@ -42,12 +45,22 @@
 //
 // What bounds it: at DaViT's stage 1 (B=64, 56x56, C=96, 3 heads) a forward is
 // ~18.6 GFLOP against ~77 MB, ~240 operations per byte: on the bf16 tensor
-// cores the card's ridge (~295), so either bound is ~20 us. This first version
-// is simple and runs on the CUDA cores in fp32 (no mma, no TMA): the
-// projections are register-tiled from shared memory (8 rows x 3 or 4 columns
-// a thread), one block per (window, head), so a block re-reads the window's
-// x from L2 once per head. It is far from its bound; PERF.md records by how
-// much. Limits: N <= 64 (window <= 8) and hd <= 32 (DaViT and Swin: 32).
+// cores the card's ridge (~295), so either bound is ~20 us; a backward ~26
+// GFLOP (~38 with N padded to 64) against ~231 MB, bound by bytes (~69 us).
+// The forward runs on the CUDA cores in fp32 (no mma, no TMA): the
+// projections register-tiled from shared memory (8 rows x 3 or 4 columns a
+// thread), one block per (window, head), re-reading the window's x from L2
+// once per head; fp32 FMAs and shared-memory traffic bound it. The fp32
+// backward, wa_bwd_kernel, is the same design, bound the same way (kept for
+// the 1e-4 checks: TF32 would not hold them). The bf16 backward, wa_bwd_mma_kernel
+// (below), runs every product on the tensor cores from bf16 tiles, keeps
+// the scores, P, dp and ds in registers, streams x, dy and the head's weight
+// slices by 16-byte cp.async, and needs 41.5 KB of shared memory a block;
+// what bounds it now is instructions and its L2 traffic: it re-reads a
+// window's x and dy once per head (the heads of a window are adjacent
+// blocks) and the head's weight slices once per window. PERF.md records how
+// far each is from its bound. Limits: N <= 64 (window <= 8) and hd <= 32
+// (DaViT and Swin: 32).
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() as an int (0 = success); skinjax_window_attention_error_string
@@ -56,6 +69,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -68,7 +85,7 @@ constexpr int kRows = 8;    // rows per thread in the projection
 constexpr int kXs = kKc + 1;      // row stride of the x / dy chunk
 constexpr int kQs = kMaxHd + 1;   // row stride of q, k, v, do
 constexpr int kSs = kMaxN + 1;    // row stride of the (N, N) planes
-constexpr int kTile = 64;   // output projection: 64 x 64 tiles
+constexpr int kProjTile = 64;   // output projection: 64 x 64 tiles
 constexpr int kTileK = 16;
 
 template <typename T>
@@ -120,13 +137,14 @@ struct Geometry {
 constexpr int kTokBytes = kMaxN * 8;
 constexpr int kChunkFloats = kMaxN * kXs;
 constexpr int kQkvFloats = kMaxN * kQs;
-constexpr int kPlaneFloats = kMaxN * kSs;
+constexpr int kScorePlaneFloats = kMaxN * kSs;
 constexpr int fwd_smem_bytes() {
-  return kTokBytes + 4 * (kChunkFloats + kKc * (3 * kMaxHd + 1) + 3 * kQkvFloats + kPlaneFloats);
+  return kTokBytes +
+         4 * (kChunkFloats + kKc * (3 * kMaxHd + 1) + 3 * kQkvFloats + kScorePlaneFloats);
 }
 constexpr int bwd_smem_bytes() {
   return kTokBytes +
-         4 * (2 * kChunkFloats + kKc * (4 * kMaxHd + 1) + 4 * kQkvFloats + 2 * kPlaneFloats);
+         4 * (2 * kChunkFloats + kKc * (4 * kMaxHd + 1) + 4 * kQkvFloats + 2 * kScorePlaneFloats);
 }
 
 // Token offsets (in tokens of the NHWC map, or of the partitioned windows)
@@ -292,11 +310,11 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     proj_kernel(const T* __restrict__ a, const T* __restrict__ wt, const T* __restrict__ bias,
                 T* __restrict__ out, int M, int N, int K) {
-  __shared__ float as[kTileK][kTile + 4];
-  __shared__ float bs[kTileK][kTile + 4];
+  __shared__ float as[kTileK][kProjTile + 4];
+  __shared__ float bs[kTileK][kProjTile + 4];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long m0 = (long long)blockIdx.y * kTile;
-  const int n0 = blockIdx.x * kTile;
+  const long long m0 = (long long)blockIdx.y * kProjTile;
+  const int n0 = blockIdx.x * kProjTile;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -308,7 +326,7 @@ __global__ void __launch_bounds__(kThreads)
       const int idx = threadIdx.x + kThreads * t;
       const int r = idx / kTileK, kk = idx - r * kTileK;
       as[kk][r] = (m0 + r < M && k0 + kk < K) ? to_f32<T>(a[(m0 + r) * K + k0 + kk]) : 0.f;
-      const int kb = idx / kTile, c = idx - kb * kTile;
+      const int kb = idx / kProjTile, c = idx - kb * kProjTile;
       bs[kb][c] = (k0 + kb < K && n0 + c < N) ? to_f32<T>(wt[(size_t)(k0 + kb) * N + n0 + c])
                                                : 0.f;
     }
@@ -355,7 +373,7 @@ __global__ void __launch_bounds__(kThreads)
   float* ws = dys + kChunkFloats;
   float* qkvd = ws + kKc * (4 * kMaxHd + 1);
   float* s = qkvd + 4 * kQkvFloats;
-  float* db = s + kPlaneFloats;
+  float* db = s + kScorePlaneFloats;
   float* dp = xs;  // the chunk buffers are free once the projections are done
   const float* q = qkvd;
   const float* k = qkvd + kQkvFloats;
@@ -366,7 +384,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
 
   if (bias)
-    for (int idx = threadIdx.x; idx < kPlaneFloats; idx += kThreads) db[idx] = 0.f;
+    for (int idx = threadIdx.x; idx < kScorePlaneFloats; idx += kThreads) db[idx] = 0.f;
 
   for (int win = blockIdx.x; win < g.nB; win += gridDim.x) {
     window_tokens(g, win, tok);
@@ -445,6 +463,356 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ partial, float* __
   out[i] = a;
 }
 
+// ---- The backward's bf16 instantiation on the tensor cores ----
+//
+// A block takes one head of a window (or, with a bias, of a fixed set of
+// windows, summing their dbias in registers): four warps, one 64-row tile
+// that holds the window's N <= 64 tokens (rows at or past N are zeros, their
+// keys -inf, their outputs not stored). Every product is an
+// mma.sync.m16n8k16 (bf16 operands by ldmatrix, fp32 accumulators in
+// registers; mma_bf16.cuh). (1) The projections: 32-channel steps of the
+// window's x and dy rows, gathered by token offset with 16-byte cp.async, and
+// of the head's Wqkv columns and Wproj rows stream two deep; a warp's 16 rows
+// of q, k, v (+ bqkv) and do accumulate in registers and are rounded to bf16
+// into (64 x 32) tiles. (2) The attention, a warp its 16 query rows, in
+// registers: s = q.k^T * scale (+ bias, + mask), the fp32 softmax with quad
+// shuffles, of += round(P).V, dp = do.v^T, ds = P (dp - rowsum(dp P)),
+// dq += round(ds * scale).K; round(P) and round(ds * scale) go to (64 x 64)
+// bf16 tiles. (3) The key side, a warp its 16 keys: their transposed A
+// operands by ldmatrix.trans from those tiles, dv += round(P)^T.do and
+// dk += round(ds * scale)^T.q. The staging buffers of (1) hold the tiles of
+// (2) and (3): 41.5 KB a block.
+
+constexpr int kPc = 32;  // input channels a projection step (and the head's 32 columns)
+constexpr int kPl = tile_ld<kPc>();  // row stride of the (rows x 32) bf16 tiles
+constexpr int kSl = tile_ld<kTile>();  // row stride of the (64 x 64) round(P), round(ds) tiles
+// a projection stage: x and dy (64 x 32), Wq, Wk, Wv (32 channels x 32), Wproj (32 x 32 channels)
+constexpr int kStageElems = 2 * kTile * kPl + 4 * kPc * kPl;
+constexpr int kMmaRegionBytes = 2 * kStageElems * 2;
+static_assert(4 * kTile * kPl + 2 * kTile * kSl <= 2 * kStageElems,
+              "the attention tiles fit in the projection stages");
+constexpr int bwd_mma_smem_bytes() { return kMmaRegionBytes + kTokBytes; }
+
+// acc[2 kk + j] += a . X^T over the 16 columns 16 ks.. of the (32 x 32) tile xs
+// (X rows 16 kk + 8 j..: the output columns): do = dy . Wproj_head^T
+__device__ __forceinline__ void warp_abt_step(float (&acc)[4][4], const unsigned (&a)[4],
+                                              const bf16* xs, int ks) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    unsigned b[4];
+    ldsm_x4(b, xs + (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * kPl + 16 * ks +
+                   ((lane >> 3) & 1) * 8);
+    mma_bf16(acc[2 * kk], a, b[0], b[1]);
+    mma_bf16(acc[2 * kk + 1], a, b[2], b[3]);
+  }
+}
+
+// The A fragment of the (16 keys x 16 queries) block of X^T, X the (query x
+// key) bf16 tile x at row stride kSl: keys k0.., queries q0.. (ldmatrix.trans)
+__device__ __forceinline__ void load_at_trans(unsigned (&a)[4], const bf16* x, int q0, int k0) {
+  const int lane = threadIdx.x & 31, m = lane >> 3;
+  ldsm_x4_trans(a, x + (q0 + (lane & 7) + ((m >> 1) << 3)) * kSl + k0 + ((m & 1) << 3));
+}
+
+// rows r and r + 8 of x (a warp's 16 x 32 accumulators), columns 8 jd + 2 t
+// + {0, 1} below hd, rounded to bf16 into out at token rows: row n at out +
+// tok[n] * ldo; rows at or past N skipped
+__device__ __forceinline__ void store_tok_rows(bf16* __restrict__ out, int ldo,
+                                               const float (&x)[4][4], int r,
+                                               const long long* tok, int N, int hd,
+                                               bool pairs) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = r + 8 * h;
+    if (n >= N) continue;
+    bf16* row = out + tok[n] * ldo;
+#pragma unroll
+    for (int jd = 0; jd < 4; ++jd) {
+      const int d = 8 * jd + 2 * t;
+      if (pairs && d < hd) {
+        *reinterpret_cast<__nv_bfloat162*>(row + d) =
+            __floats2bfloat162_rn(x[jd][2 * h], x[jd][2 * h + 1]);
+      } else {
+        if (d < hd) row[d] = __float2bfloat16_rn(x[jd][2 * h]);
+        if (d + 1 < hd) row[d + 1] = __float2bfloat16_rn(x[jd][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// 8 bf16 from src (count of them real, the rest zero) to dst: one 16-byte
+// cp.async when vec and all are real, else element copies
+__device__ __forceinline__ void copy8(bf16* dst, const bf16* src, int count, bool vec) {
+  if (count >= 8 && vec) {
+    cp_async16(dst, src);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dst[e] = e < count ? src[e] : __float2bfloat16_rn(0.f);
+  }
+}
+
+// Backward core, bf16: dqkv and of for head hi of windows blk, blk + nblk,
+// ... (blockIdx.x = blk * heads + hi); with kBias (bias not null), this
+// block's dbias sum over its windows, in window order, goes to
+// dbias_partial[blk][hi].
+template <bool kBias>
+__global__ void __launch_bounds__(kTileThreads, kBias ? 3 : 4)
+    wa_bwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                      const bf16* __restrict__ wqkv, const bf16* __restrict__ bqkv,
+                      const bf16* __restrict__ wproj, const float* __restrict__ bias,
+                      const float* __restrict__ mask, bf16* __restrict__ dqkv,
+                      bf16* __restrict__ of, float* __restrict__ dbias_partial, Geometry g,
+                      float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const region = reinterpret_cast<bf16*>(smem_raw);
+  long long* const tok = reinterpret_cast<long long*>(smem_raw + kMmaRegionBytes);
+  // the attention tiles, over the projection stages
+  bf16* const qs = region;
+  bf16* const ks = qs + kTile * kPl;
+  bf16* const vs = ks + kTile * kPl;
+  bf16* const dos = vs + kTile * kPl;
+  bf16* const pt = dos + kTile * kPl;  // round(P), (query x key)
+  bf16* const dt = pt + kTile * kSl;   // round(ds * scale)
+  const int heads = g.heads, hi = blockIdx.x % heads;
+  const int blk = blockIdx.x / heads, nblk = gridDim.x / heads;
+  const int N = g.N, hd = g.hd, C = g.C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int rl = 16 * warp + gq;  // this thread's rows of the tile: rl, rl + 8
+  const int steps = (C + kPc - 1) / kPc;
+  const bool pairs = vec;
+
+  float db[kBias ? 4 : 1][2][4];  // this block's dbias at (rows rl, rl + 8; keys of block kk)
+#pragma unroll
+  for (int kk = 0; kk < (kBias ? 4 : 1); ++kk)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) db[kk][j][0] = db[kk][j][1] = db[kk][j][2] = db[kk][j][3] = 0.f;
+
+  for (int win = blk; win < g.nB; win += nblk) {
+    window_tokens(g, win, tok);
+    __syncthreads();
+
+    // (1) q, k, v and do of this warp's 16 rows
+    float acc[4][4][4];  // q, k, v, do; 4 blocks of 16 x 8 each
+#pragma unroll
+    for (int p = 0; p < 4; ++p) zero_acc<kPc>(acc[p]);
+    pipeline(
+        steps,
+        [&](int st, int buf) {
+          bf16* const xs = region + buf * kStageElems;
+          bf16* const dys = xs + kTile * kPl;
+          bf16* const ws = dys + kTile * kPl;  // Wq, Wk, Wv, then Wproj
+          const int k0 = st * kPc;
+          for (int i = threadIdx.x; i < 2 * kTile * 4; i += kTileThreads) {
+            const int which = i >> 8, r = (i >> 2) & 63, c = (i & 3) * 8;
+            bf16* d = (which ? dys : xs) + r * kPl + c;
+            if (r < N && k0 + c < C)
+              copy8(d, (which ? dy : x) + tok[r] * C + k0 + c, C - k0 - c, vec);
+            else
+              *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+          }
+          for (int i = threadIdx.x; i < 4 * kPc * 4; i += kTileThreads) {
+            const int p = i >> 7, r = (i >> 2) & 31, c = (i & 3) * 8;
+            bf16* d = ws + p * kPc * kPl + r * kPl + c;
+            // Wqkv: row k0 + r (a channel), columns p C + hi hd + c..; Wproj:
+            // row hi hd + r (a head column), columns k0 + c..
+            const bool in = p < 3 ? k0 + r < C && c < hd : r < hd && k0 + c < C;
+            if (in)
+              copy8(d,
+                    p < 3 ? wqkv + (long long)(k0 + r) * 3 * C + p * C + hi * hd + c
+                          : wproj + (long long)(hi * hd + r) * C + k0 + c,
+                    p < 3 ? hd - c : C - k0 - c, vec);
+            else
+              *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+          }
+        },
+        [&](int, int buf) {
+          const bf16* const xs = region + buf * kStageElems;
+          const bf16* const dys = xs + kTile * kPl;
+          const bf16* const ws = dys + kTile * kPl;
+          unsigned ax[2][4], ay[2][4];
+          load_a<kPc>(ax, xs + 16 * warp * kPl);
+          load_a<kPc>(ay, dys + 16 * warp * kPl);
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+#pragma unroll
+            for (int p = 0; p < 3; ++p) warp_ax_chunk<kPc>(acc[p], ax[s], ws + p * kPc * kPl, s);
+            warp_abt_step(acc[3], ay[s], ws + 3 * kPc * kPl, s);
+          }
+        });
+    // rounded to bf16 (q, k, v after + bqkv) into the tiles; columns past hd stay 0
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      bf16* const tile = qs + p * kTile * kPl;
+#pragma unroll
+      for (int jd = 0; jd < 4; ++jd) {
+        const int d = 8 * jd + 2 * t;
+        float b0 = 0.f, b1 = 0.f;
+        if (p < 3) {
+          const bf16* bp = bqkv + p * C + hi * hd + d;
+          if (d < hd) b0 = __bfloat162float(bp[0]);
+          if (d + 1 < hd) b1 = __bfloat162float(bp[1]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<unsigned*>(tile + (rl + 8 * h) * kPl + d) =
+              pack_bf16(__fadd_rn(acc[p][jd][2 * h], b0), __fadd_rn(acc[p][jd][2 * h + 1], b1));
+      }
+    }
+    __syncthreads();
+
+    // (2) this warp's 16 query rows
+    unsigned qf[kPc / 16][4], df[kPc / 16][4];
+    load_a<kPc>(qf, qs + 16 * warp * kPl);
+    load_a<kPc>(df, dos + 16 * warp * kPl);
+    bool row_ok[2];
+    const float* brow[2];
+    const float* mrow[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = rl + 8 * h;
+      row_ok[h] = n < N;
+      brow[h] = bias ? bias + ((long long)hi * N + n) * N : nullptr;
+      mrow[h] = mask ? mask + ((long long)(win % g.n_win) * N + n) * N : nullptr;
+    }
+    float s[4][2][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      warp_abt_chunk<kPc>(s[kk], qf, ks, kk);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = 16 * kk + 8 * j + 2 * t + (e & 1), h = e >> 1;
+          float a = __fmul_rn(s[kk][j][e], scale);
+          if (m >= N) {
+            a = -CUDART_INF_F;
+          } else if (row_ok[h]) {
+            if (bias) a = __fadd_rn(a, __ldg(brow[h] + m));
+            if (mask) a = __fadd_rn(a, __ldg(mrow[h] + m));
+          }
+          s[kk][j][e] = a;
+        }
+    }
+    // the fp32 softmax; P = 0 on rows past N
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) mx = fmaxf(mx, fmaxf(s[kk][j][2 * h], s[kk][j][2 * h + 1]));
+      const float mxl = quad_max(mx) * kLog2e;
+      float sum = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float e = ex2(__fmaf_rn(s[kk][j][2 * h + c], kLog2e, -mxl));
+            s[kk][j][2 * h + c] = e;
+            sum += e;
+          }
+      const float l = quad_sum(sum);  // every lane shuffles, rows past N too
+      const float inv = row_ok[h] ? 1.f / l : 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) s[kk][j][2 * h + c] = __fmul_rn(s[kk][j][2 * h + c], inv);
+    }
+    // of = round(round(P) . V); round(P) to its tile
+    {
+      float oa[4][4];
+      zero_acc<kPc>(oa);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        unsigned a[4];
+        pack_a_chunk(a, s[kk]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          *reinterpret_cast<unsigned*>(pt + (rl + 8 * (u & 1)) * kSl + 16 * kk + 8 * (u >> 1) +
+                                       2 * t) = a[u];
+        warp_ax_chunk<kPc>(oa, a, vs, kk);
+      }
+      store_tok_rows(of + hi * hd, C, oa, rl, tok, N, hd, pairs);
+    }
+    // dp = do . v^T, ds = P (dp - rowsum(dp P)) fp32, dbias += ds, and
+    // dq = round(round(ds * scale) . K); round(ds * scale) to its tile
+    {
+      float dp[4][2][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) warp_abt_chunk<kPc>(dp[kk], df, vs, kk);
+      float r[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) r[e >> 1] += __fmul_rn(dp[kk][j][e], s[kk][j][e]);
+      r[0] = quad_sum(r[0]);
+      r[1] = quad_sum(r[1]);
+      float dqa[4][4];
+      zero_acc<kPc>(dqa);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float d[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float ds = __fmul_rn(s[kk][j][e], __fsub_rn(dp[kk][j][e], r[e >> 1]));
+            if constexpr (kBias) db[kk][j][e] += ds;
+            d[j][e] = __fmul_rn(ds, scale);
+          }
+        unsigned a[4];
+        pack_a_chunk(a, d);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          *reinterpret_cast<unsigned*>(dt + (rl + 8 * (u & 1)) * kSl + 16 * kk + 8 * (u >> 1) +
+                                       2 * t) = a[u];
+        warp_ax_chunk<kPc>(dqa, a, ks, kk);
+      }
+      store_tok_rows(dqkv + hi * hd, 3 * C, dqa, rl, tok, N, hd, pairs);
+    }
+    __syncthreads();
+
+    // (3) this warp's 16 keys: dv = round(P)^T . do, dk = round(ds * scale)^T . q
+    {
+      float dva[4][4], dka[4][4];
+      zero_acc<kPc>(dva);
+      zero_acc<kPc>(dka);
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        unsigned a[4];
+        load_at_trans(a, pt, 16 * qq, 16 * warp);
+        warp_ax_chunk<kPc>(dva, a, dos, qq);
+        load_at_trans(a, dt, 16 * qq, 16 * warp);
+        warp_ax_chunk<kPc>(dka, a, qs, qq);
+      }
+      store_tok_rows(dqkv + C + hi * hd, 3 * C, dka, rl, tok, N, hd, pairs);
+      store_tok_rows(dqkv + 2 * C + hi * hd, 3 * C, dva, rl, tok, N, hd, pairs);
+    }
+    __syncthreads();  // the tiles and the token offsets free for the next window
+  }
+
+  if constexpr (kBias) {
+    float* part = dbias_partial + ((long long)blk * heads + hi) * N * N;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = rl + 8 * (e >> 1), m = 16 * kk + 8 * j + 2 * t + (e & 1);
+          if (n < N && m < N) part[n * N + m] = db[kk][j][e];
+        }
+  }
+}
+
 Geometry geometry(int B, int H, int W, int C, int heads, int window) {
   Geometry g;
   g.H = H;
@@ -488,7 +856,7 @@ cudaError_t launch_fwd(const void* x, const void* wqkv, const void* bqkv, const 
       mask, static_cast<T*>(of), g, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((g.C + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  const dim3 grid((g.C + kProjTile - 1) / kProjTile, (M + kProjTile - 1) / kProjTile);
   proj_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(of),
                                                   static_cast<const T*>(wproj),
                                                   static_cast<const T*>(bproj),
@@ -501,14 +869,30 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* wqkv, const vo
                        const void* wproj, const float* bias, const float* mask, void* dqkv,
                        void* of, float* dbias_partial, float* dbias, int blocks,
                        const Geometry& g, float scale, cudaStream_t stream) {
-  const int smem = bwd_smem_bytes();
-  cudaError_t err =
-      cudaFuncSetAttribute(wa_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  wa_bwd_kernel<T><<<dim3(blocks, g.heads), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(wqkv),
-      static_cast<const T*>(bqkv), static_cast<const T*>(wproj), bias, mask,
-      static_cast<T*>(dqkv), static_cast<T*>(of), dbias_partial, g, scale);
+  cudaError_t err;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // 16-byte copies of x, dy and the weight slices, pair stores of the outputs
+    const int vec = g.C % 8 == 0 && g.hd % 8 == 0 && aligned16(x) && aligned16(dy) &&
+                    aligned16(wqkv) && aligned16(wproj) && aligned16(dqkv) && aligned16(of);
+    const int smem = bwd_mma_smem_bytes();
+    const auto kernel = bias ? wa_bwd_mma_kernel<true> : wa_bwd_mma_kernel<false>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)blocks * g.heads, kTileThreads, smem, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
+        static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),
+        static_cast<const bf16*>(wproj), bias, mask, static_cast<bf16*>(dqkv),
+        static_cast<bf16*>(of), dbias_partial, g, scale, vec);
+  } else {
+    const int smem = bwd_smem_bytes();
+    err = cudaFuncSetAttribute(wa_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    wa_bwd_kernel<T><<<dim3(blocks, g.heads), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(wqkv),
+        static_cast<const T*>(bqkv), static_cast<const T*>(wproj), bias, mask,
+        static_cast<T*>(dqkv), static_cast<T*>(of), dbias_partial, g, scale);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || !bias) return err;
   const int count = g.heads * g.N * g.N;

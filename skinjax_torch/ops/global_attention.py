@@ -31,6 +31,20 @@ padded entry's projection gradient reads. A bias gradient is summed over
 groups of windows and then over the groups in order (``bias_groups``), so
 that Swin-tiny's 4096 windows at stage 0 fill the card with no atomics.
 
+Launches. The forward is one launch. In bf16 it runs on the tensor cores
+(``mma.sync``): a block per (64 query rows, head, batch), a warp's q rows in
+registers, K, V and the bias, kmask and pmult tiles streamed by ``cp.async``,
+two passes over the keys (the online max and sum, then P, written fp32 when
+asked, and o += round(P·pmult)·V), the scores and the softmax in the
+recompute backward's code and order, so its P is the recompute backward's.
+A bias at N not a multiple of 4 (197 at 224×224) is handed to it with its
+rows padded to a multiple of 4 floats (``fwd_bias``), so that its tiles
+stream by 16-byte copies. What bounds it
+is its instructions more than its bytes (P's 79.5 MB of BEiT-large's ~134
+MB); ``PERF.md`` has the numbers. The kernel takes 32 or 64 channels a
+head, zero-padded (by the head width, in C). In fp32 it runs a CUDA-core
+kernel of fp32 FMAs (the 1e-4 checks; TF32 would not hold them).
+
 The backward's route. When a gradient will be asked for and the stored-P
 residual of the call (``B·h·N²·4`` bytes) is at most ``STORE_P_MAX_BYTES``
 (skinjax's 256 MB, ``_store_p_ok``), the forward keeps P and the stored-P
@@ -65,6 +79,7 @@ import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from skinjax_torch.ops import acc_dtype, check_tensor
 
@@ -89,7 +104,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "skinjax_global_attention_error_string": ([_I], ctypes.c_char_p),
-    "skinjax_global_attention_fwd": ([_I, _P, _P, _P, _L] + [_P] * 5 + [_I] * 4 + [_F, _P], _I),
+    "skinjax_global_attention_fwd": (
+        [_I, _P, _P, _P, _L, _P, _I] + [_P] * 4 + [_I] * 4 + [_F, _P], _I),
     "skinjax_global_attention_bwd": ([_I, _P, _P, _P, _L] + [_P] * 9 + [_I] * 5 + [_F, _P], _I),
     "skinjax_global_attention_bwd_recompute": (
         [_I, _P, _P, _P, _L] + [_P] * 5 + [_I] + [_P] * 7 + [_I] * 5 + [_F, _P], _I),
@@ -278,6 +294,21 @@ def _raise(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
 
 
+def fwd_bias(bias: Optional[torch.Tensor], dtype: torch.dtype
+             ) -> Tuple[Optional[torch.Tensor], int]:
+    """The bias (h, N, N) fp32 as the forward kernel reads it, and its row
+    stride: for bfloat16 at N not a multiple of 4 (197 at 224×224), a copy
+    with rows padded by zeros to a multiple of 4 floats, so that they start
+    16-byte aligned and the kernel streams the bias's (64 × 64) tiles by
+    16-byte copies (2.5 MB at BEiT-large); else the bias as it is."""
+    if bias is None:
+        return None, 0
+    N = bias.shape[-1]
+    if dtype != torch.bfloat16 or N % 4 == 0:
+        return bias, N
+    return F.pad(bias, (0, -N % 4)), N + -N % 4
+
+
 def global_attention_fwd(q, k, v, bias, kmask, pmult, num_heads: int, emit_p: bool
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(o (B, N, C), P (B, h, N, N) fp32 when ``emit_p``, else None) from the
@@ -294,10 +325,11 @@ def global_attention_fwd(q, k, v, bias, kmask, pmult, num_heads: int, emit_p: bo
          else None)
     if q.numel() == 0:
         return o, p
+    bias, bias_ld = fwd_bias(bias, q.dtype)
     lib = library()
     err = lib.skinjax_global_attention_fwd(
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, _ptr(bias),
-        _ptr(kmask), _ptr(pmult), o.data_ptr(), _ptr(p), B, N, C, num_heads,
+        bias_ld, _ptr(kmask), _ptr(pmult), o.data_ptr(), _ptr(p), B, N, C, num_heads,
         (C // num_heads) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     _raise(lib, err, "global_attention_fwd")
     LAUNCHES["global_attention_fwd"] += 1

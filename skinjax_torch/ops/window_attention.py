@@ -26,6 +26,20 @@ recomputes qkv, ``do = dy·wprojᵀ`` and the softmax and emits ``(dqkv, of,
 dbias)`` in NHWC, as ``_strip_bwd`` does; dx and the weight gradients are flat
 matrix products here (``_wa_nhwc_bwd``).
 
+Launches. The forward: a core launch (a block per window and head, fp32
+FMAs on the CUDA cores) and a projection launch. The backward: one core
+launch, a block per window and head (with a bias gradient, per window group
+and head, ``bwd_blocks``), then, with a bias, one launch that adds the
+groups' partial dbias planes in order (no atomics). Its bf16 kernel runs
+every product on the tensor cores (``mma.sync``): the head's q, k, v and do
+projections from x and dy rows gathered by token offset (16-byte
+``cp.async``), the scores, the fp32 softmax, dp and ds in registers, round(P)
+and round(ds·scale) through two bf16 tiles for dv and dk; what bounds it is
+its instructions and the re-reads of x, dy (once a head) and the head's
+weight slices (once a window), not its ~231 MB at DaViT's stage 1. The fp32
+backward runs a CUDA-core kernel of fp32 FMAs (the 1e-4 checks; TF32 would
+not hold them).
+
 ``window_attention_nhwc_plain`` and ``window_attention_nhwc_bwd_plain`` are
 the plain PyTorch twins, rounding at the same points. The wrappers dispatch
 on the device of x: a CPU tensor goes to the twin, a CUDA tensor launches the
@@ -342,6 +356,16 @@ def window_attention_fwd(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, win
     return y
 
 
+def bwd_blocks(n_windows: int, has_bias: bool) -> int:
+    """The window blocks of the backward kernel, each launched once a head:
+    one a window; with a bias gradient at most ``BIAS_BLOCKS``, each summing
+    the dbias of windows blk, blk + blocks, ... in order into its own
+    (heads, N, N) partial plane, which a second launch adds in block order."""
+    if not has_bias:
+        return n_windows
+    return max(1, min(n_windows, BIAS_BLOCKS))
+
+
 def window_attention_bwd(x, dy, wqkv, bqkv, wproj, bias, mask, num_heads, window):
     """(dqkv, of, dbias) from the backward kernel (CUDA) or its twin (CPU)."""
     if x.device.type == "cpu":
@@ -355,10 +379,9 @@ def window_attention_bwd(x, dy, wqkv, bqkv, wproj, bias, mask, num_heads, window
     N = window * window
     dqkv = torch.empty((B, H, W, 3 * C), dtype=x.dtype, device=x.device)
     of = torch.empty_like(x)
-    n_windows = B * (H // window) * (W // window)
-    blocks, partial, dbias = n_windows, None, None
+    blocks = bwd_blocks(B * (H // window) * (W // window), bias is not None)
+    partial, dbias = None, None
     if bias is not None:
-        blocks = max(1, min(n_windows, BIAS_BLOCKS))
         partial = torch.empty((blocks, num_heads, N, N), dtype=torch.float32, device=x.device)
         dbias = torch.empty((num_heads, N, N), dtype=torch.float32, device=x.device)
     if x.numel() == 0:

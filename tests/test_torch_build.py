@@ -39,7 +39,7 @@ def test_repo_sources_share_a_header():
     assert "mma_bf16.cuh" in headers
     header = (build.CSRC / "mma_bf16.cuh").read_text()
     helpers = ("cp_async16", "cp_async_commit", "cp_async_wait", "load_tile", "pipeline")
-    for name in ("global_attention", "pooled_attention", "fused_mlp"):
+    for name in ("global_attention", "pooled_attention", "fused_mlp", "window_attention"):
         source = (build.CSRC / f"{name}.cu").read_text()
         assert '#include "mma_bf16.cuh"' in source
         assert "using bf16 =" not in source
@@ -76,7 +76,13 @@ def test_profiled_kernel_names_are_kernels():
                                   r"(\w+)\s*\(", source.read_text()))
     assert {"mlp_bwd_act_wgmma_kernel", "mlp_bwd_dw_kernel", "ga_bwd_rows_mma_kernel",
             "ga_bwd_p_rows_mma_kernel", "ga_bwd_p_cols_mma_kernel", "ga_dbias_tiles_kernel",
-            "pa_bwd_rows_mma_kernel", "pa_bwd_cols_mma_kernel"} <= kernels
+            "pa_bwd_rows_mma_kernel", "pa_bwd_cols_mma_kernel", "wa_bwd_mma_kernel",
+            "ga_fwd_mma_kernel", "wa_bwd_kernel", "ga_fwd_kernel"} <= kernels
     assert set(smoke.K12_KERNELS["global_attention_bwd"]) | set(
         smoke.K11_KERNELS["pooled_attention_bwd"]) <= kernels
+    # the bf16 K7 strip backward and K12 forward run on the tensor cores; the
+    # fp32 instantiations keep the CUDA-core kernels, still profiled by name
+    assert smoke.K7_KERNELS["window_attention_bwd"] == ["wa_bwd_mma_kernel"]
+    assert smoke.K12_KERNELS["global_attention_fwd"] == ["ga_fwd_mma_kernel"]
+    assert {"wa_bwd_kernel", "ga_fwd_kernel"} <= set(smoke.KERNEL_SYMBOLS)
     assert sorted(profiled - kernels) == []

@@ -402,6 +402,25 @@ def test_bias_groups():
         assert tga.bias_groups(65535, N, h) * h * N * N * 4 <= tga.STORE_P_MAX_BYTES
 
 
+def test_forward_bias_rows():
+    """The bias as the forward kernel reads it: for bfloat16 at N not a
+    multiple of 4, rows padded by zeros to a multiple of 4 floats (16-byte
+    aligned), the values unchanged; the bias as it is for float32, or where
+    N is a multiple of 4."""
+    rng = np.random.default_rng(0)
+    for h, N, ld in ((16, 197, 200), (4, 50, 52), (2, 49, 52)):
+        bias = torch.from_numpy(rng.standard_normal((h, N, N), dtype=np.float32))
+        padded, got_ld = tga.fwd_bias(bias, torch.bfloat16)
+        assert got_ld == ld and padded.shape == (h, N, ld) and padded.is_contiguous()
+        assert torch.equal(padded[..., :N], bias) and not padded[..., N:].any()
+        same, got_ld = tga.fwd_bias(bias, torch.float32)
+        assert same is bias and got_ld == N
+    bias = torch.zeros((12, 512, 512))
+    same, got_ld = tga.fwd_bias(bias, torch.bfloat16)
+    assert same is bias and got_ld == 512
+    assert tga.fwd_bias(None, torch.bfloat16) == (None, 0)
+
+
 def test_stored_p_scratch_and_groups():
     """What the stored-P backward's wrapper allocates: float32 keeps the ds
     plane its CUDA-core launches pass on; bfloat16 a row statistic and, with

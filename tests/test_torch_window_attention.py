@@ -205,6 +205,16 @@ def test_twin_matches_the_reference_fp32(case):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
+def test_backward_blocks():
+    """The backward kernel's window blocks, each launched once a head: one a
+    window; with a bias gradient at most BIAS_BLOCKS, each summing its
+    windows' dbias into its own (heads, N, N) fp32 partial plane."""
+    assert twa.bwd_blocks(4096, False) == 4096
+    assert twa.bwd_blocks(4096, True) == twa.BIAS_BLOCKS == 256
+    assert twa.bwd_blocks(64, True) == 64
+    assert twa.bwd_blocks(1, False) == twa.bwd_blocks(1, True) == 1
+
+
 def test_bad_shapes_raise():
     arrays, _, _ = _inputs(1, 14, 12, 96, 3)
     with pytest.raises(ValueError, match="multiples of the window"):
