@@ -310,10 +310,11 @@ KERNEL_NAMES = {"seq1_attention": "seq1_attention_kernel",
                 "gated_residual_seq1": "gated_residual_kernel",
                 "metablock_film": "metablock_film_kernel", "mlp_head": "mlp_head_kernel"}
 # each bf16 K7 call's kernels (a call with a bias adds dbias_reduce_kernel);
-# the backward runs on the tensor cores (its fp32 instantiation keeps
-# wa_bwd_kernel)
-K7_KERNELS = {"window_attention_fwd": ["wa_fwd_kernel", "proj_kernel"],
+# the forward and backward run on the tensor cores (their fp32 instantiations
+# keep wa_fwd_kernel + proj_kernel and wa_bwd_kernel: K7_F32)
+K7_KERNELS = {"window_attention_fwd": ["wa_fwd_mma_kernel", "wa_proj_mma_kernel"],
               "window_attention_bwd": ["wa_bwd_mma_kernel"]}
+K7_F32 = ["wa_fwd_kernel", "proj_kernel", "wa_bwd_kernel"]
 # each bf16 K12 call's kernels at BEiT's shape (the stored-P backward's last
 # one adds the bias gradient's group planes, in tiles, into dbias's layout;
 # without a bias gradient it is not launched); the forward and both
@@ -330,12 +331,13 @@ K11_KERNELS = {"pooled_attention_fwd": ["pa_fwd_mma_kernel"],
                "pooled_attention_bwd": ["pa_bwd_rows_mma_kernel", "pa_bwd_cols_mma_kernel"]}
 # each bf16 fused-MLP call's kernels (K9 and K10 alike); a forward whose
 # token tiles are too few to fill the card also sums its hidden splits
-# (MLP_SPLIT). The bf16 backward runs on the tensor cores: the hidden planes,
-# dx, dW, then the fixed-order sums; its fp32 instantiation keeps the
-# CUDA-core kernels (MLP_F32_BWD)
-MLP_KERNELS = {"fwd": ["mlp_fwd_kernel"],
+# (MLP_SPLIT). Both run on the tensor cores: the forward in one launch, the
+# backward's hidden planes, dx, dW, then the fixed-order sums; the fp32
+# instantiations keep the CUDA-core kernels (MLP_F32_FWD, MLP_F32_BWD)
+MLP_KERNELS = {"fwd": ["mlp_fwd_wgmma_kernel"],
                "bwd": ["mlp_bwd_act_wgmma_kernel", "mlp_bwd_dx_wgmma_kernel",
                        "mlp_bwd_dw_wgmma_kernel", "mlp_bwd_colsum_kernel"]}
+MLP_F32_FWD = ["mlp_fwd_kernel"]
 MLP_F32_BWD = ["mlp_bwd_dx_kernel", "mlp_bwd_dw_kernel", "mlp_bwd_reduce_kernel"]
 MLP_SPLIT = "mlp_split_reduce_kernel"
 # each K8 call's kernels
@@ -345,18 +347,19 @@ K8_KERNELS = {"channel_attention_fwd": ["ca_partial_kernel", "ca_softmax_kernel"
                                         "ca_grad_kernel"]}
 # the padded entry's forward, and its backward core with a bias gradient
 # summed over groups of windows
-K7_PAD_KERNELS = {K7_PAD: ["wa_fwd_kernel", "proj_kernel"],
+K7_PAD_KERNELS = {K7_PAD: K7_KERNELS["window_attention_fwd"],
                   K7_PAD_BWD: [*K12_KERNELS[K12_RECOMPUTE], "ga_dbias_reduce_kernel"]}
 # each K6 call's two launches (the partial sums, then their reduction)
 K6_KERNELS = ["bn_partial_kernel", "bn_reduce_kernel"]
-KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", "wa_fwd_kernel", *K6_KERNELS,
-                  "wa_bwd_kernel", "proj_kernel", "dbias_reduce_kernel", "ga_fwd_kernel",
+KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", *K7_F32, *K6_KERNELS,
+                  "dbias_reduce_kernel", "ga_fwd_kernel",
                   "ga_bwd_dq_kernel", "ga_bwd_dkv_kernel", "ga_bwd_rows_kernel",
                   "ga_bwd_cols_kernel", *K12_KERNELS[K12_RECOMPUTE],
                   *K12_KERNELS["global_attention_bwd"], "pa_fwd_kernel",
                   *K11_KERNELS["pooled_attention_fwd"], "pa_bwd_dq_kernel", "pa_bwd_dkv_kernel",
                   *K11_KERNELS["pooled_attention_bwd"],
-                  *MLP_KERNELS["fwd"], *MLP_KERNELS["bwd"], *MLP_F32_BWD, MLP_SPLIT,
+                  *MLP_KERNELS["fwd"], *MLP_KERNELS["bwd"], *MLP_F32_FWD, *MLP_F32_BWD,
+                  MLP_SPLIT,
                   *K8_KERNELS["channel_attention_fwd"], "ca_grad_kernel")
 # the card's published peaks (H100 SXM data sheet): device memory, float32
 # outside the tensor cores, dense bf16 on the tensor cores
@@ -1063,7 +1066,12 @@ def phase_k7(wa, device):
     at the cases with a bias (``K7_BIAS_CASES``); the backward's dqkv, of
     and dbias. Two bf16 backward calls bit-identical at stage 1, B=64, and
     at every bias case (dbias summed in a fixed order, one window or several
-    a block)."""
+    a block). At every bf16 case: two forward calls bit-identical; the
+    forward's of (``return_of``) equal, bit for bit, to the backward's of on
+    the same inputs (one core function computes both); the padded entry on
+    the same windows (``window_partition`` of x, the same bias and masks)
+    gives the partitioned of and y bit for bit (the same core, the other
+    address map)."""
     import torch
 
     errors = {name: 0.0 for name in K7}
@@ -1074,14 +1082,32 @@ def phase_k7(wa, device):
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             args, dy, b, m = k7_inputs(B, side, C, h, dtype, device, seed=B + side, bias=bias,
                                        mask=mask)
-            x, wqkv, bqkv, wproj, _ = args
-            results = [("window_attention_fwd", "y",
-                        wa.window_attention_fwd(*args, b, m, h, WINDOW),
+            x, wqkv, bqkv, wproj, bproj = args
+            y, of = wa.window_attention_fwd(*args, b, m, h, WINDOW, return_of=True)
+            results = [("window_attention_fwd", "y", y,
                         wa.window_attention_nhwc_plain(*args, b, m, h, WINDOW))]
             got = wa.window_attention_bwd(x, dy, wqkv, bqkv, wproj, b, m, h, WINDOW)
             want = wa.window_attention_nhwc_bwd_plain(x, dy, wqkv, bqkv, wproj, b, m, h, WINDOW)
             torch.cuda.synchronize()
             check((got[2] is None) == (want[2] is None), "dbias present on one side only")
+            if dtype == torch.bfloat16:
+                y2, of2 = wa.window_attention_fwd(*args, b, m, h, WINDOW, return_of=True)
+                xw = wa.window_partition(x, WINDOW).contiguous()
+                yp, ofp = wa.window_attention_pad_fwd(xw, wqkv, bqkv, wproj, bproj, b, m, h,
+                                                      return_of=True)
+                torch.cuda.synchronize()
+                for what, same in (
+                        ("two forward calls bit-identical (y and of)",
+                         torch.equal(y, y2) and torch.equal(of, of2)),
+                        ("the forward's of bit for bit the backward's of", torch.equal(of, got[1])),
+                        ("the padded entry on the same windows gives of and y bit for bit",
+                         torch.equal(ofp, wa.window_partition(of, WINDOW))
+                         and torch.equal(yp, wa.window_partition(y, WINDOW)))):
+                    log(f"kernel window_attention_fwd bfloat16 B={B:2d} {side}x{side} C={C} "
+                        f"h={h}{extras}: {what}: {same}")
+                    check(same, f"window_attention_fwd at B={B} {side}x{side}{extras}: {what} "
+                                f"fails")
+                del y2, of2, xw, yp, ofp
             if dtype == torch.bfloat16 and (bias or (B, side) == (K7_BATCHES[-1], 56)):
                 again = wa.window_attention_bwd(x, dy, wqkv, bqkv, wproj, b, m, h, WINDOW)
                 same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again) if a_ is not None)
@@ -1102,7 +1128,7 @@ def phase_k7(wa, device):
                     f"+ rtol {tol[1]:g}·|twin| {'ok' if ok else 'FAIL'}")
                 check(ok, f"{name} {part} disagrees with its twin at B={B} {side}x{side}{extras} "
                           f"{dtype}")
-            del args, dy, b, m, x, wqkv, bqkv, wproj, results, got, want
+            del args, dy, b, m, x, wqkv, bqkv, wproj, results, got, want, y, of
     torch.cuda.empty_cache()
     return errors
 
@@ -1775,10 +1801,13 @@ def phase_mlp(fm, device):
 
 
 def phase_mlp_same_bits(fm, device):
-    """Two bf16 backward calls on the same inputs give the same bits (every
-    sum in a fixed order, no atomics): ``mlp_star_bwd`` at CAFormer-b36's
-    stage 2 (B=32) and ``mlp_gelu_bwd`` at CoaT-lite-small's stage 3 (B=64),
-    the record shapes, on inputs of their own seed."""
+    """Two bf16 calls on the same inputs give the same bits (every sum in a
+    fixed order, no atomics): ``mlp_star_fwd``/``_bwd`` at CAFormer-b36's
+    stage 2 (B=32) and ``mlp_gelu_fwd``/``_bwd`` at CoaT-lite-small's stage
+    3 (B=64), the record shapes, on inputs of their own seed. Then the
+    served batches (B=1 and 8) at every shape of both models, where the
+    forward splits its hidden columns over blocks: y against the twin
+    (BF16_TOL) and two calls bit-identical."""
     import torch
 
     from skinjax_torch import CAFORMER_BATCH, COAT_BATCH
@@ -1789,14 +1818,35 @@ def phase_mlp_same_bits(fm, device):
         n, D, H, _ = shapes[label]
         kind = fn.split("_")[1]
         args, dy = mlp_inputs(kind, B * n, D, H, torch.bfloat16, device, seed=97)
-        _, _, bwd, _ = mlp_calls(fm, kind, args, dy)
+        fwd, _, bwd, _ = mlp_calls(fm, kind, args, dy)
+        y1, y2 = fwd(), fwd()
         first, second = bwd(), bwd()
         torch.cuda.synchronize()
+        same = torch.equal(y1, y2)
+        log(f"kernel {fn}_fwd bfloat16 {label} B={B} T={B * n} D={D} H={H}: two calls on the "
+            f"same inputs bit-identical: {same}")
+        check(same, f"two {fn}_fwd calls differ at {label} B={B}")
         same = all(torch.equal(u, v) for u, v in zip(first, second))
         log(f"kernel {fn}_bwd bfloat16 {label} B={B} T={B * n} D={D} H={H}: two calls on the "
             f"same inputs bit-identical (dx and every weight and bias gradient): {same}")
         check(same, f"two {fn}_bwd calls differ at {label} B={B}")
-        del args, dy, first, second
+        del args, dy, first, second, y1, y2
+    for fn, shapes in (("mlp_star", K10_SHAPES), ("mlp_gelu", K9_SHAPES)):
+        kind = fn.split("_")[1]
+        for label, (n, D, H, _) in shapes.items():
+            for B in (1, 8):
+                args, dy = mlp_inputs(kind, B * n, D, H, torch.bfloat16, device, seed=B + n)
+                fwd, twin, _, _ = mlp_calls(fm, kind, args, dy)
+                y1, y2, want = fwd(), fwd(), twin()
+                torch.cuda.synchronize()
+                err, ok = compare(y1, want, BF16_TOL)
+                same = torch.equal(y1, y2)
+                log(f"kernel {fn}_fwd bfloat16 {label} B={B} T={B * n} D={D} H={H}: "
+                    f"max_abs_err={err:.3e} tol={tol_text(BF16_TOL)} {'ok' if ok else 'FAIL'}; "
+                    f"two calls bit-identical: {same}")
+                check(ok, f"{fn}_fwd disagrees with its twin at {label} B={B}")
+                check(same, f"two {fn}_fwd calls differ at {label} B={B}")
+                del args, dy, y1, y2, want
     torch.cuda.empty_cache()
 
 

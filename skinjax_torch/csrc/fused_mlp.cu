@@ -30,14 +30,24 @@
 // a sequential grid of token tiles, carrying dW in scratch. Neither holds
 // here: CAFormer-b36's stage-3 w1 is 768 x 3072 (4.7 MB in bf16), and blocks
 // run in no order.
-//   forward   a block per 32 token rows keeps its (32, D2) fp32 output in
-//             shared memory, loops over 64-wide hidden chunks (pre for the
-//             chunk from 64-wide K slices of x and w1, the activation, then
-//             the chunk's h.w2 added to the output slice by slice), nothing
-//             of the (T, H) plane reaching device memory. Where the token
-//             tiles are too few to fill the card (a small batch), the hidden
-//             chunks are split over blocks too: each writes fp32 partials,
-//             and a second launch sums them in split order (+ b2);
+//   forward, bf16: mlp_fwd_wgmma_kernel (the section "forward, bf16" below),
+//             a block of two warpgroups per 64 token rows: its x rows taken
+//             once, then 128-wide hidden chunks, pre from wgmma with its
+//             fp32 accumulators in registers, the activation on that
+//             fragment, round(h) through one swizzled shared-memory tile, and
+//             h.w2 added to y's fp32 accumulators, which stay in registers
+//             (y's columns split over the two warpgroups, and over blocks
+//             above 512 columns), every tile by TMA; nothing of the (T, H)
+//             plane reaches device memory. Where the blocks are too few to
+//             fill the card (a small batch), or two splits turn one and a
+//             half waves into three shorter ones, the hidden chunks are split
+//             over blocks too: each writes fp32 partials, and a second launch
+//             sums them in split order (+ b2);
+//   forward, fp32: mlp_fwd_kernel, a block per 32 token rows keeps its
+//             (32, D2) fp32 output in shared memory and loops over 64-wide
+//             hidden chunks (pre from 64-wide K slices of x and w1, the
+//             activation, then the chunk's h.w2 added slice by slice), with
+//             the same hidden split;
 //   backward, bf16: five products on the tensor cores (the section "backward,
 //             bf16" below): one launch computes pre and dh once and writes
 //             round(h) and round(dpre) as (T, H) planes into the call's
@@ -58,7 +68,7 @@
 //             (3) a reduction sums the partials over the segments in segment
 //             order.
 // No atomics: every sum runs in an order fixed by the shapes, so two calls on
-// the same inputs give bit-identical gradients. skinjax_fused_mlp_scratch
+// the same inputs give bit-identical results. skinjax_fused_mlp_scratch
 // sizes each call's scratch.
 // Padding: rows past T (or past a segment), columns past D, H or D2 load as
 // zeros; zero dy rows make dh and dpre exactly 0, so they add nothing to any
@@ -67,22 +77,23 @@
 // What bounds it: at CAFormer-b36's stage 0 at B=32 (T = 100352, D = 128,
 // H = 512, bf16) the forward does 26.3 GFLOP against 51 MB of x and y, so the
 // tensor cores bound it (~27 us at 989 TFLOP/s), and the backward 66 GFLOP.
-// The forward computes bf16 products on the tensor cores through
-// nvcuda::wmma 16x16x16 fragments with fp32 accumulation, from shared-memory
-// tiles, with the accumulators in shared memory; the bf16 backward through
-// wgmma (warpgroup products from 128-byte-swizzled shared-memory tiles) with
-// its accumulators in registers; fp32 products run as plain fp32 FMAs. No
-// TMA: PERF.md records how far each kernel is from its bound. D, H and D2
-// are multiples of 16, and D, D2 <= 1024 (the fp32 dW tiles fit shared
-// memory).
+// The bf16 forward and backward compute on wgmma (warpgroup products from
+// 128-byte-swizzled shared-memory tiles) with their accumulators in
+// registers; a forward block brings all of w1 and w2 from L2 once per 64
+// token rows (~4 MB at CAFormer-b36's stage 2), in steps whose barrier and
+// bookkeeping, at 8 warps an SM, cost more than their products (PERF.md).
+// fp32 products run as plain fp32 FMAs. The forward's tiles come by TMA, the
+// backward's by cp.async: PERF.md records how far each kernel is from its
+// bound. D, H and D2 are multiples of 16, and D, D2 <= 1024 (the fp32 dW
+// tiles fit shared memory).
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() as an int (0 = success); skinjax_fused_mlp_error_string
 // maps the code to its message.
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <initializer_list>
 #include <type_traits>
@@ -93,8 +104,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTm = 32;  // token rows a block of the forward and dx kernels
-constexpr int kHc = 64;  // hidden columns a chunk of the forward and dx kernels
+constexpr int kTm = 32;  // token rows a block of the fp32 forward and dx kernels
+constexpr int kHc = 64;  // hidden columns a chunk of the fp32 forward and dx kernels
 constexpr int kKc = 64;  // K slice of a streamed product
 constexpr int kNc = 64;  // output columns a slice of a streamed product
 constexpr int kFpad = 4; // fp32 row padding of a shared-memory tile (16 bytes)
@@ -162,44 +173,23 @@ __device__ void zero_f32(float* __restrict__ p, int n) {
   for (int i = threadIdx.x; i < n; i += kThreads) p[i] = 0.f;
 }
 
-// C (M x N, fp32, row-major, ldc) += A (M x K) . B (K x N), all in shared
-// memory. A(m, k) = a[m * lda + k] when A_ROW, else a[k * lda + m]; B(k, n) =
-// b[k * ldb + n] when B_ROW, else b[n * ldb + k]. M, N and K are multiples of
-// 16. bf16: each warp takes 16x16 output tiles through wmma fragments; fp32:
-// each thread takes output elements, one FMA chain over k each.
-template <typename T, bool A_ROW, bool B_ROW>
-__device__ void block_mma(float* __restrict__ c, int ldc, const T* __restrict__ a, int lda,
-                          const T* __restrict__ b, int ldb, int M, int N, int K) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    using LA = typename std::conditional<A_ROW, wmma::row_major, wmma::col_major>::type;
-    using LB = typename std::conditional<B_ROW, wmma::row_major, wmma::col_major>::type;
-    const int warp = threadIdx.x >> 5;
-    const int tiles_n = N / 16, tiles = (M / 16) * tiles_n;
-    for (int t = warp; t < tiles; t += kWarps) {
-      const int m0 = (t / tiles_n) * 16, n0 = (t - (t / tiles_n) * tiles_n) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, c + m0 * ldc + n0, ldc, wmma::mem_row_major);
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
-        wmma::load_matrix_sync(fa, A_ROW ? a + m0 * lda + k0 : a + k0 * lda + m0, lda);
-        wmma::load_matrix_sync(fb, B_ROW ? b + k0 * ldb + n0 : b + n0 * ldb + k0, ldb);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(c + m0 * ldc + n0, acc, ldc, wmma::mem_row_major);
+// C (M x N, fp32, row-major, ldc) += A (M x K) . B (K x N), all fp32 in
+// shared memory. A(m, k) = a[m * lda + k] when A_ROW, else a[k * lda + m];
+// B(k, n) = b[k * ldb + n] when B_ROW, else b[n * ldb + k]. Each thread takes
+// output elements, one FMA chain over k each. (The bf16 products run on
+// wgmma, below.)
+template <bool A_ROW, bool B_ROW>
+__device__ void block_mma(float* __restrict__ c, int ldc, const float* __restrict__ a, int lda,
+                          const float* __restrict__ b, int ldb, int M, int N, int K) {
+  for (int i = threadIdx.x; i < M * N; i += kThreads) {
+    const int m = i / N, n = i - m * N;
+    float s = c[m * ldc + n];
+    for (int k = 0; k < K; ++k) {
+      const float av = A_ROW ? a[m * lda + k] : a[k * lda + m];
+      const float bv = B_ROW ? b[k * ldb + n] : b[n * ldb + k];
+      s = fmaf(av, bv, s);
     }
-  } else {
-    for (int i = threadIdx.x; i < M * N; i += kThreads) {
-      const int m = i / N, n = i - m * N;
-      float s = c[m * ldc + n];
-      for (int k = 0; k < K; ++k) {
-        const float av = A_ROW ? a[m * lda + k] : a[k * lda + m];
-        const float bv = B_ROW ? b[k * ldb + n] : b[n * ldb + k];
-        s = fmaf(av, bv, s);
-      }
-      c[m * ldc + n] = s;
-    }
+    c[m * ldc + n] = s;
   }
 }
 
@@ -227,11 +217,19 @@ __device__ __forceinline__ ActArgs<T> act_args(const ActPtrs<T>& p) {
   return ActArgs<T>{p.b1, p.s ? __ldg(p.s) : 0.f, p.b ? __ldg(p.b) : 0.f};
 }
 
-// pre-activation p of hidden column j (fp32 product + K9's bias) -> h
+// K9's b1 of hidden column j as fp32 (K10: 0, unused)
 template <typename T, int ACT>
-__device__ __forceinline__ float fwd_act(float p, int j, const ActArgs<T>& a) {
+__device__ __forceinline__ float b1_at(const ActArgs<T>& a, int j) {
+  if constexpr (ACT == kGelu) return to_f32<T>(a.b1[j]);
+  return 0.f;
+}
+
+// pre-activation p of a hidden column (fp32 product; K9 adds its bias b1,
+// from b1_at) -> h
+template <typename T, int ACT>
+__device__ __forceinline__ float fwd_act(float p, float b1, const ActArgs<T>& a) {
   if constexpr (ACT == kGelu) {
-    return gelu(__fadd_rn(p, to_f32<T>(a.b1[j])));
+    return gelu(__fadd_rn(p, b1));
   } else {
     const float r = fmaxf(p, 0.f);
     return __fadd_rn(__fmul_rn(__fmul_rn(a.s, r), r), a.b);
@@ -261,7 +259,7 @@ __device__ void product_pre(float* pre, int ldp, const Stage<T>& st, const T* x,
         load_slice(st.ws[b], hw + P, w1, g.H, k * kKc, g.D, h0, g.H, kKc, hw);
       },
       [&](int, int b) {
-        block_mma<T, true, true>(pre, ldp, st.xs[b], kKc + P, st.ws[b], hw + P, R, hw, kKc);
+        block_mma<true, true>(pre, ldp, st.xs[b], kKc + P, st.ws[b], hw + P, R, hw, kKc);
       });
 }
 
@@ -280,7 +278,7 @@ __device__ void product_dh(float* dh, int ldp, const Stage<T>& st, const T* dy, 
         load_slice(st.ws[b], kKc + P, w2, g.D2, h0, g.H, k * kKc, g.D2, hw, kKc);
       },
       [&](int, int b) {
-        block_mma<T, true, false>(dh, ldp, st.xs[b], kKc + P, st.ws[b], kKc + P, R, hw, kKc);
+        block_mma<true, false>(dh, ldp, st.xs[b], kKc + P, st.ws[b], kKc + P, R, hw, kKc);
       });
 }
 
@@ -319,7 +317,7 @@ __global__ void mlp_split_reduce_kernel(const float* __restrict__ part, const T*
 }
 
 // ---------------------------------------------------------------------------
-// forward: a block per (kTm token rows, hidden split)
+// forward, fp32: a block per (kTm token rows, hidden split)
 // ---------------------------------------------------------------------------
 
 int fwd_smem_bytes(int D2, int tsize) {
@@ -351,8 +349,9 @@ __global__ void __launch_bounds__(kThreads)
     product_pre<T>(pre, kHc + kFpad, st, x, w1, g, r0, g.T, h0, kHc, kTm);
     for (int i = threadIdx.x; i < kTm * kHc; i += kThreads) {
       const int r = i / kHc, c = i - r * kHc;
-      const float h =
-          h0 + c < g.H ? fwd_act<T, ACT>(pre[r * (kHc + kFpad) + c], h0 + c, act) : 0.f;
+      float h = 0.f;
+      if (h0 + c < g.H)
+        h = fwd_act<T, ACT>(pre[r * (kHc + kFpad) + c], b1_at<T, ACT>(act, h0 + c), act);
       hs[r * (kHc + P) + c] = from_f32<T>(h);
     }
     // acc[:, n0:n0 + kNc] += h . w2[h0:h0 + kHc, n0:n0 + kNc], slice by slice
@@ -362,7 +361,7 @@ __global__ void __launch_bounds__(kThreads)
           load_slice(st.ws[b], kNc + P, w2, g.D2, h0, g.H, n * kNc, g.D2, kHc, kNc);
         },
         [&](int n, int b) {
-          block_mma<T, true, true>(acc + n * kNc, ldo, hs, kHc + P, st.ws[b], kNc + P, kTm, kNc,
+          block_mma<true, true>(acc + n * kNc, ldo, hs, kHc + P, st.ws[b], kNc + P, kTm, kNc,
                                    kHc);
         });
   }
@@ -377,13 +376,6 @@ int dx_smem_bytes(int D, int tsize) {
   const int P = 16 / tsize;
   return 4 * kTm * (round_up(D, kNc) + kFpad) + 8 * kTm * (kHc + kFpad) +
          tsize * (3 * kTm * (kHc + P) + 2 * kKc * (kHc + P));
-}
-
-// K9's b1 of hidden column j as fp32 (K10: 0, unused)
-template <typename T, int ACT>
-__device__ __forceinline__ float b1_at(const ActArgs<T>& a, int j) {
-  if constexpr (ACT == kGelu) return to_f32<T>(a.b1[j]);
-  return 0.f;
 }
 
 // dpre of a hidden column from its pre-activation p (fp32 product), dh and
@@ -445,7 +437,7 @@ __global__ void __launch_bounds__(kThreads)
           load_slice(st.ws[b], kHc + P, w1, g.H, n * kNc, g.D, h0, g.H, kNc, kHc);
         },
         [&](int n, int b) {
-          block_mma<T, true, false>(acc + n * kNc, ldo, ps, kHc + P, st.ws[b], kHc + P, kTm, kNc,
+          block_mma<true, false>(acc + n * kNc, ldo, ps, kHc + P, st.ws[b], kHc + P, kTm, kNc,
                                     kHc);
         });
   }
@@ -458,7 +450,7 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 
 struct Plan {
-  int splits;    // hidden splits of the forward and dx kernels (1: no partials)
+  int splits;    // hidden splits of the fp32 forward and dx kernels (1: no partials)
   int split_cols;  // hidden columns a split (a multiple of kHc)
   int hw;        // hidden columns a chunk of the dW kernel (0: the widths do not fit)
   int tw;        // token rows a step of the dW kernel
@@ -500,7 +492,7 @@ Plan make_plan(const Dims& g, int tsize, int sms) {
   p.segments = (g.T + p.seg_rows - 1) / p.seg_rows;
   p.L0 = (long long)g.D * g.H + (long long)g.H * g.D2 + g.H + g.D2;
   p.L = p.L0 + 2LL * p.chunks;
-  // the forward and dx kernels: as many hidden splits as fill one wave of
+  // the fp32 forward and dx kernels: as many hidden splits as fill one wave of
   // blocks where the token tiles alone do not (few tokens, as at B=1; more
   // splits than that measured slower at CAFormer-b36's stage 2)
   const int row_blocks = (g.T + kTm - 1) / kTm, hchunks = (g.H + kHc - 1) / kHc;
@@ -587,7 +579,7 @@ __global__ void __launch_bounds__(kThreads)
           load_slice(st.xs[b], kKc + P, x, g.D, t0, t_end, m * kKc, g.D, tw, kKc);
         },
         [&](int m, int b) {
-          block_mma<T, false, true>(acc1 + m * kKc * ldp, ldp, st.xs[b], kKc + P, ps, hw + P, kKc,
+          block_mma<false, true>(acc1 + m * kKc * ldp, ldp, st.xs[b], kKc + P, ps, hw + P, kKc,
                                     hw, tw);
         });
     // dw2[chunk, n0:n0 + kNc] += round(h)^T . dy[:, n0:n0 + kNc]; db2 in chunk 0
@@ -604,7 +596,7 @@ __global__ void __launch_bounds__(kThreads)
               s = __fadd_rn(s, to_f32<T>(ys[r * (kNc + P) + threadIdx.x]));
             b2acc[n * kNc + threadIdx.x] = s;
           }
-          block_mma<T, false, true>(acc2 + n * kNc, ld2, hs, hw + P, ys, kNc + P, hw, kNc, tw);
+          block_mma<false, true>(acc2 + n * kNc, ld2, hs, hw + P, ys, kNc + P, hw, kNc, tw);
         });
   }
   ds = block_sum(ds, red);
@@ -745,9 +737,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], unsigned long l
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// (scale_d = 0: d = A . B, the old d ignored)
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], unsigned long long da,
-                                                 unsigned long long db) {
+                                                 unsigned long long db, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -761,7 +754,95 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], unsigned long lo
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], unsigned long long da,
+                                                 unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], unsigned long long da,
+                                                 unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d += A . B through the widest product of a 64 x 64 NB fragment (NB 64-column
+// blocks: m64n(64 NB)k16), d laid out as wgmma_m64n128k16's
+template <int NB, int TA, int TB>
+__device__ __forceinline__ void wgmma_m64nk16(float (&d)[32 * NB], unsigned long long da,
+                                              unsigned long long db) {
+  if constexpr (NB == 1) wgmma_m64n64k16<TA, TB>(d, da, db);
+  else if constexpr (NB == 2) wgmma_m64n128k16<TA, TB>(d, da, db);
+  else if constexpr (NB == 3) wgmma_m64n192k16<TA, TB>(d, da, db);
+  else wgmma_m64n256k16<TA, TB>(d, da, db);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -858,6 +939,298 @@ __device__ __forceinline__ void wgmma_ring(int steps, Load load, Compute compute
   wgmma_wait<0>();
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// forward, bf16, on the tensor cores: mlp_fwd_wgmma_kernel
+//   A block of two warpgroups takes 64 token rows, the hidden columns of its
+//   split (all of them unless the batch is small) and a slice of y's columns
+//   (all of them up to 512). Its x rows are staged once, whole (64 x D,
+//   K-major). Then for each chunk of 128 hidden columns:
+//     pre: warpgroup w computes pre[:, 64 w .. 64 w + 63] = x . w1[:, chunk]
+//          (m64n64k16, w1 MN-major), 32 fp32 accumulators a thread;
+//     the activation on that fragment in registers (K9: + b1, erf GELU; K10:
+//          StarReLU), round(h) into the chunk's (64 x 128) swizzled bf16 tile;
+//     y:   warpgroup w adds h . w2[chunk, its 64 NB columns] to its 32 NB fp32
+//          accumulators (m64n(64 NB)k16, h K-major, w2 MN-major).
+//   Every tile comes by TMA (tensor maps of x, w1 and w2, 128-byte swizzle,
+//   zeros past the edges), which one thread requests: each step brings a
+//   slice of w1 (FwdCfg::kPr rows) or of w2 (kYk rows), up to kSlot bytes,
+//   into a ring of kFwdStages stages, two steps ahead, its arrival counted on
+//   the stage's mbarrier; one wgmma group stays in flight past its step. A
+//   step costs a barrier and its bookkeeping at 8 warps an SM, which bound the
+//   kernel more than its products, so the steps are large: 32 KB from D = 256
+//   up to D = 512, where they fit beside x's rows; 16 KB below D = 256, where
+//   two blocks an SM fit, and above D = 512. The weights
+//   come from L2 once per 64 token rows (~4 MB at CAFormer-b36's stage 2).
+//   The epilogue adds K9's b2 and casts once, or writes fp32 partials where
+//   the hidden columns are split.
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdM = 64;       // token rows a block
+constexpr int kFwdHc = 128;     // hidden columns a chunk: 64 a warpgroup
+constexpr int kFwdMaxNb = 4;    // 64-column y blocks a warpgroup: 128 accumulators a thread
+constexpr int kFwdStages = 4;
+
+// a step's size (BIG: 32 KB, else 16 KB): the rows of w1 a pre step (kPr:
+// two 64-column blocks) and of w2 a y step (kYk: 2 NB 64-column blocks, a
+// multiple of 16 up to the 128 of a chunk)
+template <int NB, bool BIG>
+struct FwdCfg {
+  static constexpr int kSlot = BIG ? 32768 : 16384;
+  static constexpr int kPr = kSlot / (2 * 64 * 2);
+  static constexpr int kYk = kSlot / (2 * NB * 64 * 2) / 16 * 16;
+  static_assert(kYk >= 16 && kFwdHc % kYk == 0, "y steps tile a chunk");
+};
+
+// the ring, round(h), x (rows padded to a multiple of the pre step's), then
+// the kFwdStages + 1 mbarriers (+ the 1024-byte alignment)
+int fwd_wgmma_smem(int D, bool big) {
+  const int slot = big ? 32768 : 16384, pr = slot / 256;
+  return 1024 + kFwdStages * slot + 2 * 8192 + 128 * round_up(D, pr) + 128;
+}
+
+// The bf16 forward's grid: hidden splits, y column slices, the 64-column
+// blocks a warpgroup takes and the step size
+struct FwdPlan {
+  int splits, split_cols, slices, nb;
+  bool big;
+};
+
+FwdPlan make_fwd_plan(const Dims& g, int sms) {
+  FwdPlan p;
+  const int nb64 = (g.D2 + 63) / 64;
+  p.slices = (nb64 + 2 * kFwdMaxNb - 1) / (2 * kFwdMaxNb);
+  p.nb = (nb64 + 2 * p.slices - 1) / (2 * p.slices);
+  // 16 KB steps below D = 256, where two blocks an SM fit beside small x
+  // tiles (measured faster there, and slower from D = 256 on)
+  p.big = g.D >= 256 && fwd_wgmma_smem(g.D, true) <= kMaxSmem;
+  // hidden splits where the blocks of the token tiles and slices fill less
+  // than half the SMs (a small batch); else two where they cut the waves
+  // times the chunks a block by a fifth (one and a half waves become three
+  // of half the work), which pays for the partials' sum
+  const int blocks = ((g.T + kFwdM - 1) / kFwdM) * p.slices;
+  const int chunks = (g.H + kFwdHc - 1) / kFwdHc;
+  int want = sms / blocks;
+  if (want <= 1) {
+    const int waves1 = (blocks + sms - 1) / sms, waves2 = (2 * blocks + sms - 1) / sms;
+    want = chunks > 1 && 5 * waves2 * ((chunks + 1) / 2) <= 4 * waves1 * chunks ? 2 : 1;
+  }
+  want = want > chunks ? chunks : want;
+  p.split_cols = ((chunks + want - 1) / want) * kFwdHc;
+  p.splits = (g.H + p.split_cols - 1) / p.split_cols;
+  return p;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// this thread's arrival on bar, which then also waits for bytes of copies
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// until bar's phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// the box of map at (column c0, row r0) into dst by TMA, counted on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int r0,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(r0), "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <int ACT, int NB, bool BIG>
+__global__ void __launch_bounds__(kWgThreads, NB <= 2 ? 2 : 1)
+    mlp_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_w1,
+                         const __grid_constant__ CUtensorMap tm_w2, ActPtrs<bf16> ap,
+                         const bf16* __restrict__ b2, bf16* __restrict__ y,
+                         float* __restrict__ part, Dims g, int split_cols) {
+  using Cfg = FwdCfg<NB, BIG>;
+  constexpr int S = kFwdStages, kPr = Cfg::kPr, kYk = Cfg::kYk, kSlot = Cfg::kSlot;
+  constexpr int kYsteps = kFwdHc / kYk;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* const ring = align1024(smem_raw);
+  unsigned char* const hs = ring + S * kSlot;  // round(h): two 64 x 64 blocks
+  unsigned char* const xs = hs + 2 * 8192;     // x: a 64 x 64 block per 64 of D
+  const int psteps = (g.D + kPr - 1) / kPr;    // pre steps a chunk
+  const int xblocks = psteps * (kPr / 64);     // past D: zeros
+  // the ring's S mbarriers, then x's
+  unsigned long long* const bars = reinterpret_cast<unsigned long long*>(xs + xblocks * 8192);
+  const ActArgs<bf16> act = act_args(ap);
+  const int t0 = blockIdx.x * kFwdM, h_begin = static_cast<int>(blockIdx.y) * split_cols;
+  const int h_end = min(g.H, h_begin + split_cols);
+  const int warp = threadIdx.x >> 5, wg = warp >> 2, wi = warp & 3, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int c0 = blockIdx.z * 128 * NB;  // the block's first y column
+  const int cw = c0 + 64 * NB * wg;      // this warpgroup's
+  const int chunks = (h_end - h_begin + kFwdHc - 1) / kFwdHc;
+  const int per = psteps + kYsteps, steps = chunks * per;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= S; ++i) mbar_init(bars + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // thread 0 requests the steps in order: pre steps 0.. then y steps 0.. of
+  // each chunk; its cursor (chunk's hidden start, step in the chunk, slot)
+  int ld_h0 = h_begin, ld_i = 0, ld_slot = 0, ld_left = steps;
+  auto issue = [&]() {
+    unsigned long long* const bar = bars + ld_slot;
+    unsigned char* const a = ring + ld_slot * kSlot;
+    if (ld_i < psteps) {  // w1 rows kPr i.., hidden columns ld_h0..ld_h0 + 127
+      mbar_expect_tx(bar, kSlot);
+      tma_load(a, &tm_w1, ld_h0, kPr * ld_i, bar);
+      tma_load(a + kPr * 128, &tm_w1, ld_h0 + 64, kPr * ld_i, bar);
+    } else {  // w2 rows ld_h0 + kYk j.., the block's y columns
+      mbar_expect_tx(bar, 2 * NB * kYk * 128);
+#pragma unroll
+      for (int b = 0; b < 2 * NB; ++b)
+        tma_load(a + b * kYk * 128, &tm_w2, c0 + 64 * b, ld_h0 + kYk * (ld_i - psteps), bar);
+    }
+    ld_slot = ld_slot + 1 == S ? 0 : ld_slot + 1;
+    if (++ld_i == per) {
+      ld_i = 0;
+      ld_h0 += kFwdHc;
+    }
+    --ld_left;
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bars + S, xblocks * 8192);  // the x rows
+    for (int kb = 0; kb < xblocks; ++kb) tma_load(xs + kb * 8192, &tm_x, 64 * kb, t0, bars + S);
+    for (int k = 0; k < S - 2 && ld_left > 0; ++k) issue();
+  }
+  float pre[32], acc[32 * NB];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) pre[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32 * NB; ++i) acc[i] = 0.f;
+  mbar_wait(bars + S, 0);
+
+  // a step: its stage's data arrived; after the barrier every warpgroup has
+  // waited for the wgmma group of two steps back, so the stage thread 0
+  // fills now is free. Returns the stage's shared-memory address.
+  int slot = 0;
+  unsigned phase = 0;
+  auto begin_step = [&]() {
+    mbar_wait(bars + slot, phase);
+    __syncthreads();
+    if (threadIdx.x == 0 && ld_left > 0) issue();
+    return smem_u32(ring + slot * kSlot);
+  };
+  auto end_step = [&]() {
+    wgmma_wait<1>();
+    if (++slot == S) {
+      slot = 0;
+      phase ^= 1;
+    }
+  };
+
+  // one loop over the steps, one place that issues wgmma: with the pre and y
+  // products in loops of their own, ptxas serialized every wgmma (C7515)
+  int hc = h_begin, i = 0;  // the chunk's first hidden column, the step in the chunk
+  unsigned b1r[8];  // K9: this thread's b1 pairs of the chunk (K10: zeros, unused)
+  for (int k = 0; k < steps; ++k) {
+    const unsigned a = begin_step();
+    wgmma_hold(pre);
+    wgmma_hold(acc);
+    wgmma_fence();
+    if (i < psteps) {
+      // a chunk's first product overwrites pre (scale-d 0): no other
+      // instruction writes the accumulators inside the loop
+      const unsigned xa = smem_u32(xs + i * (kPr / 64) * 8192);
+#pragma unroll
+      for (int q = 0; q < kPr / 16; ++q)
+        wgmma_m64n64k16<0, 1>(pre, wgmma_desc(xa + (q >> 2) * 8192 + 32 * (q & 3), 16, 1024),
+                              wgmma_desc(a + wg * kPr * 128 + 2048 * q, kPr * 128, 1024),
+                              i > 0 || q > 0);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kYk / 16; ++q) {
+        const int r = (i - psteps) * kYk + 16 * q;  // the chunk's hidden row
+        wgmma_m64nk16<NB, 0, 1>(
+            acc, wgmma_desc(smem_u32(hs) + (r >> 6) * 8192 + 32 * ((r >> 4) & 3), 16, 1024),
+            wgmma_desc(a + wg * NB * kYk * 128 + 2048 * q, kYk * 128, 1024));
+      }
+    }
+    wgmma_commit();
+    if (i == 0) {  // K9: the chunk's b1 pairs, read before the pre steps
+      const int hw0 = hc + 64 * wg;
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        const int j = hw0 + 8 * jn + 2 * tq;
+        b1r[jn] = ACT == kGelu && j < g.H ? *reinterpret_cast<const unsigned*>(act.b1 + j) : 0u;
+      }
+    }
+    if (i == psteps - 1) {
+      wgmma_wait<0>();
+      wgmma_hold(pre);
+      // every warpgroup has waited for its products: the last chunk's y
+      // steps no longer read hs
+      __syncthreads();
+      // round(act(pre)) into this warpgroup's block of hs (0 past H)
+      const int hw0 = hc + 64 * wg;
+      unsigned char* const hb = hs + wg * 8192;
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        const int j = hw0 + 8 * jn + 2 * tq;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 16 * wi + gq + 8 * e, q = 4 * jn + 2 * e;
+          const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b1r[jn]));
+          const float v0 = j < g.H ? fwd_act<bf16, ACT>(pre[q], b.x, act) : 0.f;
+          const float v1 = j + 1 < g.H ? fwd_act<bf16, ACT>(pre[q + 1], b.y, act) : 0.f;
+          *reinterpret_cast<unsigned*>(hb + r * 128 + ((jn ^ (r & 7)) << 4) + 4 * tq) =
+              pack_bf16(v0, v1);
+        }
+      }
+      fence_async_smem();  // for the y steps' wgmma, after the next barrier
+    }
+    end_step();
+    if (++i == per) {
+      i = 0;
+      hc += kFwdHc;
+    }
+  }
+  wgmma_wait<0>();
+  wgmma_hold(acc);
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = t0 + 16 * wi + gq + 8 * e;
+    if (row >= g.T) continue;
+#pragma unroll
+    for (int j = 0; j < 8 * NB; ++j) {
+      const int n = cw + 8 * j + 2 * tq;
+      if (n >= g.D2) continue;
+      float v0 = acc[4 * j + 2 * e], v1 = acc[4 * j + 2 * e + 1];
+      if (gridDim.y > 1) {
+        *reinterpret_cast<float2*>(part + ((long long)blockIdx.y * g.T + row) * g.D2 + n) =
+            make_float2(v0, v1);
+        continue;
+      }
+      if constexpr (ACT == kGelu) {
+        v0 = __fadd_rn(v0, __bfloat162float(b2[n]));
+        v1 = __fadd_rn(v1, __bfloat162float(b2[n + 1]));
+      }
+      *reinterpret_cast<unsigned*>(y + (long long)row * g.D2 + n) = pack_bf16(v0, v1);
+    }
+  }
 }
 
 // (A) on wgmma: a block of two warpgroups takes 128 token rows x 64 hidden
@@ -1243,31 +1616,111 @@ cudaError_t set_smem(K kernel, int bytes) {
 // sums a split launch's partials into out (T, N) (+ bias); nothing to do
 // without a split
 template <typename T, bool BIAS>
-cudaError_t reduce_splits(const Plan& plan, const float* part, const void* bias, void* out,
-                          int rows, int N, cudaStream_t stream) {
-  if (plan.splits == 1) return cudaSuccess;
+cudaError_t reduce_splits(int splits, const float* part, const void* bias, void* out, int rows,
+                          int N, cudaStream_t stream) {
+  if (splits == 1) return cudaSuccess;
   const long long n = (long long)rows * N;
   mlp_split_reduce_kernel<T, BIAS><<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
                                      kThreads, 0, stream>>>(
-      part, static_cast<const T*>(bias), static_cast<T*>(out), plan.splits, n, N);
+      part, static_cast<const T*>(bias), static_cast<T*>(out), splits, n, N);
   return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point lookup
+// (nothing links against libcuda); null where it is not found
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const bool ok = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found) == cudaSuccess &&
+                    found == cudaDriverEntryPointSuccess;
+    return ok ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// map: the row-major bf16 matrix (rows x cols) at base in boxes of box_rows
+// rows x 64 columns (128 bytes), 128-byte swizzled as wgmma reads them, zeros
+// past the edges
+bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dim[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t stride[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dim, stride, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the bf16 forward at NB 64-column y blocks a warpgroup and BIG (32 KB)
+// steps or 16 KB ones, then its split sum
+template <int ACT, int NB, bool BIG>
+cudaError_t launch_fwd_wgmma(const bf16* x, const bf16* w1, const ActPtrs<bf16>& act,
+                             const bf16* w2, const bf16* b2, bf16* y, float* part,
+                             const FwdPlan& plan, const Dims& g, cudaStream_t stream) {
+  using Cfg = FwdCfg<NB, BIG>;
+  CUtensorMap tm_x, tm_w1, tm_w2;
+  if (!tensor_map(&tm_x, x, g.T, g.D, kFwdM) || !tensor_map(&tm_w1, w1, g.D, g.H, Cfg::kPr) ||
+      !tensor_map(&tm_w2, w2, g.H, g.D2, Cfg::kYk))
+    return cudaErrorNotSupported;
+  const int smem = fwd_wgmma_smem(g.D, BIG);
+  cudaError_t err = set_smem(mlp_fwd_wgmma_kernel<ACT, NB, BIG>, smem);
+  if (err != cudaSuccess) return err;
+  mlp_fwd_wgmma_kernel<ACT, NB, BIG><<<dim3((g.T + kFwdM - 1) / kFwdM, plan.splits, plan.slices),
+                                       kWgThreads, smem, stream>>>(
+      tm_x, tm_w1, tm_w2, act, b2, y, part, g, plan.split_cols);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_splits<bf16, ACT == kGelu>(plan.splits, part, b2, y, g.T, g.D2, stream);
+}
+
+template <int ACT, bool BIG>
+cudaError_t launch_fwd_nb(const bf16* x, const bf16* w1, const ActPtrs<bf16>& act,
+                          const bf16* w2, const bf16* b2, bf16* y, float* part,
+                          const FwdPlan& plan, const Dims& g, cudaStream_t stream) {
+  switch (plan.nb) {
+    case 1: return launch_fwd_wgmma<ACT, 1, BIG>(x, w1, act, w2, b2, y, part, plan, g, stream);
+    case 2: return launch_fwd_wgmma<ACT, 2, BIG>(x, w1, act, w2, b2, y, part, plan, g, stream);
+    case 3: return launch_fwd_wgmma<ACT, 3, BIG>(x, w1, act, w2, b2, y, part, plan, g, stream);
+    default: return launch_fwd_wgmma<ACT, 4, BIG>(x, w1, act, w2, b2, y, part, plan, g, stream);
+  }
 }
 
 template <typename T, int ACT>
 cudaError_t launch_fwd(const void* x, const void* w1, const void* b1, const float* s,
                        const float* b, const void* w2, const void* b2, void* y, float* part,
                        const Dims& g, cudaStream_t stream) {
-  const Plan plan = make_plan(g, sizeof(T), sm_count());
-  const int smem = fwd_smem_bytes(g.D2, sizeof(T));
-  cudaError_t err = set_smem(mlp_fwd_kernel<T, ACT>, smem);
-  if (err != cudaSuccess) return err;
   ActPtrs<T> act{static_cast<const T*>(b1), s, b};
-  mlp_fwd_kernel<T, ACT><<<dim3((g.T + kTm - 1) / kTm, plan.splits), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), act, static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(y), part, g, plan.split_cols);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce_splits<T, ACT == kGelu>(plan, part, b2, y, g.T, g.D2, stream);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const FwdPlan plan = make_fwd_plan(g, sm_count());
+    const auto* xb = static_cast<const bf16*>(x);
+    const auto* w1b = static_cast<const bf16*>(w1);
+    const auto* w2b = static_cast<const bf16*>(w2);
+    const auto* b2b = static_cast<const bf16*>(b2);
+    auto* yb = static_cast<bf16*>(y);
+    if (plan.big)
+      return launch_fwd_nb<ACT, true>(xb, w1b, act, w2b, b2b, yb, part, plan, g, stream);
+    return launch_fwd_nb<ACT, false>(xb, w1b, act, w2b, b2b, yb, part, plan, g, stream);
+  } else {
+    const Plan plan = make_plan(g, sizeof(T), sm_count());
+    const int smem = fwd_smem_bytes(g.D2, sizeof(T));
+    cudaError_t err = set_smem(mlp_fwd_kernel<T, ACT>, smem);
+    if (err != cudaSuccess) return err;
+    mlp_fwd_kernel<T, ACT><<<dim3((g.T + kTm - 1) / kTm, plan.splits), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w1), act, static_cast<const T*>(w2),
+        static_cast<const T*>(b2), static_cast<T*>(y), part, g, plan.split_cols);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return reduce_splits<T, ACT == kGelu>(plan.splits, part, b2, y, g.T, g.D2, stream);
+  }
 }
 
 // the bf16 backward: (A), then (B) and (C), then (D); part is the scratch of
@@ -1348,7 +1801,7 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* w1, const void
         static_cast<const T*>(w2), static_cast<T*>(dx), dx_part, g, plan.split_cols);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = reduce_splits<T, false>(plan, dx_part, nullptr, dx, g.T, g.D, stream);
+    err = reduce_splits<T, false>(plan.splits, dx_part, nullptr, dx, g.T, g.D, stream);
     if (err != cudaSuccess) return err;
     if (plan.hw == 0) return cudaErrorInvalidValue;
     smem = dw_smem_bytes(g.D, g.D2, plan.hw, plan.tw, sizeof(T));
@@ -1384,15 +1837,22 @@ const char* skinjax_fused_mlp_error_string(int code) {
 
 // The fp32 scratch of a forward (backward = 0) or a backward call: writes
 // its size in floats to *floats. Forward: splits x T x D2 partials where the
-// hidden columns are split (else 0). Backward: the dW kernel's segments x
-// (D.H + H.D2 + H + D2 + 2 chunks) partials, then splits x T x D dx partials.
+// hidden columns are split (else 0; the bf16 and fp32 kernels split
+// differently). Backward, fp32: the dW kernel's segments x (D.H + H.D2 + H +
+// D2 + 2 chunks) partials, then splits x T x D dx partials; bf16: the hidden
+// planes and partials of make_bf16_plan.
 int skinjax_fused_mlp_scratch(int bf16_in, int backward, int T, int D, int H, int D2,
                               long long* floats) {
   const Dims g = dims(T, D, H, D2);
   if (bad_dims(g)) return static_cast<int>(cudaErrorInvalidValue);
-  *floats = bf16_in && backward ? make_bf16_plan(g, sm_count()).total
-                                : scratch_floats(make_plan(g, bf16_in ? 2 : 4, sm_count()), g,
-                                                 backward != 0);
+  if (bf16_in && backward) {
+    *floats = make_bf16_plan(g, sm_count()).total;
+  } else if (bf16_in) {
+    const FwdPlan p = make_fwd_plan(g, sm_count());
+    *floats = p.splits > 1 ? (long long)p.splits * T * D2 : 0;
+  } else {
+    *floats = scratch_floats(make_plan(g, 4, sm_count()), g, backward != 0);
+  }
   return 0;
 }
 

@@ -1,6 +1,7 @@
 // Building blocks of the bf16 tensor-core attention kernels (sm_90a):
 // global_attention.cu's forward and backwards, pooled_attention.cu's forward
-// and backward, and window_attention.cu's strip backward.
+// and backward, and window_attention.cu's forward core, output projection
+// and strip backward.
 //
 // A warp computes (16 rows x 16 keys) blocks of scores with
 // mma.sync.m16n8k16 (bf16 operands, fp32 accumulators in registers), its

@@ -25,14 +25,15 @@
 // of (B,H,W,C) and dbias (heads,N,N); dx and the weight gradients are flat
 // matrix products outside the kernel (ops/window_attention.py), as in skinjax.
 //
-// Launches. Forward: one core launch (grid: window blocks x heads) writes
+// Launches. Forward: one core launch (a block per window and head) writes
 // of = p.v per head to an NHWC scratch, then one projection launch computes
-// y = of.Wproj + bproj as a tiled product. Backward: one core launch, a block
-// per (window, head) (bf16: wa_bwd_mma_kernel; fp32: wa_bwd_kernel); with a
-// bias, a block per (window group, head) that sums its windows' dbias in
-// order into a partial plane of its own, and one second pass,
-// dbias_reduce_kernel, that adds the partials in block order (no atomics, so
-// the result does not depend on block order).
+// y = of.Wproj + bproj as a tiled product (bf16: wa_fwd_mma_kernel and
+// wa_proj_mma_kernel; fp32: wa_fwd_kernel and proj_kernel). Backward: one
+// core launch, a block per (window, head) (bf16: wa_bwd_mma_kernel; fp32:
+// wa_bwd_kernel); with a bias, a block per (window group, head) that sums its
+// windows' dbias in order into a partial plane of its own, and one second
+// pass, dbias_reduce_kernel, that adds the partials in block order (no
+// atomics, so the result does not depend on block order).
 //
 // Layout. There is no TPU layout here: no 56-token interleaved window, no
 // padding of N to 16 with -1e9 keys, no 6-D view. A block reads the N real
@@ -47,18 +48,20 @@
 // ~18.6 GFLOP against ~77 MB, ~240 operations per byte: on the bf16 tensor
 // cores the card's ridge (~295), so either bound is ~20 us; a backward ~26
 // GFLOP (~38 with N padded to 64) against ~231 MB, bound by bytes (~69 us).
-// The forward runs on the CUDA cores in fp32 (no mma, no TMA): the
-// projections register-tiled from shared memory (8 rows x 3 or 4 columns a
-// thread), one block per (window, head), re-reading the window's x from L2
-// once per head; fp32 FMAs and shared-memory traffic bound it. The fp32
-// backward, wa_bwd_kernel, is the same design, bound the same way (kept for
-// the 1e-4 checks: TF32 would not hold them). The bf16 backward, wa_bwd_mma_kernel
-// (below), runs every product on the tensor cores from bf16 tiles, keeps
-// the scores, P, dp and ds in registers, streams x, dy and the head's weight
-// slices by 16-byte cp.async, and needs 41.5 KB of shared memory a block;
-// what bounds it now is instructions and its L2 traffic: it re-reads a
-// window's x and dy once per head (the heads of a window are adjacent
-// blocks) and the head's weight slices once per window. PERF.md records how
+// The bf16 kernels (below) run every product on the tensor cores from bf16
+// tiles, keep the scores and P (and the backward's dp and ds) in registers
+// and stream x (and dy) and the head's weight slices by 16-byte cp.async;
+// the forward core shares its projections and attention with the backward
+// (wa_attend) and needs 25 KB of shared memory a block, the backward 41.5 KB.
+// What bounds them now is instructions and L2 traffic: a block re-reads its
+// window's x (and dy) once per head (the heads of a window are adjacent
+// blocks) and the head's weight slices once per window, with N = 49 rows
+// padded to 64; the forward's of makes a round trip through device memory
+// (38.5 MB each way at DaViT's stage 1) between the core and the projection.
+// The fp32 kernels run on the CUDA cores (no mma, no TMA), kept for the 1e-4
+// checks (TF32 would not hold them): the projections register-tiled from
+// shared memory (8 rows x 3 or 4 columns a thread), one block per (window,
+// head); fp32 FMAs and shared-memory traffic bound them. PERF.md records how
 // far each is from its bound. Limits: N <= 64 (window <= 8) and hd <= 32
 // (DaViT and Swin: 32).
 //
@@ -88,15 +91,13 @@ constexpr int kSs = kMaxN + 1;    // row stride of the (N, N) planes
 constexpr int kProjTile = 64;   // output projection: 64 x 64 tiles
 constexpr int kTileK = 16;
 
+// the fp32 kernels' conversions (the bf16 ones run on the tensor cores,
+// below, and convert with the bf16 intrinsics)
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
 template <>
 __device__ __forceinline__ float to_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
 }
 
 template <typename T>
@@ -104,10 +105,6 @@ __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 // x rounded to T and back: the cast points of the Pallas kernel
@@ -463,35 +460,52 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ partial, float* __
   out[i] = a;
 }
 
-// ---- The backward's bf16 instantiation on the tensor cores ----
+// ---- The bf16 instantiations on the tensor cores: the forward core, the
+// output projection and the backward ----
 //
-// A block takes one head of a window (or, with a bias, of a fixed set of
-// windows, summing their dbias in registers): four warps, one 64-row tile
-// that holds the window's N <= 64 tokens (rows at or past N are zeros, their
-// keys -inf, their outputs not stored). Every product is an
-// mma.sync.m16n8k16 (bf16 operands by ldmatrix, fp32 accumulators in
-// registers; mma_bf16.cuh). (1) The projections: 32-channel steps of the
-// window's x and dy rows, gathered by token offset with 16-byte cp.async, and
-// of the head's Wqkv columns and Wproj rows stream two deep; a warp's 16 rows
-// of q, k, v (+ bqkv) and do accumulate in registers and are rounded to bf16
-// into (64 x 32) tiles. (2) The attention, a warp its 16 query rows, in
-// registers: s = q.k^T * scale (+ bias, + mask), the fp32 softmax with quad
-// shuffles, of += round(P).V, dp = do.v^T, ds = P (dp - rowsum(dp P)),
-// dq += round(ds * scale).K; round(P) and round(ds * scale) go to (64 x 64)
-// bf16 tiles. (3) The key side, a warp its 16 keys: their transposed A
-// operands by ldmatrix.trans from those tiles, dv += round(P)^T.do and
-// dk += round(ds * scale)^T.q. The staging buffers of (1) hold the tiles of
-// (2) and (3): 41.5 KB a block.
+// A core block takes one head of a window (the backward, with a bias, one
+// head of a fixed set of windows, summing their dbias in registers): four
+// warps, one 64-row tile that holds the window's N <= 64 tokens (rows at or
+// past N are zeros, their keys -inf, their outputs not stored). Every product
+// is an mma.sync.m16n8k16 (bf16 operands by ldmatrix, fp32 accumulators in
+// registers; mma_bf16.cuh). Steps (1) and (2) are one device function,
+// wa_attend, that both core kernels call, so the forward's of is the
+// backward's bit for bit. (1) The projections: 32-channel steps of the
+// window's x rows (and, for the backward, dy rows), gathered by token offset
+// with 16-byte cp.async, and of the head's Wqkv columns (and Wproj rows)
+// stream two deep; a warp's 16 rows of q, k, v (+ bqkv) (and do) accumulate
+// in registers and are rounded to bf16 into (64 x 32) tiles. (2) The
+// attention, a warp its 16 query rows, in registers: s = q.k^T * scale
+// (+ bias, + mask), the fp32 softmax with quad shuffles, of = round(round(P).V)
+// stored at the window's token rows. The forward core, wa_fwd_mma_kernel, is
+// those two steps: 25 KB of shared memory a block. The backward,
+// wa_bwd_mma_kernel, goes on in registers: dp = do.v^T, ds = P (dp -
+// rowsum(dp P)), dq += round(ds * scale).K, with round(P) and round(ds *
+// scale) to (64 x 64) bf16 tiles; then (3) the key side, a warp its 16 keys:
+// their transposed A operands by ldmatrix.trans from those tiles, dv +=
+// round(P)^T.do and dk += round(ds * scale)^T.q. The staging buffers of (1)
+// hold the tiles of (2) and (3): 41.5 KB a block. The output projection,
+// wa_proj_mma_kernel, is a tiled product of of and Wproj on mma.sync.
 
 constexpr int kPc = 32;  // input channels a projection step (and the head's 32 columns)
 constexpr int kPl = tile_ld<kPc>();  // row stride of the (rows x 32) bf16 tiles
 constexpr int kSl = tile_ld<kTile>();  // row stride of the (64 x 64) round(P), round(ds) tiles
-// a projection stage: x and dy (64 x 32), Wq, Wk, Wv (32 channels x 32), Wproj (32 x 32 channels)
-constexpr int kStageElems = 2 * kTile * kPl + 4 * kPc * kPl;
-constexpr int kMmaRegionBytes = 2 * kStageElems * 2;
-static_assert(4 * kTile * kPl + 2 * kTile * kSl <= 2 * kStageElems,
-              "the attention tiles fit in the projection stages");
-constexpr int bwd_mma_smem_bytes() { return kMmaRegionBytes + kTokBytes; }
+// a projection stage of kParts = 3 (the forward: x; Wq, Wk, Wv) or 4 (the
+// backward: x, dy; Wq, Wk, Wv, Wproj): x and dy (64 x 32), Wq, Wk, Wv (32
+// channels x 32), Wproj (32 x 32 channels)
+template <int kParts>
+__host__ __device__ constexpr int stage_elems() {
+  return (kParts - 2) * kTile * kPl + kParts * kPc * kPl;
+}
+template <int kParts>
+__host__ __device__ constexpr int region_bytes() {
+  return 2 * stage_elems<kParts>() * 2;
+}
+static_assert(3 * kTile * kPl <= 2 * stage_elems<3>(), "the forward's tiles fit in its stages");
+static_assert(4 * kTile * kPl + 2 * kTile * kSl <= 2 * stage_elems<4>(),
+              "the backward's tiles fit in its stages");
+constexpr int fwd_mma_smem_bytes() { return region_bytes<3>() + kTokBytes; }
+constexpr int bwd_mma_smem_bytes() { return region_bytes<4>() + kTokBytes; }
 
 // acc[2 kk + j] += a . X^T over the 16 columns 16 ks.. of the (32 x 32) tile xs
 // (X rows 16 kk + 8 j..: the output columns): do = dy . Wproj_head^T
@@ -553,6 +567,271 @@ __device__ __forceinline__ void copy8(bf16* dst, const bf16* src, int count, boo
   }
 }
 
+// Steps (1) and (2) for head hi of window win, whose token offsets are tok:
+// q, k, v (and, kParts == 4, do = dy.Wproj_head^T) of the window's rows into
+// the bf16 tiles at the start of region (q, k, v, do, 64 x kPl each), then
+// this warp's 16 query rows: P (fp32, 0 on rows past N) in s, where the
+// backward goes on from, and of = round(round(P).V) at the token rows of of;
+// kParts == 4 also writes round(P) to pt. The two kernels share every
+// instruction up to here, so their of agree bit for bit.
+template <int kParts, bool kBias>
+__device__ __forceinline__ void wa_attend(float (&s)[4][2][4], bf16* __restrict__ region,
+                                          const long long* tok, const bf16* __restrict__ x,
+                                          const bf16* __restrict__ dy,
+                                          const bf16* __restrict__ wqkv,
+                                          const bf16* __restrict__ bqkv,
+                                          const bf16* __restrict__ wproj,
+                                          const float* __restrict__ bias,
+                                          const float* __restrict__ mask, bf16* __restrict__ of,
+                                          bf16* __restrict__ pt, const Geometry& g, int hi,
+                                          int win, float scale, int vec) {
+  constexpr int kStage = stage_elems<kParts>();
+  bf16* const qs = region;
+  bf16* const ks = qs + kTile * kPl;
+  bf16* const vs = ks + kTile * kPl;
+  const int N = g.N, hd = g.hd, C = g.C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int rl = 16 * warp + (lane >> 2);  // this thread's rows of the tile: rl, rl + 8
+  const bool pairs = vec;
+
+  // (1) q, k, v (and do) of this warp's 16 rows
+  float acc[kParts][4][4];
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) zero_acc<kPc>(acc[p]);
+  pipeline(
+      (C + kPc - 1) / kPc,
+      [&](int st, int buf) {
+        bf16* const xs = region + buf * kStage;  // then dy (kParts == 4)
+        bf16* const ws = xs + (kParts - 2) * kTile * kPl;  // Wq, Wk, Wv (, Wproj)
+        const int k0 = st * kPc;
+        for (int i = threadIdx.x; i < (kParts - 2) * kTile * 4; i += kTileThreads) {
+          const int which = i >> 8, r = (i >> 2) & 63, c = (i & 3) * 8;
+          bf16* d = xs + which * kTile * kPl + r * kPl + c;
+          if (r < N && k0 + c < C)
+            copy8(d, (which ? dy : x) + tok[r] * C + k0 + c, C - k0 - c, vec);
+          else
+            *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+        }
+        for (int i = threadIdx.x; i < kParts * kPc * 4; i += kTileThreads) {
+          const int p = i >> 7, r = (i >> 2) & 31, c = (i & 3) * 8;
+          bf16* d = ws + p * kPc * kPl + r * kPl + c;
+          // Wqkv: row k0 + r (a channel), columns p C + hi hd + c..; Wproj:
+          // row hi hd + r (a head column), columns k0 + c..
+          const bool in = p < 3 ? k0 + r < C && c < hd : r < hd && k0 + c < C;
+          if (in)
+            copy8(d,
+                  p < 3 ? wqkv + (long long)(k0 + r) * 3 * C + p * C + hi * hd + c
+                        : wproj + (long long)(hi * hd + r) * C + k0 + c,
+                  p < 3 ? hd - c : C - k0 - c, vec);
+          else
+            *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      },
+      [&](int, int buf) {
+        const bf16* const xs = region + buf * kStage;
+        const bf16* const ws = xs + (kParts - 2) * kTile * kPl;
+        unsigned ax[2][4], ay[2][4];
+        load_a<kPc>(ax, xs + 16 * warp * kPl);
+        if constexpr (kParts == 4) load_a<kPc>(ay, xs + kTile * kPl + 16 * warp * kPl);
+#pragma unroll
+        for (int st = 0; st < 2; ++st) {
+#pragma unroll
+          for (int p = 0; p < 3; ++p) warp_ax_chunk<kPc>(acc[p], ax[st], ws + p * kPc * kPl, st);
+          if constexpr (kParts == 4) warp_abt_step(acc[3], ay[st], ws + 3 * kPc * kPl, st);
+        }
+      });
+  // rounded to bf16 (q, k, v after + bqkv) into the tiles; columns past hd stay 0
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) {
+    bf16* const tile = qs + p * kTile * kPl;
+#pragma unroll
+    for (int jd = 0; jd < 4; ++jd) {
+      const int d = 8 * jd + 2 * t;
+      float b0 = 0.f, b1 = 0.f;
+      if (p < 3) {
+        const bf16* bp = bqkv + p * C + hi * hd + d;
+        if (d < hd) b0 = __bfloat162float(bp[0]);
+        if (d + 1 < hd) b1 = __bfloat162float(bp[1]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<unsigned*>(tile + (rl + 8 * h) * kPl + d) =
+            pack_bf16(__fadd_rn(acc[p][jd][2 * h], b0), __fadd_rn(acc[p][jd][2 * h + 1], b1));
+    }
+  }
+  __syncthreads();
+
+  // (2) this warp's 16 query rows
+  unsigned qf[kPc / 16][4];
+  load_a<kPc>(qf, qs + 16 * warp * kPl);
+  bool row_ok[2];
+  const float* brow[2];
+  const float* mrow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = rl + 8 * h;
+    row_ok[h] = n < N;
+    brow[h] = kBias ? bias + ((long long)hi * N + n) * N : nullptr;
+    mrow[h] = mask ? mask + ((long long)(win % g.n_win) * N + n) * N : nullptr;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    warp_abt_chunk<kPc>(s[kk], qf, ks, kk);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 16 * kk + 8 * j + 2 * t + (e & 1), h = e >> 1;
+        float a = __fmul_rn(s[kk][j][e], scale);
+        if (m >= N) {
+          a = -CUDART_INF_F;
+        } else if (row_ok[h]) {
+          if constexpr (kBias) a = __fadd_rn(a, __ldg(brow[h] + m));
+          if (mask) a = __fadd_rn(a, __ldg(mrow[h] + m));
+        }
+        s[kk][j][e] = a;
+      }
+  }
+  // the fp32 softmax; P = 0 on rows past N
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) mx = fmaxf(mx, fmaxf(s[kk][j][2 * h], s[kk][j][2 * h + 1]));
+    const float mxl = quad_max(mx) * kLog2e;
+    float sum = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float e = ex2(__fmaf_rn(s[kk][j][2 * h + c], kLog2e, -mxl));
+          s[kk][j][2 * h + c] = e;
+          sum += e;
+        }
+    const float l = quad_sum(sum);  // every lane shuffles, rows past N too
+    const float inv = row_ok[h] ? 1.f / l : 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) s[kk][j][2 * h + c] = __fmul_rn(s[kk][j][2 * h + c], inv);
+  }
+  // of = round(round(P) . V); the backward's round(P) to its tile
+  float oa[4][4];
+  zero_acc<kPc>(oa);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    unsigned a[4];
+    pack_a_chunk(a, s[kk]);
+    if constexpr (kParts == 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        *reinterpret_cast<unsigned*>(pt + (rl + 8 * (u & 1)) * kSl + 16 * kk + 8 * (u >> 1) +
+                                     2 * t) = a[u];
+    }
+    warp_ax_chunk<kPc>(oa, a, vs, kk);
+  }
+  store_tok_rows(of + hi * hd, C, oa, rl, tok, N, hd, pairs);
+}
+
+// Forward core, bf16: of for head hi of window win (blockIdx.x = win * heads
+// + hi: a window's heads are adjacent blocks); kBias: bias is not null. Six
+// blocks an SM (80 registers, a few bytes spilled) beat four and five at
+// every DaViT stage: the blocks are short, latency-bound steps.
+template <bool kBias>
+__global__ void __launch_bounds__(kTileThreads, 6)
+    wa_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
+                      const bf16* __restrict__ bqkv, const float* __restrict__ bias,
+                      const float* __restrict__ mask, bf16* __restrict__ of, Geometry g,
+                      float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const region = reinterpret_cast<bf16*>(smem_raw);
+  long long* const tok = reinterpret_cast<long long*>(smem_raw + region_bytes<3>());
+  const int hi = blockIdx.x % g.heads, win = blockIdx.x / g.heads;
+  window_tokens(g, win, tok);
+  __syncthreads();
+  float s[4][2][4];
+  wa_attend<3, kBias>(s, region, tok, x, nullptr, wqkv, bqkv, nullptr, bias, mask, of, nullptr,
+                      g, hi, win, scale, vec);
+}
+
+// Output projection, bf16: out (M, C) = round(a (M, C) . w (C, C) + bias). A
+// block of four warps takes 64 rows x kProjN = 96 columns (DaViT's and
+// Swin's widths are multiples of 96), a warp 16 rows (12 blocks of 16 x 8
+// fp32 accumulators a thread); 32-deep steps of a's rows and of w's (32 x 96)
+// slice stream two deep by cp.async (zeros past M and C), the products are
+// mma.sync from ldmatrix fragments, and the bias goes on before the one cast.
+// The output tile goes out through shared memory as 16-byte row chunks. vec:
+// C % 8 == 0 and a, w, out 16-byte aligned.
+constexpr int kProjN = 96;
+constexpr int kProjK = 32;
+constexpr int kProjNl = tile_ld<kProjN>();  // row stride of the w slice and the output tile
+
+__global__ void __launch_bounds__(kTileThreads)
+    wa_proj_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
+                       const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int C,
+                       int vec) {
+  constexpr int kA = kTile * tile_ld<kProjK>(), kW = kProjK * kProjNl;
+  __shared__ __align__(16) bf16 sm[2 * (kA + kW)];  // per buffer: a's rows, then w's slice
+  const int n0 = blockIdx.x * kProjN, m0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  float acc[kProjN / 8][4];
+  zero_acc<kProjN>(acc);
+  pipeline(
+      (C + kProjK - 1) / kProjK,
+      [&](int k, int buf) {
+        const int k0 = k * kProjK;
+        bf16* const as = sm + buf * (kA + kW);
+        load_tile<kProjK>(as, a + k0, C, m0, M, C - k0, vec);
+        for (int i = threadIdx.x; i < kProjK * (kProjN / 8); i += kTileThreads) {
+          const int r = i / (kProjN / 8), c = (i - r * (kProjN / 8)) * 8;
+          bf16* d = as + kA + r * kProjNl + c;
+          if (k0 + r < C && n0 + c < C)
+            copy8(d, w + (long long)(k0 + r) * C + n0 + c, C - n0 - c, vec);
+          else
+            *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      },
+      [&](int, int buf) {
+        const bf16* const as = sm + buf * (kA + kW);
+        unsigned af[kProjK / 16][4];
+        load_a<kProjK>(af, as + 16 * warp * tile_ld<kProjK>());
+#pragma unroll
+        for (int ks = 0; ks < kProjK / 16; ++ks) warp_ax_chunk<kProjN>(acc, af[ks], as + kA, ks);
+      });
+  // + bias, rounded, into the output tile (the stages are free: pipeline ends
+  // with a barrier), then out as 16-byte row chunks
+  bf16* const ot = sm;
+  const int rl = 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int jd = 0; jd < kProjN / 8; ++jd) {
+    const int c = 8 * jd + 2 * t;
+    const float b0 = n0 + c < C ? __bfloat162float(bias[n0 + c]) : 0.f;
+    const float b1 = n0 + c + 1 < C ? __bfloat162float(bias[n0 + c + 1]) : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<unsigned*>(ot + (rl + 8 * h) * kProjNl + c) =
+          pack_bf16(__fadd_rn(acc[jd][2 * h], b0), __fadd_rn(acc[jd][2 * h + 1], b1));
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTile * (kProjN / 8); i += kTileThreads) {
+    const int r = i / (kProjN / 8), c = (i - r * (kProjN / 8)) * 8;
+    if (m0 + r >= M || n0 + c >= C) continue;
+    bf16* const o = out + (long long)(m0 + r) * C + n0 + c;
+    const bf16* const v = ot + r * kProjNl + c;
+    if (vec) {
+      *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
+    } else {
+      for (int e = 0; e < 8 && n0 + c + e < C; ++e) o[e] = v[e];
+    }
+  }
+}
+
 // Backward core, bf16: dqkv and of for head hi of windows blk, blk + nblk,
 // ... (blockIdx.x = blk * heads + hi); with kBias (bias not null), this
 // block's dbias sum over its windows, in window order, goes to
@@ -567,7 +846,7 @@ __global__ void __launch_bounds__(kTileThreads, kBias ? 3 : 4)
                       float scale, int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* const region = reinterpret_cast<bf16*>(smem_raw);
-  long long* const tok = reinterpret_cast<long long*>(smem_raw + kMmaRegionBytes);
+  long long* const tok = reinterpret_cast<long long*>(smem_raw + region_bytes<4>());
   // the attention tiles, over the projection stages
   bf16* const qs = region;
   bf16* const ks = qs + kTile * kPl;
@@ -580,7 +859,6 @@ __global__ void __launch_bounds__(kTileThreads, kBias ? 3 : 4)
   const int N = g.N, hd = g.hd, C = g.C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
   const int rl = 16 * warp + gq;  // this thread's rows of the tile: rl, rl + 8
-  const int steps = (C + kPc - 1) / kPc;
   const bool pairs = vec;
 
   float db[kBias ? 4 : 1][2][4];  // this block's dbias at (rows rl, rl + 8; keys of block kk)
@@ -593,153 +871,12 @@ __global__ void __launch_bounds__(kTileThreads, kBias ? 3 : 4)
     window_tokens(g, win, tok);
     __syncthreads();
 
-    // (1) q, k, v and do of this warp's 16 rows
-    float acc[4][4][4];  // q, k, v, do; 4 blocks of 16 x 8 each
-#pragma unroll
-    for (int p = 0; p < 4; ++p) zero_acc<kPc>(acc[p]);
-    pipeline(
-        steps,
-        [&](int st, int buf) {
-          bf16* const xs = region + buf * kStageElems;
-          bf16* const dys = xs + kTile * kPl;
-          bf16* const ws = dys + kTile * kPl;  // Wq, Wk, Wv, then Wproj
-          const int k0 = st * kPc;
-          for (int i = threadIdx.x; i < 2 * kTile * 4; i += kTileThreads) {
-            const int which = i >> 8, r = (i >> 2) & 63, c = (i & 3) * 8;
-            bf16* d = (which ? dys : xs) + r * kPl + c;
-            if (r < N && k0 + c < C)
-              copy8(d, (which ? dy : x) + tok[r] * C + k0 + c, C - k0 - c, vec);
-            else
-              *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-          }
-          for (int i = threadIdx.x; i < 4 * kPc * 4; i += kTileThreads) {
-            const int p = i >> 7, r = (i >> 2) & 31, c = (i & 3) * 8;
-            bf16* d = ws + p * kPc * kPl + r * kPl + c;
-            // Wqkv: row k0 + r (a channel), columns p C + hi hd + c..; Wproj:
-            // row hi hd + r (a head column), columns k0 + c..
-            const bool in = p < 3 ? k0 + r < C && c < hd : r < hd && k0 + c < C;
-            if (in)
-              copy8(d,
-                    p < 3 ? wqkv + (long long)(k0 + r) * 3 * C + p * C + hi * hd + c
-                          : wproj + (long long)(hi * hd + r) * C + k0 + c,
-                    p < 3 ? hd - c : C - k0 - c, vec);
-            else
-              *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-          }
-        },
-        [&](int, int buf) {
-          const bf16* const xs = region + buf * kStageElems;
-          const bf16* const dys = xs + kTile * kPl;
-          const bf16* const ws = dys + kTile * kPl;
-          unsigned ax[2][4], ay[2][4];
-          load_a<kPc>(ax, xs + 16 * warp * kPl);
-          load_a<kPc>(ay, dys + 16 * warp * kPl);
-#pragma unroll
-          for (int s = 0; s < 2; ++s) {
-#pragma unroll
-            for (int p = 0; p < 3; ++p) warp_ax_chunk<kPc>(acc[p], ax[s], ws + p * kPc * kPl, s);
-            warp_abt_step(acc[3], ay[s], ws + 3 * kPc * kPl, s);
-          }
-        });
-    // rounded to bf16 (q, k, v after + bqkv) into the tiles; columns past hd stay 0
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      bf16* const tile = qs + p * kTile * kPl;
-#pragma unroll
-      for (int jd = 0; jd < 4; ++jd) {
-        const int d = 8 * jd + 2 * t;
-        float b0 = 0.f, b1 = 0.f;
-        if (p < 3) {
-          const bf16* bp = bqkv + p * C + hi * hd + d;
-          if (d < hd) b0 = __bfloat162float(bp[0]);
-          if (d + 1 < hd) b1 = __bfloat162float(bp[1]);
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<unsigned*>(tile + (rl + 8 * h) * kPl + d) =
-              pack_bf16(__fadd_rn(acc[p][jd][2 * h], b0), __fadd_rn(acc[p][jd][2 * h + 1], b1));
-      }
-    }
-    __syncthreads();
-
-    // (2) this warp's 16 query rows
-    unsigned qf[kPc / 16][4], df[kPc / 16][4];
-    load_a<kPc>(qf, qs + 16 * warp * kPl);
-    load_a<kPc>(df, dos + 16 * warp * kPl);
-    bool row_ok[2];
-    const float* brow[2];
-    const float* mrow[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = rl + 8 * h;
-      row_ok[h] = n < N;
-      brow[h] = bias ? bias + ((long long)hi * N + n) * N : nullptr;
-      mrow[h] = mask ? mask + ((long long)(win % g.n_win) * N + n) * N : nullptr;
-    }
+    // (1) and (2): q, k, v, do; P of this warp's rows in s, of, round(P) in pt
     float s[4][2][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      warp_abt_chunk<kPc>(s[kk], qf, ks, kk);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int m = 16 * kk + 8 * j + 2 * t + (e & 1), h = e >> 1;
-          float a = __fmul_rn(s[kk][j][e], scale);
-          if (m >= N) {
-            a = -CUDART_INF_F;
-          } else if (row_ok[h]) {
-            if (bias) a = __fadd_rn(a, __ldg(brow[h] + m));
-            if (mask) a = __fadd_rn(a, __ldg(mrow[h] + m));
-          }
-          s[kk][j][e] = a;
-        }
-    }
-    // the fp32 softmax; P = 0 on rows past N
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) mx = fmaxf(mx, fmaxf(s[kk][j][2 * h], s[kk][j][2 * h + 1]));
-      const float mxl = quad_max(mx) * kLog2e;
-      float sum = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const float e = ex2(__fmaf_rn(s[kk][j][2 * h + c], kLog2e, -mxl));
-            s[kk][j][2 * h + c] = e;
-            sum += e;
-          }
-      const float l = quad_sum(sum);  // every lane shuffles, rows past N too
-      const float inv = row_ok[h] ? 1.f / l : 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) s[kk][j][2 * h + c] = __fmul_rn(s[kk][j][2 * h + c], inv);
-    }
-    // of = round(round(P) . V); round(P) to its tile
-    {
-      float oa[4][4];
-      zero_acc<kPc>(oa);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        unsigned a[4];
-        pack_a_chunk(a, s[kk]);
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          *reinterpret_cast<unsigned*>(pt + (rl + 8 * (u & 1)) * kSl + 16 * kk + 8 * (u >> 1) +
-                                       2 * t) = a[u];
-        warp_ax_chunk<kPc>(oa, a, vs, kk);
-      }
-      store_tok_rows(of + hi * hd, C, oa, rl, tok, N, hd, pairs);
-    }
+    wa_attend<4, kBias>(s, region, tok, x, dy, wqkv, bqkv, wproj, bias, mask, of, pt, g, hi, win,
+                        scale, vec);
+    unsigned df[kPc / 16][4];
+    load_a<kPc>(df, dos + 16 * warp * kPl);
     // dp = do . v^T, ds = P (dp - rowsum(dp P)) fp32, dbias += ds, and
     // dq = round(round(ds * scale) . K); round(ds * scale) to its tile
     {
@@ -847,20 +984,40 @@ template <typename T>
 cudaError_t launch_fwd(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
                        const void* bproj, const float* bias, const float* mask, void* of, void* y,
                        const Geometry& g, int M, float scale, cudaStream_t stream) {
-  const int smem = fwd_smem_bytes();
-  cudaError_t err =
-      cudaFuncSetAttribute(wa_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  wa_fwd_kernel<T><<<dim3(g.nB, g.heads), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const T*>(bqkv), bias,
-      mask, static_cast<T*>(of), g, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid((g.C + kProjTile - 1) / kProjTile, (M + kProjTile - 1) / kProjTile);
-  proj_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(of),
-                                                  static_cast<const T*>(wproj),
-                                                  static_cast<const T*>(bproj),
-                                                  static_cast<T*>(y), M, g.C, g.C);
+  cudaError_t err;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // 16-byte copies of x, the weight slices and of's rows, pair stores
+    const int vec = g.C % 8 == 0 && g.hd % 8 == 0 && aligned16(x) && aligned16(wqkv) &&
+                    aligned16(wproj) && aligned16(of) && aligned16(y);
+    const int smem = fwd_mma_smem_bytes();
+    const auto kernel = bias ? wa_fwd_mma_kernel<true> : wa_fwd_mma_kernel<false>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)g.nB * g.heads, kTileThreads, smem, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+        static_cast<const bf16*>(bqkv), bias, mask, static_cast<bf16*>(of), g, scale, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const dim3 grid((g.C + kProjN - 1) / kProjN, (M + kTile - 1) / kTile);
+    wa_proj_mma_kernel<<<grid, kTileThreads, 0, stream>>>(
+        static_cast<const bf16*>(of), static_cast<const bf16*>(wproj),
+        static_cast<const bf16*>(bproj), static_cast<bf16*>(y), M, g.C, vec);
+  } else {
+    const int smem = fwd_smem_bytes();
+    err = cudaFuncSetAttribute(wa_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    wa_fwd_kernel<T><<<dim3(g.nB, g.heads), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const T*>(bqkv), bias,
+        mask, static_cast<T*>(of), g, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const dim3 grid((g.C + kProjTile - 1) / kProjTile, (M + kProjTile - 1) / kProjTile);
+    proj_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(of),
+                                                    static_cast<const T*>(wproj),
+                                                    static_cast<const T*>(bproj),
+                                                    static_cast<T*>(y), M, g.C, g.C);
+  }
   return cudaGetLastError();
 }
 

@@ -25,6 +25,21 @@ gradients are fp32 sums, cast to the arguments' dtypes. The GELU is the erf
 form (``torch.erf`` in the twins, ``erff`` in the kernel); skinjax's
 Abramowitz–Stegun erf is a Mosaic workaround the port leaves out.
 
+Launches. The bf16 forward is one launch on the tensor cores (``wgmma``): a
+block of two warpgroups per 64 token rows takes its x rows once, then walks
+128-wide hidden chunks: pre from ``wgmma`` with its fp32 accumulators in
+registers, the activation on that fragment, round(h) through one swizzled
+shared-memory tile, and h·w2 added to y's fp32 accumulators, which stay in
+registers (y's columns split over the two warpgroups, and over blocks above
+512 columns); no ``(T, H)`` tensor reaches device memory. Its tiles come by
+TMA (tensor maps the kernel's C side encodes for each call). Where the blocks
+fill less than half the SMs (a small batch), or where two splits turn one
+and a half waves of blocks into three shorter ones, the hidden chunks are
+split over blocks too, with ``splits · T · D2`` fp32 partials that a second
+launch sums in split order (``skinjax_fused_mlp_scratch`` gives each call's
+size). The fp32 forward keeps the CUDA-core kernel (32-row tiles, the output
+in shared memory; split where T/32 tiles are fewer than the SMs).
+
 Nothing is saved for the backward but the arguments: no ``(T, H)`` tensor is
 kept between the forward and the backward. The bf16 backward runs five
 products on the tensor cores and writes the hidden plane once, inside the
@@ -39,11 +54,8 @@ per-segment fp32 partials, ``segments · (D·H + H·D2 + H + D2 + 2·H/hw)``
 floats, where the kernel picks ``segments`` so that (H/hw) · segments is
 about twice the SM count, and, where T/32 token tiles are fewer than the
 SMs, ``splits · T · D`` dx partials. Each backward also takes the ``D·H +
-H·D2 + H + D2 + 2`` floats of the summed gradients. Where T/32 token tiles
-are fewer than the SMs (a small batch), the forward splits the hidden
-columns over blocks, with ``splits · T · D2`` fp32 partials summed in split
-order (``skinjax_fused_mlp_scratch`` gives each call's size). Two calls on
-the same inputs give bit-identical results (no atomics).
+H·D2 + H + D2 + 2`` floats of the summed gradients. Two calls on the same
+inputs give bit-identical results (no atomics).
 
 skinjax's routing knobs are not carried over (ROADMAP.md, "Leave out of the
 port"): ``SKINJAX_CAFORMER_MLP``/``SKINJAX_COAT_MLP`` and the 48 MB threshold

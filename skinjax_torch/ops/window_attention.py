@@ -26,19 +26,22 @@ recomputes qkv, ``do = dy·wprojᵀ`` and the softmax and emits ``(dqkv, of,
 dbias)`` in NHWC, as ``_strip_bwd`` does; dx and the weight gradients are flat
 matrix products here (``_wa_nhwc_bwd``).
 
-Launches. The forward: a core launch (a block per window and head, fp32
-FMAs on the CUDA cores) and a projection launch. The backward: one core
-launch, a block per window and head (with a bias gradient, per window group
-and head, ``bwd_blocks``), then, with a bias, one launch that adds the
-groups' partial dbias planes in order (no atomics). Its bf16 kernel runs
-every product on the tensor cores (``mma.sync``): the head's q, k, v and do
-projections from x and dy rows gathered by token offset (16-byte
-``cp.async``), the scores, the fp32 softmax, dp and ds in registers, round(P)
-and round(ds·scale) through two bf16 tiles for dv and dk; what bounds it is
-its instructions and the re-reads of x, dy (once a head) and the head's
-weight slices (once a window), not its ~231 MB at DaViT's stage 1. The fp32
-backward runs a CUDA-core kernel of fp32 FMAs (the 1e-4 checks; TF32 would
-not hold them).
+Launches. The forward: a core launch (a block per window and head) and a
+projection launch. The backward: one core launch, a block per window and head
+(with a bias gradient, per window group and head, ``bwd_blocks``), then, with
+a bias, one launch that adds the groups' partial dbias planes in order (no
+atomics). The bf16 kernels run every product on the tensor cores
+(``mma.sync``): the head's q, k, v (and the backward's do) projections from x
+(and dy) rows gathered by token offset (16-byte ``cp.async``), the scores,
+the fp32 softmax and ``of`` in registers, in one device function that the
+forward and backward cores share, so that the forward's ``of`` is the
+backward's bit for bit (``return_of=True`` hands it back); the backward goes
+on to dp and ds in registers and to round(P) and round(ds·scale) through two
+bf16 tiles for dv and dk; the forward's projection is a tiled product, the
+bias added before the one cast. What bounds them is their instructions and
+the re-reads of x, dy (once a head) and the head's weight slices (once a
+window), not their ~77 and ~231 MB at DaViT's stage 1. The fp32 kernels run
+fp32 FMAs on the CUDA cores (the 1e-4 checks; TF32 would not hold them).
 
 ``window_attention_nhwc_plain`` and ``window_attention_nhwc_bwd_plain`` are
 the plain PyTorch twins, rounding at the same points. The wrappers dispatch
@@ -191,21 +194,27 @@ def _merge(t, H, W, window):
     return window_reverse(t.transpose(1, 2).reshape(nB, N, h * hd), window, H, W)
 
 
-def window_attention_nhwc_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, window):
-    """The forward kernel's arithmetic in PyTorch ops → y (B, H, W, C)."""
+def window_attention_nhwc_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, window,
+                                return_of=False):
+    """The forward kernel's arithmetic in PyTorch ops → y (B, H, W, C), and
+    with ``return_of`` (y, of): of (B, H, W, C) is the heads' p·v before the
+    projection, what the backward twin also returns."""
     B, H, W, C = x.shape
     dt = x.dtype
     with torch.autocast(x.device.type, enabled=False):
         q, k, v = _windows_qkv(x, wqkv, bqkv, num_heads, window)
         p = _probs(q, k, bias, mask, (C // num_heads) ** -0.5).to(dt)
         of = _merge(_rmm(p, v, dt), H, W, window)
-        return (of.reshape(-1, C).float() @ wproj.float() + bproj.float()).to(dt).reshape(
+        y = (of.reshape(-1, C).float() @ wproj.float() + bproj.float()).to(dt).reshape(
             B, H, W, C)
+        return (y, of) if return_of else y
 
 
-def window_attention_pad_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads):
+def window_attention_pad_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads,
+                               return_of=False):
     """The padded entry's forward arithmetic on windows x (nB, N, C) → y (nB,
-    N, C): the NHWC forward's, on windows already partitioned."""
+    N, C): the NHWC forward's, on windows already partitioned; with
+    ``return_of`` (y, of), of (nB, N, C)."""
     nB, N, C = x.shape
     dt = x.dtype
     h, hd = num_heads, C // num_heads
@@ -215,7 +224,8 @@ def window_attention_pad_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, num_head
                    for i in range(3))
         p = _probs(q, k, bias, mask, hd ** -0.5).to(dt)
         of = _rmm(p, v, dt).transpose(1, 2).reshape(nB, N, C)
-        return (of.float() @ wproj.float() + bproj.float()).to(dt)
+        y = (of.float() @ wproj.float() + bproj.float()).to(dt)
+        return (y, of) if return_of else y
 
 
 def window_attention_nhwc_bwd_plain(x, dy, wqkv, bqkv, wproj, bias, mask, num_heads, window
@@ -309,18 +319,21 @@ def _check_pad(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads):
     return bias, mask
 
 
-def window_attention_pad_fwd(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads):
-    """y (nB, N, C) of the padded entry from its forward kernel (CUDA) or its
-    twin (CPU)."""
+def window_attention_pad_fwd(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads,
+                             return_of=False):
+    """y (nB, N, C) of the padded entry from its forward kernels (CUDA) or its
+    twin (CPU); with ``return_of`` (y, of), of (nB, N, C) the core's output
+    before the projection (the kernels write it in any case)."""
     if x.device.type == "cpu":
-        return window_attention_pad_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads)
+        return window_attention_pad_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads,
+                                          return_of)
     if x.device.type != "cuda":
         raise ValueError(f"window attention takes CPU or CUDA tensors, got {x.device}")
     bias, mask = _check_pad(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads)
     nB, N, C = x.shape
     of, y = torch.empty_like(x), torch.empty_like(x)
     if x.numel() == 0:
-        return y
+        return (y, of) if return_of else y
     lib = library()
     err = lib.skinjax_window_attention_pad_fwd(
         int(x.dtype == torch.bfloat16), x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
@@ -330,20 +343,24 @@ def window_attention_pad_fwd(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads)
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise(lib, err, "window_attention_pad_fwd")
     LAUNCHES["window_attention_pad_fwd"] += 1
-    return y
+    return (y, of) if return_of else y
 
 
-def window_attention_fwd(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, window):
+def window_attention_fwd(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, window,
+                         return_of=False):
+    """y (B, H, W, C) from the NHWC forward kernels (CUDA) or their twin
+    (CPU); with ``return_of`` (y, of), of (B, H, W, C) the core's output
+    before the projection, which the backward also emits."""
     if x.device.type == "cpu":
         return window_attention_nhwc_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads,
-                                           window)
+                                           window, return_of)
     if x.device.type != "cuda":
         raise ValueError(f"window attention takes CPU or CUDA tensors, got {x.device}")
     bias, mask = _check(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, window)
     B, H, W, C = x.shape
     of, y = torch.empty_like(x), torch.empty_like(x)
     if x.numel() == 0:
-        return y
+        return (y, of) if return_of else y
     lib = library()
     err = lib.skinjax_window_attention_fwd(
         int(x.dtype == torch.bfloat16), x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
@@ -353,7 +370,7 @@ def window_attention_fwd(x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, win
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise(lib, err, "window_attention_fwd")
     LAUNCHES["window_attention_fwd"] += 1
-    return y
+    return (y, of) if return_of else y
 
 
 def bwd_blocks(n_windows: int, has_bias: bool) -> int:

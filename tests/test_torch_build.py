@@ -46,9 +46,26 @@ def test_repo_sources_share_a_header():
         for helper in helpers:
             assert re.search(rf"\b{helper}\s*\(", header)
             assert not re.search(rf"void\s+{helper}\s*\(", source), (name, helper)
+    # K7's bf16 forward and backward cores share steps (1) and (2), one
+    # device function, so that their of agree bit for bit; K9/K10's bf16
+    # forward issues its products through the backward's wgmma wrappers and
+    # descriptors, its tiles coming by TMA
+    window = (build.CSRC / "window_attention.cu").read_text()
+    assert len(re.findall(r"void\s+wa_attend\s*\(", window)) == 1
+    for kernel in ("wa_fwd_mma_kernel", "wa_bwd_mma_kernel"):
+        body = window[window.index(f"{kernel}("):]
+        body = body[:body.index("\n}\n")]
+        assert "wa_attend<" in body, kernel
+    mlp = (build.CSRC / "fused_mlp.cu").read_text()
+    assert len(re.findall(r"void\s+wgmma_m64n64k16\s*\(", mlp)) == 1
+    body = mlp[mlp.index("mlp_fwd_wgmma_kernel("):]
+    body = body[:body.index("\n}\n")]
+    for call in ("wgmma_m64n64k16<", "wgmma_desc(", "tma_load("):
+        assert call in body, call
 
 
-_PROFILED = ("KERNEL_NAMES", "K7_KERNELS", "MLP_KERNELS", "MLP_F32_BWD", "MLP_SPLIT",
+_PROFILED = ("KERNEL_NAMES", "K7_KERNELS", "K7_F32", "MLP_KERNELS", "MLP_F32_FWD", "MLP_F32_BWD",
+             "MLP_SPLIT",
              "K12_KERNELS", "K11_KERNELS", "K8_KERNELS", "K7_PAD_KERNELS", "K6_KERNELS",
              "KERNEL_SYMBOLS")
 
@@ -77,12 +94,19 @@ def test_profiled_kernel_names_are_kernels():
     assert {"mlp_bwd_act_wgmma_kernel", "mlp_bwd_dw_kernel", "ga_bwd_rows_mma_kernel",
             "ga_bwd_p_rows_mma_kernel", "ga_bwd_p_cols_mma_kernel", "ga_dbias_tiles_kernel",
             "pa_bwd_rows_mma_kernel", "pa_bwd_cols_mma_kernel", "wa_bwd_mma_kernel",
-            "ga_fwd_mma_kernel", "wa_bwd_kernel", "ga_fwd_kernel"} <= kernels
+            "ga_fwd_mma_kernel", "wa_bwd_kernel", "ga_fwd_kernel", "wa_fwd_mma_kernel",
+            "wa_proj_mma_kernel", "mlp_fwd_wgmma_kernel", "mlp_fwd_kernel"} <= kernels
     assert set(smoke.K12_KERNELS["global_attention_bwd"]) | set(
         smoke.K11_KERNELS["pooled_attention_bwd"]) <= kernels
-    # the bf16 K7 strip backward and K12 forward run on the tensor cores; the
-    # fp32 instantiations keep the CUDA-core kernels, still profiled by name
+    # the bf16 K7 strip backward and forward (both entries), K12's forward and
+    # K9/K10's forward run on the tensor cores; the fp32 instantiations keep
+    # the CUDA-core kernels, still profiled by name
     assert smoke.K7_KERNELS["window_attention_bwd"] == ["wa_bwd_mma_kernel"]
+    assert smoke.K7_KERNELS["window_attention_fwd"] == ["wa_fwd_mma_kernel",
+                                                        "wa_proj_mma_kernel"]
+    assert smoke.K7_PAD_KERNELS[smoke.K7_PAD] == smoke.K7_KERNELS["window_attention_fwd"]
+    assert smoke.MLP_KERNELS["fwd"] == ["mlp_fwd_wgmma_kernel"]
     assert smoke.K12_KERNELS["global_attention_fwd"] == ["ga_fwd_mma_kernel"]
-    assert {"wa_bwd_kernel", "ga_fwd_kernel"} <= set(smoke.KERNEL_SYMBOLS)
+    assert {"wa_bwd_kernel", "wa_fwd_kernel", "proj_kernel", "mlp_fwd_kernel",
+            "ga_fwd_kernel"} <= set(smoke.KERNEL_SYMBOLS)
     assert sorted(profiled - kernels) == []

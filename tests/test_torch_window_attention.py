@@ -205,6 +205,30 @@ def test_twin_matches_the_reference_fp32(case):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["2x2 windows", "bias and mask"])
+def test_forward_returns_the_backwards_of(case, dtype):
+    """``return_of`` hands back the forward's of beside y: on the CPU the
+    twin's, the backward twin's of bit for bit (on the card one core function
+    computes both, and chip_smoke.py holds them bit for bit); the padded entry
+    on the same windows gives the partitioned of and y."""
+    B, H, W, C, h, bias, mask = CASES[case]
+    arrays, b, m = _inputs(B, H, W, C, h, bias, mask)
+    x, wqkv, bqkv, wproj, bproj = (torch.tensor(a).to(dtype) for a in arrays)
+    bt, mt = _torch(b, torch.float32), _torch(m, torch.float32)
+    y, of = twa.window_attention_fwd(x, wqkv, bqkv, wproj, bproj, bt, mt, h, WINDOW,
+                                     return_of=True)
+    assert of.shape == x.shape and of.dtype == dtype
+    assert torch.equal(y, twa.window_attention_fwd(x, wqkv, bqkv, wproj, bproj, bt, mt, h, WINDOW))
+    _, of_bwd, _ = twa.window_attention_bwd(x, torch.zeros_like(x), wqkv, bqkv, wproj, bt, mt, h,
+                                            WINDOW)
+    assert torch.equal(of, of_bwd)
+    yp, ofp = twa.window_attention_pad_fwd(twa.window_partition(x, WINDOW), wqkv, bqkv, wproj,
+                                           bproj, bt, mt, h, return_of=True)
+    assert torch.equal(ofp, twa.window_partition(of, WINDOW))
+    assert torch.equal(yp, twa.window_partition(y, WINDOW))
+
+
 def test_backward_blocks():
     """The backward kernel's window blocks, each launched once a head: one a
     window; with a bias gradient at most BIAS_BLOCKS, each summing its
