@@ -67,7 +67,8 @@ sentence dataset. Phases, each printing its lines:
               adding nothing, the wrappers
               raising on a bad dtype or width; K8 forward and backward (y,
               dqkv, of) against their twins at DaViT-tiny's four stage shapes
-              (B=64 bf16, B=8 fp32), two backward calls bit-identical; K7's
+              (B=64 bf16, B=8 fp32), two forward and two backward calls
+              bit-identical; K7's
               padded forward and its backward core (K12's recompute kernel
               with the window mask: dq, dk, dv, of, dbias) against their
               twins at Swin-tiny's four stage shapes (B=64 bf16, B=8 fp32)
@@ -151,7 +152,7 @@ sentence dataset. Phases, each printing its lines:
               K8 6 + 6 and K7 6 + 6 launches per unfrozen step, 6 + 0 frozen),
               one fp32 step of a small DaViT on the card against the CPU, and
               the train step A/B'd against the plain channel attention in
-              turns
+              turns (wall time and a profiled step's device time)
  13e. swin    the Swin-tiny model: fused against plain engine (K7 with the
               relative-position bias and the shifted mask launched 12 times
               per forward), the fp32 engine on the card against the CPU;
@@ -222,6 +223,15 @@ kmask + pmult, kmask alone and neither), K11 and the K7-pad core, and the
 bf16 stored-P backwards' split by kernel (K12 at BEiT-large over bias-group
 counts, K11 at stages 0 and 2): the quick loop for work on those kernels
 (last line {"ok": true, "attention": true}).
+
+    python3 chip_smoke.py --k8
+
+builds csrc/channel_attention.cu only and runs K8's checks (DaViT-tiny's four
+stages, bf16 at B=64 and fp32 at B=8, two forward and two backward calls
+bit-identical; bf16 at four heads, which takes the CUDA-core kernels) and
+times (per call and by kernel against the twin, the bound and the plain
+DaViTChannelAttention, device time against device time) alone (last line
+{"ok": true, "k8": true}).
 
     python3 chip_smoke.py --mlp
 
@@ -340,11 +350,18 @@ MLP_KERNELS = {"fwd": ["mlp_fwd_wgmma_kernel"],
 MLP_F32_FWD = ["mlp_fwd_kernel"]
 MLP_F32_BWD = ["mlp_bwd_dx_kernel", "mlp_bwd_dw_kernel", "mlp_bwd_reduce_kernel"]
 MLP_SPLIT = "mlp_split_reduce_kernel"
-# each K8 call's kernels
-K8_KERNELS = {"channel_attention_fwd": ["ca_partial_kernel", "ca_softmax_kernel", "ca_out_kernel",
-                                        "ca_proj_kernel"],
-              "channel_attention_bwd": ["ca_partial_kernel", "ca_softmax_kernel",
-                                        "ca_grad_kernel"]}
+# each bf16 K8 call's kernels at 32 channels a head and a multiple of 3
+# heads (DaViT's), on the tensor cores but the softmax: the segments' partial sums (the backward's
+# also storing q, k, v, do), the softmax, then the forward's q, of and fused
+# output projection or the backward's gradients; the fp32 instantiations
+# and bf16 at other head counts keep the CUDA-core kernels (K8_F32: forward
+# partial, softmax, out, proj; backward partial, softmax, grad)
+K8_KERNELS = {"channel_attention_fwd": ["ca_partial_mma_kernel", "ca_softmax_kernel",
+                                        "ca_out_mma_kernel"],
+              "channel_attention_bwd": ["ca_partial_mma_kernel", "ca_softmax_kernel",
+                                        "ca_grad_mma_kernel"]}
+K8_F32 = ["ca_partial_kernel", "ca_softmax_kernel", "ca_out_kernel", "ca_proj_kernel",
+          "ca_grad_kernel"]
 # the padded entry's forward, and its backward core with a bias gradient
 # summed over groups of windows
 K7_PAD_KERNELS = {K7_PAD: K7_KERNELS["window_attention_fwd"],
@@ -360,7 +377,8 @@ KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", *K7_F32, *K6_KER
                   *K11_KERNELS["pooled_attention_bwd"],
                   *MLP_KERNELS["fwd"], *MLP_KERNELS["bwd"], *MLP_F32_FWD, *MLP_F32_BWD,
                   MLP_SPLIT,
-                  *K8_KERNELS["channel_attention_fwd"], "ca_grad_kernel")
+                  *K8_KERNELS["channel_attention_fwd"], *K8_KERNELS["channel_attention_bwd"],
+                  *K8_F32)
 # the card's published peaks (H100 SXM data sheet): device memory, float32
 # outside the tensor cores, dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -387,6 +405,9 @@ SMALL_DAVIT = "davit-smoke-small"  # dims (64, 128), depths (1, 1), heads (2, 4)
 # stage, 32 channels a head; one ChannelBlock per spatial block
 K8_STAGES = ((3136, 96, 3), (784, 192, 6), (196, 384, 12), (49, 768, 24))
 K8_F32_BATCH = 8
+# bf16 at 32 channels a head but 4 heads (DaViT-base's layout), which 3 does
+# not divide: the CUDA-core route, (B, tokens, channels, heads)
+K8_CUDA_CORE_BF16 = (8, 784, 128, 4)
 K8_PER_FORWARD = K7_PER_FORWARD
 K8_ON = {"SKINJAX_CHATTN": "pallas"}  # skinjax's knob, which the port reads
 # K8's fp32 outputs: |kernel - twin| within this share of max(1, max |twin|).
@@ -3060,46 +3081,55 @@ def phase_k8(ca, device):
     BF16_TOL and dqkv at MLP_GRAD_TOL of max(1, max |twin|), since its dk and
     dv come through ds, the gradient of scores summed over every token (3136
     at stage 0) in another order; in fp32 all three at K8_F32_TOL of max(1,
-    max |twin|); two backward calls bit-identical."""
+    max |twin|); two forward and two backward calls bit-identical. Then bf16
+    at four heads (``K8_CUDA_CORE_BF16``), which the CUDA-core kernels take,
+    at the bf16 tolerances."""
     import torch
 
     from skinjax_torch import DAVIT_BATCH
 
     errors = {name: 0.0 for name in K8}
-    for N, C, h in K8_STAGES:
-        for B, dtype in ((DAVIT_BATCH, torch.bfloat16), (K8_F32_BATCH, torch.float32)):
-            dname = str(dtype).split(".")[1]
-            tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
-            args, dy = k8_inputs(B, N, C, dtype, device, seed=N + C)
-            x, wqkv, bqkv, wproj, _ = args
-            y, y_twin = ca.channel_attention_fwd(*args, h), ca.channel_attention_plain(*args, h)
-            got = ca.channel_attention_bwd(x, dy, wqkv, bqkv, wproj, h)
-            again = ca.channel_attention_bwd(x, dy, wqkv, bqkv, wproj, h)
-            want = ca.channel_attention_bwd_plain(x, dy, wqkv, bqkv, wproj, h)
-            torch.cuda.synchronize()
-            if dtype == torch.bfloat16:
-                results = [
-                    ("channel_attention_fwd", "y", *compare(y, y_twin, tol), tol_text(tol)),
-                    ("channel_attention_bwd", "dqkv",
-                     *compare_scaled(got[0], want[0], MLP_GRAD_TOL[dname]),
-                     f"{MLP_GRAD_TOL[dname]:g}·max(1, |twin|)"),
-                    ("channel_attention_bwd", "of", *compare(got[1], want[1], tol),
-                     tol_text(tol))]
-            else:
-                results = [(name, part, *compare_scaled(o, r, K8_F32_TOL),
-                            f"{K8_F32_TOL:g}·max(1, |twin|)")
-                           for name, part, o, r in (
-                               ("channel_attention_fwd", "y", y, y_twin),
-                               ("channel_attention_bwd", "dqkv", got[0], want[0]),
-                               ("channel_attention_bwd", "of", got[1], want[1]))]
-            for name, _, err, _, _ in results:
-                errors[name] = max(errors[name], err)
-            label = f"{dname} B={B} N={N} C={C} h={h}"
-            log_checks(results, label)
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            log(f"kernel channel_attention_bwd {label}: two calls bit-identical: {same}")
-            check(same, f"two channel_attention_bwd calls differ at {label}")
-            del args, dy, y, y_twin, got, again, want
+    Bc, Nc, Cc, hc = K8_CUDA_CORE_BF16
+    cases = [(N, C, h, B, dtype) for N, C, h in K8_STAGES
+             for B, dtype in ((DAVIT_BATCH, torch.bfloat16), (K8_F32_BATCH, torch.float32))]
+    for N, C, h, B, dtype in cases + [(Nc, Cc, hc, Bc, torch.bfloat16)]:
+        dname = str(dtype).split(".")[1]
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        args, dy = k8_inputs(B, N, C, dtype, device, seed=N + C)
+        x, wqkv, bqkv, wproj, _ = args
+        y, y_twin = ca.channel_attention_fwd(*args, h), ca.channel_attention_plain(*args, h)
+        y_again = ca.channel_attention_fwd(*args, h)
+        got = ca.channel_attention_bwd(x, dy, wqkv, bqkv, wproj, h)
+        again = ca.channel_attention_bwd(x, dy, wqkv, bqkv, wproj, h)
+        want = ca.channel_attention_bwd_plain(x, dy, wqkv, bqkv, wproj, h)
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            results = [
+                ("channel_attention_fwd", "y", *compare(y, y_twin, tol), tol_text(tol)),
+                ("channel_attention_bwd", "dqkv",
+                 *compare_scaled(got[0], want[0], MLP_GRAD_TOL[dname]),
+                 f"{MLP_GRAD_TOL[dname]:g}·max(1, |twin|)"),
+                ("channel_attention_bwd", "of", *compare(got[1], want[1], tol),
+                 tol_text(tol))]
+        else:
+            results = [(name, part, *compare_scaled(o, r, K8_F32_TOL),
+                        f"{K8_F32_TOL:g}·max(1, |twin|)")
+                       for name, part, o, r in (
+                           ("channel_attention_fwd", "y", y, y_twin),
+                           ("channel_attention_bwd", "dqkv", got[0], want[0]),
+                           ("channel_attention_bwd", "of", got[1], want[1]))]
+        for name, _, err, _, _ in results:
+            errors[name] = max(errors[name], err)
+        label = (f"{dname} B={B} N={N} C={C} h={h} route "
+                 f"{ca.plan(dtype, B, N, C, h, False)['route']}")
+        log_checks(results, label)
+        same = torch.equal(y, y_again)
+        log(f"kernel channel_attention_fwd {label}: two calls bit-identical: {same}")
+        check(same, f"two channel_attention_fwd calls differ at {label}")
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"kernel channel_attention_bwd {label}: two calls bit-identical: {same}")
+        check(same, f"two channel_attention_bwd calls differ at {label}")
+        del args, dy, y, y_twin, y_again, got, again, want
     return errors
 
 
@@ -3200,9 +3230,10 @@ def k7pad_bound(nB, C, h, n_mask, itemsize, backward):
 
 def module_times(module, x, dy):
     """A PyTorch module as a yardstick (the port never calls it so): its
-    forward by CUDA events (two runs of 20 calls), its autograd backward as
-    the torch.profiler device time of the backward alone on one retained
-    graph (ms, or None where the trace kept no record)."""
+    forward per call by CUDA events (two runs of 20 calls) and as the
+    torch.profiler device time, and its autograd backward as the device time
+    of the backward alone on one retained graph (ms; a device time is None
+    where the trace kept no record)."""
     import torch
 
     params = [p for p in module.parameters()]
@@ -3218,16 +3249,26 @@ def module_times(module, x, dy):
         return torch.autograd.grad(out, [xr, *params], dy, retain_graph=True)
 
     f = (time_ms(fwd, 20, 3) + time_ms(fwd, 20, 3)) / 2
+    fd, _ = device_us(fwd, n=10)
     bwd()
     b, _ = device_us(bwd, n=10)
-    return f, (b / 1e3 if b > 0 else None)
+    return f, (fd / 1e3 if fd > 0 else None), (b / 1e3 if b > 0 else None)
 
 
 def phase_k8_times(ca, device, card):
     """K8 forward and backward against their twins at B=64, bf16, per
     DaViT-tiny stage; the yardstick is the port's plain
     ``DaViTChannelAttention`` on the same inputs (cuBLAS linears and
-    einsums), forward by CUDA events and autograd backward by device time."""
+    einsums): its forward per call by CUDA events (the record's library
+    time) and by device time, its autograd backward by device time. Each
+    stage's line gives the route, the device time by kernel, the share of
+    the bound and the factor against the plain module, device time against
+    device time (the forward per call against per call too). Then the same
+    module on K8's route (the kernels, its weight copies and the backward's
+    dx and weight-gradient products on cuBLAS) against the plain one, device
+    times: what a DaViT step's channel blocks save."""
+    import copy
+
     import torch
 
     from skinjax_torch import DAVIT_BATCH
@@ -3242,7 +3283,12 @@ def phase_k8_times(ca, device, card):
             for lin, w, b in ((plain.qkv, wqkv, bqkv), (plain.proj, wproj, bproj)):
                 lin.weight.copy_(w.t())
                 lin.bias.copy_(b)
-        lib = dict(zip(K8, module_times(plain, x, dy)))
+        fwd_call, fwd_dev, bwd_dev = module_times(plain, x, dy)
+        routed = copy.deepcopy(plain)
+        routed.fused = True
+        _, routed_fwd, routed_bwd = module_times(routed, x, dy)
+        lib = {"channel_attention_fwd": fwd_call, "channel_attention_bwd": bwd_dev}
+        lib_dev = {"channel_attention_fwd": fwd_dev, "channel_attention_bwd": bwd_dev}
         calls = {
             "channel_attention_fwd": (lambda: ca.channel_attention_fwd(*args, h),
                                       lambda: ca.channel_attention_plain(*args, h)),
@@ -3251,14 +3297,36 @@ def phase_k8_times(ca, device, card):
                 lambda: ca.channel_attention_bwd_plain(x, dy, wqkv, bqkv, wproj, h)),
         }
         for name, (kern, twin) in calls.items():
-            out[(name, N)] = time_record(
-                card, name, f"B={B} N={N} C={C} h={h}", kern, twin, K8_KERNELS[name],
-                k8_bound(B, N, C, h, 2, name.endswith("bwd")), lib[name])
+            bwd = name.endswith("bwd")
+            rec = time_record(card, name, f"B={B} N={N} C={C} h={h}", kern, twin,
+                              K8_KERNELS[name], k8_bound(B, N, C, h, 2, bwd), lib[name])
+            out[(name, N)] = rec
+            plan = ca.plan(torch.bfloat16, B, N, C, h, bwd)
+            _, by_name = device_us(kern, n=5)
+            split = {k: sum(t for key, t in by_name.items() if k in key) for k in K8_KERNELS[name]}
+            dev_ms = sum(split.values()) / 1e3
+            factor = ("not measured" if lib_dev[name] is None
+                      else f"{dev_ms / lib_dev[name]:.2f}x device time")
+            if not bwd and lib[name] is not None:
+                factor += f", {rec['ms'] / lib[name]:.2f}x per call"
+            blocks = (f"{ca.HEAD_GROUP} heads a block" if plan["route"] == "mma"
+                      else "a head a block")
+            log(f"[{card}] K8 {name} stage B={B} N={N} C={C} h={h}: route {plan['route']}, "
+                f"{plan['n_seg']} segments, {blocks}; per call "
+                f"{rec['ms'] * 1e3:.2f} us, device {dev_ms * 1e3:.2f} us ("
+                + ", ".join(f"{k} {t:.2f} us" for k, t in split.items())
+                + f"); share of bound {100 * rec['bound_ms'] / rec['ms']:.1f}% per call, "
+                f"{100 * rec['bound_ms'] / dev_ms:.1f}% of the device time; factor against the "
+                f"plain module {factor}")
         log(f"[{card}] time the port's plain DaViTChannelAttention bf16 B={B} N={N} C={C} "
-            f"(cuBLAS linears + einsums): forward {ms_us(lib['channel_attention_fwd'])} per call "
-            f"(CUDA events), backward {ms_us(lib['channel_attention_bwd'])} (the device time of "
-            f"autograd's backward alone, torch.profiler)")
-        del args, dy, plain
+            f"(cuBLAS linears + einsums): forward {ms_us(fwd_call)} per call (CUDA events), "
+            f"{ms_us(fwd_dev)} device time (torch.profiler); backward {ms_us(bwd_dev)} (the "
+            f"device time of autograd's backward alone, torch.profiler)")
+        log(f"[{card}] time DaViTChannelAttention bf16 B={B} N={N} C={C} on K8's route "
+            f"against the plain module, device times (torch.profiler): forward "
+            f"{ms_us(routed_fwd)} against {ms_us(fwd_dev)}, autograd backward (the kernel, dx "
+            f"and the weight gradients) {ms_us(routed_bwd)} against {ms_us(bwd_dev)}")
+        del args, dy, plain, routed
     return out
 
 
@@ -3312,7 +3380,8 @@ def phase_route_ab(device, card, label, routes, batch, cw, step):
     """Train steps of two routes of one model in turns (A, B, B, A), each
     from its own state: ``routes`` maps a route's name to (config, the
     environment it runs under). 12 unfrozen steps after 3 warm-up each,
-    CUDA events; returns {route: mean ms a step}."""
+    CUDA events, then one torch.profiler-traced step a route in turns (its
+    device time); returns {route: mean ms a step}."""
     states = {}
     for name, (config, env) in routes.items():
         states[name] = train_state(config, device)
@@ -3325,13 +3394,27 @@ def phase_route_ab(device, card, label, routes, batch, cw, step):
             for _ in range(3):
                 call()
             times[name].append(time_ms(call, iters=12, warmup=0))
+    # the device time of one profiled step a route, in turns too: the steps
+    # are host-bound, so their wall time moves with the host
+    dev = {name: [] for name in order}
+    for name in (order[0], order[1], order[1], order[0]):
+        state = states[name]
+        with env_set(routes[name][1]):
+            dev[name].append(device_us(
+                lambda: step(state, batch["image"], batch["metadata"], batch["label"], 0, cw),  # noqa: B023
+                n=1)[0] / 1e3)
     B = batch["image"].shape[0]
     means = {name: sum(t) / len(t) for name, t in times.items()}
+    dev_means = {name: sum(t) / len(t) for name, t in dev.items()}
     log(f"[{card}] A/B train {label} unfrozen B={B}, in turns "
         f"{order[0]}-{order[1]}-{order[1]}-{order[0]} (12 steps each after 3 warm-up, CUDA "
         f"events): " + "; ".join(f"{n} {means[n]:.2f} ms ({B / means[n] * 1e3:.1f} img/s; runs "
                                  + ", ".join(f"{t:.2f}" for t in times[n]) + ")" for n in order)
         + f"; faster: {min(means, key=means.get)}")
+    log(f"[{card}] A/B train {label} unfrozen B={B}: device time of one profiled step "
+        f"(torch.profiler, in turns): " + "; ".join(
+            f"{n} {dev_means[n]:.2f} ms (" + ", ".join(f"{t:.2f}" for t in dev[n]) + ")"
+            for n in order) + f"; less device time: {min(dev_means, key=dev_means.get)}")
     return means
 
 
@@ -3827,6 +3910,33 @@ def mlp_only() -> int:
     return 0
 
 
+def k8_only() -> int:
+    """``--k8``: K8's checks and times alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from skinjax_torch.ops import build
+    from skinjax_torch.ops import channel_attention as ca
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(card)
+    t0 = time.perf_counter()
+    ca.library()
+    log(f"phase build: channel_attention, {time.perf_counter() - t0:.1f} s")
+    log_ptxas(build, ("channel_attention",))
+    phase_k8(ca, device)
+    phase_k8_times(ca, device, card)
+    torch.cuda.synchronize()
+    print(json.dumps({"ok": True, "k8": True}), flush=True)
+    return 0
+
+
 def attention_only() -> int:
     """``--attention``: the attention kernels' checks and times alone."""
     import torch
@@ -4224,5 +4334,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit({"--attention": attention_only, "--mlp": mlp_only}.get(" ".join(sys.argv[1:]),
-                                                                    main)())
+    sys.exit({"--attention": attention_only, "--mlp": mlp_only,
+              "--k8": k8_only}.get(" ".join(sys.argv[1:]), main)())

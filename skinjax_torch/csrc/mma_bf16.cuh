@@ -1,7 +1,7 @@
 // Building blocks of the bf16 tensor-core attention kernels (sm_90a):
 // global_attention.cu's forward and backwards, pooled_attention.cu's forward
-// and backward, and window_attention.cu's forward core, output projection
-// and strip backward.
+// and backward, window_attention.cu's forward core, output projection and
+// strip backward, and channel_attention.cu's bf16 kernels.
 //
 // A warp computes (16 rows x 16 keys) blocks of scores with
 // mma.sync.m16n8k16 (bf16 operands, fp32 accumulators in registers), its
@@ -301,6 +301,22 @@ __device__ __forceinline__ void warp_ax_chunk(float (&acc)[kD / 8][4], const uns
                          16 * jd + (lane >> 4) * 8);
     mma_bf16(acc[2 * jd], a, b[0], b[1]);
     mma_bf16(acc[2 * jd + 1], a, b[2], b[3]);
+  }
+}
+
+// acc[2 kk + j] += a . X^T over the 16 columns 16 ks.. of the (32 x 32) tile xs
+// at row stride tile_ld<32>() (X rows 16 kk + 8 j..: the output columns), as
+// do = dy . Wproj_head^T takes a head's Wproj rows
+__device__ __forceinline__ void warp_abt_step(float (&acc)[4][4], const unsigned (&a)[4],
+                                              const bf16* xs, int ks) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    unsigned b[4];
+    ldsm_x4(b, xs + (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * tile_ld<32>() + 16 * ks +
+                   ((lane >> 3) & 1) * 8);
+    mma_bf16(acc[2 * kk], a, b[0], b[1]);
+    mma_bf16(acc[2 * kk + 1], a, b[2], b[3]);
   }
 }
 

@@ -507,21 +507,6 @@ static_assert(4 * kTile * kPl + 2 * kTile * kSl <= 2 * stage_elems<4>(),
 constexpr int fwd_mma_smem_bytes() { return region_bytes<3>() + kTokBytes; }
 constexpr int bwd_mma_smem_bytes() { return region_bytes<4>() + kTokBytes; }
 
-// acc[2 kk + j] += a . X^T over the 16 columns 16 ks.. of the (32 x 32) tile xs
-// (X rows 16 kk + 8 j..: the output columns): do = dy . Wproj_head^T
-__device__ __forceinline__ void warp_abt_step(float (&acc)[4][4], const unsigned (&a)[4],
-                                              const bf16* xs, int ks) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    unsigned b[4];
-    ldsm_x4(b, xs + (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * kPl + 16 * ks +
-                   ((lane >> 3) & 1) * 8);
-    mma_bf16(acc[2 * kk], a, b[0], b[1]);
-    mma_bf16(acc[2 * kk + 1], a, b[2], b[3]);
-  }
-}
-
 // The A fragment of the (16 keys x 16 queries) block of X^T, X the (query x
 // key) bf16 tile x at row stride kSl: keys k0.., queries q0.. (ldmatrix.trans)
 __device__ __forceinline__ void load_at_trans(unsigned (&a)[4], const bf16* x, int q0, int k0) {

@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from skinjax_torch.ops import compute_dtype
+from skinjax_torch.ops import compute_dtype, weight_t
 from skinjax_torch.ops.channel_attention import channel_attention
 from skinjax_torch.ops.window_attention import window_attention_nhwc
 
@@ -78,8 +78,8 @@ class DaViTWindowAttention(nn.Module):
     def forward(self, x):
         dt = compute_dtype(x)
         return window_attention_nhwc(
-            x.to(dt).contiguous(), self.qkv.weight.t().to(dt).contiguous(), self.qkv.bias.to(dt),
-            self.proj.weight.t().to(dt).contiguous(), self.proj.bias.to(dt), None, None,
+            x.to(dt).contiguous(), weight_t(self.qkv.weight, dt), self.qkv.bias.to(dt),
+            weight_t(self.proj.weight, dt), self.proj.bias.to(dt), None, None,
             self.num_heads, self.window)
 
 
@@ -101,8 +101,8 @@ class DaViTChannelAttention(nn.Module):
         if fused:
             dt = compute_dtype(x)
             return channel_attention(
-                x.to(dt).contiguous(), self.qkv.weight.t().to(dt).contiguous(),
-                self.qkv.bias.to(dt), self.proj.weight.t().to(dt).contiguous(),
+                x.to(dt).contiguous(), weight_t(self.qkv.weight, dt),
+                self.qkv.bias.to(dt), weight_t(self.proj.weight, dt),
                 self.proj.bias.to(dt), self.num_heads)
         B, N, C = x.shape
         h = self.num_heads

@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from skinjax_torch.ops import compute_dtype
+from skinjax_torch.ops import compute_dtype, weight_t
 from skinjax_torch.ops.window_attention import (
     window_attention,
     window_attention_nhwc,
@@ -120,15 +120,15 @@ class WindowAttention(nn.Module):
         if self.strip_attn:
             dt = compute_dtype(x)
             return window_attention_nhwc(
-                x.to(dt).contiguous(), self.qkv.weight.t().to(dt).contiguous(),
-                self.qkv.bias.to(dt), self.proj.weight.t().to(dt).contiguous(),
+                x.to(dt).contiguous(), weight_t(self.qkv.weight, dt),
+                self.qkv.bias.to(dt), weight_t(self.proj.weight, dt),
                 self.proj.bias.to(dt), bias, mask, self.num_heads, w)
         xw = window_partition(x, w)
         if self.fused_attn:
             dt = compute_dtype(x)
             y = window_attention(
-                xw.to(dt).contiguous(), self.qkv.weight.t().to(dt).contiguous(),
-                self.qkv.bias.to(dt), self.proj.weight.t().to(dt).contiguous(),
+                xw.to(dt).contiguous(), weight_t(self.qkv.weight, dt),
+                self.qkv.bias.to(dt), weight_t(self.proj.weight, dt),
                 self.proj.bias.to(dt), bias, mask, self.num_heads)
         else:
             y = self._plain(xw, bias, mask)

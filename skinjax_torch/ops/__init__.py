@@ -17,6 +17,16 @@ def compute_dtype(x: torch.Tensor) -> torch.dtype:
     return x.dtype
 
 
+def weight_t(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A Linear's (out, in) weight as the contiguous (in, out) matrix the
+    kernels take, in ``dtype``: one device copy in either dtype, through
+    which autograd carries the gradient back to ``w``. (``w.t().to(dtype,
+    memory_format=torch.contiguous_format)`` returns the transposed view
+    itself, not contiguous, where ``dtype`` is already ``w``'s.)"""
+    out = torch.empty((w.shape[1], w.shape[0]), dtype=dtype, device=w.device)
+    return out.copy_(w.t())
+
+
 def check_tensor(name: str, t, shape, dtype, device) -> None:
     """What a kernel wrapper checks of each tensor before it passes a
     pointer: device, dtype, shape and contiguity; raises on a mismatch."""

@@ -26,6 +26,19 @@ skinjax's VMEM gate ``channel_attention_supported`` and ``SKINJAX_CHATTN_MAXN``
 are TPU limits and are left out: every shape within ``MAX_HEAD_DIM`` goes
 through the kernel.
 
+``plan`` chooses the route of a CUDA call and says what it launches and
+allocates; the wrapper passes the route to the kernels, which check its
+shapes. bf16 at 32 channels a head with a head count that 3 divides
+(DaViT's 3, 6, 12, 24) takes the tensor-core kernels: a block projects
+``HEAD_GROUP`` heads from one read of each step of x (and dy), and the
+forward fuses the output projection, so it allocates nothing in the input
+dtype; the backward keeps q, k, v and do in four (B, N, C) planes between
+its first and last launch. Every other shape, and fp32, takes the CUDA-core
+kernels, whose
+forward writes of to a (B, N, C) scratch and whose backward keeps q, k, v
+and do in a (B, N, 4, C) one. Both routes take one fp32 scratch of (hd, hd)
+planes: the segments' partial sums, pb (and ds).
+
 ``channel_attention_plain`` and ``channel_attention_bwd_plain`` are the plain
 PyTorch twins, rounding at the same points; ``channel_attention_reference``
 is a copy of skinjax's einsum reference. The wrappers dispatch on the device
@@ -38,6 +51,7 @@ twin call is not counted).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -47,6 +61,8 @@ from skinjax_torch.ops import acc_dtype, check_tensor
 LAUNCHES: Dict[str, int] = {"channel_attention_fwd": 0, "channel_attention_bwd": 0}
 
 MAX_HEAD_DIM = 32
+MMA_HEAD_DIM = 32  # the tensor-core route's channels a head (csrc kHd)
+HEAD_GROUP = 3  # the heads a tensor-core block projects (csrc kG)
 SEGMENT = 256  # tokens a block of the kernel's partial sums (csrc kSeg)
 
 _P = ctypes.c_void_p
@@ -54,8 +70,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "skinjax_channel_attention_error_string": ([_I], ctypes.c_char_p),
-    "skinjax_channel_attention_fwd": ([_I] + [_P] * 9 + [_I] * 5 + [_F, _P], _I),
-    "skinjax_channel_attention_bwd": ([_I] + [_P] * 11 + [_I] * 5 + [_F, _P], _I),
+    "skinjax_channel_attention_fwd": ([_I] * 2 + [_P] * 9 + [_I] * 5 + [_F, _P], _I),
+    "skinjax_channel_attention_bwd": ([_I] * 2 + [_P] * 11 + [_I] * 5 + [_F, _P], _I),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -186,11 +202,43 @@ def _raise(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
 
 
-def _planes(x, num_heads, n: int):
-    """n fp32 scratch planes (B, heads, hd, hd)."""
-    B, _, C = x.shape
+def plan(dtype: torch.dtype, B: int, N: int, C: int, num_heads: int, backward: bool) -> dict:
+    """The route of a CUDA call of the forward (or backward) and what it
+    launches and allocates: ``route`` ("mma": the tensor-core kernels, bf16
+    at 32 channels a head and a multiple of ``HEAD_GROUP`` heads, a block
+    ``HEAD_GROUP`` heads; else "cuda-core", a block a head), ``n_seg``
+    segments of the partial sums, the fp32 ``planes`` (the partial sums, pb,
+    and the backward's ds, (hd, hd) each) and the ``scratch`` in the input
+    dtype: on the tensor-core route none for the forward and, for the
+    backward, q, k, v and do as four (B, N, C) planes; the CUDA-core
+    forward's of (B, N, C) and backward's q, k, v, do interleaved, (B, N, 4,
+    C)."""
+    mma = (dtype == torch.bfloat16 and C == MMA_HEAD_DIM * num_heads
+           and num_heads % HEAD_GROUP == 0)
+    n_seg = -(-N // SEGMENT)
     hd = C // num_heads
-    return torch.empty((n, B, num_heads, hd, hd), dtype=torch.float32, device=x.device)
+    planes = (2 * n_seg + 2 if backward else n_seg + 1, B, num_heads, hd, hd)
+    if mma:
+        scratch = (4, B, N, C) if backward else None
+    else:
+        scratch = (B, N, 4, C) if backward else (B, N, C)
+    return dict(route="mma" if mma else "cuda-core", n_seg=n_seg, planes=planes,
+                scratch=scratch)
+
+
+def _scratch(x, p: dict):
+    """The plan's fp32 planes and its scratch in x's dtype (or None), cut
+    from one allocation; the scratch starts 16-byte aligned."""
+    n_planes = math.prod(p["planes"]) * 4
+    n = 0 if p["scratch"] is None else math.prod(p["scratch"]) * x.element_size()
+    buf = torch.empty(n_planes + n, dtype=torch.uint8, device=x.device)
+    planes = buf[:n_planes].view(torch.float32).view(p["planes"])
+    scratch = buf[n_planes:].view(x.dtype).view(p["scratch"]) if n else None
+    return planes, scratch
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def channel_attention_fwd(x, wqkv, bqkv, wproj, bproj, num_heads):
@@ -201,16 +249,18 @@ def channel_attention_fwd(x, wqkv, bqkv, wproj, bproj, num_heads):
         raise ValueError(f"channel attention takes CPU or CUDA tensors, got {x.device}")
     _check(x, wqkv, bqkv, wproj, bproj, num_heads)
     B, N, C = x.shape
-    n_seg = -(-N // SEGMENT)
-    of, y = torch.empty_like(x), torch.empty_like(x)
+    y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    part, pb = _planes(x, num_heads, n_seg), _planes(x, num_heads, 1)
+    p = plan(x.dtype, B, N, C, num_heads, backward=False)
+    n_seg = p["n_seg"]
+    planes, of = _scratch(x, p)
     lib = library()
     err = lib.skinjax_channel_attention_fwd(
-        int(x.dtype == torch.bfloat16), x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-        wproj.data_ptr(), bproj.data_ptr(), part.data_ptr(), pb.data_ptr(), of.data_ptr(),
-        y.data_ptr(), B, N, C, num_heads, n_seg, (C // num_heads) ** -0.5,
+        int(x.dtype == torch.bfloat16), int(p["route"] == "mma"), x.data_ptr(), wqkv.data_ptr(),
+        bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(), planes.data_ptr(),
+        planes[n_seg].data_ptr(), _ptr(of), y.data_ptr(), B, N, C, num_heads, n_seg,
+        (C // num_heads) ** -0.5,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise(lib, err, "channel_attention_fwd")
     LAUNCHES["channel_attention_fwd"] += 1
@@ -226,19 +276,20 @@ def channel_attention_bwd(x, dy, wqkv, bqkv, wproj, num_heads):
     _check(x, wqkv, bqkv, wproj, None, num_heads)
     check_tensor("dy", dy, tuple(x.shape), x.dtype, x.device)
     B, N, C = x.shape
-    n_seg = -(-N // SEGMENT)
     dqkv = torch.empty((B, N, 3 * C), dtype=x.dtype, device=x.device)
     of = torch.empty_like(x)
     if x.numel() == 0:
         return dqkv, of
-    qkvd = torch.empty((B, N, 4, C), dtype=x.dtype, device=x.device)
-    part, planes = _planes(x, num_heads, 2 * n_seg), _planes(x, num_heads, 2)
+    p = plan(x.dtype, B, N, C, num_heads, backward=True)
+    n_seg = p["n_seg"]
+    planes, qkvd = _scratch(x, p)
     lib = library()
     err = lib.skinjax_channel_attention_bwd(
-        int(x.dtype == torch.bfloat16), x.data_ptr(), dy.data_ptr(), wqkv.data_ptr(),
-        bqkv.data_ptr(), wproj.data_ptr(), qkvd.data_ptr(), part.data_ptr(),
-        planes[0].data_ptr(), planes[1].data_ptr(), dqkv.data_ptr(), of.data_ptr(), B, N, C,
-        num_heads, n_seg, (C // num_heads) ** -0.5, torch.cuda.current_stream(x.device).cuda_stream)
+        int(x.dtype == torch.bfloat16), int(p["route"] == "mma"), x.data_ptr(), dy.data_ptr(),
+        wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), qkvd.data_ptr(), planes.data_ptr(),
+        planes[2 * n_seg].data_ptr(), planes[2 * n_seg + 1].data_ptr(), dqkv.data_ptr(),
+        of.data_ptr(), B, N, C, num_heads, n_seg, (C // num_heads) ** -0.5,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _raise(lib, err, "channel_attention_bwd")
     LAUNCHES["channel_attention_bwd"] += 1
     return dqkv, of

@@ -38,8 +38,10 @@ def test_repo_sources_share_a_header():
     headers = sorted(p.name for p in build.CSRC.glob("*.cuh"))
     assert "mma_bf16.cuh" in headers
     header = (build.CSRC / "mma_bf16.cuh").read_text()
-    helpers = ("cp_async16", "cp_async_commit", "cp_async_wait", "load_tile", "pipeline")
-    for name in ("global_attention", "pooled_attention", "fused_mlp", "window_attention"):
+    helpers = ("cp_async16", "cp_async_commit", "cp_async_wait", "load_tile", "pipeline",
+               "warp_abt_step", "warp_ax_chunk", "pack_a_chunk")
+    for name in ("global_attention", "pooled_attention", "fused_mlp", "window_attention",
+                 "channel_attention"):
         source = (build.CSRC / f"{name}.cu").read_text()
         assert '#include "mma_bf16.cuh"' in source
         assert "using bf16 =" not in source
@@ -56,6 +58,14 @@ def test_repo_sources_share_a_header():
         body = window[window.index(f"{kernel}("):]
         body = body[:body.index("\n}\n")]
         assert "wa_attend<" in body, kernel
+    # K8's bf16 projecting kernels share one projection routine, so every x
+    # (and dy) step is read once for the columns of a block's heads
+    channel = (build.CSRC / "channel_attention.cu").read_text()
+    assert len(re.findall(r"void\s+project_tile\s*\(", channel)) == 1
+    for kernel in ("ca_partial_mma_kernel", "ca_out_mma_kernel"):
+        body = channel[channel.index(f"{kernel}("):]
+        body = body[:body.index("\n}\n")]
+        assert "project_tile<" in body, kernel
     mlp = (build.CSRC / "fused_mlp.cu").read_text()
     assert len(re.findall(r"void\s+wgmma_m64n64k16\s*\(", mlp)) == 1
     body = mlp[mlp.index("mlp_fwd_wgmma_kernel("):]
@@ -66,7 +76,7 @@ def test_repo_sources_share_a_header():
 
 _PROFILED = ("KERNEL_NAMES", "K7_KERNELS", "K7_F32", "MLP_KERNELS", "MLP_F32_FWD", "MLP_F32_BWD",
              "MLP_SPLIT",
-             "K12_KERNELS", "K11_KERNELS", "K8_KERNELS", "K7_PAD_KERNELS", "K6_KERNELS",
+             "K12_KERNELS", "K11_KERNELS", "K8_KERNELS", "K8_F32", "K7_PAD_KERNELS", "K6_KERNELS",
              "KERNEL_SYMBOLS")
 
 
@@ -109,4 +119,15 @@ def test_profiled_kernel_names_are_kernels():
     assert smoke.K12_KERNELS["global_attention_fwd"] == ["ga_fwd_mma_kernel"]
     assert {"wa_bwd_kernel", "wa_fwd_kernel", "proj_kernel", "mlp_fwd_kernel",
             "ga_fwd_kernel"} <= set(smoke.KERNEL_SYMBOLS)
+    # K8: the bf16 calls run the tensor-core kernels (and the softmax), the
+    # fp32 instantiations keep the CUDA-core ones, all profiled by name
+    assert smoke.K8_KERNELS == {
+        "channel_attention_fwd": ["ca_partial_mma_kernel", "ca_softmax_kernel",
+                                  "ca_out_mma_kernel"],
+        "channel_attention_bwd": ["ca_partial_mma_kernel", "ca_softmax_kernel",
+                                  "ca_grad_mma_kernel"]}
+    assert smoke.K8_F32 == ["ca_partial_kernel", "ca_softmax_kernel", "ca_out_kernel",
+                            "ca_proj_kernel", "ca_grad_kernel"]
+    assert {*smoke.K8_F32, "ca_partial_mma_kernel", "ca_out_mma_kernel",
+            "ca_grad_mma_kernel"} <= kernels & set(smoke.KERNEL_SYMBOLS)
     assert sorted(profiled - kernels) == []

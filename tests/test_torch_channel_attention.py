@@ -250,3 +250,55 @@ def test_channel_attention_route(monkeypatch, env, attribute, fused):
     block.fused = None if attribute is None else not attribute
     np.testing.assert_allclose(y.detach().numpy(), block(x).detach().numpy(), atol=1e-5,
                                rtol=1e-5)
+
+
+# DaViT-tiny's channel attention at 224×224: (tokens, channels, heads) per
+# stage, 32 channels a head; its train batch
+DAVIT_TINY_STAGES = ((3136, 96, 3), (784, 192, 6), (196, 384, 12), (49, 768, 24))
+DAVIT_B = 64
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_launch_plan(backward):
+    """What the wrapper allocates and launches on the card: bf16 at 32
+    channels a head and a multiple of three heads takes the tensor-core
+    kernels (``HEAD_GROUP`` = 3 heads a block) at each of DaViT-tiny's
+    stages, with no scratch in the input dtype in the forward and, in the
+    backward, q, k, v and do as four (B, N, C) planes, not interleaved by
+    token; fp32, bf16 at 16 channels a head and bf16 at four heads
+    (DaViT-base's layout) keep the CUDA-core kernels and their scratch (the
+    forward's of, the backward's interleaved q, k, v, do)."""
+    assert tca.HEAD_GROUP == 3
+    for N, C, h in DAVIT_TINY_STAGES:
+        n_seg = -(-N // tca.SEGMENT)
+        planes = (2 * n_seg + 2 if backward else n_seg + 1, DAVIT_B, h, 32, 32)
+        got = tca.plan(torch.bfloat16, DAVIT_B, N, C, h, backward)
+        scratch = (4, DAVIT_B, N, C) if backward else None
+        assert got == dict(route="mma", n_seg=n_seg, planes=planes, scratch=scratch)
+        got = tca.plan(torch.float32, DAVIT_B, N, C, h, backward)
+        scratch = (DAVIT_B, N, 4, C) if backward else (DAVIT_B, N, C)
+        assert got == dict(route="cuda-core", n_seg=n_seg, planes=planes, scratch=scratch)
+    assert [tca.plan(torch.bfloat16, DAVIT_B, N, C, h, backward)["n_seg"]
+            for N, C, h in DAVIT_TINY_STAGES] == [13, 4, 1, 1]
+    assert tca.plan(torch.bfloat16, 1, 50, 48, 3, backward)["route"] == "cuda-core"
+    got = tca.plan(torch.bfloat16, 8, 784, 128, 4, backward)
+    assert got["route"] == "cuda-core"
+    assert got["scratch"] == ((8, 784, 4, 128) if backward else (8, 784, 128))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_t_is_one_contiguous_copy(dtype):
+    """``weight_t``: a Linear's (out, in) weight as a contiguous (in, out)
+    tensor in either dtype, a copy (not a view of the weight), through which
+    the gradient reaches the weight."""
+    from skinjax_torch.ops import weight_t
+
+    w = torch.tensor(np.random.default_rng(3).normal(size=(6, 4)).astype(np.float32),
+                     requires_grad=True)
+    wt = weight_t(w, dtype)
+    assert wt.shape == (4, 6) and wt.dtype == dtype and wt.is_contiguous()
+    assert wt.stride() == (6, 1) and wt.data_ptr() != w.data_ptr()
+    torch.testing.assert_close(wt, w.detach().t().to(dtype), rtol=0, atol=0)
+    g = torch.arange(24, dtype=torch.float32).reshape(4, 6)
+    (wt.float() * g).sum().backward()
+    torch.testing.assert_close(w.grad, g.t())
