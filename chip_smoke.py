@@ -31,9 +31,16 @@ sentence dataset. Phases, each printing its lines:
               bn_kernels.cu, started together; seconds, ptxas registers
   3. kernels  K1-K4 against their plain PyTorch twins at the flagship shapes
               (K4 at Vd in {2048, 768, 512}), B in {1, 3, 8, 32}, fp32 (TF32
-              off) and bf16 activations; K5 against its twin at B in
-              {1, 7, 128} (224×224) and a 300×400 batch, bf16 and fp32, with
-              drawn parameters and with every gate on; K7 forward and
+              off) and bf16 activations; K1's two routes (the cluster kernel
+              at D=512, the one-block kernel at D=768) each against its twin
+              also at B=16 and 33 (a part-empty tile, two tiles), two calls
+              bit-identical, the kernel each profiled call ran the one
+              seq1_attention_plan chose, the C entry point refusing the
+              cluster route at D=768; K5 bit for bit its twin at B in
+              {1, 7, 128} (224×224), a 300×400 batch and a 37×45 one (scalar
+              loads), bf16 and fp32, with drawn parameters and with every
+              gate on, two calls bit-identical, and its normalize against the
+              IEEE quotient for every value clip01 returns; K7 forward and
               backward against their twins at DaViT-tiny's four stage shapes,
               B in {1, 64}, bf16 and fp32, and with a relative-position bias
               and 64 per-window masks (dbias checked), two bf16 backward
@@ -88,7 +95,9 @@ sentence dataset. Phases, each printing its lines:
   7. fold     run_kfold, k=2, 2 epochs, B=32, on synthetic 224×224 data;
               K5's launches are counted over it; its artifacts are checked
   8. times    engine p50/p95 fused and plain; K1-K3 and K5 against their
-              twins and bounds; train images/s unfrozen and frozen; the augment
+              twins, bounds and (K1-K3) the same function as PyTorch calls it,
+              K1 with its weights L2-warm and L2-cold; train images/s unfrozen
+              and frozen; the augment
               stage with and without K5; a profiled train step
   9. davit    the DaViT model: fused against plain engine (K7 launched 6
               times per forward), the fp32 engine on the card against the CPU;
@@ -233,6 +242,13 @@ times (per call and by kernel against the twin, the bound and the plain
 DaViTChannelAttention, device time against device time) alone (last line
 {"ok": true, "k8": true}).
 
+    python3 chip_smoke.py --fusion
+
+builds csrc/fusion_kernels.cu and augment_kernel.cu only and runs K1-K5's
+checks and times, the flagship served (fused against plain, launches per
+forward, the engine's p50 in turns) and trained (K5 once a step) and the
+augment stage with and without K5 (last line {"ok": true, "fusion": true}).
+
     python3 chip_smoke.py --mlp
 
 builds csrc/fused_mlp.cu only and runs K9's and K10's checks (every shape,
@@ -316,9 +332,15 @@ K6_SOURCE = "skinjax_torch/csrc/bn_kernels.cu"
 BUILDS = {"fusion_kernels": SOURCE, "augment_kernel": K5_SOURCE, "window_attention": K7_SOURCE,
           "global_attention": K12_SOURCE, "pooled_attention": K11_SOURCE,
           "fused_mlp": MLP_SOURCE, "channel_attention": K8_SOURCE, "bn_kernels": K6_SOURCE}
-KERNEL_NAMES = {"seq1_attention": "seq1_attention_kernel",
+# each K1-K4 call's kernel at the flagship's widths; K1 at D = 512 runs on a
+# thread-block cluster (ops/fusion_kernels.py seq1_attention_plan), at
+# K1_BLOCK_D on the one-block kernel
+KERNEL_NAMES = {"seq1_attention": "seq1_cluster_kernel",
                 "gated_residual_seq1": "gated_residual_kernel",
                 "metablock_film": "metablock_film_kernel", "mlp_head": "mlp_head_kernel"}
+K1_BLOCK_KERNEL = "seq1_attention_kernel"
+K1_BLOCK_D = 768  # a width K1's cluster route does not take (above 512)
+K5_KERNELS = ["color_stage_kernel"]  # each K5 call's kernel
 # each bf16 K7 call's kernels (a call with a bias adds dbias_reduce_kernel);
 # the forward and backward run on the tensor cores (their fp32 instantiations
 # keep wa_fwd_kernel + proj_kernel and wa_bwd_kernel: K7_F32)
@@ -368,7 +390,7 @@ K7_PAD_KERNELS = {K7_PAD: K7_KERNELS["window_attention_fwd"],
                   K7_PAD_BWD: [*K12_KERNELS[K12_RECOMPUTE], "ga_dbias_reduce_kernel"]}
 # each K6 call's two launches (the partial sums, then their reduction)
 K6_KERNELS = ["bn_partial_kernel", "bn_reduce_kernel"]
-KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), "color_stage_kernel", *K7_F32, *K6_KERNELS,
+KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), K1_BLOCK_KERNEL, *K5_KERNELS, *K7_F32, *K6_KERNELS,
                   "dbias_reduce_kernel", "ga_fwd_kernel",
                   "ga_bwd_dq_kernel", "ga_bwd_dkv_kernel", "ga_bwd_rows_kernel",
                   "ga_bwd_cols_kernel", *K12_KERNELS[K12_RECOMPUTE],
@@ -525,7 +547,8 @@ ZOO = {"densenet169": 64, "mobilenet-v2": 64, "efficientnet-b0": 64, "efficientn
 K6_ROUTE = "+k6"  # a registered tower name + this: its BatchNorms fused (K6)
 SMALL_NEXTVIT = "nextvit-smoke-small"  # stem (16, 16, 32), 4 narrow stages, 64×64
 K5_OPS_PER_PIXEL = 83
-K5_SHAPES = ((1, 224, 224), (7, 224, 224), (128, 224, 224), (2, 300, 400))
+# the last a width that is not a multiple of 8: the kernel's scalar loads
+K5_SHAPES = ((1, 224, 224), (7, 224, 224), (128, 224, 224), (2, 300, 400), (3, 37, 45))
 TRAIN_B = 128
 TRAIN_HW = 224
 TRAIN_LR = 1e-3  # the loss-falls check: 10 Adam steps on one batch
@@ -569,6 +592,8 @@ CLI_IMAGE_HW = (300, 400)
 CLI_BACKBONE = "resnet-50"
 BATCHES = (1, 3, 8, 32)
 TIMED_BATCHES = (1, 8, 32)
+# K1's checks: BATCHES, a 32-row tile half full (16) and two tiles (33)
+K1_BATCHES = (*BATCHES, 16, 33)
 # fp32: the kernel and the twin sum in another order (TF32 off on both sides)
 F32_TOL = (1e-4, 1e-4)  # (atol, rtol)
 # bf16 activations: both round to bf16 at the same points, but a sum that
@@ -612,12 +637,10 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_args(name, B, dtype, device, gen, vd=K4_WIDTHS[0]):
+def kernel_args(name, B, dtype, device, gen, vd=K4_WIDTHS[0], D=512):
     """Inputs at the flagship shapes: D = 512, head 1024 → 512 → 256 → 6;
     K4 at Du = 512 and the given Vd."""
     import torch
-
-    D = 512
 
     def w(k, n):
         return (torch.randn(k, n, generator=gen) / k ** 0.5).to(device)
@@ -673,26 +696,210 @@ def phase_kernels(fk, device):
     return errors
 
 
+def same_bits(a, b) -> bool:
+    """Whether two tensors of one dtype and shape hold the same bits."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
+
+
+def ran_kernels(fn) -> set:
+    """The names of the kernels fn launched in a trace of 5 calls, traced
+    again (up to three times in all) where the trace kept no device record,
+    as torch.profiler now and then does."""
+    for _ in range(3):
+        names = {e.key for e in device_events(fn, 5)}
+        if names:
+            return names
+    return set()
+
+
+def phase_k1(fk, device):
+    """K1's two routes on the card: at D = 512 (the served width) the
+    cluster kernel, at K1_BLOCK_D the one-block kernel, each against its twin
+    at B in K1_BATCHES, fp32 and bf16, at the unchanged tolerances; two calls
+    bit-identical; each traced call ran the kernel ``seq1_attention_plan``
+    chose, and not the other one; the C entry point refuses the cluster
+    route at a width it does not take."""
+    import ctypes
+
+    import torch
+
+    for dtype in (torch.float32, torch.bfloat16):
+        counts = {rows: fk.seq1_cluster_count(device.index, dtype == torch.bfloat16, 512, rows)
+                  for rows in (1, 8, 32)}
+        log(f"kernel seq1_attention D=512 {dtype}: clusters of 16 CTAs the card holds at once, "
+            f"by rows a tile: {counts}")
+    gen = torch.Generator().manual_seed(3)
+    worst = 0.0
+    for D in (512, K1_BLOCK_D):
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            for B in K1_BATCHES:
+                args = kernel_args("seq1_attention", B, dtype, device, gen, D=D)
+                plan = fk.seq1_attention_call_plan(args[0], args[1], args[3])
+                out, again = fk.seq1_attention(*args), fk.seq1_attention(*args)
+                ref = fk.seq1_attention_plain(*args)
+                torch.cuda.synchronize()
+                err, ok = compare(out, ref, tol)
+                same = same_bits(out, again)
+                ran = ran_kernels(lambda: fk.seq1_attention(*args))  # noqa: B023
+                other = ({KERNEL_NAMES["seq1_attention"], K1_BLOCK_KERNEL} - {plan["kernel"]}).pop()
+                routed = (any(plan["kernel"] in k for k in ran)
+                          and not any(other in k for k in ran))
+                worst = max(worst, err)
+                log(f"kernel seq1_attention D={D} {str(dtype):15s} B={B:2d} {plan['kernel']} "
+                    f"(cluster {plan['cluster']}, {plan['rows']} rows a tile): "
+                    f"max_abs_err={err:.3e} tol=atol {tol[0]:g} + rtol "
+                    f"{tol[1]:g}·|twin| {'ok' if ok else 'FAIL'}; two calls bit-identical: "
+                    f"{same}; ran {sorted(ran)}")
+                check(ok, f"seq1_attention disagrees with its twin at D={D} B={B} {dtype}")
+                check(same, f"two seq1_attention calls differ at D={D} B={B} {dtype}")
+                check(routed, f"seq1_attention at D={D} B={B} ran {sorted(ran)}, not "
+                              f"{plan['kernel']}")
+    kv, wv, bv, wo, bo = kernel_args("seq1_attention", 1, torch.float32, device, gen,
+                                     D=K1_BLOCK_D)
+    out = torch.empty_like(kv)
+    err = fk.library().skinjax_seq1_attention(
+        0, 1, 1, kv.data_ptr(), wv.data_ptr(), bv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+        out.data_ptr(), 1, K1_BLOCK_D, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    log(f"kernel seq1_attention: the cluster route at D={K1_BLOCK_D} returns CUDA error {err}")
+    check(err != 0, f"skinjax_seq1_attention took the cluster route at D={K1_BLOCK_D}")
+    return worst
+
+
+def fusion_library(name, args):
+    """K1-K4's function as PyTorch calls it, on the same inputs: one
+    ``torch.addmm`` a product, the casts where the kernels round, and
+    ``F.layer_norm``, ``torch.sigmoid``, ``torch.tanh``, ``torch.relu``. Only
+    timed here, as a yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    eps = 1e-5  # the kernels' and nn.LayerNorm's
+
+    def ln(x, g, b):
+        return F.layer_norm(x, (x.shape[-1],), g, b, eps)
+
+    if name == "seq1_attention":
+        kv, wv, bv, wo, bo = args
+        return lambda: torch.addmm(bo, torch.addmm(bv, kv.float(), wv).to(kv.dtype).float(),
+                                   wo).to(kv.dtype)
+    if name == "gated_residual_seq1":
+        q, kv, wv, bv, wo, bo, wg, bg, gamma, beta = args
+
+        def grb():
+            qf = q.float()
+            attn = torch.addmm(bo, torch.addmm(bv, kv.float(), wv).to(q.dtype).float(), wo)
+            g = torch.sigmoid(torch.addmm(bg, qf, wg))
+            return ln(g * attn + (1.0 - g) * qf, gamma, beta).to(q.dtype)
+        return grb
+    if name == K4:
+        v, u, wf, bf, gf, hf, wg, bg, gg, hg = args
+
+        def film():
+            uf = u.float()
+            t1, t2 = ln(torch.addmm(bf, uf, wf), gf, hf), ln(torch.addmm(bg, uf, wg), gg, hg)
+            return torch.sigmoid(torch.tanh(v.float() * t1) + t2).to(v.dtype)
+        return film
+    x, w1, b1, g1, h1, w2, b2, g2, h2, w3, b3 = args
+
+    def head():
+        h = torch.relu(ln(torch.addmm(b1, x.float(), w1), g1, h1)).to(x.dtype)
+        h = torch.relu(ln(torch.addmm(b2, h.float(), w2), g2, h2)).to(x.dtype)
+        return torch.addmm(b3, h.float(), w3).to(x.dtype)
+    return head
+
+
+def l2_flush(device):
+    """A 256 MB buffer and a function that writes it: five times the L2
+    cache, so that nothing read before the write is left there."""
+    import torch
+
+    buf = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    return lambda: buf.fill_(1)
+
+
+def cold_times(fn, names, flush, n: int = 20):
+    """fn with the L2 cache cold (``flush`` before each call, outside the
+    timed window): CUDA events around each call alone, averaged (ms), and
+    its kernels' device time (µs, torch.profiler): the kernels ``names`` or,
+    with names None, every kernel of the call but the flush's fill (None:
+    not measured, where the trace holds no fill)."""
+    import torch
+
+    pairs = []
+    for _ in range(n + 3):
+        flush()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b in pairs[3:]) / n
+
+    def both():
+        flush()
+        fn()
+    if names is not None:
+        return ms, kernel_device_us(both, names, n=n)
+    _, by_name = device_us(both, n=n)
+    fills = [k for k in by_name if "FillFunctor" in k]
+    return ms, sum(v for k, v in by_name.items() if k not in fills) if fills else None
+
+
 def phase_kernel_times(fk, device, card):
+    """K1-K3 in bf16 at TIMED_BATCHES: per call (CUDA events over 200
+    back-to-back calls, in turns with the twin), device time, the bound, and
+    the same function as PyTorch calls it (``fusion_library``: per call and
+    device time); K1 also with its weights L2-cold. Returns {(name, B):
+    numbers}."""
     import torch
 
     gen = torch.Generator().manual_seed(1)
+    flush = l2_flush(device)
+    products = {"seq1_attention": [(512, 512)] * 2, "gated_residual_seq1": [(512, 512)] * 3,
+                "mlp_head": [(1024, 512), (512, 256), (256, 6)]}
     times = {}
-    for name in (n for n in KERNELS if n != K4):
+    for name in products:
         kernel, twin = getattr(fk, name), getattr(fk, name + "_plain")
         for B in TIMED_BATCHES:
             args = kernel_args(name, B, torch.bfloat16, device, gen)
-            # in turns: twin, kernel, kernel, twin
-            t = [time_ms(lambda: twin(*args)), time_ms(lambda: kernel(*args)),
-                 time_ms(lambda: kernel(*args)), time_ms(lambda: twin(*args))]
-            ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-            times[(name, B)] = (ms, plain_ms)
-            dev_k = kernel_device_us(lambda: kernel(*args), [KERNEL_NAMES[name]])
-            dev_t, _ = device_us(lambda: twin(*args))
+            lib = fusion_library(name, args)
+            err, ok = compare(lib(), twin(*args), BF16_TOL)
+            check(ok, f"{name}'s library chain disagrees with the twin at B={B} ({err:.3e})")
+            kern = lambda: kernel(*args)  # noqa: E731,B023
+            plain = lambda: twin(*args)  # noqa: E731,B023
+            # in turns: twin, kernel, library, library, kernel, twin
+            t = [time_ms(plain), time_ms(kern), time_ms(lib), time_ms(lib), time_ms(kern),
+                 time_ms(plain)]
+            ms, plain_ms, lib_ms = (t[1] + t[4]) / 2, (t[0] + t[5]) / 2, (t[2] + t[3]) / 2
+            dev_k = kernel_device_us(kern, [KERNEL_NAMES[name]])
+            dev_t, _ = device_us(plain)
+            dev_l, _ = device_us(lib)
+            bound = matmul_bound_ms(args, twin(*args), products[name], B)
+            times[(name, B)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                                    device_us=dev_k, library_device_us=dev_l)
             log(f"[{card}] time {name:20s} bf16 B={B:2d} per call: kernel {ms * 1e3:8.2f} us  "
-                f"twin {plain_ms * 1e3:8.2f} us (CUDA events over 200 back-to-back calls, "
-                f"L2-warm weights); device time: kernel {us(dev_k)}  twin {dev_t:8.2f} us "
-                f"(torch.profiler)")
+                f"twin {plain_ms * 1e3:8.2f} us  library {lib_ms * 1e3:8.2f} us (CUDA events "
+                f"over 200 back-to-back calls each, in turns, L2-warm weights); device time: "
+                f"kernel {us(dev_k)}  twin {dev_t:8.2f} us  library {dev_l:8.2f} us "
+                f"(torch.profiler); bound {bound * 1e3:.2f} us; "
+                f"{against(ms, bound, lib_ms)}")
+            if name != "seq1_attention":
+                continue
+            cold_k = cold_times(kern, [KERNEL_NAMES[name]], flush)
+            cold_l = cold_times(lib, None, flush)
+            times[(name, B)].update(cold_ms=cold_k[0], cold_device_us=cold_k[1],
+                                    library_cold_ms=cold_l[0], library_cold_device_us=cold_l[1])
+            log(f"[{card}] time {name:20s} bf16 B={B:2d} L2-cold (a 256 MB write before each "
+                f"call, outside the timed window): kernel {cold_k[0] * 1e3:8.2f} us a call "
+                f"(CUDA events around each call), device {us(cold_k[1])}; library "
+                f"{cold_l[0] * 1e3:8.2f} us a call, device {us(cold_l[1])}")
+    del flush
+    torch.cuda.empty_cache()
     return times
 
 
@@ -1027,9 +1234,12 @@ def k5_inputs(ak, B, H, W, gates_on, dtype, device, seed):
 
 
 def phase_k5(ak, device):
-    """K5 against its twin: bf16 in and out within one bf16 ulp of the
-    twin's output, fp32 within 1e-5 (both compute in fp32 from the same
-    input with the same operations, and round once at the end)."""
+    """K5 bit for bit its twin at every K5_SHAPES case, bf16 and fp32 in and
+    out, drawn parameters and every gate on (both compute in fp32 from the
+    same input with the same operations, and round once at the end); two
+    calls bit-identical; and the kernel's normalize (a product with the
+    reciprocal and one fused multiply-add correction) against the IEEE
+    quotient for every value clip01 returns, each channel."""
     import torch
 
     worst = 0.0
@@ -1038,21 +1248,28 @@ def phase_k5(ak, device):
             for dtype in (torch.bfloat16, torch.float32):
                 img, fp, ip = k5_inputs(ak, B, H, W, gates_on, dtype, device, seed=B + gates_on)
                 out = ak.fused_color_stage(img, fp, ip, out_dtype=dtype)
+                again = ak.fused_color_stage(img, fp, ip, out_dtype=dtype)
                 ref = ak.fused_color_stage_plain(img, fp, ip, out_dtype=dtype)
                 torch.cuda.synchronize()
                 check(out.dtype == ref.dtype and out.shape == ref.shape,
                       f"K5: {out.dtype}{tuple(out.shape)} vs twin {ref.dtype}{tuple(ref.shape)}")
                 check(bool(torch.isfinite(out.float()).all()), "K5: non-finite output")
                 diff = (out.float() - ref.float()).abs()
-                tol = bf16_ulp(ref) if dtype == torch.bfloat16 else torch.full_like(diff, 1e-5)
-                err, ok = float(diff.max()), bool((diff <= tol).all())
+                err, exact, same = float(diff.max()), same_bits(out, ref), same_bits(out, again)
                 worst = max(worst, err)
                 log(f"kernel {K5} {str(dtype):15s} B={B:3d} {H}x{W} "
                     f"{'every gate on' if gates_on else 'drawn params'}: max_abs_err={err:.3e} "
-                    f"({int((diff > 0).sum())} elements differ; tol "
-                    f"{'1 bf16 ulp of |twin|' if dtype == torch.bfloat16 else '1e-5'}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                check(ok, f"K5 disagrees with its twin at B={B} {H}x{W} {dtype}")
+                    f"({int((diff > 0).sum())} elements differ; tol: bit for bit) "
+                    f"{'ok' if exact else 'FAIL'}; two calls bit-identical: {same}")
+                check(exact, f"K5 differs from its twin at B={B} {H}x{W} {dtype}")
+                check(same, f"two K5 calls differ at B={B} {H}x{W} {dtype}")
+    t0 = time.perf_counter()
+    bad = ak.division_mismatches(device)
+    log(f"kernel {K5} normalize: (c - mean) / std as a reciprocal product with one FMA "
+        f"correction against the IEEE quotient, every c in [0, 1] and -0 "
+        f"({0x3f800000 + 2} values) a channel: mismatches {bad} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    check(bad == (0, 0, 0), f"K5's normalize differs from the IEEE quotient: {bad}")
     return worst
 
 
@@ -2581,7 +2798,7 @@ def phase_train_times(device, card, batch, cw, step, label="flagship", config=No
     total, by_name = device_us(call, n=3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     shares = []
-    for name, names in (kernel_names or {"K5": ["color_stage_kernel"]}).items():
+    for name, names in (kernel_names or {"K5": K5_KERNELS}).items():
         ours = sum(v for k, v in by_name.items() if any(n in k for n in names))
         shares.append(f"{name} {ours:.1f} us ({100 * ours / total:.2f}%)")
     log(f"[{card}] profile train {label} step unfrozen B={B}: device time {total / 1e3:.2f} ms "
@@ -2616,7 +2833,7 @@ def phase_k5_times(ak, device, card, batch):
         t = [time_ms(twin, 50, 5), time_ms(kern, 50, 5), time_ms(kern, 50, 5),
              time_ms(twin, 50, 5)]
         ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-        dev_k = kernel_device_us(kern, ["color_stage_kernel"], n=20)
+        dev_k = kernel_device_us(kern, K5_KERNELS, n=20)
         dev_t, _ = device_us(twin, n=20)
         nbytes = 2 * x.numel() * x.element_size() + fp.numel() * 4 + ip.numel() * 4
         bound_ms = max(nbytes / HBM_BYTES_PER_S, B * 224 * 224 * K5_OPS_PER_PIXEL
@@ -2792,21 +3009,6 @@ def matmul_bound_ms(args, out, products, B):
     return max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
 
 
-def fusion_bounds(fk, device):
-    import torch
-
-    gen = torch.Generator().manual_seed(1)
-    D = 512
-    products = {"seq1_attention": [(D, D)] * 2, "gated_residual_seq1": [(D, D)] * 3,
-                "mlp_head": [(2 * D, D), (D, D // 2), (D // 2, 6)]}
-    bounds = {}
-    for name in products:
-        args = kernel_args(name, 1, torch.bfloat16, device, gen)
-        out = getattr(fk, name + "_plain")(*args)
-        bounds[name] = matmul_bound_ms(args, out, products[name], 1)
-    return bounds
-
-
 def phase_k4_times(fk, device, card):
     """K4 against its twin at B=1, bf16, at each Vd of the main paths: per
     call (CUDA events, in turns), device time, and the bound."""
@@ -2818,17 +3020,23 @@ def phase_k4_times(fk, device, card):
         args = kernel_args(K4, 1, torch.bfloat16, device, gen, vd)
         kern = lambda: fk.metablock_film(*args)  # noqa: E731,B023
         twin = lambda: fk.metablock_film_plain(*args)  # noqa: E731,B023
-        t = [time_ms(twin), time_ms(kern), time_ms(kern), time_ms(twin)]
-        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        lib = fusion_library(K4, args)
+        err, ok = compare(lib(), twin(), BF16_TOL)
+        check(ok, f"{K4}'s library chain disagrees with the twin at Vd={vd} ({err:.3e})")
+        t = [time_ms(twin), time_ms(kern), time_ms(lib), time_ms(lib), time_ms(kern),
+             time_ms(twin)]
+        ms, plain_ms, lib_ms = (t[1] + t[4]) / 2, (t[0] + t[5]) / 2, (t[2] + t[3]) / 2
         dev_k = kernel_device_us(kern, [KERNEL_NAMES[K4]])
         dev_t, _ = device_us(twin)
+        dev_l, _ = device_us(lib)
         bound_ms = matmul_bound_ms(args, twin(), [(K4_DU, vd)] * 2, 1)
-        out[vd] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, device_us=dev_k)
+        out[vd] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, device_us=dev_k,
+                       library_ms=lib_ms, library_device_us=dev_l)
         log(f"[{card}] time {K4} bf16 B=1 Du={K4_DU} Vd={vd:4d} per call: kernel "
-            f"{ms * 1e3:8.2f} us  twin {plain_ms * 1e3:8.2f} us (CUDA events over 200 calls, "
-            f"in turns twin-kernel-kernel-twin); device time: kernel {us(dev_k)}  twin "
-            f"{dev_t:8.2f} us (torch.profiler); bound {bound_ms * 1e3:.2f} us (bytes: both "
-            f"weights read once at 3.35 TB/s)")
+            f"{ms * 1e3:8.2f} us  twin {plain_ms * 1e3:8.2f} us  library {lib_ms * 1e3:8.2f} us "
+            f"(CUDA events over 200 calls, in turns); device time: kernel {us(dev_k)}  twin "
+            f"{dev_t:8.2f} us  library {dev_l:8.2f} us (torch.profiler); bound "
+            f"{bound_ms * 1e3:.2f} us (bytes: both weights read once at 3.35 TB/s)")
     return out
 
 
@@ -3721,7 +3929,7 @@ def phase_nextvit(counters, device, card):
     del state
     phase_card_vs_cpu(device, cnn=SMALL_NEXTVIT, hw=64)
     phase_train_times(device, card, batch, cw, step, "nextvit-small K6", k6,
-                      kernel_names={"K6": K6_KERNELS, "K5": ["color_stage_kernel"]})
+                      kernel_names={"K6": K6_KERNELS, "K5": K5_KERNELS})
     means = phase_route_ab(device, card, "nextvit-small BatchNorm",
                            {"native": (NEXTVIT, {}), "K6": (k6, {})}, batch, cw, step)
     for route, ms in means.items():
@@ -3882,6 +4090,47 @@ def log_ptxas(build, names):
                 log(f"  ptxas: {line.strip()}")
 
 
+def fusion_only() -> int:
+    """``--fusion``: K1-K5's checks and times alone, with the flagship served
+    and trained and the engine's and augment stage's A/Bs."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from skinjax_torch.ops import augment_kernel as ak
+    from skinjax_torch.ops import build
+    from skinjax_torch.ops import fusion_kernels as fk
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(card)
+    names = ("fusion_kernels", "augment_kernel")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(build.build, names))
+    for m in (fk, ak):
+        m.library()
+    log(f"phase build: {len(names)} sources at once, {time.perf_counter() - t0:.1f} s")
+    log_ptxas(build, names)
+    phase_kernels(fk, device)
+    phase_k1(fk, device)
+    phase_k5(ak, device)
+    phase_kernel_times(fk, device, card)
+    phase_k4_times(fk, device, card)
+    fused, plain = phase_slice(fk, device, card, fp32=False)
+    engine_latency(fused, plain, "flagship", card)
+    del fused, plain
+    batch, _, _, _ = phase_train([ak], device, card)
+    phase_k5_times(ak, device, card, batch)
+    torch.cuda.synchronize()
+    print(json.dumps({"ok": True, "fusion": True}), flush=True)
+    return 0
+
+
 def mlp_only() -> int:
     """``--mlp``: the fused-MLP kernels' checks and times alone."""
     import torch
@@ -4036,6 +4285,7 @@ def main() -> int:
                 log(f"  ptxas: {line.strip()}")
 
     errors = phase_kernels(fk, device)
+    errors["seq1_attention"] = max(errors["seq1_attention"], phase_k1(fk, device))
     errors[K5] = phase_k5(ak, device)
     errors.update(phase_k7(wa, device))
     errors.update(phase_k12(ga, device))
@@ -4070,7 +4320,6 @@ def main() -> int:
     engine_latency(fused, plain, "flagship", card)
     del fused, plain
     times = phase_kernel_times(fk, device, card)
-    bounds = fusion_bounds(fk, device)
     phase_train_times(device, card, batch, cw, step)
     k5_times = phase_k5_times(ak, device, card, batch)
     del batch, cw, step
@@ -4253,10 +4502,13 @@ def main() -> int:
     elapsed("the sentence train CLI")
 
     record = {"kernels": [
+        # K1-K3 at B=1, the served batch, L2-warm (the other batches and K1's
+        # L2-cold times are printed above)
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
          "launches": launches[name], "max_abs_err": errors[name],
-         "ms": times[(name, 1)][0], "plain_ms": times[(name, 1)][1],
-         "bound_ms": bounds[name], "bound_by": "bytes", "library_ms": None}
+         "ms": times[(name, 1)]["ms"], "plain_ms": times[(name, 1)]["plain_ms"],
+         "bound_ms": times[(name, 1)]["bound_ms"], "bound_by": "bytes",
+         "library_ms": times[(name, 1)]["library_ms"]}
         for name in KERNELS if name != K4
     ] + [
         # K4 at the served …+metablock path's shape (Vd = 512, B = 1); the
@@ -4264,7 +4516,8 @@ def main() -> int:
         {"name": K4, "route": "cuda", "source": SOURCE, "replaces": KERNELS[K4],
          "launches": launches[K4], "max_abs_err": errors[K4],
          "ms": k4_times[512]["ms"], "plain_ms": k4_times[512]["plain_ms"],
-         "bound_ms": k4_times[512]["bound_ms"], "bound_by": "bytes", "library_ms": None}
+         "bound_ms": k4_times[512]["bound_ms"], "bound_by": "bytes",
+         "library_ms": k4_times[512]["library_ms"]}
     ] + [
         {"name": K5, "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
          "launches": launches[K5], "max_abs_err": errors[K5],
@@ -4334,5 +4587,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit({"--attention": attention_only, "--mlp": mlp_only,
-              "--k8": k8_only}.get(" ".join(sys.argv[1:]), main)())
+    sys.exit({"--attention": attention_only, "--mlp": mlp_only, "--k8": k8_only,
+              "--fusion": fusion_only}.get(" ".join(sys.argv[1:]), main)())

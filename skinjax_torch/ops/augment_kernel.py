@@ -48,6 +48,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "skinjax_augment_error_string": ([_I], ctypes.c_char_p),
     "skinjax_fused_color_stage": ([_I, _I] + [_P] * 4 + [_I] * 3 + [_P], _I),
+    "skinjax_k5_division_check": ([_P, _I, _P], _I),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -195,3 +196,18 @@ def fused_color_stage(img, fparams, iparams, out_dtype=torch.bfloat16):
         raise RuntimeError(f"fused_color_stage kernel launch failed: CUDA error {err} ({msg})")
     LAUNCHES["fused_color_stage"] += 1
     return out
+
+
+def division_mismatches(device, blocks: int = 1024) -> Tuple[int, int, int]:
+    """How many of the floats that ``clip01`` can return (all of [0, 1], and
+    -0) the kernel's normalize, a product with the reciprocal and one fused
+    multiply-add correction, maps to other bits than the IEEE quotient
+    ``(c - mean) / std``: one count a channel, on the card (CUDA only)."""
+    bad = torch.empty((blocks, 3), dtype=torch.int32, device=device)
+    lib = library()
+    err = lib.skinjax_k5_division_check(bad.data_ptr(), blocks,
+                                        torch.cuda.current_stream(bad.device).cuda_stream)
+    if err != 0:
+        msg = lib.skinjax_augment_error_string(err).decode()
+        raise RuntimeError(f"k5_division_check kernel launch failed: CUDA error {err} ({msg})")
+    return tuple(int(n) for n in bad.sum(dim=0, dtype=torch.int64).tolist())

@@ -23,7 +23,8 @@ accumulation is fp32, and values round to the activation dtype exactly where
 the Pallas kernels cast (``.astype(x.dtype)``).
 
 What bounds the kernels on an H100, and what their design does about it, is
-in the source note of ``csrc/fusion_kernels.cu``.
+in the source note of ``csrc/fusion_kernels.cu``. ``seq1_attention_plan``
+chooses which of seq1_attention's two kernels a call launches.
 
 ``LAUNCHES`` counts kernel launches per kernel (a twin call is not counted),
 so a caller can show that a path went through the kernels.
@@ -32,6 +33,7 @@ so a caller can show that a path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict
 
 import torch
@@ -47,13 +49,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "skinjax_error_string": ([_I], ctypes.c_char_p),
-    "skinjax_seq1_attention": ([_I] + [_P] * 6 + [_I, _I, _P], _I),
+    "skinjax_seq1_attention": ([_I] * 3 + [_P] * 6 + [_I, _I, _P], _I),
+    "skinjax_seq1_cluster_count": ([_I] * 3 + [_P], _I),
     "skinjax_gated_residual_seq1": ([_I] + [_P] * 11 + [_I, _I, _P], _I),
     "skinjax_metablock_film": ([_I] + [_P] * 11 + [_I] * 3 + [_P], _I),
     "skinjax_mlp_head": ([_I] + [_P] * 12 + [_I] * 5 + [_P], _I),
 }
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
-# the kernels keep ROWS (at most 4) rows of every stage in shared memory
+# the one-block kernels keep ROWS (at most 4) rows of every stage in shared memory
 _MAX_SMEM_BYTES = 227 * 1024
 
 
@@ -144,6 +147,44 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def seq1_attention_plan(B: int, D: int, aligned: bool = True, clusters=None) -> dict:
+    """K1's route, chosen here only (the C entry point checks it): where D
+    is a multiple of 64 up to 512, both weights allow 16-byte copies
+    (``aligned``) and the card holds at least one such cluster
+    (``clusters(rows)``, the count for ``rows`` rows a tile; None: assumed),
+    ``seq1_cluster_kernel`` on clusters of D / 32 CTAs (32 output columns
+    each), one cluster per tile of ``rows`` rows (1 at B = 1, 8 up to B = 8,
+    else 32), so that each weight element is read once per call up to
+    B = 32; else ``seq1_attention_kernel``, one block per tile of 1 (B < 4)
+    or 4 rows."""
+    if D % 64 == 0 and 64 <= D <= 512 and aligned:
+        rows = 1 if B <= 1 else 8 if B <= 8 else 32
+        if clusters is None or clusters(rows) >= 1:
+            return dict(kernel="seq1_cluster_kernel", cluster=D // 32, rows=rows)
+    return dict(kernel="seq1_attention_kernel", cluster=1, rows=1 if B < 4 else 4)
+
+
+@functools.lru_cache(maxsize=None)
+def seq1_cluster_count(device_index: int, bf16: bool, D: int, rows: int) -> int:
+    """How many of K1's clusters (width D, ``rows`` rows a tile) the card
+    holds at once, as CUDA's occupancy query gives it; asked once a shape."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = library().skinjax_seq1_cluster_count(int(bf16), rows, D, ctypes.byref(count))
+    if err != 0:
+        msg = library().skinjax_error_string(err).decode()
+        raise RuntimeError(f"seq1_attention: the cluster query failed: CUDA error {err} ({msg})")
+    return count.value
+
+
+def seq1_attention_call_plan(kv, wv, wo) -> dict:
+    """seq1_attention_plan for a CUDA call on these tensors."""
+    B, D = kv.shape
+    aligned = wv.data_ptr() % 16 == 0 and wo.data_ptr() % 16 == 0
+    return seq1_attention_plan(B, D, aligned, functools.partial(
+        seq1_cluster_count, kv.device.index, kv.dtype == torch.bfloat16, D))
+
+
 def seq1_attention(kv, wv, bv, wo, bo):
     """(B, D) -> (B, D): the exact seq-1 MHA output, ``(kv@Wv+bv)@Wo+bo``."""
     if _on_cpu(kv):
@@ -155,13 +196,16 @@ def seq1_attention(kv, wv, bv, wo, bo):
     for nm, t, shape in (("wv", wv, (D, D)), ("bv", bv, (D,)),
                          ("wo", wo, (D, D)), ("bo", bo, (D,))):
         check_tensor(nm, t, shape, f32, dev)
-    _smem_check("seq1_attention", 2 * D)
+    plan = seq1_attention_call_plan(kv, wv, wo)
+    if plan["kernel"] == "seq1_attention_kernel":
+        _smem_check("seq1_attention", 2 * D)
     out = torch.empty_like(kv)
     if B == 0:
         return out
     _launch(
         "seq1_attention", library().skinjax_seq1_attention,
-        int(kv.dtype == torch.bfloat16), kv.data_ptr(), wv.data_ptr(), bv.data_ptr(),
+        int(kv.dtype == torch.bfloat16), int(plan["kernel"] == "seq1_cluster_kernel"),
+        plan["rows"], kv.data_ptr(), wv.data_ptr(), bv.data_ptr(),
         wo.data_ptr(), bo.data_ptr(), out.data_ptr(), B, D, _stream(dev),
     )
     return out

@@ -74,8 +74,8 @@ def test_repo_sources_share_a_header():
         assert call in body, call
 
 
-_PROFILED = ("KERNEL_NAMES", "K7_KERNELS", "K7_F32", "MLP_KERNELS", "MLP_F32_FWD", "MLP_F32_BWD",
-             "MLP_SPLIT",
+_PROFILED = ("KERNEL_NAMES", "K1_BLOCK_KERNEL", "K5_KERNELS", "K7_KERNELS", "K7_F32",
+             "MLP_KERNELS", "MLP_F32_FWD", "MLP_F32_BWD", "MLP_SPLIT",
              "K12_KERNELS", "K11_KERNELS", "K8_KERNELS", "K8_F32", "K7_PAD_KERNELS", "K6_KERNELS",
              "KERNEL_SYMBOLS")
 
@@ -130,4 +130,16 @@ def test_profiled_kernel_names_are_kernels():
                             "ca_proj_kernel", "ca_grad_kernel"]
     assert {*smoke.K8_F32, "ca_partial_mma_kernel", "ca_out_mma_kernel",
             "ca_grad_mma_kernel"} <= kernels & set(smoke.KERNEL_SYMBOLS)
+    # K1 runs on a thread-block cluster at the served width and keeps the
+    # one-block kernel at others, as seq1_attention_plan names them; K5's
+    # kernel name is one constant, used wherever a trace is read
+    from skinjax_torch.ops import fusion_kernels as fk
+
+    assert smoke.KERNEL_NAMES["seq1_attention"] == fk.seq1_attention_plan(1, 512)["kernel"]
+    assert smoke.K1_BLOCK_KERNEL == fk.seq1_attention_plan(1, smoke.K1_BLOCK_D)["kernel"]
+    assert {"seq1_cluster_kernel", "seq1_attention_kernel"} <= kernels & set(smoke.KERNEL_SYMBOLS)
+    assert smoke.K5_KERNELS == ["color_stage_kernel"]
+    assert set(smoke.K5_KERNELS) <= kernels & set(smoke.KERNEL_SYMBOLS)
+    assert path.read_text().count('"color_stage_kernel"') == 1
     assert sorted(profiled - kernels) == []
+

@@ -110,3 +110,48 @@ def test_other_devices_raise():
     b = torch.zeros(D, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tfk.seq1_attention(kv, w, b, w, b)
+
+
+def _served(plan):
+    for B in range(1, 65):
+        rows = 1 if B == 1 else 8 if B <= 8 else 32
+        assert plan(B, 512) == dict(kernel="seq1_cluster_kernel", cluster=16, rows=rows)
+
+
+def _widths(plan):
+    assert plan(1, 64)["cluster"] == 2 and plan(1, 448)["cluster"] == 14
+    assert plan(3, 256) == dict(kernel="seq1_cluster_kernel", cluster=8, rows=8)
+
+
+def _one_block(plan):
+    for B, D, aligned in ((1, 768, True), (8, 480, True), (32, 576, True), (1, 512, False),
+                          (8, 32, True), (33, 1024, True)):
+        assert plan(B, D, aligned) == dict(kernel="seq1_attention_kernel", cluster=1,
+                                           rows=1 if B < 4 else 4)
+
+
+def _no_room(plan):
+    asked = []
+
+    def clusters(rows):
+        asked.append(rows)
+        return 0 if rows == 32 else 3
+
+    assert plan(8, 512, True, clusters)["kernel"] == "seq1_cluster_kernel"
+    assert plan(33, 512, True, clusters) == dict(kernel="seq1_attention_kernel", cluster=1,
+                                                 rows=4)
+    assert asked == [8, 32]
+    assert plan(1, 768, True, asked.append)["kernel"] == "seq1_attention_kernel"
+    assert asked == [8, 32]  # a width the route does not take asks nothing
+
+
+@pytest.mark.parametrize("case", [_served, _widths, _one_block, _no_room],
+                         ids=["served", "widths", "one_block", "no_room"])
+def test_seq1_attention_plan(case):
+    """K1's route, chosen in seq1_attention_plan alone: at the served width
+    (D = 512) one cluster of 16 CTAs (32 output columns each) per tile of up
+    to 32 rows, so that each weight element is read once per call at every
+    served batch (B = 1, 8, 32); the one-block kernel at widths the cluster
+    route does not take (not a multiple of 64, above 512, a weight not
+    16-byte aligned) and where the card holds no such cluster."""
+    case(tfk.seq1_attention_plan)
