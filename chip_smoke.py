@@ -332,14 +332,27 @@ K6_SOURCE = "skinjax_torch/csrc/bn_kernels.cu"
 BUILDS = {"fusion_kernels": SOURCE, "augment_kernel": K5_SOURCE, "window_attention": K7_SOURCE,
           "global_attention": K12_SOURCE, "pooled_attention": K11_SOURCE,
           "fused_mlp": MLP_SOURCE, "channel_attention": K8_SOURCE, "bn_kernels": K6_SOURCE}
-# each K1-K4 call's kernel at the flagship's widths; K1 at D = 512 runs on a
-# thread-block cluster (ops/fusion_kernels.py seq1_attention_plan), at
-# K1_BLOCK_D on the one-block kernel
+# each K1-K4 call's kernel at the flagship's widths; K1, K2 and K4 run on
+# thread-block clusters there (ops/fusion_kernels.py seq1_attention_plan,
+# gated_residual_plan, metablock_film_plan), at K1_BLOCK_D (K1, K2) and
+# K4_BLOCK_VD (K4) on their one-block kernels
 KERNEL_NAMES = {"seq1_attention": "seq1_cluster_kernel",
-                "gated_residual_seq1": "gated_residual_kernel",
-                "metablock_film": "metablock_film_kernel", "mlp_head": "mlp_head_kernel"}
+                "gated_residual_seq1": "gated_residual_cluster_kernel",
+                "metablock_film": "metablock_film_cluster_kernel", "mlp_head": "mlp_head_kernel"}
 K1_BLOCK_KERNEL = "seq1_attention_kernel"
-K1_BLOCK_D = 768  # a width K1's cluster route does not take (above 512)
+K1_BLOCK_D = 768  # a width K1's and K2's cluster routes do not take (above 512)
+K2_BLOCK_KERNEL = "gated_residual_kernel"
+K4_BLOCK_KERNEL = "metablock_film_kernel"
+# a width K4's cluster route does not take (above 16 CTAs of 128 columns):
+# MetaBlock on EfficientNet-B7's 2560-wide feature
+K4_BLOCK_VD = 2560
+BLOCK_KERNELS = {"seq1_attention": K1_BLOCK_KERNEL, "gated_residual_seq1": K2_BLOCK_KERNEL,
+                 K4: K4_BLOCK_KERNEL}
+# the widths each route check runs at (the served ones on the cluster
+# kernel, then one on the one-block kernel) and the rows a cluster tile takes
+ROUTE_WIDTHS = {"seq1_attention": (512, K1_BLOCK_D), "gated_residual_seq1": (512, K1_BLOCK_D),
+                K4: (*K4_WIDTHS, K4_BLOCK_VD)}
+CLUSTER_ROWS = {"seq1_attention": (1, 8, 32), "gated_residual_seq1": (1, 8, 16), K4: (1, 8, 32)}
 K5_KERNELS = ["color_stage_kernel"]  # each K5 call's kernel
 # each bf16 K7 call's kernels (a call with a bias adds dbias_reduce_kernel);
 # the forward and backward run on the tensor cores (their fp32 instantiations
@@ -390,8 +403,8 @@ K7_PAD_KERNELS = {K7_PAD: K7_KERNELS["window_attention_fwd"],
                   K7_PAD_BWD: [*K12_KERNELS[K12_RECOMPUTE], "ga_dbias_reduce_kernel"]}
 # each K6 call's two launches (the partial sums, then their reduction)
 K6_KERNELS = ["bn_partial_kernel", "bn_reduce_kernel"]
-KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), K1_BLOCK_KERNEL, *K5_KERNELS, *K7_F32, *K6_KERNELS,
-                  "dbias_reduce_kernel", "ga_fwd_kernel",
+KERNEL_SYMBOLS = (*KERNEL_NAMES.values(), *BLOCK_KERNELS.values(), *K5_KERNELS, *K7_F32,
+                  *K6_KERNELS, "dbias_reduce_kernel", "ga_fwd_kernel",
                   "ga_bwd_dq_kernel", "ga_bwd_dkv_kernel", "ga_bwd_rows_kernel",
                   "ga_bwd_cols_kernel", *K12_KERNELS[K12_RECOMPUTE],
                   *K12_KERNELS["global_attention_bwd"], "pa_fwd_kernel",
@@ -715,57 +728,107 @@ def ran_kernels(fn) -> set:
     return set()
 
 
-def phase_k1(fk, device):
-    """K1's two routes on the card: at D = 512 (the served width) the
-    cluster kernel, at K1_BLOCK_D the one-block kernel, each against its twin
-    at B in K1_BATCHES, fp32 and bf16, at the unchanged tolerances; two calls
-    bit-identical; each traced call ran the kernel ``seq1_attention_plan``
-    chose, and not the other one; the C entry point refuses the cluster
-    route at a width it does not take."""
+def route_args(name, B, dtype, device, gen, width):
+    """kernel_args at a route check's width: D for K1 and K2, Vd for K4."""
+    if name == K4:
+        return kernel_args(name, B, dtype, device, gen, vd=width)
+    return kernel_args(name, B, dtype, device, gen, D=width)
+
+
+def route_plan(fk, name, args):
+    """The route ``ops/fusion_kernels.py`` chooses for a call on ``args``."""
+    if name == "seq1_attention":
+        return fk.seq1_attention_call_plan(args[0], args[1], args[3])
+    if name == "gated_residual_seq1":
+        return fk.gated_residual_call_plan(args[0], args[2], args[4], args[6])
+    return fk.metablock_film_call_plan(args[0], args[1], args[2], args[6])
+
+
+def cluster_counts(fk, name, device, bf16, width):
+    """Clusters of the kernel's cluster route the card holds at once, by rows
+    a tile (CUDA's occupancy query)."""
+    if name == "seq1_attention":
+        return {r: fk.seq1_cluster_count(device.index, bf16, width, r)
+                for r in CLUSTER_ROWS[name]}
+    if name == "gated_residual_seq1":
+        return {r: fk.gated_residual_cluster_count(device.index, bf16, width, r)
+                for r in CLUSTER_ROWS[name]}
+    return {r: fk.metablock_film_cluster_count(device.index, bf16, K4_DU, width, r)
+            for r in CLUSTER_ROWS[name]}
+
+
+def cluster_refusal(fk, name, device, gen):
+    """The C entry point's answer (a CUDA error code; 0: launched) to the
+    cluster route, 1 row a tile, at the width the route does not take."""
     import ctypes
 
     import torch
 
-    for dtype in (torch.float32, torch.bfloat16):
-        counts = {rows: fk.seq1_cluster_count(device.index, dtype == torch.bfloat16, 512, rows)
-                  for rows in (1, 8, 32)}
-        log(f"kernel seq1_attention D=512 {dtype}: clusters of 16 CTAs the card holds at once, "
-            f"by rows a tile: {counts}")
+    width = ROUTE_WIDTHS[name][-1]
+    args = route_args(name, 1, torch.float32, device, gen, width)
+    out = torch.empty_like(args[0])
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    ptrs = [t.data_ptr() for t in args]
+    if name == "seq1_attention":
+        err = fk.library().skinjax_seq1_attention(0, 1, 1, *ptrs, out.data_ptr(), 1, width, stream)
+    elif name == "gated_residual_seq1":
+        err = fk.library().skinjax_gated_residual_seq1(0, 1, 1, *ptrs, out.data_ptr(), 1, width,
+                                                       stream)
+    else:  # 16 CTAs of 160 columns
+        err = fk.library().skinjax_metablock_film(0, 16, 1, *ptrs, out.data_ptr(), 1, K4_DU, width,
+                                                  stream)
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_routes(fk, device, name):
+    """The two routes of K1, K2 or K4 on the card: at the served widths the
+    cluster kernel, at the last of ROUTE_WIDTHS the one-block kernel, each
+    against its twin at B in K1_BATCHES, fp32 and bf16, at the unchanged
+    tolerances; two calls bit-identical; each traced call ran the kernel
+    the plan chose, and not the other one; the C entry point refuses the
+    cluster route at the width it does not take. Returns the largest
+    error."""
+    import torch
+
+    dim = "Vd" if name == K4 else "D"
+    kernel, twin = getattr(fk, name), getattr(fk, name + "_plain")
+    for width in ROUTE_WIDTHS[name][:-1]:
+        for dtype in (torch.float32, torch.bfloat16):
+            counts = cluster_counts(fk, name, device, dtype == torch.bfloat16, width)
+            log(f"kernel {name} {dim}={width} {dtype}: clusters the card holds at once, by rows "
+                f"a tile: {counts}")
     gen = torch.Generator().manual_seed(3)
+    kernels = {KERNEL_NAMES[name], BLOCK_KERNELS[name]}
     worst = 0.0
-    for D in (512, K1_BLOCK_D):
+    for width in ROUTE_WIDTHS[name]:
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             for B in K1_BATCHES:
-                args = kernel_args("seq1_attention", B, dtype, device, gen, D=D)
-                plan = fk.seq1_attention_call_plan(args[0], args[1], args[3])
-                out, again = fk.seq1_attention(*args), fk.seq1_attention(*args)
-                ref = fk.seq1_attention_plain(*args)
+                args = route_args(name, B, dtype, device, gen, width)
+                plan = route_plan(fk, name, args)
+                out, again = kernel(*args), kernel(*args)
+                ref = twin(*args)
                 torch.cuda.synchronize()
                 err, ok = compare(out, ref, tol)
                 same = same_bits(out, again)
-                ran = ran_kernels(lambda: fk.seq1_attention(*args))  # noqa: B023
-                other = ({KERNEL_NAMES["seq1_attention"], K1_BLOCK_KERNEL} - {plan["kernel"]}).pop()
+                ran = ran_kernels(lambda: kernel(*args))  # noqa: B023
+                other = (kernels - {plan["kernel"]}).pop()
                 routed = (any(plan["kernel"] in k for k in ran)
                           and not any(other in k for k in ran))
                 worst = max(worst, err)
-                log(f"kernel seq1_attention D={D} {str(dtype):15s} B={B:2d} {plan['kernel']} "
+                log(f"kernel {name} {dim}={width} {str(dtype):15s} B={B:2d} {plan['kernel']} "
                     f"(cluster {plan['cluster']}, {plan['rows']} rows a tile): "
                     f"max_abs_err={err:.3e} tol=atol {tol[0]:g} + rtol "
                     f"{tol[1]:g}·|twin| {'ok' if ok else 'FAIL'}; two calls bit-identical: "
                     f"{same}; ran {sorted(ran)}")
-                check(ok, f"seq1_attention disagrees with its twin at D={D} B={B} {dtype}")
-                check(same, f"two seq1_attention calls differ at D={D} B={B} {dtype}")
-                check(routed, f"seq1_attention at D={D} B={B} ran {sorted(ran)}, not "
+                check(ok, f"{name} disagrees with its twin at {dim}={width} B={B} {dtype}")
+                check(same, f"two {name} calls differ at {dim}={width} B={B} {dtype}")
+                check(routed, f"{name} at {dim}={width} B={B} ran {sorted(ran)}, not "
                               f"{plan['kernel']}")
-    kv, wv, bv, wo, bo = kernel_args("seq1_attention", 1, torch.float32, device, gen,
-                                     D=K1_BLOCK_D)
-    out = torch.empty_like(kv)
-    err = fk.library().skinjax_seq1_attention(
-        0, 1, 1, kv.data_ptr(), wv.data_ptr(), bv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-        out.data_ptr(), 1, K1_BLOCK_D, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    torch.cuda.synchronize()
-    log(f"kernel seq1_attention: the cluster route at D={K1_BLOCK_D} returns CUDA error {err}")
-    check(err != 0, f"skinjax_seq1_attention took the cluster route at D={K1_BLOCK_D}")
+    width = ROUTE_WIDTHS[name][-1]
+    err = cluster_refusal(fk, name, device, gen)
+    log(f"kernel {name}: the cluster route at {dim}={width} returns CUDA error {err}")
+    check(err != 0, f"the entry point of {name} took the cluster route at {dim}={width}")
     return worst
 
 
@@ -854,8 +917,8 @@ def phase_kernel_times(fk, device, card):
     """K1-K3 in bf16 at TIMED_BATCHES: per call (CUDA events over 200
     back-to-back calls, in turns with the twin), device time, the bound, and
     the same function as PyTorch calls it (``fusion_library``: per call and
-    device time); K1 also with its weights L2-cold. Returns {(name, B):
-    numbers}."""
+    device time); K1 and K2 also with their weights L2-cold. Returns
+    {(name, B): numbers}."""
     import torch
 
     gen = torch.Generator().manual_seed(1)
@@ -888,7 +951,7 @@ def phase_kernel_times(fk, device, card):
                 f"kernel {us(dev_k)}  twin {dev_t:8.2f} us  library {dev_l:8.2f} us "
                 f"(torch.profiler); bound {bound * 1e3:.2f} us; "
                 f"{against(ms, bound, lib_ms)}")
-            if name != "seq1_attention":
+            if name == "mlp_head":
                 continue
             cold_k = cold_times(kern, [KERNEL_NAMES[name]], flush)
             cold_l = cold_times(lib, None, flush)
@@ -3011,10 +3074,13 @@ def matmul_bound_ms(args, out, products, B):
 
 def phase_k4_times(fk, device, card):
     """K4 against its twin at B=1, bf16, at each Vd of the main paths: per
-    call (CUDA events, in turns), device time, and the bound."""
+    call (CUDA events, in turns), device time, the bound, the same function
+    as PyTorch calls it, and the kernel and that chain with the weights
+    L2-cold."""
     import torch
 
     gen = torch.Generator().manual_seed(7)
+    flush = l2_flush(device)
     out = {}
     for vd in K4_WIDTHS:
         args = kernel_args(K4, 1, torch.bfloat16, device, gen, vd)
@@ -3030,13 +3096,21 @@ def phase_k4_times(fk, device, card):
         dev_t, _ = device_us(twin)
         dev_l, _ = device_us(lib)
         bound_ms = matmul_bound_ms(args, twin(), [(K4_DU, vd)] * 2, 1)
+        cold_k = cold_times(kern, [KERNEL_NAMES[K4]], flush)
+        cold_l = cold_times(lib, None, flush)
         out[vd] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, device_us=dev_k,
-                       library_ms=lib_ms, library_device_us=dev_l)
+                       library_ms=lib_ms, library_device_us=dev_l, cold_ms=cold_k[0],
+                       cold_device_us=cold_k[1], library_cold_device_us=cold_l[1])
         log(f"[{card}] time {K4} bf16 B=1 Du={K4_DU} Vd={vd:4d} per call: kernel "
             f"{ms * 1e3:8.2f} us  twin {plain_ms * 1e3:8.2f} us  library {lib_ms * 1e3:8.2f} us "
             f"(CUDA events over 200 calls, in turns); device time: kernel {us(dev_k)}  twin "
             f"{dev_t:8.2f} us  library {dev_l:8.2f} us (torch.profiler); bound "
-            f"{bound_ms * 1e3:.2f} us (bytes: both weights read once at 3.35 TB/s)")
+            f"{bound_ms * 1e3:.2f} us (bytes: both weights read once at 3.35 TB/s); "
+            f"{against(ms, bound_ms, lib_ms)}; L2-cold (a 256 MB write before each call): "
+            f"kernel {cold_k[0] * 1e3:8.2f} us a call, device {us(cold_k[1])}; library "
+            f"{cold_l[0] * 1e3:8.2f} us a call, device {us(cold_l[1])}")
+    del flush
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4117,7 +4191,8 @@ def fusion_only() -> int:
     log(f"phase build: {len(names)} sources at once, {time.perf_counter() - t0:.1f} s")
     log_ptxas(build, names)
     phase_kernels(fk, device)
-    phase_k1(fk, device)
+    for name in ROUTE_WIDTHS:
+        phase_routes(fk, device, name)
     phase_k5(ak, device)
     phase_kernel_times(fk, device, card)
     phase_k4_times(fk, device, card)
@@ -4285,7 +4360,8 @@ def main() -> int:
                 log(f"  ptxas: {line.strip()}")
 
     errors = phase_kernels(fk, device)
-    errors["seq1_attention"] = max(errors["seq1_attention"], phase_k1(fk, device))
+    for name in ROUTE_WIDTHS:  # K1's, K2's and K4's two routes
+        errors[name] = max(errors[name], phase_routes(fk, device, name))
     errors[K5] = phase_k5(ak, device)
     errors.update(phase_k7(wa, device))
     errors.update(phase_k12(ga, device))

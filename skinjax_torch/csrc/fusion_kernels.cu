@@ -18,41 +18,59 @@
 // not arithmetic. K4's two (Du, Vd) matrices are the largest: 8.4 MB at
 // Du = 512, Vd = 2048 (MetaBlock on ResNet-50's raw 2048-wide feature).
 //
-// Design of K2-K4 (first, simple version): one thread block per tile of ROWS
-// batch rows. The block keeps the whole chain in shared memory and
-// registers, as the TPU kernels keep it in VMEM: no intermediate goes to
-// device memory, and each weight element is read once per block and used for
-// all ROWS rows. Weights are fp32 in (in, out) layout, read with one output
-// column per thread so that a warp reads 128 contiguous bytes of a weight
-// row. Accumulation is fp32. The activation type T (float or __nv_bfloat16)
-// is a template parameter; values are rounded to T at exactly the points
-// where the Pallas kernels cast to the activation dtype, and the output is T.
-// For K4 a split over blocks needs a LayerNorm over all Vd columns of a row,
-// which one block no longer holds: a second launch or a thread-block cluster
-// reducing in distributed shared memory. At B = 1 one SM streams all 8.4 MB.
+// The one-block design (K3; K1, K2 and K4 at widths their cluster kernels do
+// not take): one thread block per tile of ROWS batch rows. The block keeps
+// the whole chain in shared memory and registers, as the TPU kernels keep it
+// in VMEM: no intermediate goes to device memory, and each weight element is
+// read once per block and used for all ROWS rows. Weights are fp32 in (in,
+// out) layout, read with one output column per thread so that a warp reads
+// 128 contiguous bytes of a weight row. Accumulation is fp32. The activation
+// type T (float or __nv_bfloat16) is a template parameter; values are rounded
+// to T at exactly the points where the Pallas kernels cast to the activation
+// dtype, and the output is T. At B = 1 one SM streams every weight.
 //
-// K1 (seq1_cluster_kernel) is one thread-block cluster per tile of up to 32
-// rows, so that at every served batch (B = 1, 8, 32) each weight element is
-// read once per call and the reads are spread over the cluster's SMs. A
-// cluster has D / 32 CTAs (16 at D = 512, the largest Hopper allows, as a
-// non-portable size); CTA c owns output columns [32c, 32c + 32) of both
-// products. At entry it asks for its (D, 32) slices of Wv and Wo by cp.async
-// into shared memory, all 128 KB in flight at once: Wo's arrives while the
-// first product runs. In each product the 16 warps split K; a lane owns 4
-// columns of 8 rows where the tile has 8 or 32 (each 16-byte shared-memory
-// read feeds 16 or 32 multiply-adds), and the warps' partial sums are added
-// in a fixed order in shared memory (no atomics: two calls give the same
-// bits). The CTA rounds its columns of v to T and keeps them in T; after a
-// cluster barrier every CTA copies the whole v rows from its peers' shared
-// memory (distributed shared memory, cluster.map_shared_rank; 16-byte reads,
-// all in flight at once) and computes its columns of out, waiting on the
-// second half of a split cluster barrier only before it exits. Nothing goes
-// to device memory between the two products. Other widths (D not a multiple
-// of 64, above 512, or a weight not 16-byte aligned), and cards that cannot
-// place one such cluster (skinjax_seq1_cluster_count), keep the one-block
-// design (seq1_attention_kernel). ops/fusion_kernels.py seq1_attention_plan
-// chooses the route and the rows a tile; skinjax_seq1_attention only checks
-// them.
+// The cluster design (K1, K2, K4 at the served widths): one thread-block
+// cluster per tile of rows, so that at every served batch each weight element
+// is read once or twice per call and the reads are spread over the cluster's
+// SMs (16 at the served widths, the largest Hopper allows, as a non-portable
+// size). CTA c owns some output columns of every product of the block and
+// asks for its column slices of the weights by cp.async into shared memory.
+// In each product each warp owns 32 of the CTA's columns and a share of K; a
+// lane owns 4 columns of 8 rows where the tile has 8, 16 or 32 rows (each
+// 16-byte shared-memory read feeds 16 or 32 multiply-adds), and the warps'
+// partial sums are added in a fixed order in shared memory (no atomics: two
+// calls give the same bits). One set of building blocks serves all three
+// kernels: load_cols, slice_step, slice_part, slice_sum, gather_columns,
+// row_stats, cluster_config / cluster_count / cluster_launch.
+//
+//   K1 (seq1_cluster_kernel, rows 1, 8 or 32 a tile): D / 32 CTAs of 32
+//   columns; both (D, 32) slices in flight at once, Wo's arriving while the
+//   first product runs. Each CTA rounds its columns of v to T and keeps them
+//   in T; after a cluster barrier every CTA copies the whole v rows from its
+//   peers' shared memory (distributed shared memory, cluster.map_shared_rank;
+//   16-byte reads, all in flight at once) and computes its columns of out.
+//   K2 (gated_residual_cluster_kernel, rows 1, 8 or 16): the same layout for
+//   all three products; Wv's and Wg's slices first, v shared as K1 shares it
+//   while the gate product runs, Wo's slice into Wv's storage once v's sums
+//   are taken (q's rows beside kv's take the room that caps its tile at 16
+//   rows). K4 (metablock_film_cluster_kernel, rows 1, 8 or 32): Vd / W CTAs
+//   of W = 32, 64 or 128 columns of both modulators; a CTA's (Du, 2W) slice
+//   (8.4 MB over 16 CTAs at Vd = 2048 is 512 KB a CTA) streams in K-chunks of
+//   32 KB through a ring of 4 stages, the sums kept in registers over the
+//   chunks.
+//
+// The LayerNorms of K2 and K4 need each row's statistics over all columns,
+// which no CTA holds: each CTA writes its rows' partial sums into its shared
+// memory, and after a cluster barrier every CTA adds all of them in rank
+// order (the same bits in every CTA); then the centred squares the same way
+// (two passes, as _ln; row_stats). Nothing goes to device memory between the
+// products; a CTA waits on the second half of a split cluster barrier only
+// before it exits, so that no peer reads its shared memory after it left.
+// Other widths, weights not 16-byte aligned, and cards that cannot place one
+// such cluster (the *_cluster_count queries) keep the one-block kernels.
+// ops/fusion_kernels.py chooses each call's route and rows a tile
+// (seq1_attention_plan, gated_residual_plan, metablock_film_plan); the entry
+// points only check them.
 //
 // C interface: every entry point launches on the given stream and returns
 // cudaGetLastError() as an int (0 = success); skinjax_error_string maps the
@@ -61,6 +79,8 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"  // cp_async16, cp_async_commit, cp_async_wait, aligned16
 
@@ -226,111 +246,175 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<ROWS>(xs, row0, nrows, D, out);
 }
 
-constexpr int kSliceCols = 32;  // output columns a CTA of K1's cluster owns
+// ---------------------------------------------------------------------------
+// Building blocks of the cluster kernels (K1, K2, K4). A CTA owns some output
+// columns of a tile's products; each warp owns 32 of them (a column group) and
+// a share of k, so that a product is one pass of the CTA's 16 warps over its
+// weight slice in shared memory, with the warps' partial sums added in a fixed
+// order (no atomics: two calls give the same bits).
+// ---------------------------------------------------------------------------
+
+constexpr int kSliceCols = 32;  // output columns of a warp's share of a product
+constexpr int kMaxRanks = 16;   // CTAs a cluster may hold (non-portable above 8)
 
 // The row stride of the tile's rows in shared memory: K + 4 floats, so that
 // the four rows a warp reads at once fall on different banks.
 __host__ __device__ constexpr int slice_ld(int K) { return K + 4; }
 
-// The CTA's share of one product: the sums over warp w's share of k (the 16
-// warps split K, K % 64 == 0), in a fixed order, of xs[r, k] * ws[k, c] for
-// the tile's ROWS rows (xs, row stride slice_ld(K)) and the (K, 32) slice ws
-// of a weight, both in shared memory, into part[w, r, c]. At 8 and 32 rows a
-// lane owns 4 columns (from 4 (lane % 8)) of 8 rows, so that each 16-byte
-// read of xs or ws feeds 16 or 32 multiply-adds; at 8 rows the warp's four
-// groups of 8 lanes take every fourth step of 4 k and add their sums by
-// shuffles. At 1 row a lane owns one column, k ascending. part may be ws's own
-// storage: the block synchronizes before writing it.
+// A lane's sums of its warp's 32 columns over the tile's ROWS rows: at 8, 16
+// and 32 rows 4 columns (from 4 (lane % 8)) of 8 rows, at fewer rows one
+// column (the lane's).
 template <int ROWS>
-__device__ __forceinline__ void slice_product(const float* __restrict__ xs, int K,
-                                              const float* ws, float* part) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int kw = K / kWarps, k0 = warp * kw, ldx = slice_ld(K);
-  if constexpr (ROWS < 8) {
-    float acc[ROWS];
+struct SliceAcc {
+  float a[ROWS < 8 ? ROWS : 32];
+};
+
+template <int ROWS>
+__device__ __forceinline__ void slice_zero(SliceAcc<ROWS>& acc) {
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+  for (int i = 0; i < (ROWS < 8 ? ROWS : 32); ++i) acc.a[i] = 0.f;
+}
+
+// One warp's share of a product: acc += xs[r, k0 + k] * ws[k, c] for k in
+// [0, kw) ascending (kw % 4 == 0), over the tile's ROWS rows (xs, row stride
+// ldx) and the warp's 32 columns of weight rows in shared memory (ws, row
+// stride ldw). Called once for a whole slice, or once a chunk of a slice
+// streamed in K-chunks, the sums staying in registers. At 8, 16 and 32 rows
+// each 16-byte read of xs or ws feeds 16 or 32 multiply-adds; below 32 rows
+// the warp's 4 / (ROWS / 8) groups of lanes take every 4th or 2nd step of 4 k
+// (slice_part adds their sums).
+template <int ROWS>
+__device__ __forceinline__ void slice_step(const float* __restrict__ xs, int ldx, int k0, int kw,
+                                           const float* ws, int ldw, SliceAcc<ROWS>& acc) {
+  const int lane = threadIdx.x % 32;
+  if constexpr (ROWS < 8) {
 #pragma unroll 4
-    for (int k = k0; k < k0 + kw; k += 4) {
+    for (int k = 0; k < kw; k += 4) {
       float w[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = ws[(k + j) * kSliceCols + lane];
+      for (int j = 0; j < 4; ++j) w[j] = ws[(k + j) * ldw + lane];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
-        const float4 x = *reinterpret_cast<const float4*>(xs + r * ldx + k);
-        acc[r] = fmaf(x.x, w[0], acc[r]);
-        acc[r] = fmaf(x.y, w[1], acc[r]);
-        acc[r] = fmaf(x.z, w[2], acc[r]);
-        acc[r] = fmaf(x.w, w[3], acc[r]);
+        const float4 x = *reinterpret_cast<const float4*>(xs + r * ldx + k0 + k);
+        acc.a[r] = fmaf(x.x, w[0], acc.a[r]);
+        acc.a[r] = fmaf(x.y, w[1], acc.a[r]);
+        acc.a[r] = fmaf(x.z, w[2], acc.a[r]);
+        acc.a[r] = fmaf(x.w, w[3], acc.a[r]);
       }
     }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) part[(warp * ROWS + r) * kSliceCols + lane] = acc[r];
   } else {
-    static_assert(ROWS % 8 == 0 && ROWS <= 32, "8 rows a lane, at most 4 groups of rows");
-    constexpr int kRg = ROWS / 8;  // groups of rows: 1 (8 rows) or 4 (32)
-    constexpr int kKs = 4 / kRg;   // lanes that split the warp's k: 4 or 1
+    static_assert(ROWS == 8 || ROWS == 16 || ROWS == 32, "8 rows a lane, 1, 2 or 4 groups of rows");
+    constexpr int kRg = ROWS / 8;  // groups of rows: 1 (8 rows), 2 (16) or 4 (32)
+    constexpr int kKs = 4 / kRg;   // lanes that split the warp's k: 4, 2 or 1
     const int c0 = lane % 8 * 4, rg = lane / 8 % kRg, ks = lane / (8 * kRg);
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
 #pragma unroll 2
-    for (int k = k0 + 4 * ks; k < k0 + kw; k += 4 * kKs) {
+    for (int k = 4 * ks; k < kw; k += 4 * kKs) {
       float4 w[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        w[j] = *reinterpret_cast<const float4*>(ws + (k + j) * kSliceCols + c0);
+      for (int j = 0; j < 4; ++j) w[j] = *reinterpret_cast<const float4*>(ws + (k + j) * ldw + c0);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float4 x = *reinterpret_cast<const float4*>(xs + (rg + kRg * i) * ldx + k);
+        const float4 x = *reinterpret_cast<const float4*>(xs + (rg + kRg * i) * ldx + k0 + k);
         const float xk[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          acc[i][0] = fmaf(xk[j], w[j].x, acc[i][0]);
-          acc[i][1] = fmaf(xk[j], w[j].y, acc[i][1]);
-          acc[i][2] = fmaf(xk[j], w[j].z, acc[i][2]);
-          acc[i][3] = fmaf(xk[j], w[j].w, acc[i][3]);
+          acc.a[4 * i + 0] = fmaf(xk[j], w[j].x, acc.a[4 * i + 0]);
+          acc.a[4 * i + 1] = fmaf(xk[j], w[j].y, acc.a[4 * i + 1]);
+          acc.a[4 * i + 2] = fmaf(xk[j], w[j].z, acc.a[4 * i + 2]);
+          acc.a[4 * i + 3] = fmaf(xk[j], w[j].w, acc.a[4 * i + 3]);
         }
       }
-    }
-    // the kKs lanes' sums of each element, a butterfly over ks's lane bits:
-    // the two lanes of a pair add the same two values, so both hold the same bits
-#pragma unroll
-    for (int off = 8 * kRg; off < 32; off *= 2)
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], off);
-    __syncthreads();
-    if (ks == 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        *reinterpret_cast<float4*>(part + (warp * ROWS + rg + kRg * i) * kSliceCols + c0) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     }
   }
 }
 
-// The warps' partial sums of element i = (r, c) of the slice, added in a
-// fixed pairwise order (warp w with w + 8, then w + 4, ...), plus the bias
-// (the slice's 32 values, in shared memory).
+// A warp's sums into its slot of the partial-sum planes: row r, column c at
+// part[(slot * ROWS + r) * ldp + c], part offset to the warp's columns. At 8
+// or more rows the lanes that split k first add their sums, a butterfly over
+// ks's lane bits: the two lanes of a pair add the same two values, so both
+// hold the same bits. part may be the weights' own storage: the block
+// synchronizes before writing it.
 template <int ROWS>
-__device__ __forceinline__ float slice_sum(const float* __restrict__ part, int i,
-                                           const float* __restrict__ b) {
-  static_assert(kWarps == 16, "four levels of pairs");
-  float s[kWarps];
+__device__ __forceinline__ void slice_part(SliceAcc<ROWS>& acc, float* part, int slot, int ldp) {
+  const int lane = threadIdx.x % 32;
+  if constexpr (ROWS < 8) {
+    __syncthreads();
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) s[w] = part[w * ROWS * kSliceCols + i];
+    for (int r = 0; r < ROWS; ++r) part[(slot * ROWS + r) * ldp + lane] = acc.a[r];
+  } else {
+    constexpr int kRg = ROWS / 8;
+    const int c0 = lane % 8 * 4, rg = lane / 8 % kRg, ks = lane / (8 * kRg);
 #pragma unroll
-  for (int w = 0; w < 8; ++w) s[w] += s[w + 8];
+    for (int off = 8 * kRg; off < 32; off *= 2)
 #pragma unroll
-  for (int w = 0; w < 4; ++w) s[w] += s[w + 4];
-  s[0] += s[2];
-  s[1] += s[3];
-  return (s[0] + s[1]) + b[i % kSliceCols];
+      for (int i = 0; i < 32; ++i) acc.a[i] += __shfl_xor_sync(0xffffffffu, acc.a[i], off);
+    __syncthreads();
+    if (ks == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float4*>(part + (slot * ROWS + rg + kRg * i) * ldp + c0) =
+            make_float4(acc.a[4 * i], acc.a[4 * i + 1], acc.a[4 * i + 2], acc.a[4 * i + 3]);
+    }
+  }
+}
+
+// The NS slots' partial sums of element i of a tile (planes `stride` floats
+// apart), added in a fixed pairwise order (slot s with s + NS / 2, then
+// s + NS / 4, ...).
+template <int NS>
+__device__ __forceinline__ float slice_sum(const float* __restrict__ part, int i, int stride) {
+  static_assert(NS == 2 || NS == 4 || NS == 8 || NS == 16, "up to four levels of pairs");
+  float s[NS];
+#pragma unroll
+  for (int w = 0; w < NS; ++w) s[w] = part[w * stride + i];
+  if constexpr (NS == 16) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s[w] += s[w + 8];
+  }
+  if constexpr (NS >= 8) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) s[w] += s[w + 4];
+  }
+  if constexpr (NS >= 4) {
+    s[0] += s[2];
+    s[1] += s[3];
+  }
+  return s[0] + s[1];
+}
+
+// Rows [k0, k0 + kc) of a weight's columns [col0, col0 + N) (fp32, row stride
+// ldw) into dst (row stride ld) by cp.async, 16 bytes a copy; the caller
+// commits the group.
+template <int N>
+__device__ __forceinline__ void load_cols(float* __restrict__ dst, int ld,
+                                          const float* __restrict__ w, int ldw, int col0, int k0,
+                                          int kc) {
+  for (int i = threadIdx.x; i < kc * (N / 4); i += kThreads) {
+    const int k = i / (N / 4), c = i % (N / 4) * 4;
+    cp_async16(dst + k * ld + c, w + (size_t)(k0 + k) * ldw + col0 + c);
+  }
+}
+
+// Thread k's column (K <= kThreads) of the tile's rows [row0, row0 + nrows)
+// of a (B, K) activation, widened to fp32, into registers (0 past nrows), so
+// that the loads are in flight while the CTA asks for its slices; put_rows
+// stores them at stride slice_ld(K).
+template <int ROWS, typename T>
+__device__ __forceinline__ void fetch_rows(const T* __restrict__ x, int row0, int nrows, int K,
+                                           float (&reg)[ROWS]) {
+  const int k = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+    reg[r] = k < K && r < nrows ? to_f32<T>(x[(size_t)(row0 + r) * K + k]) : 0.f;
+}
+
+template <int ROWS>
+__device__ __forceinline__ void put_rows(const float (&reg)[ROWS], int K, float* __restrict__ xs) {
+  const int k = threadIdx.x;
+  if (k < K) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) xs[r * slice_ld(K) + k] = reg[r];
+  }
 }
 
 // 16 bytes of T (4 floats or 8 bf16) widened to fp32 into dst (16-byte aligned).
@@ -360,16 +444,108 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// A weight's (D, 32) column slice from column col0 into shared memory by
-// cp.async, as one commit group.
-__device__ __forceinline__ void load_slice(float* __restrict__ dst, const float* __restrict__ w,
-                                           int D, int col0) {
-  for (int i = threadIdx.x; i < D * (kSliceCols / 4); i += kThreads) {
-    const int k = i / (kSliceCols / 4), c = i % (kSliceCols / 4) * 4;
-    cp_async16(dst + k * kSliceCols + c, w + (size_t)k * D + col0 + c);
+// The whole rows of a product whose 32-column slices the cluster's CTAs hold
+// in T (vs, (ROWS, 32) in each CTA's shared memory; distributed shared
+// memory), widened to fp32 into xs (row stride ldx): all of a thread's
+// 16-byte reads from its peers in flight at once, then its stores. The peers
+// must have written vs (a cluster barrier) and must not leave before this CTA
+// has read it.
+template <typename T, int ROWS>
+__device__ __forceinline__ void gather_columns(cg::cluster_group& cluster, const T* vs,
+                                               float* __restrict__ xs, int ldx) {
+  constexpr int kVec = 16 / sizeof(T);        // elements a read
+  constexpr int kChunks = kSliceCols / kVec;  // reads a row of a peer's columns
+  constexpr int kGather = (kMaxRanks * ROWS * kChunks + kThreads - 1) / kThreads;
+  const int n = (int)cluster.num_blocks() * ROWS * kChunks;
+  uint4 v[kGather];
+#pragma unroll
+  for (int j = 0; j < kGather; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int c = i % kChunks * kVec, r = i / kChunks % ROWS, p = i / (kChunks * ROWS);
+    if (i < n)
+      v[j] = *reinterpret_cast<const uint4*>(cluster.map_shared_rank(vs, p) + r * kSliceCols + c);
   }
-  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < kGather; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int c = i % kChunks * kVec, r = i / kChunks % ROWS, p = i / (kChunks * ROWS);
+    if (i < n) widen16<T>(v[j], xs + r * ldx + p * kSliceCols + c);
+  }
 }
+
+// Shared memory of row_stats, in floats: its scratch (2 + kMaxRanks) * NL * ROWS,
+// then mu and rs.
+__host__ __device__ constexpr int row_stats_floats(int nl, int rows) {
+  return (4 + kMaxRanks) * nl * rows;
+}
+
+// Each tile row's mean and 1 / sqrt(var + eps) for NL LayerNorms over N
+// columns, of which each CTA of the cluster holds W: this CTA's columns of
+// norm l are hs[r, l W .. l W + W) (row stride ldh). Two passes, as _ln
+// computes them: every CTA writes its rows' partial sums into its shared
+// memory; after a cluster barrier it reads all of them from its peers in rank
+// order (distributed shared memory) and adds them in that order, so that
+// every CTA holds the same bits; then the centred squares the same way. On
+// return mu[l ROWS + r] and rs[l ROWS + r] hold the statistics, and this CTA
+// has arrived on a cluster barrier (it has read its peers' sums): it waits on
+// it (cluster_wait) before it exits.
+template <int ROWS, int NL, int W>
+__device__ void row_stats(cg::cluster_group& cluster, const float* __restrict__ hs, int ldh,
+                          int N, float* __restrict__ st) {
+  constexpr int kN = NL * ROWS;
+  float* sums = st;             // this CTA's partial sums of its columns
+  float* squares = st + kN;     // this CTA's partial sums of the centred squares
+  float* got = st + 2 * kN;     // (ranks, kN): the peers' sums
+  float* mu = got + kMaxRanks * kN;
+  float* rs = mu + kN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ranks = (int)cluster.num_blocks();
+  for (int j = warp; j < kN; j += kWarps) {
+    const float* h = hs + j % ROWS * ldh + j / ROWS * W;
+    float s = 0.f;
+#pragma unroll
+    for (int c = lane; c < W; c += 32) s += h[c];
+    s = warp_sum(s);
+    if (lane == 0) sums[j] = s;
+  }
+  cluster.sync();
+  for (int i = threadIdx.x; i < ranks * kN; i += kThreads)
+    got[i] = cluster.map_shared_rank(sums, i / kN)[i % kN];
+  __syncthreads();
+  if (threadIdx.x < kN) {
+    float s = 0.f;
+    for (int p = 0; p < ranks; ++p) s += got[p * kN + threadIdx.x];
+    mu[threadIdx.x] = s / N;
+  }
+  __syncthreads();
+  for (int j = warp; j < kN; j += kWarps) {
+    const float* h = hs + j % ROWS * ldh + j / ROWS * W;
+    const float m = mu[j];
+    float q = 0.f;
+#pragma unroll
+    for (int c = lane; c < W; c += 32) {
+      const float d = h[c] - m;
+      q = fmaf(d, d, q);
+    }
+    q = warp_sum(q);
+    if (lane == 0) squares[j] = q;
+  }
+  cluster.sync();
+  for (int i = threadIdx.x; i < ranks * kN; i += kThreads)
+    got[i] = cluster.map_shared_rank(squares, i / kN)[i % kN];
+  cluster_arrive();  // this CTA has read its peers' sums
+  __syncthreads();
+  if (threadIdx.x < kN) {
+    float q = 0.f;
+    for (int p = 0; p < ranks; ++p) q += got[p * kN + threadIdx.x];
+    rs[threadIdx.x] = rsqrtf(q / N + kLnEps);
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// K1 on a cluster
+// ---------------------------------------------------------------------------
 
 // Shared memory of K1's cluster kernel, in floats: the Wv slice (its
 // storage then holds the partial sums), the Wo slice, the tile's rows, this
@@ -399,64 +575,275 @@ __global__ void __launch_bounds__(kThreads)
   const int col0 = blockIdx.x * kSliceCols;
   const int row0 = blockIdx.y * ROWS;
   const int nrows = min(ROWS, B - row0);
+  const int warp = threadIdx.x / 32, kw = D / kWarps;
   {
-    // the tile's rows first, so that they do not queue behind the slices:
-    // thread k loads column k (D <= kThreads) of every row at once
-    const int k = threadIdx.x;
+    // the tile's rows first, so that they do not queue behind the slices
     float x[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-      x[r] = k < D && r < nrows ? to_f32<T>(kv[(size_t)(row0 + r) * D + k]) : 0.f;
+    fetch_rows<ROWS>(kv, row0, nrows, D, x);
+    const int k = threadIdx.x;
     const float b = k < kSliceCols       ? __ldg(bv + col0 + k)
                     : k < 2 * kSliceCols ? __ldg(bo + col0 + k - kSliceCols)
                                          : 0.f;
-    load_slice(wvs, wv, D, col0);
-    load_slice(wos, wo, D, col0);  // arrives while the first product runs
-    if (k < D) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) xs[r * ldx + k] = x[r];
-    }
+    load_cols<kSliceCols>(wvs, kSliceCols, wv, D, col0, 0, D);
+    cp_async_commit();
+    // Wo's slice arrives while the first product runs
+    load_cols<kSliceCols>(wos, kSliceCols, wo, D, col0, 0, D);
+    cp_async_commit();
+    put_rows<ROWS>(x, D, xs);
     if (k < 2 * kSliceCols) bs[k] = b;
   }
+  SliceAcc<ROWS> acc;
   cp_async_wait<1>();
   __syncthreads();
-  slice_product<ROWS>(xs, D, wvs, wvs);
+  slice_zero(acc);
+  slice_step<ROWS>(xs, ldx, warp * kw, kw, wvs + warp * kw * kSliceCols, kSliceCols, acc);
+  slice_part<ROWS>(acc, wvs, warp, kSliceCols);
   __syncthreads();
   for (int i = threadIdx.x; i < ROWS * kSliceCols; i += kThreads)
-    vs[i] = from_f32<T>(slice_sum<ROWS>(wvs, i, bs));
+    vs[i] = from_f32<T>(slice_sum<kWarps>(wvs, i, ROWS * kSliceCols) + bs[i % kSliceCols]);
   cluster.sync();
-  {  // the whole v rows, from every CTA's columns (its shared memory), in T:
-     // all of a thread's 16-byte reads from its peers in flight at once, then
-     // its stores, widened to fp32
-    constexpr int kVec = 16 / sizeof(T);           // elements a read
-    constexpr int kChunks = kSliceCols / kVec;     // reads a row of a peer's v
-    constexpr int kGather = (16 * ROWS * kChunks + kThreads - 1) / kThreads;
-    const int n = (int)cluster.num_blocks() * ROWS * kChunks;
-    uint4 v[kGather];
-#pragma unroll
-    for (int j = 0; j < kGather; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      const int c = i % kChunks * kVec, r = i / kChunks % ROWS, p = i / (kChunks * ROWS);
-      if (i < n)
-        v[j] = *reinterpret_cast<const uint4*>(cluster.map_shared_rank(vs, p) +
-                                               r * kSliceCols + c);
-    }
-#pragma unroll
-    for (int j = 0; j < kGather; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      const int c = i % kChunks * kVec, r = i / kChunks % ROWS, p = i / (kChunks * ROWS);
-      if (i < n) widen16<T>(v[j], xs + r * ldx + p * kSliceCols + c);
-    }
-  }
+  gather_columns<T, ROWS>(cluster, vs, xs, ldx);
   cluster_arrive();  // this CTA has read its peers' v
   cp_async_wait<0>();
   __syncthreads();  // xs and wos are complete
-  slice_product<ROWS>(xs, D, wos, wvs);
+  slice_zero(acc);
+  slice_step<ROWS>(xs, ldx, warp * kw, kw, wos + warp * kw * kSliceCols, kSliceCols, acc);
+  slice_part<ROWS>(acc, wvs, warp, kSliceCols);
   __syncthreads();
   for (int i = threadIdx.x; i < nrows * kSliceCols; i += kThreads)
     out[(size_t)(row0 + i / kSliceCols) * D + col0 + i % kSliceCols] =
-        from_f32<T>(slice_sum<ROWS>(wvs, i, bs + kSliceCols));
+        from_f32<T>(slice_sum<kWarps>(wvs, i, ROWS * kSliceCols) + bs[kSliceCols + i % kSliceCols]);
   cluster_wait();  // no CTA leaves while a peer may still read its v
+}
+
+// ---------------------------------------------------------------------------
+// K2 on a cluster
+// ---------------------------------------------------------------------------
+
+// Shared memory of K2's cluster kernel, in floats: the Wv slice (then its
+// partial sums, then Wo's slice and attn's partial sums), the Wg slice (then
+// the gate's partial sums), q's rows, kv's rows (then v's), this CTA's
+// columns of v (in T; room for floats) and of the gate (then the blend), the
+// slices of bv, bo, bg, gamma and beta, the row statistics. 198.4 KB at
+// D = 512, ROWS = 16.
+__host__ __device__ constexpr int grb_cluster_smem_floats(int D, int rows) {
+  return 2 * (D > kWarps * rows ? D : kWarps * rows) * kSliceCols + 2 * rows * slice_ld(D) +
+         2 * rows * kSliceCols + 5 * kSliceCols + row_stats_floats(1, rows);
+}
+
+// K2 on a cluster of D / 32 CTAs: CTA blockIdx.x owns columns [32 x, 32 x + 32)
+// of all three products and of the output, blockIdx.y is the tile of ROWS
+// rows. Wv's and Wg's slices are asked for first; v's columns, rounded to T,
+// are shared as K1 shares them while the gate product runs; Wo's slice comes
+// into Wv's storage once v's sums are taken; the LayerNorm's row statistics
+// go through two exchanges in distributed shared memory (row_stats).
+template <typename T, int ROWS>
+__global__ void __launch_bounds__(kThreads)
+    gated_residual_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                                  const float* __restrict__ wv, const float* __restrict__ bv,
+                                  const float* __restrict__ wo, const float* __restrict__ bo,
+                                  const float* __restrict__ wg, const float* __restrict__ bg,
+                                  const float* __restrict__ gamma, const float* __restrict__ beta,
+                                  T* __restrict__ out, int B, int D) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  const int slice = max(D, kWarps * ROWS) * kSliceCols;
+  float* was = reinterpret_cast<float*>(smem4);  // Wv's slice, its sums, Wo's slice, attn's sums
+  float* wgs = was + slice;                      // Wg's slice, then the gate's sums
+  float* qs = wgs + slice;                       // (ROWS, D) at stride slice_ld(D): q
+  float* xs = qs + ROWS * slice_ld(D);           // the same: kv, then the rounded v
+  T* vs = reinterpret_cast<T*>(xs + ROWS * slice_ld(D));  // (ROWS, 32): its columns of v, in T
+  float* hs = xs + ROWS * slice_ld(D) + ROWS * kSliceCols;  // (ROWS, 32): the gate, then the blend
+  float* ps = hs + ROWS * kSliceCols;  // (5, 32): its slices of bv, bo, bg, gamma, beta
+  float* st = ps + 5 * kSliceCols;     // row_stats
+  const int ldx = slice_ld(D);
+  const int col0 = blockIdx.x * kSliceCols;
+  const int row0 = blockIdx.y * ROWS;
+  const int nrows = min(ROWS, B - row0);
+  const int warp = threadIdx.x / 32, kw = D / kWarps;
+  {
+    float xq[ROWS], xk[ROWS];
+    fetch_rows<ROWS>(q, row0, nrows, D, xq);
+    fetch_rows<ROWS>(kv, row0, nrows, D, xk);
+    const int k = threadIdx.x;
+    const float* src = k < kSliceCols       ? bv
+                       : k < 2 * kSliceCols ? bo
+                       : k < 3 * kSliceCols ? bg
+                       : k < 4 * kSliceCols ? gamma
+                                            : beta;
+    const float p = k < 5 * kSliceCols ? __ldg(src + col0 + k % kSliceCols) : 0.f;
+    load_cols<kSliceCols>(was, kSliceCols, wv, D, col0, 0, D);
+    cp_async_commit();
+    load_cols<kSliceCols>(wgs, kSliceCols, wg, D, col0, 0, D);
+    cp_async_commit();
+    put_rows<ROWS>(xq, D, qs);
+    put_rows<ROWS>(xk, D, xs);
+    if (k < 5 * kSliceCols) ps[k] = p;
+  }
+  SliceAcc<ROWS> acc;
+  // v = round_T(kv @ Wv + bv): its columns, for the peers
+  cp_async_wait<1>();
+  __syncthreads();
+  slice_zero(acc);
+  slice_step<ROWS>(xs, ldx, warp * kw, kw, was + warp * kw * kSliceCols, kSliceCols, acc);
+  slice_part<ROWS>(acc, was, warp, kSliceCols);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ROWS * kSliceCols; i += kThreads)
+    vs[i] = from_f32<T>(slice_sum<kWarps>(was, i, ROWS * kSliceCols) + ps[i % kSliceCols]);
+  __syncthreads();  // every warp has read Wv's partial sums
+  load_cols<kSliceCols>(was, kSliceCols, wo, D, col0, 0, D);  // arrives while the gate runs
+  cp_async_commit();
+  cluster_arrive();  // its columns of v are written
+  // g = sigmoid(q @ Wg + bg)
+  cp_async_wait<1>();
+  __syncthreads();
+  slice_zero(acc);
+  slice_step<ROWS>(qs, ldx, warp * kw, kw, wgs + warp * kw * kSliceCols, kSliceCols, acc);
+  slice_part<ROWS>(acc, wgs, warp, kSliceCols);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ROWS * kSliceCols; i += kThreads)
+    hs[i] = sigmoid(slice_sum<kWarps>(wgs, i, ROWS * kSliceCols) +
+                    ps[2 * kSliceCols + i % kSliceCols]);
+  cluster_wait();  // every CTA's columns of v
+  gather_columns<T, ROWS>(cluster, vs, xs, ldx);
+  cp_async_wait<0>();
+  __syncthreads();  // xs and Wo's slice are complete
+  // attn = v @ Wo + bo; the blend g * attn + (1 - g) * q
+  slice_zero(acc);
+  slice_step<ROWS>(xs, ldx, warp * kw, kw, was + warp * kw * kSliceCols, kSliceCols, acc);
+  slice_part<ROWS>(acc, was, warp, kSliceCols);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ROWS * kSliceCols; i += kThreads) {
+    const int r = i / kSliceCols, c = i % kSliceCols;
+    const float a = slice_sum<kWarps>(was, i, ROWS * kSliceCols) + ps[kSliceCols + c];
+    const float g = hs[i];
+    hs[i] = g * a + (1.f - g) * qs[r * ldx + col0 + c];
+  }
+  __syncthreads();
+  // the LayerNorm over all D columns of each row
+  row_stats<ROWS, 1, kSliceCols>(cluster, hs, kSliceCols, D, st);
+  const float* mu = st + (2 + kMaxRanks) * ROWS;
+  const float* rs = mu + ROWS;
+  for (int i = threadIdx.x; i < nrows * kSliceCols; i += kThreads) {
+    const int r = i / kSliceCols, c = i % kSliceCols;
+    out[(size_t)(row0 + r) * D + col0 + c] = from_f32<T>(
+        (hs[i] - mu[r]) * rs[r] * ps[3 * kSliceCols + c] + ps[4 * kSliceCols + c]);
+  }
+  cluster_wait();  // no CTA leaves while a peer may still read its sums
+}
+
+// ---------------------------------------------------------------------------
+// K4 on a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kStageFloats = 8192;  // a stage of K4's ring: 32 KB of weight rows
+constexpr int kStages = 4;          // stages of the ring (3 in flight)
+
+// Shared memory of K4's cluster kernel, in floats: the ring of weight chunks
+// (then the partial sums and the tile of both products), u's rows, the
+// slices of the biases, gains and shifts, the row statistics. 200.5 KB at
+// Du = 512, 256 columns a CTA, 32 rows.
+__host__ __device__ constexpr int film_cluster_smem_floats(int Du, int cols, int rows) {
+  return kStages * kStageFloats + rows * slice_ld(Du) + 3 * cols + row_stats_floats(2, rows);
+}
+
+// K4 on a cluster of Vd / (COLS / 2) CTAs: CTA blockIdx.x owns COLS / 2
+// columns of both modulators, as one (Du, COLS) slice (Wf's columns, then
+// Wg's), blockIdx.y is the tile of ROWS rows. The slice streams in chunks of
+// kStageFloats / COLS weight rows through a ring of kStages stages (cp.async,
+// one group a chunk, kStages - 1 in flight); each of the COLS / 32 column
+// groups of warps splits a chunk's rows 16 a warp, the sums staying in
+// registers over the chunks. Both LayerNorms' row statistics go through two
+// exchanges in distributed shared memory (row_stats); v's columns are read
+// into registers before them, and each CTA writes its columns of out.
+template <typename T, int ROWS, int COLS>
+__global__ void __launch_bounds__(kThreads)
+    metablock_film_cluster_kernel(const T* __restrict__ v, const T* __restrict__ u,
+                                  const float* __restrict__ wf, const float* __restrict__ bf,
+                                  const float* __restrict__ gf, const float* __restrict__ hf,
+                                  const float* __restrict__ wg, const float* __restrict__ bg,
+                                  const float* __restrict__ gg, const float* __restrict__ hg,
+                                  T* __restrict__ out, int B, int Du, int Vd) {
+  constexpr int W = COLS / 2;                     // columns of each modulator
+  constexpr int kSplit = kWarps * kSliceCols / COLS;  // warps that split a column group's k
+  constexpr int kChunk = kStageFloats / COLS;     // weight rows a stage
+  constexpr int kKw = kChunk / kSplit;            // a warp's rows of a chunk: 16
+  constexpr int kV = (ROWS * W + kThreads - 1) / kThreads;  // v's elements a thread
+  static_assert(COLS == 64 || COLS == 128 || COLS == 256, "32, 64 or 128 columns a modulator");
+  static_assert(kSplit * ROWS * COLS + ROWS * COLS <= kStages * kStageFloats,
+                "the partial sums and the tile fit in the ring");
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);  // the chunks, then the partial sums
+  float* ts = ring + kSplit * ROWS * COLS;        // (ROWS, COLS): u @ [Wf Wg] + [bf bg]
+  float* xs = ring + kStages * kStageFloats;      // (ROWS, Du) at stride slice_ld(Du): u
+  float* ps = xs + ROWS * slice_ld(Du);  // (3, COLS): biases, gains, shifts (f's, then g's)
+  float* st = ps + 3 * COLS;             // row_stats
+  const int ldx = slice_ld(Du);
+  const int col0 = blockIdx.x * W;
+  const int row0 = blockIdx.y * ROWS;
+  const int nrows = min(ROWS, B - row0);
+  const int warp = threadIdx.x / 32;
+  const int grp = warp / kSplit, slot = warp % kSplit;
+  const int chunks = Du / kChunk;
+  const auto load_chunk = [&](int j) {  // chunk j into its stage, as one group (empty past the end)
+    if (j < chunks) {
+      float* dst = ring + j % kStages * kStageFloats;
+      load_cols<W>(dst, COLS, wf, Vd, col0, j * kChunk, kChunk);
+      load_cols<W>(dst + W, COLS, wg, Vd, col0, j * kChunk, kChunk);
+    }
+    cp_async_commit();
+  };
+  {
+    float x[ROWS];
+    fetch_rows<ROWS>(u, row0, nrows, Du, x);
+    for (int j = 0; j < kStages - 1; ++j) load_chunk(j);
+    put_rows<ROWS>(x, Du, xs);
+    for (int i = threadIdx.x; i < 3 * COLS; i += kThreads) {
+      const int which = i / COLS, c = i % COLS;
+      const bool g = c >= W;
+      const float* src = which == 0 ? (g ? bg : bf) : which == 1 ? (g ? gg : gf) : (g ? hg : hf);
+      ps[i] = __ldg(src + col0 + c % W);
+    }
+  }
+  SliceAcc<ROWS> acc;
+  slice_zero(acc);
+  for (int j = 0; j < chunks; ++j) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk j is in; every warp is done with chunk j - 1's stage
+    load_chunk(j + kStages - 1);
+    slice_step<ROWS>(xs, ldx, j * kChunk + slot * kKw, kKw,
+                     ring + j % kStages * kStageFloats + slot * kKw * COLS + grp * kSliceCols,
+                     COLS, acc);
+  }
+  cp_async_wait<0>();
+  slice_part<ROWS>(acc, ring + grp * kSliceCols, slot, COLS);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ROWS * COLS; i += kThreads)
+    ts[i] = slice_sum<kSplit>(ring, i, ROWS * COLS) + ps[i % COLS];
+  __syncthreads();
+  T vr[kV];  // its columns of v, in flight during the exchanges
+#pragma unroll
+  for (int j = 0; j < kV; ++j) {
+    const int i = threadIdx.x + j * kThreads, r = i / W;
+    if (i < ROWS * W && r < nrows) vr[j] = v[(size_t)(row0 + r) * Vd + col0 + i % W];
+  }
+  // both LayerNorms over all Vd columns of each row: the modulators stay fp32
+  row_stats<ROWS, 2, W>(cluster, ts, COLS, Vd, st);
+  const float* mu = st + (2 + kMaxRanks) * 2 * ROWS;
+  const float* rs = mu + 2 * ROWS;
+#pragma unroll
+  for (int j = 0; j < kV; ++j) {
+    const int i = threadIdx.x + j * kThreads, r = i / W, c = i % W;
+    if (i < ROWS * W && r < nrows) {
+      const float t1 = (ts[r * COLS + c] - mu[r]) * rs[r] * ps[COLS + c] + ps[2 * COLS + c];
+      const float t2 = (ts[r * COLS + W + c] - mu[ROWS + r]) * rs[ROWS + r] * ps[COLS + W + c] +
+                       ps[2 * COLS + W + c];
+      out[(size_t)(row0 + r) * Vd + col0 + c] =
+          from_f32<T>(sigmoid(tanhf(to_f32<T>(vr[j]) * t1) + t2));
+    }
+  }
+  cluster_wait();  // no CTA leaves while a peer may still read its sums
 }
 
 // K2: g = sigmoid(q @ Wg + bg); attn = K1(kv);
@@ -567,37 +954,48 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// Batch rows per block: one at the smallest batches, where the block count
-// cannot fill the card anyway and every extra row is wasted arithmetic; four
-// above, so that each weight element read serves four rows.
+// Batch rows per block of K3: one at the smallest batches, where the block
+// count cannot fill the card anyway and every extra row is wasted arithmetic;
+// four above, so that each weight element read serves four rows.
 inline int rows_for(int B) { return B < 4 ? 1 : 4; }
 
-template <typename T, int ROWS>
-cudaError_t seq1_attention_launch(const void* kv, const float* wv, const float* bv,
-                                  const float* wo, const float* bo, void* out, int B, int D,
-                                  cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)ROWS * D * sizeof(float);
-  cudaError_t err = allow_smem(seq1_attention_kernel<T, ROWS>, smem);
+inline int tiles(int B, int rows) { return (B + rows - 1) / rows; }
+
+// f(std::integral_constant<int, V>{}) for the one of Vs that v equals; any
+// other value is refused (cudaErrorInvalidValue).
+template <int... Vs, typename F>
+cudaError_t dispatch(int v, F&& f) {
+  cudaError_t err = cudaErrorInvalidValue;
+  (void)((v == Vs ? (err = f(std::integral_constant<int, Vs>{}), true) : false) || ...);
+  return err;
+}
+
+template <typename T>
+struct Act {
+  using type = T;
+};
+
+// f(Act<T>{}) for the activation type: bfloat16 where act_bf16, else float.
+template <typename F>
+cudaError_t by_act(int act_bf16, F&& f) {
+  return act_bf16 ? f(Act<__nv_bfloat16>{}) : f(Act<float>{});
+}
+
+// A one-block kernel's launch: a block per tile of ROWS rows.
+template <int ROWS, typename Kernel, typename... Args>
+cudaError_t block_launch(Kernel kernel, int B, size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  seq1_attention_kernel<T, ROWS><<<(B + ROWS - 1) / ROWS, kThreads, smem, stream>>>(
-      static_cast<const T*>(kv), wv, bv, wo, bo, static_cast<T*>(out), B, D);
+  kernel<<<tiles(B, ROWS), kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-// Widths K1's cluster kernel takes: D a multiple of 64 (16 warps split K four
-// at a time) up to 512 (at most 16 CTAs of 32 columns). The route itself is
-// chosen in ops/fusion_kernels.py seq1_attention_plan; the entry point only
-// checks it.
-inline bool seq1_cluster_shapes(int D) { return D % 64 == 0 && D >= 64 && D <= 512; }
-
-// The cluster kernel's attributes (its shared memory, a cluster above the
-// portable 8 CTAs) and launch configuration for a grid of `tiles` tiles.
-template <typename T, int ROWS>
-cudaError_t seq1_cluster_config(int D, int tiles, cudaLaunchConfig_t& cfg,
-                                cudaLaunchAttribute& cluster) {
-  const auto kernel = seq1_cluster_kernel<T, ROWS>;
-  const int ranks = D / kSliceCols;
-  const size_t smem = seq1_cluster_smem_floats(D, ROWS) * sizeof(float);
+// A cluster kernel's attributes (its shared memory, a cluster above the
+// portable 8 CTAs) and launch configuration: clusters of `ranks` CTAs along
+// x, `tiles` of them along y.
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, int ranks, int tiles, size_t smem,
+                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute& cluster) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && ranks > 8)
@@ -615,91 +1013,136 @@ cudaError_t seq1_cluster_config(int D, int tiles, cudaLaunchConfig_t& cfg,
   return err;
 }
 
-// How many of the cluster kernel's clusters the current device holds at
-// once: 0 where a CTA's shared memory is beyond a block's, or where no
-// cluster of D / 32 such CTAs can be placed (a smaller card, a MIG slice).
-template <typename T, int ROWS>
-cudaError_t seq1_cluster_count(int D, int* count) {
+// How many clusters of `ranks` CTAs of a cluster kernel the current device
+// holds at once: 0 where a CTA's shared memory is beyond a block's, or where
+// no such cluster can be placed (a smaller card, a MIG slice).
+template <typename Kernel>
+cudaError_t cluster_count(Kernel kernel, int ranks, size_t smem, int* count) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   *count = 0;
-  if (seq1_cluster_smem_floats(D, ROWS) * sizeof(float) > (size_t)optin) return cudaSuccess;
+  if (smem > (size_t)optin) return cudaSuccess;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute cluster;
-  err = seq1_cluster_config<T, ROWS>(D, 1, cfg, cluster);
+  err = cluster_config(kernel, ranks, 1, smem, cfg, cluster);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(count, seq1_cluster_kernel<T, ROWS>, &cfg);
+  return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
 }
 
-template <typename T, int ROWS>
-cudaError_t seq1_cluster_launch(const void* kv, const float* wv, const float* bv,
-                                const float* wo, const float* bo, void* out, int B, int D,
-                                cudaStream_t stream) {
+template <typename Kernel, typename... Args>
+cudaError_t cluster_launch(Kernel kernel, int ranks, int tiles, size_t smem, cudaStream_t stream,
+                           Args... args) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute cluster;
-  cudaError_t err = seq1_cluster_config<T, ROWS>(D, (B + ROWS - 1) / ROWS, cfg, cluster);
+  cudaError_t err = cluster_config(kernel, ranks, tiles, smem, cfg, cluster);
   if (err != cudaSuccess) return err;
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, seq1_cluster_kernel<T, ROWS>, static_cast<const T*>(kv), wv,
-                           bv, wo, bo, static_cast<T*>(out), B, D);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// K1 on the route the caller chose: the cluster kernel (cluster != 0) at
-// rows 1, 8 or 32 a tile, or the one-block kernel at rows 1 or 4; any other
-// route is refused.
+// Widths K1's and K2's cluster kernels take: D a multiple of 64 (16 warps
+// split K four at a time) up to 512 (at most 16 CTAs of 32 columns).
+inline bool d_cluster_shapes(int D) { return D % 64 == 0 && D >= 64 && D <= 512; }
+
+// The column split K4's cluster kernel takes: `ranks` CTAs (at most 16) of
+// Vd / ranks = 32, 64 or 128 columns of each modulator, with Du a multiple of
+// 128 (whole ring chunks) up to 512 (a thread a column of u); returns the
+// columns of a CTA's slice (both modulators'), or 0 for a split it does not take.
+inline int film_cluster_cols(int Du, int Vd, int ranks) {
+  if (ranks < 1 || ranks > kMaxRanks || Vd % ranks != 0) return 0;
+  if (Du % 128 != 0 || Du < 128 || Du > 512) return 0;
+  const int w = Vd / ranks;
+  return w == 32 || w == 64 || w == 128 ? 2 * w : 0;
+}
+
+// The routes are chosen in ops/fusion_kernels.py (seq1_attention_plan,
+// gated_residual_plan, metablock_film_plan): the cluster kernel (with its
+// rows a tile: 1, 8 or 32; K2 1, 8 or 16) or the one-block kernel (1 or 4
+// rows). The entry points below only check them: a route whose widths,
+// rows or weights' alignment the kernel does not take is refused.
+
 template <typename T>
 cudaError_t seq1_attention_route(int cluster, int rows, const void* kv, const float* wv,
                                  const float* bv, const float* wo, const float* bo, void* out,
                                  int B, int D, cudaStream_t s) {
+  const T* x = static_cast<const T*>(kv);
+  T* y = static_cast<T*>(out);
   if (cluster) {
-    if (!seq1_cluster_shapes(D)) return cudaErrorInvalidValue;
+    if (!d_cluster_shapes(D)) return cudaErrorInvalidValue;
     if (!aligned16(wv) || !aligned16(wo)) return cudaErrorMisalignedAddress;
-    switch (rows) {
-      case 1: return seq1_cluster_launch<T, 1>(kv, wv, bv, wo, bo, out, B, D, s);
-      case 8: return seq1_cluster_launch<T, 8>(kv, wv, bv, wo, bo, out, B, D, s);
-      case 32: return seq1_cluster_launch<T, 32>(kv, wv, bv, wo, bo, out, B, D, s);
-      default: return cudaErrorInvalidValue;
-    }
+    return dispatch<1, 8, 32>(rows, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      return cluster_launch(seq1_cluster_kernel<T, R>, D / kSliceCols, tiles(B, R),
+                            seq1_cluster_smem_floats(D, R) * sizeof(float), s, x, wv, bv, wo, bo,
+                            y, B, D);
+    });
   }
-  switch (rows) {
-    case 1: return seq1_attention_launch<T, 1>(kv, wv, bv, wo, bo, out, B, D, s);
-    case 4: return seq1_attention_launch<T, 4>(kv, wv, bv, wo, bo, out, B, D, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch<1, 4>(rows, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return block_launch<R>(seq1_attention_kernel<T, R>, B, 2 * (size_t)R * D * sizeof(float), s,
+                           x, wv, bv, wo, bo, y, B, D);
+  });
 }
 
-template <typename T, int ROWS>
-cudaError_t gated_residual_launch(const void* q, const void* kv, const float* wv,
-                                  const float* bv, const float* wo, const float* bo,
-                                  const float* wg, const float* bg, const float* gamma,
-                                  const float* beta, void* out, int B, int D,
-                                  cudaStream_t stream) {
-  const size_t smem = 4 * (size_t)ROWS * D * sizeof(float);
-  cudaError_t err = allow_smem(gated_residual_kernel<T, ROWS>, smem);
-  if (err != cudaSuccess) return err;
-  gated_residual_kernel<T, ROWS><<<(B + ROWS - 1) / ROWS, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kv), wv, bv, wo, bo, wg, bg, gamma, beta,
-      static_cast<T*>(out), B, D);
-  return cudaGetLastError();
+template <typename T>
+cudaError_t gated_residual_route(int cluster, int rows, const void* q, const void* kv,
+                                 const float* wv, const float* bv, const float* wo,
+                                 const float* bo, const float* wg, const float* bg,
+                                 const float* gamma, const float* beta, void* out, int B, int D,
+                                 cudaStream_t s) {
+  const T* xq = static_cast<const T*>(q);
+  const T* xk = static_cast<const T*>(kv);
+  T* y = static_cast<T*>(out);
+  if (cluster) {
+    if (!d_cluster_shapes(D)) return cudaErrorInvalidValue;
+    if (!aligned16(wv) || !aligned16(wo) || !aligned16(wg)) return cudaErrorMisalignedAddress;
+    return dispatch<1, 8, 16>(rows, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      return cluster_launch(gated_residual_cluster_kernel<T, R>, D / kSliceCols, tiles(B, R),
+                            grb_cluster_smem_floats(D, R) * sizeof(float), s, xq, xk, wv, bv, wo,
+                            bo, wg, bg, gamma, beta, y, B, D);
+    });
+  }
+  return dispatch<1, 4>(rows, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return block_launch<R>(gated_residual_kernel<T, R>, B, 4 * (size_t)R * D * sizeof(float), s,
+                           xq, xk, wv, bv, wo, bo, wg, bg, gamma, beta, y, B, D);
+  });
 }
 
-template <typename T, int ROWS>
-cudaError_t metablock_film_launch(const void* v, const void* u, const float* wf,
-                                  const float* bf, const float* gf, const float* hf,
-                                  const float* wg, const float* bg, const float* gg,
-                                  const float* hg, void* out, int B, int Du, int Vd,
-                                  cudaStream_t stream) {
-  const size_t smem = (size_t)ROWS * (Du + 2 * Vd) * sizeof(float);
-  cudaError_t err = allow_smem(metablock_film_kernel<T, ROWS>, smem);
-  if (err != cudaSuccess) return err;
-  metablock_film_kernel<T, ROWS><<<(B + ROWS - 1) / ROWS, kThreads, smem, stream>>>(
-      static_cast<const T*>(v), static_cast<const T*>(u), wf, bf, gf, hf, wg, bg, gg, hg,
-      static_cast<T*>(out), B, Du, Vd);
-  return cudaGetLastError();
+template <typename T>
+cudaError_t metablock_film_route(int cluster, int rows, const void* v, const void* u,
+                                 const float* wf, const float* bf, const float* gf,
+                                 const float* hf, const float* wg, const float* bg,
+                                 const float* gg, const float* hg, void* out, int B, int Du,
+                                 int Vd, cudaStream_t s) {
+  const T* xv = static_cast<const T*>(v);
+  const T* xu = static_cast<const T*>(u);
+  T* y = static_cast<T*>(out);
+  if (cluster) {
+    const int cols = film_cluster_cols(Du, Vd, cluster);
+    if (cols == 0) return cudaErrorInvalidValue;
+    if (!aligned16(wf) || !aligned16(wg)) return cudaErrorMisalignedAddress;
+    return dispatch<1, 8, 32>(rows, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      return dispatch<64, 128, 256>(cols, [&](auto c) {
+        constexpr int C = decltype(c)::value;
+        return cluster_launch(metablock_film_cluster_kernel<T, R, C>, cluster, tiles(B, R),
+                              film_cluster_smem_floats(Du, C, R) * sizeof(float), s, xv, xu, wf,
+                              bf, gf, hf, wg, bg, gg, hg, y, B, Du, Vd);
+      });
+    });
+  }
+  return dispatch<1, 4>(rows, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return block_launch<R>(metablock_film_kernel<T, R>, B,
+                           (size_t)R * (Du + 2 * Vd) * sizeof(float), s, xv, xu, wf, bf, gf, hf,
+                           wg, bg, gg, hg, y, B, Du, Vd);
+  });
 }
 
 template <typename T, int ROWS>
@@ -707,13 +1150,10 @@ cudaError_t mlp_head_launch(const void* x, const float* w1, const float* b1, con
                             const float* h1, const float* w2, const float* b2, const float* g2,
                             const float* h2, const float* w3, const float* b3, void* out, int B,
                             int K1, int N1, int N2, int N3, cudaStream_t stream) {
-  const size_t smem = (size_t)ROWS * (K1 + N1 + N2 + N3) * sizeof(float);
-  cudaError_t err = allow_smem(mlp_head_kernel<T, ROWS>, smem);
-  if (err != cudaSuccess) return err;
-  mlp_head_kernel<T, ROWS><<<(B + ROWS - 1) / ROWS, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), w1, b1, g1, h1, w2, b2, g2, h2, w3, b3, static_cast<T*>(out), B,
-      K1, N1, N2, N3);
-  return cudaGetLastError();
+  return block_launch<ROWS>(mlp_head_kernel<T, ROWS>, B,
+                            (size_t)ROWS * (K1 + N1 + N2 + N3) * sizeof(float), stream,
+                            static_cast<const T*>(x), w1, b1, g1, h1, w2, b2, g2, h2, w3, b3,
+                            static_cast<T*>(out), B, K1, N1, N2, N3);
 }
 
 }  // namespace
@@ -726,64 +1166,92 @@ const char* skinjax_error_string(int code) {
 
 // act_bf16: 0 for float activations, 1 for bfloat16. Weights are fp32 (in, out).
 // cluster and rows: the route, as ops/fusion_kernels.py seq1_attention_plan
-// chooses it (seq1_attention_route).
+// chooses it (1: the cluster kernel, 0: the one-block kernel).
 int skinjax_seq1_attention(int act_bf16, int cluster, int rows, const void* kv, const float* wv,
                            const float* bv, const float* wo, const float* bo, void* out, int B,
                            int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (act_bf16)
-    return seq1_attention_route<__nv_bfloat16>(cluster, rows, kv, wv, bv, wo, bo, out, B, D, s);
-  return seq1_attention_route<float>(cluster, rows, kv, wv, bv, wo, bo, out, B, D, s);
+  return by_act(act_bf16, [&](auto a) {
+    using T = typename decltype(a)::type;
+    return seq1_attention_route<T>(cluster, rows, kv, wv, bv, wo, bo, out, B, D, s);
+  });
 }
 
 // *count: how many clusters of K1's cluster kernel at width D and `rows` rows
-// a tile the current device holds at once (seq1_cluster_count).
+// a tile the current device holds at once (cluster_count).
 int skinjax_seq1_cluster_count(int act_bf16, int rows, int D, int* count) {
-  if (!seq1_cluster_shapes(D)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool bf16 = act_bf16 != 0;
-  switch (rows) {
-    case 1: return bf16 ? seq1_cluster_count<__nv_bfloat16, 1>(D, count)
-                        : seq1_cluster_count<float, 1>(D, count);
-    case 8: return bf16 ? seq1_cluster_count<__nv_bfloat16, 8>(D, count)
-                        : seq1_cluster_count<float, 8>(D, count);
-    case 32: return bf16 ? seq1_cluster_count<__nv_bfloat16, 32>(D, count)
-                         : seq1_cluster_count<float, 32>(D, count);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!d_cluster_shapes(D)) return static_cast<int>(cudaErrorInvalidValue);
+  return by_act(act_bf16, [&](auto a) {
+    using T = typename decltype(a)::type;
+    return dispatch<1, 8, 32>(rows, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      return cluster_count(seq1_cluster_kernel<T, R>, D / kSliceCols,
+                           seq1_cluster_smem_floats(D, R) * sizeof(float), count);
+    });
+  });
 }
 
-int skinjax_gated_residual_seq1(int act_bf16, const void* q, const void* kv, const float* wv,
-                                const float* bv, const float* wo, const float* bo,
-                                const float* wg, const float* bg, const float* gamma,
-                                const float* beta, void* out, int B, int D, void* stream) {
+// cluster and rows: the route, as ops/fusion_kernels.py gated_residual_plan
+// chooses it (1: the cluster kernel, 0: the one-block kernel).
+int skinjax_gated_residual_seq1(int act_bf16, int cluster, int rows, const void* q,
+                                const void* kv, const float* wv, const float* bv, const float* wo,
+                                const float* bo, const float* wg, const float* bg,
+                                const float* gamma, const float* beta, void* out, int B, int D,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool one = rows_for(B) == 1;
-  if (act_bf16)
-    return one ? gated_residual_launch<__nv_bfloat16, 1>(q, kv, wv, bv, wo, bo, wg, bg, gamma,
-                                                         beta, out, B, D, s)
-               : gated_residual_launch<__nv_bfloat16, 4>(q, kv, wv, bv, wo, bo, wg, bg, gamma,
-                                                         beta, out, B, D, s);
-  return one ? gated_residual_launch<float, 1>(q, kv, wv, bv, wo, bo, wg, bg, gamma, beta, out,
-                                               B, D, s)
-             : gated_residual_launch<float, 4>(q, kv, wv, bv, wo, bo, wg, bg, gamma, beta, out,
-                                               B, D, s);
+  return by_act(act_bf16, [&](auto a) {
+    using T = typename decltype(a)::type;
+    return gated_residual_route<T>(cluster, rows, q, kv, wv, bv, wo, bo, wg, bg, gamma, beta,
+                                   out, B, D, s);
+  });
 }
 
-int skinjax_metablock_film(int act_bf16, const void* v, const void* u, const float* wf,
-                           const float* bf, const float* gf, const float* hf, const float* wg,
-                           const float* bg, const float* gg, const float* hg, void* out, int B,
-                           int Du, int Vd, void* stream) {
+// *count: how many clusters of K2's cluster kernel at width D and `rows` rows
+// a tile the current device holds at once.
+int skinjax_gated_residual_cluster_count(int act_bf16, int rows, int D, int* count) {
+  if (!d_cluster_shapes(D)) return static_cast<int>(cudaErrorInvalidValue);
+  return by_act(act_bf16, [&](auto a) {
+    using T = typename decltype(a)::type;
+    return dispatch<1, 8, 16>(rows, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      return cluster_count(gated_residual_cluster_kernel<T, R>, D / kSliceCols,
+                           grb_cluster_smem_floats(D, R) * sizeof(float), count);
+    });
+  });
+}
+
+// cluster and rows: the route, as ops/fusion_kernels.py metablock_film_plan
+// chooses it (cluster: the CTAs of a cluster, Vd / cluster columns of each
+// modulator a CTA; 0: the one-block kernel).
+int skinjax_metablock_film(int act_bf16, int cluster, int rows, const void* v, const void* u,
+                           const float* wf, const float* bf, const float* gf, const float* hf,
+                           const float* wg, const float* bg, const float* gg, const float* hg,
+                           void* out, int B, int Du, int Vd, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool one = rows_for(B) == 1;
-  if (act_bf16)
-    return one ? metablock_film_launch<__nv_bfloat16, 1>(v, u, wf, bf, gf, hf, wg, bg, gg, hg,
-                                                         out, B, Du, Vd, s)
-               : metablock_film_launch<__nv_bfloat16, 4>(v, u, wf, bf, gf, hf, wg, bg, gg, hg,
-                                                         out, B, Du, Vd, s);
-  return one ? metablock_film_launch<float, 1>(v, u, wf, bf, gf, hf, wg, bg, gg, hg, out, B, Du,
-                                               Vd, s)
-             : metablock_film_launch<float, 4>(v, u, wf, bf, gf, hf, wg, bg, gg, hg, out, B, Du,
-                                               Vd, s);
+  return by_act(act_bf16, [&](auto a) {
+    using T = typename decltype(a)::type;
+    return metablock_film_route<T>(cluster, rows, v, u, wf, bf, gf, hf, wg, bg, gg, hg, out, B,
+                                   Du, Vd, s);
+  });
+}
+
+// *count: how many clusters of K4's cluster kernel (`cluster` CTAs, widths
+// Du and Vd, `rows` rows a tile) the current device holds at once.
+int skinjax_metablock_film_cluster_count(int act_bf16, int rows, int cluster, int Du, int Vd,
+                                         int* count) {
+  const int cols = film_cluster_cols(Du, Vd, cluster);
+  if (cols == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return by_act(act_bf16, [&](auto a) {
+    using T = typename decltype(a)::type;
+    return dispatch<1, 8, 32>(rows, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      return dispatch<64, 128, 256>(cols, [&](auto c) {
+        constexpr int C = decltype(c)::value;
+        return cluster_count(metablock_film_cluster_kernel<T, R, C>, cluster,
+                             film_cluster_smem_floats(Du, C, R) * sizeof(float), count);
+      });
+    });
+  });
 }
 
 int skinjax_mlp_head(int act_bf16, const void* x, const float* w1, const float* b1,

@@ -23,8 +23,11 @@ accumulation is fp32, and values round to the activation dtype exactly where
 the Pallas kernels cast (``.astype(x.dtype)``).
 
 What bounds the kernels on an H100, and what their design does about it, is
-in the source note of ``csrc/fusion_kernels.cu``. ``seq1_attention_plan``
-chooses which of seq1_attention's two kernels a call launches.
+in the source note of ``csrc/fusion_kernels.cu``. ``seq1_attention_plan``,
+``gated_residual_plan`` and ``metablock_film_plan`` choose which of K1's, K2's
+and K4's two kernels a call launches (a thread-block cluster at the served
+widths, one block a tile elsewhere); the C entry points only check the
+route.
 
 ``LAUNCHES`` counts kernel launches per kernel (a twin call is not counted),
 so a caller can show that a path went through the kernels.
@@ -51,8 +54,10 @@ _SIGNATURES = {
     "skinjax_error_string": ([_I], ctypes.c_char_p),
     "skinjax_seq1_attention": ([_I] * 3 + [_P] * 6 + [_I, _I, _P], _I),
     "skinjax_seq1_cluster_count": ([_I] * 3 + [_P], _I),
-    "skinjax_gated_residual_seq1": ([_I] + [_P] * 11 + [_I, _I, _P], _I),
-    "skinjax_metablock_film": ([_I] + [_P] * 11 + [_I] * 3 + [_P], _I),
+    "skinjax_gated_residual_seq1": ([_I] * 3 + [_P] * 11 + [_I, _I, _P], _I),
+    "skinjax_gated_residual_cluster_count": ([_I] * 3 + [_P], _I),
+    "skinjax_metablock_film": ([_I] * 3 + [_P] * 11 + [_I] * 3 + [_P], _I),
+    "skinjax_metablock_film_cluster_count": ([_I] * 5 + [_P], _I),
     "skinjax_mlp_head": ([_I] + [_P] * 12 + [_I] * 5 + [_P], _I),
 }
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
@@ -147,6 +152,17 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _cluster_rows(B: int, largest: int) -> int:
+    """Rows a cluster tile: 1 at B = 1, 8 up to B = 8, else ``largest``."""
+    return 1 if B <= 1 else 8 if B <= 8 else largest
+
+
+def _d_cluster_width(D: int) -> bool:
+    """Widths K1's and K2's cluster kernels take: D a multiple of 64 up to
+    512 (D / 32 CTAs of 32 columns, at most 16)."""
+    return D % 64 == 0 and 64 <= D <= 512
+
+
 def seq1_attention_plan(B: int, D: int, aligned: bool = True, clusters=None) -> dict:
     """K1's route, chosen here only (the C entry point checks it): where D
     is a multiple of 64 up to 512, both weights allow 16-byte copies
@@ -157,32 +173,110 @@ def seq1_attention_plan(B: int, D: int, aligned: bool = True, clusters=None) -> 
     else 32), so that each weight element is read once per call up to
     B = 32; else ``seq1_attention_kernel``, one block per tile of 1 (B < 4)
     or 4 rows."""
-    if D % 64 == 0 and 64 <= D <= 512 and aligned:
-        rows = 1 if B <= 1 else 8 if B <= 8 else 32
+    if _d_cluster_width(D) and aligned:
+        rows = _cluster_rows(B, 32)
         if clusters is None or clusters(rows) >= 1:
             return dict(kernel="seq1_cluster_kernel", cluster=D // 32, rows=rows)
     return dict(kernel="seq1_attention_kernel", cluster=1, rows=1 if B < 4 else 4)
 
 
+def gated_residual_plan(B: int, D: int, aligned: bool = True, clusters=None) -> dict:
+    """K2's route, as K1's: where D is a multiple of 64 up to 512, the three
+    weights allow 16-byte copies and the card holds such a cluster,
+    ``gated_residual_cluster_kernel`` on clusters of D / 32 CTAs (32 columns
+    of all three products each) per tile of 1, 8 or 16 rows (q's rows beside
+    kv's leave no room for 32); else ``gated_residual_kernel``, one block per
+    tile of 1 (B < 4) or 4 rows."""
+    if _d_cluster_width(D) and aligned:
+        rows = _cluster_rows(B, 16)
+        if clusters is None or clusters(rows) >= 1:
+            return dict(kernel="gated_residual_cluster_kernel", cluster=D // 32, rows=rows)
+    return dict(kernel="gated_residual_kernel", cluster=1, rows=1 if B < 4 else 4)
+
+
+def film_cluster_ranks(Du: int, Vd: int) -> int:
+    """The CTAs of K4's cluster at these widths: Vd / W for the narrowest W of
+    32, 64 and 128 columns of each modulator that makes at most 16 CTAs, with
+    Du a multiple of 128 up to 512; 0 where the cluster route does not take
+    them (Vd 2048: 16 × 128, 768: 12 × 64, 512: 16 × 32)."""
+    if Du % 128 or not 128 <= Du <= 512:
+        return 0
+    return next((Vd // w for w in (32, 64, 128) if Vd % w == 0 and Vd // w <= 16), 0)
+
+
+def metablock_film_plan(B: int, Du: int, Vd: int, aligned: bool = True, clusters=None) -> dict:
+    """K4's route, as K1's: where ``film_cluster_ranks`` takes the widths,
+    both weights allow 16-byte copies and the card holds such a cluster,
+    ``metablock_film_cluster_kernel`` on clusters of that many CTAs per tile
+    of 1, 8 or 32 rows, each weight element read once per call up to B = 32;
+    else ``metablock_film_kernel``, one block per tile of 1 (B < 4) or 4
+    rows."""
+    ranks = film_cluster_ranks(Du, Vd)
+    if ranks and aligned:
+        rows = _cluster_rows(B, 32)
+        if clusters is None or clusters(rows) >= 1:
+            return dict(kernel="metablock_film_cluster_kernel", cluster=ranks, rows=rows)
+    return dict(kernel="metablock_film_kernel", cluster=1, rows=1 if B < 4 else 4)
+
+
 @functools.lru_cache(maxsize=None)
-def seq1_cluster_count(device_index: int, bf16: bool, D: int, rows: int) -> int:
-    """How many of K1's clusters (width D, ``rows`` rows a tile) the card
-    holds at once, as CUDA's occupancy query gives it; asked once a shape."""
+def _cluster_count(kernel: str, device_index: int, *args) -> int:
+    """``skinjax_<kernel>_cluster_count``: how many of the kernel's clusters
+    the card holds at once, as CUDA's occupancy query gives it; asked once
+    a shape."""
     count = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = library().skinjax_seq1_cluster_count(int(bf16), rows, D, ctypes.byref(count))
+        err = getattr(library(), f"skinjax_{kernel}_cluster_count")(*args, ctypes.byref(count))
     if err != 0:
         msg = library().skinjax_error_string(err).decode()
-        raise RuntimeError(f"seq1_attention: the cluster query failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{kernel}: the cluster query failed: CUDA error {err} ({msg})")
     return count.value
+
+
+def seq1_cluster_count(device_index: int, bf16: bool, D: int, rows: int) -> int:
+    """How many of K1's clusters (width D, ``rows`` rows a tile) the card
+    holds at once."""
+    return _cluster_count("seq1", device_index, int(bf16), rows, D)
+
+
+def gated_residual_cluster_count(device_index: int, bf16: bool, D: int, rows: int) -> int:
+    """How many of K2's clusters (width D, ``rows`` rows a tile) the card
+    holds at once."""
+    return _cluster_count("gated_residual", device_index, int(bf16), rows, D)
+
+
+def metablock_film_cluster_count(device_index: int, bf16: bool, Du: int, Vd: int,
+                                 rows: int) -> int:
+    """How many of K4's clusters (widths Du, Vd, ``rows`` rows a tile) the
+    card holds at once."""
+    return _cluster_count("metablock_film", device_index, int(bf16), rows,
+                          film_cluster_ranks(Du, Vd), Du, Vd)
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def seq1_attention_call_plan(kv, wv, wo) -> dict:
     """seq1_attention_plan for a CUDA call on these tensors."""
     B, D = kv.shape
-    aligned = wv.data_ptr() % 16 == 0 and wo.data_ptr() % 16 == 0
-    return seq1_attention_plan(B, D, aligned, functools.partial(
+    return seq1_attention_plan(B, D, _aligned(wv, wo), functools.partial(
         seq1_cluster_count, kv.device.index, kv.dtype == torch.bfloat16, D))
+
+
+def gated_residual_call_plan(q, wv, wo, wg) -> dict:
+    """gated_residual_plan for a CUDA call on these tensors."""
+    B, D = q.shape
+    return gated_residual_plan(B, D, _aligned(wv, wo, wg), functools.partial(
+        gated_residual_cluster_count, q.device.index, q.dtype == torch.bfloat16, D))
+
+
+def metablock_film_call_plan(v, u, wf, wg) -> dict:
+    """metablock_film_plan for a CUDA call on these tensors."""
+    B, Vd = v.shape
+    Du = u.shape[1]
+    return metablock_film_plan(B, Du, Vd, _aligned(wf, wg), functools.partial(
+        metablock_film_cluster_count, v.device.index, v.dtype == torch.bfloat16, Du, Vd))
 
 
 def seq1_attention(kv, wv, bv, wo, bo):
@@ -225,13 +319,16 @@ def gated_residual_seq1(q, kv, wv, bv, wo, bo, wg, bg, gamma, beta):
         check_tensor(nm, t, (D, D), f32, dev)
     for nm, t in (("bv", bv), ("bo", bo), ("bg", bg), ("gamma", gamma), ("beta", beta)):
         check_tensor(nm, t, (D,), f32, dev)
-    _smem_check("gated_residual_seq1", 4 * D)
+    plan = gated_residual_call_plan(q, wv, wo, wg)
+    if plan["kernel"] == "gated_residual_kernel":
+        _smem_check("gated_residual_seq1", 4 * D)
     out = torch.empty_like(q)
     if B == 0:
         return out
     _launch(
         "gated_residual_seq1", library().skinjax_gated_residual_seq1,
-        int(q.dtype == torch.bfloat16), q.data_ptr(), kv.data_ptr(), wv.data_ptr(),
+        int(q.dtype == torch.bfloat16), int(plan["kernel"] == "gated_residual_cluster_kernel"),
+        plan["rows"], q.data_ptr(), kv.data_ptr(), wv.data_ptr(),
         bv.data_ptr(), wo.data_ptr(), bo.data_ptr(), wg.data_ptr(), bg.data_ptr(),
         gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), B, D, _stream(dev),
     )
@@ -254,14 +351,18 @@ def metablock_film(v, u, wf, bf, gf, hf, wg, bg, gg, hg):
         check_tensor(nm, t, (Du, Vd), f32, dev)
     for nm, t in (("bf", bf), ("gf", gf), ("hf", hf), ("bg", bg), ("gg", gg), ("hg", hg)):
         check_tensor(nm, t, (Vd,), f32, dev)
-    _smem_check("metablock_film", Du + 2 * Vd)
+    plan = metablock_film_call_plan(v, u, wf, wg)
+    cluster = plan["cluster"] if plan["kernel"] == "metablock_film_cluster_kernel" else 0
+    if not cluster:
+        _smem_check("metablock_film", Du + 2 * Vd)
     out = torch.empty_like(v)
     if B == 0:
         return out
     _launch(
         "metablock_film", library().skinjax_metablock_film,
-        int(v.dtype == torch.bfloat16), v.data_ptr(), u.data_ptr(), wf.data_ptr(), bf.data_ptr(),
-        gf.data_ptr(), hf.data_ptr(), wg.data_ptr(), bg.data_ptr(), gg.data_ptr(), hg.data_ptr(),
+        int(v.dtype == torch.bfloat16), cluster, plan["rows"], v.data_ptr(), u.data_ptr(),
+        wf.data_ptr(), bf.data_ptr(), gf.data_ptr(), hf.data_ptr(), wg.data_ptr(), bg.data_ptr(),
+        gg.data_ptr(), hg.data_ptr(),
         out.data_ptr(), B, Du, Vd, _stream(dev),
     )
     return out

@@ -34,7 +34,8 @@ def test_library_path_follows_source_and_headers(csrc, edit):
 
 def test_repo_sources_share_a_header():
     """The attention kernels and the fused MLP include the shared tensor-core
-    header, which the hash covers, and keep no copy of its helpers."""
+    header, which the hash covers, and keep no copy of its helpers; the
+    fusion kernels' three cluster kernels share one set of building blocks."""
     headers = sorted(p.name for p in build.CSRC.glob("*.cuh"))
     assert "mma_bf16.cuh" in headers
     header = (build.CSRC / "mma_bf16.cuh").read_text()
@@ -72,9 +73,29 @@ def test_repo_sources_share_a_header():
     body = body[:body.index("\n}\n")]
     for call in ("wgmma_m64n64k16<", "wgmma_desc(", "tma_load("):
         assert call in body, call
+    # K1's, K2's and K4's cluster kernels are built from one set of blocks:
+    # the slices' copies, the products, the fixed-order sums, the gather of a
+    # product's columns and the LayerNorm's row statistics through distributed
+    # shared memory, and one launch and occupancy query
+    fusion = (build.CSRC / "fusion_kernels.cu").read_text()
+    assert '#include "mma_bf16.cuh"' in fusion
+    for helper in ("load_cols", "fetch_rows", "slice_step", "slice_part", "slice_sum",
+                   "gather_columns", "row_stats", "cluster_config", "cluster_count",
+                   "cluster_launch"):
+        assert len(re.findall(rf"(?:void|float|cudaError_t)\s+{helper}\s*\(", fusion)) == 1, helper
+    shared = ("fetch_rows<", "load_cols<", "slice_step<", "slice_part<", "slice_sum<")
+    for kernel, calls in (("seq1_cluster_kernel", (*shared, "gather_columns<")),
+                          ("gated_residual_cluster_kernel", (*shared, "gather_columns<",
+                                                             "row_stats<")),
+                          ("metablock_film_cluster_kernel", (*shared, "row_stats<"))):
+        body = fusion[fusion.index(f"{kernel}("):]
+        body = body[:body.index("\n}\n")]
+        for call in calls:
+            assert call in body, (kernel, call)
 
 
-_PROFILED = ("KERNEL_NAMES", "K1_BLOCK_KERNEL", "K5_KERNELS", "K7_KERNELS", "K7_F32",
+_PROFILED = ("KERNEL_NAMES", "K1_BLOCK_KERNEL", "BLOCK_KERNELS", "K5_KERNELS", "K7_KERNELS",
+             "K7_F32",
              "MLP_KERNELS", "MLP_F32_FWD", "MLP_F32_BWD", "MLP_SPLIT",
              "K12_KERNELS", "K11_KERNELS", "K8_KERNELS", "K8_F32", "K7_PAD_KERNELS", "K6_KERNELS",
              "KERNEL_SYMBOLS")
@@ -138,6 +159,21 @@ def test_profiled_kernel_names_are_kernels():
     assert smoke.KERNEL_NAMES["seq1_attention"] == fk.seq1_attention_plan(1, 512)["kernel"]
     assert smoke.K1_BLOCK_KERNEL == fk.seq1_attention_plan(1, smoke.K1_BLOCK_D)["kernel"]
     assert {"seq1_cluster_kernel", "seq1_attention_kernel"} <= kernels & set(smoke.KERNEL_SYMBOLS)
+    # so do K2 and K4 (K4 at each served Vd), as gated_residual_plan and
+    # metablock_film_plan name them; the widths their checks take the
+    # one-block kernels at are ones the cluster routes do not take
+    grb, film = "gated_residual_seq1", smoke.K4
+    for B in (1, 8, 32):
+        assert smoke.KERNEL_NAMES[grb] == fk.gated_residual_plan(B, 512)["kernel"]
+        assert smoke.BLOCK_KERNELS[grb] == fk.gated_residual_plan(B, smoke.K1_BLOCK_D)["kernel"]
+        for vd in smoke.K4_WIDTHS:
+            assert smoke.KERNEL_NAMES[film] == fk.metablock_film_plan(B, smoke.K4_DU, vd)["kernel"]
+        assert smoke.BLOCK_KERNELS[film] == fk.metablock_film_plan(
+            B, smoke.K4_DU, smoke.K4_BLOCK_VD)["kernel"]
+    assert smoke.ROUTE_WIDTHS[film][:-1] == smoke.K4_WIDTHS
+    assert {"gated_residual_cluster_kernel", "gated_residual_kernel",
+            "metablock_film_cluster_kernel", "metablock_film_kernel"} <= kernels & set(
+        smoke.KERNEL_SYMBOLS)
     assert smoke.K5_KERNELS == ["color_stage_kernel"]
     assert set(smoke.K5_KERNELS) <= kernels & set(smoke.KERNEL_SYMBOLS)
     assert path.read_text().count('"color_stage_kernel"') == 1

@@ -155,3 +155,112 @@ def test_seq1_attention_plan(case):
     route does not take (not a multiple of 64, above 512, a weight not
     16-byte aligned) and where the card holds no such cluster."""
     case(tfk.seq1_attention_plan)
+
+
+def _grb_served(plan):
+    for B in range(1, 65):
+        rows = 1 if B == 1 else 8 if B <= 8 else 16
+        assert plan(B, 512) == dict(kernel="gated_residual_cluster_kernel", cluster=16, rows=rows)
+
+
+def _grb_widths(plan):
+    assert plan(1, 64)["cluster"] == 2 and plan(40, 448) == dict(
+        kernel="gated_residual_cluster_kernel", cluster=14, rows=16)
+    assert plan(3, 256) == dict(kernel="gated_residual_cluster_kernel", cluster=8, rows=8)
+
+
+def _grb_one_block(plan):
+    for B, D in ((1, 768), (8, 480), (32, 576), (8, 32), (33, 1024)):
+        assert plan(B, D) == dict(kernel="gated_residual_kernel", cluster=1,
+                                  rows=1 if B < 4 else 4)
+
+
+def _grb_unaligned(plan):
+    for B in (1, 8, 32):
+        assert plan(B, 512, False) == dict(kernel="gated_residual_kernel", cluster=1,
+                                           rows=1 if B < 4 else 4)
+
+
+def _grb_no_room(plan):
+    asked = []
+
+    def clusters(rows):
+        asked.append(rows)
+        return 0 if rows == 16 else 7
+
+    assert plan(8, 512, True, clusters)["kernel"] == "gated_residual_cluster_kernel"
+    assert plan(9, 512, True, clusters) == dict(kernel="gated_residual_kernel", cluster=1, rows=4)
+    assert asked == [8, 16]
+    assert plan(1, 768, True, asked.append)["kernel"] == "gated_residual_kernel"
+    assert asked == [8, 16]  # a width the route does not take asks nothing
+
+
+@pytest.mark.parametrize("case", [_grb_served, _grb_widths, _grb_one_block, _grb_unaligned,
+                                  _grb_no_room],
+                         ids=["served", "widths", "one_block", "unaligned", "no_room"])
+def test_gated_residual_plan(case):
+    """K2's route, chosen in gated_residual_plan alone: at the served width
+    (D = 512) one cluster of 16 CTAs (32 columns of all three products each)
+    per tile of 1, 8 or 16 rows; the one-block kernel at widths the cluster
+    route does not take, where a weight is not 16-byte aligned and where the
+    card holds no such cluster."""
+    case(tfk.gated_residual_plan)
+
+
+def _film_served(plan):
+    for Vd, ranks in ((2048, 16), (768, 12), (512, 16)):
+        for B in range(1, 65):
+            rows = 1 if B == 1 else 8 if B <= 8 else 32
+            assert plan(B, 512, Vd) == dict(kernel="metablock_film_cluster_kernel",
+                                            cluster=ranks, rows=rows)
+
+
+def _film_widths(plan):
+    # the narrowest of 32, 64 and 128 columns a modulator that makes at most 16 CTAs
+    for Du, Vd, ranks in ((512, 96, 3), (512, 1024, 16), (512, 1536, 12), (128, 2048, 16),
+                          (384, 256, 8), (256, 64, 2)):
+        assert tfk.film_cluster_ranks(Du, Vd) == ranks
+        assert plan(1, Du, Vd) == dict(kernel="metablock_film_cluster_kernel", cluster=ranks,
+                                       rows=1)
+
+
+def _film_one_block(plan):
+    for B, Du, Vd in ((1, 512, 2560), (8, 512, 48), (32, 512, 4096), (1, 640, 512),
+                      (8, 64, 512), (33, 520, 2048)):
+        assert tfk.film_cluster_ranks(Du, Vd) == 0
+        assert plan(B, Du, Vd) == dict(kernel="metablock_film_kernel", cluster=1,
+                                       rows=1 if B < 4 else 4)
+
+
+def _film_unaligned(plan):
+    for B, Vd in ((1, 2048), (8, 768), (32, 512)):
+        assert plan(B, 512, Vd, False) == dict(kernel="metablock_film_kernel", cluster=1,
+                                               rows=1 if B < 4 else 4)
+
+
+def _film_no_room(plan):
+    asked = []
+
+    def clusters(rows):
+        asked.append(rows)
+        return 0 if rows == 32 else 7
+
+    assert plan(8, 512, 2048, True, clusters)["kernel"] == "metablock_film_cluster_kernel"
+    assert plan(33, 512, 2048, True, clusters) == dict(kernel="metablock_film_kernel",
+                                                       cluster=1, rows=4)
+    assert asked == [8, 32]
+    assert plan(1, 512, 2560, True, asked.append)["kernel"] == "metablock_film_kernel"
+    assert asked == [8, 32]  # a width the route does not take asks nothing
+
+
+@pytest.mark.parametrize("case", [_film_served, _film_widths, _film_one_block, _film_unaligned,
+                                  _film_no_room],
+                         ids=["served", "widths", "one_block", "unaligned", "no_room"])
+def test_metablock_film_plan(case):
+    """K4's route, chosen in metablock_film_plan alone: at the served widths
+    (Du = 512; Vd 2048, 768, 512) one cluster of 16, 12 or 16 CTAs (128, 64
+    or 32 columns of each modulator) per tile of 1, 8 or 32 rows, so that
+    each weight element is read once per call up to B = 32; the one-block
+    kernel at widths the cluster route does not take, where a weight is not
+    16-byte aligned and where the card holds no such cluster."""
+    case(tfk.metablock_film_plan)
