@@ -31,12 +31,14 @@ sentence dataset. Phases, each printing its lines:
               bn_kernels.cu, started together; seconds, ptxas registers
   3. kernels  K1-K4 against their plain PyTorch twins at the flagship shapes
               (K4 at Vd in {2048, 768, 512}), B in {1, 3, 8, 32}, fp32 (TF32
-              off) and bf16 activations; K1's two routes (the cluster kernel
-              at D=512, the one-block kernel at D=768) each against its twin
-              also at B=16 and 33 (a part-empty tile, two tiles), two calls
-              bit-identical, the kernel each profiled call ran the one
-              seq1_attention_plan chose, the C entry point refusing the
-              cluster route at D=768; K5 bit for bit its twin at B in
+              off) and bf16 activations; the two routes of K1, K2, K4 and K3
+              (the cluster kernel at the served widths: D=512, Vd in {2048,
+              768, 512}, K3's K1 in {1024, 2048}; the one-block kernel at
+              D=768, Vd=2560, K1=4096) each against its twin also at B=16 and
+              33 (a part-empty tile, two tiles), two calls bit-identical, the
+              kernel each profiled call ran the one its plan chose, the C
+              entry point refusing the cluster route at the one-block width;
+              ptxas's spills of mlp_head_cluster_kernel; K5 bit for bit its twin at B in
               {1, 7, 128} (224×224), a 300×400 batch and a 37×45 one (scalar
               loads), bf16 and fp32, with drawn parameters and with every
               gate on, two calls bit-identical, and its normalize against the
@@ -96,7 +98,8 @@ sentence dataset. Phases, each printing its lines:
               K5's launches are counted over it; its artifacts are checked
   8. times    engine p50/p95 fused and plain; K1-K3 and K5 against their
               twins, bounds and (K1-K3) the same function as PyTorch calls it,
-              K1 with its weights L2-warm and L2-cold; train images/s unfrozen
+              K1-K3 (K3 also at metablock's 2048 → 512 → 256 → 6) with their
+              weights L2-warm and L2-cold; train images/s unfrozen
               and frozen; the augment
               stage with and without K5; a profiled train step
   9. davit    the DaViT model: fused against plain engine (K7 launched 6
@@ -332,13 +335,14 @@ K6_SOURCE = "skinjax_torch/csrc/bn_kernels.cu"
 BUILDS = {"fusion_kernels": SOURCE, "augment_kernel": K5_SOURCE, "window_attention": K7_SOURCE,
           "global_attention": K12_SOURCE, "pooled_attention": K11_SOURCE,
           "fused_mlp": MLP_SOURCE, "channel_attention": K8_SOURCE, "bn_kernels": K6_SOURCE}
-# each K1-K4 call's kernel at the flagship's widths; K1, K2 and K4 run on
+# each K1-K4 call's kernel at the flagship's widths; all four run on
 # thread-block clusters there (ops/fusion_kernels.py seq1_attention_plan,
-# gated_residual_plan, metablock_film_plan), at K1_BLOCK_D (K1, K2) and
-# K4_BLOCK_VD (K4) on their one-block kernels
+# gated_residual_plan, metablock_film_plan, mlp_head_plan), at K1_BLOCK_D
+# (K1, K2), K4_BLOCK_VD (K4) and K3_BLOCK_K1 (K3) on their one-block kernels
 KERNEL_NAMES = {"seq1_attention": "seq1_cluster_kernel",
                 "gated_residual_seq1": "gated_residual_cluster_kernel",
-                "metablock_film": "metablock_film_cluster_kernel", "mlp_head": "mlp_head_kernel"}
+                "metablock_film": "metablock_film_cluster_kernel",
+                "mlp_head": "mlp_head_cluster_kernel"}
 K1_BLOCK_KERNEL = "seq1_attention_kernel"
 K1_BLOCK_D = 768  # a width K1's and K2's cluster routes do not take (above 512)
 K2_BLOCK_KERNEL = "gated_residual_kernel"
@@ -346,13 +350,23 @@ K4_BLOCK_KERNEL = "metablock_film_kernel"
 # a width K4's cluster route does not take (above 16 CTAs of 128 columns):
 # MetaBlock on EfficientNet-B7's 2560-wide feature
 K4_BLOCK_VD = 2560
+K3 = "mlp_head"
+# K3's input widths K1 on the main paths (→ 512 → 256 → 6): the flagship's and
+# every fc_fusion mechanism's pair of 512-wide features, and metablock's head
+# on ResNet-50's raw 2048-wide feature
+K3_WIDTHS = (1024, 2048)
+K3_HEAD = (512, 256, 6)  # N1, N2, N3
+# a width K3's cluster route does not take (8 rows of x do not fit beside its
+# ring): metablock's head on VGG16's 4096-wide feature
+K3_BLOCK_K1 = 4096
 BLOCK_KERNELS = {"seq1_attention": K1_BLOCK_KERNEL, "gated_residual_seq1": K2_BLOCK_KERNEL,
-                 K4: K4_BLOCK_KERNEL}
+                 K4: K4_BLOCK_KERNEL, K3: "mlp_head_kernel"}
 # the widths each route check runs at (the served ones on the cluster
 # kernel, then one on the one-block kernel) and the rows a cluster tile takes
 ROUTE_WIDTHS = {"seq1_attention": (512, K1_BLOCK_D), "gated_residual_seq1": (512, K1_BLOCK_D),
-                K4: (*K4_WIDTHS, K4_BLOCK_VD)}
-CLUSTER_ROWS = {"seq1_attention": (1, 8, 32), "gated_residual_seq1": (1, 8, 16), K4: (1, 8, 32)}
+                K4: (*K4_WIDTHS, K4_BLOCK_VD), K3: (*K3_WIDTHS, K3_BLOCK_K1)}
+CLUSTER_ROWS = {"seq1_attention": (1, 8, 32), "gated_residual_seq1": (1, 8, 16), K4: (1, 8, 32),
+                K3: (1, 8, 16)}
 K5_KERNELS = ["color_stage_kernel"]  # each K5 call's kernel
 # each bf16 K7 call's kernels (a call with a bias adds dbias_reduce_kernel);
 # the forward and backward run on the tensor cores (their fp32 instantiations
@@ -650,9 +664,9 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_args(name, B, dtype, device, gen, vd=K4_WIDTHS[0], D=512):
-    """Inputs at the flagship shapes: D = 512, head 1024 → 512 → 256 → 6;
-    K4 at Du = 512 and the given Vd."""
+def kernel_args(name, B, dtype, device, gen, vd=K4_WIDTHS[0], D=512, k1=K3_WIDTHS[0]):
+    """Inputs at the flagship shapes: D = 512, head k1 → 512 → 256 → 6 (k1
+    1024 by default); K4 at Du = 512 and the given Vd."""
     import torch
 
     def w(k, n):
@@ -671,8 +685,9 @@ def kernel_args(name, B, dtype, device, gen, vd=K4_WIDTHS[0], D=512):
     if name == K4:
         return [act(vd), act(K4_DU), w(K4_DU, vd), v(vd), v(vd, 1.0), v(vd),
                 w(K4_DU, vd), v(vd), v(vd, 1.0), v(vd)]
-    return [act(2 * D), w(2 * D, D), v(D), v(D, 1.0), v(D), w(D, D // 2), v(D // 2),
-            v(D // 2, 1.0), v(D // 2), w(D // 2, 6), v(6)]
+    n1, n2, n3 = K3_HEAD
+    return [act(k1), w(k1, n1), v(n1), v(n1, 1.0), v(n1), w(n1, n2), v(n2), v(n2, 1.0), v(n2),
+            w(n2, n3), v(n3)]
 
 
 def compare(out, ref, tol):
@@ -719,19 +734,24 @@ def same_bits(a, b) -> bool:
 
 def ran_kernels(fn) -> set:
     """The names of the kernels fn launched in a trace of 5 calls, traced
-    again (up to three times in all) where the trace kept no device record,
-    as torch.profiler now and then does."""
-    for _ in range(3):
-        names = {e.key for e in device_events(fn, 5)}
+    again where the trace kept no device record, as torch.profiler now and
+    then does (three empty traces of 5 calls in a row were seen once): up to
+    six traces in all, of more calls each time, after a short pause."""
+    for n in (5, 5, 5, 10, 20, 50):
+        names = {e.key for e in device_events(fn, n)}
         if names:
             return names
+        time.sleep(0.2)
     return set()
 
 
 def route_args(name, B, dtype, device, gen, width):
-    """kernel_args at a route check's width: D for K1 and K2, Vd for K4."""
+    """kernel_args at a route check's width: D for K1 and K2, Vd for K4, K1
+    for K3."""
     if name == K4:
         return kernel_args(name, B, dtype, device, gen, vd=width)
+    if name == K3:
+        return kernel_args(name, B, dtype, device, gen, k1=width)
     return kernel_args(name, B, dtype, device, gen, D=width)
 
 
@@ -741,6 +761,8 @@ def route_plan(fk, name, args):
         return fk.seq1_attention_call_plan(args[0], args[1], args[3])
     if name == "gated_residual_seq1":
         return fk.gated_residual_call_plan(args[0], args[2], args[4], args[6])
+    if name == K3:
+        return fk.mlp_head_call_plan(args[0], args[1], args[5], args[9])
     return fk.metablock_film_call_plan(args[0], args[1], args[2], args[6])
 
 
@@ -752,6 +774,9 @@ def cluster_counts(fk, name, device, bf16, width):
                 for r in CLUSTER_ROWS[name]}
     if name == "gated_residual_seq1":
         return {r: fk.gated_residual_cluster_count(device.index, bf16, width, r)
+                for r in CLUSTER_ROWS[name]}
+    if name == K3:
+        return {r: fk.mlp_head_cluster_count(device.index, bf16, width, *K3_HEAD, r)
                 for r in CLUSTER_ROWS[name]}
     return {r: fk.metablock_film_cluster_count(device.index, bf16, K4_DU, width, r)
             for r in CLUSTER_ROWS[name]}
@@ -774,6 +799,9 @@ def cluster_refusal(fk, name, device, gen):
     elif name == "gated_residual_seq1":
         err = fk.library().skinjax_gated_residual_seq1(0, 1, 1, *ptrs, out.data_ptr(), 1, width,
                                                        stream)
+    elif name == K3:
+        err = fk.library().skinjax_mlp_head(0, 1, 1, *ptrs, out.data_ptr(), 1, width, *K3_HEAD,
+                                            stream)
     else:  # 16 CTAs of 160 columns
         err = fk.library().skinjax_metablock_film(0, 16, 1, *ptrs, out.data_ptr(), 1, K4_DU, width,
                                                   stream)
@@ -782,7 +810,7 @@ def cluster_refusal(fk, name, device, gen):
 
 
 def phase_routes(fk, device, name):
-    """The two routes of K1, K2 or K4 on the card: at the served widths the
+    """The two routes of K1, K2, K3 or K4 on the card: at the served widths the
     cluster kernel, at the last of ROUTE_WIDTHS the one-block kernel, each
     against its twin at B in K1_BATCHES, fp32 and bf16, at the unchanged
     tolerances; two calls bit-identical; each traced call ran the kernel
@@ -791,7 +819,7 @@ def phase_routes(fk, device, name):
     error."""
     import torch
 
-    dim = "Vd" if name == K4 else "D"
+    dim = {K4: "Vd", K3: "K1"}.get(name, "D")
     kernel, twin = getattr(fk, name), getattr(fk, name + "_plain")
     for width in ROUTE_WIDTHS[name][:-1]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -914,25 +942,29 @@ def cold_times(fn, names, flush, n: int = 20):
 
 
 def phase_kernel_times(fk, device, card):
-    """K1-K3 in bf16 at TIMED_BATCHES: per call (CUDA events over 200
-    back-to-back calls, in turns with the twin), device time, the bound, and
-    the same function as PyTorch calls it (``fusion_library``: per call and
-    device time); K1 and K2 also with their weights L2-cold. Returns
-    {(name, B): numbers}."""
+    """K1-K3 in bf16 at TIMED_BATCHES, K3 at each of K3_WIDTHS: per call
+    (CUDA events over 200 back-to-back calls, in turns with the twin), device
+    time, the bound, and the same function as PyTorch calls it
+    (``fusion_library``: per call and device time); each also with its
+    weights L2-cold. Returns {(name, B): numbers} at the flagship's widths,
+    {(name, B, K1): numbers} at K3's others."""
     import torch
 
     gen = torch.Generator().manual_seed(1)
     flush = l2_flush(device)
-    products = {"seq1_attention": [(512, 512)] * 2, "gated_residual_seq1": [(512, 512)] * 3,
-                "mlp_head": [(1024, 512), (512, 256), (256, 6)]}
+    n1, n2, n3 = K3_HEAD
+    cases = [("seq1_attention", None, [(512, 512)] * 2),
+             ("gated_residual_seq1", None, [(512, 512)] * 3),
+             *((K3, k1, [(k1, n1), (n1, n2), (n2, n3)]) for k1 in K3_WIDTHS)]
     times = {}
-    for name in products:
+    for name, k1, products in cases:
         kernel, twin = getattr(fk, name), getattr(fk, name + "_plain")
+        label = f"{name} K1={k1}" if k1 else name
         for B in TIMED_BATCHES:
-            args = kernel_args(name, B, torch.bfloat16, device, gen)
+            args = kernel_args(name, B, torch.bfloat16, device, gen, k1=k1 or K3_WIDTHS[0])
             lib = fusion_library(name, args)
             err, ok = compare(lib(), twin(*args), BF16_TOL)
-            check(ok, f"{name}'s library chain disagrees with the twin at B={B} ({err:.3e})")
+            check(ok, f"{label}'s library chain disagrees with the twin at B={B} ({err:.3e})")
             kern = lambda: kernel(*args)  # noqa: E731,B023
             plain = lambda: twin(*args)  # noqa: E731,B023
             # in turns: twin, kernel, library, library, kernel, twin
@@ -942,22 +974,21 @@ def phase_kernel_times(fk, device, card):
             dev_k = kernel_device_us(kern, [KERNEL_NAMES[name]])
             dev_t, _ = device_us(plain)
             dev_l, _ = device_us(lib)
-            bound = matmul_bound_ms(args, twin(*args), products[name], B)
-            times[(name, B)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                                    device_us=dev_k, library_device_us=dev_l)
-            log(f"[{card}] time {name:20s} bf16 B={B:2d} per call: kernel {ms * 1e3:8.2f} us  "
+            bound = matmul_bound_ms(args, twin(*args), products, B)
+            cold_k = cold_times(kern, [KERNEL_NAMES[name]], flush)
+            cold_l = cold_times(lib, None, flush)
+            key = (name, B) if k1 in (None, K3_WIDTHS[0]) else (name, B, k1)
+            times[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                              device_us=dev_k, library_device_us=dev_l, cold_ms=cold_k[0],
+                              cold_device_us=cold_k[1], library_cold_ms=cold_l[0],
+                              library_cold_device_us=cold_l[1])
+            log(f"[{card}] time {label:20s} bf16 B={B:2d} per call: kernel {ms * 1e3:8.2f} us  "
                 f"twin {plain_ms * 1e3:8.2f} us  library {lib_ms * 1e3:8.2f} us (CUDA events "
                 f"over 200 back-to-back calls each, in turns, L2-warm weights); device time: "
                 f"kernel {us(dev_k)}  twin {dev_t:8.2f} us  library {dev_l:8.2f} us "
                 f"(torch.profiler); bound {bound * 1e3:.2f} us; "
                 f"{against(ms, bound, lib_ms)}")
-            if name == "mlp_head":
-                continue
-            cold_k = cold_times(kern, [KERNEL_NAMES[name]], flush)
-            cold_l = cold_times(lib, None, flush)
-            times[(name, B)].update(cold_ms=cold_k[0], cold_device_us=cold_k[1],
-                                    library_cold_ms=cold_l[0], library_cold_device_us=cold_l[1])
-            log(f"[{card}] time {name:20s} bf16 B={B:2d} L2-cold (a 256 MB write before each "
+            log(f"[{card}] time {label:20s} bf16 B={B:2d} L2-cold (a 256 MB write before each "
                 f"call, outside the timed window): kernel {cold_k[0] * 1e3:8.2f} us a call "
                 f"(CUDA events around each call), device {us(cold_k[1])}; library "
                 f"{cold_l[0] * 1e3:8.2f} us a call, device {us(cold_l[1])}")
@@ -4164,6 +4195,17 @@ def log_ptxas(build, names):
                 log(f"  ptxas: {line.strip()}")
 
 
+def log_spills(build, name, kernel):
+    """ptxas's stack frame and spills of each instantiation of ``kernel`` in
+    source ``name``'s build log, one line an instantiation."""
+    entry = None
+    for line in build.build_info[name]["log"].splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif entry and kernel in entry and "spill" in line:
+            log(f"  ptxas {kernel} ({entry}): {line.strip()}")
+
+
 def fusion_only() -> int:
     """``--fusion``: K1-K5's checks and times alone, with the flagship served
     and trained and the engine's and augment stage's A/Bs."""
@@ -4190,6 +4232,7 @@ def fusion_only() -> int:
         m.library()
     log(f"phase build: {len(names)} sources at once, {time.perf_counter() - t0:.1f} s")
     log_ptxas(build, names)
+    log_spills(build, "fusion_kernels", KERNEL_NAMES[K3])
     phase_kernels(fk, device)
     for name in ROUTE_WIDTHS:
         phase_routes(fk, device, name)
@@ -4358,9 +4401,10 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
+    log_spills(build, "fusion_kernels", KERNEL_NAMES[K3])
 
     errors = phase_kernels(fk, device)
-    for name in ROUTE_WIDTHS:  # K1's, K2's and K4's two routes
+    for name in ROUTE_WIDTHS:  # K1's, K2's, K4's and K3's two routes
         errors[name] = max(errors[name], phase_routes(fk, device, name))
     errors[K5] = phase_k5(ak, device)
     errors.update(phase_k7(wa, device))
@@ -4578,8 +4622,9 @@ def main() -> int:
     elapsed("the sentence train CLI")
 
     record = {"kernels": [
-        # K1-K3 at B=1, the served batch, L2-warm (the other batches and K1's
-        # L2-cold times are printed above)
+        # K1-K3 at B=1, the served batch, L2-warm, K3 at the flagship's widths
+        # (the other batches, K3's metablock shape and the L2-cold times are
+        # printed above)
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
          "launches": launches[name], "max_abs_err": errors[name],
          "ms": times[(name, 1)]["ms"], "plain_ms": times[(name, 1)]["plain_ms"],

@@ -18,28 +18,28 @@
 // not arithmetic. K4's two (Du, Vd) matrices are the largest: 8.4 MB at
 // Du = 512, Vd = 2048 (MetaBlock on ResNet-50's raw 2048-wide feature).
 //
-// The one-block design (K3; K1, K2 and K4 at widths their cluster kernels do
-// not take): one thread block per tile of ROWS batch rows. The block keeps
-// the whole chain in shared memory and registers, as the TPU kernels keep it
-// in VMEM: no intermediate goes to device memory, and each weight element is
-// read once per block and used for all ROWS rows. Weights are fp32 in (in,
-// out) layout, read with one output column per thread so that a warp reads
-// 128 contiguous bytes of a weight row. Accumulation is fp32. The activation
-// type T (float or __nv_bfloat16) is a template parameter; values are rounded
-// to T at exactly the points where the Pallas kernels cast to the activation
-// dtype, and the output is T. At B = 1 one SM streams every weight.
+// The one-block design (K1-K4 at widths their cluster kernels do not take):
+// one thread block per tile of ROWS batch rows. The block keeps the whole
+// chain in shared memory and registers, as the TPU kernels keep it in VMEM:
+// no intermediate goes to device memory, and each weight element is read once
+// per block and used for all ROWS rows. Weights are fp32 in (in, out) layout,
+// read with one output column per thread so that a warp reads 128 contiguous
+// bytes of a weight row. Accumulation is fp32. The activation type T (float or
+// __nv_bfloat16) is a template parameter; values are rounded to T at exactly
+// the points where the Pallas kernels cast to the activation dtype, and the
+// output is T. At B = 1 one SM streams every weight.
 //
-// The cluster design (K1, K2, K4 at the served widths): one thread-block
-// cluster per tile of rows, so that at every served batch each weight element
-// is read once or twice per call and the reads are spread over the cluster's
-// SMs (16 at the served widths, the largest Hopper allows, as a non-portable
-// size). CTA c owns some output columns of every product of the block and
-// asks for its column slices of the weights by cp.async into shared memory.
-// In each product each warp owns 32 of the CTA's columns and a share of K; a
+// The cluster design (K1-K4 at the served widths): one thread-block cluster
+// per tile of rows, so that at every served batch each weight element is read
+// once or twice per call and the reads are spread over the cluster's SMs (16
+// at the served widths, the largest Hopper allows, as a non-portable size).
+// CTA c owns some output columns of every product of the block and asks for
+// its column slices of the weights by cp.async into shared memory. In each
+// product each warp owns 32 (or 16) of the CTA's columns and a share of K; a
 // lane owns 4 columns of 8 rows where the tile has 8, 16 or 32 rows (each
 // 16-byte shared-memory read feeds 16 or 32 multiply-adds), and the warps'
 // partial sums are added in a fixed order in shared memory (no atomics: two
-// calls give the same bits). One set of building blocks serves all three
+// calls give the same bits). One set of building blocks serves all four
 // kernels: load_cols, slice_step, slice_part, slice_sum, gather_columns,
 // row_stats, cluster_config / cluster_count / cluster_launch.
 //
@@ -57,20 +57,30 @@
 //   of W = 32, 64 or 128 columns of both modulators; a CTA's (Du, 2W) slice
 //   (8.4 MB over 16 CTAs at Vd = 2048 is 512 KB a CTA) streams in K-chunks of
 //   32 KB through a ring of 4 stages, the sums kept in registers over the
-//   chunks.
+//   chunks. K3 (mlp_head_cluster_kernel, rows 1, 8, 16 or 32): N1 / 32 CTAs
+//   of 32 columns of fc1 and 16 of fc2 (N2 = N1 / 2); a CTA's (K1, 32) slice
+//   of W1 (128 KB at K1 = 1024, 256 KB at 2048) streams through K4's ring and
+//   its (N1, 16) slice of W2 follows as the ring's next chunk, arriving while
+//   fc1 runs; h1's columns, rounded to T, are shared as K1 shares v; fc2 runs
+//   on 16-column warps (slice_step's 16-column form); each CTA multiplies its
+//   16 columns of h2 by its 16 rows of W3 into rank 0's shared memory, which
+//   adds the CTAs' partial sums in rank order. x's fp32 rows beside the ring
+//   cap its tile at 16 rows at K1 = 1024 and 8 at 2048. At the flagship's
+//   2.6 MB of weights, B = 1, a CTA reads 160 KB where the one-block kernel
+//   read all of it on one SM.
 //
-// The LayerNorms of K2 and K4 need each row's statistics over all columns,
-// which no CTA holds: each CTA writes its rows' partial sums into its shared
-// memory, and after a cluster barrier every CTA adds all of them in rank
-// order (the same bits in every CTA); then the centred squares the same way
-// (two passes, as _ln; row_stats). Nothing goes to device memory between the
-// products; a CTA waits on the second half of a split cluster barrier only
-// before it exits, so that no peer reads its shared memory after it left.
-// Other widths, weights not 16-byte aligned, and cards that cannot place one
-// such cluster (the *_cluster_count queries) keep the one-block kernels.
-// ops/fusion_kernels.py chooses each call's route and rows a tile
-// (seq1_attention_plan, gated_residual_plan, metablock_film_plan); the entry
-// points only check them.
+// The LayerNorms of K2, K3 and K4 need each row's statistics over all
+// columns, which no CTA holds: each CTA writes its rows' partial sums into its
+// shared memory, and after a cluster barrier every CTA adds all of them in
+// rank order (the same bits in every CTA); then the centred squares the same
+// way (two passes, as _ln; row_stats). Nothing goes to device memory between
+// the products; a CTA waits on the second half of a split cluster barrier
+// before it arrives on the next and before it exits, so that no peer reads
+// its shared memory after it left. Other widths, weights not 16-byte aligned,
+// and cards that cannot place one such cluster (the *_cluster_count queries)
+// keep the one-block kernels. ops/fusion_kernels.py chooses each call's route
+// and rows a tile (seq1_attention_plan, gated_residual_plan,
+// metablock_film_plan, mlp_head_plan); the entry points only check them.
 //
 // C interface: every entry point launches on the given stream and returns
 // cudaGetLastError() as an int (0 = success); skinjax_error_string maps the
@@ -92,6 +102,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr float kLnEps = 1e-5f;  // torch nn.LayerNorm default (fusion_kernels.py LN_EPS)
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr size_t kMaxSmem = 227 * 1024;  // a block's shared memory on Hopper (opt-in)
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -247,7 +258,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Building blocks of the cluster kernels (K1, K2, K4). A CTA owns some output
+// Building blocks of the cluster kernels (K1-K4). A CTA owns some output
 // columns of a tile's products; each warp owns 32 of them (a column group) and
 // a share of k, so that a product is one pass of the CTA's 16 warps over its
 // weight slice in shared memory, with the warps' partial sums added in a fixed
@@ -276,23 +287,27 @@ __device__ __forceinline__ void slice_zero(SliceAcc<ROWS>& acc) {
 }
 
 // One warp's share of a product: acc += xs[r, k0 + k] * ws[k, c] for k in
-// [0, kw) ascending (kw % 4 == 0), over the tile's ROWS rows (xs, row stride
-// ldx) and the warp's 32 columns of weight rows in shared memory (ws, row
+// [0, kw) (kw % 4 == 0), over the tile's ROWS rows (xs, row stride ldx) and
+// the warp's NC = 32 or 16 columns of weight rows in shared memory (ws, row
 // stride ldw). Called once for a whole slice, or once a chunk of a slice
 // streamed in K-chunks, the sums staying in registers. At 8, 16 and 32 rows
-// each 16-byte read of xs or ws feeds 16 or 32 multiply-adds; below 32 rows
-// the warp's 4 / (ROWS / 8) groups of lanes take every 4th or 2nd step of 4 k
-// (slice_part adds their sums).
-template <int ROWS>
+// each 16-byte read of xs or ws feeds 16 or 32 multiply-adds; the lanes a
+// row's columns leave over take every 2nd, 4th or 8th step of 4 k
+// (slice_part adds their sums). At fewer rows a lane owns a column, and at
+// 16 columns the two halves of the warp take every other step.
+template <int ROWS, int NC = kSliceCols>
 __device__ __forceinline__ void slice_step(const float* __restrict__ xs, int ldx, int k0, int kw,
                                            const float* ws, int ldw, SliceAcc<ROWS>& acc) {
+  static_assert(NC == 32 || NC == 16, "32 or 16 columns a warp");
   const int lane = threadIdx.x % 32;
   if constexpr (ROWS < 8) {
+    constexpr int kKs = 32 / NC;  // lanes that split k: 1 or 2
+    const int c = lane % NC, ks = NC == 32 ? 0 : lane / NC;
 #pragma unroll 4
-    for (int k = 0; k < kw; k += 4) {
+    for (int k = 4 * ks; k < kw; k += 4 * kKs) {
       float w[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = ws[(k + j) * ldw + lane];
+      for (int j = 0; j < 4; ++j) w[j] = ws[(k + j) * ldw + c];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const float4 x = *reinterpret_cast<const float4*>(xs + r * ldx + k0 + k);
@@ -304,10 +319,13 @@ __device__ __forceinline__ void slice_step(const float* __restrict__ xs, int ldx
     }
   } else {
     static_assert(ROWS == 8 || ROWS == 16 || ROWS == 32, "8 rows a lane, 1, 2 or 4 groups of rows");
-    constexpr int kRg = ROWS / 8;  // groups of rows: 1 (8 rows), 2 (16) or 4 (32)
-    constexpr int kKs = 4 / kRg;   // lanes that split the warp's k: 4, 2 or 1
-    const int c0 = lane % 8 * 4, rg = lane / 8 % kRg, ks = lane / (8 * kRg);
-#pragma unroll 2
+    constexpr int kCq = NC / 4;              // lanes across the columns, 4 each: 8 or 4
+    constexpr int kRg = ROWS / 8;            // groups of rows: 1 (8 rows), 2 (16) or 4 (32)
+    constexpr int kKs = 32 / (kCq * kRg);    // lanes that split the warp's k: 8, 4, 2 or 1
+    const int c0 = lane % kCq * 4, rg = lane / kCq % kRg, ks = lane / (kCq * kRg);
+    // one step at a time: unrolled twice, the next step's loads kept K3's
+    // 16- and 32-row bf16 kernels above 128 registers (spills)
+#pragma unroll 1
     for (int k = 4 * ks; k < kw; k += 4 * kKs) {
       float4 w[4];
 #pragma unroll
@@ -329,23 +347,29 @@ __device__ __forceinline__ void slice_step(const float* __restrict__ xs, int ldx
 }
 
 // A warp's sums into its slot of the partial-sum planes: row r, column c at
-// part[(slot * ROWS + r) * ldp + c], part offset to the warp's columns. At 8
-// or more rows the lanes that split k first add their sums, a butterfly over
-// ks's lane bits: the two lanes of a pair add the same two values, so both
-// hold the same bits. part may be the weights' own storage: the block
-// synchronizes before writing it.
-template <int ROWS>
+// part[(slot * ROWS + r) * ldp + c], part offset to the warp's NC columns.
+// The lanes that split k first add their sums, a butterfly over ks's lane
+// bits: the two lanes of a pair add the same two values, so both hold the
+// same bits. part may be the weights' own storage: the block synchronizes
+// before writing it.
+template <int ROWS, int NC = kSliceCols>
 __device__ __forceinline__ void slice_part(SliceAcc<ROWS>& acc, float* part, int slot, int ldp) {
   const int lane = threadIdx.x % 32;
   if constexpr (ROWS < 8) {
+#pragma unroll
+    for (int off = NC; off < 32; off *= 2)
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) acc.a[r] += __shfl_xor_sync(0xffffffffu, acc.a[r], off);
     __syncthreads();
+    if (lane < NC) {
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) part[(slot * ROWS + r) * ldp + lane] = acc.a[r];
+      for (int r = 0; r < ROWS; ++r) part[(slot * ROWS + r) * ldp + lane] = acc.a[r];
+    }
   } else {
-    constexpr int kRg = ROWS / 8;
-    const int c0 = lane % 8 * 4, rg = lane / 8 % kRg, ks = lane / (8 * kRg);
+    constexpr int kCq = NC / 4, kRg = ROWS / 8;
+    const int c0 = lane % kCq * 4, rg = lane / kCq % kRg, ks = lane / (kCq * kRg);
 #pragma unroll
-    for (int off = 8 * kRg; off < 32; off *= 2)
+    for (int off = kCq * kRg; off < 32; off *= 2)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc.a[i] += __shfl_xor_sync(0xffffffffu, acc.a[i], off);
     __syncthreads();
@@ -414,6 +438,28 @@ __device__ __forceinline__ void put_rows(const float (&reg)[ROWS], int K, float*
   if (k < K) {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) xs[r * slice_ld(K) + k] = reg[r];
+  }
+}
+
+// The tile's rows [row0, row0 + nrows) of a (B, K) activation, widened to
+// fp32, into xs (ROWS, K) at row stride ldx (0 past nrows), for any K: eight
+// loads a thread in flight before their stores.
+template <int ROWS, typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ x, int row0, int nrows, int K,
+                                          float* __restrict__ xs, int ldx) {
+  constexpr int kBatch = 8;
+  for (int i0 = threadIdx.x; i0 < ROWS * K; i0 += kBatch * kThreads) {
+    float v[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = i0 + j * kThreads;
+      v[j] = i < nrows * K ? to_f32<T>(x[(size_t)row0 * K + i]) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = i0 + j * kThreads;
+      if (i < ROWS * K) xs[i / K * ldx + i % K] = v[j];
+    }
   }
 }
 
@@ -486,10 +532,13 @@ __host__ __device__ constexpr int row_stats_floats(int nl, int rows) {
 // memory; after a cluster barrier it reads all of them from its peers in rank
 // order (distributed shared memory) and adds them in that order, so that
 // every CTA holds the same bits; then the centred squares the same way. On
-// return mu[l ROWS + r] and rs[l ROWS + r] hold the statistics, and this CTA
-// has arrived on a cluster barrier (it has read its peers' sums): it waits on
-// it (cluster_wait) before it exits.
-template <int ROWS, int NL, int W>
+// return mu[l ROWS + r] and rs[l ROWS + r] hold the statistics, and, with
+// kArrive, this CTA has arrived on a cluster barrier (it has read its peers'
+// sums): it waits on it (cluster_wait) before it exits. Without kArrive the
+// caller's next cluster barrier, which every CTA reaches only after these
+// reads, guards the sums: st is not written again, and no CTA exits, before
+// it.
+template <int ROWS, int NL, int W, bool kArrive = true>
 __device__ void row_stats(cg::cluster_group& cluster, const float* __restrict__ hs, int ldh,
                           int N, float* __restrict__ st) {
   constexpr int kN = NL * ROWS;
@@ -533,7 +582,7 @@ __device__ void row_stats(cg::cluster_group& cluster, const float* __restrict__ 
   cluster.sync();
   for (int i = threadIdx.x; i < ranks * kN; i += kThreads)
     got[i] = cluster.map_shared_rank(squares, i / kN)[i % kN];
-  cluster_arrive();  // this CTA has read its peers' sums
+  if constexpr (kArrive) cluster_arrive();  // this CTA has read its peers' sums
   __syncthreads();
   if (threadIdx.x < kN) {
     float q = 0.f;
@@ -846,6 +895,165 @@ __global__ void __launch_bounds__(kThreads)
   cluster_wait();  // no CTA leaves while a peer may still read its sums
 }
 
+// ---------------------------------------------------------------------------
+// K3 on a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kHeadCols2 = kSliceCols / 2;  // fc2's columns a CTA: N2 = N1 / 2 over N1 / 32 CTAs
+constexpr int kHeadMaxOut = 32;             // fc_out's columns (N3) the cluster kernel takes
+// a CTA's parameters: its slices of b1, g1, h1b (32 each) and of b2, g2, h2b
+// (16 each), then b3, then its (16, N3) rows of W3
+constexpr int kHeadB3 = 3 * kSliceCols + 3 * kHeadCols2;
+constexpr int kHeadW3 = kHeadB3 + kHeadMaxOut;
+constexpr int kHeadParams = kHeadW3 + kHeadCols2 * kHeadMaxOut;
+
+// Shared memory of K3's cluster kernel, in floats: the ring (fc1's chunks, W2's
+// slice as the chunk after them, the partial sums beside it; in rank 0 at the
+// end every CTA's partial sums of fc_out), the tile's rows (x, then the
+// gathered h1), this CTA's sums of fc1 (then of fc2, then its columns of
+// h2), its columns of h1 (in T; room for floats), the parameters' slices, the
+// row statistics. 200.2 KB at K1 = 1024, N1 = 512, 16 rows; 197.4 KB at
+// K1 = 2048, 8 rows.
+__host__ __device__ constexpr int mlp_head_cluster_smem_floats(int K1, int N1, int rows) {
+  return kStages * kStageFloats + rows * slice_ld(K1 > N1 ? K1 : N1) + 2 * rows * kSliceCols +
+         kHeadParams + row_stats_floats(1, rows);
+}
+
+// K3 on a cluster of N1 / 32 CTAs: CTA blockIdx.x owns 32 columns of fc1 and
+// 16 of fc2, blockIdx.y is the tile of ROWS rows. Its (K1, 32) slice of W1
+// streams in chunks of 256 rows through K4's ring (cp.async, one group a
+// chunk, kStages - 1 in flight), each warp taking 16 rows of a chunk, the
+// sums in registers over the chunks; its (N1, 16) slice of W2 follows as the
+// ring's next chunk, so that it arrives while fc1 runs. LN1's row statistics
+// through row_stats; its columns of h1, rounded to T, shared as K1 shares v
+// (gather_columns); fc2 on the 16 columns; LN2 the same way; then each CTA's
+// 16 columns of h2 times its 16 rows of W3 into rank 0's shared memory, which
+// adds the CTAs' partial sums in rank order, adds b3 and writes the tile's
+// rows of out.
+template <typename T, int ROWS>
+__global__ void __launch_bounds__(kThreads)
+    mlp_head_cluster_kernel(const T* __restrict__ x, const float* __restrict__ w1,
+                            const float* __restrict__ b1, const float* __restrict__ g1,
+                            const float* __restrict__ h1b, const float* __restrict__ w2,
+                            const float* __restrict__ b2, const float* __restrict__ g2,
+                            const float* __restrict__ h2b, const float* __restrict__ w3,
+                            const float* __restrict__ b3, T* __restrict__ out, int B, int K1,
+                            int N1, int N2, int N3) {
+  constexpr int kChunk = kStageFloats / kSliceCols;  // W1's rows a stage: 256
+  constexpr int kKw = kChunk / kWarps;               // a warp's rows of a chunk: 16
+  static_assert(kWarps * ROWS * kSliceCols <= 2 * kStageFloats, "the partial sums fit in 2 stages");
+  static_assert(kMaxRanks * ROWS * kHeadMaxOut <= kStages * kStageFloats, "fc_out's sums fit");
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* xs = ring + kStages * kStageFloats;  // (ROWS, K1) at stride slice_ld(K1): x, then h1
+  float* hs = xs + ROWS * slice_ld(K1 > N1 ? K1 : N1);  // (ROWS, 32): fc1's sums; (ROWS, 16): fc2's, h2
+  T* vs = reinterpret_cast<T*>(hs + ROWS * kSliceCols);  // (ROWS, 32): its columns of h1, in T
+  float* ps = hs + 2 * ROWS * kSliceCols;  // the parameters (b3 at kHeadB3, W3's rows at kHeadW3)
+  float* st = ps + kHeadParams;            // row_stats
+  const float* mu = st + (2 + kMaxRanks) * ROWS;
+  const float* rs = mu + ROWS;
+  const int rank = blockIdx.x, col0 = rank * kSliceCols, col2 = rank * kHeadCols2;
+  const int row0 = blockIdx.y * ROWS;
+  const int nrows = min(ROWS, B - row0);
+  const int warp = threadIdx.x / 32;
+  const int ldx = slice_ld(K1), ldh = slice_ld(N1);
+  const int chunks = (K1 + kChunk - 1) / kChunk;
+  float* w2s = ring + chunks % kStages * kStageFloats;  // (N1, 16): W2's slice, the next chunk
+  float* part = ring + (chunks % kStages >= 2 ? 0 : 2) * kStageFloats;  // two stages beside it
+  const auto load_chunk = [&](int j) {  // chunk j into its stage, as one group (empty past W2's)
+    float* dst = ring + j % kStages * kStageFloats;
+    if (j < chunks)
+      load_cols<kSliceCols>(dst, kSliceCols, w1, N1, col0, j * kChunk, min(kChunk, K1 - j * kChunk));
+    else if (j == chunks)
+      load_cols<kHeadCols2>(dst, kHeadCols2, w2, N2, col2, 0, N1);
+    cp_async_commit();
+  };
+  for (int j = 0; j < kStages - 1; ++j) load_chunk(j);
+  load_tile<ROWS>(x, row0, nrows, K1, xs, ldx);
+  {
+    const int i = threadIdx.x;
+    if (i < 3 * kSliceCols) {
+      const float* src = i < kSliceCols ? b1 : i < 2 * kSliceCols ? g1 : h1b;
+      ps[i] = __ldg(src + col0 + i % kSliceCols);
+    } else if (i < kHeadB3) {
+      const int j = i - 3 * kSliceCols;
+      const float* src = j < kHeadCols2 ? b2 : j < 2 * kHeadCols2 ? g2 : h2b;
+      ps[i] = __ldg(src + col2 + j % kHeadCols2);
+    } else if (i < kHeadB3 + N3) {
+      ps[i] = __ldg(b3 + i - kHeadB3);
+    }
+    for (int k = i; k < kHeadCols2 * N3; k += kThreads)
+      ps[kHeadW3 + k] = __ldg(w3 + (size_t)col2 * N3 + k);
+  }
+  // fc1: x @ W1 + b1, its 32 columns
+  SliceAcc<ROWS> acc;
+  slice_zero(acc);
+  for (int j = 0; j < chunks; ++j) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk j is in; every warp is done with chunk j - 1's stage
+    load_chunk(j + kStages - 1);
+    if (warp * kKw < K1 - j * kChunk)  // the last chunk may hold fewer rows (K1 % 16 == 0)
+      slice_step<ROWS>(xs, ldx, j * kChunk + warp * kKw, kKw,
+                       ring + j % kStages * kStageFloats + warp * kKw * kSliceCols, kSliceCols, acc);
+  }
+  slice_part<ROWS>(acc, part, warp, kSliceCols);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ROWS * kSliceCols; i += kThreads)
+    hs[i] = slice_sum<kWarps>(part, i, ROWS * kSliceCols) + ps[i % kSliceCols];
+  __syncthreads();
+  // h1 = round_T(relu(LN1)): its columns, for the peers
+  row_stats<ROWS, 1, kSliceCols, false>(cluster, hs, kSliceCols, N1, st);
+  for (int i = threadIdx.x; i < ROWS * kSliceCols; i += kThreads) {
+    const int r = i / kSliceCols, c = i % kSliceCols;
+    vs[i] = from_f32<T>(
+        fmaxf((hs[i] - mu[r]) * rs[r] * ps[kSliceCols + c] + ps[2 * kSliceCols + c], 0.f));
+  }
+  cluster.sync();   // every CTA's columns of h1 are written (and its reads of LN1's sums done)
+  gather_columns<T, ROWS>(cluster, vs, xs, ldh);
+  cp_async_wait<0>();
+  __syncthreads();  // h1's rows and W2's slice are complete
+  // fc2: h1 @ W2 + b2, its 16 columns, each warp N1 / 16 rows of the slice
+  const int kw2 = N1 / kWarps;
+  slice_zero(acc);
+  slice_step<ROWS, kHeadCols2>(xs, ldh, warp * kw2, kw2, w2s + warp * kw2 * kHeadCols2, kHeadCols2,
+                               acc);
+  slice_part<ROWS, kHeadCols2>(acc, part, warp, kHeadCols2);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ROWS * kHeadCols2; i += kThreads)
+    hs[i] = slice_sum<kWarps>(part, i, ROWS * kHeadCols2) + ps[3 * kSliceCols + i % kHeadCols2];
+  __syncthreads();
+  // h2 = round_T(relu(LN2)), in place
+  row_stats<ROWS, 1, kHeadCols2, false>(cluster, hs, kHeadCols2, N2, st);
+  for (int i = threadIdx.x; i < ROWS * kHeadCols2; i += kThreads) {
+    const int r = i / kHeadCols2, c = i % kHeadCols2;
+    hs[i] = round_act<T>(fmaxf((hs[i] - mu[r]) * rs[r] * ps[3 * kSliceCols + kHeadCols2 + c] +
+                                   ps[3 * kSliceCols + 2 * kHeadCols2 + c],
+                               0.f));
+  }
+  __syncthreads();
+  // fc_out: its 16 columns of h2 times its 16 rows of W3, into rank 0's ring
+  // (its fc2 is done: it has arrived on LN2's barriers)
+  float* po = cluster.map_shared_rank(ring, 0) + rank * ROWS * N3;
+  for (int i = threadIdx.x; i < ROWS * N3; i += kThreads) {
+    const int r = i / N3, n = i % N3;
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kHeadCols2; ++k)
+      s = fmaf(hs[r * kHeadCols2 + k], ps[kHeadW3 + k * N3 + n], s);
+    po[i] = s;
+  }
+  cluster.sync();  // every CTA's partial sums of fc_out are in rank 0 (and LN2's reads done)
+  if (rank == 0) {
+    const int ranks = (int)cluster.num_blocks();
+    for (int i = threadIdx.x; i < nrows * N3; i += kThreads) {
+      float s = ring[i];
+      for (int q = 1; q < ranks; ++q) s += ring[q * ROWS * N3 + i];
+      out[(size_t)row0 * N3 + i] = from_f32<T>(s + ps[kHeadB3 + i % N3]);
+    }
+  }
+}
+
 // K2: g = sigmoid(q @ Wg + bg); attn = K1(kv);
 //     out = LN(g * attn + (1 - g) * q) * gamma + beta.  Shared: 4 * ROWS * D floats.
 template <typename T, int ROWS>
@@ -954,11 +1162,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// Batch rows per block of K3: one at the smallest batches, where the block
-// count cannot fill the card anyway and every extra row is wasted arithmetic;
-// four above, so that each weight element read serves four rows.
-inline int rows_for(int B) { return B < 4 ? 1 : 4; }
-
 inline int tiles(int B, int rows) { return (B + rows - 1) / rows; }
 
 // f(std::integral_constant<int, V>{}) for the one of Vs that v equals; any
@@ -1060,9 +1263,9 @@ inline int film_cluster_cols(int Du, int Vd, int ranks) {
 }
 
 // The routes are chosen in ops/fusion_kernels.py (seq1_attention_plan,
-// gated_residual_plan, metablock_film_plan): the cluster kernel (with its
-// rows a tile: 1, 8 or 32; K2 1, 8 or 16) or the one-block kernel (1 or 4
-// rows). The entry points below only check them: a route whose widths,
+// gated_residual_plan, metablock_film_plan, mlp_head_plan): the cluster
+// kernel (with its rows a tile: 1, 8 or 32; K2 1, 8 or 16; K3 1, 8, 16 or 32)
+// or the one-block kernel (1 or 4 rows). The entry points below only check them: a route whose widths,
 // rows or weights' alignment the kernel does not take is refused.
 
 template <typename T>
@@ -1145,15 +1348,36 @@ cudaError_t metablock_film_route(int cluster, int rows, const void* v, const voi
   });
 }
 
-template <typename T, int ROWS>
-cudaError_t mlp_head_launch(const void* x, const float* w1, const float* b1, const float* g1,
-                            const float* h1, const float* w2, const float* b2, const float* g2,
-                            const float* h2, const float* w3, const float* b3, void* out, int B,
-                            int K1, int N1, int N2, int N3, cudaStream_t stream) {
-  return block_launch<ROWS>(mlp_head_kernel<T, ROWS>, B,
-                            (size_t)ROWS * (K1 + N1 + N2 + N3) * sizeof(float), stream,
-                            static_cast<const T*>(x), w1, b1, g1, h1, w2, b2, g2, h2, w3, b3,
-                            static_cast<T*>(out), B, K1, N1, N2, N3);
+// Widths K3's cluster kernel takes: N1 a multiple of 64 up to 512 (N1 / 32
+// CTAs of 32 columns of fc1 and 16 of fc2), N2 = N1 / 2, N3 up to 32, K1 a
+// multiple of 32 at which a tile of 8 rows fits beside the ring.
+inline bool head_cluster_shapes(int K1, int N1, int N2, int N3) {
+  return d_cluster_shapes(N1) && 2 * N2 == N1 && N3 >= 1 && N3 <= kHeadMaxOut && K1 >= 32 &&
+         K1 % 32 == 0 && mlp_head_cluster_smem_floats(K1, N1, 8) * sizeof(float) <= kMaxSmem;
+}
+
+template <typename T>
+cudaError_t mlp_head_route(int cluster, int rows, const void* x, const float* w1, const float* b1,
+                           const float* g1, const float* h1, const float* w2, const float* b2,
+                           const float* g2, const float* h2, const float* w3, const float* b3,
+                           void* out, int B, int K1, int N1, int N2, int N3, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* y = static_cast<T*>(out);
+  if (cluster) {
+    if (!head_cluster_shapes(K1, N1, N2, N3)) return cudaErrorInvalidValue;
+    if (!aligned16(w1) || !aligned16(w2)) return cudaErrorMisalignedAddress;
+    return dispatch<1, 8, 16, 32>(rows, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      return cluster_launch(mlp_head_cluster_kernel<T, R>, N1 / kSliceCols, tiles(B, R),
+                            mlp_head_cluster_smem_floats(K1, N1, R) * sizeof(float), s, xt, w1, b1,
+                            g1, h1, w2, b2, g2, h2, w3, b3, y, B, K1, N1, N2, N3);
+    });
+  }
+  return dispatch<1, 4>(rows, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return block_launch<R>(mlp_head_kernel<T, R>, B, (size_t)R * (K1 + N1 + N2 + N3) * sizeof(float),
+                           s, xt, w1, b1, g1, h1, w2, b2, g2, h2, w3, b3, y, B, K1, N1, N2, N3);
+  });
 }
 
 }  // namespace
@@ -1254,21 +1478,34 @@ int skinjax_metablock_film_cluster_count(int act_bf16, int rows, int cluster, in
   });
 }
 
-int skinjax_mlp_head(int act_bf16, const void* x, const float* w1, const float* b1,
-                     const float* g1, const float* h1, const float* w2, const float* b2,
-                     const float* g2, const float* h2, const float* w3, const float* b3,
-                     void* out, int B, int K1, int N1, int N2, int N3, void* stream) {
+// cluster and rows: the route, as ops/fusion_kernels.py mlp_head_plan
+// chooses it (1: the cluster kernel, 0: the one-block kernel).
+int skinjax_mlp_head(int act_bf16, int cluster, int rows, const void* x, const float* w1,
+                     const float* b1, const float* g1, const float* h1, const float* w2,
+                     const float* b2, const float* g2, const float* h2, const float* w3,
+                     const float* b3, void* out, int B, int K1, int N1, int N2, int N3,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool one = rows_for(B) == 1;
-  if (act_bf16)
-    return one ? mlp_head_launch<__nv_bfloat16, 1>(x, w1, b1, g1, h1, w2, b2, g2, h2, w3, b3,
-                                                   out, B, K1, N1, N2, N3, s)
-               : mlp_head_launch<__nv_bfloat16, 4>(x, w1, b1, g1, h1, w2, b2, g2, h2, w3, b3,
-                                                   out, B, K1, N1, N2, N3, s);
-  return one ? mlp_head_launch<float, 1>(x, w1, b1, g1, h1, w2, b2, g2, h2, w3, b3, out, B, K1,
-                                         N1, N2, N3, s)
-             : mlp_head_launch<float, 4>(x, w1, b1, g1, h1, w2, b2, g2, h2, w3, b3, out, B, K1,
-                                         N1, N2, N3, s);
+  return by_act(act_bf16, [&](auto a) {
+    using T = typename decltype(a)::type;
+    return mlp_head_route<T>(cluster, rows, x, w1, b1, g1, h1, w2, b2, g2, h2, w3, b3, out, B, K1,
+                             N1, N2, N3, s);
+  });
+}
+
+// *count: how many clusters of K3's cluster kernel (widths K1 -> N1 -> N2 ->
+// N3, `rows` rows a tile) the current device holds at once.
+int skinjax_mlp_head_cluster_count(int act_bf16, int rows, int K1, int N1, int N2, int N3,
+                                   int* count) {
+  if (!head_cluster_shapes(K1, N1, N2, N3)) return static_cast<int>(cudaErrorInvalidValue);
+  return by_act(act_bf16, [&](auto a) {
+    using T = typename decltype(a)::type;
+    return dispatch<1, 8, 16, 32>(rows, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      return cluster_count(mlp_head_cluster_kernel<T, R>, N1 / kSliceCols,
+                           mlp_head_cluster_smem_floats(K1, N1, R) * sizeof(float), count);
+    });
+  });
 }
 
 }  // extern "C"

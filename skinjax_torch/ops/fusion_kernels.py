@@ -24,10 +24,10 @@ the Pallas kernels cast (``.astype(x.dtype)``).
 
 What bounds the kernels on an H100, and what their design does about it, is
 in the source note of ``csrc/fusion_kernels.cu``. ``seq1_attention_plan``,
-``gated_residual_plan`` and ``metablock_film_plan`` choose which of K1's, K2's
-and K4's two kernels a call launches (a thread-block cluster at the served
-widths, one block a tile elsewhere); the C entry points only check the
-route.
+``gated_residual_plan``, ``metablock_film_plan`` and ``mlp_head_plan`` choose
+which of each kernel's two forms a call launches (a thread-block cluster at
+the served widths, one block a tile elsewhere); the C entry points only
+check the route.
 
 ``LAUNCHES`` counts kernel launches per kernel (a twin call is not counted),
 so a caller can show that a path went through the kernels.
@@ -58,11 +58,11 @@ _SIGNATURES = {
     "skinjax_gated_residual_cluster_count": ([_I] * 3 + [_P], _I),
     "skinjax_metablock_film": ([_I] * 3 + [_P] * 11 + [_I] * 3 + [_P], _I),
     "skinjax_metablock_film_cluster_count": ([_I] * 5 + [_P], _I),
-    "skinjax_mlp_head": ([_I] + [_P] * 12 + [_I] * 5 + [_P], _I),
+    "skinjax_mlp_head": ([_I] * 3 + [_P] * 12 + [_I] * 5 + [_P], _I),
+    "skinjax_mlp_head_cluster_count": ([_I] * 6 + [_P], _I),
 }
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
-# the one-block kernels keep ROWS (at most 4) rows of every stage in shared memory
-_MAX_SMEM_BYTES = 227 * 1024
+_MAX_SMEM_BYTES = 227 * 1024  # the shared memory a block can use on an H100
 
 
 def reset_launches() -> None:
@@ -219,6 +219,48 @@ def metablock_film_plan(B: int, Du: int, Vd: int, aligned: bool = True, clusters
     return dict(kernel="metablock_film_kernel", cluster=1, rows=1 if B < 4 else 4)
 
 
+# csrc/fusion_kernels.cu's K3 cluster kernel: K4's ring (4 stages of 8192
+# floats), 32 columns of fc1 and 16 of fc2 a CTA, fc_out's columns (N3) up to
+# 32, its parameters' slices (b1, g1, h1b; b2, g2, h2b; b3; 16 rows of W3)
+_RING_FLOATS = 4 * 8192
+_HEAD_MAX_OUT = 32
+_HEAD_PARAMS = 3 * 32 + 3 * 16 + _HEAD_MAX_OUT + 16 * _HEAD_MAX_OUT
+
+
+def mlp_head_cluster_smem_floats(K1: int, N1: int, rows: int) -> int:
+    """The shared memory of K3's cluster kernel in floats, as
+    ``mlp_head_cluster_smem_floats`` in ``csrc/fusion_kernels.cu`` computes
+    it: the ring, the tile's rows (x, then h1) at stride max(K1, N1) + 4, the
+    CTA's sums and its columns of h1, its parameters, the row statistics."""
+    return _RING_FLOATS + rows * (max(K1, N1) + 4) + 2 * rows * 32 + _HEAD_PARAMS + 20 * rows
+
+
+def _head_cluster_width(K1: int, N1: int, N2: int, N3: int) -> bool:
+    """Widths K3's cluster kernel takes: N1 a multiple of 64 up to 512, N2 =
+    N1 / 2, N3 up to 32, K1 a multiple of 32 at which a tile of 8 rows fits
+    in a block's shared memory."""
+    return (_d_cluster_width(N1) and 2 * N2 == N1 and 1 <= N3 <= _HEAD_MAX_OUT and K1 >= 32
+            and K1 % 32 == 0 and 4 * mlp_head_cluster_smem_floats(K1, N1, 8) <= _MAX_SMEM_BYTES)
+
+
+def mlp_head_plan(B: int, K1: int, N1: int, N2: int, N3: int, aligned: bool = True,
+                  clusters=None) -> dict:
+    """K3's route, as K1's: where ``_head_cluster_width`` takes the widths,
+    W1 and W2 allow 16-byte copies and the card holds such a cluster,
+    ``mlp_head_cluster_kernel`` on clusters of N1 / 32 CTAs per tile of 1
+    (B = 1), 8 (up to B = 8) or else the most of 8, 16 and 32 rows whose x
+    fits beside the ring (16 at K1 = 1024, 8 at 2048), each weight element
+    read once per call at every batch a tile covers; else
+    ``mlp_head_kernel``, one block per tile of 1 (B < 4) or 4 rows."""
+    if _head_cluster_width(K1, N1, N2, N3) and aligned:
+        largest = max(r for r in (8, 16, 32)
+                      if 4 * mlp_head_cluster_smem_floats(K1, N1, r) <= _MAX_SMEM_BYTES)
+        rows = _cluster_rows(B, largest)
+        if clusters is None or clusters(rows) >= 1:
+            return dict(kernel="mlp_head_cluster_kernel", cluster=N1 // 32, rows=rows)
+    return dict(kernel="mlp_head_kernel", cluster=1, rows=1 if B < 4 else 4)
+
+
 @functools.lru_cache(maxsize=None)
 def _cluster_count(kernel: str, device_index: int, *args) -> int:
     """``skinjax_<kernel>_cluster_count``: how many of the kernel's clusters
@@ -253,6 +295,13 @@ def metablock_film_cluster_count(device_index: int, bf16: bool, Du: int, Vd: int
                           film_cluster_ranks(Du, Vd), Du, Vd)
 
 
+def mlp_head_cluster_count(device_index: int, bf16: bool, K1: int, N1: int, N2: int, N3: int,
+                           rows: int) -> int:
+    """How many of K3's clusters (widths K1 → N1 → N2 → N3, ``rows`` rows a
+    tile) the card holds at once."""
+    return _cluster_count("mlp_head", device_index, int(bf16), rows, K1, N1, N2, N3)
+
+
 def _aligned(*ts) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
@@ -277,6 +326,14 @@ def metablock_film_call_plan(v, u, wf, wg) -> dict:
     Du = u.shape[1]
     return metablock_film_plan(B, Du, Vd, _aligned(wf, wg), functools.partial(
         metablock_film_cluster_count, v.device.index, v.dtype == torch.bfloat16, Du, Vd))
+
+
+def mlp_head_call_plan(x, w1, w2, w3) -> dict:
+    """mlp_head_plan for a CUDA call on these tensors."""
+    B, K1 = x.shape
+    N1, N2, N3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    return mlp_head_plan(B, K1, N1, N2, N3, _aligned(w1, w2), functools.partial(
+        mlp_head_cluster_count, x.device.index, x.dtype == torch.bfloat16, K1, N1, N2, N3))
 
 
 def seq1_attention(kv, wv, bv, wo, bo):
@@ -383,13 +440,16 @@ def mlp_head(x, w1, b1, g1, h1, w2, b2, g2, h2, w3, b3):
         ("w3", w3, (N2, N3)), ("b3", b3, (N3,)),
     ):
         check_tensor(nm, t, shape, f32, dev)
-    _smem_check("mlp_head", K1 + N1 + N2 + N3)
+    plan = mlp_head_call_plan(x, w1, w2, w3)
+    if plan["kernel"] == "mlp_head_kernel":
+        _smem_check("mlp_head", K1 + N1 + N2 + N3)
     out = torch.empty((B, N3), dtype=x.dtype, device=dev)
     if B == 0:
         return out
     _launch(
         "mlp_head", library().skinjax_mlp_head,
-        int(x.dtype == torch.bfloat16), x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        int(x.dtype == torch.bfloat16), int(plan["kernel"] == "mlp_head_cluster_kernel"),
+        plan["rows"], x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         g1.data_ptr(), h1.data_ptr(), w2.data_ptr(), b2.data_ptr(), g2.data_ptr(),
         h2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
         B, K1, N1, N2, N3, _stream(dev),

@@ -73,7 +73,7 @@ def test_repo_sources_share_a_header():
     body = body[:body.index("\n}\n")]
     for call in ("wgmma_m64n64k16<", "wgmma_desc(", "tma_load("):
         assert call in body, call
-    # K1's, K2's and K4's cluster kernels are built from one set of blocks:
+    # K1's, K2's, K4's and K3's cluster kernels are built from one set of blocks:
     # the slices' copies, the products, the fixed-order sums, the gather of a
     # product's columns and the LayerNorm's row statistics through distributed
     # shared memory, and one launch and occupancy query
@@ -87,7 +87,9 @@ def test_repo_sources_share_a_header():
     for kernel, calls in (("seq1_cluster_kernel", (*shared, "gather_columns<")),
                           ("gated_residual_cluster_kernel", (*shared, "gather_columns<",
                                                              "row_stats<")),
-                          ("metablock_film_cluster_kernel", (*shared, "row_stats<"))):
+                          ("metablock_film_cluster_kernel", (*shared, "row_stats<")),
+                          ("mlp_head_cluster_kernel", (*shared[1:], "gather_columns<",
+                                                       "row_stats<"))):
         body = fusion[fusion.index(f"{kernel}("):]
         body = body[:body.index("\n}\n")]
         for call in calls:
@@ -174,6 +176,16 @@ def test_profiled_kernel_names_are_kernels():
     assert {"gated_residual_cluster_kernel", "gated_residual_kernel",
             "metablock_film_cluster_kernel", "metablock_film_kernel"} <= kernels & set(
         smoke.KERNEL_SYMBOLS)
+    # so does K3 at both served input widths, as mlp_head_plan names it, and
+    # keeps the one-block kernel at the width its route check takes it at
+    head = smoke.K3
+    for B in (1, 8, 32):
+        for k1 in smoke.K3_WIDTHS:
+            assert smoke.KERNEL_NAMES[head] == fk.mlp_head_plan(B, k1, *smoke.K3_HEAD)["kernel"]
+        assert smoke.BLOCK_KERNELS[head] == fk.mlp_head_plan(B, smoke.K3_BLOCK_K1,
+                                                             *smoke.K3_HEAD)["kernel"]
+    assert smoke.ROUTE_WIDTHS[head] == (*smoke.K3_WIDTHS, smoke.K3_BLOCK_K1)
+    assert {"mlp_head_cluster_kernel", "mlp_head_kernel"} <= kernels & set(smoke.KERNEL_SYMBOLS)
     assert smoke.K5_KERNELS == ["color_stage_kernel"]
     assert set(smoke.K5_KERNELS) <= kernels & set(smoke.KERNEL_SYMBOLS)
     assert path.read_text().count('"color_stage_kernel"') == 1

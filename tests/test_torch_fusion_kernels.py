@@ -264,3 +264,83 @@ def test_metablock_film_plan(case):
     kernel at widths the cluster route does not take, where a weight is not
     16-byte aligned and where the card holds no such cluster."""
     case(tfk.metablock_film_plan)
+
+
+def _head_served(plan):
+    # the flagship's fused pair and metablock on ResNet-50's raw feature; x's
+    # rows beside the ring leave room for 16 rows a tile at 1024, 8 at 2048
+    for k1, largest in ((1024, 16), (2048, 8)):
+        for B in range(1, 65):
+            rows = 1 if B == 1 else 8 if B <= 8 else largest
+            assert plan(B, k1, 512, 256, 6) == dict(kernel="mlp_head_cluster_kernel", cluster=16,
+                                                    rows=rows)
+
+
+def _head_widths(plan):
+    # DaViT-tiny's metablock head; narrower heads on fewer CTAs; 32 rows a
+    # tile where x is narrow enough
+    assert plan(33, 768, 512, 256, 6) == dict(kernel="mlp_head_cluster_kernel", cluster=16,
+                                              rows=16)
+    assert plan(1, 256, 64, 32, 32) == dict(kernel="mlp_head_cluster_kernel", cluster=2, rows=1)
+    assert plan(40, 512, 512, 256, 6) == dict(kernel="mlp_head_cluster_kernel", cluster=16,
+                                              rows=32)
+    assert plan(3, 2976, 448, 224, 6) == dict(kernel="mlp_head_cluster_kernel", cluster=14, rows=8)
+
+
+def _head_one_block(plan):
+    # N1 = 768 (24 CTAs), N1 not a multiple of 64, N2 not N1 / 2, K1 not a
+    # multiple of 32, N3 above the route's 32, x too wide for 8 rows a tile
+    for B, shape in ((1, (1024, 768, 384, 6)), (8, (1024, 480, 240, 6)), (32, (1024, 512, 128, 6)),
+                     (1, (1000, 512, 256, 6)), (33, (1024, 512, 256, 33)),
+                     (8, (4096, 512, 256, 6)), (1, (3008, 512, 256, 6))):
+        assert plan(B, *shape) == dict(kernel="mlp_head_kernel", cluster=1,
+                                       rows=1 if B < 4 else 4)
+
+
+def _head_unaligned(plan):
+    for B, k1 in ((1, 1024), (8, 2048), (32, 1024)):
+        assert plan(B, k1, 512, 256, 6, False) == dict(kernel="mlp_head_kernel", cluster=1,
+                                                       rows=1 if B < 4 else 4)
+
+
+def _head_no_room(plan):
+    asked = []
+
+    def clusters(rows):
+        asked.append(rows)
+        return 0 if rows == 16 else 7
+
+    assert plan(8, 1024, 512, 256, 6, True, clusters)["kernel"] == "mlp_head_cluster_kernel"
+    assert plan(9, 1024, 512, 256, 6, True, clusters) == dict(kernel="mlp_head_kernel",
+                                                              cluster=1, rows=4)
+    assert asked == [8, 16]
+    for shape in ((4096, 512, 256, 6), (1024, 768, 384, 6), (1024, 512, 256, 33)):
+        assert plan(1, *shape, True, asked.append)["kernel"] == "mlp_head_kernel"
+    assert asked == [8, 16]  # a width the route does not take asks nothing
+
+
+@pytest.mark.parametrize("case", [_head_served, _head_widths, _head_one_block, _head_unaligned,
+                                  _head_no_room],
+                         ids=["served", "widths", "one_block", "unaligned", "no_room"])
+def test_mlp_head_plan(case):
+    """K3's route, chosen in mlp_head_plan alone: at the served widths
+    (1024 or 2048 → 512 → 256 → 6, and DaViT-tiny's 768 → 512 → 256 → 6)
+    one cluster of 16 CTAs (32 columns of fc1 and 16 of fc2 each) per tile of
+    1, 8 or the most rows whose x fits beside the ring, each weight element
+    read once per call at every batch a tile covers; the one-block kernel at
+    widths the cluster route does not take, where a weight is not 16-byte
+    aligned and where the card holds no such cluster. Every planned route's
+    shared memory, as the Python mirror of the C formula computes it, fits
+    in the 227 KB a block can use."""
+    plans = []
+
+    def plan(*args):
+        plans.append((args, tfk.mlp_head_plan(*args)))
+        return plans[-1][1]
+
+    case(plan)
+    for args, p in plans:
+        if p["kernel"] == "mlp_head_cluster_kernel":
+            k1, n1 = args[1], args[2]
+            assert p["cluster"] * 32 == n1
+            assert 4 * tfk.mlp_head_cluster_smem_floats(k1, n1, p["rows"]) <= 227 * 1024
