@@ -619,8 +619,31 @@ CLI_IMAGE_HW = (300, 400)
 CLI_BACKBONE = "resnet-50"
 BATCHES = (1, 3, 8, 32)
 TIMED_BATCHES = (1, 8, 32)
-# K1's checks: BATCHES, a 32-row tile half full (16) and two tiles (33)
-K1_BATCHES = (*BATCHES, 16, 33)
+# K1's checks: BATCHES, a 32-row tile half full (16) and two tiles (33), and
+# the batching service's buckets 2 and 4
+K1_BATCHES = (*BATCHES, 16, 33, 2, 4)
+# the rest of the model zoo: TabTransformer over PAD-UFES-20's categorical
+# columns (the reference's tab_transformer.py widths, 512 out as the one-hot
+# tower), the static-embedding tower over PubMedBERT-embeddings' 768-wide
+# vectors, sequence fusion on ViT-small tokens, the three baselines through
+# the train CLI with their towers and train batches, and the batching service
+TAB_TOWER = dict(embed_dim=32, num_heads=4, num_layers=2, hidden_dim=128, out_dim=512)
+TAB_COLUMNS = 18  # PAD-UFES-20's categorical columns
+TAB_ROWS = 256  # PAD-UFES-20-like rows: 192 to train on at B=128, 64 to validate
+STATIC_DIM = 768
+SEQUENCE = dict(num_classes=6, num_heads=8, cnn_model_name="vit_small_patch16_224",
+                common_dim=512, vocab_size=91, meta_tokens=4)
+SEQUENCE_BATCH = 64
+SEQ_K12_PER_FORWARD = 14  # ViT-small's 12 blocks and the two self-attentions
+BASELINES = {"metanet": ("resnet-50", 128, 0), "mdnet": ("densenet169", 64, 0),
+             "liwterm": ("vit_large_patch16_224", 32, 24)}  # tower, B, K12 a forward
+BASELINE_ROWS = 256  # two folds of 128 rows: one step an epoch at B=128
+# K12 at this slice's shapes: (B, N, C, heads)
+K12_MODEL_SHAPES = {"tab-transformer": (TRAIN_B, TAB_COLUMNS, 32, 4),
+                    "seq-meta": (SEQUENCE_BATCH, 4, 512, 8),
+                    "seq-image": (SEQUENCE_BATCH, 197, 512, 8)}
+MAX_BATCH = 8
+BATCH_CLIENTS = 16
 # fp32: the kernel and the twin sum in another order (TF32 off on both sides)
 F32_TOL = (1e-4, 1e-4)  # (atol, rtol)
 # bf16 activations: both round to bf16 at the same points, but a sum that
@@ -809,10 +832,10 @@ def cluster_refusal(fk, name, device, gen):
     return err
 
 
-def phase_routes(fk, device, name):
+def phase_routes(fk, device, name, batches=K1_BATCHES):
     """The two routes of K1, K2, K3 or K4 on the card: at the served widths the
     cluster kernel, at the last of ROUTE_WIDTHS the one-block kernel, each
-    against its twin at B in K1_BATCHES, fp32 and bf16, at the unchanged
+    against its twin at B in ``batches`` (K1_BATCHES), fp32 and bf16, at the unchanged
     tolerances; two calls bit-identical; each traced call ran the kernel
     the plan chose, and not the other one; the C entry point refuses the
     cluster route at the width it does not take. Returns the largest
@@ -831,7 +854,7 @@ def phase_routes(fk, device, name):
     worst = 0.0
     for width in ROUTE_WIDTHS[name]:
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-            for B in K1_BATCHES:
+            for B in batches:
                 args = route_args(name, B, dtype, device, gen, width)
                 plan = route_plan(fk, name, args)
                 out, again = kernel(*args), kernel(*args)
@@ -2467,13 +2490,18 @@ def phase_train(counters, device, card, label="flagship", config=None, B=None,
     return batch, cw, step, launches
 
 
-def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
+def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False, tabular=False,
+                      baseline=None):
     """One fp32 step (TF32 off, augment off, dropout 0) of a small model on
     the card and on the CPU from the same weights and batch. With
     ``sentence``, a tokens model with a small BERT (SMALL_BERT) over 48
     tokens, its attention backward forced onto the recompute route by
     ``STORE_P_MAX_BYTES`` = 0 on both sides (the card launches the recompute
-    kernel once a layer)."""
+    kernel once a layer). With ``tabular``, a tabular model whose
+    TabTransformer (``TAB_TOWER``'s attention, 64 out) reads 18 categorical
+    columns and 3 numerics; at attention dropout 0 its attention takes K12 in
+    train mode (a forward and a stored-P backward a layer). With ``baseline``
+    (``"metanet"``), that baseline on ``cnn``."""
     import copy
     import re
 
@@ -2492,18 +2520,38 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
     if sentence:
         text = dict(text_model_name="bert-base-uncased", text_input_mode="tokens",
                     text_module=NativeSentenceTower(NativeBertEncoder(**SMALL_BERT)))
-    model = init_weights(MultimodalModel(num_classes=6, num_heads=8, cnn_model_name=cnn,
-                                         common_dim=64, vocab_size=91,
-                                         attention_mechanism="att-intramodal+residual+"
-                                                             "cross-attention-metadados",
-                                         **text), seed=5)
+    if tabular:
+        from skinjax_torch.models.text import TabTransformer
+
+        cards = [3 + i % 5 for i in range(TAB_COLUMNS)]
+        text = dict(text_input_mode="tabular", text_module=TabTransformer(
+            cards, 3, **dict(TAB_TOWER, out_dim=64)))
+    if baseline is not None:
+        from skinjax_torch.models.factory import create_model
+
+        model = create_model(num_classes=6, model_name=baseline, cnn_model_name=cnn,
+                             vocab_size=91, seed=5)
+    else:
+        model = init_weights(MultimodalModel(num_classes=6, num_heads=8, cnn_model_name=cnn,
+                                             common_dim=64, vocab_size=91,
+                                             attention_mechanism="att-intramodal+residual+"
+                                                                 "cross-attention-metadados",
+                                             **text), seed=5)
     for m in model.modules():
         if isinstance(m, torch.nn.Dropout):
             m.p = 0.0
+        elif hasattr(m, "dropout_rate"):  # attention dropout
+            m.dropout_rate = 0.0
     step = make_train_step_weighted(augment=False, image_dtype=torch.float32)
     batch, cw = train_batch("cpu", B=8, hw=hw, seed=3)
     if sentence:
         batch["metadata"] = token_metadata("cpu", 8, 48, SMALL_BERT["vocab_size"], seed=3)
+    if tabular:
+        gen = torch.Generator().manual_seed(4)
+        batch["metadata"] = {
+            "categorical": torch.stack([torch.randint(0, c, (8,), generator=gen)
+                                        for c in cards], dim=1).int(),
+            "numerical": torch.randn(8, 3, generator=gen)}
     out, limit = [], ga.STORE_P_MAX_BYTES
     for dev in (device, torch.device("cpu")):
         state = build_state(copy.deepcopy(model),
@@ -2521,6 +2569,11 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
             check(ga.LAUNCHES == {"global_attention_fwd": layers, "global_attention_bwd": 0,
                                   K12_RECOMPUTE: layers},
                   f"the small BERT's card step launched {ga.LAUNCHES}")
+        if tabular and dev.type == "cuda":
+            layers = TAB_TOWER["num_layers"]
+            check(ga.LAUNCHES == {"global_attention_fwd": layers, "global_attention_bwd": layers,
+                                  K12_RECOMPUTE: 0},
+                  f"the small tabular model's card step launched {ga.LAUNCHES}")
         # the step leaves each parameter's gradient in .grad
         grads = {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()
                  if p.grad is not None}
@@ -2559,7 +2612,7 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
     # sum to 1) and the patch embedding's shift (its E-MHSA and MHCA halves
     # read it through a BatchNorm and a 1×1 conv); and E-MHSA's key bias.
     before_bn = set()
-    if isinstance(model.image_encoder, NextViT):
+    if isinstance(getattr(model, "image_encoder", None), NextViT):
         blocks = [(f"image_encoder.stages.{si}.{bi}", b)
                   for si, stage in enumerate(model.image_encoder.stages)
                   for bi, b in enumerate(stage)]
@@ -2590,7 +2643,9 @@ def phase_card_vs_cpu(device, cnn="resnet-18", hw=64, sentence=False):
     bn = [k for k in sc if k.endswith(("running_mean", "running_var"))]
     bdiff = max((float(((sc[k] - sh[k]).abs() / (sh[k].abs() + 1e-3)).max()) for k in bn),
                 default=0.0)
-    tower = " + small BERT, 48 tokens, recompute route" if sentence else ""
+    tower = (" + small BERT, 48 tokens, recompute route" if sentence
+             else " + TabTransformer, 18 columns, K12 at dropout 0" if tabular
+             else f", the {baseline} baseline" if baseline else "")
     log(f"train fp32 card vs CPU ({cnn}{tower}, common_dim 64, {hw}x{hw}, B=8, one Adam step, lr "
         f"{lr:g}): loss {lc:.6f} vs {lh:.6f} (tol rtol 1e-4); gradients of {len(gh)} tensors: "
         f"worst |diff|/(1e-3·|g_cpu| + 1e-6·|g_all|) = {gexcess[worst_g]:.3e} at {worst_g} "
@@ -4107,6 +4162,576 @@ def phase_zoo(counters, device, card):
         _SMOKE_MODELS.clear()
 
 
+# ---------------------------------------------------------------------------
+# The rest of the model zoo: TabTransformer and static-embedding towers,
+# sequence fusion, the baselines and the dynamic-batching service
+# ---------------------------------------------------------------------------
+
+def tab_tower(prep):
+    """TabTransformer (``TAB_TOWER``) over a prepared PAD-UFES-20 table's
+    categorical columns and numerics."""
+    from skinjax_torch.data.tabular import cardinalities
+    from skinjax_torch.models.text import TabTransformer
+
+    return TabTransformer(cardinalities(prep.featurizer), len(prep.featurizer.numerical_cols),
+                          **TAB_TOWER)
+
+
+def tab_dataset(root, n=TAB_ROWS):
+    """A PAD-UFES-20-like table of ``n`` rows written to ``root``, prepared
+    as the train CLI prepares it, and a ``TabularSource`` over it with 224×224
+    uint8 images whose brightness follows the class (drawn in bulk)."""
+    import numpy as np
+
+    from skinjax_torch.data.fixtures import write_pad_ufes20_like
+    from skinjax_torch.data.schemas import prepare_dataset
+    from skinjax_torch.data.tabular import TabularSource
+
+    csv_path, _ = write_pad_ufes20_like(root, n=n, image_hw=(8, 8), seed=0, paeth=False)
+    prep = prepare_dataset("pad-ufes-20", csv_path)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 200, (n, TRAIN_HW, TRAIN_HW, 3), dtype=np.uint8)
+    images += (10 * prep.labels).astype(np.uint8)[:, None, None, None]
+    return prep, TabularSource.from_prepared(prep, images)
+
+
+def batch_of(source, B, device):
+    """The first B rows of a source as tensors on ``device``."""
+    import numpy as np
+
+    from skinjax_torch.train.loop import _to_device
+
+    return _to_device(source.batch(np.arange(B)), device)
+
+
+def falls(counters, label, state, batch, cw, n=10):
+    """``n`` train steps (augment on, bf16) on one batch: their losses, which
+    must be finite and fall, and the ``counters``' launches over them."""
+    import torch
+
+    from skinjax_torch.train.steps import make_train_step_weighted
+
+    step = make_train_step_weighted(augment=True, image_dtype=torch.bfloat16)
+    for c in counters:
+        c.reset_launches()
+    losses = [float(step(state, batch["image"], batch["metadata"], batch["label"], 0, cw))
+              for _ in range(n)]
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    log(f"train {label} (one batch, augment on, bf16): losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f"; launches {launches} over {n} steps")
+    check(all(math.isfinite(x) for x in losses), f"non-finite {label} train loss")
+    check(sum(losses[-3:]) / 3 < sum(losses[:3]) / 3 and losses[-1] < losses[0],
+          f"the {label} loss did not fall over {n} steps on one batch")
+    return launches
+
+
+def path_times(card, label, state, batch, cw, kernel_names=None):
+    """A path's train step after its loss check: ms a step (12 steps after 3
+    warm-up, CUDA events, the batch on the card) and a profiled step's device
+    time, with the share of each group of kernels named (``kernel_names``:
+    {label: kernel names}; K5's always)."""
+    import torch
+
+    from skinjax_torch.train.steps import make_train_step_weighted
+
+    step = make_train_step_weighted(augment=True, image_dtype=torch.bfloat16)
+    B = batch["label"].shape[0]
+
+    def call():
+        return step(state, batch["image"], batch["metadata"], batch["label"], 0, cw)
+
+    for _ in range(3):
+        call()
+    ms = time_ms(call, iters=12, warmup=0)
+    total, by_name = device_us(call, n=3)
+    shares = []
+    for name, names in {"K5": K5_KERNELS, **(kernel_names or {})}.items():
+        ours = sum(v for k, v in by_name.items() if any(n in k for n in names))
+        shares.append(f"{name} {ours:.1f} us ({100 * ours / total:.2f}%)")
+    log(f"[{card}] train {label} unfrozen B={B}: {ms:.2f} ms per step, {B / ms * 1e3:.1f} img/s "
+        f"(12 steps after 3 warm-up, CUDA events); profiled step: device time "
+        f"{total / 1e3:.2f} ms = {100 * total / (ms * 1e3):.1f}% of the step; "
+        + "; ".join(shares))
+    return ms, total
+
+
+K12_NAMES = {"K12": [n for names in K12_KERNELS.values() for n in names]}
+
+
+def phase_models_k12(ga, device):
+    """K12 at this slice's shapes (``K12_MODEL_SHAPES``: TabTransformer's 8
+    channels a head over PAD-UFES-20's categorical columns, sequence fusion's
+    4 metadata tokens and 197 image tokens at 64 channels a head), bf16 and
+    fp32: the forward's o and P and the stored-P backward's dq, dk, dv
+    against their twins (the backward on the twin's P), two calls of each
+    bit-identical. Returns the largest errors."""
+    import torch
+
+    errors = {"global_attention_fwd": 0.0, "global_attention_bwd": 0.0}
+    for label, (B, N, C, h) in K12_MODEL_SHAPES.items():
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            (q, k, v), do, _, _, _ = k12_inputs(B, N, C, h, False, False, False, dtype, device,
+                                                seed=N + C)
+            o, p = ga.global_attention_fwd(q, k, v, None, None, None, h, emit_p=True)
+            o2, p2 = ga.global_attention_fwd(q, k, v, None, None, None, h, emit_p=True)
+            ro, rp = ga.attention_core_plain(q, k, v, None, None, None, h)
+            got = ga.global_attention_bwd(q, k, v, do, rp, None, h, False)
+            again = ga.global_attention_bwd(q, k, v, do, rp, None, h, False)
+            want = ga.attention_core_bwd_plain(q, k, v, do, rp, None, h, False)
+            torch.cuda.synchronize()
+            same = (torch.equal(o, o2) and torch.equal(p, p2)
+                    and all(torch.equal(x, y) for x, y in zip(got[:3], again[:3])))
+            results = [("global_attention_fwd", "o", o, ro, tol),
+                       ("global_attention_fwd", "P", p, rp, F32_TOL)]
+            results += [("global_attention_bwd", part, g, w, tol)
+                        for part, g, w in zip(("dq", "dk", "dv"), got, want)]
+            for name, part, out, ref, t in results:
+                err, ok = compare(out, ref, t)
+                errors[name] = max(errors[name], err)
+                log(f"kernel {name} {part:5s} {str(dtype):14s} {label} B={B} N={N} C={C} h={h} "
+                    f"({C // h} channels a head): max_abs_err={err:.3e} tol=atol {t[0]:g} + "
+                    f"rtol {t[1]:g}·|twin| {'ok' if ok else 'FAIL'}")
+                check(ok, f"{name} {part} disagrees with its twin at {label} {dtype}")
+            log(f"kernel global_attention_fwd/bwd {str(dtype):14s} {label}: two calls of each "
+                f"bit-identical: {same}")
+            check(same, f"two K12 calls differ at {label} {dtype}")
+            del o, p, o2, p2, ro, rp, got, again, want
+    torch.cuda.empty_cache()
+    return errors
+
+
+def phase_models_k12_times(ga, device, card):
+    """K12's bf16 forward (P emitted) and stored-P backward at
+    ``K12_MODEL_SHAPES`` against the twins, the bound and the same run's
+    SDPA call. Returns the times."""
+    import torch
+
+    times = {}
+    for label, (B, N, C, h) in K12_MODEL_SHAPES.items():
+        (q, k, v), do, _, _, _ = k12_inputs(B, N, C, h, False, False, False, torch.bfloat16,
+                                            device, seed=N + C)
+        _, p = ga.global_attention_fwd(q, k, v, None, None, None, h, emit_p=True)
+        shape = f"{label} B={B} N={N} C={C} h={h} no extras"
+        times[("global_attention_fwd", label)] = time_record(
+            card, "global_attention_fwd", f"{shape}, P emitted",
+            lambda: ga.global_attention_fwd(q, k, v, None, None, None, h, True),  # noqa: B023
+            lambda: ga.attention_core_plain(q, k, v, None, None, None, h),  # noqa: B023
+            K12_KERNELS["global_attention_fwd"],
+            k12_bound(B, N, C, h, 2, "fwd", bias=False), sdpa_fwd_ms(q, k, v, None, h))
+        times[("global_attention_bwd", label)] = time_record(
+            card, "global_attention_bwd", shape,
+            lambda: ga.global_attention_bwd(q, k, v, do, p, None, h, False),  # noqa: B023
+            lambda: ga.attention_core_bwd_plain(q, k, v, do, p, None, h, False),  # noqa: B023
+            K12_KERNELS["global_attention_bwd"][:2],
+            k12_bound(B, N, C, h, 2, "bwd", grad_bias=False), sdpa_times(q, k, v, do, None, h)[1])
+        del q, k, v, do, p
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_models_fusion_times(fk, device, card):
+    """K1-K4 in bf16 at the batching buckets 2 and 4 (K4 at Vd = 512): per
+    call against the twin and the same function as PyTorch calls it (CUDA
+    events, in turns), their device times (torch.profiler) and the bound."""
+    import torch
+
+    gen = torch.Generator().manual_seed(11)
+    n1, n2, n3 = K3_HEAD
+    products = {"seq1_attention": [(512, 512)] * 2, "gated_residual_seq1": [(512, 512)] * 3,
+                K3: [(K3_WIDTHS[0], n1), (n1, n2), (n2, n3)], K4: [(K4_DU, 512)] * 2}
+    times = {}
+    for name in KERNELS:
+        kernel, twin = getattr(fk, name), getattr(fk, name + "_plain")
+        for B in (2, 4):
+            args = kernel_args(name, B, torch.bfloat16, device, gen, vd=512)
+            kern, plain = (lambda: kernel(*args)), (lambda: twin(*args))  # noqa: B023
+            lib = fusion_library(name, args)
+            t = [time_ms(plain), time_ms(kern), time_ms(lib), time_ms(lib), time_ms(kern),
+                 time_ms(plain)]
+            ms, plain_ms, lib_ms = (t[1] + t[4]) / 2, (t[0] + t[5]) / 2, (t[2] + t[3]) / 2
+            bound = matmul_bound_ms(args, plain(), products[name], B)
+            dev_k = kernel_device_us(kern, [KERNEL_NAMES[name]])
+            dev_t, _ = device_us(plain)
+            dev_l, _ = device_us(lib)
+            times[(name, B)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                                    device_us=dev_k, library_device_us=dev_l)
+            log(f"[{card}] time {name:20s} bf16 B={B} (a batching bucket) per call: kernel "
+                f"{ms * 1e3:8.2f} us  twin {plain_ms * 1e3:8.2f} us  library "
+                f"{lib_ms * 1e3:8.2f} us (CUDA events over 200 calls each, in turns, L2-warm); "
+                f"device time: kernel {us(dev_k)}  twin {dev_t:8.2f} us  library {dev_l:8.2f} us "
+                f"(torch.profiler); bound {bound * 1e3:.2f} us; {against(ms, bound, lib_ms)}")
+    return times
+
+
+def phase_tab(ak, ga, device, card):
+    """The flagship (ResNet-50, RG-ATT) with TabTransformer (``TAB_TOWER``)
+    over a PAD-UFES-20-like table (``TAB_ROWS`` rows) as a ``TabularSource``:
+    10 train steps on one batch of B=128 (the loss falls; K5 once a step, no
+    K12: the tower's attention dropout 0.3 takes the plain path in train
+    mode); ``train_process`` for two epochs at B=128 on the card; the eval
+    forward at B=128, K12 once a transformer layer. Returns K12's launches
+    over that eval forward."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from skinjax_torch import FLAGSHIP
+    from skinjax_torch.data.sampling import compute_class_weights
+    from skinjax_torch.models import MultimodalModel
+    from skinjax_torch.models.weights import init_weights
+    from skinjax_torch.train.kfold import SubsetSource
+    from skinjax_torch.train.loop import TrainConfig, build_state, train_process
+    from skinjax_torch.train.steps import make_eval_step
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        prep, src = tab_dataset(tmp)
+    n_cat = len(prep.featurizer.categorical_cols)
+    check(n_cat == TAB_COLUMNS, f"PAD-UFES-20's table has {n_cat} categorical columns, not "
+                                f"{TAB_COLUMNS}")
+
+    def model():
+        return init_weights(MultimodalModel(
+            **dict(FLAGSHIP, num_classes=prep.num_classes), text_module=tab_tower(prep),
+            text_input_mode="tabular", dtype=torch.bfloat16), seed=0)
+
+    cfg = TrainConfig(device=str(device), learning_rate=TRAIN_LR, batch_size=TRAIN_B,
+                      num_epochs=2)
+    state = build_state(model(), cfg)
+    batch = batch_of(src, TRAIN_B, device)
+    cw = torch.as_tensor(compute_class_weights(src.labels, prep.num_classes)).to(device)
+    launches = falls([ak, ga], f"flagship+TabTransformer B={TRAIN_B} (N={n_cat} columns, "
+                               f"{TAB_TOWER['embed_dim']} wide, {TAB_TOWER['num_heads']} heads)",
+                     state, batch, cw)
+    check(launches == {K5: 10, **{name: 0 for name in K12}},
+          f"the tabular train steps launched {launches}")
+    path_times(card, "flagship+TabTransformer", state, batch, cw, K12_NAMES)
+    _, metrics, history = train_process(model(), SubsetSource(src, np.arange(TAB_ROWS - 64)),
+                                        SubsetSource(src, np.arange(TAB_ROWS - 64, TAB_ROWS)),
+                                        prep.num_classes, config=cfg)
+    log(f"train flagship+TabTransformer train_process ({TAB_ROWS - 64} rows, B={TRAIN_B}, 2 "
+        f"epochs): train losses {history['train_loss']}, val losses {history['val_loss']}, "
+        f"balanced accuracy {metrics['balanced_accuracy']:.4f}")
+    check(all(math.isfinite(x) for x in history["train_loss"] + history["val_loss"]),
+          "train_process on the tabular source gave a non-finite loss")
+    ga.reset_launches()
+    logits = make_eval_step(torch.bfloat16)(state, batch["image"], batch["metadata"])
+    torch.cuda.synchronize()
+    fwd = dict(ga.LAUNCHES)
+    log(f"eval flagship+TabTransformer B={TRAIN_B}: logits {tuple(logits.shape)} finite "
+        f"{bool(torch.isfinite(logits).all())}; K12 launches {fwd} (expected "
+        f"{TAB_TOWER['num_layers']} forwards, one a layer); {time.perf_counter() - t0:.1f} s")
+    check(bool(torch.isfinite(logits).all()), "non-finite tabular logits")
+    check(fwd == {"global_attention_fwd": TAB_TOWER["num_layers"], "global_attention_bwd": 0,
+                  K12_RECOMPUTE: 0}, f"the tabular eval forward launched {fwd}")
+    return fwd
+
+
+def phase_static(fk, ak, device, card):
+    """The flagship with the static-embedding tower: a synthetic model2vec
+    artifact (a random ``STATIC_DIM``-wide table over a WordPiece
+    ``vocab.txt`` of the table's sentences) written and read back; the
+    sentences encoded; 10 train steps on one batch of B=128 (the loss falls);
+    then served through ``InferenceEngine.predict_probs`` at B=1 and 4, the
+    fused route (K1-K3) against the plain one within BF16_TOL. Returns the
+    fusion kernels' launches over the fused forwards."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from skinjax_torch import FLAGSHIP
+    from skinjax_torch.data.fixtures import (
+        pad_ufes20_table,
+        row_sentences,
+        write_model2vec,
+        write_wordpiece_vocab,
+    )
+    from skinjax_torch.data.pipeline import ArraySource
+    from skinjax_torch.data.sampling import compute_class_weights
+    from skinjax_torch.models.text.static_embed import load_model2vec
+    from skinjax_torch.serve.engine import InferenceEngine
+    from skinjax_torch.train.loop import TrainConfig, build_state
+
+    t0 = time.perf_counter()
+    table = pad_ufes20_table(TAB_ROWS, seed=1)
+    sentences = row_sentences(table)
+    with tempfile.TemporaryDirectory() as tmp:
+        n = write_wordpiece_vocab(os.path.join(tmp, "vocab.txt"), sentences)
+        vocab = Path(tmp, "vocab.txt").read_text().splitlines()
+        table_emb = np.random.default_rng(2).normal(size=(n, STATIC_DIM)).astype(np.float32)
+        write_model2vec(tmp, table_emb, vocab, normalize=True)
+        emb = load_model2vec(tmp).encode(sentences)
+    norms = np.linalg.norm(emb, axis=1)
+    log(f"static model2vec artifact ({n} tokens × {STATIC_DIM}): {len(sentences)} sentences "
+        f"encoded, norms {norms.min():.6f}..{norms.max():.6f}")
+    check(np.isfinite(emb).all() and np.allclose(norms, 1.0, atol=1e-5),
+          "the static sentence vectors are not unit vectors")
+    rng = np.random.default_rng(3)
+    labels = rng.integers(0, 6, TAB_ROWS).astype(np.int32)
+    images = rng.integers(0, 200, (TAB_ROWS, TRAIN_HW, TRAIN_HW, 3), dtype=np.uint8)
+    images += (10 * labels).astype(np.uint8)[:, None, None, None]
+    src = ArraySource(images, emb, labels)
+    config = dict(FLAGSHIP, text_model_name="static-embedding", vocab_size=STATIC_DIM)
+    state = build_state(smoke_model(config, torch.bfloat16),
+                        TrainConfig(device=str(device), learning_rate=TRAIN_LR))
+    cw = torch.as_tensor(compute_class_weights(labels, 6)).to(device)
+    batch = batch_of(src, TRAIN_B, device)
+    launches = falls([ak], f"flagship+static-embedding B={TRAIN_B} ({STATIC_DIM}-wide vectors)",
+                     state, batch, cw)
+    check(launches == {K5: 10}, f"the static-embedding train steps launched {launches}")
+    path_times(card, "flagship+static-embedding", state, batch, cw)
+    model = state.model
+    fused = InferenceEngine(model, use_fused=True, device=device)
+    plain = InferenceEngine(model, use_fused=False, device=device)
+    check(fused.fused and model.text_tower.fc0.in_features == STATIC_DIM,
+          "the static-embedding engine is not on the fused route")
+    fk.reset_launches()
+    for B in (1, 4):
+        got = fused.predict_probs(images[:B], emb[:B])
+        want = plain.predict_probs(images[:B], emb[:B])
+        err = float(np.abs(got - want).max())
+        log(f"[{card}] serve flagship+static-embedding B={B}: fused against plain max_abs_err "
+            f"{err:.3e} (tol {BF16_TOL[0]:g}), rows sum to 1: "
+            f"{bool(np.allclose(got.sum(1), 1, atol=1e-4))}")
+        check(err <= BF16_TOL[0] and np.allclose(got.sum(1), 1, atol=1e-4),
+              f"the static-embedding engine's fused route disagrees at B={B}")
+    served = dict(fk.LAUNCHES)
+    engine_latency(fused, plain, "flagship+static-embedding", card, batches=(1,), n=20,
+                   profile=False)
+    expect = {k: 2 * v for k, v in PER_FORWARD.items()}
+    log(f"serve flagship+static-embedding: fusion kernel launches {served} over 2 fused "
+        f"forwards (expected {expect}); {time.perf_counter() - t0:.1f} s")
+    check(served == expect, f"the static-embedding forwards launched {served}")
+    _SMOKE_MODELS.clear()
+    return served
+
+
+def phase_sequence(ak, ga, device, card):
+    """``SequenceFusionModel`` (``SEQUENCE``: ViT-small tokens, common_dim
+    512, 8 heads, 4 metadata tokens) at B=64: the eval forward (K12 on the
+    tower's 12 blocks and the two self-attentions, 197 and 4 tokens; the
+    cross-attentions plain) and 10 train steps on one batch (the loss falls;
+    K12 14 + 14 a step, K5 once)."""
+    import torch
+
+    from skinjax_torch.models.fusion.sequence import SequenceFusionModel
+    from skinjax_torch.models.weights import init_weights
+    from skinjax_torch.train.loop import TrainConfig, build_state
+    from skinjax_torch.train.steps import make_eval_step
+
+    t0 = time.perf_counter()
+    model = init_weights(SequenceFusionModel(**SEQUENCE, dtype=torch.bfloat16), seed=0)
+    state = build_state(model, TrainConfig(device=str(device), learning_rate=TOWER_TRAIN_LR))
+    batch, cw = train_batch(device, B=SEQUENCE_BATCH)
+    ga.reset_launches()
+    logits = make_eval_step(torch.bfloat16)(state, batch["image"], batch["metadata"])
+    torch.cuda.synchronize()
+    fwd = dict(ga.LAUNCHES)
+    log(f"eval sequence fusion (vit_small tokens, B={SEQUENCE_BATCH}): logits "
+        f"{tuple(logits.shape)} finite {bool(torch.isfinite(logits).all())}; K12 launches {fwd}")
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (SEQUENCE_BATCH, 6),
+          "bad sequence-fusion logits")
+    check(fwd == {"global_attention_fwd": SEQ_K12_PER_FORWARD, "global_attention_bwd": 0,
+                  K12_RECOMPUTE: 0}, f"the sequence-fusion forward launched {fwd}")
+    launches = falls([ak, ga], f"sequence fusion B={SEQUENCE_BATCH} (lr {TOWER_TRAIN_LR:g})",
+                     state, batch, cw)
+    expect = {K5: 10, "global_attention_fwd": 10 * SEQ_K12_PER_FORWARD,
+              "global_attention_bwd": 10 * SEQ_K12_PER_FORWARD, K12_RECOMPUTE: 0}
+    check(launches == expect, f"the sequence-fusion steps launched {launches}, not {expect}")
+    path_times(card, "sequence fusion", state, batch, cw, K12_NAMES)
+    log(f"phase sequence: {time.perf_counter() - t0:.1f} s (host clock)")
+
+
+def baseline_cli(card, root):
+    """The three baselines through the train CLI at once, one process each
+    (``--model-name`` mdnet / liwterm / metanet with their ``BASELINES``
+    tower and batch, 2 folds, 1 epoch) on a PAD-UFES-20-like dataset of
+    ``BASELINE_ROWS`` rows (64×64 PNGs, resized to 224×224 as they are
+    read): each exits 0 with two finite fold results and its checkpoints."""
+    import csv
+    import re
+
+    from skinjax_torch.data.fixtures import write_pad_ufes20_like
+
+    csv_path, images = write_pad_ufes20_like(os.path.join(root, "data"), n=BASELINE_ROWS,
+                                             image_hw=(64, 64), seed=0, paeth=False)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name, (cnn, B, _) in BASELINES.items():
+            cmd = [sys.executable, "-m", "skinjax_torch.tools.train_cli", "--dataset",
+                   "pad-ufes-20", "--metadata-csv", csv_path, "--images-dir", images,
+                   "--results-dir", os.path.join(root, name), "--model-name", name,
+                   "--backbones", cnn, "--k-folds", "2", "--epochs", "1", "--batch-size", str(B)]
+            procs[name] = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)
+        outs = {name: p.communicate(timeout=600) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for name, (cnn, B, _) in BASELINES.items():
+        out, err = outs[name]
+        if procs[name].returncode != 0 or "failed:" in out:
+            log(out[-3000:] + err[-6000:])
+        check(procs[name].returncode == 0, f"train_cli --model-name {name} exited "
+                                           f"{procs[name].returncode}")
+        check("failed:" not in out, f"a cell of the {name} sweep failed")
+        found = re.search(r'"n_runs": (\d+)', out)
+        cell = os.path.join(root, name, f"{name}_{cnn}_concatenation_h8")
+        with open(os.path.join(cell, "model_metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        log(f"[{card}] cli --model-name {name} --backbones {cnn} --batch-size {B}: n_runs "
+            f"{found.group(1) if found else None}, balanced accuracy/auc per fold "
+            + ", ".join(f"{r['balanced_accuracy'][:6]}/{r['auc'][:6]}" for r in rows))
+        check(found is not None and int(found.group(1)) == 2, f"{name}: not two fold results")
+        check(len(rows) == 2 and all(math.isfinite(float(r["balanced_accuracy"])) for r in rows),
+              f"{name}: model_metrics.csv lacks two finite folds")
+        check(all(os.path.isfile(os.path.join(cell, f"{name}_{cnn}_concatenation_h8_fold_{k}",
+                                              "best", "state.pt")) for k in (1, 2)),
+              f"{name}: a fold checkpoint is missing")
+    log(f"[{card}] cli the three baselines at once: {wall:.1f} s wall ({len(BASELINES)} "
+        f"processes, {BASELINE_ROWS} PNGs each, 2 folds × 1 epoch)")
+
+
+def phase_baselines(ak, ga, device, card):
+    """MetaNet (ResNet-50, B=128), MD-Net (DenseNet-169, B=64) and LiwTERM
+    (ViT-large, B=32) as ``create_model`` builds them for ``--model-name``:
+    10 train steps each on one batch (the loss falls; K5 once a step, K12
+    24 + 24 a LiwTERM step), then the three through the train CLI."""
+    import tempfile
+
+    import torch
+
+    from skinjax_torch.models.factory import create_model
+    from skinjax_torch.train.loop import TrainConfig, build_state
+
+    t0 = time.perf_counter()
+    for name, (cnn, B, k12) in BASELINES.items():
+        model = create_model(num_classes=6, model_name=name, cnn_model_name=cnn, vocab_size=91,
+                             dtype=torch.bfloat16, seed=0)
+        lr = TOWER_TRAIN_LR if name == "liwterm" else TRAIN_LR
+        state = build_state(model, TrainConfig(device=str(device), learning_rate=lr))
+        check(all(p.requires_grad for p in state.model.parameters()),
+              f"{name}: a parameter is frozen")
+        batch, cw = train_batch(device, B=B)
+        launches = falls([ak, ga], f"baseline {name} ({cnn}, B={B}, lr {lr:g})", state, batch, cw)
+        expect = {K5: 10, "global_attention_fwd": 10 * k12, "global_attention_bwd": 10 * k12,
+                  K12_RECOMPUTE: 0}
+        check(launches == expect, f"{name}'s steps launched {launches}, not {expect}")
+        path_times(card, f"baseline {name} ({cnn})", state, batch, cw, K12_NAMES if k12 else None)
+        del model, state, batch
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        baseline_cli(card, tmp)
+    log(f"phase baselines: {time.perf_counter() - t0:.1f} s (host clock)")
+
+
+def phase_batching(fk, card):
+    """The service with MAX_BATCH=8 as run_service builds it (the flagship,
+    bf16, a featurizer JSON): a ``BatchingEngine`` around the fused engine,
+    served on a localhost port; ``BATCH_CLIENTS`` concurrent clients POST
+    /predict/. Every answer equals the unbatched engine's within BF16_TOL;
+    some forwards batched more than one request; K1-K3 launched their
+    per-forward count once a forward (batched or direct). Returns the
+    launches."""
+    import tempfile
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from skinjax_torch.serve import png, run_service
+    from skinjax_torch.serve.api import make_handler
+    from skinjax_torch.serve.batching import BatchingEngine
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "featurizer.json")
+        smoke_featurizer(91).save(path)
+        env = {"FEATURIZER_JSON": path, "CNN_MODEL_NAME": "resnet-50", "DEVICE": "cuda",
+               "MAX_BATCH": str(MAX_BATCH), "BATCH_WAIT_MS": "20"}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            batcher = run_service.build_engine()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    check(isinstance(batcher, BatchingEngine) and batcher.max_batch == MAX_BATCH
+          and batcher.engine.fused, "run_service built no batching engine around a fused one")
+    rng = np.random.default_rng(5)
+    n_cat = len(batcher.engine.featurizer.categorical_cols)
+    requests = []
+    for i in range(BATCH_CLIENTS):
+        img = rng.integers(0, 256, ((224, 224) if i % 4 else (300, 400)) + (3,), dtype=np.uint8)
+        meta = ", ".join([f"v{rng.integers(10)}" for _ in range(n_cat)]
+                         + [str(int(rng.integers(20, 90)))])
+        requests.append((img, meta))
+    batcher.predict(*requests[0])  # warm: each bucket's first forward builds its plans
+    handler = make_handler(batcher)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    url = f"http://127.0.0.1:{server.server_address[1]}/predict/"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    answers = [None] * BATCH_CLIENTS
+
+    def client(i):
+        body, ctype = _multipart(png.encode_png(requests[i][0]), requests[i][1])
+        req = urllib.request.Request(url, data=body, headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            answers[i] = (r.status, json.loads(r.read()))
+
+    try:
+        fk.reset_launches()
+        stats0 = dict(batcher.stats)
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(BATCH_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+        wall = time.perf_counter() - t0
+        launches = dict(fk.LAUNCHES)
+        stats = {k: batcher.stats[k] - stats0[k] for k in stats0}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        handler.worker.shutdown(wait=True)
+        batcher.shutdown()
+    check(not thread.is_alive() and not batcher._worker.is_alive(),
+          "the server or the batching worker did not stop")
+    check(all(a is not None and a[0] == 200 for a in answers), "a batched request failed")
+    worst = 0.0
+    for (img, meta), (_, out) in zip(requests, answers):
+        direct = np.asarray(batcher.engine.predict(img, meta)["probabilities"])
+        worst = max(worst, float(np.abs(np.asarray(out["probabilities"]) - direct).max()))
+    forwards = stats["batches"] + stats["direct_requests"]
+    expect = {k: v * forwards for k, v in PER_FORWARD.items()}
+    log(f"[{card}] serve MAX_BATCH={MAX_BATCH}: {BATCH_CLIENTS} concurrent clients in "
+        f"{wall * 1e3:.1f} ms; {stats['batches']} batched forwards holding "
+        f"{stats['occupancy_sum']} requests ({stats['batched_requests']} in batches above 1), "
+        f"{stats['direct_requests']} direct; the batched forwards took "
+        f"{stats['forward_s'] * 1e3:.1f} ms of the worker's time (host clock); worst "
+        f"|p - unbatched engine's p| {worst:.3e} (tol "
+        f"{BF16_TOL[0]:g}); fusion kernel launches {launches} (expected {expect})")
+    check(stats["requests"] == BATCH_CLIENTS, f"{stats['requests']} requests counted")
+    check(stats["batched_requests"] > 0, "no forward batched more than one request")
+    check(worst <= BF16_TOL[0], "a batched answer differs from the unbatched engine's")
+    check(launches == expect, "K1-K3 did not launch once a forward")
+    return launches
+
+
 def build_kernels(build, modules):
     """One nvcc per source, started together (each thread waits in
     subprocess.run); then each module loads its library."""
@@ -4345,6 +4970,75 @@ def attention_only() -> int:
     return 0
 
 
+def phase_models(fk, ak, ga, device, card):
+    """This slice's paths at full width: TabTransformer, static-embedding,
+    sequence fusion, the baselines, the batching service and the card
+    against the CPU for a small tabular model and a small MetaNet."""
+    import torch
+
+    start = time.perf_counter()
+
+    def elapsed(label):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"elapsed in this slice's paths after {label}: {time.perf_counter() - start:.1f} s "
+            f"(host clock)")
+
+    phase_tab(ak, ga, device, card)
+    elapsed("TabTransformer")
+    phase_static(fk, ak, device, card)
+    elapsed("static-embedding")
+    phase_sequence(ak, ga, device, card)
+    elapsed("sequence fusion")
+    phase_baselines(ak, ga, device, card)
+    elapsed("the baselines")
+    phase_batching(fk, card)
+    elapsed("the batching service")
+    phase_card_vs_cpu(device, tabular=True)
+    phase_card_vs_cpu(device, cnn="resnet-18", baseline="metanet")
+    elapsed("card against CPU")
+
+
+def models_only() -> int:
+    """``--models``: this slice's paths alone (TabTransformer, static
+    embedding, sequence fusion, the baselines, the batching service), with
+    K12's checks and times at their shapes and K1-K4's at the batching
+    buckets."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from skinjax_torch.ops import augment_kernel as ak
+    from skinjax_torch.ops import build
+    from skinjax_torch.ops import fusion_kernels as fk
+    from skinjax_torch.ops import global_attention as ga
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(card)
+    names = ("fusion_kernels", "augment_kernel", "global_attention")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(build.build, names))
+    for m in (fk, ak, ga):
+        m.library()
+    log(f"phase build: {len(names)} sources at once, {time.perf_counter() - t0:.1f} s")
+    for name in ROUTE_WIDTHS:
+        phase_routes(fk, device, name, batches=(2, 4))
+    phase_models_k12(ga, device)
+    phase_models_k12_times(ga, device, card)
+    phase_models_fusion_times(fk, device, card)
+    log(f"phase models kernels: {time.perf_counter() - t0:.1f} s (host clock)")
+    phase_models(fk, ak, ga, device, card)
+    torch.cuda.synchronize()
+    print(json.dumps({"ok": True, "models": True}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4409,6 +5103,8 @@ def main() -> int:
     errors[K5] = phase_k5(ak, device)
     errors.update(phase_k7(wa, device))
     errors.update(phase_k12(ga, device))
+    for name, err in phase_models_k12(ga, device).items():
+        errors[name] = max(errors[name], err)
     errors.update(phase_k11(pa, device))
     errors.update(phase_mlp(fm, device))
     phase_mlp_same_bits(fm, device)
@@ -4418,6 +5114,7 @@ def main() -> int:
     # K12's, K11's and K7's times first: in a process that has traced much,
     # torch.profiler dropped K7's launches from its traces
     k12_times = phase_k12_times(ga, device, card)
+    phase_models_k12_times(ga, device, card)
     k11_times = phase_k11_times(pa, device, card)
     phase_bwd_p_split(ga, pa, device, card)
     mlp_times = phase_mlp_times(fm, device, card, errors)
@@ -4425,6 +5122,7 @@ def main() -> int:
     k8_times = phase_k8_times(ca, device, card)
     pad_times = phase_k7pad_times(wa, ga, device, card)
     k4_times = phase_k4_times(fk, device, card)
+    phase_models_fusion_times(fk, device, card)
     k6_times = phase_k6_times(bn, device, card)
     torch.cuda.synchronize()
     elapsed("the build and the kernel checks and times")
@@ -4621,6 +5319,11 @@ def main() -> int:
     torch.cuda.synchronize()
     elapsed("the sentence train CLI")
 
+    # the rest of the model zoo: TabTransformer, static-embedding, sequence
+    # fusion, the baselines, the batching service
+    phase_models(fk, ak, ga, device, card)
+    elapsed("the rest of the model zoo")
+
     record = {"kernels": [
         # K1-K3 at B=1, the served batch, L2-warm, K3 at the flagship's widths
         # (the other batches, K3's metablock shape and the L2-cold times are
@@ -4709,4 +5412,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit({"--attention": attention_only, "--mlp": mlp_only, "--k8": k8_only,
-              "--fusion": fusion_only}.get(" ".join(sys.argv[1:]), main)())
+              "--fusion": fusion_only, "--models": models_only}.get(" ".join(sys.argv[1:]),
+                                                                    main)())

@@ -2,14 +2,18 @@
 
 A second package beside ``skinjax``, which stays the reference it is held
 against. It imports ``torch`` and never JAX. It serves and trains the
-multimodal model with all 18 fusion mechanisms, a one-hot metadata tower and
-a ResNet-18/50, DaViT-tiny, Swin-tiny, ViT (tiny to large), BEiT-v2-large,
+multimodal model with all 18 fusion mechanisms, a one-hot, static-embedding
+(model2vec sentence vectors) or TabTransformer (index-encoded columns)
+metadata tower and a ResNet-18/50, DaViT-tiny, Swin-tiny, ViT (tiny to large), BEiT-v2-large,
 MViTv2-small, CAFormer-s18/b36, CoaT-lite-small, NextViT-small or CNN-zoo
 (custom-cnn, VGG16, DenseNet-169, MobileNet-V2, EfficientNet-B0/B7) image tower
 (the flagship: ResNet-50 + RG-ATT), trains the sentence datasets' tokens
 model (a BERT or GPT-2 tower over tokenized clinical sentences), and runs
 the train CLI (``python -m skinjax_torch.tools.train_cli``) from a
-PAD-UFES-20 CSV and PNG images on disk to checkpoints the service serves.
+PAD-UFES-20 CSV and PNG images on disk to checkpoints the service serves,
+with the MD-Net, LiwTERM and MetaNet baselines (``--model-name``) beside the
+multimodal model; sequence fusion runs over ViT/BEiT tokens, and the service
+batches concurrent requests (``MAX_BATCH``).
 The fusion stage (K1-K4), the augmentation's color stage (K5), DaViT's and
 Swin's window attention (K7, on the map and on partitioned windows), DaViT's
 channel attention (K8, forward and backward), MViTv2's pooled attention (K11, forward and backward),

@@ -10,14 +10,18 @@ model can learn something; ``paeth=True`` writes each row Paeth-filtered,
 the costly case for the stdlib PNG reader. ``sentences=True`` adds the
 sentence datasets' ``sentence`` column (a clinical sentence made from the
 row's cells), and ``write_wordpiece_vocab`` writes a ``vocab.txt`` that
-covers its words, for the BERT tokenizer.
+covers its words, for the BERT tokenizer. ``write_model2vec`` writes a
+model2vec artifact (a static embedding table, its ``vocab.txt`` and
+``config.json``).
 """
 
 from __future__ import annotations
 
 import csv
+import json
 import os
-from typing import Dict, List, Tuple
+import struct
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -126,3 +130,21 @@ def write_pad_ufes20_like(root: str, n: int = 96, image_hw: Tuple[int, int] = (3
         with open(os.path.join(images_dir, name), "wb") as f:
             f.write(png.encode_png(img, paeth=paeth))
     return csv_path, images_dir
+
+
+def write_model2vec(path: str, embeddings: np.ndarray, vocab: Sequence[str],
+                    normalize: bool = True) -> None:
+    """Write a model2vec artifact (``model.safetensors`` with one F32
+    ``embeddings`` tensor, ``vocab.txt``, ``config.json``), as a model2vec
+    export lays it out, for ``models.text.static_embed.load_model2vec``."""
+    os.makedirs(path, exist_ok=True)
+    emb = np.ascontiguousarray(embeddings, dtype="<f4")
+    header = json.dumps({"embeddings": {"dtype": "F32", "shape": list(emb.shape),
+                                        "data_offsets": [0, emb.nbytes]}}).encode()
+    header += b" " * (-len(header) % 8)
+    with open(os.path.join(path, "model.safetensors"), "wb") as f:
+        f.write(struct.pack("<Q", len(header)) + header + emb.tobytes())
+    with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"normalize": bool(normalize)}, f)

@@ -18,9 +18,11 @@ skinjax's ``beit_relative_position_index``), the global attention core K12
 (``ops/global_attention.py``) with that bias, then the output projection.
 The bias table's gradient goes back through the gather, which on the card
 sums in another order than on the CPU. Input is NHWC ``(B, H, W, 3)`` at the
-size the index map was made for (224×224 by default); output ``(B, dim)``.
-skinjax's ``scan_blocks``, ``seq_shard_axis``, ``SKINJAX_REMAT``,
-``capture``/``feature_delta`` and ``tokens`` are not ported (ROADMAP.md).
+size the index map was made for (224×224 by default); output ``(B, dim)``,
+or with ``tokens=True`` the last block's tokens ``(B, 1 + patches, dim)``,
+CLS first and before ``fc_norm``, as skinjax returns them. skinjax's
+``scan_blocks``, ``seq_shard_axis``, ``SKINJAX_REMAT`` and
+``capture``/``feature_delta`` are not ported (ROADMAP.md).
 Precision as in ``vit.py``: the residual stream is fp32 under autocast.
 """
 
@@ -120,13 +122,13 @@ class Beit(nn.Module):
                                     for _ in range(depth))
         self.fc_norm = layer_norm(dim, device=device)
 
-    def forward(self, x):
+    def forward(self, x, tokens: bool = False):
         x = self.patch_embed(x)
         B, _, D = x.shape
         x = torch.cat([self.cls_token.to(x.dtype).expand(B, 1, D), x], dim=1)
         for block in self.blocks:
             x = block(x)
-        return self.fc_norm(x[:, 1:].mean(dim=1))
+        return x if tokens else self.fc_norm(x[:, 1:].mean(dim=1))
 
 
 beitv2_large = partial(Beit, dim=1024, depth=24, num_heads=16, patch=16)

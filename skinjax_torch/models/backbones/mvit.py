@@ -22,8 +22,9 @@ the shortcut's projection of the normed input where the width expands and its
 3×3/2 max-pool where q is strided; exact-erf GELU; eps 1e-6 everywhere.
 Input is NHWC ``(B, H, W, 3)`` at the size the tower was built for (224×224
 by default: its rel-pos tables and distance maps depend on it); output
-``(B, dims[-1])``. skinjax's ``tokens``, ``capture`` and ``feature_delta``
-are not ported yet (ROADMAP.md).
+``(B, dims[-1])``, or with ``tokens=True`` the normed tokens as their grid
+``(B, h, w, dims[-1])``, as skinjax returns them. skinjax's ``capture`` and
+``feature_delta`` are not ported yet (ROADMAP.md).
 
 Precision: under autocast (the multimodal model's ``dtype``) convolutions
 and linears run in the autocast dtype, LayerNorm returns fp32 and the
@@ -177,7 +178,7 @@ class MViTv2(nn.Module):
             self.stages.append(stage)
         self.norm = layer_norm(dims[-1], device=device)
 
-    def forward(self, x):
+    def forward(self, x, tokens: bool = False):
         if tuple(x.shape[1:3]) != (self.img_size, self.img_size):
             raise ValueError(f"this MViTv2 was built for {self.img_size}x{self.img_size} images "
                              f"(its rel-pos tables depend on the size); got "
@@ -186,7 +187,10 @@ class MViTv2(nn.Module):
         for stage in self.stages:
             for block in stage.blocks:
                 x = block(x)
-        return self.norm(x).mean(dim=1)
+        x = self.norm(x)
+        if tokens:
+            return x.reshape(x.shape[0], *self.stages[-1].blocks[-1].attn.q_size, x.shape[-1])
+        return x.mean(dim=1)
 
 
 def mvitv2_small(*, device=None) -> MViTv2:

@@ -13,9 +13,10 @@ Attention is the packed qkv projection, the global attention core K12
 (``ops/global_attention.py``) with no bias on its head-major slices, then
 the output projection. LayerNorm eps is 1e-6. Input is NHWC ``(B, H, W, 3)``
 at the size the position embedding was made for (224×224 by default);
-output is ``(B, dim)``. skinjax's ``scan_blocks``, ``seq_shard_axis``,
-``SKINJAX_REMAT``, ``capture``/``feature_delta`` and ``tokens`` are not
-ported (ROADMAP.md).
+output is ``(B, dim)``, or with ``tokens=True`` every normed token ``(B, 1 +
+patches, dim)``, CLS first, as skinjax returns them. skinjax's
+``scan_blocks``, ``seq_shard_axis``, ``SKINJAX_REMAT`` and
+``capture``/``feature_delta`` are not ported (ROADMAP.md).
 
 Precision: under autocast (the multimodal model's ``dtype``) the convolution,
 linears and K12 run in the autocast dtype, LayerNorm returns fp32 and the
@@ -90,7 +91,8 @@ class Block(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    """x (B, H, W, 3) NHWC → the normed CLS token (B, dim)."""
+    """x (B, H, W, 3) NHWC → the normed CLS token (B, dim); with ``tokens``
+    every normed token (B, T, dim)."""
 
     def __init__(self, dim: int = 768, depth: int = 12, num_heads: int = 12, patch: int = 16,
                  img_size: int = 224, *, device=None):
@@ -102,7 +104,7 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(Block(dim, num_heads, device=device) for _ in range(depth))
         self.norm = layer_norm(dim, device=device)
 
-    def forward(self, x):
+    def forward(self, x, tokens: bool = False):
         x = self.patch_embed(x)
         B, T, D = x.shape
         if T + 1 != self.pos_embed.shape[1]:
@@ -111,7 +113,8 @@ class VisionTransformer(nn.Module):
         x = torch.cat([self.cls_token.to(x.dtype).expand(B, 1, D), x], dim=1) + self.pos_embed
         for block in self.blocks:
             x = block(x)
-        return self.norm(x)[:, 0]
+        x = self.norm(x)
+        return x if tokens else x[:, 0]
 
 
 vit_tiny = partial(VisionTransformer, dim=192, depth=12, num_heads=3)

@@ -12,9 +12,14 @@ calls, the model holds only the submodules its mechanism uses, so its
 discards) the image projection first, so its tree, and this model, hold an
 ``image_projector`` that nothing reads.
 
-Input is NHWC ``(B, H, W, 3)`` and featurized metadata ``(B, vocab_size)``,
-or, in tokens mode (``text_module`` a sentence tower, ``text_input_mode
-"tokens"``), ``{"input_ids", "attention_mask"}`` (B, T) integer tensors.
+Input is NHWC ``(B, H, W, 3)`` and featurized metadata ``(B, vocab_size)``
+(with ``text_model_name="static-embedding"``, ``(B, vocab_size)`` model2vec
+sentence vectors, which ``StaticEmbeddingTower``, held as ``text_tower``,
+projects), or, in tokens mode (``text_module`` a sentence tower,
+``text_input_mode "tokens"``), ``{"input_ids", "attention_mask"}`` (B, T)
+integer tensors, or, in tabular mode (``text_module`` a ``TabTransformer``,
+held as ``text_module``, ``text_input_mode "tabular"``), ``{"categorical"
+(B, n_cat) integer, "numerical" (B, n_num) float, optional}``.
 The tokens model holds the tower's encoder as ``text_encoder``, as the
 reference's sentence model does, so its ``state_dict()`` reads as a
 reference sentence checkpoint (``text_encoder.embeddings.…`` for BERT,
@@ -35,7 +40,7 @@ from torch import nn
 
 from skinjax_torch.models.backbones import create_backbone
 from skinjax_torch.models.fusion.blocks import GatedAlteredResidualBlock, MetaBlock, MLPHead
-from skinjax_torch.models.text import OneHotMLP
+from skinjax_torch.models.text import OneHotMLP, StaticEmbeddingTower
 from skinjax_torch.models.text.bert import pool_hidden
 from skinjax_torch.ops.attention import MultiheadAttention
 
@@ -86,6 +91,14 @@ class FusionOps(NamedTuple):
     film: Callable  # (name, v, u) -> MetaBlock, (B, v_dim)
 
 
+def autocast_to(dtype: Optional[torch.dtype], device: torch.device):
+    """Autocast to a model's compute dtype on ``device``, or nothing for
+    fp32 (the counterpart of a flax module's ``dtype``)."""
+    if dtype is None or dtype == torch.float32:
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, dtype=dtype)
+
+
 def _head_name(mech: str) -> str:
     if mech == "no-metadata-without-mlp":
         return "fc_visual_only"
@@ -118,19 +131,21 @@ class MultimodalModel(nn.Module):
         mech = attention_mechanism
         if mech not in MECHANISMS:
             raise ValueError(f"Attention mechanism '{mech}' not implemented. Known: {MECHANISMS}")
-        if text_input_mode not in ("features", "tokens"):
-            raise NotImplementedError(f"text_input_mode '{text_input_mode}' is not ported to "
-                                      "PyTorch yet; ROADMAP.md lists when it comes")
-        if (text_input_mode == "tokens") != (text_module is not None):
-            raise ValueError("tokens mode takes a text_module (a sentence tower) and features "
-                             "mode none")
-        if text_module is None and text_model_name != "one-hot-encoder":
-            raise NotImplementedError(
-                f"text tower '{text_model_name}' is not ported to PyTorch yet; "
-                "ROADMAP.md lists when it comes"
-            )
-        if text_module is not None:
+        if text_input_mode not in ("features", "tokens", "tabular"):
+            raise ValueError(f"text_input_mode '{text_input_mode}': one of features, tokens, "
+                             "tabular")
+        if (text_input_mode != "features") != (text_module is not None):
+            raise ValueError("tokens mode takes a text_module (a sentence tower), tabular mode "
+                             "a TabTransformer, features mode none")
+        if text_module is None and text_model_name not in ("one-hot-encoder", "static-embedding"):
+            raise ValueError(
+                f"text tower '{text_model_name}' is not wired into MultimodalModel; use "
+                "one-hot-encoder / static-embedding, or pass text_module= (a sentence tower "
+                "or a TabTransformer)")
+        if text_input_mode == "tokens":
             text_encoder_dim_output = text_module.hidden_size
+        elif text_input_mode == "tabular":
+            text_encoder_dim_output = text_module.out_dim
         self.num_classes = num_classes
         self.text_input_mode = text_input_mode
         self.common_dim = common_dim
@@ -143,10 +158,17 @@ class MultimodalModel(nn.Module):
                                                                   common_dim=common_dim)
         if mech != "no-metadata-without-mlp":
             self.image_projector = nn.Linear(self.cnn_dim_output, common_dim, device=device)
-        if mech not in _NO_TEXT and text_module is not None:
+        if mech in _NO_TEXT:
+            pass
+        elif text_input_mode == "tokens":
             self.text_encoder = text_module.encoder
             self.text_pool = text_module.pool
-        elif mech not in _NO_TEXT:
+        elif text_input_mode == "tabular":
+            self.text_module = text_module
+        elif text_model_name == "static-embedding":
+            self.text_tower = StaticEmbeddingTower(vocab_size, text_encoder_dim_output,
+                                                   device=device)
+        else:
             self.text_fc = OneHotMLP(vocab_size, text_encoder_dim_output, device=device)
         if mech not in (*_NO_TEXT, "metablock"):
             self.text_projector = nn.Linear(text_encoder_dim_output, common_dim, device=device)
@@ -186,16 +208,19 @@ class MultimodalModel(nn.Module):
 
     def autocast(self, device: torch.device):
         """Autocast to the model's compute dtype, or nothing for fp32."""
-        if self.dtype is None or self.dtype == torch.float32:
-            return contextlib.nullcontext()
-        return torch.autocast(device.type, dtype=self.dtype)
+        return autocast_to(self.dtype, device)
 
     def text_features(self, metadata) -> torch.Tensor:
         """The metadata tower's output (B, text_encoder_dim_output): the
-        one-hot MLP on features, or the pooled sentence encoder on tokens."""
+        one-hot MLP or the static-embedding tower on features, the pooled
+        sentence encoder on tokens, or TabTransformer on tabular columns."""
         if self.text_input_mode == "tokens":
             hidden = self.text_encoder(metadata["input_ids"], metadata.get("attention_mask"))
             return pool_hidden(hidden, self.text_pool)
+        if self.text_input_mode == "tabular":
+            return self.text_module(metadata["categorical"], metadata.get("numerical"))
+        if hasattr(self, "text_tower"):
+            return self.text_tower(metadata)
         return self.text_fc(metadata)
 
     def features(self, image: torch.Tensor, metadata
@@ -283,8 +308,8 @@ class MultimodalModel(nn.Module):
         return cat(a_txt * img_x, a_img * txt_x)  # swapped gates
 
     def forward(self, image: torch.Tensor, metadata) -> torch.Tensor:
-        """image (B, H, W, 3) NHWC, metadata (B, vocab_size) or the token
-        dict → logits (B, num_classes)."""
+        """image (B, H, W, 3) NHWC, metadata (B, vocab_size), the token
+        dict or the tabular dict → logits (B, num_classes)."""
         img, txt = self.features(image, metadata)
         with self.autocast(image.device):
             return getattr(self, self.head_name)(self.fuse(img, txt))

@@ -37,7 +37,17 @@ tree) converts to HF torch's ``BertModel``/``GPT2Model`` keys under
 ``text_encoder.`` (``text_encoder_state_dict``), the inverse of
 ``import_torch_bert``/``import_torch_gpt2``: Flax Dense kernels (in, out)
 transpose to (out, in), GPT-2's Flax Conv1D kernels (out, in) to HF torch's
-Conv1D (in, out), embeddings stay as they are.
+Conv1D (in, out), embeddings stay as they are. A tabular model's
+TabTransformer (``text_module`` with ``fc_hidden``) and the static-embedding
+tower (``text_tower`` without ``fc2``) convert to ``text_module.`` and
+``text_tower.`` keys. The baselines' trees (``meta_net`` for MD-Net,
+``visual_proj`` for LiwTERM, ``metanet`` for MetaNet) and sequence fusion's
+(``img_self``) convert with their auto-named tower (``DenseNet_0``,
+``ViT_0``, ``ResNet_0``) under ``feature_extractor.`` (MD-Net's DenseNet
+``features``, as ``import_mdnet`` reads them) or ``backbone.``, MetaNet's
+Denses as the reference's 1×1 convs. ``block_state_dict`` converts one
+block of skinjax's zoo by its class name, ``encoder_state_dict`` one image
+tower.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import torch
 from torch import nn
 
 from skinjax_torch.models.backbones import beit, coat, swin, vit
+from skinjax_torch.models.fusion import blocks
 from skinjax_torch.models.text import gpt2
 from skinjax_torch.ops.attention import MultiheadAttention
 
@@ -359,10 +370,12 @@ def _nextvit(sd: Dict, prefix: str, p: Mapping, s: Optional[Mapping],
     _bn(sd, f"{prefix}norm", p["norm"], _sub(s, "norm"))
 
 
-def _densenet(sd: Dict, prefix: str, p: Mapping, s: Optional[Mapping]) -> None:
+def _densenet(sd: Dict, prefix: str, p: Mapping, s: Optional[Mapping],
+              features: str = "features.") -> None:
     """skinjax ``DenseNet`` → torchvision's ``features.*`` keys (the inverse
-    of ``import_densenet``)."""
-    f = f"{prefix}features."
+    of ``import_densenet``; ``features=""`` for MD-Net's
+    ``feature_extractor``, which holds the ``features`` module itself)."""
+    f = f"{prefix}{features}"
     _conv(sd, f"{f}conv0", p["conv0"])
     _bn(sd, f"{f}norm0", p["norm0"], _sub(s, "norm0"))
     for name, sub in p.items():
@@ -503,43 +516,39 @@ def _mlp_head(sd: Dict, prefix: str, p: Mapping) -> None:
     _linear(sd, f"{prefix}.8", p["fc_out"])
 
 
-def state_dict_from_flax(params: Mapping, batch_stats: Mapping, *,
-                         nextvit_depths: Optional[Sequence[int]] = None) -> Dict[str, np.ndarray]:
-    """JAX ``MultimodalModel`` (params, batch_stats) → reference ``state_dict``
-    (``nextvit_depths``: a NextViT tree's stage depths, where it is not a
-    published tower's)."""
-    sd: Dict[str, np.ndarray] = {}
-    enc = params["image_encoder"]
-    enc_stats = batch_stats.get("image_encoder")
+def _encoder(sd: Dict, prefix: str, enc: Mapping, enc_stats: Optional[Mapping],
+             nextvit_depths: Optional[Sequence[int]] = None) -> None:
+    """A skinjax image tower's tree → the port's keys under ``prefix``,
+    dispatched on the tree's own markers."""
     if "stem0_conv" in enc:
-        _nextvit(sd, "image_encoder.", enc, enc_stats, nextvit_depths)
+        _nextvit(sd, prefix, enc, enc_stats, nextvit_depths)
     elif "norm_final" in enc:
-        _densenet(sd, "image_encoder.", enc, enc_stats)
+        _densenet(sd, prefix, enc, enc_stats)
     elif "stem_bn" in enc and "se" in enc["block0"]:
-        _efficientnet(sd, "image_encoder.", enc, enc_stats)
+        _efficientnet(sd, prefix, enc, enc_stats)
     elif "stem_bn" in enc:
-        _mobilenet_v2(sd, "image_encoder.", enc, enc_stats)
+        _mobilenet_v2(sd, prefix, enc, enc_stats)
     elif "conv0" in enc and "fc2" in enc:
-        _vgg16(sd, "image_encoder.", enc)
+        _vgg16(sd, prefix, enc)
     elif "conv" in enc and "fc" in enc:  # custom-cnn
-        _conv(sd, "image_encoder.conv", enc["conv"])
-        _linear(sd, "image_encoder.fc", enc["fc"])
+        _conv(sd, f"{prefix}conv", enc["conv"])
+        _linear(sd, f"{prefix}fc", enc["fc"])
     elif "stage0_block0_spatial" in enc:
-        _davit(sd, "image_encoder.", enc)
+        _davit(sd, prefix, enc)
     elif "down1_norm" in enc or "token_mixer" in enc.get("stage0_block0", {}):
-        _caformer(sd, "image_encoder.", enc)
+        _caformer(sd, prefix, enc)
     elif "patch_embed1_proj" in enc:
-        _coat(sd, "image_encoder.", enc)
+        _coat(sd, prefix, enc)
     elif "patch_norm" in enc:
-        _swin(sd, "image_encoder.", enc)
+        _swin(sd, prefix, enc)
     elif "stem" in enc:
-        _resnet(sd, "image_encoder.", enc, batch_stats["image_encoder"])
+        _resnet(sd, prefix, enc, enc_stats)
     elif "pos_embed" in enc:
-        _vit(sd, "image_encoder.", enc)
+        _vit(sd, prefix, enc)
     elif "fc_norm" in enc:
-        _beit(sd, "image_encoder.", enc)
+        _beit(sd, prefix, enc)
     elif "rel_pos_h" in enc.get("stage0_block0", {}).get("attn", {}):
-        _mvit(sd, "image_encoder.", enc)
+        _mvit(sd, prefix, enc)
     else:
         raise NotImplementedError(
             "state_dict_from_flax converts ResNet, DaViT, Swin, ViT, BEiT, MViTv2, CAFormer, "
@@ -547,30 +556,198 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping, *,
             "image encoders only; "
             f"got an encoder with {sorted(enc)[:4]}..."
         )
+
+
+def encoder_state_dict(enc: Mapping, stats: Optional[Mapping] = None, prefix: str = "",
+                       nextvit_depths: Optional[Sequence[int]] = None) -> Dict[str, np.ndarray]:
+    """A skinjax image tower's params (and batch_stats) → the port tower's
+    ``state_dict`` under ``prefix``."""
+    sd: Dict[str, np.ndarray] = {}
+    _encoder(sd, prefix, enc, stats, nextvit_depths)
+    return sd
+
+
+def _grb(sd: Dict, prefix: str, p: Mapping) -> None:
+    _mha(sd, f"{prefix}.attn", p["attn"])
+    _linear(sd, f"{prefix}.gate_linear", p["gate_linear"])
+    _ln(sd, f"{prefix}.norm", p["norm"])
+
+
+def _stacked(sd: Dict, prefix: str, p: Mapping) -> None:
+    for name, sub in p.items():  # block_{i}
+        _grb(sd, f"{prefix}.{name}", sub)
+
+
+def _residual(sd: Dict, prefix: str, p: Mapping) -> None:
+    _mha(sd, f"{prefix}.attn", p["attn"])
+    _ln(sd, f"{prefix}.norm", p["norm"])
+
+
+def _altered(sd: Dict, prefix: str, p: Mapping) -> None:
+    _ln(sd, f"{prefix}.norm1", p["norm1"])
+    _mha(sd, f"{prefix}.attn", p["attn"])
+    sd[f"{prefix}.alpha"] = _np(p["alpha"])
+    _linear(sd, f"{prefix}.ffn_in", p["ffn_in"])
+    _linear(sd, f"{prefix}.ffn_out", p["ffn_out"])
+    _ln(sd, f"{prefix}.norm2", p["norm2"])
+
+
+def _transformer(sd: Dict, prefix: str, p: Mapping) -> None:
+    _mha(sd, f"{prefix}.attention", p["attention"])
+    _ln(sd, f"{prefix}.norm1", p["norm1"])
+    _linear(sd, f"{prefix}.ff_in", p["ff_in"])
+    _linear(sd, f"{prefix}.ff_out", p["ff_out"])
+    _ln(sd, f"{prefix}.norm2", p["norm2"])
+
+
+def _metablock(sd: Dict, prefix: str, p: Mapping) -> None:
+    _linear(sd, f"{prefix}.fb.0", p["fb"])
+    _ln(sd, f"{prefix}.fb.1", p["fb_norm"])
+    _linear(sd, f"{prefix}.gb.0", p["gb"])
+    _ln(sd, f"{prefix}.gb.1", p["gb_norm"])
+
+
+def _metanet(sd: Dict, prefix: str, p: Mapping) -> None:
+    _dense_as_conv1x1(sd, f"{prefix}.metanet.0", p["fc1"])
+    _dense_as_conv1x1(sd, f"{prefix}.metanet.2", p["fc2"])
+
+
+def _named_linears(sd: Dict, prefix: str, p: Mapping) -> None:
+    """Every Dense of a tree of Denses under its own name."""
+    for name, sub in p.items():
+        _linear(sd, f"{prefix}.{name}", sub)
+
+
+def _bilinear(sd: Dict, prefix: str, p: Mapping) -> None:
+    for name in ("u", "v", "proj"):
+        _linear(sd, f"{prefix}.{name}", p[name])
+    _ln(sd, f"{prefix}.norm", p["norm"])
+
+
+def _one_hot(sd: Dict, prefix: str, p: Mapping) -> None:
+    for i, fc in enumerate(("fc0", "fc1", "fc2")):
+        _linear(sd, f"{prefix}.{2 * i}", p[fc])
+
+
+def _tab_transformer(sd: Dict, prefix: str, p: Mapping) -> None:
+    for name, sub in p.items():
+        if name.startswith("embed"):
+            sd[f"{prefix}.{name}.weight"] = _np(sub["embedding"])
+        elif name.startswith("encoder"):
+            _transformer(sd, f"{prefix}.{name}", sub)
+        else:  # numeric_proj, fc_hidden, fc_out
+            _linear(sd, f"{prefix}.{name}", sub)
+
+
+# a skinjax block's tree → the port's keys, by the block's class name
+BLOCKS = {
+    "GatedAlteredResidualBlock": _grb,
+    "StackedGatedResidualBlock": _stacked,
+    "ResidualBlock": _residual,
+    "AlteredResidualBlock": _altered,
+    "TransformerAttentionBlock": _transformer,
+    "SimpleAttentionBlock": lambda sd, prefix, p: _mha(sd, f"{prefix}.attention", p["attention"]),
+    "MetaBlock": _metablock,
+    "MetaNet": _metanet,
+    "FeatureModulation": _named_linears,
+    "MLPHead": _mlp_head,
+    "MLP": _named_linears,
+    "BilinearPooling": _bilinear,
+    "OneHotMLP": _one_hot,
+    "StaticEmbeddingTower": _named_linears,
+    "TabTransformer": _tab_transformer,
+    "MultiHeadAttention": _mha,
+}
+
+
+def block_state_dict(kind: str, params: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """One skinjax block's params (``kind`` its class name, a key of
+    ``BLOCKS``) → the port's ``state_dict`` for the same block, under
+    ``prefix`` (``"meta_block."``; the module's own keys where empty)."""
+    sd: Dict[str, np.ndarray] = {}
+    BLOCKS[kind](sd, "_", params)
+    return {prefix + k[2:]: v for k, v in sd.items()}
+
+
+def _tower(params: Mapping) -> str:
+    """The scope of a tower that a flax module built inline, auto-named after
+    its class (``DenseNet_0``, ``ViT_0``, ``ResNet_0``)."""
+    names = [k for k in params if k[:1].isupper() and k.rsplit("_", 1)[-1].isdigit()]
+    if len(names) != 1:
+        raise ValueError(f"expected one auto-named tower in {sorted(params)}")
+    return names[0]
+
+
+def _baseline_or_sequence(sd: Dict, params: Mapping, batch_stats: Mapping,
+                          nextvit_depths: Optional[Sequence[int]]) -> bool:
+    """MD-Net, LiwTERM, MetaNet and sequence-fusion trees → the port's keys;
+    False for any other tree."""
+    if not any(k in params for k in ("meta_net", "visual_proj", "metanet", "img_self")):
+        return False
+    tower = _tower(params)
+    enc, enc_stats = params[tower], batch_stats.get(tower)
+    if "meta_net" in params:  # MD-Net
+        _densenet(sd, "feature_extractor.", enc, enc_stats, features="")
+        _metanet(sd, "meta_net", params["meta_net"])
+        _metablock(sd, "meta_block", params["meta_block"])
+        _linear(sd, "classifier", params["classifier"])
+        return True
+    _encoder(sd, "backbone.", enc, enc_stats, nextvit_depths)
+    if "visual_proj" in params:  # LiwTERM
+        for name, sub in params.items():
+            if name != tower:
+                (_ln if "norm" in name else _linear)(sd, name, sub)
+    elif "metanet" in params:  # MetaNet
+        _metanet(sd, "metanet", params["metanet"])
+        for name in ("fc1", "fc2", "fc_out"):
+            _linear(sd, name, params[name])
+        for name in ("norm1", "norm2"):
+            _ln(sd, name, params[name])
+    else:  # sequence fusion
+        for name in ("img_proj", "img_gate", "txt_gate"):
+            _linear(sd, name, params[name])
+        _one_hot(sd, "text_tower", params["text_tower"])
+        for name in ("img_self", "txt_self", "img_cross", "txt_cross"):
+            _mha(sd, name, params[name])
+        _mlp_head(sd, "head", params["head"])
+    return True
+
+
+def state_dict_from_flax(params: Mapping, batch_stats: Mapping, *,
+                         nextvit_depths: Optional[Sequence[int]] = None) -> Dict[str, np.ndarray]:
+    """A JAX model's (params, batch_stats) → reference ``state_dict``: a
+    ``MultimodalModel``, a baseline (``MDNet``, ``LiwTERM``, ``MetaNetModel``)
+    or a ``SequenceFusionModel`` (``nextvit_depths``: a NextViT tree's stage
+    depths, where it is not a published tower's)."""
+    sd: Dict[str, np.ndarray] = {}
+    if _baseline_or_sequence(sd, params, batch_stats, nextvit_depths):
+        return sd
+    _encoder(sd, "image_encoder.", params["image_encoder"], batch_stats.get("image_encoder"),
+             nextvit_depths)
     for name in ("image_projector", "text_projector", "img_gate", "txt_gate",
                  "fc_visual_only", "fc_fusion_proj_feat2output"):
         if name in params:
             _linear(sd, name, params[name])
     if "text_tower" in params:
-        for i, fc in enumerate(("fc0", "fc1", "fc2")):
-            _linear(sd, f"text_fc.{2 * i}", params["text_tower"][fc])
-    if "text_module" in params:  # a tokens model's sentence tower
-        sd.update(text_encoder_state_dict(params["text_module"], "text_encoder."))
+        if "fc2" in params["text_tower"]:  # the one-hot tower
+            _one_hot(sd, "text_fc", params["text_tower"])
+        else:  # the static-embedding tower
+            _named_linears(sd, "text_tower", params["text_tower"])
+    if "text_module" in params:
+        tm = params["text_module"]
+        if "fc_hidden" in tm:  # TabTransformer
+            _tab_transformer(sd, "text_module", tm)
+        else:  # a tokens model's sentence tower
+            sd.update(text_encoder_state_dict(tm, "text_encoder."))
     for name in ("image_self_attention", "text_self_attention",
                  "image_cross_attention", "text_cross_attention"):
         if name in params:
             _mha(sd, name, params[name])
     for name in ("image_residual", "text_residual"):
         if name in params:
-            _mha(sd, f"{name}.attn", params[name]["attn"])
-            _linear(sd, f"{name}.gate_linear", params[name]["gate_linear"])
-            _ln(sd, f"{name}.norm", params[name]["norm"])
+            _grb(sd, name, params[name])
     if "meta_block" in params:
-        mb = params["meta_block"]
-        _linear(sd, "meta_block.fb.0", mb["fb"])
-        _ln(sd, "meta_block.fb.1", mb["fb_norm"])
-        _linear(sd, "meta_block.gb.0", mb["gb"])
-        _ln(sd, "meta_block.gb.1", mb["gb_norm"])
+        _metablock(sd, "meta_block", params["meta_block"])
     if "fc_fusion" in params:
         _mlp_head(sd, "fc_fusion", params["fc_fusion"])
     if "fc_after_metablock" in params:
@@ -606,7 +783,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     biases and relative position bias table zero, ``gamma_1``/``gamma_2``
     1e-5; CoaT's ``cls_token{k}`` normal(0.02); Swin's patch embedding LeCun
     normal and its relative position bias tables normal(0.02). (StarReLU's scalars and
-    CAFormer's residual scales keep their constructors' 1 and 0.)
+    CAFormer's residual scales keep their constructors' 1 and 0.) MetaNet's
+    1×1 convs: LeCun normal, as skinjax's Denses are drawn.
     """
     g = torch.Generator(device="cpu").manual_seed(seed)
 
@@ -667,6 +845,10 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(m, swin.WindowAttention):
             t = m.relative_position_bias_table
             put(t, torch.randn(t.shape, generator=g) * 0.02)
+        elif isinstance(m, blocks.MetaNet):  # skinjax's Denses: LeCun normal
+            for conv in (m.metanet[0], m.metanet[2]):
+                put(conv.weight, torch.randn(conv.weight.shape, generator=g)
+                    * conv.in_channels ** -0.5)
         elif isinstance(m, coat.CoaTLite):
             for k in range(1, m.num_stages + 1):
                 t = getattr(m, f"cls_token{k}")

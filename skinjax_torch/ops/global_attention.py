@@ -236,6 +236,13 @@ def window_core_bwd_plain(q, k, v, do, bias, mask, num_heads, has_bias):
 # ---------------------------------------------------------------------------
 
 
+def admits(N: int, C: int, num_heads: int) -> bool:
+    """Whether the kernels take N tokens of C channels in ``num_heads``
+    heads: C divisible by the heads, at most ``MAX_HEAD_DIM`` channels a head
+    and ``MAX_TOKENS`` tokens (the shapes ``_check`` refuses otherwise)."""
+    return C % num_heads == 0 and C // num_heads <= MAX_HEAD_DIM and N <= MAX_TOKENS
+
+
 def stores_p(q: torch.Tensor, num_heads: int) -> bool:
     """Whether the backward of this call reads a stored P: its residual
     ``B·h·N²·4`` bytes is at most ``STORE_P_MAX_BYTES``."""
@@ -262,7 +269,7 @@ def _check(q, k, v, bias, kmask, pmult, num_heads):
     if q.dim() != 3:
         raise ValueError(f"q must be (B, N, C), got {tuple(q.shape)}")
     B, N, C = q.shape
-    if C % num_heads or C // num_heads > MAX_HEAD_DIM or N > MAX_TOKENS:
+    if not admits(N, C, num_heads):
         raise ValueError(f"the kernel takes C divisible by the heads, at most {MAX_HEAD_DIM} "
                          f"channels a head and {MAX_TOKENS} tokens; got C={C}, {num_heads} heads, "
                          f"N={N}")

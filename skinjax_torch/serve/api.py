@@ -17,7 +17,10 @@ The server starts a thread per request, but every forward runs on one
 persistent inference thread: PyTorch sets up CUDA state per thread on first
 use (cuDNN and cuBLAS handles, convolution plans), which cost the flagship
 about 0.1 s per request on an H100 when each request ran on a fresh thread.
-The card runs one forward at a time anyway.
+The card runs one forward at a time anyway. A ``BatchingEngine``
+(``serve/batching.py``) is called from the request threads instead: its own
+worker thread runs the batched forwards, and a request that finds it idle
+runs directly in its thread.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ def decode_image(data: bytes) -> np.ndarray:
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
-def make_handler(engine: InferenceEngine):
+def make_handler(engine: InferenceEngine):  # or a BatchingEngine
     """The request handler class; ``Handler.worker`` is its inference thread
     (shut it down when the server stops)."""
 
@@ -122,7 +125,10 @@ def make_handler(engine: InferenceEngine):
             except (ValueError, KeyError, TypeError, binascii.Error) as e:
                 return self._json(400, {"error": f"bad request: {type(e).__name__}: {e}"})
             try:
-                result = self.worker.submit(engine.predict, img, metadata).result()
+                if hasattr(engine, "predict_probs_queued"):  # a BatchingEngine
+                    result = engine.predict(img, metadata)
+                else:
+                    result = self.worker.submit(engine.predict, img, metadata).result()
             except Exception as e:  # noqa: BLE001 - serving boundary: report, keep serving
                 traceback.print_exc()
                 return self._json(500, {"error": f"{type(e).__name__}: {e}"})

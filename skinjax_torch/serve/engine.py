@@ -57,6 +57,19 @@ def resize_u8(image_u8: torch.Tensor, size: Tuple[int, int] = IMAGE_SIZE) -> tor
     return x[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8)
 
 
+def preprocess_image_u8(image_u8: np.ndarray, size: Tuple[int, int] = IMAGE_SIZE) -> np.ndarray:
+    """uint8 HWC (any size) → resized uint8 (1, h, w, 3) on the host, by
+    ``resize_u8``'s arithmetic; the engine normalizes it on the device."""
+    return resize_u8(torch.from_numpy(np.ascontiguousarray(image_u8)), size).numpy()[None]
+
+
+def preprocess_image(image_u8: np.ndarray, size: Tuple[int, int] = IMAGE_SIZE) -> np.ndarray:
+    """uint8 HWC (any size) → normalized float32 (1, h, w, 3) on the host."""
+    img = preprocess_image_u8(image_u8, size).astype(np.float32) / 255.0
+    return ((img - np.asarray(IMAGENET_MEAN, np.float32))
+            / np.asarray(IMAGENET_STD, np.float32)).astype(np.float32)
+
+
 def _mha(mha) -> List[torch.Tensor]:
     w, b = mha.v_proj()
     return [w.t(), b, mha.out_proj.weight.t(), mha.out_proj.bias]

@@ -13,8 +13,10 @@ HTTP (counterpart of ``skinjax/serve/run_service.py``, same variables).
   CNN_MODEL_NAME, ATTENTION_MECHANISM, NUM_LABELS, NUM_HEADS, COMMON_DIM, VOCAB_SIZE
   HOST, PORT
   DEVICE               torch device, default ``cuda``; ``cpu`` must be asked for
-  XAI=1, MAX_BATCH>1   the XAI app and the dynamic-batching frontend are not
-                       ported yet and raise NotImplementedError
+  MAX_BATCH            >1 wraps the engine in the dynamic-batching frontend
+                       (serve/batching.py) with that many requests a forward
+  BATCH_WAIT_MS        the batcher's linger (default 5 ms)
+  XAI=1                the XAI app is not ported yet and raises NotImplementedError
 
 The model runs in bfloat16 (autocast), as the JAX service does. TF32 is off
 for both cuDNN and matmuls (``torch.backends.cudnn.allow_tf32`` and
@@ -44,6 +46,8 @@ def load_weights(path: str):
 
 
 def build_engine():
+    """The engine the variables describe: an ``InferenceEngine``, or with
+    MAX_BATCH > 1 a ``BatchingEngine`` around it."""
     from skinjax_torch.data.featurizer import MetadataFeaturizer
     from skinjax_torch.models import MultimodalModel
     from skinjax_torch.models.weights import init_weights
@@ -56,10 +60,6 @@ def build_engine():
         )
     if os.environ.get("XAI") == "1":
         raise NotImplementedError("XAI=1: the XAI app is not ported to PyTorch yet (ROADMAP.md)")
-    if int(os.environ.get("MAX_BATCH", 1)) > 1:
-        raise NotImplementedError(
-            "MAX_BATCH>1: the dynamic-batching frontend is not ported to PyTorch yet (ROADMAP.md)"
-        )
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -86,7 +86,14 @@ def build_engine():
         model.load_state_dict(load_weights(ckpt))
     else:
         init_weights(model, seed=0)
-    return InferenceEngine(model, fz, device=device)
+    engine = InferenceEngine(model, fz, device=device)
+    max_batch = int(os.environ.get("MAX_BATCH", 1))
+    if max_batch > 1:
+        from skinjax_torch.serve.batching import BatchingEngine
+
+        return BatchingEngine(engine, max_batch=max_batch,
+                              max_wait_ms=float(os.environ.get("BATCH_WAIT_MS", 5.0)))
+    return engine
 
 
 def main():

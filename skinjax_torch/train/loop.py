@@ -38,9 +38,10 @@ from skinjax_torch.train.optimizer import (
 )
 from skinjax_torch.train.steps import TrainState, make_eval_step, make_train_step_weighted
 
-# the port's metadata towers: the one-hot MLP and a tokens model's sentence
-# encoder (skinjax: text_tower / text_module)
-TEXT_PREFIXES = ("text_fc", "text_encoder")
+# the port's metadata towers: the one-hot MLP, a tokens model's sentence
+# encoder, the static-embedding tower (and sequence fusion's one-hot tower)
+# and a tabular model's TabTransformer (skinjax: text_tower / text_module)
+TEXT_PREFIXES = ("text_fc", "text_encoder", "text_tower", "text_module")
 
 
 @dataclasses.dataclass
@@ -76,7 +77,8 @@ def _dtype(cfg: TrainConfig) -> torch.dtype:
 
 def _to_device(batch: Dict, device: torch.device) -> Dict:
     """A host batch's arrays as tensors on ``device``; a dict (a sentence
-    dataset's token metadata) is moved leaf by leaf."""
+    dataset's token metadata, a tabular dataset's columns) is moved leaf by
+    leaf, integer leaves staying integral."""
     return {k: _to_device(v, device) if isinstance(v, dict)
             else torch.as_tensor(np.ascontiguousarray(v)).to(device, non_blocking=True)
             for k, v in batch.items()}
@@ -121,7 +123,8 @@ def text_mode(model: torch.nn.Module, cfg: TrainConfig) -> Optional[str]:
     for a tokens model, ``unfreeze_weights`` binarised as skinjax does (the
     reference sets requires_grad=False on the whole sentence tower in every
     mode but ``unfrozen_weights``): ``unfrozen_weights`` or ``frozen_weights``;
-    else None (the one-hot tower trains)."""
+    else None (the one-hot, static-embedding and TabTransformer towers
+    train, as the reference's never touch requires_grad)."""
     if cfg.text_train_mode is not None:
         return cfg.text_train_mode
     if getattr(model, "text_input_mode", "features") == "tokens":

@@ -54,8 +54,9 @@ def _inputs(model: nn.Module, image, metadata, image_dtype):
     """Round the image and the metadata to ``image_dtype`` (skinjax casts the
     metadata to the image dtype), then widen to the model's compute dtype, as
     JAX promotes bf16 inputs against fp32 parameters. Metadata is a (B, F)
-    tensor or a dict of them (the token ids and mask of a sentence dataset):
-    float tensors are cast so, integer ones (ids, masks) stay as they are."""
+    tensor or a dict of them (the token ids and mask of a sentence dataset,
+    the categorical indices and numerics of a tabular one): float tensors
+    are cast so, integer ones (ids, masks, indices) stay as they are."""
     dtype = compute_dtype(model)
 
     def cast(t):

@@ -29,6 +29,7 @@ from skinjax_torch.models import MultimodalModel
 from skinjax_torch.models.weights import init_weights, load_numpy_state_dict, state_dict_from_flax
 from skinjax_torch.serve import png, run_service
 from skinjax_torch.serve.api import make_handler
+from skinjax_torch.serve.batching import BatchingEngine
 from skinjax_torch.serve.engine import InferenceEngine, resize_u8
 from tests.test_torch_weights import jax_variables
 from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
@@ -233,9 +234,15 @@ def test_service_needs_its_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_service.build_engine()
     monkeypatch.setenv("DEVICE", "cpu")
+    # MAX_BATCH>1 builds the dynamic-batching frontend around the engine
     monkeypatch.setenv("MAX_BATCH", "4")
-    with pytest.raises(NotImplementedError, match="MAX_BATCH"):
-        run_service.build_engine()
+    monkeypatch.setenv("CNN_MODEL_NAME", "resnet-18")
+    batcher = run_service.build_engine()
+    try:
+        assert isinstance(batcher, BatchingEngine) and batcher.max_batch == 4
+        assert batcher.engine.device == torch.device("cpu")
+    finally:
+        batcher.shutdown()
     monkeypatch.delenv("MAX_BATCH")
     monkeypatch.setenv("XAI", "1")
     with pytest.raises(NotImplementedError, match="XAI"):
@@ -265,7 +272,7 @@ def test_service_builds_from_its_environment(monkeypatch, tmp_path):
 
 
 def test_port_never_imports_jax():
-    """Nor OpenCV, matplotlib, transformers or safetensors at import time:
+    """Nor OpenCV, matplotlib, transformers, safetensors or tokenizers at import time:
     the card's machine has none of them, and the plots import matplotlib only
     when they draw."""
     code = (
@@ -291,9 +298,12 @@ def test_port_never_imports_jax():
         "import skinjax_torch.models.backbones.swin, skinjax_torch.models.backbones.davit\n"
         "import skinjax_torch.ops.batch_norm, skinjax_torch.models.backbones.nextvit\n"
         "import skinjax_torch.models.backbones.cnn_zoo\n"
+        "import skinjax_torch.models.fusion.blocks, skinjax_torch.models.fusion.sequence\n"
+        "import skinjax_torch.models.baselines, skinjax_torch.models.text.static_embed\n"
+        "import skinjax_torch.data.tabular, skinjax_torch.serve.batching\n"
         "import chip_smoke\n"
         "banned = ('jax', 'jaxlib', 'flax', 'skinjax', 'cv2', 'matplotlib', 'transformers',\n"
-        "          'safetensors')\n"
+        "          'safetensors', 'tokenizers')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not bad, bad\n"
     )

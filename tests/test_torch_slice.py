@@ -90,9 +90,11 @@ def test_fused_engine_matches_plain_engine(mech):
 
 
 def test_unported_parts_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MultimodalModel(num_classes=4, text_model_name="static-embedding")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # the static-embedding tower is ported; tabular mode takes its TabTransformer
+    model = MultimodalModel(num_classes=4, cnn_model_name="resnet-18",
+                            text_model_name="static-embedding", vocab_size=12)
+    assert model.text_tower.fc0.in_features == 12
+    with pytest.raises(ValueError, match="TabTransformer"):
         MultimodalModel(num_classes=4, text_input_mode="tabular")
     with pytest.raises(ValueError, match="not implemented"):
         MultimodalModel(num_classes=4, attention_mechanism="no-such-mechanism")
