@@ -221,6 +221,9 @@ sentence dataset. Phases, each printing its lines:
               WordPiece vocab.txt, TEXT_MODEL_NAME=bert-base-uncased,
               MAX_SEQ_LENGTH=512; DaViT-tiny + BERT-base, 2 folds × 1 epoch,
               B=32, unfrozen); its first checkpoint reloaded and evaluated
+ 18. models   TabTransformer, static-embedding, sequence fusion, the
+              baselines, the batching service (``--models`` below)
+ 19. xai      the XAI slice (``--xai`` below)
 
 Any failure exits non-zero. The second-to-last line is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Exits non-zero, with
@@ -258,6 +261,24 @@ builds csrc/fused_mlp.cu only and runs K9's and K10's checks (every shape,
 bf16 and fp32, two backward calls bit-identical at the record shapes) and
 times (per call, device time by kernel, bound, the unfused chain, a train
 step's sums) alone (last line {"ok": true, "mlp": true}).
+
+    python3 chip_smoke.py --xai
+
+builds csrc/fusion_kernels.cu, fused_mlp.cu, global_attention.cu and
+window_attention.cu and runs the XAI slice alone (phase 19; the whole run
+runs it last): Grad-CAM and Grad-CAM++ at B=2 on the flagship, ViT-base
+(CLS pooling: the delta's gradient goes back through the last block's K12,
+forward with P and stored-P backward), CoaT-lite-small (the last serial
+block's K9 forward and backward) and DaViT-tiny (K7 forward only), fp32 on
+the card against the CPU, bf16 under autocast against the card's fp32, each
+Grad-CAM's launches counted; Score-CAM on the flagship at B=1, exact (2048
+channels) and top-64, the top-64 map on the card against the CPU; the XAI
+app as run_service serves it with XAI=1 (three POSTs: the prediction is
+engine.predict's, K1/K2/K3 4/2/1 a request, an overlay PNG, the latency
+split); python -m skinjax_torch.tools.xai_cli missing-data and flip-rate as
+subprocesses on phase 15's dataset; and the missing-data sweep (5 folds × 6
+rates over 2298 rows, B=64) timed (last line {"ok": true, "device": ...},
+after a JSON summary line).
 """
 
 from __future__ import annotations
@@ -1069,6 +1090,12 @@ def against(ms, bound_ms, library_ms) -> str:
 
 def us(t) -> str:
     return "not measured" if t is None else f"{t:9.2f} us"
+
+
+def share(part, total) -> str:
+    """part / total as a percentage; not measured where a trace kept no
+    device record (total 0)."""
+    return f"{100 * part / total:.2f}%" if total > 0 else "not measured"
 
 
 def ms_us(t) -> str:
@@ -2735,8 +2762,8 @@ def phase_sentence_train(counters, device, card, label, config, T, per_step,
                                                       for n in names))
         log(f"[{card}] profile train {label} {mode} step B={B} T={T}: device time "
             f"{total / 1e3:.2f} ms per step = {100 * total / (ms * 1e3):.1f}% of the {ms:.2f} ms "
-            f"step; K12 {k12 / 1e3:.2f} ms ({100 * k12 / total:.1f}%), K7 {k7 / 1e3:.2f} ms "
-            f"({100 * k7 / total:.1f}%); {len(by_name)} kernel names")
+            f"step; K12 {k12 / 1e3:.2f} ms ({share(k12, total)}), K7 {k7 / 1e3:.2f} ms "
+            f"({share(k7, total)}); {len(by_name)} kernel names")
         log("  top kernels (us per step): " + "; ".join(f"{k[:70]} {v:.1f}" for k, v in top))
     del state, model, batch
     torch.cuda.empty_cache()
@@ -2949,7 +2976,7 @@ def phase_train_times(device, card, batch, cw, step, label="flagship", config=No
     shares = []
     for name, names in (kernel_names or {"K5": K5_KERNELS}).items():
         ours = sum(v for k, v in by_name.items() if any(n in k for n in names))
-        shares.append(f"{name} {ours:.1f} us ({100 * ours / total:.2f}%)")
+        shares.append(f"{name} {ours:.1f} us ({share(ours, total)})")
     log(f"[{card}] profile train {label} step unfrozen B={B}: device time {total / 1e3:.2f} ms "
         f"per step = {100 * total / (mean_ms * 1e3):.1f}% of the untraced {mean_ms:.2f} ms "
         f"step; {'; '.join(shares)}; {len(by_name)} kernel names")
@@ -3672,8 +3699,10 @@ def phase_k8_times(ca, device, card):
             plan = ca.plan(torch.bfloat16, B, N, C, h, bwd)
             _, by_name = device_us(kern, n=5)
             split = {k: sum(t for key, t in by_name.items() if k in key) for k in K8_KERNELS[name]}
-            dev_ms = sum(split.values()) / 1e3
-            factor = ("not measured" if lib_dev[name] is None
+            # None: the trace kept no record of the kernels (torch.profiler
+            # now and then drops a late trace's records)
+            dev_ms = sum(split.values()) / 1e3 or None
+            factor = ("not measured" if lib_dev[name] is None or dev_ms is None
                       else f"{dev_ms / lib_dev[name]:.2f}x device time")
             if not bwd and lib[name] is not None:
                 factor += f", {rec['ms'] / lib[name]:.2f}x per call"
@@ -3681,11 +3710,12 @@ def phase_k8_times(ca, device, card):
                       else "a head a block")
             log(f"[{card}] K8 {name} stage B={B} N={N} C={C} h={h}: route {plan['route']}, "
                 f"{plan['n_seg']} segments, {blocks}; per call "
-                f"{rec['ms'] * 1e3:.2f} us, device {dev_ms * 1e3:.2f} us ("
+                f"{rec['ms'] * 1e3:.2f} us, device {ms_us(dev_ms)} ("
                 + ", ".join(f"{k} {t:.2f} us" for k, t in split.items())
                 + f"); share of bound {100 * rec['bound_ms'] / rec['ms']:.1f}% per call, "
-                f"{100 * rec['bound_ms'] / dev_ms:.1f}% of the device time; factor against the "
-                f"plain module {factor}")
+                + ("not measured" if dev_ms is None
+                   else f"{100 * rec['bound_ms'] / dev_ms:.1f}%")
+                + f" of the device time; factor against the plain module {factor}")
         log(f"[{card}] time the port's plain DaViTChannelAttention bf16 B={B} N={N} C={C} "
             f"(cuBLAS linears + einsums): forward {ms_us(fwd_call)} per call (CUDA events), "
             f"{ms_us(fwd_dev)} device time (torch.profiler); backward {ms_us(bwd_dev)} (the "
@@ -4248,7 +4278,7 @@ def path_times(card, label, state, batch, cw, kernel_names=None):
     shares = []
     for name, names in {"K5": K5_KERNELS, **(kernel_names or {})}.items():
         ours = sum(v for k, v in by_name.items() if any(n in k for n in names))
-        shares.append(f"{name} {ours:.1f} us ({100 * ours / total:.2f}%)")
+        shares.append(f"{name} {ours:.1f} us ({share(ours, total)})")
     log(f"[{card}] train {label} unfrozen B={B}: {ms:.2f} ms per step, {B / ms * 1e3:.1f} img/s "
         f"(12 steps after 3 warm-up, CUDA events); profiled step: device time "
         f"{total / 1e3:.2f} ms = {100 * total / (ms * 1e3):.1f}% of the step; "
@@ -5039,6 +5069,522 @@ def models_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the XAI slice
+# ---------------------------------------------------------------------------
+
+# Grad-CAM and Grad-CAM++ at B=2 on four towers around the flagship's fusion
+# (RG-ATT, one-hot metadata, common_dim 512), 224×224, random weights from
+# seed 0: the tower and the kernels its CAM must launch
+XAI_TOWERS = {"flagship": "resnet-50", "vit-base": "vit_base_patch16_224",
+              "coat-lite-small": "coat_lite_small", "davit-tiny": "davit_tiny"}
+XAI_B = 2
+XAI_CLASSES = (1, 4)
+# the card's fp32 maps against the CPU's, both in [0, 1]: skinjax's own
+# tolerance for its maps against a PyTorch oracle (tests/test_cam_parity.py)
+XAI_MAP_TOL = 2e-3
+# bf16 under autocast against the card's fp32, each map: its mean absolute
+# difference and its correlation. The largest difference is printed, not
+# held: a map is Σ_c w_c·A_c min-max-normed, and at random weights the sum
+# cancels, so the grid's and its gradient's bf16 errors (a CPU probe at these
+# towers: 0.6–21% of A's norm, 5–38% of g's) move single pixels by up to the
+# map's whole range (DaViT-tiny's Grad-CAM++ 0.99) while the map keeps its
+# pattern (correlation ≥ 0.77, mean ≤ 0.075 there)
+XAI_BF16_MEAN_TOL = 0.15
+XAI_BF16_MIN_CORR = 0.5
+# Score-CAM on the flagship at B=1: its masked images go through the model
+# this many channels a forward; the exact sweep is 2048 channels
+XAI_SCORE_CHANNELS = 128
+XAI_TOP_K = 64
+XAI_APP_REQUESTS = ((224, 224), (224, 224), (300, 400))
+XAI_SWEEP_ROWS = 2298  # PAD-UFES-20's size
+XAI_SWEEP_FOLDS = 5
+XAI_SWEEP_BATCH = 64
+REFERENCE_SWEEP = ("~30–75 min total (5 folds × 6 missing rates), ~5–15 min a fold, on one "
+                   "CUDA GPU: the reference's own figure (BASELINE.md:22), not measured here")
+
+
+def xai_expected(label, modules):
+    """{kernel: launches} during one Grad-CAM of the tower: ViT-base's CLS
+    delta enters its last block, so K12 runs 12 forwards (1 emitting P) and
+    1 stored-P backward; CoaT's enters its last serial block, so K9 runs 16
+    forwards and 1 backward; DaViT's follows the stages, so K7 runs forwards
+    only; nothing runs K1-K4 (the CAM runs the model's modules)."""
+    expect = {k: 0 for m in modules for k in m.LAUNCHES}
+    if label == "vit-base":
+        expect.update(global_attention_fwd=12, global_attention_bwd=1)
+    elif label == "coat-lite-small":
+        expect.update(mlp_gelu_fwd=K9_PER_FORWARD, mlp_gelu_bwd=1)
+    elif label == "davit-tiny":
+        expect.update(window_attention_fwd=K7_PER_FORWARD)
+    return expect
+
+
+@contextlib.contextmanager
+def counting_p(ga):
+    """The K12 forwards that emit P, counted while the block runs."""
+    forward, emitted = ga.global_attention_fwd, []
+
+    def spy(*args, **kwargs):
+        o, p = forward(*args, **kwargs)
+        emitted.append(p is not None and o.is_cuda)
+        return o, p
+
+    ga.global_attention_fwd = spy
+    try:
+        yield emitted
+    finally:
+        ga.global_attention_fwd = forward
+
+
+def xai_inputs(B, seed):
+    """Normalized images (B, 224, 224, 3) and metadata (B, 91), fp32."""
+    import numpy as np
+
+    from skinjax_torch import FLAGSHIP
+
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, 224, 224, 3)).astype(np.float32),
+            rng.normal(size=(B, FLAGSHIP["vocab_size"])).astype(np.float32))
+
+
+def synced_ms(fn):
+    """(fn(), its milliseconds on the host clock up to the card's end)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_xai_cams(modules, device, card):
+    """Grad-CAM and Grad-CAM++ on each of XAI_TOWERS: fp32 on the card (the
+    fp32 kernels) against the CPU (their twins) within XAI_MAP_TOL; bf16
+    under autocast against the card's fp32 within XAI_BF16_TOL; the
+    launches during one fp32 Grad-CAM (``xai_expected``). Returns the
+    launches summed over the towers."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from skinjax_torch import FLAGSHIP
+    from skinjax_torch.xai import grad_cam, grad_cam_pp
+
+    ga = modules[2]
+    total = {}
+    img, meta = xai_inputs(XAI_B, seed=0)
+    for label, tower in XAI_TOWERS.items():
+        cpu_model = smoke_model(dict(FLAGSHIP, cnn_model_name=tower), None).eval()
+        model = copy.deepcopy(cpu_model).to(device)
+        x, m = torch.from_numpy(img).to(device), torch.from_numpy(meta).to(device)
+        grad_cam(model, x, m, XAI_CLASSES)  # the first call builds cuDNN's plans
+        for mod in modules:
+            mod.reset_launches()
+        with counting_p(ga) as emitted:
+            cam, cam_ms = synced_ms(lambda: grad_cam(model, x, m, XAI_CLASSES))
+        launches = {k: v for mod in modules for k, v in mod.LAUNCHES.items()}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        expect = xai_expected(label, modules)
+        log(f"xai {label} one Grad-CAM's launches: {launches}, K12 forwards emitting P "
+            f"{sum(emitted)} (expected {expect}, P {int(label == 'vit-base')})")
+        check(launches == expect and sum(emitted) == int(label == "vit-base"),
+              f"{label}'s Grad-CAM did not run its kernels as expected")
+        pp, pp_ms = synced_ms(lambda: grad_cam_pp(model, x, m, XAI_CLASSES))
+        t0 = time.perf_counter()
+        ref = grad_cam(cpu_model, torch.from_numpy(img), torch.from_numpy(meta), XAI_CLASSES)
+        ref_pp = grad_cam_pp(cpu_model, torch.from_numpy(img), torch.from_numpy(meta),
+                             XAI_CLASSES)
+        cpu_s = time.perf_counter() - t0
+        err = max(float((cam.cpu() - ref).abs().max()), float((pp.cpu() - ref_pp).abs().max()))
+        model.dtype = torch.bfloat16
+        grad_cam(model, x, m, XAI_CLASSES)  # bf16's first call builds its plans
+        bf, bf_ms = synced_ms(lambda: grad_cam(model, x, m, XAI_CLASSES))
+        bf_pp = grad_cam_pp(model, x, m, XAI_CLASSES)
+        maps = torch.stack([cam, pp, bf, bf_pp]).cpu().numpy()
+        diffs = np.abs(maps[2:] - maps[:2])  # (Grad-CAM, Grad-CAM++)
+        bf_max, bf_mean = diffs.reshape(2, -1).max(1), diffs.reshape(2, -1).mean(1)
+        bf_corr = [float(np.corrcoef(maps[i].ravel(), maps[i + 2].ravel())[0, 1])
+                   for i in range(2)]
+        log(f"[{card}] xai {label} Grad-CAM B={XAI_B} 224x224: fp32 {cam_ms:.1f} ms, bf16 "
+            f"{bf_ms:.1f} ms, Grad-CAM++ fp32 {pp_ms:.1f} ms (host clock, synchronized); "
+            f"card fp32 vs CPU max_abs_err {err:.3e} (tol {XAI_MAP_TOL:g}; the CPU's pair "
+            f"{cpu_s:.1f} s); bf16 vs fp32, Grad-CAM / ++: max {bf_max[0]:.3e} / "
+            f"{bf_max[1]:.3e} (printed), mean {bf_mean[0]:.3e} / {bf_mean[1]:.3e} (tol "
+            f"{XAI_BF16_MEAN_TOL:g}), correlation {bf_corr[0]:.4f} / {bf_corr[1]:.4f} (at least "
+            f"{XAI_BF16_MIN_CORR:g})")
+        check(maps.shape == (4, XAI_B, 224, 224) and np.isfinite(maps).all()
+              and maps.min() >= 0 and maps.max() <= 1 and float(ref.std()) > 0,
+              f"{label}'s maps are not finite (B, 224, 224) maps in [0, 1]")
+        check(err <= XAI_MAP_TOL, f"{label}'s CAM on the card disagrees with the CPU")
+        check(bf_mean.max() <= XAI_BF16_MEAN_TOL and min(bf_corr) >= XAI_BF16_MIN_CORR,
+              f"{label}'s bf16 CAM is too far from fp32")
+        check(all(p.requires_grad and p.grad is None for p in model.parameters()),
+              "a CAM left a parameter frozen or a .grad behind")
+        del model, cpu_model
+        _SMOKE_MODELS.clear()
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_xai_score_cam(device, card):
+    """Score-CAM on the flagship at B=1, fp32: the exact sweep (2048
+    channels, XAI_SCORE_CHANNELS masked images a forward) and top-64 on the
+    card, top-64 on the CPU against the card's."""
+    import numpy as np
+    import torch
+
+    from skinjax_torch import FLAGSHIP
+    from skinjax_torch.xai import score_cam
+
+    cpu_model = smoke_model(FLAGSHIP, None).eval()
+    model = smoke_model(FLAGSHIP, None).eval().to(device)
+    img, meta = xai_inputs(1, seed=1)
+    x, m = torch.from_numpy(img).to(device), torch.from_numpy(meta).to(device)
+    cls = [2]
+    score_cam(model, x, m, cls, top_k=8, batch_channels=8)  # cuDNN's plans
+    exact, exact_ms = synced_ms(lambda: score_cam(model, x, m, cls,
+                                                  batch_channels=XAI_SCORE_CHANNELS))
+    top, top_ms = synced_ms(lambda: score_cam(model, x, m, cls, top_k=XAI_TOP_K,
+                                              batch_channels=XAI_TOP_K))
+    t0 = time.perf_counter()
+    ref = score_cam(cpu_model, torch.from_numpy(img), torch.from_numpy(meta), cls,
+                    top_k=XAI_TOP_K, batch_channels=XAI_TOP_K)
+    cpu_s = time.perf_counter() - t0
+    err = float((top.cpu() - ref).abs().max())
+    e, t = exact.cpu().numpy().ravel(), top.cpu().numpy().ravel()
+    corr = float(np.corrcoef(e, t)[0, 1])
+    log(f"[{card}] xai flagship Score-CAM B=1 fp32: exact (2048 channels, "
+        f"{2048 // XAI_SCORE_CHANNELS} forwards of {XAI_SCORE_CHANNELS} images) "
+        f"{exact_ms:.1f} ms, top-{XAI_TOP_K} (1 forward) {top_ms:.1f} ms (host clock, "
+        f"synchronized); top-{XAI_TOP_K} card vs CPU max_abs_err {err:.3e} (tol "
+        f"{XAI_MAP_TOL:g}; the CPU's {cpu_s:.1f} s); top-{XAI_TOP_K} vs exact max "
+        f"{np.abs(e - t).max():.3e}, correlation {corr:.4f} (skinjax's bound at ResNet-18: "
+        "max < 0.25, correlation > 0.9; reported)")
+    check(all(np.isfinite(a).all() and a.min() >= 0 and a.max() <= 1 for a in (e, t))
+          and e.std() > 0 and exact.shape == (1, 224, 224), "Score-CAM's maps are not right")
+    check(err <= XAI_MAP_TOL, "Score-CAM on the card disagrees with the CPU")
+    del model, cpu_model
+    _SMOKE_MODELS.clear()
+    torch.cuda.empty_cache()
+
+
+def xai_fields(table, row, groups):
+    """The app's form fields for a dataset row, with ``groups`` switched on."""
+    from skinjax_torch.serve.xai_app import METADATA_GROUPS
+
+    fields = {f: table[f][row] for g in METADATA_GROUPS.values() for f in g if f in table}
+    fields.update({f"group_{g}": "on" for g in groups})
+    return fields
+
+
+def phase_xai_app(fk, card, fz_path, table):
+    """The XAI app as ``python -m skinjax_torch.serve.run_service`` builds it
+    with XAI=1 on the flagship (bf16, random weights from seed 0, the
+    PAD-UFES-20 featurizer at ``fz_path``), served on a localhost port: the
+    form, a first POST, then three POSTs of a PNG and a row's fields (the
+    last with the symptoms group off). Each answer is 200, its prediction engine.predict's
+    on the same image and CSV line, its overlay a 224×224×3 PNG; K1/K2/K3
+    launch 4/2/1 times a request. Returns the launches."""
+    import base64
+    import re
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from skinjax_torch.serve import png, run_service
+    from skinjax_torch.serve.engine import InferenceEngine
+    from skinjax_torch.serve.xai_app import METADATA_GROUPS, build_metadata_values
+    from skinjax_torch.serve.xai_app import make_xai_handler
+
+    env = {"FEATURIZER_JSON": fz_path, "XAI": "1", "DEVICE": "cuda", "MAX_BATCH": "8"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        engine = run_service.build_engine()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(isinstance(engine, InferenceEngine) and engine.fused
+          and engine.model.cnn_dim_output == 2048, "run_service built no XAI flagship engine")
+    rng = np.random.default_rng(4)
+    requests = []
+    for i, shape in enumerate(XAI_APP_REQUESTS):
+        groups = [g for g in METADATA_GROUPS if i < 2 or g != "symptoms"]
+        requests.append((png.encode_png(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)),
+                         xai_fields(table, i, groups)))
+    handler = make_xai_handler(engine, engine.model)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    answers = []
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            check(r.status == 200 and b'name="group_symptoms"' in r.read(), "no XAI form")
+        # a first request builds cuDNN's plans and the kernels' launch state
+        body, ctype = xai_form(*requests[0])
+        with urllib.request.urlopen(urllib.request.Request(
+                f"{url}/analyze", data=body, headers={"Content-Type": ctype}), timeout=300) as r:
+            check(r.status == 200, "the XAI app's first request failed")
+        fk.reset_launches()
+        for data, fields in requests:
+            body, ctype = xai_form(data, fields)
+            req = urllib.request.Request(f"{url}/analyze", data=body,
+                                         headers={"Content-Type": ctype})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                status, page, timing = r.status, r.read().decode(), r.headers["Server-Timing"]
+            answers.append((status, page, timing, (time.perf_counter() - t0) * 1e3))
+        launches = dict(fk.LAUNCHES)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        handler.worker.shutdown(wait=True)
+    check(not thread.is_alive(), "the XAI server thread did not stop")
+
+    splits = []
+    for (data, fields), (status, page, timing, ms) in zip(requests, answers):
+        check(status == 200 and "Prediction:" in page, f"the XAI app answered {status}")
+        cls = re.search(r"<h3>Prediction: (.*?)</h3>", page).group(1)
+        probs = np.array([float(p) for p in re.findall(r"<li>[^<]*: ([0-9.]+)</li>", page)])
+        overlay = png.decode_png(base64.b64decode(
+            re.search(r'src="data:image/png;base64,([^"]+)"', page).group(1)))
+        values = {k: v for k, v in fields.items() if not k.startswith("group_")}
+        enabled = [g for g in METADATA_GROUPS if f"group_{g}" in fields]
+        direct = engine.predict(png.decode_png(data),
+                                build_metadata_values(values, enabled, engine.featurizer))
+        err = float(np.abs(probs - np.asarray(direct["probabilities"])).max())
+        split = dict(re.findall(r"(\w+);dur=([0-9.]+)", timing))
+        splits.append([ms] + [float(split[k]) for k in ("forward", "cam", "encode")])
+        log(f"[{card}] xai app POST /analyze ({len(enabled)} groups on): {status} {cls}, "
+            f"engine.predict {direct['predicted_classname']}, probabilities |page - engine| "
+            f"{err:.2e} (the page's 3 decimals, tol 6e-4), overlay {overlay.shape}; round trip "
+            f"{ms:.1f} ms: {timing}")
+        check(cls == direct["predicted_classname"] and err <= 6e-4,
+              "the XAI app's prediction is not engine.predict's")
+        check(overlay.shape == (224, 224, 3), "the overlay is not a 224x224 RGB PNG")
+    p50 = np.median(np.array(splits), axis=0)
+    log(f"[{card}] xai app latency p50 over {len(splits)} requests (host clock): round trip "
+        f"{p50[0]:.1f} ms = forward {p50[1]:.1f} + Grad-CAM++ {p50[2]:.1f} + overlay and PNG "
+        f"encode {p50[3]:.1f} ms + HTTP and decode (ResNet-50 + RG-ATT, bf16)")
+    n = len(requests)
+    expect = {"seq1_attention": 4 * n, "gated_residual_seq1": 2 * n, "metablock_film": 0,
+              "mlp_head": n}
+    log(f"xai app launches over {n} requests: {launches} (expected {expect})")
+    check(launches == expect, "the XAI app's predictions did not run K1-K3 as expected")
+    del engine
+    return launches
+
+
+def xai_form(image_bytes, fields):
+    boundary = uuid.uuid4().hex
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"lesion.png\"\r\nContent-Type: image/png\r\n\r\n").encode() + image_bytes
+    for k, v in fields.items():
+        body += (f"\r\n--{boundary}\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n"
+                 f"{v}").encode()
+    return body + f"\r\n--{boundary}--\r\n".encode(), f"multipart/form-data; boundary={boundary}"
+
+
+def phase_xai_cli(card, csv_path, images, out):
+    """``python -m skinjax_torch.tools.xai_cli missing-data`` and
+    ``flip-rate`` as two subprocesses at once on the card, on phase 15's
+    dataset (CLI_IMAGES rows, 300×400 PNGs; the flagship, random weights from
+    seed 0), writing under ``out``: each exits 0; the CSV's six rows and the
+    flip rates."""
+    import csv
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    procs = {}
+    t0 = time.perf_counter()
+    for analysis in ("missing-data", "flip-rate"):
+        cmd = [sys.executable, "-m", "skinjax_torch.tools.xai_cli", analysis,
+               "--metadata-csv", csv_path, "--images-dir", images, "--out", out]
+        procs[analysis] = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)
+    try:
+        results = {a: p.communicate(timeout=600) for a, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for a, p in procs.items():
+        if p.returncode != 0:
+            log(results[a][0][-2000:] + results[a][1][-4000:])
+        check(p.returncode == 0, f"xai_cli {a} exited {p.returncode}")
+    with open(os.path.join(out, "missing_metadata_experiment.csv")) as f:
+        rows = list(csv.DictReader(f))
+    with open(os.path.join(out, "flip_rates.json")) as f:
+        flips = json.load(f)
+    keys = ["fold", "missing_rate", "accuracy", "balanced_accuracy", "precision", "recall",
+            "f1_score", "auc"]
+    log(f"[{card}] xai cli missing-data + flip-rate (two processes at once, {CLI_IMAGES} PNG "
+        f"decodes each, ResNet-50 fp32): {wall:.1f} s wall; rows "
+        + "; ".join(f"rate {r['missing_rate']}: bacc {float(r['balanced_accuracy']):.4f} auc "
+                    f"{float(r['auc']):.4f}" for r in rows)
+        + "; flip rates " + ", ".join(f"{k} {v['flip_rate']:.3f}" for k, v in flips.items()))
+    check(len(rows) == 6 and all(list(r) == keys for r in rows)
+          and [float(r["missing_rate"]) for r in rows] == [0.0, 0.1, 0.2, 0.3, 0.5, 0.7]
+          and all(math.isfinite(float(r[k])) for r in rows for k in keys[2:]),
+          "missing_metadata_experiment.csv is not the six rows of the sweep")
+    check({"smoke", "age", "diameter_1", "gender", "region"} <= set(flips)
+          and all(0 <= v["flip_rate"] <= 1 and v["n_flips"] == round(v["flip_rate"] * CLI_IMAGES)
+                  for v in flips.values()), "flip_rates.json is not the flip analysis")
+
+
+def phase_xai_sweep(fk, device, card, table_fn):
+    """The missing-data sweep as the CLI runs it (``xai_cli.batched_predictor``
+    over ``missing_data_sweep``), timed: 5 folds × 6 rates over
+    XAI_SWEEP_ROWS PAD-UFES-20-like rows, the flagship fp32 engine at
+    B=64, images drawn from the seed as uint8 arrays (no PNG decode).
+    Returns the launches."""
+    import tempfile
+
+    import numpy as np
+
+    from skinjax_torch.data import schemas
+    from skinjax_torch.data.fixtures import write_csv
+    from skinjax_torch.models import MultimodalModel
+    from skinjax_torch.models.weights import init_weights
+    from skinjax_torch.serve.engine import InferenceEngine
+    from skinjax_torch.tools import xai_cli
+    from skinjax_torch.xai import missing_data_sweep
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "metadata.csv")
+        write_csv(path, table_fn(XAI_SWEEP_ROWS))
+        prepared = schemas.prepare_dataset("pad-ufes-20", path)
+    model = init_weights(MultimodalModel(
+        num_classes=prepared.num_classes, cnn_model_name="resnet-50",
+        vocab_size=prepared.feature_dim, attention_mechanism=RGATT), seed=0)
+    engine = InferenceEngine(model, prepared.featurizer, prepared.class_names, device=device)
+    images = np.random.default_rng(5).integers(0, 256, (XAI_SWEEP_ROWS, 224, 224, 3),
+                                               dtype=np.uint8)
+    predict = xai_cli.batched_predictor(engine, images, XAI_SWEEP_BATCH)
+    forward_s = [0.0]
+
+    def timed(features):
+        t0 = time.perf_counter()
+        out = predict(features)  # .cpu() inside: the card is done
+        forward_s[0] += time.perf_counter() - t0
+        return out
+
+    predict(prepared.features[:XAI_SWEEP_BATCH])  # cuDNN's plans
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    rows = [r for fold in range(1, XAI_SWEEP_FOLDS + 1)
+            for r in missing_data_sweep(timed, prepared.raw, prepared.featurizer,
+                                        prepared.labels, fold=fold)]
+    wall = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    n = len(rows) * math.ceil(XAI_SWEEP_ROWS / XAI_SWEEP_BATCH)
+    expect = {"seq1_attention": 4 * n, "gated_residual_seq1": 2 * n, "metablock_film": 0,
+              "mlp_head": n}
+    log(f"[{card}] xai missing-data sweep: {XAI_SWEEP_FOLDS} folds x 6 rates over "
+        f"{XAI_SWEEP_ROWS} rows, ResNet-50 + RG-ATT fp32 engine at B={XAI_SWEEP_BATCH} ({n} "
+        f"forwards): {wall:.1f} s wall (host clock), the forwards (predict_probs, H2D of the "
+        f"uint8 images included) {forward_s[0]:.1f} s = {forward_s[0] / wall:.1%}; K1-K3 "
+        f"launches {launches} (expected {expect}); per fold "
+        f"{wall / XAI_SWEEP_FOLDS:.1f} s. The reference: {REFERENCE_SWEEP}")
+    check(len(rows) == 6 * XAI_SWEEP_FOLDS
+          and all(math.isfinite(r["balanced_accuracy"]) for r in rows), "the sweep's rows")
+    check(launches == expect, "the sweep's forwards did not run K1-K3 as expected")
+    del engine, model
+    return launches
+
+
+def phase_xai(modules, device, card):
+    """Phase 19: the XAI slice (``--xai``). Returns the launches of each of
+    its kernels over its paths, each path's counts set to 0 just before it
+    and read just after."""
+    import tempfile
+
+    import torch
+
+    from skinjax_torch.data import schemas
+    from skinjax_torch.data.fixtures import pad_ufes20_table, write_pad_ufes20_like
+
+    fk = modules[0]
+    start = time.perf_counter()
+
+    def elapsed(label):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"elapsed in the XAI slice after {label}: {time.perf_counter() - start:.1f} s "
+            f"(host clock)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path, images = write_pad_ufes20_like(os.path.join(tmp, "data"), n=CLI_IMAGES,
+                                                 image_hw=CLI_IMAGE_HW, seed=0)
+        fz_path = os.path.join(tmp, "featurizer.json")
+        schemas.prepare_dataset("pad-ufes-20", csv_path, featurizer_path=fz_path)
+        launches = phase_xai_cams(modules, device, card)
+        elapsed("the CAMs")
+        phase_xai_score_cam(device, card)
+        elapsed("Score-CAM")
+        for k, v in phase_xai_app(fk, card, fz_path, pad_ufes20_table(CLI_IMAGES, seed=0)).items():
+            launches[k] += v
+        elapsed("the XAI app")
+        phase_xai_cli(card, csv_path, images, os.path.join(tmp, "xai"))
+        elapsed("the XAI CLI")
+    for k, v in phase_xai_sweep(fk, device, card, lambda n: pad_ufes20_table(n, seed=1)).items():
+        launches[k] += v
+    elapsed("the missing-data sweep")
+    path = {k for k in launches if k in ("seq1_attention", "gated_residual_seq1", "mlp_head",
+                                         "window_attention_fwd", "mlp_gelu_fwd",
+                                         "mlp_gelu_bwd", "global_attention_fwd",
+                                         "global_attention_bwd")}
+    check(all(launches[k] > 0 for k in path), "a kernel of the XAI path was never launched")
+    return launches
+
+
+def xai_only() -> int:
+    """``--xai``: the XAI slice alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from skinjax_torch.ops import build
+    from skinjax_torch.ops import fused_mlp as fm
+    from skinjax_torch.ops import fusion_kernels as fk
+    from skinjax_torch.ops import global_attention as ga
+    from skinjax_torch.ops import window_attention as wa
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(card)
+    names = ("fusion_kernels", "fused_mlp", "global_attention", "window_attention")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(build.build, names))
+    for m in (fk, fm, ga, wa):
+        m.library()
+    log(f"phase build: {len(names)} sources at once, {time.perf_counter() - t0:.1f} s")
+    launches = phase_xai((fk, wa, ga, fm), device, card)
+    torch.cuda.synchronize()
+    print(json.dumps({"xai_launches": launches}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5324,6 +5870,11 @@ def main() -> int:
     phase_models(fk, ak, ga, device, card)
     elapsed("the rest of the model zoo")
 
+    # the XAI slice: the CAM family on four towers, Score-CAM, the XAI app,
+    # the XAI CLI and the missing-data sweep
+    phase_xai((fk, wa, ga, fm), device, card)
+    elapsed("the XAI slice")
+
     record = {"kernels": [
         # K1-K3 at B=1, the served batch, L2-warm, K3 at the flagship's widths
         # (the other batches, K3's metablock shape and the L2-cold times are
@@ -5412,5 +5963,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit({"--attention": attention_only, "--mlp": mlp_only, "--k8": k8_only,
-              "--fusion": fusion_only, "--models": models_only}.get(" ".join(sys.argv[1:]),
-                                                                    main)())
+              "--fusion": fusion_only, "--models": models_only,
+              "--xai": xai_only}.get(" ".join(sys.argv[1:]), main)())

@@ -20,9 +20,11 @@ The bias table's gradient goes back through the gather, which on the card
 sums in another order than on the CPU. Input is NHWC ``(B, H, W, 3)`` at the
 size the index map was made for (224×224 by default); output ``(B, dim)``,
 or with ``tokens=True`` the last block's tokens ``(B, 1 + patches, dim)``,
-CLS first and before ``fc_norm``, as skinjax returns them. skinjax's
-``scan_blocks``, ``seq_shard_axis``, ``SKINJAX_REMAT`` and
-``capture``/``feature_delta`` are not ported (ROADMAP.md).
+CLS first and before ``fc_norm``, as skinjax returns them. CAM
+(``capture``/``feature_delta``, ``backbones/capture.py``): the grid is the
+last block's patch tokens, before the mean and ``fc_norm``, as in skinjax.
+skinjax's ``scan_blocks``, ``seq_shard_axis`` and ``SKINJAX_REMAT`` are not
+ported (ROADMAP.md).
 Precision as in ``vit.py``: the residual stream is fp32 under autocast.
 """
 
@@ -35,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from skinjax_torch.models.backbones.capture import add_delta
 from skinjax_torch.models.backbones.vit import Mlp, PatchEmbed, layer_norm
 from skinjax_torch.ops.global_attention import attention_core
 
@@ -116,19 +119,25 @@ class Beit(nn.Module):
                  img_size: int = 224, *, device=None):
         super().__init__()
         grid = img_size // patch
+        self.patch = patch
         self.patch_embed = PatchEmbed(dim, patch, device=device)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim, device=device))
         self.blocks = nn.ModuleList(BeitBlock(dim, num_heads, grid, device=device)
                                     for _ in range(depth))
         self.fc_norm = layer_norm(dim, device=device)
 
-    def forward(self, x, tokens: bool = False):
+    def forward(self, x, tokens: bool = False, capture: bool = False, feature_delta=None):
+        grid_hw = (x.shape[1] // self.patch, x.shape[2] // self.patch)
         x = self.patch_embed(x)
-        B, _, D = x.shape
+        B, T, D = x.shape
         x = torch.cat([self.cls_token.to(x.dtype).expand(B, 1, D), x], dim=1)
         for block in self.blocks:
             x = block(x)
-        return x if tokens else self.fc_norm(x[:, 1:].mean(dim=1))
+        if tokens:
+            return x
+        grid = add_delta(x[:, 1:].reshape(B, *grid_hw, D), feature_delta)
+        pooled = self.fc_norm(grid.reshape(B, T, D).mean(dim=1))
+        return (pooled, grid) if capture else pooled
 
 
 beitv2_large = partial(Beit, dim=1024, depth=24, num_heads=16, patch=16)

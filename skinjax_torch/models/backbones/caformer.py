@@ -21,8 +21,9 @@ the identity branch on stages 3/4. Two kernels run every block they can: the
 attention core is the K12 kernel pair (``ops/global_attention.py``, skinjax's
 ``SKINJAX_CAFORMER_ATTN=pallas`` route) and every MLP is the fused K10 kernel
 (``ops/fused_mlp.mlp_star``). Input is NHWC ``(B, H, W, 3)``; output
-``(B, dims[-1])``. skinjax's ``features``, ``capture`` and ``feature_delta``
-are not ported yet (ROADMAP.md).
+``(B, dims[-1])``. CAM (``capture``/``feature_delta``,
+``backbones/capture.py``): the grid is the last stage's map, before the pool
+and the head norm, as in skinjax. skinjax's ``features`` is not ported.
 
 Precision: under autocast (the multimodal model's ``dtype``) convolutions
 and linears run in the autocast dtype, LayerNorm returns fp32 and the
@@ -43,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from skinjax_torch.models.backbones.capture import add_delta
 from skinjax_torch.models.backbones.davit import _conv_nhwc
 from skinjax_torch.ops import compute_dtype
 from skinjax_torch.ops.fused_mlp import mlp_star
@@ -176,14 +178,16 @@ class CAFormer(nn.Module):
         self.head = nn.Module()
         self.head.norm = nn.LayerNorm(dims[-1], eps=1e-6, device=device)
 
-    def forward(self, x):
+    def forward(self, x, capture: bool = False, feature_delta=None):
         x = self.stem.norm(_conv_nhwc(self.stem.conv, x))
         for stage in self.stages:
             if hasattr(stage, "downsample"):
                 x = _conv_nhwc(stage.downsample.conv, stage.downsample.norm(x))
             for block in stage.blocks:
                 x = block(x)
-        return self.head.norm(x.mean(dim=(1, 2)))
+        x = add_delta(x, feature_delta)
+        pooled = self.head.norm(x.mean(dim=(1, 2)))
+        return (pooled, x) if capture else pooled
 
 
 def caformer_s18(*, device=None) -> CAFormer:

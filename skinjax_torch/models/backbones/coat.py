@@ -23,8 +23,10 @@ attention (the softmax of k over the tokens in fp32, its ``kᵀv`` factor cast
 to the compute dtype, ``q·factor·Ch^-0.5 + crpe``), LayerNorms at eps 1e-6,
 and the serial MLP (fc1 → exact GELU → fc2) as one call of the fused K9
 kernel (``ops/fused_mlp.mlp_gelu``) on every block. Input is NHWC ``(B, H, W,
-3)``; output ``(B, dims[-1])``. skinjax's ``capture`` and ``feature_delta``
-are not ported yet (ROADMAP.md).
+3)``; output ``(B, dims[-1])``. CAM (``capture``/``feature_delta``,
+``backbones/capture.py``): the grid is the last stage's image tokens entering
+its last serial block, as in skinjax (the cls token read out after it mixes
+them there), so a CAM's gradient goes back through that block's K9.
 
 Precision: under autocast (the multimodal model's ``dtype``) convolutions
 and linears run in the autocast dtype, LayerNorm returns fp32 and the
@@ -41,6 +43,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from skinjax_torch.models.backbones.capture import add_delta
 from skinjax_torch.models.backbones.davit import _conv_nhwc
 from skinjax_torch.models.backbones.vit import layer_norm
 from skinjax_torch.ops import compute_dtype
@@ -169,8 +172,10 @@ class CoaTLite(nn.Module):
                 SerialBlock(dim, heads, ratio, device=device) for _ in range(depth)))
         self.norm4 = layer_norm(dims[-1], device=device)
 
-    def forward(self, x):
+    def forward(self, x, capture: bool = False, feature_delta=None):
         B = x.shape[0]
+        cam = capture or feature_delta is not None
+        fmap = None
         for k in range(1, self.num_stages + 1):
             pe = getattr(self, f"patch_embed{k}")
             x = _conv_nhwc(pe.proj, x)
@@ -179,11 +184,16 @@ class CoaTLite(nn.Module):
             cls = getattr(self, f"cls_token{k}")
             x = torch.cat([cls.to(x.dtype).expand(B, 1, -1), x], dim=1)
             cpe, crpe = getattr(self, f"cpe{k}"), getattr(self, f"crpe{k}")
-            for block in getattr(self, f"serial_blocks{k}"):
+            blocks = getattr(self, f"serial_blocks{k}")
+            for bi, block in enumerate(blocks):
+                if cam and k == self.num_stages and bi == len(blocks) - 1:
+                    fmap = add_delta(x[:, 1:].reshape(B, *hw, -1), feature_delta)
+                    x = torch.cat([x[:, :1], fmap.reshape(B, hw[0] * hw[1], -1)], dim=1)
                 x = block(x, cpe, crpe, hw)
             if k < self.num_stages:
                 x = x[:, 1:].reshape(B, *hw, -1)  # drop cls for the next stage
-        return self.norm4(x)[:, 0]
+        pooled = self.norm4(x)[:, 0]
+        return (pooled, fmap) if capture else pooled
 
 
 def coat_lite_small(*, device=None) -> CoaTLite:

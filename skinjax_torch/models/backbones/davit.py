@@ -20,7 +20,9 @@ environment asks (``SKINJAX_CHATTN=pallas``, read at each forward), so that
 ``run_service`` and the train CLI reach K8 with skinjax's knob. skinjax's
 VMEM gate, which sends stage 0 to XLA, is a TPU limit and is left out. Input is NHWC ``(B, H, W, 3)``; output is
 ``LN(GAP(map))``, ``(B, dims[-1])``. A map whose H or W is not a multiple of
-the window raises ``ValueError``.
+the window raises ``ValueError``. CAM (``capture``/``feature_delta``,
+``backbones/capture.py``): the grid is the last stage's map, before the
+pool and the head norm, as in skinjax.
 
 Precision: under autocast (the multimodal model's ``dtype``) convolutions,
 linears and the attention run in the autocast dtype, LayerNorm returns fp32
@@ -39,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from skinjax_torch.models.backbones.capture import add_delta
 from skinjax_torch.ops import compute_dtype, weight_t
 from skinjax_torch.ops.channel_attention import channel_attention
 from skinjax_torch.ops.window_attention import window_attention_nhwc
@@ -239,11 +242,12 @@ class DaViT(nn.Module):
             for i in range(len(dims)))
         self.head = DaViTHead(dims[-1], device=device)
 
-    def forward(self, x):
+    def forward(self, x, capture: bool = False, feature_delta=None):
         x = self.stem(x)
         for stage in self.stages:
             x = stage(x)
-        return self.head(x)
+        x = add_delta(x, feature_delta)
+        return (self.head(x), x) if capture else self.head(x)
 
 
 def davit_tiny(*, ch_fused_attn: Optional[bool] = None, device=None) -> DaViT:

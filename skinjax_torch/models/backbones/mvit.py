@@ -23,8 +23,9 @@ the shortcut's projection of the normed input where the width expands and its
 Input is NHWC ``(B, H, W, 3)`` at the size the tower was built for (224×224
 by default: its rel-pos tables and distance maps depend on it); output
 ``(B, dims[-1])``, or with ``tokens=True`` the normed tokens as their grid
-``(B, h, w, dims[-1])``, as skinjax returns them. skinjax's ``capture`` and
-``feature_delta`` are not ported yet (ROADMAP.md).
+``(B, h, w, dims[-1])``, as skinjax returns them. CAM (``capture``/
+``feature_delta``, ``backbones/capture.py``): the grid is that normed token
+grid, before the mean, as in skinjax.
 
 Precision: under autocast (the multimodal model's ``dtype``) convolutions
 and linears run in the autocast dtype, LayerNorm returns fp32 and the
@@ -43,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from skinjax_torch.models.backbones.capture import add_delta
 from skinjax_torch.models.backbones.vit import Mlp, layer_norm
 from skinjax_torch.ops import compute_dtype
 from skinjax_torch.ops.pooled_attention import pooled_attention
@@ -178,7 +180,7 @@ class MViTv2(nn.Module):
             self.stages.append(stage)
         self.norm = layer_norm(dims[-1], device=device)
 
-    def forward(self, x, tokens: bool = False):
+    def forward(self, x, tokens: bool = False, capture: bool = False, feature_delta=None):
         if tuple(x.shape[1:3]) != (self.img_size, self.img_size):
             raise ValueError(f"this MViTv2 was built for {self.img_size}x{self.img_size} images "
                              f"(its rel-pos tables depend on the size); got "
@@ -188,9 +190,14 @@ class MViTv2(nn.Module):
             for block in stage.blocks:
                 x = block(x)
         x = self.norm(x)
+        grid_hw = self.stages[-1].blocks[-1].attn.q_size
         if tokens:
-            return x.reshape(x.shape[0], *self.stages[-1].blocks[-1].attn.q_size, x.shape[-1])
-        return x.mean(dim=1)
+            return x.reshape(x.shape[0], *grid_hw, x.shape[-1])
+        if not capture and feature_delta is None:
+            return x.mean(dim=1)
+        grid = add_delta(x.reshape(x.shape[0], *grid_hw, x.shape[-1]), feature_delta)
+        pooled = grid.reshape(x.shape).mean(dim=1)
+        return (pooled, grid) if capture else pooled
 
 
 def mvitv2_small(*, device=None) -> MViTv2:

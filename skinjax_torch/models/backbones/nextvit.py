@@ -22,7 +22,9 @@ Layout: input NHWC ``(B, H, W, 3)``; inside, NCHW views with channels_last
 strides (as the ResNet), so every BatchNorm on the card sees rows of C
 contiguous channels; E-MHSA works on the (B, N, C) tokens of that map (a
 view), and its pooled tokens' ``BatchNorm1d`` on their (B, C, Np) view.
-Output ``(B, 1024)``: the normed map's mean.
+Output ``(B, 1024)``: the normed map's mean. CAM (``capture``/
+``feature_delta``, ``backbones/capture.py``): the grid is the normed map, as
+NHWC, before the mean, as in skinjax.
 
 E-MHSA's attention is plain: fp32 scores of the (autocast-dtype) q and k,
 scaled, an fp32 softmax cast to q's dtype, times v, as skinjax's einsums
@@ -38,6 +40,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from skinjax_torch.models.backbones.capture import add_delta
 from skinjax_torch.ops.batch_norm import BatchNorm1d, BatchNorm2d
 
 FEATURE_DIM = 1024
@@ -244,12 +247,18 @@ class NextViT(nn.Module):
         self.stages = nn.ModuleList(stages)
         self.norm = _bn(cin, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, H, W, 3) NHWC → (B, C) features."""
+    def forward(self, x: torch.Tensor, capture: bool = False, feature_delta=None):
+        """x: (B, H, W, 3) NHWC → (B, C) features; with ``capture`` also the
+        normed map (B, h, w, C), the CAM grid (``backbones/capture.py``)."""
         x = self.stem(x.permute(0, 3, 1, 2))
         for stage in self.stages:
             x = stage(x)
-        return self.norm(x).mean(dim=(2, 3))
+        x = self.norm(x)
+        if not capture and feature_delta is None:
+            return x.mean(dim=(2, 3))
+        grid = add_delta(x.permute(0, 2, 3, 1), feature_delta)
+        pooled = grid.mean(dim=(1, 2))
+        return (pooled, grid) if capture else pooled
 
     def flax_scopes(self) -> Iterator[Tuple[str, str]]:
         """(parameter-name prefix, skinjax scope) pairs: the key map of

@@ -29,7 +29,9 @@ The window attention takes one of skinjax's three routes:
 Input is NHWC ``(B, H, W, 3)`` with H/4 and W/4, and each stage's map,
 multiples of the window; output ``(B, dims[-1])``, the mean over the map of
 the final LayerNorm's output, which is what skinjax's multimodal model takes
-from its ``(B, H, W, C)`` map. Precision as in ``davit.py``: under autocast
+from its ``(B, H, W, C)`` map. CAM (``capture``/``feature_delta``,
+``backbones/capture.py``): the grid is that normed map, before the mean,
+where skinjax's multimodal model adds the delta. Precision as in ``davit.py``: under autocast
 the residual stream is fp32, and the attention takes x and its weights cast
 to the autocast dtype, the bias and mask in fp32.
 """
@@ -44,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from skinjax_torch.models.backbones.capture import add_delta
 from skinjax_torch.ops import compute_dtype, weight_t
 from skinjax_torch.ops.window_attention import (
     window_attention,
@@ -249,11 +252,12 @@ class Swin(nn.Module):
             for i in range(len(dims)))
         self.norm = _ln(dims[-1], device=device)
 
-    def forward(self, x):
+    def forward(self, x, capture: bool = False, feature_delta=None):
         x = self.patch_embed(x)
         for stage in self.layers:
             x = stage(x)
-        return self.norm(x).mean(dim=(1, 2))
+        x = add_delta(self.norm(x), feature_delta)
+        return (x.mean(dim=(1, 2)), x) if capture else x.mean(dim=(1, 2))
 
 
 def swin_tiny(*, fused_attn: bool = False, strip_attn: bool = True, device=None) -> Swin:

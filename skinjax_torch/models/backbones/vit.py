@@ -14,9 +14,16 @@ Attention is the packed qkv projection, the global attention core K12
 the output projection. LayerNorm eps is 1e-6. Input is NHWC ``(B, H, W, 3)``
 at the size the position embedding was made for (224×224 by default);
 output is ``(B, dim)``, or with ``tokens=True`` every normed token ``(B, 1 +
-patches, dim)``, CLS first, as skinjax returns them. skinjax's
-``scan_blocks``, ``seq_shard_axis``, ``SKINJAX_REMAT`` and
-``capture``/``feature_delta`` are not ported (ROADMAP.md).
+patches, dim)``, CLS first, as skinjax returns them. ``pool="mean"`` reads
+out the mean of the normed patch tokens instead of the CLS token. skinjax's
+``scan_blocks``, ``seq_shard_axis`` and ``SKINJAX_REMAT`` are not ported
+(ROADMAP.md).
+
+CAM (``xai/cam.py``): ``capture=True`` returns ``(pooled, fmap)``, a (B, gh,
+gw, dim) patch grid, and ``feature_delta`` (that grid's shape) is added to
+it, at skinjax's points: with CLS pooling the grid entering the last block
+(a delta on the final grid would not reach the CLS read-out), with mean
+pooling the normed grid the read-out averages.
 
 Precision: under autocast (the multimodal model's ``dtype``) the convolution,
 linears and K12 run in the autocast dtype, LayerNorm returns fp32 and the
@@ -32,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from skinjax_torch.models.backbones.capture import add_delta
 from skinjax_torch.ops.global_attention import attention_core
 
 
@@ -95,8 +103,12 @@ class VisionTransformer(nn.Module):
     every normed token (B, T, dim)."""
 
     def __init__(self, dim: int = 768, depth: int = 12, num_heads: int = 12, patch: int = 16,
-                 img_size: int = 224, *, device=None):
+                 img_size: int = 224, pool: str = "cls", *, device=None):
         super().__init__()
+        if pool not in ("cls", "mean"):
+            raise ValueError(f"pool '{pool}': cls or mean")
+        self.pool = pool
+        self.patch = patch
         self.patch_embed = PatchEmbed(dim, patch, device=device)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim, device=device))
         self.pos_embed = nn.Parameter(
@@ -104,17 +116,31 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(Block(dim, num_heads, device=device) for _ in range(depth))
         self.norm = layer_norm(dim, device=device)
 
-    def forward(self, x, tokens: bool = False):
+    def forward(self, x, tokens: bool = False, capture: bool = False, feature_delta=None):
+        grid_hw = (x.shape[1] // self.patch, x.shape[2] // self.patch)
         x = self.patch_embed(x)
         B, T, D = x.shape
         if T + 1 != self.pos_embed.shape[1]:
             raise ValueError(f"the position embedding covers {self.pos_embed.shape[1] - 1} "
                              f"patches; the image gives {T}")
         x = torch.cat([self.cls_token.to(x.dtype).expand(B, 1, D), x], dim=1) + self.pos_embed
-        for block in self.blocks:
+        cam = capture or feature_delta is not None
+        fmap = None
+        for i, block in enumerate(self.blocks):
+            if cam and self.pool == "cls" and i == len(self.blocks) - 1:
+                fmap = add_delta(x[:, 1:].reshape(B, *grid_hw, D), feature_delta)
+                x = torch.cat([x[:, :1], fmap.reshape(B, T, D)], dim=1)
             x = block(x)
         x = self.norm(x)
-        return x if tokens else x[:, 0]
+        if tokens:
+            return x
+        if self.pool == "mean":
+            fmap = add_delta(x[:, 1:].reshape(B, *grid_hw, D), feature_delta)
+            pooled = fmap.reshape(B, T, D).mean(dim=1)
+        else:
+            pooled = x[:, 0]
+        return (pooled, fmap) if capture else pooled
+
 
 
 vit_tiny = partial(VisionTransformer, dim=192, depth=12, num_heads=3)

@@ -2,7 +2,11 @@
 MD-Net, LiwTERM and MetaNet.
 
 Each takes ``(image (B, H, W, 3) NHWC, metadata (B, meta_dim))`` and returns
-logits; ``dtype=torch.bfloat16`` runs it under autocast, parameters fp32.
+logits, or with ``capture=True`` ``(logits, aux)``, skinjax's aux: MD-Net's
+and MetaNet's ``feature_map`` (the fused or gated map, (B, h, w, C), which
+Score-CAM reads) and ``img_feat`` (its mean), LiwTERM's ``img_feat`` (the
+tower's feature); ``dtype=torch.bfloat16`` runs it under autocast,
+parameters fp32.
 
   ``MDNet``         DenseNet features → MetaNet channel gates + a spatial
                     MetaBlock, summed → mean over the map → ``classifier``.
@@ -51,13 +55,15 @@ class MDNet(nn.Module):
         self.meta_block = MetaBlock(meta_dim, channels, device=device)
         self.classifier = nn.Linear(channels, num_classes, device=device)
 
-    def forward(self, image: torch.Tensor, metadata: torch.Tensor) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, metadata: torch.Tensor, *, capture: bool = False):
         with autocast_to(self.dtype, image.device):
             # the DenseNet tower's forward: features, then ReLU, as NHWC
             feat = torch.relu(self.feature_extractor(image.permute(0, 3, 1, 2)))
             feat = feat.permute(0, 2, 3, 1)
             fused = self.meta_net(feat, metadata) + self.meta_block(feat, metadata)
-            return self.classifier(fused.mean(dim=(1, 2)))
+            pooled = fused.mean(dim=(1, 2))
+            logits = self.classifier(pooled)
+        return (logits, {"feature_map": fused, "img_feat": pooled}) if capture else logits
 
 
 class LiwTERM(nn.Module):
@@ -80,13 +86,14 @@ class LiwTERM(nn.Module):
         self.slm_out = nn.Linear(512, num_classes, device=device)
         self.dropout = nn.Dropout(dropout_rate)
 
-    def forward(self, image: torch.Tensor, metadata: torch.Tensor) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, metadata: torch.Tensor, *, capture: bool = False):
         with autocast_to(self.dtype, image.device):
             v = self.backbone(image)
             if v.dim() == 3:
                 v = v[:, 0]  # the CLS token
             elif v.dim() == 4:
                 v = v.mean(dim=(1, 2))
+            aux = {"img_feat": v}
             v = self.dropout(torch.relu(self.visual_norm(self.visual_proj(v))))
             m = torch.relu(self.meta_fc(self.meta_norm(metadata)))
             x = torch.cat([v, m.to(v.dtype)], dim=-1)
@@ -94,7 +101,8 @@ class LiwTERM(nn.Module):
             for i in range(3):
                 x = getattr(self, f"slm_fc{i}")(x)
                 x = self.dropout(torch.relu(getattr(self, f"slm_norm{i + 1}")(x)))
-            return self.slm_out(x)
+            logits = self.slm_out(x)
+        return (logits, aux) if capture else logits
 
 
 class MetaNetModel(nn.Module):
@@ -113,9 +121,11 @@ class MetaNetModel(nn.Module):
         self.fc_out = nn.Linear(feat_dim // 2, num_classes, device=device)
         self.dropout = nn.Dropout(dropout_rate)
 
-    def forward(self, image: torch.Tensor, metadata: torch.Tensor) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, metadata: torch.Tensor, *, capture: bool = False):
         with autocast_to(self.dtype, image.device):
-            x = self.metanet(self.backbone(image), metadata).mean(dim=(1, 2))
-            x = self.dropout(torch.relu(self.norm1(self.fc1(x))))
+            feat = self.metanet(self.backbone(image), metadata)
+            pooled = feat.mean(dim=(1, 2))
+            x = self.dropout(torch.relu(self.norm1(self.fc1(pooled))))
             x = self.dropout(torch.relu(self.norm2(self.fc2(x))))
-            return self.fc_out(x)
+            logits = self.fc_out(x)
+        return (logits, {"feature_map": feat, "img_feat": pooled}) if capture else logits

@@ -28,17 +28,30 @@ tower's family (``[:, 0]`` or ``[:, -1]``) into ``(B, text_encoder_dim_output)``
 which every mechanism takes as it takes the one-hot tower's output.
 ``dtype=torch.bfloat16`` runs the model under autocast, the counterpart of
 the JAX model's ``dtype=bfloat16``; parameters stay fp32.
+
+CAM (``skinjax_torch.xai.cam``): ``forward(..., capture=True)`` returns
+``(logits, aux)``, aux holding what skinjax's holds: ``feature_map`` (the
+tower's spatial grid, (B, h, w, C)), ``tokens`` (a tower's token sequence),
+``img_feat`` and ``txt_feat`` (the towers' outputs), ``proj_img`` and
+``proj_txt`` (their projections). ``feature_delta`` (a tensor of the grid's
+shape, or a ``backbones.capture.DeltaProbe``) is added to that grid:
+inside a tower that takes ``capture``/``feature_delta`` (found by its
+signature, never by catching a ``TypeError``, which would drop the delta and
+give an all-zero CAM; ``backbones/capture.py``), else to a tower's NHWC map
+before the mean over it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import inspect
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from skinjax_torch.models.backbones import create_backbone
+from skinjax_torch.models.backbones.capture import add_delta
 from skinjax_torch.models.fusion.blocks import GatedAlteredResidualBlock, MetaBlock, MLPHead
 from skinjax_torch.models.text import OneHotMLP, StaticEmbeddingTower
 from skinjax_torch.models.text.bert import pool_hidden
@@ -97,6 +110,12 @@ def autocast_to(dtype: Optional[torch.dtype], device: torch.device):
     if dtype is None or dtype == torch.float32:
         return contextlib.nullcontext()
     return torch.autocast(device.type, dtype=dtype)
+
+
+def takes_cam(tower: nn.Module) -> bool:
+    """Whether the tower's forward takes ``capture`` and ``feature_delta``."""
+    params = inspect.signature(type(tower).forward).parameters
+    return "capture" in params and "feature_delta" in params
 
 
 def _head_name(mech: str) -> str:
@@ -223,25 +242,57 @@ class MultimodalModel(nn.Module):
             return self.text_tower(metadata)
         return self.text_fc(metadata)
 
-    def features(self, image: torch.Tensor, metadata
+    def image_features(self, image: torch.Tensor, aux: Optional[dict] = None,
+                       feature_delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The image tower's feature (B, cnn_dim): a map's mean, a token
+        sequence's CLS token, or the tower's own pooling. With ``aux`` (a
+        dict) or ``feature_delta``, the CAM grid as the module docstring
+        says."""
+        img = None
+        if (aux is not None or feature_delta is not None) and takes_cam(self.image_encoder):
+            img, fmap = self.image_encoder(image, capture=True, feature_delta=feature_delta)
+            if aux is not None:
+                aux["feature_map"] = fmap
+        if img is None:
+            img = self.image_encoder(image)
+        if img.dim() == 4:  # NHWC map → GAP
+            img = add_delta(img, feature_delta)
+            if aux is not None:
+                aux["feature_map"] = img
+            img = img.mean(dim=(1, 2))
+        elif img.dim() == 3:  # token sequence → CLS
+            if aux is not None:
+                aux["tokens"] = img
+            img = img[:, 0]
+        if aux is not None:
+            aux["img_feat"] = img
+        return img
+
+    def features(self, image: torch.Tensor, metadata, aux: Optional[dict] = None,
+                 feature_delta: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The fusion stage's inputs (img, txt): both towers' outputs,
         projected to common_dim unless the mechanism fuses the raw features
         (``metablock``: (B, cnn_dim) and (B, text_encoder_dim_output);
         ``no-metadata-without-mlp``: the image feature alone). ``txt`` is
-        None for the two mechanisms without metadata."""
+        None for the two mechanisms without metadata. ``aux`` and
+        ``feature_delta``: the CAM's, as ``forward`` takes them."""
         mech = self.attention_mechanism
         with self.autocast(image.device):
-            img = self.image_encoder(image)
-            if img.dim() == 4:  # NHWC map → GAP
-                img = img.mean(dim=(1, 2))
-            elif img.dim() == 3:  # token sequence → CLS
-                img = img[:, 0]
+            img = self.image_features(image, aux, feature_delta)
             txt = None if mech in _NO_TEXT else self.text_features(metadata)
+            if aux is not None and txt is not None:
+                aux["txt_feat"] = txt
+            if aux is not None and mech == "metablock":  # skinjax projects it all the same
+                aux["proj_img"] = self.image_projector(img)
             if mech not in _RAW_FEATURES:
                 img = self.image_projector(img)
                 if txt is not None:
                     txt = self.text_projector(txt)
+                if aux is not None:
+                    aux["proj_img"] = img
+                    if txt is not None:
+                        aux["proj_txt"] = txt
         return img, txt
 
     def module_ops(self) -> FusionOps:
@@ -307,9 +358,14 @@ class MultimodalModel(nn.Module):
             return cat(a_img * img_x, a_txt * txt_x)
         return cat(a_txt * img_x, a_img * txt_x)  # swapped gates
 
-    def forward(self, image: torch.Tensor, metadata) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, metadata, *, capture: bool = False,
+                feature_delta: Optional[torch.Tensor] = None):
         """image (B, H, W, 3) NHWC, metadata (B, vocab_size), the token
-        dict or the tabular dict → logits (B, num_classes)."""
-        img, txt = self.features(image, metadata)
+        dict or the tabular dict → logits (B, num_classes), or with
+        ``capture`` (logits, aux); ``feature_delta`` is added to the CAM
+        grid (the module docstring)."""
+        aux = {} if capture else None
+        img, txt = self.features(image, metadata, aux, feature_delta)
         with self.autocast(image.device):
-            return getattr(self, self.head_name)(self.fuse(img, txt))
+            logits = getattr(self, self.head_name)(self.fuse(img, txt))
+        return (logits, aux) if capture else logits

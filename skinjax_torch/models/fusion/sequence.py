@@ -16,6 +16,8 @@ the baselines, so the freeze policy's ``image_encoder`` prefix does not reach
 it, as in skinjax), ``img_proj``, ``text_tower`` (``0|2|4``), ``img_self``,
 ``txt_self``, ``img_cross``, ``txt_cross``, ``img_gate``, ``txt_gate`` and
 ``head`` (``0|1|4|5|8``). ``dtype=torch.bfloat16`` runs it under autocast.
+``capture=True`` returns ``(logits, aux)`` with skinjax's aux: ``tokens``,
+``img_pooled``, ``txt_pooled``.
 
 ``BilinearPooling``: ``proj(LN(u(x) * v(y)))``, low-rank bilinear fusion.
 """
@@ -69,8 +71,9 @@ class SequenceFusionModel(nn.Module):
         self.txt_gate = nn.Linear(common_dim, common_dim, device=device)
         self.head = MLPHead(2 * common_dim, common_dim, num_classes, dropout_rate, device=device)
 
-    def forward(self, image: torch.Tensor, metadata: torch.Tensor) -> torch.Tensor:
-        """image (B, H, W, 3) NHWC, metadata (B, vocab_size) → logits."""
+    def forward(self, image: torch.Tensor, metadata: torch.Tensor, *, capture: bool = False):
+        """image (B, H, W, 3) NHWC, metadata (B, vocab_size) → logits, or
+        with ``capture`` (logits, aux)."""
         with autocast_to(self.dtype, image.device):
             tokens = self.backbone(image, tokens=True)  # (B, T, D_b)
             img_seq = self.img_proj(tokens)
@@ -83,4 +86,7 @@ class SequenceFusionModel(nn.Module):
             a_img = torch.sigmoid(self.img_gate(img_pooled))
             a_txt = torch.sigmoid(self.txt_gate(txt_pooled))
             fused = torch.cat([a_img * img_pooled, a_txt * txt_pooled], dim=-1)
-            return self.head(fused)
+            logits = self.head(fused)
+        if capture:
+            return logits, {"tokens": tokens, "img_pooled": img_pooled, "txt_pooled": txt_pooled}
+        return logits

@@ -11,12 +11,13 @@ HTTP (counterpart of ``skinjax/serve/run_service.py``, same variables).
                        torch.save'd state_dict
   FEATURIZER_JSON      persisted featurizer (required for raw-CSV inputs)
   CNN_MODEL_NAME, ATTENTION_MECHANISM, NUM_LABELS, NUM_HEADS, COMMON_DIM, VOCAB_SIZE
-  HOST, PORT
+  HOST, PORT           default 0.0.0.0 and 8000
   DEVICE               torch device, default ``cuda``; ``cpu`` must be asked for
   MAX_BATCH            >1 wraps the engine in the dynamic-batching frontend
                        (serve/batching.py) with that many requests a forward
   BATCH_WAIT_MS        the batcher's linger (default 5 ms)
-  XAI=1                the XAI app is not ported yet and raises NotImplementedError
+  XAI=1                serve the XAI demo app (serve/xai_app.py: the prediction and a
+                       Grad-CAM++ overlay) instead of the JSON API; MAX_BATCH does not apply
 
 The model runs in bfloat16 (autocast), as the JAX service does. TF32 is off
 for both cuDNN and matmuls (``torch.backends.cudnn.allow_tf32`` and
@@ -47,7 +48,7 @@ def load_weights(path: str):
 
 def build_engine():
     """The engine the variables describe: an ``InferenceEngine``, or with
-    MAX_BATCH > 1 a ``BatchingEngine`` around it."""
+    MAX_BATCH > 1 (and not XAI=1) a ``BatchingEngine`` around it."""
     from skinjax_torch.data.featurizer import MetadataFeaturizer
     from skinjax_torch.models import MultimodalModel
     from skinjax_torch.models.weights import init_weights
@@ -58,8 +59,6 @@ def build_engine():
         raise RuntimeError(
             f"DEVICE={device} but CUDA is not available; set DEVICE=cpu to serve on the CPU"
         )
-    if os.environ.get("XAI") == "1":
-        raise NotImplementedError("XAI=1: the XAI app is not ported to PyTorch yet (ROADMAP.md)")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -88,7 +87,7 @@ def build_engine():
         init_weights(model, seed=0)
     engine = InferenceEngine(model, fz, device=device)
     max_batch = int(os.environ.get("MAX_BATCH", 1))
-    if max_batch > 1:
+    if max_batch > 1 and os.environ.get("XAI") != "1":
         from skinjax_torch.serve.batching import BatchingEngine
 
         return BatchingEngine(engine, max_batch=max_batch,
@@ -98,9 +97,15 @@ def build_engine():
 
 def main():
     engine = build_engine()
+    host, port = os.environ.get("HOST", "0.0.0.0"), int(os.environ.get("PORT", 8000))
+    if os.environ.get("XAI") == "1":
+        from skinjax_torch.serve.xai_app import serve_xai
+
+        serve_xai(engine, engine.model, host, port)
+        return
     from skinjax_torch.serve.api import serve
 
-    serve(engine, os.environ.get("HOST", "0.0.0.0"), int(os.environ.get("PORT", 8000)))
+    serve(engine, host, port)
 
 
 if __name__ == "__main__":

@@ -243,10 +243,10 @@ def test_service_needs_its_device(monkeypatch):
         assert batcher.engine.device == torch.device("cpu")
     finally:
         batcher.shutdown()
-    monkeypatch.delenv("MAX_BATCH")
+    # XAI=1 serves the XAI app on the engine itself: no batching frontend
     monkeypatch.setenv("XAI", "1")
-    with pytest.raises(NotImplementedError, match="XAI"):
-        run_service.build_engine()
+    engine = run_service.build_engine()
+    assert isinstance(engine, InferenceEngine) and engine.device == torch.device("cpu")
 
 
 def test_service_builds_from_its_environment(monkeypatch, tmp_path):
@@ -272,9 +272,10 @@ def test_service_builds_from_its_environment(monkeypatch, tmp_path):
 
 
 def test_port_never_imports_jax():
-    """Nor OpenCV, matplotlib, transformers, safetensors or tokenizers at import time:
-    the card's machine has none of them, and the plots import matplotlib only
-    when they draw."""
+    """Nor OpenCV, matplotlib, pandas, transformers, safetensors or tokenizers at
+    import time: the card's machine has none of them, and the plots import
+    matplotlib only when they draw. The XAI slice (the CAM family, the
+    perturbation and tabular explainers, the app and the CLI) included."""
     code = (
         "import sys\n"
         "import skinjax_torch, skinjax_torch.serve.engine, skinjax_torch.serve.api\n"
@@ -301,9 +302,10 @@ def test_port_never_imports_jax():
         "import skinjax_torch.models.fusion.blocks, skinjax_torch.models.fusion.sequence\n"
         "import skinjax_torch.models.baselines, skinjax_torch.models.text.static_embed\n"
         "import skinjax_torch.data.tabular, skinjax_torch.serve.batching\n"
+        "import skinjax_torch.xai, skinjax_torch.serve.xai_app, skinjax_torch.tools.xai_cli\n"
         "import chip_smoke\n"
         "banned = ('jax', 'jaxlib', 'flax', 'skinjax', 'cv2', 'matplotlib', 'transformers',\n"
-        "          'safetensors', 'tokenizers')\n"
+        "          'safetensors', 'tokenizers', 'pandas')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not bad, bad\n"
     )
