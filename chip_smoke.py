@@ -224,6 +224,7 @@ sentence dataset. Phases, each printing its lines:
  18. models   TabTransformer, static-embedding, sequence fusion, the
               baselines, the batching service (``--models`` below)
  19. xai      the XAI slice (``--xai`` below)
+ 20. nas      the NAS slice (``--nas`` below)
 
 Any failure exits non-zero. The second-to-last line is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Exits non-zero, with
@@ -279,6 +280,22 @@ split); python -m skinjax_torch.tools.xai_cli missing-data and flip-rate as
 subprocesses on phase 15's dataset; and the missing-data sweep (5 folds × 6
 rates over 2298 rows, B=64) timed (last line {"ok": true, "device": ...},
 after a JSON summary line).
+
+    python3 chip_smoke.py --nas
+
+builds csrc/augment_kernel.cu and runs the NAS slice alone (phase 20; the
+whole run runs it after the XAI slice): the population step of four small
+candidates (every mechanism, 16×16, fp32) on the card against the CPU, and
+the card's population forward against each candidate's own DynamicCNN;
+eight full-width candidates of the search space (10 blocks, 5×5 kernels,
+pooling, one of them the space's maximum) as one vmapped bucket at B=32,
+224×224, bf16 images: 2 + 10 population steps timed against the same
+candidates trained one at a time through the train step, peak memory
+against the supernet's estimate, K5 once a population step; and the NAS
+CLI's entry point twice, REINFORCE over populations of 4 on the synthetic
+fixture, then BO's sequential path and a 5-fold retrain on a
+PAD-UFES-20-like dataset from disk (last line {"ok": true, "device": ...},
+after a {"nas_launches": ...} line).
 """
 
 from __future__ import annotations
@@ -5585,6 +5602,404 @@ def xai_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the NAS slice (``--nas``)
+# ---------------------------------------------------------------------------
+
+# skinjax's supernet test candidates (tests/test_supernet.py): every
+# mechanism, kernel 3 inside a 5×5 envelope, one and two layers a block
+NAS_SMALL = [
+    {"num_blocks": 2, "initial_filters": 16, "kernel_size": 3, "layers_per_block": 1,
+     "use_pooling": True, "common_dim": 32, "attention_mecanism": "concatenation",
+     "num_layers_text_fc": 1, "neurons_per_layer_size_of_text_fc": 32,
+     "num_layers_fc_module": 1, "neurons_per_layer_size_of_fc_module": 32},
+    {"num_blocks": 3, "initial_filters": 32, "kernel_size": 5, "layers_per_block": 2,
+     "use_pooling": True, "common_dim": 64, "attention_mecanism": "crossattention",
+     "num_layers_text_fc": 2, "neurons_per_layer_size_of_text_fc": 64,
+     "num_layers_fc_module": 2, "neurons_per_layer_size_of_fc_module": 64},
+    {"num_blocks": 1, "initial_filters": 8, "kernel_size": 3, "layers_per_block": 2,
+     "use_pooling": True, "common_dim": 16, "attention_mecanism": "metablock",
+     "num_layers_text_fc": 1, "neurons_per_layer_size_of_text_fc": 16,
+     "num_layers_fc_module": 2, "neurons_per_layer_size_of_fc_module": 32},
+    {"num_blocks": 2, "initial_filters": 16, "kernel_size": 3, "layers_per_block": 1,
+     "use_pooling": True, "common_dim": 64, "attention_mecanism": "gfcam",
+     "num_layers_text_fc": 3, "neurons_per_layer_size_of_text_fc": 32,
+     "num_layers_fc_module": 1, "neurons_per_layer_size_of_fc_module": 64},
+]
+NAS_SMALL_SHAPE = (8, 16, 11, 4)  # batch, image side, vocabulary, classes
+NAS_STEPS_CHECKED = 2
+NAS_TOL = 1e-4  # of the largest |logit|: fp32, TF32 off
+# the same after two steps at lr 1e-3, where Adam's ±lr on near-zero gradients
+# decides the drift: on one H100 the reading went from 5.2e-6 to 6.9e-4, one
+# process to the next on the same inputs (PERF.md, the NAS slice)
+NAS_WIDE_TOL = 1e-3
+
+
+def _nas_config(f0, lpb, cd, mech, text, fc):
+    return {"num_blocks": 10, "initial_filters": f0, "kernel_size": 5, "layers_per_block": lpb,
+            "use_pooling": True, "common_dim": cd, "attention_mecanism": mech,
+            "num_layers_text_fc": text[0], "neurons_per_layer_size_of_text_fc": text[1],
+            "num_layers_fc_module": fc[0], "neurons_per_layer_size_of_fc_module": fc[1]}
+
+
+# Eight candidates of DEFAULT_SEARCH_SPACE in one bucket (10 blocks, kernel
+# 5, pooling on): the first is the space's maximum in every width, the others
+# cover the four mechanisms
+NAS_POPULATION = [
+    _nas_config(64, 2, 512, "gfcam", (3, 512), (2, 512)),
+    _nas_config(16, 1, 64, "concatenation", (1, 64), (1, 256)),
+    _nas_config(32, 2, 128, "crossattention", (2, 128), (2, 256)),
+    _nas_config(64, 1, 256, "metablock", (3, 256), (1, 512)),
+    _nas_config(16, 2, 512, "gfcam", (1, 512), (2, 512)),
+    _nas_config(32, 1, 64, "metablock", (2, 64), (2, 256)),
+    _nas_config(64, 2, 128, "concatenation", (1, 256), (1, 256)),
+    _nas_config(16, 1, 256, "crossattention", (3, 128), (2, 512)),
+]
+NAS_B = 32  # the NAS CLI's default batch
+NAS_HW = TRAIN_HW  # build_source's image size
+NAS_WARM = 2
+NAS_STEPS = 10
+NAS_CLI_ROWS = CLI_IMAGES
+
+
+def envelope_conv_flops(env, hw) -> int:
+    """The envelope's conv operations a sample, forward (2 per multiply-add)."""
+    from skinjax_torch.nas.search_space import filters_from_config
+
+    H = W = hw
+    c_in, total = 3, 0
+    for c in filters_from_config({"num_blocks": env.num_blocks,
+                                  "initial_filters": env.initial_filters}):
+        for _ in range(2 if env.layers_per_block >= 2 else 1):
+            total += 2 * H * W * c_in * c * env.kernel_size ** 2
+            c_in = c
+        if env.use_pooling and min(H, W) >= 2:
+            H, W = H // 2, W // 2
+    return total
+
+
+def phase_nas_card_vs_cpu(device):
+    """The population step (fp32, TF32 off, augment off, dropout on: its keep
+    masks are drawn on the host) of NAS_SMALL's four candidates on the card
+    and on the CPU from the same seed, hence the same weights, at the train
+    config's learning rate: the first step's gradients agree tensor by
+    tensor, the parameters after two steps by the share rule of
+    ``phase_card_vs_cpu``, and each candidate's logits after them within
+    NAS_TOL of the largest. At lr 1e-3 (the CPU tests' rate) the logits are
+    held within NAS_WIDE_TOL: Adam moves a weight by ~lr whatever its
+    gradient's size, so a gradient near zero that the card's convs round to
+    the other sign moves it by 2·lr, and the logits' drift grows with lr
+    (the share rule does not hold there: the second step's gradients meet
+    the first step's flips). At both rates every parameter stays within
+    2·lr a step of the CPU's. Before the steps, the card's population
+    forward matches each candidate's own DynamicCNN on the card."""
+    import numpy as np
+    import torch
+
+    from skinjax_torch.data.augment import augment_batch
+    from skinjax_torch.nas.dynamic_model import make_dynamic_model
+    from skinjax_torch.nas.population import Population
+    from skinjax_torch.train.loop import TrainConfig
+    from skinjax_torch.train.steps import step_seed
+
+    B, hw, vocab, classes = NAS_SMALL_SHAPE
+    rng = np.random.default_rng(7)
+    img = torch.as_tensor(rng.integers(0, 256, (B, hw, hw, 3), dtype=np.uint8))
+    md = torch.as_tensor(rng.normal(size=(B, vocab)).astype(np.float32))
+    lb = torch.as_tensor(rng.integers(0, classes, B))
+    cw = np.ones(classes, np.float32)
+
+    def run(lr):
+        out = {}
+        for dev in (device, torch.device("cpu")):
+            cfg = TrainConfig(device=str(dev), image_dtype="float32", augment=False,
+                              batch_size=B, **({"learning_rate": lr} if lr else {}))
+            pop = Population(NAS_SMALL, classes, vocab, cfg, cw, seed=0, exact_init=True)
+            args = [t.to(dev) for t in (img, md, lb)]
+            start = pop.logits(*args[:2])
+            pop.train_step(*args)
+            grads = {n: p.grad.detach().cpu() for n, p in pop.params.items()}
+            for _ in range(NAS_STEPS_CHECKED - 1):
+                pop.train_step(*args)
+            out[dev.type] = dict(pop=pop, start=start, grads=grads, logits=pop.logits(
+                *args[:2]).cpu(), params={n: p.detach().cpu() for n, p in pop.params.items()})
+        return out, cfg.learning_rate
+
+    def param_drift(out, lr):
+        """(elements beyond 0.01·lr, elements, largest |diff|) after the steps."""
+        pd = [(out[device.type]["params"][n] - p).abs() for n, p in out["cpu"]["params"].items()]
+        return (sum(int((d > 0.01 * lr).sum()) for d in pd), sum(d.numel() for d in pd),
+                max(float(d.max()) for d in pd))
+
+    def logit_err(out):
+        ref = out["cpu"]["logits"]
+        return float(((out[device.type]["logits"] - ref).abs().amax(dim=(1, 2))
+                      / ref.abs().amax(dim=(1, 2))).max())
+
+    out, lr = run(None)
+    pop = out[device.type]["pop"]
+    image = augment_batch(img.to(device), train=False, out_dtype=torch.float32)
+    errs = []
+    for k, (c, key) in enumerate(zip(NAS_SMALL, pop.keys)):
+        model = make_dynamic_model(c, classes, vocab, seed=step_seed(0, key)).to(device).eval()
+        with torch.no_grad():
+            want = model(image, md.to(device))
+        errs.append(float((out[device.type]["start"][k] - want).abs().max() / want.abs().max()))
+    log(f"nas card population forward against each candidate's own DynamicCNN on the card: "
+        f"max |Δ| / max |logit| {max(errs):.2e} (tolerance {NAS_TOL:.0e})")
+    check(max(errs) <= NAS_TOL, "the population forward departs from the candidates' own")
+
+    gc, gh = out[device.type]["grads"], out["cpu"]["grads"]
+    g_all = float(torch.sqrt(sum((g.double() ** 2).sum() for g in gh.values())))
+    gexcess = {n: float((gc[n] - gh[n]).norm() / (1e-3 * gh[n].norm() + 1e-6 * g_all))
+               for n in gh}
+    worst = max(gexcess, key=gexcess.get)
+    far, total, pmax = param_drift(out, lr)
+    err = logit_err(out)
+    wide, wide_lr = run(1e-3)
+    wide_far, _, wide_pmax = param_drift(wide, wide_lr)
+    wide_err = logit_err(wide)
+    log(f"nas card against CPU, {len(NAS_SMALL)} candidates (fp32, TF32 off, dropout on), lr "
+        f"{lr:g}: the first step's gradients of {len(gh)} stacked tensors, worst "
+        f"|diff|/(1e-3·|g_cpu| + 1e-6·|g_all|) {gexcess[worst]:.3e} at {worst} (tol 1); after "
+        f"{NAS_STEPS_CHECKED} steps {far} of {total} parameter elements beyond 0.01·lr (tol a "
+        f"share of 1e-4), max |diff| {pmax:.2e} (tol 2·lr a step), logits max |Δ| / max |logit| "
+        f"{err:.2e} (tolerance {NAS_TOL:.0e}); at lr {wide_lr:g} {wide_far} elements beyond "
+        f"0.01·lr (logged), max |diff| {wide_pmax:.2e}, the logits {wide_err:.2e} (tolerance "
+        f"{NAS_WIDE_TOL:.0e})")
+    check(gexcess[worst] <= 1.0, f"the card and the CPU disagree on the gradient of {worst}")
+    check(far <= 1e-4 * total, "the card and the CPU disagree on the parameters")
+    for p, r in ((pmax, lr), (wide_pmax, wide_lr)):
+        check(p <= 2 * NAS_STEPS_CHECKED * r,
+              f"at lr {r:g} a parameter of the card's moved further than Adam's steps allow")
+    check(err <= NAS_TOL, "the card's population step departs from the CPU's")
+    check(wide_err <= NAS_WIDE_TOL, f"at lr {wide_lr:g} the card's population step departs "
+          f"from the CPU's")
+    return err
+
+
+def phase_nas_population(ak, device, card):
+    """NAS_POPULATION's eight candidates as one bucket at full width:
+    NAS_B images of NAS_HW², bf16 image pipeline, augment on (K5 once a
+    population step), NAS_WARM + NAS_STEPS population steps timed by CUDA
+    events against the same candidates trained one at a time through the
+    port's train step, NAS_STEPS steps each. The trainer's width cap admits
+    the K candidates, before this bucket and with its freed blocks still in
+    the allocator's cache (a later bucket's view), and the peak memory stays
+    within ``population_step_bytes``·K. Returns K5's launches over the
+    population steps."""
+    import numpy as np
+    import torch
+
+    from skinjax_torch.nas.dynamic_model import make_dynamic_model
+    from skinjax_torch.nas.population import (
+        Population,
+        device_budget,
+        envelope_step_bytes,
+        hbm_width_cap,
+        population_step_bytes,
+    )
+    from skinjax_torch.nas.supernet import envelope_of
+    from skinjax_torch.train.loop import TrainConfig, build_state
+    from skinjax_torch.train.steps import make_train_step_weighted, step_seed
+
+    K = len(NAS_POPULATION)
+    env = envelope_of(NAS_POPULATION)
+    per = envelope_step_bytes(env, (NAS_HW, NAS_HW), NAS_B)
+    port = population_step_bytes(env, (NAS_HW, NAS_HW), NAS_B, 91, 6)
+    flops = envelope_conv_flops(env, NAS_HW)
+    batch, cw = train_batch(device, B=NAS_B, hw=NAS_HW, seed=2)
+    budget = device_budget(device)
+    cap = hbm_width_cap(env, (NAS_HW, NAS_HW), NAS_B, budget, 91, 6)
+    log(f"[{card}] nas population: K={K}, envelope {env}; population_step_bytes "
+        f"{port / 1e9:.2f} GB a candidate, {K * port / 1e9:.2f} GB for K={K} (skinjax's "
+        f"envelope_step_bytes {per / 1e9:.2f}, {K * per / 1e9:.2f}); the envelope's convs "
+        f"{flops / 1e9:.1f} GFLOP a sample forward; the trainer's budget {budget / 1e9:.2f} GB, "
+        f"its width cap here {cap}")
+    check(cap >= K, f"the trainer would split the K={K} bucket (width cap {cap})")
+    cfg = TrainConfig(device=str(device), batch_size=NAS_B)
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated(device)
+    pop = Population(NAS_POPULATION, 6, 91, cfg, cw.cpu().numpy(), seed=0, exact_init=True)
+    torch.cuda.synchronize()
+    log(f"nas population built (exact init of {K} candidates on the host, embedded, copied "
+        f"to the card): {time.perf_counter() - t0:.1f} s (host clock)")
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    args = (batch["image"], batch["metadata"], batch["label"])
+    ak.reset_launches()
+    for _ in range(NAS_WARM):
+        pop.train_step(*args)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(NAS_STEPS):
+        losses = pop.train_step(*args)
+    end.record()
+    torch.cuda.synchronize()
+    launches = ak.LAUNCHES[K5]
+    pop_ms = start.elapsed_time(end) / NAS_STEPS
+    peak = torch.cuda.max_memory_allocated(device) - base
+    bucket = peak + base - before  # the parameters too
+    check(bool(torch.isfinite(losses).all()), "a population loss is not finite")
+    check(launches == NAS_WARM + NAS_STEPS,
+          f"K5 launched {launches} times over {NAS_WARM + NAS_STEPS} population steps")
+    log(f"[{card}] nas population step (K={K}, B={NAS_B}, {NAS_HW}x{NAS_HW}, bf16 images, "
+        f"fp32 convs, TF32 off): {pop_ms:.2f} ms a step (CUDA events, {NAS_STEPS} steps after "
+        f"{NAS_WARM}), {K * NAS_B / pop_ms * 1e3:.1f} candidate·images/s; peak device memory "
+        f"above the parameters {peak / 1e9:.2f} GB ({peak / (K * per):.2f}x "
+        f"envelope_step_bytes·K), with them {bucket / 1e9:.2f} GB against "
+        f"population_step_bytes·K {K * port / 1e9:.2f} GB ({bucket / (K * port):.3f}x); K5 "
+        f"launches {launches} ({NAS_WARM + NAS_STEPS} steps); last losses "
+        f"{[round(float(x), 4) for x in losses]}")
+    check(bucket <= K * port, "the population took more memory than population_step_bytes")
+    keys = pop.keys
+    del pop
+    # a later bucket of the search meets the blocks this one left in the cache
+    after = device_budget(device)
+    log(f"nas the trainer's budget with the freed population's blocks still cached: "
+        f"{after / 1e9:.2f} GB (before it: {budget / 1e9:.2f}; the card's free memory alone "
+        f"{torch.cuda.mem_get_info(device)[0] / 1e9:.2f}); width cap "
+        f"{hbm_width_cap(env, (NAS_HW, NAS_HW), NAS_B, after, 91, 6)}")
+    check(hbm_width_cap(env, (NAS_HW, NAS_HW), NAS_B, after, 91, 6) == cap,
+          "a later bucket's width cap differs from the first's")
+    torch.cuda.empty_cache()
+
+    step = make_train_step_weighted()
+    seq_ms = 0.0
+    for c, key in zip(NAS_POPULATION, keys):  # each from its population init
+        state = build_state(make_dynamic_model(c, 6, 91, seed=step_seed(0, key)), cfg)
+        step(state, *args, 0, cw)  # warm
+        start.record()
+        for _ in range(NAS_STEPS):
+            loss = step(state, *args, 0, cw)
+        end.record()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(loss)), "a candidate's loss is not finite")
+        seq_ms += start.elapsed_time(end) / NAS_STEPS
+        del state
+    torch.cuda.empty_cache()
+    log(f"[{card}] nas the same {K} candidates one at a time through the train step: "
+        f"{seq_ms:.2f} ms for a step of each, {K * NAS_B / seq_ms * 1e3:.1f} candidate·images/s; "
+        f"the population step {seq_ms / pop_ms:.2f}x as fast (CUDA events)")
+    return launches
+
+
+def _cli_json(argv, main):
+    """Run a CLI's ``main(argv)`` in this process (so its launches are
+    counted here) and return the JSON lines it printed."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    return out, lines
+
+
+def phase_nas_cli(ak, card):
+    """``python -m skinjax_torch.tools.nas_cli``'s entry point, twice, in
+    this process: the population path with the REINFORCE controller on the
+    card (``--synthetic --strategy reinforce --population 4 --steps 8
+    --epochs 2``), then the sequential path and a 5-fold retrain on a
+    PAD-UFES-20-like dataset read from disk (``--strategy bo --steps 1
+    --epochs 1 --batch-size 16 --retrain-best``). Returns K5's launches over
+    both."""
+    import tempfile
+
+    from skinjax_torch.data.fixtures import write_pad_ufes20_like
+    from skinjax_torch.tools import nas_cli
+
+    total = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path, images = write_pad_ufes20_like(os.path.join(tmp, "data"), n=NAS_CLI_ROWS,
+                                                 image_hw=CLI_IMAGE_HW, seed=0)
+        runs = [("reinforce population", ["--synthetic", "--strategy", "reinforce",
+                                          "--population", "4", "--steps", "8",
+                                          "--epochs", "2"]),
+                ("bo sequential + retrain", ["--dataset", "pad-ufes-20", "--metadata-csv",
+                                             csv_path, "--images-dir", images, "--strategy",
+                                             "bo", "--steps", "1", "--epochs", "1",
+                                             "--batch-size", "16", "--retrain-best"])]
+        for i, (label, argv) in enumerate(runs):
+            ak.reset_launches()
+            t0 = time.perf_counter()
+            (best, reward, steps_log, folds), lines = _cli_json(
+                argv + ["--results-dir", os.path.join(tmp, f"nas{i}")], nas_cli.main)
+            seconds = time.perf_counter() - t0
+            launches = ak.LAUNCHES[K5]
+            total += launches
+            log(f"[{card}] nas cli {label}: {seconds:.1f} s (host clock); best reward "
+                f"{reward:.4f}; steps {len(steps_log)} ({sum(bool(e.get('cached')) for e in steps_log)}"
+                f" cached, {sum(bool(e.get('failed')) for e in steps_log)} failed); retrain folds "
+                f"{None if folds is None else [round(m['balanced_accuracy'], 4) for m in folds]};"
+                f" K5 launches {launches}; printed {lines[0]}")
+            check(lines and lines[0].get("best_config") == best, f"nas cli {label}: no JSON line")
+            check(len(steps_log) == int(argv[argv.index("--steps") + 1])
+                  and not any(e.get("failed") for e in steps_log), f"nas cli {label}: a step failed")
+            check(launches > 0, f"nas cli {label}: K5 never launched")
+            if folds is not None:
+                check(len(folds) == 5 and len(lines) == 2, f"nas cli {label}: no 5-fold retrain")
+    return total
+
+
+def phase_nas(ak, device, card):
+    """Phase 20: the NAS slice (``--nas``). Returns K5's launches over its
+    paths, each path's count set to 0 just before it and read just after."""
+    import gc
+
+    import torch
+
+    start = time.perf_counter()
+
+    def elapsed(label):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"elapsed in the NAS slice after {label}: {time.perf_counter() - start:.1f} s "
+            f"(host clock)")
+
+    # the full-width bucket takes most of the card: nothing earlier may hold it
+    _SMOKE_MODELS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(device)
+    log(f"nas: {free / 1e9:.2f} of {total / 1e9:.2f} GB of device memory free")
+    phase_nas_card_vs_cpu(device)
+    elapsed("the card-vs-CPU population")
+    launches = {"population": phase_nas_population(ak, device, card)}
+    elapsed("the full-width population")
+    launches["cli"] = phase_nas_cli(ak, card)
+    elapsed("the NAS CLI")
+    return launches
+
+
+def nas_only() -> int:
+    """``--nas``: the NAS slice alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from skinjax_torch.ops import augment_kernel as ak
+    from skinjax_torch.ops import build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(card)
+    t0 = time.perf_counter()
+    build.build("augment_kernel")
+    ak.library()
+    log(f"phase build: augment_kernel.cu, {time.perf_counter() - t0:.1f} s")
+    launches = phase_nas(ak, device, card)
+    print(json.dumps({"nas_launches": launches}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5875,6 +6290,14 @@ def main() -> int:
     phase_xai((fk, wa, ga, fm), device, card)
     elapsed("the XAI slice")
 
+    # the NAS slice: the population step on the card against the CPU, eight
+    # full-width candidates as one bucket (K5 once a population step), the
+    # NAS CLI's population and sequential paths; K5's row counts them too
+    nas_launches = phase_nas(ak, device, card)
+    print(json.dumps({"nas_launches": nas_launches}), flush=True)
+    launches[K5] += sum(nas_launches.values())
+    elapsed("the NAS slice")
+
     record = {"kernels": [
         # K1-K3 at B=1, the served batch, L2-warm, K3 at the flagship's widths
         # (the other batches, K3's metablock shape and the L2-cold times are
@@ -5964,4 +6387,4 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit({"--attention": attention_only, "--mlp": mlp_only, "--k8": k8_only,
               "--fusion": fusion_only, "--models": models_only,
-              "--xai": xai_only}.get(" ".join(sys.argv[1:]), main)())
+              "--xai": xai_only, "--nas": nas_only}.get(" ".join(sys.argv[1:]), main)())

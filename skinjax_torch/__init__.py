@@ -13,7 +13,10 @@ the train CLI (``python -m skinjax_torch.tools.train_cli``) from a
 PAD-UFES-20 CSV and PNG images on disk to checkpoints the service serves,
 with the MD-Net, LiwTERM and MetaNet baselines (``--model-name``) beside the
 multimodal model; sequence fusion runs over ViT/BEiT tokens, and the service
-batches concurrent requests (``MAX_BATCH``).
+batches concurrent requests (``MAX_BATCH``). The NAS slice
+(``skinjax_torch.nas``, ``python -m skinjax_torch.tools.nas_cli``) searches the
+DynamicCNN space, training a bucket of candidates as one vmapped masked
+supernet.
 The fusion stage (K1-K4), the augmentation's color stage (K5), DaViT's and
 Swin's window attention (K7, on the map and on partitioned windows), DaViT's
 channel attention (K8, forward and backward), MViTv2's pooled attention (K11, forward and backward),

@@ -755,6 +755,66 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping, *,
     return sd
 
 
+def dynamic_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """A ``skinjax.nas.DynamicCNN``'s params → the state_dict of
+    ``skinjax_torch.nas.DynamicCNN``: conv kernels HWIO → OIHW, GroupNorm
+    scale/bias → weight/bias, Denses transposed, the cross-attention's
+    q/k/v_proj packed, metablock as ``MetaBlock``'s keys."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, p in params.items():
+        if name.startswith("conv"):
+            _conv(sd, name, p)
+        elif name.startswith("gn"):
+            _ln(sd, name, p)
+        elif name == "meta_block":
+            _metablock(sd, name, p)
+        elif name in ("img_cross", "txt_cross"):
+            _mha(sd, name, p)
+        else:
+            _linear(sd, name, p)
+    return sd
+
+
+def supernet_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """A ``skinjax.nas.SuperNet``'s params → ``skinjax_torch.nas.SuperNet``'s
+    state_dict: the raw conv kernels HWIO → OIHW, each Dense transposed, the
+    GroupNorm and masked-LayerNorm affines as they are."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, p in params.items():
+        if isinstance(p, Mapping):
+            _linear(sd, name, p)
+        elif name.startswith("conv"):
+            sd[name] = np.ascontiguousarray(_np(p).transpose(3, 2, 0, 1))
+        else:
+            sd[name] = _np(p)
+    return sd
+
+
+LSTM_GATES = ("i", "f", "g", "o")  # torch.nn.LSTMCell's order of the stacked gates
+
+
+def controller_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """A ``skinjax.nas.Controller``'s params → ``skinjax_torch.nas.Controller``'s
+    state_dict. flax's ``LSTMCell`` keeps a bias-free Dense per gate on the
+    input (``ii``, ``if``, ``ig``, ``io``) and a Dense with bias per gate on
+    the hidden state (``hi``, …); ``torch.nn.LSTMCell`` stacks them in (i, f,
+    g, o) order as ``weight_ih``/``weight_hh``, with ``bias_ih`` zero."""
+    lstm = params["lstm"]
+    sd: Dict[str, np.ndarray] = {
+        "start_token": _np(params["start_token"]),
+        "lstm.weight_ih": np.concatenate([_np(lstm[f"i{g}"]["kernel"]).T for g in LSTM_GATES]),
+        "lstm.weight_hh": np.concatenate([_np(lstm[f"h{g}"]["kernel"]).T for g in LSTM_GATES]),
+        "lstm.bias_hh": np.concatenate([_np(lstm[f"h{g}"]["bias"]) for g in LSTM_GATES]),
+    }
+    sd["lstm.bias_ih"] = np.zeros_like(sd["lstm.bias_hh"])
+    for name, p in params.items():
+        if name.startswith("head_"):
+            _linear(sd, f"heads.{name[5:]}", p)
+        elif name.startswith("embed_"):
+            sd[f"embeds.{name[6:]}.weight"] = _np(p["embedding"])
+    return sd
+
+
 def load_numpy_state_dict(model: nn.Module, sd: Mapping[str, np.ndarray]) -> nn.Module:
     """Load a numpy ``state_dict`` (strict: every key must match)."""
     model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()})

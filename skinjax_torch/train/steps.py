@@ -40,9 +40,11 @@ class TrainState:
     step: int = 0
 
 
-def step_seed(seed: int, step: int, stream: int) -> int:
-    """A 63-bit seed for one (seed, step, stream), from numpy's SeedSequence."""
-    words = np.random.SeedSequence([seed, step, stream]).generate_state(2, np.uint32)
+def step_seed(*words: int) -> int:
+    """A 63-bit seed for a tuple of words, from numpy's SeedSequence: a train
+    step's (seed, step, stream), or NAS's (seed, config key) and (seed, step,
+    stream, config key)."""
+    words = np.random.SeedSequence(list(words)).generate_state(2, np.uint32)
     return (int(words[0]) << 31) ^ int(words[1])
 
 

@@ -275,7 +275,9 @@ def test_port_never_imports_jax():
     """Nor OpenCV, matplotlib, pandas, transformers, safetensors or tokenizers at
     import time: the card's machine has none of them, and the plots import
     matplotlib only when they draw. The XAI slice (the CAM family, the
-    perturbation and tabular explainers, the app and the CLI) included."""
+    perturbation and tabular explainers, the app and the CLI) and the NAS
+    slice (the supernet, the population trainer, the searchers and the NAS
+    CLI) included."""
     code = (
         "import sys\n"
         "import skinjax_torch, skinjax_torch.serve.engine, skinjax_torch.serve.api\n"
@@ -303,6 +305,9 @@ def test_port_never_imports_jax():
         "import skinjax_torch.models.baselines, skinjax_torch.models.text.static_embed\n"
         "import skinjax_torch.data.tabular, skinjax_torch.serve.batching\n"
         "import skinjax_torch.xai, skinjax_torch.serve.xai_app, skinjax_torch.tools.xai_cli\n"
+        "import skinjax_torch.nas, skinjax_torch.nas.population, skinjax_torch.nas.supernet\n"
+        "import skinjax_torch.nas.controller, skinjax_torch.nas.hpo, skinjax_torch.tools.nas_cli\n"
+        "import skinjax_torch.tools.llm_client\n"
         "import chip_smoke\n"
         "banned = ('jax', 'jaxlib', 'flax', 'skinjax', 'cv2', 'matplotlib', 'transformers',\n"
         "          'safetensors', 'tokenizers', 'pandas')\n"

@@ -26,6 +26,10 @@ optimised numerics bit for bit (a fused multiply-add) takes the
 Import the fixture into a test module to use it::
 
     from tests.xla_compile_cache import xla_compile_cache  # noqa: F401
+
+A file whose programs do not repeat (each compiled once, in module-scoped
+fixtures) pays for writing every program to the cache and reads none back:
+it imports ``xla_cheap_compile`` instead, the cheap mode alone.
 """
 
 import atexit
@@ -63,6 +67,17 @@ def xla_compile_cache():
     jax.config.update("jax_disable_most_optimizations", cheap)
     jax.clear_caches()
     compilation_cache.reset_cache()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def xla_cheap_compile():
+    """XLA's cheap compile mode on for this module's tests, without the
+    persistent cache, then off again and JAX's caches cleared."""
+    cheap = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", cheap)
+    jax.clear_caches()
 
 
 @pytest.fixture
